@@ -1,0 +1,4 @@
+from tpusolve_torch.harness.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

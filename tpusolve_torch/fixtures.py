@@ -1,0 +1,150 @@
+"""Nalu-wind-shaped momentum fixture for gate 4 (the port of
+``tools/gatefix.py``: ``make_system``, ``write_momentum_ij``,
+``GATE4_YAML``), so a machine without JAX can write it.
+
+The reference loads its momentum systems from HYPRE-IJ dumps of nalu-wind
+runs (readers: src/HypreSystem.cpp:1021-1318): 27-pt finite-volume operators
+on unstructured node numberings, banded after reordering and scattered as
+stored.  The fixture is the same graph with jittered coefficients and a
+first-order upwind convection term (non-symmetric, diagonally dominant)
+under a random permutation, with ``b = A @ 1`` so the golden check
+(``x_ref = 1``) applies.  It writes the same files as ``tools/gatefix.py``
+for the same arguments.
+
+    python -m tpusolve_torch.fixtures OUTDIR [SIDE]
+
+writes the gate-4 fixture at SIDE^3 (default 48) and its YAML.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+from tpusolve_torch.formats import ij
+from tpusolve_torch.parts import row_decomposition
+
+
+def _box_27pt_graph(nx: int, ny: int, nz: int):
+    """COO pattern of the 27-pt stencil on an nx*ny*nz box (int64)."""
+    n = nx * ny * nz
+    idx = np.arange(n, dtype=np.int64)
+    ix = idx % nx
+    iy = (idx // nx) % ny
+    iz = idx // (nx * ny)
+    rows, cols, kinds = [], [], []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                jx, jy, jz = ix + dx, iy + dy, iz + dz
+                ok = ((jx >= 0) & (jx < nx) & (jy >= 0) & (jy < ny)
+                      & (jz >= 0) & (jz < nz))
+                rows.append(idx[ok])
+                cols.append((jx + nx * (jy + ny * jz))[ok])
+                kinds.append(np.full(int(ok.sum()), dx, np.int8))
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(kinds), n)
+
+
+def make_system(nx: int = 64, ny: int = 64, nz: int = 64, *,
+                seed: int = 7, nonsym: float = 0.0, permute: bool = True):
+    """(rows, cols, vals, b, n) with b = A @ 1 and x_ref = 1.
+
+    ``nonsym > 0`` adds an upwind convection skew of that relative
+    magnitude on the +/-x couplings (momentum-equation shape)."""
+    rows, cols, dxk, n = _box_27pt_graph(nx, ny, nz)
+    rng = np.random.default_rng(seed)
+    off = rows != cols
+    # jittered FV coefficients in [-1.2, -0.8], keyed on the undirected
+    # edge so the base operator is symmetric
+    ekey = (np.minimum(rows, cols) * np.int64(n)
+            + np.maximum(rows, cols)).astype(np.uint64)
+    ekey = (ekey ^ np.uint64(seed)) * np.uint64(0x9E3779B97F4A7C15)
+    ekey ^= ekey >> np.uint64(31)
+    ekey *= np.uint64(0xBF58476D1CE4E5B9)
+    u = (ekey >> np.uint64(11)).astype(np.float64) / float(1 << 53)
+    vals = np.where(off, -(1.0 + 0.4 * (u - 0.5)), 0.0)
+    if nonsym:
+        # upwind convection along +x: strengthens the -x coupling,
+        # weakens +x (row-sum dominance kept by the diagonal below)
+        vals = vals * (1.0 + nonsym * dxk)
+    # diagonal = |row sum of off-diag| * (1 + eps): strictly dominant
+    dsum = np.zeros(n)
+    np.add.at(dsum, rows, -vals)
+    dom = 1.0 + 0.02 * rng.random(n)
+    diag_rows = rows[~off]
+    vals[~off] = (dsum * dom)[diag_rows]
+    if permute:
+        p = rng.permutation(n).astype(np.int64)
+        rows, cols = p[rows], p[cols]
+    b = np.zeros(n)
+    np.add.at(b, rows, vals)     # b = A @ ones
+    return rows, cols, vals, b, n
+
+
+def write_momentum_ij(dirpath: str, nx: int = 48, ny: int = 48,
+                      nz: int = 48, seed: int = 11, nfiles: int = 2):
+    """Gate-4 momentum fixture as HYPRE-IJ multi-file dumps; returns
+    (matrix prefix, rhs prefix, solution prefix, n)."""
+    os.makedirs(dirpath, exist_ok=True)
+    rows, cols, vals, b, n = make_system(nx, ny, nz, seed=seed,
+                                         nonsym=0.35)
+    offsets = row_decomposition(n, nfiles)
+    mprefix = os.path.join(dirpath, "momentum.IJ.mat")
+    order = np.argsort(rows, kind="stable")
+    ij.write_matrix(mprefix, rows[order], cols[order], vals[order],
+                    offsets, ncols=n)
+    rprefix = os.path.join(dirpath, "momentum_rhs.IJ.vec")
+    sprefix = os.path.join(dirpath, "momentum_sln.IJ.vec")
+    ij.write_vector(rprefix, b, offsets)
+    ij.write_vector(sprefix, np.ones(n), offsets)
+    return mprefix, rprefix, sprefix, n
+
+
+GATE4_YAML = """\
+# gate 4: file-loaded momentum system, BiCGSTAB + ILU, mixed precision
+# (BASELINE.json config 4; reference readers src/HypreSystem.cpp:1021-1318)
+linear_system:
+  type: hypre_ij
+  matrix_file: {mat}
+  rhs_file: {rhs}
+  sln_file: {sln}
+  num_partitions: {nfiles}
+solver_settings:
+  method: bicg
+  preconditioner: ilu
+  tolerance: 1.0e-8
+  max_iterations: 500
+  precision: mixed
+  matrix_ordering: rcm
+ilu_preconditioner_settings:
+  ilu_type: 0
+  ilu_fill_level: 0
+  ilu_lower_jacobi_iters: 5
+  ilu_upper_jacobi_iters: 5
+"""
+
+
+def write_gate4(dirpath: str, side: int, nfiles: int = 2,
+                precision: str = "mixed") -> str:
+    """Write the gate-4 fixture at side^3 and its YAML; returns the YAML
+    path."""
+    m, r, s, _ = write_momentum_ij(dirpath, side, side, side, nfiles=nfiles)
+    text = GATE4_YAML.format(mat=m, rhs=r, sln=s, nfiles=nfiles)
+    if precision != "mixed":
+        text = text.replace("precision: mixed", f"precision: {precision}")
+    path = os.path.join(dirpath, "gate4.yaml")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+if __name__ == "__main__":
+    if len(sys.argv) not in (2, 3):
+        print("usage: python -m tpusolve_torch.fixtures OUTDIR [SIDE]",
+              file=sys.stderr)
+        sys.exit(1)
+    print(write_gate4(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2
+                      else 48))

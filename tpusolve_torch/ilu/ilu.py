@@ -1,0 +1,176 @@
+"""ILU(0) preconditioner with Jacobi triangular solves (the port of
+``tpusolve/ilu/ilu.py``).
+
+Replacement for ``HYPRE_ILU*`` as a preconditioner (ref:
+src/HypreSystem.cpp:328-370), with the two parallel-friendly choices the
+reference exposes for its GPU path:
+
+* **Factorization**: Chow-Patel fixed-point iterative ILU on the host (the
+  algorithm behind ``ilu_iterative_setup_*``, src/HypreSystem.cpp:352-361),
+  a numpy copy of ``tpusolve``'s ``chow_patel_ilu`` for fill level 0.
+  ``tpusolve``'s device factorizers do not apply here: it takes its host
+  path for BDIA operators too.
+* **Triangular solves**: Jacobi iterations (``ilu_tri_solve: 0`` with
+  ``ilu_lower/upper_jacobi_iters``, src/HypreSystem.cpp:363-365); each
+  iteration is one SpMV on a strict triangle, which runs the BDIA kernel
+  when the triangle is stored in BDIA.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from tpusolve_torch.config import ILUConfig
+from tpusolve_torch.matrix.sharded import ShardedMatrix
+from tpusolve_torch.matrix.spmv import spmv
+from tpusolve_torch.matrix.vectors import numpy_dtype, to_device_vector
+
+
+def _keys(M: sp.csr_matrix) -> np.ndarray:
+    """(row, col) -> single sortable int64 key per stored entry."""
+    rows = np.repeat(np.arange(M.shape[0], dtype=np.int64),
+                     np.diff(M.indptr))
+    return rows * M.shape[1] + M.indices
+
+
+def _restrict_to_pattern(M: sp.csr_matrix, Pat: sp.csr_matrix) -> sp.csr_matrix:
+    """Return a CSR with exactly Pat's sparsity pattern holding M's values
+    there (0 where M has no entry).  Output data aligns 1:1 with Pat.data."""
+    M = M.tocsr()
+    M.sum_duplicates()
+    keyM = _keys(M)
+    order = np.argsort(keyM, kind="stable")
+    keyM_sorted = keyM[order]
+    valM_sorted = M.data[order]
+    keyP = _keys(Pat)
+    pos = np.searchsorted(keyM_sorted, keyP)
+    pos_c = np.clip(pos, 0, max(keyM_sorted.size - 1, 0))
+    if keyM_sorted.size == 0:
+        vals = np.zeros(keyP.size)
+    else:
+        hit = keyM_sorted[pos_c] == keyP
+        vals = np.where(hit, valM_sorted[pos_c], 0.0)
+    return sp.csr_matrix((vals, Pat.indices.copy(), Pat.indptr.copy()),
+                         shape=Pat.shape)
+
+
+def chow_patel_ilu(A: sp.csr_matrix, sweeps: int = 5):
+    """Iterative ILU(0) factorization on the pattern of A.
+
+    Returns (L_strict, u_diag, U_strict) with unit-lower L and U including
+    its diagonal separately: A ~= (I + L_strict) @ (diag(u_diag) + U_strict).
+    """
+    A = A.tocsr()
+    A.sum_duplicates()
+    n = A.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(A.indptr))
+    cols = A.indices
+    vals = A.data.astype(np.float64)
+    lower = rows > cols
+    upper = ~lower                      # includes diagonal
+
+    diag = A.diagonal()
+    diag = np.where(diag != 0, diag, 1.0)
+
+    # init: l_ij = a_ij / a_jj ; u_ij = a_ij
+    lvals = np.where(lower, vals / diag[cols], 0.0)
+    uvals = np.where(upper, vals, 0.0)
+
+    pat = sp.csr_matrix((np.ones_like(vals), cols.copy(), A.indptr.copy()),
+                        shape=A.shape)
+
+    for _ in range(max(sweeps, 1)):
+        # NB: the (data, indices, indptr) constructor does NOT copy data —
+        # eliminate_zeros() would corrupt lvals/uvals in place
+        L = sp.csr_matrix((lvals.copy(), cols.copy(), A.indptr.copy()),
+                          shape=A.shape)
+        U = sp.csr_matrix((uvals.copy(), cols.copy(), A.indptr.copy()),
+                          shape=A.shape)
+        L.eliminate_zeros()
+        U.eliminate_zeros()
+        prod = _restrict_to_pattern((L @ U).tocsr(), pat)
+        p = prod.data                          # aligned with A's pattern
+        ujj = np.bincount(rows[rows == cols],
+                          weights=uvals[rows == cols], minlength=n)
+        ujj = np.where(ujj != 0, ujj, 1.0)
+        # i > j:  l_ij = (a_ij - (p_ij - l_ij u_jj)) / u_jj
+        new_l = np.where(lower,
+                         (vals - p + lvals * ujj[cols]) / ujj[cols], 0.0)
+        # i <= j: u_ij = a_ij - p_ij   (p excludes the k=i term since L is
+        # strict lower)
+        new_u = np.where(upper, vals - p, 0.0)
+        lvals, uvals = new_l, new_u
+
+    ujj = np.bincount(rows[rows == cols], weights=uvals[rows == cols],
+                      minlength=n)
+    ujj = np.where(ujj != 0, ujj, 1.0)
+    strict_u = uvals * (rows != cols)
+    L = sp.csr_matrix((lvals, (rows, cols)), shape=A.shape)
+    U = sp.csr_matrix((strict_u, (rows, cols)), shape=A.shape)
+    L.eliminate_zeros()
+    U.eliminate_zeros()
+    return L.tocsr(), ujj, U.tocsr()
+
+
+def ilu_apply(L: ShardedMatrix, U: ShardedMatrix, dinv: torch.Tensor,
+              r: torch.Tensor, lower_iters: int,
+              upper_iters: int) -> torch.Tensor:
+    """z ~= (D+U)^-1 (I+L)^-1 r via Jacobi trisolve iterations (the
+    reference's ilu_tri_solve: 0 path, src/HypreSystem.cpp:363-365)."""
+    z = r
+    for _ in range(lower_iters):
+        z = r - spmv(L, z)
+    x = dinv * z
+    for _ in range(upper_iters):
+        x = dinv * (z - spmv(U, x))
+    return x
+
+
+@dataclass
+class ILUPreconditioner:
+    L: ShardedMatrix          # strict lower
+    U: ShardedMatrix          # strict upper
+    udiag_inv: torch.Tensor   # padded 1/u_ii
+    lower_iters: int
+    upper_iters: int
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        """z ~= U^-1 L^-1 r via Jacobi trisolve iterations."""
+        return ilu_apply(self.L, self.U, self.udiag_inv, r,
+                         self.lower_iters, self.upper_iters)
+
+
+def ilu_setup(A: ShardedMatrix, config: ILUConfig | None = None, *,
+              A_host: sp.csr_matrix | None = None) -> ILUPreconditioner:
+    """Host Chow-Patel ILU(0) of ``A`` (from ``A_host`` when given), with
+    the factors stored as ShardedMatrix on A's device in A's dtype."""
+    cfg = config or ILUConfig()
+    if cfg.ilu_type != 0 or cfg.ilu_fill_level != 0 \
+            or cfg.ilu_local_reordering:
+        raise NotImplementedError(
+            "only ILU(0) without local reordering is ported (ilu_type 0, "
+            "ilu_fill_level 0, ilu_local_reordering 0); see ROADMAP.md "
+            "Queue 1")
+    Ah = (A_host if A_host is not None else A.to_scipy()).tocsr()
+    sweeps = max(cfg.ilu_iterative_setup_max_iter, 1) * 5
+    L_host, ujj, U_host = chow_patel_ilu(Ah, sweeps=sweeps)
+
+    ro = np.asarray(A.row_offsets)
+    np_dtype = numpy_dtype(A.dtype)
+    Lc, Uc = L_host.tocoo(), U_host.tocoo()
+    L_sh = ShardedMatrix.from_coo(A.shape, Lc.row, Lc.col, Lc.data,
+                                  device=A.device, dtype=np_dtype,
+                                  row_offsets=ro, col_offsets=ro)
+    U_sh = ShardedMatrix.from_coo(A.shape, Uc.row, Uc.col, Uc.data,
+                                  device=A.device, dtype=np_dtype,
+                                  row_offsets=ro, col_offsets=ro)
+    udiag_inv = to_device_vector(1.0 / ujj, ro, A.row_pad, A.device,
+                                 dtype=np_dtype)
+    return ILUPreconditioner(
+        L=L_sh, U=U_sh, udiag_inv=udiag_inv,
+        lower_iters=max(cfg.ilu_lower_jacobi_iters, 1),
+        upper_iters=max(cfg.ilu_upper_jacobi_iters, 1))

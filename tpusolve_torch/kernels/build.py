@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface and loaded with ``ctypes``.  The
+library's file name carries a hash of its source, so an edited source is
+rebuilt and an unchanged one is loaded from ``build/kernels/`` at the root
+of the checkout.  Building happens at first use, never at import: the CPU
+tests import every module on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
+                         "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's default location."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, compiled first if needed.
+    Raises if the compiler fails."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        path = library_path(name)
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            # compile to a private name, then rename: concurrent builders
+            # (test workers) never load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, name + ".cu")]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed for {name}.cu "
+                                   f"(exit {proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        lib.tpusolve_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.tpusolve_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+        return lib
+
+
+def build_all() -> float:
+    """Compile (or load) every kernel library; returns the seconds taken."""
+    t0 = time.perf_counter()
+    for fname in sorted(os.listdir(CSRC)):
+        if fname.endswith(".cu"):
+            load(fname[:-3])
+    return time.perf_counter() - t0
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code != 0:
+        msg = lib.tpusolve_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,421 @@
+"""ShardedMatrix — the ParCSR-analog sparse matrix of the port (the port of
+``tpusolve/matrix/sharded.py``).
+
+HYPRE stores a distributed matrix as a 1-D row-block partition with a *diag*
+block (owned columns) and an *offd* block (ghost columns) per rank (ref:
+src/HypreSystem.cpp:552-636).  The port keeps ``tpusolve``'s stacked layout:
+every tensor has a leading part axis of size ``nparts``, rows are padded per
+part to ``row_pad``, padded vector entries are exact zeros and padded
+diagonal entries are 1.  This slice carries one part (no offd block, no halo
+plan) and two diag-block layouts, chosen at assembly in ``tpusolve``'s
+decision order DIA -> BDIA -> BELL -> ELL, where DIA and BELL are not ported
+yet and are skipped:
+
+* **BDIA** (blocked DIA, ``kernels/bdia.py``) with an overflow list of the
+  entries that do not fit a block's slots, kept row-sorted with a CSR row
+  pointer so that the kernel adds each row's spilled entries itself; for
+  banded matrices with enough entries (file-loaded systems after RCM);
+* **padded ELL** otherwise: every row padded to a fixed width (padding
+  entries carry value 0 and column 0).
+
+The BDIA block size R and slot count D are chosen to minimise the matrix
+bytes one SpMV streams (the slot values and the overflow entries' columns
+and values; x is served from L2), instead of ``tpusolve``'s v5e-calibrated
+nanosecond model and VMEM budget; the choice is therefore the same on the
+CPU and the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpusolve_torch.kernels import bdia as bdia_mod
+from tpusolve_torch.matrix import coo as coo_mod
+from tpusolve_torch.matrix.build import materialize
+from tpusolve_torch.matrix.vectors import to_tensor, torch_dtype, numpy_dtype
+from tpusolve_torch.parts import require_single_part, row_decomposition
+
+# BDIA is considered when the diag block holds at least this many entries
+# (``tpusolve``'s BELL_MIN_NNZ: below it the ELL fallback is cheap)...
+BDIA_MIN_NNZ = 20_000
+# ...and its padded values may not exceed this many bytes, nor expand the
+# compact nnz bytes by more than TILE_MAX_EXPANSION (plus a small-matrix
+# floor): memory caps shared with ``tpusolve``
+BDIA_MAX_BYTES = 4 << 30
+TILE_MAX_EXPANSION = 12.0
+TILE_EXPANSION_FLOOR = 256 << 20
+
+
+def bdia_bytes(B: int, D: int, R: int, k: int, itemsize: int) -> int:
+    """Matrix bytes one BDIA SpMV streams: the slot values and ``k``
+    overflow entries (int32 column and value).  On the H100 the kernel's
+    time follows this count: x, a few MB, stays in L2, so neither the
+    windows nor the overflow's gathers of x add to it (measured by a sweep
+    of D at the gate-4 96^3 shape, PERF.md)."""
+    return B * D * R * itemsize + k * (4 + itemsize)
+
+
+def plan_bdia(diag_parts, row_pad: int, col_pad: int, itemsize: int,
+              total_nnz: int, nparts: int = 1):
+    """The (R, D) pair of least :func:`bdia_bytes`, or None when no layout
+    fits the memory cap with an overflow list of at most
+    ``max(4096, total_nnz // 8)`` entries (the overflow must stay a
+    correction, not a layout)."""
+    budget = min(BDIA_MAX_BYTES, max(TILE_EXPANSION_FLOOR,
+                                     int(TILE_MAX_EXPANSION * total_nnz
+                                         * itemsize)))
+    best, best_bytes = None, None
+    for R in bdia_mod.BLOCK_SIZES:
+        profs = [bdia_mod.plan_fill_profile(dp[0], dp[1], row_pad, col_pad, R)
+                 for dp in diag_parts]
+        Dfull = max((len(pr) for pr in profs), default=0)
+        if Dfull <= 0:
+            continue
+        rank_totals = np.zeros(Dfull, np.int64)
+        for pr in profs:
+            rank_totals[:len(pr)] += pr
+        # ovf[D] = entries spilled to the overflow list at cap D
+        ovf = np.concatenate([np.cumsum(rank_totals[::-1])[::-1], [0]])
+        B = (row_pad + R - 1) // R
+        for D in range(1, Dfull + 1):
+            if nparts * B * D * R * itemsize > budget:
+                break   # grows with D: no larger D fits either
+            k = int(ovf[D])
+            if k > max(4096, total_nnz // 8):
+                continue
+            nbytes = bdia_bytes(nparts * B, D, R, k, itemsize)
+            if best_bytes is None or nbytes < best_bytes:
+                best, best_bytes = (R, D), nbytes
+    return best
+
+
+@dataclass(frozen=True)
+class ShardedMatrix:
+    # --- device data (leading axis = part) ---
+    diag_vals: torch.Tensor   # (P, row_pad, Kd) ELL values (1 wide if BDIA)
+    diag_cols: torch.Tensor   # (P, row_pad, Kd) int32 local column
+    bdia_vals: torch.Tensor | None    # (P, B, D, R) blocked-DIA rows
+    bdia_starts: torch.Tensor | None  # (P, B, D) int32 x-window starts
+    diag: torch.Tensor        # (P, row_pad) main diagonal, 1 on padded rows
+    # --- static metadata ---
+    shape: tuple
+    row_offsets: tuple
+    col_offsets: tuple
+    row_pad: int
+    col_pad: int
+    nnz: int
+    bdia_block: int | None = None
+    bdia_xpad: int | None = None
+    bdia_xlen: int | None = None
+    # --- BDIA overflow lists: entries spilled when a block has more
+    # distinct offsets than D, in CSR form (sorted by row); a part with
+    # fewer than k entries is padded at the end with column 0 and value 0
+    bdia_ovf_ptr: torch.Tensor | None = None   # (P, row_pad + 1) int32
+    bdia_ovf_cols: torch.Tensor | None = None  # (P, k) int32 local cols
+    bdia_ovf_vals: torch.Tensor | None = None  # (P, k)
+
+    @property
+    def nparts(self) -> int:
+        return len(self.row_offsets) - 1
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.diag_vals.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.diag_vals.device
+
+    @property
+    def uses_bdia(self) -> bool:
+        return self.bdia_vals is not None
+
+    @property
+    def bdia_ovf(self):
+        """(ptr, cols, vals) of the overflow list, as ``bdia_spmv`` takes
+        it, or None."""
+        if self.bdia_ovf_ptr is None:
+            return None
+        return self.bdia_ovf_ptr, self.bdia_ovf_cols, self.bdia_ovf_vals
+
+    @property
+    def layout(self) -> str:
+        """One line naming the layout, for logs."""
+        if not self.uses_bdia:
+            return f"ELL K={self.diag_vals.shape[-1]}"
+        _, B, D, R = self.bdia_vals.shape
+        k = 0 if self.bdia_ovf_ptr is None else int(
+            self.bdia_ovf_ptr[:, -1].sum())
+        return f"BDIA R={R} D={D} B={B} overflow={k}"
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def from_coo(shape, rows, cols, vals, *, device, dtype=None,
+                 dedup="add", row_offsets=None, col_offsets=None,
+                 allow_bdia: bool = True):
+        """Assemble a global COO (any order, duplicates combined per
+        ``dedup``) — the IJ ``SetValues/AddToValues + Assemble`` pipeline
+        (ref: src/HypreSystem.cpp:600-636, 897-955)."""
+        nrows, ncols = shape
+        if row_offsets is None:
+            row_offsets = row_decomposition(nrows, 1)
+        row_offsets = np.asarray(row_offsets, np.int64)
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        vals = np.asarray(vals)
+        if rows.size and (rows.min() < 0 or rows.max() >= nrows):
+            raise ValueError("row index out of range")
+        if cols.size and (cols.min() < 0 or cols.max() >= ncols):
+            raise ValueError("col index out of range")
+        r, c, v = coo_mod.dedup_coo(rows, cols, vals, mode=dedup)
+        parts = coo_mod.bucket_by_owner(r, c, v, row_offsets)
+        return ShardedMatrix.from_local_parts(
+            shape, parts, device=device, dtype=dtype,
+            row_offsets=row_offsets, col_offsets=col_offsets,
+            allow_bdia=allow_bdia)
+
+    @staticmethod
+    def from_local_parts(shape, parts, *, device, dtype=None,
+                         row_offsets=None, col_offsets=None,
+                         allow_bdia: bool = True):
+        """Assemble from per-part (local_rows, global_cols, vals) triples,
+        unique per (row, col), in any order."""
+        nrows, ncols = shape
+        nparts = len(parts)
+        require_single_part(nparts)
+        if row_offsets is None:
+            row_offsets = row_decomposition(nrows, nparts)
+        row_offsets = np.asarray(row_offsets, np.int64)
+        if col_offsets is None:
+            col_offsets = (row_offsets if ncols == nrows
+                           else row_decomposition(ncols, nparts))
+        col_offsets = np.asarray(col_offsets, np.int64)
+        if dtype is None:
+            dtype = parts[0][2].dtype if parts[0][2].size else np.float64
+            if np.issubdtype(dtype, np.integer):
+                dtype = np.float64
+        dtype = numpy_dtype(dtype)
+        itemsize = dtype.itemsize
+
+        row_counts = np.diff(row_offsets)
+        row_pad = max(1, int(row_counts.max()))
+        col_pad = max(1, int(np.diff(col_offsets).max()))
+        diag_parts = []
+        for lr, gc, v in parts:
+            diag_parts.append((np.asarray(lr, np.int64),
+                               np.asarray(gc, np.int64) - col_offsets[0],
+                               np.asarray(v, dtype)))
+        total_nnz = sum(dp[0].size for dp in diag_parts)
+
+        plan = None
+        if allow_bdia and total_nnz >= BDIA_MIN_NNZ:
+            plan = plan_bdia(diag_parts, row_pad, col_pad, itemsize,
+                             total_nnz, nparts)
+        fields = {}
+        if plan is not None:
+            fields = _bdia_fields(diag_parts, plan, row_pad, col_pad, dtype,
+                                  device)
+            dvals = torch.zeros((nparts, row_pad, 1), dtype=torch_dtype(dtype),
+                                device=device)
+            dcols = torch.zeros((nparts, row_pad, 1), dtype=torch.int32,
+                                device=device)
+        else:
+            kd = 1
+            for p, (dlr, _, _) in enumerate(diag_parts):
+                if dlr.size:
+                    kd = max(kd, int(np.bincount(
+                        dlr, minlength=int(row_counts[p])).max()))
+            compacted = [_ell_compact(kd, *dp) for dp in diag_parts]
+            idx = [c[0] for c in compacted]
+            dvals = materialize(idx, [c[1] for c in compacted],
+                                (row_pad, kd), dtype, device)
+            dcols = materialize(idx, [c[2] for c in compacted],
+                                (row_pad, kd), np.int32, device)
+
+        diag_main = np.zeros((nparts, row_pad), dtype)
+        for p, (dlr, dlc, dv) in enumerate(diag_parts):
+            diag_main[p, int(row_counts[p]):] = 1.0  # padded rows
+            if row_offsets[p] == col_offsets[p] and dlr.size:
+                on_diag = dlc == dlr
+                diag_main[p, dlr[on_diag]] += dv[on_diag]
+        return ShardedMatrix(
+            diag_vals=dvals, diag_cols=dcols,
+            bdia_vals=fields.pop("bdia_vals", None),
+            bdia_starts=fields.pop("bdia_starts", None),
+            diag=to_tensor(diag_main, device),
+            shape=(int(nrows), int(ncols)),
+            row_offsets=tuple(int(o) for o in row_offsets),
+            col_offsets=tuple(int(o) for o in col_offsets),
+            row_pad=row_pad, col_pad=col_pad, nnz=int(total_nnz), **fields)
+
+    @staticmethod
+    def from_arrays(arrays: dict, meta: dict, device) -> "ShardedMatrix":
+        """Build the port's matrix from ``tpusolve``'s ShardedMatrix fields
+        fetched as numpy (``arrays``: ``bdia_vals``, ``bdia_starts``,
+        ``bdia_ovf_rows/cols/vals``, ``diag_vals``, ``diag_cols``, ``diag``;
+        ``meta``: ``shape``, ``row_offsets``, ``col_offsets``, ``row_pad``,
+        ``col_pad``, ``nnz``, ``bdia_block``, ``bdia_xpad``, ``bdia_xlen``,
+        ``has_offd``, ``uses_dia``, ``uses_bell``), so that both packages can
+        run on one identical layout.  The overflow list (the same entries)
+        is converted to the port's CSR form.  ``tpusolve``'s panel plan for its XL kernel is
+        not needed: the port's kernel reads x at any size."""
+        require_single_part(len(meta["row_offsets"]) - 1)
+        if meta.get("has_offd") or meta.get("uses_dia") \
+                or meta.get("uses_bell"):
+            raise NotImplementedError(
+                "from_arrays: DIA, BELL and offd layouts are not ported yet")
+        row_pad, col_pad = int(meta["row_pad"]), int(meta["col_pad"])
+        ovf = {}
+        if arrays.get("bdia_ovf_rows") is not None:
+            ovf = _ovf_fields([tuple(a[0] for a in (
+                arrays["bdia_ovf_rows"], arrays["bdia_ovf_cols"],
+                arrays["bdia_ovf_vals"]))], row_pad, col_pad,
+                arrays["bdia_ovf_vals"].dtype, device)
+        t = lambda k: (to_tensor(arrays[k], device)
+                       if arrays.get(k) is not None else None)
+        A = ShardedMatrix(
+            diag_vals=t("diag_vals"), diag_cols=t("diag_cols"),
+            bdia_vals=t("bdia_vals"), bdia_starts=t("bdia_starts"),
+            diag=t("diag"), shape=tuple(int(s) for s in meta["shape"]),
+            row_offsets=tuple(int(o) for o in meta["row_offsets"]),
+            col_offsets=tuple(int(o) for o in meta["col_offsets"]),
+            row_pad=row_pad, col_pad=col_pad,
+            nnz=int(meta["nnz"]), bdia_block=meta.get("bdia_block"),
+            bdia_xpad=meta.get("bdia_xpad"), bdia_xlen=meta.get("bdia_xlen"),
+            **ovf)
+        if A.uses_bdia:
+            _check_windows(arrays["bdia_starts"], A.bdia_block, A.bdia_xlen)
+        return A
+
+    # ------------------------------------------------------------------
+    def to_scipy(self):
+        """The global matrix as scipy CSR (tests and host use)."""
+        import scipy.sparse as sp
+        nr = self.row_offsets[1] - self.row_offsets[0]
+        c0 = self.col_offsets[0]
+        if self.uses_bdia:
+            bv = self.bdia_vals[0].cpu().numpy()        # (B, D, R)
+            bs = self.bdia_starts[0].cpu().numpy()      # (B, D)
+            R = self.bdia_block
+            b_i, d_i, r_i = np.nonzero(bv)
+            lr = b_i * R + r_i
+            lc = bs[b_i, d_i].astype(np.int64) - self.bdia_xpad + r_i
+            vals = bv[b_i, d_i, r_i]
+            if self.bdia_ovf_ptr is not None:
+                ptr = self.bdia_ovf_ptr[0].cpu().numpy()
+                k = int(ptr[-1])
+                lr = np.concatenate([lr, np.repeat(np.arange(self.row_pad),
+                                                   np.diff(ptr))])
+                lc = np.concatenate([lc, self.bdia_ovf_cols[0, :k].cpu()
+                                     .numpy()])
+                vals = np.concatenate([vals, self.bdia_ovf_vals[0, :k].cpu()
+                                       .numpy()])
+        else:
+            ev = self.diag_vals[0].cpu().numpy()
+            ec = self.diag_cols[0].cpu().numpy()
+            lr, k_idx = np.nonzero(ev)
+            lc = ec[lr, k_idx].astype(np.int64)
+            vals = ev[lr, k_idx]
+        keep = lr < nr     # drop padding rows
+        return sp.csr_matrix(
+            (vals[keep], (self.row_offsets[0] + lr[keep], c0 + lc[keep])),
+            shape=self.shape)
+
+    def astype(self, dtype) -> "ShardedMatrix":
+        """Value-dtype cast of the same operator (layout and index tensors
+        shared).  Used for the mixed-precision f32 twin."""
+        dtype = torch_dtype(dtype)
+        if self.dtype == dtype:
+            return self
+        cast = lambda a: a.to(dtype) if a is not None else None
+        return dataclasses.replace(
+            self, diag_vals=cast(self.diag_vals),
+            bdia_vals=cast(self.bdia_vals),
+            bdia_ovf_vals=cast(self.bdia_ovf_vals), diag=cast(self.diag))
+
+
+def _check_windows(starts: np.ndarray, R: int, xlen: int) -> None:
+    """Every BDIA window must lie inside the padded x, ``[0, xlen)``."""
+    if starts.size and (int(starts.min()) < 0
+                        or int(starts.max()) + R > xlen):
+        raise ValueError(f"BDIA window outside [0, {xlen})")
+
+
+def _bdia_fields(diag_parts, plan, row_pad, col_pad, dtype, device) -> dict:
+    """BDIA tensors and metadata for the planned (R, D)."""
+    R, D = plan
+    nparts = len(diag_parts)
+    B = (row_pad + R - 1) // R
+    starts_raw = np.zeros((nparts, B, D), np.int64)
+    s_idx, s_val, ovf_parts = [], [], []
+    for p, (dlr, dlc, dv) in enumerate(diag_parts):
+        starts_raw[p], fi, vo, o_r, o_c, o_v = bdia_mod.compact(
+            dlr, dlc, dv, row_pad, col_pad, R, D, dtype=dtype, overflow=True)
+        s_idx.append(fi)
+        s_val.append(vo)
+        ovf_parts.append((o_r, o_c, o_v))
+    lo = int(min(0, starts_raw.min()))
+    hi = int(max(col_pad, starts_raw.max() + R))
+    xpad = -lo
+    xlen = xpad + hi
+    starts = (starts_raw + xpad).astype(np.int32)
+    _check_windows(starts, R, xlen)
+    fields = dict(
+        bdia_vals=materialize(s_idx, s_val, (B, D, R), dtype, device),
+        bdia_starts=to_tensor(starts, device),
+        bdia_block=R, bdia_xpad=xpad, bdia_xlen=xlen)
+    fields.update(_ovf_fields(ovf_parts, row_pad, col_pad, dtype, device))
+    return fields
+
+
+def _ovf_fields(ovf_parts, row_pad, col_pad, dtype, device) -> dict:
+    """Overflow-list tensors from per-part (rows, cols, vals): entries with
+    row ``row_pad`` are padding and dropped; the rest are sorted by row
+    (stable) under a CSR row pointer.  Empty dict when no part spills."""
+    parts = []
+    for o_r, o_c, o_v in ovf_parts:
+        o_r = np.asarray(o_r, np.int64)
+        keep = o_r < row_pad
+        order = np.argsort(o_r[keep], kind="stable")
+        parts.append((o_r[keep][order], np.asarray(o_c)[keep][order],
+                      np.asarray(o_v)[keep][order]))
+    k_ovf = max(o[0].size for o in parts)
+    if k_ovf == 0:
+        return {}
+    nparts = len(parts)
+    cols = np.zeros((nparts, k_ovf), np.int32)
+    vals = np.zeros((nparts, k_ovf), dtype)
+    ptr = np.zeros((nparts, row_pad + 1), np.int32)
+    for p, (o_r, o_c, o_v) in enumerate(parts):
+        if o_r.size and (o_r.min() < 0 or o_c.min() < 0
+                         or o_c.max() >= col_pad):
+            raise ValueError("overflow entry outside the part")
+        cols[p, :o_c.size] = o_c
+        vals[p, :o_v.size] = o_v
+        ptr[p, 1:] = np.cumsum(np.bincount(o_r, minlength=row_pad))
+    return dict(bdia_ovf_ptr=to_tensor(ptr, device),
+                bdia_ovf_cols=to_tensor(cols, device),
+                bdia_ovf_vals=to_tensor(vals, device))
+
+
+def _ell_compact(k, lrows, lcols, vals):
+    """Compact ELL staging: flat indices into a (row_pad, k) layout plus
+    row-ordered values/columns (position = rank within row)."""
+    if lrows.size == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, vals.dtype),
+                np.zeros(0, np.int32))
+    if np.all(lrows[:-1] <= lrows[1:]):      # already row-sorted
+        lr = lrows
+        vo, co = vals, lcols
+    else:
+        order = np.argsort(lrows, kind="stable")
+        lr = lrows[order]
+        vo, co = vals[order], lcols[order]
+    nr = int(lr[-1]) + 1
+    starts = np.searchsorted(lr, np.arange(nr + 1))
+    pos = np.arange(lr.size) - starts[lr]
+    return lr * k + pos, vo, co.astype(np.int32)

@@ -1,0 +1,33 @@
+"""SpMV for one part: BDIA (+ overflow) or padded ELL (the port of
+``tpusolve/matrix/spmv.py``).
+
+The hot operation of every Krylov iteration and preconditioner sweep.  A
+BDIA diag block runs the hand-written kernel through ``kernels.bdia``, which
+also adds the spilled entries of its overflow list, each row its own.
+Multi-part operators (offd ELL block and halo exchange, ``tpusolve``'s
+``halo_exchange`` and ``_offd_add``) are not ported yet: ``ShardedMatrix``
+refuses to build them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpusolve_torch.kernels.bdia import bdia_spmv
+
+
+def ell_spmv_local(vals: torch.Tensor, cols: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Padded-ELL block SpMV: y_i = sum_k vals[i,k] * x[cols[i,k]]."""
+    return (vals * x.index_select(0, cols.reshape(-1)).reshape(cols.shape)
+            ).sum(dim=-1)
+
+
+def spmv(A, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for a one-part ``ShardedMatrix``: ``x`` is a padded vector
+    over A's columns ``(col_pad,)``; returns one over its rows
+    ``(row_pad,)``."""
+    if A.uses_bdia:
+        return bdia_spmv(A.bdia_vals, A.bdia_starts, x, A.bdia_xpad,
+                         A.bdia_xlen, A.row_pad, A.bdia_ovf)
+    return ell_spmv_local(A.diag_vals[0], A.diag_cols[0], x)
