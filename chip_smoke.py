@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of tpusolve_torch on one CUDA card.
 
-    python3 chip_smoke.py [--side N]
+    python3 chip_smoke.py [--side N] [--side3 N]
 
 From the root of a checkout, on a machine with one NVIDIA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA:
 
 1. prints the card's name and power limit, and the PyYAML version;
-2. builds every kernel of ``tpusolve_torch/csrc`` and prints the seconds;
-3. holds the BDIA SpMV kernel, overflow list included, against its plain
-   PyTorch version on a banded matrix, in float32 and float64;
-4. writes the gate-4 momentum fixture at N^3 rows (default 96^3 = 884,736
-   rows, 23.4M nonzeros) and runs it through the port's CLI
+2. builds every kernel of ``tpusolve_torch/csrc`` (one nvcc per source, all
+   at once) and prints the seconds;
+3. holds the BDIA SpMV kernel K4, overflow list included, and the BELL SpMV
+   kernel K6 against their plain PyTorch versions, in float32 and float64;
+4. gate 4: writes the momentum fixture at N^3 rows (``--side``, default
+   96^3 = 884,736 rows, 23.4M nonzeros) and runs it through the port's CLI
    (``tpusolve_torch.harness.cli.main``): HYPRE-IJ files, RCM, BDIA
    assembly in f64 with an f32 twin, Chow-Patel ILU(0), BiCGSTAB in f32
-   inside f64 iterative refinement, golden check;
-5. shows that run's kernel launches, then times the kernel and its plain
-   version at the four operator shapes of that run (A, A_lo, L, U).
+   inside f64 iterative refinement, golden check; then times K4 against
+   its plain version at the four operator shapes of that run (A, A_lo, L,
+   U);
+5. gate 3: writes the pressure fixture at N^3 rows (``--side3``, default
+   64^3 = 262,144 rows, 6.86M nonzeros) and runs it through the CLI:
+   MatrixMarket files, RCM, BoomerAMG host setup (PMIS, extended+i,
+   l1-Jacobi) with BDIA, BELL and ELL levels, GMRES(20) in f64, golden
+   check; prints each level's layout, then at every BELL level times K6,
+   its plain version, K4 on the BDIA layout of the same operator and the
+   plain ELL SpMV, against the layout model's prediction;
+6. measures the constants of the layout model (``kernels/calibrate.py``)
+   beside the ones in the code.
 
-The second-to-last line is a JSON object with one entry per kernel; the last
+Each path's kernel launches are counted from 0 just before its CLI run and
+read just after; a path that launched none of its kernels fails.  The
+second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before those lines, as does a machine without CUDA or a directory
 without the ``tpusolve_torch`` package.
@@ -40,6 +52,8 @@ RTOL = {"float32": 1e-5, "float64": 1e-12}
 # tpusolve on CPU, gate-4 fixture 96^3, precision mixed: BiCGSTAB
 # iterations summed over the refinement passes
 TPUSOLVE_ITERS_96 = 56
+# tpusolve on CPU, gate-3 fixture 64^3, precision double: GMRES iterations
+TPUSOLVE_GATE3_ITERS_64 = 12
 
 
 def fail(msg: str):
@@ -59,24 +73,6 @@ def card_line() -> str:
 def rel_err(y, y_ref) -> float:
     scale = float(y_ref.abs().max())
     return float((y - y_ref).abs().max()) / (scale if scale > 0 else 1.0)
-
-
-def time_ms(fn, reps: int = 50, warmup: int = 20) -> float:
-    """Mean milliseconds per call over ``reps`` calls between CUDA events.
-    The warm-up calls also bring the card's clocks back up after host-only
-    phases, during which it idles."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def banded_check(device) -> float:
@@ -124,12 +120,56 @@ def banded_check(device) -> float:
     return worst
 
 
+def bell_check(device) -> float:
+    """K6 against its plain version on a blocked matrix with ragged groups
+    and windows (1,501 rows: the last group and the last window are
+    partial), in both dtypes; the whole SpMV against scipy.  Returns the
+    largest relative error seen."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from tpusolve_torch.kernels.bell import bell_spmv, bell_spmv_plain
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    from tpusolve_torch.matrix.spmv import spmv
+
+    rng = np.random.default_rng(6)
+    n, width = 1501, 40
+    rows = np.repeat(np.arange(n, dtype=np.int64), 32)
+    base = rng.integers(0, n - width, size=(n, 8)).repeat(4, axis=1)
+    cols = base.reshape(-1) + rng.integers(0, width, size=rows.size)
+    key = np.unique(np.concatenate([rows * n + cols, np.arange(n) * (n + 1)]))
+    rows, cols = key // n, key % n
+    vals = rng.standard_normal(rows.size)
+    S = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    worst = 0.0
+    for dtype in (np.float32, np.float64):
+        A = ShardedMatrix.from_coo((n, n), rows, cols, vals, device=device,
+                                   dtype=dtype)
+        if not A.uses_bell:
+            fail(f"blocked check: expected BELL, got {A.layout}")
+        x = torch.tensor(rng.standard_normal(n), dtype=A.dtype, device=device)
+        args = (A.bell_vals, A.bell_ids, x, A.bell_nwin, A.row_pad)
+        err = rel_err(bell_spmv(*args), bell_spmv_plain(*args))
+        y = spmv(A, x).double().cpu().numpy()
+        y_ref = S.astype(dtype) @ x.cpu().numpy()
+        err_sp = float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
+        name = str(A.dtype).replace("torch.", "")
+        print(f"K6 blocked n={n} {name} {A.layout}: kernel vs plain rel err "
+              f"{err:.3e} (limit {RTOL[name]:.0e}); SpMV vs scipy "
+              f"{err_sp:.3e}", flush=True)
+        if not err <= RTOL[name] or not err_sp <= 10 * RTOL[name]:
+            fail(f"blocked check {name} out of tolerance")
+        worst = max(worst, err)
+    return worst
+
+
 def operator_timings(system, device_name: str):
     """Kernel against plain at the four operator shapes of the main path's
     run; returns one row per operator."""
     import numpy as np
     import torch
     from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_plain
+    from tpusolve_torch.kernels.calibrate import time_ms
     from tpusolve_torch.runtime import hbm_gbps
 
     pre = system._precond
@@ -175,13 +215,218 @@ def operator_timings(system, device_name: str):
     return rows
 
 
+def run_cli(yaml_path: str, counters) -> tuple:
+    """Run the port's CLI on ``yaml_path`` with every launch counter set to
+    0 just before; returns (exit code, LinearSystem, wall seconds,
+    {counter name: launches})."""
+    from tpusolve_torch.harness import cli
+    for fn in counters:
+        fn.launches = 0
+    systems = []
+    t0 = time.perf_counter()
+    rc = cli.main([yaml_path, "--device", "cuda"], keep=systems)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    return rc, (systems[0] if systems else None), wall, launches
+
+
+def check_solve(system, rc: int, what: str):
+    """Fail unless the run passed its golden check with relres <= 1e-8 and
+    a finite solution of the padded shape."""
+    import torch
+    if rc != 0:
+        fail(f"the {what} run failed (cli exit {rc})")
+    res = system.solve_results[0]
+    relres = float(res.relres)
+    if not (relres <= 1e-8 and bool(res.converged)):
+        fail(f"{what}: relres {relres:.3e} above 1e-8 or not converged")
+    x = system.sln[0]
+    if not bool(torch.isfinite(x).all()) or x.shape != (system.A.row_pad,):
+        fail(f"{what}: solution is not finite or has the wrong shape")
+    return res
+
+
+def gate4_phase(side: int, device_name: str, counters):
+    """The gate-4 path; returns (launches, K4 timing rows)."""
+    from tpusolve_torch import fixtures
+    work = os.path.join(REPO, "build", f"gate4_{side}")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        yaml_path = fixtures.write_gate4(work, side)
+        print(f"gate-4 fixture {side}^3 written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rc, system, wall, launches = run_cli(yaml_path, counters)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"gate-4 path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, "gate-4")
+    if launches["bdia_spmv"] <= 0:
+        fail("the gate-4 path launched no BDIA kernel")
+    passes = res.passes or []
+    print(f"gate-4 {side}^3: {res.iters} BiCGSTAB iterations over "
+          f"{len(passes)} refinement passes {passes}, relres "
+          f"{float(res.relres):.3e}, golden check PASSED", flush=True)
+    if side == 96:
+        gap = res.iters - TPUSOLVE_ITERS_96
+        verdict = ("within one per pass" if abs(gap) <= len(passes)
+                   else "MORE than one per pass")
+        print(f"iterations: port {res.iters}, tpusolve (CPU, same fixture) "
+              f"{TPUSOLVE_ITERS_96}: gap {gap:+d} over {len(passes)} passes, "
+              f"{verdict}", flush=True)
+    rows = operator_timings(system, device_name)
+    system.destroy_system()
+    return launches, rows
+
+
+def bell_level_timings(pre) -> list:
+    """At every BELL level of the hierarchy: K6 against its plain version,
+    K4 on the BDIA layout of the same operator, and the plain ELL SpMV;
+    with the layout model's prediction for K6 and K4.  Returns one row per
+    level."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.bdia import bdia_spmv
+    from tpusolve_torch.kernels.bell import bell_spmv, bell_spmv_plain
+    from tpusolve_torch.kernels.calibrate import time_ms
+    from tpusolve_torch.matrix import sharded
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    from tpusolve_torch.matrix.spmv import ell_spmv_local
+    from tpusolve_torch.matrix.vectors import numpy_dtype
+
+    rng = np.random.default_rng(10)
+    rows = []
+    for i, lev in enumerate(pre.levels):
+        M = lev.A
+        if not M.uses_bell:
+            continue
+        host = M.to_scipy()
+        dt = str(M.dtype).replace("torch.", "")
+        itemsize = M.bell_vals.element_size()
+        x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
+                         device=M.device)
+        args = (M.bell_vals, M.bell_ids, x, M.bell_nwin, M.row_pad)
+        y_plain = bell_spmv_plain(*args)
+        err = rel_err(bell_spmv(*args), y_plain)
+        abs_err = float((bell_spmv(*args) - y_plain).abs().max())
+        if not err <= RTOL[dt]:
+            fail(f"level {i}: K6 vs plain rel err {err:.3e} > {RTOL[dt]}")
+        np_dt = numpy_dtype(M.dtype)
+        Mb = ShardedMatrix.from_csr_host(host, device=M.device, dtype=np_dt,
+                                         allow_bell=False)
+        Me = ShardedMatrix.from_csr_host(host, device=M.device, dtype=np_dt,
+                                         allow_bell=False, allow_bdia=False)
+        if not Mb.uses_bdia:
+            fail(f"level {i}: no BDIA layout to compare ({Mb.layout})")
+        bargs = (Mb.bdia_vals, Mb.bdia_starts, x, Mb.bdia_xpad, Mb.bdia_xlen,
+                 Mb.row_pad, Mb.bdia_ovf)
+        err_b = rel_err(bdia_spmv(*bargs), y_plain)
+        err_e = rel_err(ell_spmv_local(Me.diag_vals[0], Me.diag_cols[0], x),
+                        y_plain)
+        if not max(err_b, err_e) <= RTOL[dt]:
+            fail(f"level {i}: K4 or ELL against K6's plain version "
+                 f"{max(err_b, err_e):.3e} > {RTOL[dt]}")
+        # alternate plain, kernel, kernel, plain on the same card
+        p1 = time_ms(lambda: bell_spmv_plain(*args))
+        k1 = time_ms(lambda: bell_spmv(*args))
+        b1 = time_ms(lambda: bdia_spmv(*bargs))
+        ell = lambda: ell_spmv_local(Me.diag_vals[0], Me.diag_cols[0], x)
+        e1 = time_ms(ell)
+        e2 = time_ms(ell)
+        b2 = time_ms(lambda: bdia_spmv(*bargs))
+        k2 = time_ms(lambda: bell_spmv(*args))
+        p2 = time_ms(lambda: bell_spmv_plain(*args))
+        _, G, K = M.bell_ids.shape
+        _, B, D, R = Mb.bdia_vals.shape
+        bell_bytes = G * K * (8 * 128 * itemsize + 4)
+        bdia_bytes = sharded.bdia_bytes(B, D, R, int(
+            Mb.bdia_ovf_ptr[0, -1]) if Mb.bdia_ovf_ptr is not None else 0,
+            itemsize)
+        model_k6 = 1e3 * sharded.spmv_model_s(
+            "bell", bell_bytes, sharded.bell_threads(G))
+        model_k4 = 1e3 * sharded.spmv_model_s(
+            "bdia", bdia_bytes, sharded.bdia_threads(B, R))
+        row = dict(level=i, dtype=dt, rows=M.shape[0], nnz=M.nnz, G=G, K=K,
+                   B=B, D=D, R=R, ms=min(k1, k2), plain_ms=min(p1, p2),
+                   k4_ms=min(b1, b2), ell_ms=min(e1, e2),
+                   model_k6_ms=model_k6, model_k4_ms=model_k4,
+                   bell_mb=bell_bytes / 1e6, bdia_mb=bdia_bytes / 1e6,
+                   max_abs_err=abs_err, rel_err=err)
+        agree = (row["ms"] < row["k4_ms"]) == (model_k6 < model_k4)
+        print(f"gate-3 level {i} ({M.shape[0]} rows, {M.nnz} nnz) {dt}: "
+              f"K6 BELL G={G} K={K} {bell_bytes / 1e6:.2f} MB: {row['ms']:.5f} "
+              f"ms (runs {k1:.5f}, {k2:.5f}; model {model_k6:.5f}); plain "
+              f"BELL {row['plain_ms']:.5f} ms (runs {p1:.5f}, {p2:.5f}); K4 "
+              f"BDIA B={B} D={D} R={R} {bdia_bytes / 1e6:.2f} MB: "
+              f"{row['k4_ms']:.5f} ms (runs {b1:.5f}, {b2:.5f}; model "
+              f"{model_k4:.5f}); plain ELL K={Me.diag_vals.shape[-1]} "
+              f"{row['ell_ms']:.5f} ms (runs {e1:.5f}, {e2:.5f}); layout "
+              f"model {'agrees' if agree else 'DISAGREES'} with the "
+              f"measurement; K6 rel err {err:.3e}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def gate3_phase(side: int, counters):
+    """The gate-3 path; returns (launches, K6 timing rows)."""
+    from tpusolve_torch import fixtures
+    work = os.path.join(REPO, "build", f"gate3_{side}")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        yaml_path = fixtures.write_gate3(work, side)
+        print(f"gate-3 fixture {side}^3 written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rc, system, wall, launches = run_cli(yaml_path, counters)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"gate-3 path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, "gate-3")
+    pre = system._precond
+    for line in pre.layouts():
+        print(f"gate-3 {line}", flush=True)
+    if launches["bell_spmv"] <= 0:
+        fail("the gate-3 path launched no BELL kernel")
+    print(f"gate-3 {side}^3: {res.iters} GMRES iterations, relres "
+          f"{float(res.relres):.3e}, golden check PASSED", flush=True)
+    if side == 64:
+        print(f"iterations: port {res.iters}, tpusolve (CPU, same fixture) "
+              f"{TPUSOLVE_GATE3_ITERS_64}", flush=True)
+        if res.iters != TPUSOLVE_GATE3_ITERS_64:
+            fail(f"gate-3 took {res.iters} GMRES iterations, tpusolve "
+                 f"{TPUSOLVE_GATE3_ITERS_64}")
+    rows = bell_level_timings(pre)
+    if not rows:
+        fail("the gate-3 hierarchy has no BELL level")
+    system.destroy_system()
+    return launches, rows
+
+
+def model_constants():
+    """Measured layout-model constants beside the ones in the code."""
+    from tpusolve_torch.kernels import calibrate
+    from tpusolve_torch.matrix import sharded
+    got = calibrate.measure(log=lambda s: print(f"calibrate {s}",
+                                                flush=True))
+    for k in ("bdia", "bell"):
+        print(f"layout model {k}: rate {got['rate'][k] / 1e12:.3f} TB/s "
+              f"(code {sharded.SPMV_RATE[k] / 1e12:.3f}), threads_full "
+              f"{got['threads_full'][k]:.0f} (code "
+              f"{sharded.SPMV_THREADS_FULL[k]})", flush=True)
+    return got
+
+
 def main(argv) -> int:
-    side = 96
-    if argv[:1] == ["--side"] and len(argv) == 2:
-        side = int(argv[1])
-    elif argv:
-        print("usage: python3 chip_smoke.py [--side N]", file=sys.stderr)
-        return 1
+    sides = {"--side": 96, "--side3": 64}
+    it = iter(argv)
+    for a in it:
+        if a not in sides:
+            print("usage: python3 chip_smoke.py [--side N] [--side3 N]",
+                  file=sys.stderr)
+            return 1
+        sides[a] = int(next(it, "0"))
     try:
         import torch
     except ImportError:
@@ -195,10 +440,9 @@ def main(argv) -> int:
               "run it from the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from tpusolve_torch import fixtures
-    from tpusolve_torch.harness import cli
     from tpusolve_torch.kernels import build
     from tpusolve_torch.kernels.bdia import bdia_spmv
+    from tpusolve_torch.kernels.bell import bell_spmv
 
     card = card_line()
     device = torch.device("cuda", 0)
@@ -210,60 +454,39 @@ def main(argv) -> int:
     print(f"PyYAML {yaml.__version__}", flush=True)
 
     print(f"kernel build: {build.build_all():.3f} s", flush=True)
-    worst = banded_check(device)
+    worst4 = banded_check(device)
+    worst6 = bell_check(device)
 
-    work = os.path.join(REPO, "build", f"gate4_{side}")
-    shutil.rmtree(work, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        yaml_path = fixtures.write_gate4(work, side)
-        print(f"gate-4 fixture {side}^3 written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        systems = []
-        bdia_spmv.launches = 0
-        t0 = time.perf_counter()
-        rc = cli.main([yaml_path, "--device", "cuda"], keep=systems)
-        wall = time.perf_counter() - t0
-        launches = bdia_spmv.launches
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    print(f"main path: cli exit {rc}, {wall:.1f} s wall, bdia_spmv "
-          f"launches {launches}", flush=True)
-    if rc != 0:
-        fail(f"the gate-4 run failed (cli exit {rc})")
-    if launches <= 0:
-        fail("the main path launched no BDIA kernel")
-    system = systems[0]
-    res = system.solve_results[0]
-    relres = float(res.relres)
-    if not (relres <= 1e-8 and bool(res.converged)):
-        fail(f"relres {relres:.3e} above 1e-8 or not converged")
-    x = system.sln[0]
-    if not bool(torch.isfinite(x).all()) or x.shape != (system.A.row_pad,):
-        fail("solution is not finite or has the wrong shape")
-    passes = res.passes or []
-    print(f"gate-4 {side}^3: {res.iters} BiCGSTAB iterations over "
-          f"{len(passes)} refinement passes {passes}, relres {relres:.3e}, "
-          f"golden check PASSED", flush=True)
-    if side == 96:
-        gap = res.iters - TPUSOLVE_ITERS_96
-        verdict = ("within one per pass" if abs(gap) <= len(passes)
-                   else "MORE than one per pass")
-        print(f"iterations: port {res.iters}, tpusolve (CPU, same fixture) "
-              f"{TPUSOLVE_ITERS_96}: gap {gap:+d} over {len(passes)} passes, "
-              f"{verdict}", flush=True)
+    counters = (bdia_spmv, bell_spmv)
+    l4, rows4 = gate4_phase(sides["--side"], device_name, counters)
+    l3, rows3 = gate3_phase(sides["--side3"], counters)
+    if l3["bdia_spmv"] <= 0:
+        fail("the gate-3 path launched no BDIA kernel")
+    model_constants()
 
-    rows = operator_timings(system, device_name)
-    lo = next(r for r in rows if r["op"] == "A_lo")
-    kernels = [dict(
-        name="bdia_spmv", route="cuda",
-        source="tpusolve_torch/csrc/bdia_spmv.cu",
-        replaces="tpusolve/kernels/bdia.py:252", launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in rows),
-        ms=lo["ms"], plain_ms=lo["plain_ms"],
-        max_rel_err=max([worst] + [r["rel_err"] for r in rows]),
-        shapes=rows)]
-    system.destroy_system()
+    lo = next(r for r in rows4 if r["op"] == "A_lo")
+    k6 = max(rows3, key=lambda r: r["G"] * r["K"])
+    kernels = [
+        dict(name="bdia_spmv", route="cuda",
+             source="tpusolve_torch/csrc/bdia_spmv.cu",
+             replaces="tpusolve/kernels/bdia.py:252",
+             launches=l4["bdia_spmv"] + l3["bdia_spmv"],
+             launches_by_path={"gate4": l4["bdia_spmv"],
+                               "gate3": l3["bdia_spmv"]},
+             max_abs_err=max(r["max_abs_err"] for r in rows4),
+             ms=lo["ms"], plain_ms=lo["plain_ms"],
+             max_rel_err=max([worst4] + [r["rel_err"] for r in rows4]),
+             shapes=rows4),
+        dict(name="bell_spmv", route="cuda",
+             source="tpusolve_torch/csrc/bell_spmv.cu",
+             replaces="tpusolve/kernels/bell.py:159",
+             launches=l4["bell_spmv"] + l3["bell_spmv"],
+             launches_by_path={"gate4": l4["bell_spmv"],
+                               "gate3": l3["bell_spmv"]},
+             max_abs_err=max(r["max_abs_err"] for r in rows3),
+             ms=k6["ms"], plain_ms=k6["plain_ms"],
+             max_rel_err=max([worst6] + [r["rel_err"] for r in rows3]),
+             shapes=rows3)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -17,7 +17,8 @@ from tpusolve_torch.matrix.vectors import (
 
 CPU = torch.device("cpu")
 FIELDS = ("bdia_vals", "bdia_starts", "bdia_ovf_rows", "bdia_ovf_cols",
-          "bdia_ovf_vals", "diag_vals", "diag_cols", "diag")
+          "bdia_ovf_vals", "bell_vals", "bell_ids", "diag_vals", "diag_cols",
+          "diag")
 
 
 def tpusolve_fields(A):
@@ -29,8 +30,8 @@ def tpusolve_fields(A):
                 col_offsets=A.col_offsets, row_pad=A.row_pad,
                 col_pad=A.col_pad, nnz=A.nnz, bdia_block=A.bdia_block,
                 bdia_xpad=A.bdia_xpad, bdia_xlen=A.bdia_xlen,
-                has_offd=A.has_offd, uses_dia=A.uses_dia,
-                uses_bell=A.uses_bell)
+                bell_nwin=A.bell_nwin, has_offd=A.has_offd,
+                uses_dia=A.uses_dia)
     return arrays, meta
 
 
@@ -110,7 +111,8 @@ class TestLayoutSelection:
         n = 1000 if case == "small" else 6000
         r, c, v = clustered(rng, n, centers=(-30, 0, 30), drift_amp=3)
         A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU,
-                                   allow_bdia=case != "disabled")
+                                   allow_bdia=case != "disabled",
+                                   allow_bell=case != "disabled")
         assert not A.uses_bdia
         assert A.diag_vals.shape[-1] == np.bincount(r).max()
         S = sp.csr_matrix((v, (r, c)), shape=(n, n))
@@ -125,7 +127,7 @@ class TestLayoutSelection:
         n = 8000
         r, c, v = clustered(rng, n)
         parts = [(r, c, v)]
-        R, D = plan_bdia(parts, n, n, 8, r.size)
+        R, D, nbytes = plan_bdia(parts, n, n, 8, r.size)
         best = None
         for R2 in bdia.BLOCK_SIZES:
             prof = bdia.plan_fill_profile(r, c, n, n, R2)
@@ -137,7 +139,7 @@ class TestLayoutSelection:
                     best = b if best is None else min(best, b)
         prof = bdia.plan_fill_profile(r, c, n, n, R)
         assert bdia_bytes((n + R - 1) // R, D, R, int(prof[D:].sum()),
-                          8) == best
+                          8) == best == nbytes
 
     def test_multipart_not_ported(self, rng):
         r, c, v = clustered(rng, 100, centers=(0,))

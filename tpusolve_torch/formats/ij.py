@@ -104,7 +104,7 @@ def read_dense_vector(prefix: str, nfiles: int, n: int | None = None):
     return out
 
 
-def _write_lines(fh, fmt: str, *columns) -> None:
+def write_lines(fh, fmt: str, *columns) -> None:
     """Write ``fmt % (col0[i], col1[i], ...)`` for every i, a chunk at a
     time (one %-format of a chunk-long template per write)."""
     k = len(columns)
@@ -135,7 +135,7 @@ def write_matrix(prefix: str, rows, cols, vals, offsets,
         with open(part_path(prefix, p), "w") as fh:
             fh.write(f"{lo} {hi} 0 {ncols - 1}\n")
             s, e = starts[p], ends[p]
-            _write_lines(fh, "%d %d %.15e\n", rows[s:e], cols[s:e],
+            write_lines(fh, "%d %d %.15e\n", rows[s:e], cols[s:e],
                          vals[s:e])
 
 
@@ -147,5 +147,5 @@ def write_vector(prefix: str, vec, offsets):
         lo, hi = int(offsets[p]), int(offsets[p + 1]) - 1
         with open(part_path(prefix, p), "w") as fh:
             fh.write(f"{lo} {hi}\n")
-            _write_lines(fh, "%d %.15e\n", np.arange(lo, hi + 1),
+            write_lines(fh, "%d %.15e\n", np.arange(lo, hi + 1),
                          vec[lo:hi + 1])

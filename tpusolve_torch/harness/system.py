@@ -13,10 +13,11 @@ Analog of ``nalu::HypreSystem`` (ref: src/HypreSystem.h:66-298) with the same
     sys.summarize_timers()
     sys.destroy_system()
 
-Timer names match the reference's.  This slice carries HYPRE-IJ loading,
-``matrix_ordering: rcm``, precision double/single/mixed, BiCGSTAB with ILU(0)
-or no preconditioner; anything else raises ``NotImplementedError`` naming
-where it stands in ROADMAP.md.
+Timer names match the reference's.  The port carries MatrixMarket and
+HYPRE-IJ loading, ``matrix_ordering: rcm``, precision double/single/mixed,
+the methods BiCGSTAB, GMRES, COGMRES and FlexGMRES, and the preconditioners
+BoomerAMG (host setup), ILU(0) and none; anything else raises
+``NotImplementedError`` naming where it stands in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,12 +26,15 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from tpusolve_torch.amg.builder import boomeramg_setup
 from tpusolve_torch.config import AppConfig
-from tpusolve_torch.formats import ij
+from tpusolve_torch.formats import ij, mmio
 from tpusolve_torch.harness.check import check_solution
 from tpusolve_torch.ilu.ilu import ilu_setup
 from tpusolve_torch.kernels import build
 from tpusolve_torch.krylov.bicgstab import bicgstab_setup
+from tpusolve_torch.krylov.gmres import (
+    cogmres_setup, fgmres_setup, gmres_setup)
 from tpusolve_torch.krylov.refine import refined_solve_setup
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.vectors import (
@@ -77,6 +81,7 @@ class LinearSystem:
         self.sln_ref: list[np.ndarray] = []
         self.solve_results = []
         self._precond = None
+        self._method = None
         self._precond_name = None
         self._perm = None          # matrix_ordering: new index -> old
 
@@ -98,11 +103,12 @@ class LinearSystem:
             raise ValueError(f"Invalid method provided: {method}")
         if precond not in {"boomeramg", "ilu", "none", "pfmg"}:
             raise ValueError(f"Invalid preconditioner provided: {precond}")
-        if method not in ("bicg", "bicgstab"):
+        if method not in ("bicg", "bicgstab", "gmres", "cogmres", "fgmres"):
             raise NotImplementedError(f"method {method}: {_NOT_PORTED}")
-        if precond not in ("ilu", "none"):
+        if precond not in ("boomeramg", "ilu", "none"):
             raise NotImplementedError(f"preconditioner {precond}: "
                                       f"{_NOT_PORTED}")
+        self._method = method
         self._precond_name = precond
         self._log(f"Setting up solver: {method}; preconditioner: {precond}")
         if self.device.type == "cuda":
@@ -113,9 +119,11 @@ class LinearSystem:
     def load(self):
         """Dispatch on linear_system.type (ref: src/HypreSystem.cpp:16-47)."""
         kind = self.config.linear_system.type
-        if kind == "hypre_ij":
+        if kind == "matrix_market":
+            self._load_matrix_market()
+        elif kind == "hypre_ij":
             self._load_hypre_ij()
-        elif kind in ("matrix_market", "build_27pt_stencil"):
+        elif kind == "build_27pt_stencil":
             raise NotImplementedError(f"linear_system type {kind}: "
                                       f"{_NOT_PORTED}")
         else:
@@ -145,7 +153,8 @@ class LinearSystem:
         return inv[rows], inv[cols], vals
 
     def _assemble(self, rows, cols, vals, n):
-        """COO -> device matrix (+ its f32 twin) + host CSR for ILU setup."""
+        """COO -> device matrix (+ its f32 twin) + host CSR for the
+        preconditioner's host setup (AMG or ILU)."""
         rows, cols, vals = self._apply_ordering(rows, cols, vals, n)
         with self.timers.span("Initialize system"):
             offsets = row_decomposition(n, 1)
@@ -156,11 +165,12 @@ class LinearSystem:
             self.A = ShardedMatrix.from_coo(
                 (n, n), rows, cols, vals, device=self.device,
                 dtype=self.dtype, row_offsets=offsets,
-                allow_bdia=self.config.solver.spmv_use_bdia)
+                allow_bdia=self.config.solver.spmv_use_bdia,
+                allow_bell=self.config.solver.spmv_use_bell)
             if self.precision == "mixed":
                 # f32 twin by a device-side cast, not a second assembly
                 self.A_lo = self.A.astype(np.float32)
-            if self._precond_name == "ilu":
+            if self._precond_name in ("boomeramg", "ilu"):
                 self.A_host = sp.csr_matrix((vals, (rows, cols)),
                                             shape=(n, n))
                 self.A_host.sum_duplicates()
@@ -172,6 +182,36 @@ class LinearSystem:
     def _stage_vector(self, vec_np):
         return to_device_vector(self._permute_in(vec_np), self.A.row_offsets,
                                 self.A.row_pad, self.device, dtype=self.dtype)
+
+    def _load_matrix_market(self):
+        ls = self.config.linear_system
+        with self.timers.span("Matrix market : determine system size"):
+            info = mmio.read_info(ls.matrix_file)
+            n = info.nrows * (2 if ls.complex_numbers else 1)
+        self._log(f"Loading matrix market file: {ls.matrix_file} "
+                  f"({n} rows)")
+        with self.timers.span("Matrix market : read and build matrix"):
+            rows, cols, vals, shape = mmio.read_matrix(ls.matrix_file)
+            if ls.complex_numbers:
+                rows, cols, vals, shape = mmio.expand_complex_to_real(
+                    rows, cols, vals, shape)
+            elif np.iscomplexobj(vals):
+                raise RuntimeError(
+                    "complex matrix file requires complex_numbers: true")
+        self._assemble(rows, cols, np.real(vals), n)
+        with self.timers.span("Matrix market : read and build vector"):
+            for rf in ls.rhs_files:
+                v = mmio.read_vector(rf)
+                if ls.complex_numbers:
+                    v = mmio.expand_complex_vector(v)
+                self.rhs.append(self._stage_vector(np.real(v)))
+            for sf in ls.sln_files:
+                v = mmio.read_vector(sf)
+                if ls.complex_numbers:
+                    v = mmio.expand_complex_vector(v)
+                self.sln_ref.append(self._permute_in(np.real(v)))
+        self.check_enabled = bool(self.sln_ref) and \
+            len(self.sln_ref) == len(self.rhs)
 
     def _load_hypre_ij(self):
         ls = self.config.linear_system
@@ -205,9 +245,17 @@ class LinearSystem:
         # mixed precision: the inner f32 solve only needs to reach the f32
         # floor; the IR outer loop carries it to s.tolerance
         inner_tol = float(s.extra.get("inner_tolerance", 1e-5))
-        inner = bicgstab_setup(self._A_solve, M,
-                               tol=inner_tol if mixed else s.tolerance,
-                               maxiter=s.max_iterations)
+        kw = dict(tol=inner_tol if mixed else s.tolerance,
+                  maxiter=s.max_iterations)
+        A = self._A_solve
+        if self._method == "gmres":
+            inner = gmres_setup(A, M, restart=s.kspace, **kw)
+        elif self._method == "cogmres":
+            inner = cogmres_setup(A, M, restart=s.kspace, cgs=s.cgs, **kw)
+        elif self._method == "fgmres":
+            inner = fgmres_setup(A, M, restart=s.kspace, **kw)
+        else:
+            inner = bicgstab_setup(A, M, **kw)
         if mixed:
             return refined_solve_setup(
                 self.A, inner, tol=s.tolerance,
@@ -225,6 +273,14 @@ class LinearSystem:
                 M = self._precond.apply
                 self._log(f"  ILU L: {self._precond.L.layout}; "
                           f"U: {self._precond.U.layout}")
+            elif self._precond_name == "boomeramg":
+                self._precond = boomeramg_setup(
+                    self._A_solve, self.config.boomeramg, A_host=self.A_host)
+                M = self._precond.apply
+                if self.verbose:
+                    self._log(self._precond.describe())
+                    for line in self._precond.layouts():
+                        self._log(f"  {line}")
             solver = self._build_solver(M)
 
         with self.timers.span("Solve"):

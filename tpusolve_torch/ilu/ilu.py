@@ -24,38 +24,11 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from tpusolve_torch.amg.interp import _restrict_to_pattern
 from tpusolve_torch.config import ILUConfig
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.spmv import spmv
 from tpusolve_torch.matrix.vectors import numpy_dtype, to_device_vector
-
-
-def _keys(M: sp.csr_matrix) -> np.ndarray:
-    """(row, col) -> single sortable int64 key per stored entry."""
-    rows = np.repeat(np.arange(M.shape[0], dtype=np.int64),
-                     np.diff(M.indptr))
-    return rows * M.shape[1] + M.indices
-
-
-def _restrict_to_pattern(M: sp.csr_matrix, Pat: sp.csr_matrix) -> sp.csr_matrix:
-    """Return a CSR with exactly Pat's sparsity pattern holding M's values
-    there (0 where M has no entry).  Output data aligns 1:1 with Pat.data."""
-    M = M.tocsr()
-    M.sum_duplicates()
-    keyM = _keys(M)
-    order = np.argsort(keyM, kind="stable")
-    keyM_sorted = keyM[order]
-    valM_sorted = M.data[order]
-    keyP = _keys(Pat)
-    pos = np.searchsorted(keyM_sorted, keyP)
-    pos_c = np.clip(pos, 0, max(keyM_sorted.size - 1, 0))
-    if keyM_sorted.size == 0:
-        vals = np.zeros(keyP.size)
-    else:
-        hit = keyM_sorted[pos_c] == keyP
-        vals = np.where(hit, valM_sorted[pos_c], 0.0)
-    return sp.csr_matrix((vals, Pat.indices.copy(), Pat.indptr.copy()),
-                         shape=Pat.shape)
 
 
 def chow_patel_ilu(A: sp.csr_matrix, sweeps: int = 5):

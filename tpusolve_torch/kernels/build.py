@@ -18,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -53,6 +54,29 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
+def compile_library(name: str) -> str:
+    """Path of the library of ``csrc/<name>.cu``, compiled first if it is
+    not in ``build/kernels/``.  Raises if the compiler fails."""
+    path = library_path(name)
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        # compile to a private name, then rename: concurrent builders
+        # (test workers, build_all's threads) never load a half-written
+        # library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    return path
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, compiled first if needed.
     Raises if the compiler fails."""
@@ -60,23 +84,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
-        path = library_path(name)
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            # compile to a private name, then rename: concurrent builders
-            # (test workers) never load a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, name + ".cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed for {name}.cu "
-                                   f"(exit {proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(compile_library(name))
         lib.tpusolve_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tpusolve_cuda_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
@@ -84,11 +92,14 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Compile (or load) every kernel library; returns the seconds taken."""
+    """Compile every kernel library, one nvcc per source, all started
+    together, then load them; returns the seconds taken."""
     t0 = time.perf_counter()
-    for fname in sorted(os.listdir(CSRC)):
-        if fname.endswith(".cu"):
-            load(fname[:-3])
+    names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(compile_library, names))
+    for name in names:
+        load(name)
     return time.perf_counter() - t0
 
 

@@ -1,1 +1,2 @@
-"""Krylov solvers (BiCGSTAB) and mixed-precision iterative refinement."""
+"""Krylov solvers (BiCGSTAB, the GMRES family) and mixed-precision
+iterative refinement."""

@@ -34,20 +34,59 @@ import numpy as np
 import torch
 
 from tpusolve_torch.kernels import bdia as bdia_mod
+from tpusolve_torch.kernels import bell as bell_mod
 from tpusolve_torch.matrix import coo as coo_mod
 from tpusolve_torch.matrix.build import materialize
 from tpusolve_torch.matrix.vectors import to_tensor, torch_dtype, numpy_dtype
 from tpusolve_torch.parts import require_single_part, row_decomposition
 
-# BDIA is considered when the diag block holds at least this many entries
-# (``tpusolve``'s BELL_MIN_NNZ: below it the ELL fallback is cheap)...
+# BDIA and BELL are considered when the diag block holds at least this many
+# entries (``tpusolve``'s BELL_MIN_NNZ: below it the ELL fallback is cheap)...
 BDIA_MIN_NNZ = 20_000
-# ...and its padded values may not exceed this many bytes, nor expand the
+# ...and their padded values may not exceed this many bytes, nor expand the
 # compact nnz bytes by more than TILE_MAX_EXPANSION (plus a small-matrix
 # floor): memory caps shared with ``tpusolve``
 BDIA_MAX_BYTES = 4 << 30
 TILE_MAX_EXPANSION = 12.0
 TILE_EXPANSION_FLOOR = 256 << 20
+
+# Time model of one diag-block SpMV (spmv_model_s): the rate at which each
+# kernel streams the matrix's bytes when the launch fills the card, and the
+# number of threads at which it does.  Measured with
+# ``python -m tpusolve_torch.kernels.calibrate 3`` on an NVIDIA H100 80GB
+# HBM3 with a 700.00 W power limit, in f64: the median of three runs
+# (PERF.md).
+SPMV_RATE = {"bdia": 2.626e12, "bell": 2.743e12}      # bytes/s
+SPMV_THREADS_FULL = {"bdia": 20_867, "bell": 15_466}
+
+
+def tile_budget(total_nnz: int, itemsize: int) -> int:
+    """Bytes the padded values of a BDIA or BELL layout may take."""
+    return min(BDIA_MAX_BYTES, max(TILE_EXPANSION_FLOOR,
+                                   int(TILE_MAX_EXPANSION * total_nnz
+                                       * itemsize)))
+
+
+def spmv_model_s(kind: str, nbytes: int, threads: int) -> float:
+    """Modelled seconds of one SpMV by kernel ``kind`` ("bdia" or "bell")
+    that streams ``nbytes`` over a launch of ``threads`` threads: the bytes
+    at the kernel's full rate, slowed in proportion where the launch
+    exposes too few threads to fill the card.  Bytes alone do not bound a
+    small operator on 132 SMs: its parallelism does."""
+    return nbytes / (SPMV_RATE[kind]
+                     * min(1.0, threads / SPMV_THREADS_FULL[kind]))
+
+
+def bdia_threads(B: int, R: int) -> int:
+    """Threads of one part's K4 launch: a block of min(R, 256) threads per
+    R-row block (``csrc/bdia_spmv.cu``)."""
+    return B * min(R, 256)
+
+
+def bell_threads(G: int) -> int:
+    """Threads of one part's K6 launch: one warp per 8-row group
+    (``csrc/bell_spmv.cu``)."""
+    return 32 * G
 
 
 def bdia_bytes(B: int, D: int, R: int, k: int, itemsize: int) -> int:
@@ -61,13 +100,11 @@ def bdia_bytes(B: int, D: int, R: int, k: int, itemsize: int) -> int:
 
 def plan_bdia(diag_parts, row_pad: int, col_pad: int, itemsize: int,
               total_nnz: int, nparts: int = 1):
-    """The (R, D) pair of least :func:`bdia_bytes`, or None when no layout
-    fits the memory cap with an overflow list of at most
-    ``max(4096, total_nnz // 8)`` entries (the overflow must stay a
+    """``(R, D, bytes)`` of the (R, D) pair of least :func:`bdia_bytes`, or
+    None when no layout fits the memory cap with an overflow list of at
+    most ``max(4096, total_nnz // 8)`` entries (the overflow must stay a
     correction, not a layout)."""
-    budget = min(BDIA_MAX_BYTES, max(TILE_EXPANSION_FLOOR,
-                                     int(TILE_MAX_EXPANSION * total_nnz
-                                         * itemsize)))
+    budget = tile_budget(total_nnz, itemsize)
     best, best_bytes = None, None
     for R in bdia_mod.BLOCK_SIZES:
         profs = [bdia_mod.plan_fill_profile(dp[0], dp[1], row_pad, col_pad, R)
@@ -89,8 +126,50 @@ def plan_bdia(diag_parts, row_pad: int, col_pad: int, itemsize: int,
                 continue
             nbytes = bdia_bytes(nparts * B, D, R, k, itemsize)
             if best_bytes is None or nbytes < best_bytes:
-                best, best_bytes = (R, D), nbytes
+                best, best_bytes = (R, D, nbytes), nbytes
     return best
+
+
+def plan_bell(diag_parts, row_pad: int, itemsize: int, total_nnz: int,
+              nparts: int = 1):
+    """``(K, bytes)`` of the BELL layout (K tiles per 8-row group; bytes of
+    its tiles and window ids), or None when its tiles do not fit the memory
+    cap."""
+    bk = max((bell_mod.bell_plan_k(dp[0], dp[1], row_pad)
+              for dp in diag_parts), default=0)
+    G = bell_mod._ngroups(row_pad)
+    tile_bytes = nparts * G * bk * bell_mod.TM * bell_mod.TN * itemsize
+    if bk <= 0 or tile_bytes > tile_budget(total_nnz, itemsize):
+        return None
+    return bk, tile_bytes + nparts * G * bk * 4
+
+
+def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
+                  total_nnz: int, nparts: int = 1, allow_bdia: bool = True,
+                  allow_bell: bool = True):
+    """``("bdia", (R, D, bytes))``, ``("bell", (K, bytes))`` or
+    ``("ell", None)`` for a diag block: BDIA or BELL by modelled time
+    (:func:`spmv_model_s`), BDIA on a tie; ELL below ``BDIA_MIN_NNZ`` or
+    when neither fits (``tpusolve``'s order, caps and tie rule)."""
+    if total_nnz < BDIA_MIN_NNZ:
+        return "ell", None
+    best = ("ell", None, float("inf"))
+    if allow_bdia:
+        plan = plan_bdia(diag_parts, row_pad, col_pad, itemsize, total_nnz,
+                         nparts)
+        if plan is not None:
+            R, _, nbytes = plan
+            t = spmv_model_s("bdia", nbytes, nparts * bdia_threads(
+                (row_pad + R - 1) // R, R))
+            best = ("bdia", plan, t)
+    if allow_bell:
+        plan = plan_bell(diag_parts, row_pad, itemsize, total_nnz, nparts)
+        if plan is not None:
+            t = spmv_model_s("bell", plan[1], nparts * bell_threads(
+                bell_mod._ngroups(row_pad)))
+            if t < best[2]:
+                best = ("bell", plan, t)
+    return best[:2]
 
 
 @dataclass(frozen=True)
@@ -100,6 +179,8 @@ class ShardedMatrix:
     diag_cols: torch.Tensor   # (P, row_pad, Kd) int32 local column
     bdia_vals: torch.Tensor | None    # (P, B, D, R) blocked-DIA rows
     bdia_starts: torch.Tensor | None  # (P, B, D) int32 x-window starts
+    bell_vals: torch.Tensor | None    # (P, G, K, 8, 128) dense tiles
+    bell_ids: torch.Tensor | None     # (P, G, K) int32 column-window ids
     diag: torch.Tensor        # (P, row_pad) main diagonal, 1 on padded rows
     # --- static metadata ---
     shape: tuple
@@ -111,6 +192,7 @@ class ShardedMatrix:
     bdia_block: int | None = None
     bdia_xpad: int | None = None
     bdia_xlen: int | None = None
+    bell_nwin: int | None = None      # 128-column windows of x per part
     # --- BDIA overflow lists: entries spilled when a block has more
     # distinct offsets than D, in CSR form (sorted by row); a part with
     # fewer than k entries is padded at the end with column 0 and value 0
@@ -135,6 +217,10 @@ class ShardedMatrix:
         return self.bdia_vals is not None
 
     @property
+    def uses_bell(self) -> bool:
+        return self.bell_vals is not None
+
+    @property
     def bdia_ovf(self):
         """(ptr, cols, vals) of the overflow list, as ``bdia_spmv`` takes
         it, or None."""
@@ -145,6 +231,9 @@ class ShardedMatrix:
     @property
     def layout(self) -> str:
         """One line naming the layout, for logs."""
+        if self.uses_bell:
+            _, G, K = self.bell_ids.shape
+            return f"BELL K={K} G={G}"
         if not self.uses_bdia:
             return f"ELL K={self.diag_vals.shape[-1]}"
         _, B, D, R = self.bdia_vals.shape
@@ -156,7 +245,7 @@ class ShardedMatrix:
     @staticmethod
     def from_coo(shape, rows, cols, vals, *, device, dtype=None,
                  dedup="add", row_offsets=None, col_offsets=None,
-                 allow_bdia: bool = True):
+                 allow_bdia: bool = True, allow_bell: bool = True):
         """Assemble a global COO (any order, duplicates combined per
         ``dedup``) — the IJ ``SetValues/AddToValues + Assemble`` pipeline
         (ref: src/HypreSystem.cpp:600-636, 897-955)."""
@@ -176,12 +265,36 @@ class ShardedMatrix:
         return ShardedMatrix.from_local_parts(
             shape, parts, device=device, dtype=dtype,
             row_offsets=row_offsets, col_offsets=col_offsets,
-            allow_bdia=allow_bdia)
+            allow_bdia=allow_bdia, allow_bell=allow_bell)
+
+    @staticmethod
+    def from_csr_host(M, *, device, dtype=None, row_offsets=None,
+                      col_offsets=None, allow_bdia: bool = True,
+                      allow_bell: bool = True):
+        """Assemble a host CSR directly: row blocks are contiguous indptr
+        slices, already row-sorted, so no global COO sort (the AMG setup's
+        P, R and Galerkin coarse operators arrive as CSR)."""
+        M = M.tocsr()
+        nrows = M.shape[0]
+        if row_offsets is None:
+            row_offsets = row_decomposition(nrows, 1)
+        row_offsets = np.asarray(row_offsets, np.int64)
+        parts = []
+        for p in range(len(row_offsets) - 1):
+            lo, hi = int(row_offsets[p]), int(row_offsets[p + 1])
+            s, e = M.indptr[lo], M.indptr[hi]
+            counts = np.diff(M.indptr[lo:hi + 1])
+            lr = np.repeat(np.arange(hi - lo, dtype=np.int64), counts)
+            parts.append((lr, M.indices[s:e].astype(np.int64), M.data[s:e]))
+        return ShardedMatrix.from_local_parts(
+            M.shape, parts, device=device, dtype=dtype,
+            row_offsets=row_offsets, col_offsets=col_offsets,
+            allow_bdia=allow_bdia, allow_bell=allow_bell)
 
     @staticmethod
     def from_local_parts(shape, parts, *, device, dtype=None,
                          row_offsets=None, col_offsets=None,
-                         allow_bdia: bool = True):
+                         allow_bdia: bool = True, allow_bell: bool = True):
         """Assemble from per-part (local_rows, global_cols, vals) triples,
         unique per (row, col), in any order."""
         nrows, ncols = shape
@@ -211,14 +324,16 @@ class ShardedMatrix:
                                np.asarray(v, dtype)))
         total_nnz = sum(dp[0].size for dp in diag_parts)
 
-        plan = None
-        if allow_bdia and total_nnz >= BDIA_MIN_NNZ:
-            plan = plan_bdia(diag_parts, row_pad, col_pad, itemsize,
-                             total_nnz, nparts)
+        kind, plan = choose_layout(diag_parts, row_pad, col_pad, itemsize,
+                                   total_nnz, nparts, allow_bdia, allow_bell)
         fields = {}
-        if plan is not None:
-            fields = _bdia_fields(diag_parts, plan, row_pad, col_pad, dtype,
-                                  device)
+        if kind != "ell":
+            if kind == "bdia":
+                fields = _bdia_fields(diag_parts, plan[:2], row_pad, col_pad,
+                                      dtype, device)
+            else:
+                fields = _bell_fields(diag_parts, plan[0], row_pad, col_pad,
+                                      dtype, device)
             dvals = torch.zeros((nparts, row_pad, 1), dtype=torch_dtype(dtype),
                                 device=device)
             dcols = torch.zeros((nparts, row_pad, 1), dtype=torch.int32,
@@ -236,16 +351,22 @@ class ShardedMatrix:
             dcols = materialize(idx, [c[2] for c in compacted],
                                 (row_pad, kd), np.int32, device)
 
+        # main diagonal: only where rows and columns share one partition
+        # (square operators; a rectangular P or R has none)
+        same_partition = np.array_equal(row_offsets, col_offsets)
         diag_main = np.zeros((nparts, row_pad), dtype)
         for p, (dlr, dlc, dv) in enumerate(diag_parts):
             diag_main[p, int(row_counts[p]):] = 1.0  # padded rows
-            if row_offsets[p] == col_offsets[p] and dlr.size:
+            if same_partition and row_offsets[p] == col_offsets[p] \
+                    and dlr.size:
                 on_diag = dlc == dlr
                 diag_main[p, dlr[on_diag]] += dv[on_diag]
         return ShardedMatrix(
             diag_vals=dvals, diag_cols=dcols,
             bdia_vals=fields.pop("bdia_vals", None),
             bdia_starts=fields.pop("bdia_starts", None),
+            bell_vals=fields.pop("bell_vals", None),
+            bell_ids=fields.pop("bell_ids", None),
             diag=to_tensor(diag_main, device),
             shape=(int(nrows), int(ncols)),
             row_offsets=tuple(int(o) for o in row_offsets),
@@ -256,18 +377,18 @@ class ShardedMatrix:
     def from_arrays(arrays: dict, meta: dict, device) -> "ShardedMatrix":
         """Build the port's matrix from ``tpusolve``'s ShardedMatrix fields
         fetched as numpy (``arrays``: ``bdia_vals``, ``bdia_starts``,
-        ``bdia_ovf_rows/cols/vals``, ``diag_vals``, ``diag_cols``, ``diag``;
-        ``meta``: ``shape``, ``row_offsets``, ``col_offsets``, ``row_pad``,
-        ``col_pad``, ``nnz``, ``bdia_block``, ``bdia_xpad``, ``bdia_xlen``,
-        ``has_offd``, ``uses_dia``, ``uses_bell``), so that both packages can
-        run on one identical layout.  The overflow list (the same entries)
-        is converted to the port's CSR form.  ``tpusolve``'s panel plan for its XL kernel is
-        not needed: the port's kernel reads x at any size."""
+        ``bdia_ovf_rows/cols/vals``, ``bell_vals``, ``bell_ids``,
+        ``diag_vals``, ``diag_cols``, ``diag``; ``meta``: ``shape``,
+        ``row_offsets``, ``col_offsets``, ``row_pad``, ``col_pad``, ``nnz``,
+        ``bdia_block``, ``bdia_xpad``, ``bdia_xlen``, ``bell_nwin``,
+        ``has_offd``, ``uses_dia``), so that both packages can run on one
+        identical layout.  The overflow list (the same entries) is converted
+        to the port's CSR form.  ``tpusolve``'s panel plan for its XL kernel
+        is not needed: the port's kernel reads x at any size."""
         require_single_part(len(meta["row_offsets"]) - 1)
-        if meta.get("has_offd") or meta.get("uses_dia") \
-                or meta.get("uses_bell"):
+        if meta.get("has_offd") or meta.get("uses_dia"):
             raise NotImplementedError(
-                "from_arrays: DIA, BELL and offd layouts are not ported yet")
+                "from_arrays: DIA and offd layouts are not ported yet")
         row_pad, col_pad = int(meta["row_pad"]), int(meta["col_pad"])
         ovf = {}
         if arrays.get("bdia_ovf_rows") is not None:
@@ -280,13 +401,14 @@ class ShardedMatrix:
         A = ShardedMatrix(
             diag_vals=t("diag_vals"), diag_cols=t("diag_cols"),
             bdia_vals=t("bdia_vals"), bdia_starts=t("bdia_starts"),
+            bell_vals=t("bell_vals"), bell_ids=t("bell_ids"),
             diag=t("diag"), shape=tuple(int(s) for s in meta["shape"]),
             row_offsets=tuple(int(o) for o in meta["row_offsets"]),
             col_offsets=tuple(int(o) for o in meta["col_offsets"]),
             row_pad=row_pad, col_pad=col_pad,
             nnz=int(meta["nnz"]), bdia_block=meta.get("bdia_block"),
             bdia_xpad=meta.get("bdia_xpad"), bdia_xlen=meta.get("bdia_xlen"),
-            **ovf)
+            bell_nwin=meta.get("bell_nwin"), **ovf)
         if A.uses_bdia:
             _check_windows(arrays["bdia_starts"], A.bdia_block, A.bdia_xlen)
         return A
@@ -297,7 +419,14 @@ class ShardedMatrix:
         import scipy.sparse as sp
         nr = self.row_offsets[1] - self.row_offsets[0]
         c0 = self.col_offsets[0]
-        if self.uses_bdia:
+        if self.uses_bell:
+            bv = self.bell_vals[0].cpu().numpy()        # (G, K, 8, 128)
+            bi = self.bell_ids[0].cpu().numpy()         # (G, K)
+            g_i, k_i, r_i, c_i = np.nonzero(bv)
+            lr = g_i * bell_mod.TM + r_i
+            lc = bi[g_i, k_i].astype(np.int64) * bell_mod.TN + c_i
+            vals = bv[g_i, k_i, r_i, c_i]
+        elif self.uses_bdia:
             bv = self.bdia_vals[0].cpu().numpy()        # (B, D, R)
             bs = self.bdia_starts[0].cpu().numpy()      # (B, D)
             R = self.bdia_block
@@ -334,7 +463,7 @@ class ShardedMatrix:
         cast = lambda a: a.to(dtype) if a is not None else None
         return dataclasses.replace(
             self, diag_vals=cast(self.diag_vals),
-            bdia_vals=cast(self.bdia_vals),
+            bdia_vals=cast(self.bdia_vals), bell_vals=cast(self.bell_vals),
             bdia_ovf_vals=cast(self.bdia_ovf_vals), diag=cast(self.diag))
 
 
@@ -370,6 +499,23 @@ def _bdia_fields(diag_parts, plan, row_pad, col_pad, dtype, device) -> dict:
         bdia_block=R, bdia_xpad=xpad, bdia_xlen=xlen)
     fields.update(_ovf_fields(ovf_parts, row_pad, col_pad, dtype, device))
     return fields
+
+
+def _bell_fields(diag_parts, bk, row_pad, col_pad, dtype, device) -> dict:
+    """BELL tensors and metadata for K = ``bk`` tiles per group."""
+    G = bell_mod._ngroups(row_pad)
+    ids = np.zeros((len(diag_parts), G, bk), np.int32)
+    b_idx, b_val = [], []
+    for p, (dlr, dlc, dv) in enumerate(diag_parts):
+        ids[p], fi, vo = bell_mod.bell_compact(dlr, dlc, dv, row_pad,
+                                               col_pad, bk, dtype=dtype)
+        b_idx.append(fi)
+        b_val.append(vo)
+    return dict(
+        bell_vals=materialize(b_idx, b_val, (G, bk, bell_mod.TM, bell_mod.TN),
+                              dtype, device),
+        bell_ids=to_tensor(ids, device),
+        bell_nwin=(col_pad + bell_mod.TN - 1) // bell_mod.TN)
 
 
 def _ovf_fields(ovf_parts, row_pad, col_pad, dtype, device) -> dict:

@@ -1,12 +1,12 @@
-"""SpMV for one part: BDIA (+ overflow) or padded ELL (the port of
+"""SpMV for one part: BDIA (+ overflow), BELL or padded ELL (the port of
 ``tpusolve/matrix/spmv.py``).
 
 The hot operation of every Krylov iteration and preconditioner sweep.  A
-BDIA diag block runs the hand-written kernel through ``kernels.bdia``, which
-also adds the spilled entries of its overflow list, each row its own.
-Multi-part operators (offd ELL block and halo exchange, ``tpusolve``'s
-``halo_exchange`` and ``_offd_add``) are not ported yet: ``ShardedMatrix``
-refuses to build them.
+BDIA diag block runs the hand-written kernel K4 through ``kernels.bdia``,
+which also adds the spilled entries of its overflow list, each row its own;
+a BELL diag block runs K6 through ``kernels.bell``.  Multi-part operators
+(offd ELL block and halo exchange, ``tpusolve``'s ``halo_exchange`` and
+``_offd_add``) are not ported yet: ``ShardedMatrix`` refuses to build them.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from tpusolve_torch.kernels.bdia import bdia_spmv
+from tpusolve_torch.kernels.bell import bell_spmv
 
 
 def ell_spmv_local(vals: torch.Tensor, cols: torch.Tensor,
@@ -30,4 +31,6 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     if A.uses_bdia:
         return bdia_spmv(A.bdia_vals, A.bdia_starts, x, A.bdia_xpad,
                          A.bdia_xlen, A.row_pad, A.bdia_ovf)
+    if A.uses_bell:
+        return bell_spmv(A.bell_vals, A.bell_ids, x, A.bell_nwin, A.row_pad)
     return ell_spmv_local(A.diag_vals[0], A.diag_cols[0], x)
