@@ -9,31 +9,37 @@ toolkit (nvcc) and PyTorch built for CUDA:
 1. prints the card's name and power limit, and the PyYAML version;
 2. builds every kernel of ``tpusolve_torch/csrc`` (one nvcc per source, all
    at once) and prints the seconds;
-3. holds the BDIA SpMV kernel K4, overflow list included, and the BELL SpMV
-   kernel K6 against their plain PyTorch versions, in float32 and float64;
+3. holds the BDIA SpMV kernels K4 and K5, overflow list included, and the
+   BELL SpMV kernel K6 against their plain PyTorch versions, in float32 and
+   float64, and K5 against K4 bit for bit, once on an x that is not 16-byte
+   aligned;
 4. gate 4: writes the momentum fixture at N^3 rows (``--side``, default
    96^3 = 884,736 rows, 23.4M nonzeros) and runs it through the port's CLI
-   (``tpusolve_torch.harness.cli.main``): HYPRE-IJ files, RCM, BDIA
-   assembly in f64 with an f32 twin, Chow-Patel ILU(0), BiCGSTAB in f32
-   inside f64 iterative refinement, golden check; then times K4 against
-   its plain version at the four operator shapes of that run (A, A_lo, L,
-   U);
+   (``tpusolve_torch.harness.cli.main``): HYPRE-IJ files read by the native
+   parser, RCM, BDIA assembly in f64 with an f32 twin, Chow-Patel ILU(0)
+   whose factors take BDIA-XL (K5), BiCGSTAB in f32 inside f64 iterative
+   refinement, golden check (at 96^3 exactly the port's 54 iterations);
+   then at the four operator shapes of that run (A, A_lo, L, U) times K4,
+   K5 where a step plan fits, the plain version, the library's CSR SpMV
+   (``torch.sparse``) and the bound;
 5. gate 3: writes the pressure fixture at N^3 rows (``--side3``, default
    64^3 = 262,144 rows, 6.86M nonzeros) and runs it through the CLI:
    MatrixMarket files, RCM, BoomerAMG host setup (PMIS, extended+i,
    l1-Jacobi) with BDIA, BELL and ELL levels, GMRES(20) in f64, golden
    check; prints each level's layout, then at every BELL level times K6,
-   its plain version, K4 on the BDIA layout of the same operator and the
-   plain ELL SpMV, against the layout model's prediction;
-6. measures the constants of the layout model (``kernels/calibrate.py``)
+   its plain version, K4 on the BDIA layout of the same operator, the plain
+   ELL SpMV and the library's SpMV, against the layout model's prediction
+   and K6's bound;
+6. measures the constants of the time model (``kernels/calibrate.py``)
    beside the ones in the code.
 
 Each path's kernel launches are counted from 0 just before its CLI run and
-read just after; a path that launched none of its kernels fails.  The
-second-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero before those lines, as does a machine without CUDA or a directory
-without the ``tpusolve_torch`` package.
+read just after; a path that launched none of its kernels fails, and gate
+4 fails unless K5 ran and L and U are BDIA-XL.  The second-to-last line is
+a JSON object with one entry per kernel (launches, times, plain, library
+and bound); the last line is ``{"ok": true, "device": {...}}``.  Any failure
+raises and exits non-zero before those lines, as does a machine without
+CUDA or a directory without the ``tpusolve_torch`` package.
 """
 
 from __future__ import annotations
@@ -50,8 +56,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # (slot order in the kernel, torch's reduction in the plain version)
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 # tpusolve on CPU, gate-4 fixture 96^3, precision mixed: BiCGSTAB
-# iterations summed over the refinement passes
+# iterations summed over the refinement passes; the port's count on the
+# card (31 + 23), the same whether BDIA runs K4 or K5 (equal bit for bit)
 TPUSOLVE_ITERS_96 = 56
+PORT_ITERS_96 = 54
 # tpusolve on CPU, gate-3 fixture 64^3, precision double: GMRES iterations
 TPUSOLVE_GATE3_ITERS_64 = 12
 
@@ -75,14 +83,17 @@ def rel_err(y, y_ref) -> float:
     return float((y - y_ref).abs().max()) / (scale if scale > 0 else 1.0)
 
 
-def banded_check(device) -> float:
-    """K4 against its plain version on a banded matrix whose clipped
-    boundary blocks spill to the overflow list; the whole SpMV against
-    scipy.  Returns the largest relative error seen."""
+def banded_check(device) -> tuple:
+    """K4 and K5 against their plain versions on a banded matrix whose
+    clipped boundary blocks spill to the overflow list, K5 against K4 bit
+    for bit (also on an x that is not 16-byte aligned), and the whole SpMV
+    against scipy.  Returns the largest relative error of K4 and of K5."""
     import numpy as np
     import scipy.sparse as sp
     import torch
-    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_plain
+    from tpusolve_torch.kernels.bdia import (
+        bdia_spmv, bdia_spmv_plain, bdia_spmv_xl, bdia_spmv_xl_plain)
+    from tpusolve_torch.matrix import sharded
     from tpusolve_torch.matrix.sharded import ShardedMatrix
     from tpusolve_torch.matrix.spmv import spmv
 
@@ -97,7 +108,7 @@ def banded_check(device) -> float:
     rows, cols = key // n, key % n
     vals = rng.standard_normal(rows.size)
     S = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
-    worst = 0.0
+    worst4 = worst5 = 0.0
     for dtype in (np.float32, np.float64):
         A = ShardedMatrix.from_coo((n, n), rows, cols, vals, device=device,
                                    dtype=dtype)
@@ -106,7 +117,8 @@ def banded_check(device) -> float:
         x = torch.tensor(rng.standard_normal(n), dtype=A.dtype, device=device)
         args = (A.bdia_vals, A.bdia_starts, x, A.bdia_xpad, A.bdia_xlen,
                 A.row_pad, A.bdia_ovf)
-        err = rel_err(bdia_spmv(*args), bdia_spmv_plain(*args))
+        y4 = bdia_spmv(*args)
+        err = rel_err(y4, bdia_spmv_plain(*args))
         y = spmv(A, x).double().cpu().numpy()
         y_ref = S.astype(dtype) @ x.cpu().numpy()
         err_sp = float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
@@ -116,8 +128,37 @@ def banded_check(device) -> float:
               f"{err_sp:.3e}", flush=True)
         if not err <= RTOL[name] or not err_sp <= 10 * RTOL[name]:
             fail(f"banded check {name} out of tolerance")
-        worst = max(worst, err)
-    return worst
+        worst4 = max(worst4, err)
+        # K5 on the same layout, on the step plan the model prices best
+        # (whether or not it would beat K4 there)
+        _, B, D, R = A.bdia_vals.shape
+        itemsize = A.bdia_vals.element_size()
+        plan = sharded.plan_xl(A.bdia_starts.cpu().numpy(), R, A.bdia_xpad,
+                               itemsize, sharded.bdia_bytes(
+                                   B, D, R, int(A.bdia_ovf_ptr[0, -1]),
+                                   itemsize))
+        if plan is None:
+            fail("banded check: no K5 step plan fits")
+        gb, step_lo, panel = plan[0], torch.tensor(plan[1], device=device), \
+            plan[2]
+        xargs = (A.bdia_vals, A.bdia_starts, x, A.bdia_xpad, A.row_pad, gb,
+                 step_lo, panel, A.bdia_ovf)
+        y5 = bdia_spmv_xl(*xargs)
+        err5 = rel_err(y5, bdia_spmv_xl_plain(*xargs))
+        buf = torch.empty(n + 1, dtype=A.dtype, device=device)
+        buf[1:] = x
+        y5u = bdia_spmv_xl(A.bdia_vals, A.bdia_starts, buf[1:], A.bdia_xpad,
+                           A.row_pad, gb, step_lo, panel, A.bdia_ovf)
+        same, same_u = bool(torch.equal(y5, y4)), bool(torch.equal(y5u, y4))
+        print(f"K5 banded n={n} {name} gb={gb} panel={panel} steps="
+              f"{step_lo.shape[1]}: kernel vs plain rel err {err5:.3e} "
+              f"(limit {RTOL[name]:.0e}); equal to K4: {same}; on an x at "
+              f"a 16-byte misalignment ({buf[1:].data_ptr() % 16} bytes off "
+              f"16): equal to K4: {same_u}", flush=True)
+        if not err5 <= RTOL[name] or not (same and same_u):
+            fail(f"banded check: K5 {name} out of tolerance or not K4's")
+        worst5 = max(worst5, err5)
+    return worst4, worst5
 
 
 def bell_check(device) -> float:
@@ -163,55 +204,125 @@ def bell_check(device) -> float:
     return worst
 
 
-def operator_timings(system, device_name: str):
-    """Kernel against plain at the four operator shapes of the main path's
-    run; returns one row per operator."""
+def library_spmv(M):
+    """(call, x) of the PyTorch library's SpMV on operator ``M``: a CSR
+    ``torch.sparse`` matvec (cuSPARSE) in M's dtype; the port never calls
+    it.  ``x`` has M's unpadded width."""
+    import torch
+    H = M.to_scipy().tocsr()
+    dev = M.device
+    csr = torch.sparse_csr_tensor(
+        torch.tensor(H.indptr, dtype=torch.int64, device=dev),
+        torch.tensor(H.indices, dtype=torch.int64, device=dev),
+        torch.tensor(H.data, dtype=M.dtype, device=dev), size=H.shape)
+    x = torch.zeros(H.shape[1], dtype=M.dtype, device=dev)
+    return (lambda: csr @ x), x
+
+
+def bound_ms(nbytes: int, device_name: str) -> float:
+    """The least time the card could take to move ``nbytes``: over its
+    published HBM rate (``runtime.hbm_gbps``)."""
+    from tpusolve_torch.runtime import hbm_gbps
+    gbps = hbm_gbps(device_name)
+    if gbps is None:
+        fail(f"no published HBM rate for {device_name}")
+    return nbytes / (gbps * 1e9) * 1e3
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bdia_timings(ops, device_name: str, seed: int):
+    """At each (name, BDIA operator) of ``ops``: the layout; K4, and K5
+    where a step plan fits (the operator's own, else the model's best),
+    each against its plain version, K5 against K4 bit for bit; the
+    library's SpMV; the bound.  Returns one row per operator."""
     import numpy as np
     import torch
-    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_plain
+    from tpusolve_torch.kernels.bdia import (
+        bdia_spmv, bdia_spmv_plain, bdia_spmv_xl, bdia_spmv_xl_plain)
     from tpusolve_torch.kernels.calibrate import time_ms
-    from tpusolve_torch.runtime import hbm_gbps
+    from tpusolve_torch.matrix import sharded
+    from tpusolve_torch.runtime import SM_COUNT
 
-    pre = system._precond
-    ops = (("A", system.A), ("A_lo", system.A_lo), ("L", pre.L),
-           ("U", pre.U))
-    peak = hbm_gbps(device_name)
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(seed)
     rows = []
     for name, M in ops:
         if not M.uses_bdia:
             fail(f"operator {name} is not BDIA ({M.layout})")
+        dt = str(M.dtype).replace("torch.", "")
+        _, B, D, R = M.bdia_vals.shape
+        itemsize = M.bdia_vals.element_size()
         x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
                          device=M.device)
         args = (M.bdia_vals, M.bdia_starts, x, M.bdia_xpad, M.bdia_xlen,
                 M.row_pad, M.bdia_ovf)
-        err = rel_err(bdia_spmv(*args), bdia_spmv_plain(*args))
-        abs_err = float((bdia_spmv(*args) - bdia_spmv_plain(*args))
-                        .abs().max())
-        dt = str(M.dtype).replace("torch.", "")
-        if not err <= RTOL[dt]:
-            fail(f"{name}: kernel vs plain rel err {err:.3e} > {RTOL[dt]}")
-        # alternate plain, kernel, kernel, plain on the same card
-        p1 = time_ms(lambda: bdia_spmv_plain(*args))
-        k1 = time_ms(lambda: bdia_spmv(*args))
-        k2 = time_ms(lambda: bdia_spmv(*args))
-        p2 = time_ms(lambda: bdia_spmv_plain(*args))
-        ms, plain_ms = min(k1, k2), min(p1, p2)
-        _, B, D, R = M.bdia_vals.shape
-        # the matrix's bytes: slot values, then the overflow list's row
-        # pointer, columns and values
-        stream = sum(t.numel() * t.element_size()
-                     for t in (M.bdia_vals,) + (M.bdia_ovf or ()))
-        gbps = stream / (ms * 1e-3) / 1e9
-        share = f"{gbps / peak:.3f}" if peak else "not known"
-        print(f"K4 {name:5s} {dt} B={B} D={D} R={R}: kernel {ms:.4f} ms "
-              f"(runs {k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
-              f"(runs {p1:.4f}, {p2:.4f}); matrix stream {stream / 1e6:.1f} "
-              f"MB -> {gbps:.1f} GB/s, share of HBM peak {share} "
-              f"({M.layout}); rel err {err:.3e}", flush=True)
-        rows.append(dict(op=name, dtype=dt, B=B, D=D, R=R, ms=ms,
-                         plain_ms=plain_ms, max_abs_err=abs_err,
-                         rel_err=err))
+        y4 = bdia_spmv(*args)
+        y4p = bdia_spmv_plain(*args)
+        err4 = rel_err(y4, y4p)
+        if not err4 <= RTOL[dt]:
+            fail(f"{name}: K4 vs plain rel err {err4:.3e} > {RTOL[dt]}")
+        k = int(M.bdia_ovf_ptr[0, -1]) if M.bdia_ovf_ptr is not None else 0
+        nbytes = sharded.bdia_bytes(B, D, R, k, itemsize)
+        model4 = 1e3 * sharded.band_model_s("bdia", itemsize, nbytes, B,
+                                            SM_COUNT)
+        plan = sharded.plan_xl(M.bdia_starts.cpu().numpy(), R, M.bdia_xpad,
+                               itemsize, nbytes)
+        model5 = None if plan is None else 1e3 * plan[3]
+        if M.uses_bdia_xl:
+            plan = (M.bdia_gb, M.bdia_step_lo, M.bdia_panel)
+        elif plan is not None:
+            plan = (plan[0], torch.tensor(plan[1], device=M.device), plan[2])
+        xargs = None if plan is None else (
+            M.bdia_vals, M.bdia_starts, x, M.bdia_xpad, M.row_pad, *plan,
+            M.bdia_ovf)
+        lib_call, xlib = library_spmv(M)
+        xlib.copy_(x[:xlib.numel()])
+        err_lib = rel_err(lib_call(), y4p[:xlib.numel()])
+        row = dict(op=name, dtype=dt, layout=M.layout, B=B, D=D, R=R,
+                   overflow=k, rel_err=err4, max_abs_err=float(
+                       (y4 - y4p).abs().max()), lib_rel_err=err_lib,
+                   model_k4_ms=model4, model_k5_ms=model5)
+        if xargs is not None:
+            y5 = bdia_spmv_xl(*xargs)
+            y5p = bdia_spmv_xl_plain(*xargs)
+            err5 = rel_err(y5, y5p)
+            if not err5 <= RTOL[dt] or not torch.equal(y5, y4):
+                fail(f"{name}: K5 vs plain rel err {err5:.3e} or not equal "
+                     "to K4")
+            row.update(gb=plan[0], panel=plan[2], steps=plan[1].shape[1],
+                       xl_rel_err=err5, xl_max_abs_err=float(
+                           (y5 - y5p).abs().max()))
+        # alternate plain, kernels, library, kernels, plain on the card
+        plain = (lambda: bdia_spmv_xl_plain(*xargs)) if M.uses_bdia_xl \
+            else (lambda: bdia_spmv_plain(*args))
+        calls = [("plain", plain), ("k4", lambda: bdia_spmv(*args))]
+        if xargs is not None:
+            calls.append(("k5", lambda: bdia_spmv_xl(*xargs)))
+        calls.append(("lib", lib_call))
+        runs = {key: [] for key, _ in calls}
+        for key, call in calls + calls[::-1]:
+            runs[key].append(time_ms(call))
+        for key, ts in runs.items():
+            row[key + "_ms"] = min(ts)
+            row[key + "_runs"] = ts
+        row["bound_ms"] = bound_ms(nbytes_of(
+            M.bdia_vals, M.bdia_starts, *(M.bdia_ovf or ()), x, y4),
+            device_name)
+        row["ms"] = row["k5_ms" if M.uses_bdia_xl else "k4_ms"]
+        k5 = (f"K5 gb={row['gb']} panel={row['panel']} {row['k5_ms']:.5f} "
+              f"ms (runs {row['k5_runs'][0]:.5f}, {row['k5_runs'][1]:.5f}; "
+              f"model {model5:.5f}), rel err {row['xl_rel_err']:.3e}, equal "
+              f"to K4; " if xargs is not None else "K5: no step plan fits; ")
+        print(f"{name} {dt} {M.layout}: K4 {row['k4_ms']:.5f} ms (runs "
+              f"{row['k4_runs'][0]:.5f}, {row['k4_runs'][1]:.5f}; model "
+              f"{model4:.5f}), rel err "
+              f"{err4:.3e}; {k5}plain {row['plain_ms']:.5f} ms; library "
+              f"(torch.sparse CSR) {row['lib_ms']:.5f} ms (rel err "
+              f"{err_lib:.1e}); bound {row['bound_ms']:.5f} ms", flush=True)
+        rows.append(row)
     return rows
 
 
@@ -247,7 +358,7 @@ def check_solve(system, rc: int, what: str):
 
 
 def gate4_phase(side: int, device_name: str, counters):
-    """The gate-4 path; returns (launches, K4 timing rows)."""
+    """The gate-4 path; returns (launches, K4/K5 timing rows)."""
     from tpusolve_torch import fixtures
     work = os.path.join(REPO, "build", f"gate4_{side}")
     shutil.rmtree(work, ignore_errors=True)
@@ -262,8 +373,17 @@ def gate4_phase(side: int, device_name: str, counters):
     print(f"gate-4 path: cli exit {rc}, {wall:.1f} s wall, launches "
           f"{launches}", flush=True)
     res = check_solve(system, rc, "gate-4")
+    pre = system._precond
+    print(f"gate-4 layouts: A {system.A.layout}; A_lo {system.A_lo.layout}; "
+          f"L {pre.L.layout}; U {pre.U.layout}", flush=True)
     if launches["bdia_spmv"] <= 0:
-        fail("the gate-4 path launched no BDIA kernel")
+        fail("the gate-4 path launched no K4 (bdia_spmv)")
+    # the factors take BDIA-XL from 62^3 (tests/test_torch_bdia_xl.py)
+    if side >= 62 and launches["bdia_spmv_xl"] <= 0:
+        fail("the gate-4 path launched no K5 (bdia_spmv_xl)")
+    if side >= 62 and not (pre.L.layout.startswith("BDIA-XL")
+                           and pre.U.layout.startswith("BDIA-XL")):
+        fail("the ILU factors L and U are not BDIA-XL")
     passes = res.passes or []
     print(f"gate-4 {side}^3: {res.iters} BiCGSTAB iterations over "
           f"{len(passes)} refinement passes {passes}, relres "
@@ -275,16 +395,20 @@ def gate4_phase(side: int, device_name: str, counters):
         print(f"iterations: port {res.iters}, tpusolve (CPU, same fixture) "
               f"{TPUSOLVE_ITERS_96}: gap {gap:+d} over {len(passes)} passes, "
               f"{verdict}", flush=True)
-    rows = operator_timings(system, device_name)
+        if res.iters != PORT_ITERS_96:
+            fail(f"gate-4 took {res.iters} iterations, not the port's "
+                 f"{PORT_ITERS_96}")
+    rows = bdia_timings((("A", system.A), ("A_lo", system.A_lo),
+                         ("L", pre.L), ("U", pre.U)), device_name, 9)
     system.destroy_system()
     return launches, rows
 
 
-def bell_level_timings(pre) -> list:
+def bell_level_timings(pre, device_name: str) -> list:
     """At every BELL level of the hierarchy: K6 against its plain version,
-    K4 on the BDIA layout of the same operator, and the plain ELL SpMV;
-    with the layout model's prediction for K6 and K4.  Returns one row per
-    level."""
+    K4 on the BDIA layout of the same operator, the plain ELL SpMV and the
+    library's SpMV; the layout model's prediction for K6 and K4, and K6's
+    bound.  Returns one row per level."""
     import numpy as np
     import torch
     from tpusolve_torch.kernels.bdia import bdia_spmv
@@ -328,11 +452,16 @@ def bell_level_timings(pre) -> list:
             fail(f"level {i}: K4 or ELL against K6's plain version "
                  f"{max(err_b, err_e):.3e} > {RTOL[dt]}")
         # alternate plain, kernel, kernel, plain on the same card
+        lib_call, xlib = library_spmv(M)
+        xlib.copy_(x[:xlib.numel()])
+        err_lib = rel_err(lib_call(), y_plain[:xlib.numel()])
         p1 = time_ms(lambda: bell_spmv_plain(*args))
         k1 = time_ms(lambda: bell_spmv(*args))
         b1 = time_ms(lambda: bdia_spmv(*bargs))
         ell = lambda: ell_spmv_local(Me.diag_vals[0], Me.diag_cols[0], x)
         e1 = time_ms(ell)
+        l1 = time_ms(lib_call)
+        l2 = time_ms(lib_call)
         e2 = time_ms(ell)
         b2 = time_ms(lambda: bdia_spmv(*bargs))
         k2 = time_ms(lambda: bell_spmv(*args))
@@ -344,12 +473,16 @@ def bell_level_timings(pre) -> list:
             Mb.bdia_ovf_ptr[0, -1]) if Mb.bdia_ovf_ptr is not None else 0,
             itemsize)
         model_k6 = 1e3 * sharded.spmv_model_s(
-            "bell", bell_bytes, sharded.bell_threads(G))
+            sharded.SPMV_MODEL["bell"], bell_bytes, sharded.bell_threads(G))
         model_k4 = 1e3 * sharded.spmv_model_s(
-            "bdia", bdia_bytes, sharded.bdia_threads(B, R))
+            sharded.SPMV_MODEL["bdia"], bdia_bytes,
+            sharded.bdia_threads(B, R))
         row = dict(level=i, dtype=dt, rows=M.shape[0], nnz=M.nnz, G=G, K=K,
                    B=B, D=D, R=R, ms=min(k1, k2), plain_ms=min(p1, p2),
                    k4_ms=min(b1, b2), ell_ms=min(e1, e2),
+                   library_ms=min(l1, l2), lib_rel_err=err_lib,
+                   bound_ms=bound_ms(nbytes_of(M.bell_vals, M.bell_ids, x,
+                                               y_plain), device_name),
                    model_k6_ms=model_k6, model_k4_ms=model_k4,
                    bell_mb=bell_bytes / 1e6, bdia_mb=bdia_bytes / 1e6,
                    max_abs_err=abs_err, rel_err=err)
@@ -361,15 +494,19 @@ def bell_level_timings(pre) -> list:
               f"BDIA B={B} D={D} R={R} {bdia_bytes / 1e6:.2f} MB: "
               f"{row['k4_ms']:.5f} ms (runs {b1:.5f}, {b2:.5f}; model "
               f"{model_k4:.5f}); plain ELL K={Me.diag_vals.shape[-1]} "
-              f"{row['ell_ms']:.5f} ms (runs {e1:.5f}, {e2:.5f}); layout "
-              f"model {'agrees' if agree else 'DISAGREES'} with the "
-              f"measurement; K6 rel err {err:.3e}", flush=True)
+              f"{row['ell_ms']:.5f} ms (runs {e1:.5f}, {e2:.5f}); library "
+              f"(torch.sparse CSR) {row['library_ms']:.5f} ms (runs "
+              f"{l1:.5f}, {l2:.5f}; rel err {err_lib:.1e}); K6 bound "
+              f"{row['bound_ms']:.5f} ms; layout model "
+              f"{'agrees' if agree else 'DISAGREES'} with the measurement; "
+              f"K6 rel err {err:.3e}", flush=True)
         rows.append(row)
     return rows
 
 
-def gate3_phase(side: int, counters):
-    """The gate-3 path; returns (launches, K6 timing rows)."""
+def gate3_phase(side: int, device_name: str, counters):
+    """The gate-3 path; returns (launches, K6 timing rows, K4/K5 timing
+    rows of the BDIA levels)."""
     from tpusolve_torch import fixtures
     work = os.path.join(REPO, "build", f"gate3_{side}")
     shutil.rmtree(work, ignore_errors=True)
@@ -397,11 +534,14 @@ def gate3_phase(side: int, counters):
         if res.iters != TPUSOLVE_GATE3_ITERS_64:
             fail(f"gate-3 took {res.iters} GMRES iterations, tpusolve "
                  f"{TPUSOLVE_GATE3_ITERS_64}")
-    rows = bell_level_timings(pre)
+    rows = bell_level_timings(pre, device_name)
     if not rows:
         fail("the gate-3 hierarchy has no BELL level")
+    bdia_rows = bdia_timings([(f"level {i}", lev.A)
+                              for i, lev in enumerate(pre.levels)
+                              if lev.A.uses_bdia], device_name, 11)
     system.destroy_system()
-    return launches, rows
+    return launches, rows, bdia_rows
 
 
 def model_constants():
@@ -410,11 +550,18 @@ def model_constants():
     from tpusolve_torch.matrix import sharded
     got = calibrate.measure(log=lambda s: print(f"calibrate {s}",
                                                 flush=True))
-    for k in ("bdia", "bell"):
-        print(f"layout model {k}: rate {got['rate'][k] / 1e12:.3f} TB/s "
-              f"(code {sharded.SPMV_RATE[k] / 1e12:.3f}), threads_full "
-              f"{got['threads_full'][k]:.0f} (code "
-              f"{sharded.SPMV_THREADS_FULL[k]})", flush=True)
+    for k, by_size in got["rate"].items():
+        for size, rate in sorted(by_size.items()):
+            if k in sharded.SPMV_MODEL:
+                code = sharded.SPMV_MODEL[k]
+                print(f"layout model {k} f{8 * size}: rate "
+                      f"{rate / 1e12:.3f} TB/s (code {code[0] / 1e12:.3f}), "
+                      f"threads_full {got['threads_full'][k][size]:.0f} "
+                      f"(code {code[1]})", flush=True)
+            else:
+                code = sharded.BAND_RATE[k.replace("_band", ""), size]
+                print(f"band model {k} f{8 * size}: rate {rate / 1e12:.3f} "
+                      f"TB/s (code {code / 1e12:.3f})", flush=True)
     return got
 
 
@@ -441,7 +588,7 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, REPO)
     from tpusolve_torch.kernels import build
-    from tpusolve_torch.kernels.bdia import bdia_spmv
+    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
     from tpusolve_torch.kernels.bell import bell_spmv
 
     card = card_line()
@@ -454,37 +601,56 @@ def main(argv) -> int:
     print(f"PyYAML {yaml.__version__}", flush=True)
 
     print(f"kernel build: {build.build_all():.3f} s", flush=True)
-    worst4 = banded_check(device)
+    worst4, worst5 = banded_check(device)
     worst6 = bell_check(device)
 
-    counters = (bdia_spmv, bell_spmv)
+    counters = (bdia_spmv, bdia_spmv_xl, bell_spmv)
     l4, rows4 = gate4_phase(sides["--side"], device_name, counters)
-    l3, rows3 = gate3_phase(sides["--side3"], counters)
-    if l3["bdia_spmv"] <= 0:
+    l3, rows3, bdia_rows3 = gate3_phase(sides["--side3"], device_name,
+                                        counters)
+    if l3["bdia_spmv"] + l3["bdia_spmv_xl"] <= 0:
         fail("the gate-3 path launched no BDIA kernel")
     model_constants()
 
-    lo = next(r for r in rows4 if r["op"] == "A_lo")
+    def launches(name):
+        return dict(launches=l4[name] + l3[name],
+                    launches_by_path={"gate4": l4[name], "gate3": l3[name]})
+
+    # headline shapes: K4 on A_lo (or A), K5 on L, K6 on the largest BELL
+    k4 = next(r for r in sorted(rows4, key=lambda r: r["op"] != "A_lo")
+              if not r["layout"].startswith("BDIA-XL"))
+    k5 = next(r for r in rows4 if r["op"] == "L")
     k6 = max(rows3, key=lambda r: r["G"] * r["K"])
     kernels = [
         dict(name="bdia_spmv", route="cuda",
              source="tpusolve_torch/csrc/bdia_spmv.cu",
-             replaces="tpusolve/kernels/bdia.py:252",
-             launches=l4["bdia_spmv"] + l3["bdia_spmv"],
-             launches_by_path={"gate4": l4["bdia_spmv"],
-                               "gate3": l3["bdia_spmv"]},
-             max_abs_err=max(r["max_abs_err"] for r in rows4),
-             ms=lo["ms"], plain_ms=lo["plain_ms"],
-             max_rel_err=max([worst4] + [r["rel_err"] for r in rows4]),
-             shapes=rows4),
+             replaces="tpusolve/kernels/bdia.py:252", **launches("bdia_spmv"),
+             max_abs_err=max(r["max_abs_err"] for r in rows4 + bdia_rows3),
+             ms=k4["k4_ms"], plain_ms=k4["plain_ms"],
+             bound_ms=k4["bound_ms"], bound_by="bytes",
+             library_ms=k4["lib_ms"], shape=k4["op"],
+             max_rel_err=max([worst4] + [r["rel_err"]
+                                         for r in rows4 + bdia_rows3]),
+             shapes=rows4 + bdia_rows3),
+        dict(name="bdia_spmv_xl", route="cuda",
+             source="tpusolve_torch/csrc/bdia_spmv_xl.cu",
+             replaces="tpusolve/kernels/bdia.py:336",
+             **launches("bdia_spmv_xl"),
+             max_abs_err=max(r["xl_max_abs_err"] for r in rows4 + bdia_rows3
+                             if "xl_max_abs_err" in r),
+             ms=k5["k5_ms"], plain_ms=k5["plain_ms"],
+             bound_ms=k5["bound_ms"], bound_by="bytes",
+             library_ms=k5["lib_ms"], shape=k5["op"],
+             max_rel_err=max([worst5] + [r["xl_rel_err"]
+                                         for r in rows4 + bdia_rows3
+                                         if "xl_rel_err" in r])),
         dict(name="bell_spmv", route="cuda",
              source="tpusolve_torch/csrc/bell_spmv.cu",
-             replaces="tpusolve/kernels/bell.py:159",
-             launches=l4["bell_spmv"] + l3["bell_spmv"],
-             launches_by_path={"gate4": l4["bell_spmv"],
-                               "gate3": l3["bell_spmv"]},
+             replaces="tpusolve/kernels/bell.py:159", **launches("bell_spmv"),
              max_abs_err=max(r["max_abs_err"] for r in rows3),
              ms=k6["ms"], plain_ms=k6["plain_ms"],
+             bound_ms=k6["bound_ms"], bound_by="bytes",
+             library_ms=k6["library_ms"], shape=f"level {k6['level']}",
              max_rel_err=max([worst6] + [r["rel_err"] for r in rows3]),
              shapes=rows3)]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,18 +13,20 @@ Vector file layout (ref reader: src/HypreSystem.cpp:1252-1318)::
     ilower iupper
     row value
 
-Bodies are parsed with ``numpy.loadtxt``; ``tpusolve``'s native parser and
-its per-host ``row_range`` filter are not carried (one process reads every
-file).  Writers produce the same text as ``tpusolve``'s, formatted a chunk of
-lines at a time.
+Bodies are parsed by the native parser ``formats/fastio.py`` (the copy of
+``tpusolve``'s ``native/fastio.cpp``) on every device, with no fallback;
+``tpusolve``'s per-host ``row_range`` filter is not carried (one process
+reads every file).  Writers produce the same text as ``tpusolve``'s,
+formatted a chunk of lines at a time.
 """
 
 from __future__ import annotations
 
-import io
 import os
 
 import numpy as np
+
+from tpusolve_torch.formats import fastio
 
 _CHUNK = 1 << 16   # lines formatted per write
 
@@ -50,26 +52,25 @@ def num_global_rows(prefix: str, nfiles: int) -> int:
     return imax - imin + 1
 
 
-def _read_body(fh, ncols: int):
-    body = fh.read()
-    if not body.strip():
-        return np.zeros((0, ncols))
-    return np.loadtxt(io.StringIO(body), dtype=np.float64, ndmin=2)
+def _read_part(path: str, what: str) -> bytes:
+    """A part file's bytes (header included)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"Cannot open {what} file: {path}")
+    with open(path, "rb") as fh:
+        return fh.read()
 
 
 def read_matrix(prefix: str, nfiles: int):
     """Read all partitions -> COO (rows, cols, vals)."""
     all_r, all_c, all_v = [], [], []
     for p in range(nfiles):
-        path = part_path(prefix, p)
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"Cannot open matrix file: {path}")
-        with open(path) as fh:
-            fh.readline()                   # ilower iupper jlower jupper
-            raw = _read_body(fh, 3)
-        all_r.append(raw[:, 0].astype(np.int64))
-        all_c.append(raw[:, 1].astype(np.int64))
-        all_v.append(raw[:, 2])
+        data = _read_part(part_path(prefix, p), "matrix")
+        # skip the header: ilower iupper jlower jupper
+        r, c, v, _ = fastio.parse_triplets(data, 1, 3,
+                                           fastio.max_lines(data))
+        all_r.append(r)
+        all_c.append(c)
+        all_v.append(v)
     if not all_r:
         return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                 np.zeros(0, np.float64))
@@ -81,14 +82,11 @@ def read_vector(prefix: str, nfiles: int):
     """Read all vector partitions -> (indices, values)."""
     all_i, all_v = [], []
     for p in range(nfiles):
-        path = part_path(prefix, p)
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"Cannot open vector file: {path}")
-        with open(path) as fh:
-            fh.readline()                   # ilower iupper
-            raw = _read_body(fh, 2)
-        all_i.append(raw[:, 0].astype(np.int64))
-        all_v.append(raw[:, 1])
+        data = _read_part(part_path(prefix, p), "vector")
+        # skip the header: ilower iupper
+        i, v = fastio.parse_pairs(data, 1, fastio.max_lines(data))
+        all_i.append(i)
+        all_v.append(v)
     if not all_i:
         return np.zeros(0, np.int64), np.zeros(0, np.float64)
     return np.concatenate(all_i), np.concatenate(all_v)

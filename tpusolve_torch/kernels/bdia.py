@@ -19,12 +19,23 @@ pointer, ``cols`` (P, k) int32 columns of the unpadded x, ``vals`` (P, k).
 Row i then adds ``sum_j vals[j] * x[cols[j]]`` over ``j`` in
 ``[ptr[i], ptr[i + 1])``.
 
-The host planners (``plan_fill_profile``, ``compact``, ``finalize_starts``)
-are numpy copies of ``tpusolve/kernels/bdia.py`` so that both packages lay
-out a matrix identically.  ``bdia_spmv`` launches the hand-written Hopper
-kernel ``csrc/bdia_spmv.cu`` (the port of ``tpusolve``'s Pallas
-``_bdia_kernel``) on CUDA tensors and runs ``bdia_spmv_plain`` on CPU
-tensors.
+The host planners (``plan_fill_profile``, ``compact``, ``finalize_starts``,
+``plan_panels``) are numpy copies of ``tpusolve/kernels/bdia.py`` so that
+both packages lay out a matrix identically.  ``bdia_spmv`` launches the
+hand-written Hopper kernel K4, ``csrc/bdia_spmv.cu`` (the port of
+``tpusolve``'s Pallas ``_bdia_kernel``), on CUDA tensors and runs
+``bdia_spmv_plain`` on CPU tensors.
+
+**Panel steps (BDIA-XL).**  ``bdia_spmv_xl`` computes the same function with
+K5, ``csrc/bdia_spmv_xl.cu`` (the port of ``_bdia_kernel_xl``): one thread
+block per *step* of ``gb`` consecutive R-row blocks copies the step's x
+panel, every x entry its windows read, into shared memory, and reads the
+windows from there.  ``plan_steps`` is the port's own step plan: ``gb``,
+each step's panel start ``step_lo`` (P, nsteps) int32 in the unpadded x
+(negative where the panel begins before x; entries outside ``[0, col_pad)``
+read as 0), and one panel length for all steps, in elements.  Starts and
+lengths are multiples of ``XL_ALIGN`` elements, so the kernel's bulk copy
+moves whole 16-byte units in f32 and f64 alike.
 """
 
 from __future__ import annotations
@@ -35,9 +46,25 @@ import functools
 import numpy as np
 import torch
 
+from tpusolve_torch import runtime
 from tpusolve_torch.kernels import build
 
 BLOCK_SIZES = (2048, 1024, 512, 256, 128)  # candidate R values
+
+# tpusolve's TPU panel geometry, for the verbatim copy of plan_panels
+LANE = 128
+_PALLAS_GB = 8
+
+# BDIA-XL step plans: candidate blocks per step; K5's threads per block at
+# most, and the bytes of rows a thread owns per pass (4 rows in f32, 2 in
+# f64) (csrc/bdia_spmv_xl.cu: kMaxThreads, kRowBytes); the panel's
+# alignment in elements; and the shared memory a block holds besides its
+# panel: an mbarrier (16 bytes) and the step's window offsets (gb * D int32)
+XL_GB = tuple(range(1, 65))
+XL_THREADS = 1024
+XL_ROW_BYTES = 16
+XL_ALIGN = 4
+XL_BARRIER_BYTES = 16
 
 
 def plan_fill_profile(lr, lc, row_pad: int, col_pad: int,
@@ -144,6 +171,94 @@ def finalize_starts(starts: np.ndarray, col_pad: int, R: int):
     return (starts + xpad_lo).astype(np.int32), xpad_lo, xlen
 
 
+def _pow2ceil(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def plan_panels(starts_adj: np.ndarray, R: int, gb: int = _PALLAS_GB):
+    """Panel plan for the XL (x-streaming) kernel.
+
+    For each grid step (``gb`` consecutive R-row blocks) the kernel DMAs one
+    contiguous panel of the lane-matrix view of x from HBM into VMEM; this
+    works because banded (RCM-ordered) matrices keep every block's window
+    starts within a narrow span.  Returns ``(rowstart, pxrows, xrows_min)``:
+    per-step first panel row (int32, one per step plus a trailing repeat for
+    the prefetch lookahead), the pow2-padded panel height, and the minimum
+    padded row count of the x lane-matrix.
+    """
+    B, D = starts_adj.shape
+    rr = R // LANE
+    Bp = ((B + gb - 1) // gb) * gb
+    if Bp != B:  # pad with the last block's starts (keeps spans tight)
+        starts_adj = np.concatenate(
+            [starts_adj, np.repeat(starts_adj[-1:], Bp - B, axis=0)])
+    rows = (starts_adj // LANE).reshape(-1, gb, D)
+    min_r = rows.min(axis=(1, 2))
+    max_r = rows.max(axis=(1, 2))
+    span = int((max_r - min_r).max()) + rr + 1
+    pxrows = max(8, _pow2ceil(span))
+    rowstart = np.concatenate([min_r, min_r[-1:]]).astype(np.int32)
+    xrows_min = int(rowstart.max()) + pxrows
+    return rowstart, pxrows, xrows_min
+
+
+def xl_smem_bytes(panel: int, gb: int, D: int, itemsize: int) -> int:
+    """Shared memory of one K5 block: barrier, x panel, window offsets."""
+    return XL_BARRIER_BYTES + panel * itemsize + gb * D * 4
+
+
+def xl_threads(gb: int, R: int, itemsize: int) -> int:
+    """Threads of one K5 block: one per ``XL_ROW_BYTES`` of the step's rows
+    (4 rows in f32, 2 in f64), rounded up to whole warps, at most
+    ``XL_THREADS`` (``csrc/bdia_spmv_xl.cu``)."""
+    groups = gb * R * itemsize // XL_ROW_BYTES
+    return min(XL_THREADS, -(-groups // 32) * 32)
+
+
+def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
+               price):
+    """The BDIA-XL step plan ``(gb, step_lo, panel)`` of least
+    ``price(gb, nsteps, panel)`` (seconds, the caller's time model) over
+    ``XL_GB``, or None when no candidate's block fits
+    ``runtime.SMEM_PER_BLOCK``.
+
+    ``starts`` (P, B, D) are the padded-x window starts; step i of part p
+    holds blocks ``[i*gb, min((i+1)*gb, B))``, and its panel
+    ``[step_lo[p, i], step_lo[p, i] + panel)`` of the unpadded x covers
+    every window of those blocks.  ``step_lo`` is int32 (P, nsteps)."""
+    s = np.asarray(starts, np.int64) - xpad_lo
+    P, B, D = s.shape
+    first = s.min(axis=2)                     # (P, B) window starts
+    last = s.max(axis=2) + R                  # (P, B) window ends
+    best = None
+    for gb in XL_GB:
+        idx = np.arange(0, B, gb)
+        lo = np.minimum.reduceat(first, idx, axis=1) // XL_ALIGN * XL_ALIGN
+        hi = np.maximum.reduceat(last, idx, axis=1)
+        panel = int(-(-int((hi - lo).max()) // XL_ALIGN) * XL_ALIGN)
+        if xl_smem_bytes(panel, gb, D, itemsize) <= runtime.SMEM_PER_BLOCK:
+            t = price(gb, idx.size, panel)
+            if best is None or t < best[0]:
+                best = (t, gb, lo.astype(np.int32), panel)
+        if gb >= B:
+            break       # one step already: larger gb plans the same
+    return None if best is None else best[1:]
+
+
+def _add_overflow(y: torch.Tensor, xs: torch.Tensor, ovf,
+                  row_pad: int) -> None:
+    """``y[p]`` (P, row_pad) += each part's overflow list (module
+    docstring), by one gather and one ``index_add_`` per part."""
+    ptr, ocols, ovals = ovf
+    for p in range(y.shape[0]):
+        n = int(ptr[p, -1])
+        rows = torch.repeat_interleave(
+            torch.arange(row_pad, device=y.device),
+            (ptr[p, 1:] - ptr[p, :-1]).to(torch.int64))
+        y[p].index_add_(0, rows, ovals[p, :n]
+                        * xs[p].index_select(0, ocols[p, :n]))
+
+
 def bdia_spmv_plain(vals: torch.Tensor, starts: torch.Tensor,
                     x: torch.Tensor, xpad_lo: int, xlen: int,
                     row_pad: int, ovf=None) -> torch.Tensor:
@@ -166,14 +281,49 @@ def bdia_spmv_plain(vals: torch.Tensor, starts: torch.Tensor,
     win = torch.gather(xp, 1, idx.reshape(P, -1)).reshape(P, B, D, R)
     y = (vals * win).sum(dim=2).reshape(P, B * R)[:, :row_pad]
     if ovf is not None:
-        ptr, ocols, ovals = ovf
-        for p in range(P):
-            n = int(ptr[p, -1])
-            rows = torch.repeat_interleave(
-                torch.arange(row_pad, device=x.device),
-                (ptr[p, 1:] - ptr[p, :-1]).to(torch.int64))
-            y[p].index_add_(0, rows, ovals[p, :n]
-                            * xs[p].index_select(0, ocols[p, :n]))
+        _add_overflow(y, xs, ovf, row_pad)
+    return y.reshape(-1)
+
+
+def bdia_spmv_xl_plain(vals: torch.Tensor, starts: torch.Tensor,
+                       x: torch.Tensor, xpad_lo: int, row_pad: int, gb: int,
+                       step_lo: torch.Tensor, panel: int,
+                       ovf=None) -> torch.Tensor:
+    """Plain PyTorch BDIA SpMV by panel steps (K5's function, which is
+    K4's): a gather of each step's panel of x (0 outside ``[0, col_pad)``),
+    a gather of every (block, slot) window out of its step's panel, a sum
+    over slots, then the overflow list as in :func:`bdia_spmv_plain`.
+
+    ``step_lo`` (P, nsteps) int32 and ``panel`` as :func:`plan_steps` gives
+    them.  Every window must lie inside its step's panel: this is checked."""
+    P, B, D, R = vals.shape
+    xs = x.reshape(P, -1)
+    col_pad = xs.shape[1]
+    nsteps = step_lo.shape[1]
+    dev = x.device
+    # (P, nsteps, panel) panels of the unpadded x
+    pidx = step_lo.to(torch.int64).unsqueeze(-1) + torch.arange(panel,
+                                                                device=dev)
+    inside = (pidx >= 0) & (pidx < col_pad)
+    pan = torch.where(inside, torch.gather(
+        xs, 1, pidx.clamp(0, col_pad - 1).reshape(P, -1)).reshape(pidx.shape),
+        torch.zeros((), dtype=x.dtype, device=dev))
+    if nsteps != -(-B // gb):
+        raise ValueError(f"BDIA-XL: {nsteps} steps for {B} blocks of {gb}")
+    # each window's offset in its step's panel
+    step = torch.arange(B, device=dev) // gb
+    off = (starts.to(torch.int64) - xpad_lo
+           - step_lo.to(torch.int64)[:, step].unsqueeze(-1))     # (P, B, D)
+    if int(off.min()) < 0 or int(off.max()) + R > panel:
+        raise ValueError("BDIA-XL window outside its step's panel")
+    # windows as flat indices into the (P, nsteps * panel) panels
+    widx = ((step * panel).reshape(1, B, 1, 1) + off.unsqueeze(-1)
+            + torch.arange(R, device=dev))
+    win = torch.gather(pan.reshape(P, -1), 1,
+                       widx.reshape(P, -1)).reshape(P, B, D, R)
+    y = (vals * win).sum(dim=2).reshape(P, B * R)[:, :row_pad]
+    if ovf is not None:
+        _add_overflow(y, xs, ovf, row_pad)
     return y.reshape(-1)
 
 
@@ -181,15 +331,54 @@ _SMEM_MAX = 48 * 1024   # default dynamic shared memory without opt-in
 
 
 @functools.cache
-def _kernel_fns():
-    """(library, {dtype: entry point}) with ctypes signatures declared."""
-    lib = build.load("bdia_spmv")
-    fns = {torch.float32: lib.bdia_spmv_f32, torch.float64: lib.bdia_spmv_f64}
+def _kernel_fns(name: str, nptrs: int, nints: int):
+    """(library, {dtype: entry point}) of ``csrc/<name>.cu``, with ctypes
+    signatures declared: ``nptrs`` pointers, ``nints`` ints, the stream."""
+    lib = build.load(name)
+    fns = {torch.float32: getattr(lib, name + "_f32"),
+           torch.float64: getattr(lib, name + "_f64")}
     for fn in fns.values():
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * nptrs + [ctypes.c_int] * nints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fns
+
+
+def _check_launch(what: str, vals, starts, x, row_pad: int, ovf,
+                  extra=()) -> tuple:
+    """Check the arguments K4 and K5 share (``extra``: more (name, tensor)
+    pairs that must be contiguous on x's device); returns (col_pad, overflow
+    pointers, overflow length)."""
+    P, B, D, R = vals.shape
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: unsupported dtype {x.dtype}")
+    if vals.dtype != x.dtype:
+        raise TypeError(f"{what}: vals {vals.dtype} != x {x.dtype}")
+    if starts.dtype != torch.int32 or starts.shape != (P, B, D):
+        raise TypeError(f"{what}: starts must be int32 of shape (P, B, D)")
+    tensors = [("vals", vals), ("starts", starts), ("x", x), *extra]
+    ovf_ptrs, ovf_len = (None, None, None), 0
+    if ovf is not None:
+        ptr, ocols, ovals = ovf
+        ovf_len = ocols.shape[-1]
+        if ptr.dtype != torch.int32 or ptr.shape != (P, row_pad + 1) \
+                or ocols.dtype != torch.int32 or ocols.shape != (P, ovf_len) \
+                or ovals.dtype != x.dtype or ovals.shape != (P, ovf_len):
+            raise TypeError(f"{what}: ovf must be int32 ptr (P, row_pad+1), "
+                            "int32 cols (P, k) and vals (P, k) of x's dtype")
+        tensors += [("ovf ptr", ptr), ("ovf cols", ocols),
+                    ("ovf vals", ovals)]
+        ovf_ptrs = (ptr.data_ptr(), ocols.data_ptr(), ovals.data_ptr())
+    for name, t in tensors:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on "
+                             f"{x.device}")
+    if x.dim() != 1 or x.numel() % P:
+        raise ValueError(f"{what}: x must be flat (P * col_pad,)")
+    col_pad = x.numel() // P
+    if max(B * R, row_pad + 1, col_pad, ovf_len) >= 2 ** 31:
+        raise ValueError(f"{what}: part too large for 32-bit row indices")
+    return col_pad, ovf_ptrs, ovf_len
 
 
 def bdia_spmv(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
@@ -206,48 +395,68 @@ def bdia_spmv(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"bdia_spmv: unsupported device {x.device}")
     P, B, D, R = vals.shape
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"bdia_spmv: unsupported dtype {x.dtype}")
-    if vals.dtype != x.dtype:
-        raise TypeError(f"bdia_spmv: vals {vals.dtype} != x {x.dtype}")
-    if starts.dtype != torch.int32 or starts.shape != (P, B, D):
-        raise TypeError("bdia_spmv: starts must be int32 of shape (P, B, D)")
-    tensors = [("vals", vals), ("starts", starts), ("x", x)]
-    ovf_ptrs, ovf_len = (None, None, None), 0
-    if ovf is not None:
-        ptr, ocols, ovals = ovf
-        ovf_len = ocols.shape[-1]
-        if ptr.dtype != torch.int32 or ptr.shape != (P, row_pad + 1) \
-                or ocols.dtype != torch.int32 or ocols.shape != (P, ovf_len) \
-                or ovals.dtype != x.dtype or ovals.shape != (P, ovf_len):
-            raise TypeError("bdia_spmv: ovf must be int32 ptr (P, row_pad+1), "
-                            "int32 cols (P, k) and vals (P, k) of x's dtype")
-        tensors += [("ovf ptr", ptr), ("ovf cols", ocols),
-                    ("ovf vals", ovals)]
-        ovf_ptrs = (ptr.data_ptr(), ocols.data_ptr(), ovals.data_ptr())
-    for name, t in tensors:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"bdia_spmv: {name} must be contiguous on "
-                             f"{x.device}")
-    if x.dim() != 1 or x.numel() % P:
-        raise ValueError("bdia_spmv: x must be flat (P * col_pad,)")
-    col_pad = x.numel() // P
+    col_pad, ovf_ptrs, ovf_len = _check_launch("bdia_spmv", vals, starts, x,
+                                               row_pad, ovf)
     if D * 4 > _SMEM_MAX:
         raise ValueError(f"bdia_spmv: {D} slots exceed the kernel's "
                          "shared-memory staging")
-    if max(B * R, row_pad + 1, col_pad, xlen, ovf_len) >= 2 ** 31:
+    if xlen >= 2 ** 31:
         raise ValueError("bdia_spmv: part too large for 32-bit row indices")
-    lib, fns = _kernel_fns()
-    fn = fns[x.dtype]
+    lib, fns = _kernel_fns("bdia_spmv", 7, 8)
     y = torch.empty(P * row_pad, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        code = fn(vals.data_ptr(), starts.data_ptr(), x.data_ptr(),
-                  *ovf_ptrs, y.data_ptr(), P, B, D, R, row_pad, col_pad,
-                  xpad_lo, ovf_len, stream)
+        code = fns[x.dtype](vals.data_ptr(), starts.data_ptr(), x.data_ptr(),
+                            *ovf_ptrs, y.data_ptr(), P, B, D, R, row_pad,
+                            col_pad, xpad_lo, ovf_len, stream)
     build.check(lib, code, "bdia_spmv launch")
     bdia_spmv.launches += 1
     return y
 
 
 bdia_spmv.launches = 0
+
+
+def bdia_spmv_xl(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
+                 xpad_lo: int, row_pad: int, gb: int, step_lo: torch.Tensor,
+                 panel: int, ovf=None) -> torch.Tensor:
+    """BDIA SpMV by panel steps, ``y = A @ x`` (arguments as
+    :func:`bdia_spmv_xl_plain`); equal to :func:`bdia_spmv` bit for bit.
+
+    CPU tensors take the plain version.  CUDA tensors launch K5, the kernel
+    of ``csrc/bdia_spmv_xl.cu`` (building it on first use), or raise; there
+    is no fallback.  ``bdia_spmv_xl.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return bdia_spmv_xl_plain(vals, starts, x, xpad_lo, row_pad, gb,
+                                  step_lo, panel, ovf)
+    if x.device.type != "cuda":
+        raise ValueError(f"bdia_spmv_xl: unsupported device {x.device}")
+    P, B, D, R = vals.shape
+    nsteps = -(-B // gb)
+    col_pad, ovf_ptrs, ovf_len = _check_launch(
+        "bdia_spmv_xl", vals, starts, x, row_pad, ovf,
+        extra=[("step_lo", step_lo)])
+    if step_lo.dtype != torch.int32 or step_lo.shape != (P, nsteps):
+        raise TypeError("bdia_spmv_xl: step_lo must be int32 of shape "
+                        f"(P, {nsteps})")
+    if panel % XL_ALIGN or R % 128:
+        raise ValueError(f"bdia_spmv_xl: the panel must be a multiple of "
+                         f"{XL_ALIGN} and R of 128")
+    if xl_smem_bytes(panel, gb, D, x.element_size()) > runtime.SMEM_PER_BLOCK:
+        raise ValueError(f"bdia_spmv_xl: a panel of {panel} does not fit "
+                         "one block's shared memory")
+    runtime.require_smem(x.device.index)
+    lib, fns = _kernel_fns("bdia_spmv_xl", 8, 11)
+    y = torch.empty(P * row_pad, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = fns[x.dtype](vals.data_ptr(), starts.data_ptr(),
+                            step_lo.data_ptr(), x.data_ptr(), *ovf_ptrs,
+                            y.data_ptr(), P, B, D, R, row_pad, col_pad,
+                            xpad_lo, ovf_len, gb, nsteps, panel, stream)
+    build.check(lib, code, "bdia_spmv_xl launch")
+    bdia_spmv_xl.launches += 1
+    return y
+
+
+bdia_spmv_xl.launches = 0

@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-a shared library with a plain C interface and loaded with ``ctypes``.  The
-library's file name carries a hash of its source, so an edited source is
-rebuilt and an unchanged one is loaded from ``build/kernels/`` at the root
-of the checkout.  Building happens at first use, never at import: the CPU
-tests import every module on machines without ``nvcc``.
+a shared library with a plain C interface and loaded with ``ctypes``; each
+``csrc/*.cpp`` file (host code: the text parser ``fastio.cpp``) is compiled
+the same way by ``g++``, on any machine.  The library's file name carries a
+hash of its source and flags, so an edited source is rebuilt and an
+unchanged one is loaded from ``build/kernels/`` at the root of the
+checkout.  Building happens at first use, never at import: the CPU tests
+import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -48,15 +51,26 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _source(name: str) -> tuple[str, bool, tuple]:
+    """(source path, whether it is CUDA, compiler flags) of
+    ``csrc/<name>``: a ``.cu`` source goes to nvcc, a ``.cpp`` one to g++."""
+    cu = os.path.join(CSRC, name + ".cu")
+    if os.path.exists(cu):
+        return cu, True, NVCC_FLAGS
+    return os.path.join(CSRC, name + ".cpp"), False, GXX_FLAGS
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    src, _, flags = _source(name)
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def compile_library(name: str) -> str:
-    """Path of the library of ``csrc/<name>.cu``, compiled first if it is
-    not in ``build/kernels/``.  Raises if the compiler fails."""
+    """Path of the library of ``csrc/<name>.cu`` or ``csrc/<name>.cpp``,
+    compiled first if it is not in ``build/kernels/``.  Raises if the
+    compiler fails."""
     path = library_path(name)
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -65,12 +79,13 @@ def compile_library(name: str) -> str:
         # library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, name + ".cu")]
+        src, cuda, flags = _source(name)
+        cmd = [nvcc_path() if cuda else "g++", *flags, "-o", tmp, src]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {name}.cu "
+            raise RuntimeError(f"{cmd[0]} failed for "
+                               f"{os.path.basename(src)} "
                                f"(exit {proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)
@@ -78,21 +93,22 @@ def compile_library(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, compiled first if needed.
-    Raises if the compiler fails."""
+    """The loaded library of ``csrc/<name>.cu`` or ``csrc/<name>.cpp``,
+    compiled first if needed.  Raises if the compiler fails."""
     with _lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
         lib = ctypes.CDLL(compile_library(name))
-        lib.tpusolve_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.tpusolve_cuda_error_string.restype = ctypes.c_char_p
+        if hasattr(lib, "tpusolve_cuda_error_string"):
+            lib.tpusolve_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.tpusolve_cuda_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
         return lib
 
 
 def build_all() -> float:
-    """Compile every kernel library, one nvcc per source, all started
+    """Compile every CUDA kernel library, one nvcc per source, all started
     together, then load them; returns the seconds taken."""
     t0 = time.perf_counter()
     names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))

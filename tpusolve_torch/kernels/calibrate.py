@@ -2,20 +2,39 @@
 
     python -m tpusolve_torch.kernels.calibrate [REPEATS]
 
-``matrix/sharded.py`` chooses between a feasible BDIA layout (kernel K4)
-and a BELL layout (kernel K6) by :func:`~tpusolve_torch.matrix.sharded.
-spmv_model_s`: ``bytes / (rate * min(1, threads / threads_full))``.  For
-each kernel this times, in f64 with CUDA events, one synthetic operator
-whose launch fills the card and one at the shape of the 64^3 gate-3
-hierarchy's level 2 (1,507 rows: BDIA B=12, D=927, R=128; BELL G=189,
-K=12), and one in between as a check of the model:
+``matrix/sharded.py`` chooses between BDIA and a BELL layout (K4 against
+K6) by :func:`~tpusolve_torch.matrix.sharded.spmv_model_s`, ``bytes /
+(rate * min(1, threads / threads_full))``, and between K4 and K5 on a BDIA
+layout by :func:`~tpusolve_torch.matrix.sharded.band_model_s`, ``bytes /
+rate`` times the rounds of blocks.  For each kernel this times, with CUDA
+events, one synthetic operator whose launch fills the card, one small one,
+and one in between as a check of the model:
 
-* ``rate`` = the full shape's bytes over its time;
-* ``threads_full`` = the small shape's threads x rate x time / bytes, the
-  thread count at which the linear ramp of the model reaches the full rate.
+* ``bdia`` (K4) and ``bell`` (K6), for BDIA against BELL, in f64: random
+  window starts and ids, the small shape that of the 64^3 gate-3
+  hierarchy's level 2 (1,507 rows: BDIA B=12, D=927, R=128; BELL G=189,
+  K=12).  ``rate`` = the full shape's bytes over its time; ``threads_full``
+  = the small shape's threads x rate x time / bytes, the thread count at
+  which the linear ramp of the model reaches the full rate;
+* ``bdia_band`` (K4) and ``bdia_xl`` (K5), for K4 against K5, in f32 and
+  f64, on one banded operator like the RCM-ordered gate-4 ILU factors: D=23
+  slots, each block's windows within ``XL_BAND`` entries below its rows
+  (27,500 in f32, the 96^3 factors' band; 13,000 in f64, gate 3's 64^3
+  level 0), so that K5's panels have real lengths, and an overflow list of
+  1.5 entries a row.  The full shape is 132 x 52 blocks: one round of 132
+  K5 steps of 52 blocks on 132 SMs; K5's bytes count the panels.  ``rate``
+  = the full shape's bytes over its time; the other shapes print the
+  model's time beside the measured one.
 
 It prints one line per shape and, last, the constants as JSON.  Needs a
 CUDA card; the numbers belong to the card they were taken on.
+
+    python -m tpusolve_torch.kernels.calibrate --steps
+
+times K5 on the f32 banded operator at the 96^3 factors' shape at several
+blocks per step, beside K4 and the model's prices: how the rounds of blocks
+over the SMs, and the panels' bytes, set K5's time
+(``matrix/sharded.py:band_model_s``).
 """
 
 from __future__ import annotations
@@ -25,15 +44,22 @@ import sys
 
 import torch
 
-from tpusolve_torch.kernels.bdia import bdia_spmv
+from tpusolve_torch.kernels import bdia as bdia_mod
+from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
 from tpusolve_torch.kernels.bell import TM, TN, bell_spmv
 
-# (B, D, R) of BDIA and (G, K) of BELL, by role
+# (B, D, R) of BDIA, (G, K) of BELL and (B, D, R, gb) of BDIA-XL, by role
 SHAPES = {
     "bdia": {"full": (6912, 46, 128), "mid": (128, 200, 128),
              "small": (12, 927, 128)},
     "bell": {"full": (16384, 12), "mid": (1024, 12), "small": (189, 12)},
+    "bdia_band": {"full": (6864, 23, 128), "mid": (1024, 23, 128),
+                  "small": (96, 23, 128)},
+    "bdia_xl": {"full": (6864, 23, 128, 52), "mid": (1024, 23, 128, 8),
+                "small": (96, 23, 128, 8)},
 }
+XL_BAND = {4: 27_500, 8: 13_000}
+BOTH = (torch.float64, torch.float32)
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -60,57 +86,191 @@ def time_ms(fn, warmup_s: float = 0.2, window_s: float = 0.05) -> float:
     return _events_ms(fn, max(10, int(window_s * 1e3 / est)))
 
 
-def _bdia_case(shape, device, gen):
+def _bdia_case(shape, dtype, device, gen):
     """(call, bytes streamed, threads) of K4 on a random BDIA operator."""
     from tpusolve_torch.matrix.sharded import bdia_bytes, bdia_threads
     B, D, R = shape
     n = B * R
-    vals = torch.randn((1, B, D, R), dtype=torch.float64, device=device,
+    vals = torch.randn((1, B, D, R), dtype=dtype, device=device,
                        generator=gen)
     starts = torch.randint(0, n - R + 1, (1, B, D), dtype=torch.int32,
                            device=device, generator=gen)
-    x = torch.randn(n, dtype=torch.float64, device=device, generator=gen)
+    x = torch.randn(n, dtype=dtype, device=device, generator=gen)
     return (lambda: bdia_spmv(vals, starts, x, 0, n, n),
-            bdia_bytes(B, D, R, 0, 8), bdia_threads(B, R))
+            bdia_bytes(B, D, R, 0, vals.element_size()), bdia_threads(B, R))
 
 
-def _bell_case(shape, device, gen):
+def _bell_case(shape, dtype, device, gen):
     """(call, bytes streamed, threads) of K6 on a random BELL operator."""
     from tpusolve_torch.matrix.sharded import bell_threads
     G, K = shape
     n = G * TM
     nwin = (n + TN - 1) // TN
-    vals = torch.randn((1, G, K, TM, TN), dtype=torch.float64,
-                       device=device, generator=gen)
+    vals = torch.randn((1, G, K, TM, TN), dtype=dtype, device=device,
+                       generator=gen)
     ids = torch.randint(0, nwin, (1, G, K), dtype=torch.int32, device=device,
                         generator=gen)
-    x = torch.randn(n, dtype=torch.float64, device=device, generator=gen)
-    nbytes = G * K * (TM * TN * 8 + 4)
+    x = torch.randn(n, dtype=dtype, device=device, generator=gen)
+    nbytes = G * K * (TM * TN * vals.element_size() + 4)
     return lambda: bell_spmv(vals, ids, x, nwin, n), nbytes, bell_threads(G)
 
 
+def _banded(shape, dtype, device, gen):
+    """A banded BDIA operator like the RCM-ordered gate-4 ILU factors':
+    each block's D windows start within ``XL_BAND`` entries below its rows,
+    in slot order, and rows spill 1 and 2 entries in turn to an overflow
+    list (1.5 a row; the 96^3 factors spill 1.57), columns within the band.
+    Returns (vals, starts, x, xpad, ovf, overflow entries)."""
+    B, D, R = shape[:3]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    band = XL_BAND[itemsize]
+    n = B * R
+    vals = torch.randn((1, B, D, R), dtype=dtype, device=device,
+                       generator=gen)
+    off = torch.randint(-band, 1, (1, B, D), device=device, generator=gen)
+    starts = (torch.arange(B, device=device).view(1, B, 1) * R
+              + off.sort(dim=2).values + band).to(torch.int32)
+    x = torch.randn(n, dtype=dtype, device=device, generator=gen)
+    per_row = 1 + torch.arange(n, device=device) % 2
+    ptr = torch.zeros((1, n + 1), dtype=torch.int32, device=device)
+    ptr[0, 1:] = per_row.cumsum(0)
+    rows = torch.repeat_interleave(torch.arange(n, device=device), per_row)
+    k = rows.numel()
+    cols = (rows - torch.randint(1, band, (k,), device=device,
+                                 generator=gen)).clamp(min=0)
+    ovf = (ptr, cols.to(torch.int32).view(1, k),
+           torch.randn((1, k), dtype=dtype, device=device, generator=gen))
+    return vals, starts, x, band, ovf, k
+
+
+def _bdia_band_case(shape, dtype, device, gen):
+    """(call, bytes streamed, (blocks, resident)) of K4 on the banded
+    operator."""
+    from tpusolve_torch import runtime
+    from tpusolve_torch.matrix.sharded import bdia_bytes
+    B, D, R = shape
+    vals, starts, x, band, ovf, k = _banded(shape, dtype, device, gen)
+    n = B * R
+    return (lambda: bdia_spmv(vals, starts, x, band, n + band, n, ovf),
+            bdia_bytes(B, D, R, k, vals.element_size()),
+            (B, runtime.SM_COUNT))
+
+
+def _bdia_xl_case(shape, dtype, device, gen):
+    """(call, bytes streamed with the panels, (blocks, resident)) of K5 on
+    the banded operator, in steps of gb blocks."""
+    from tpusolve_torch.matrix.sharded import bdia_bytes, xl_resident
+    B, D, R, gb = shape
+    vals, starts, x, band, ovf, k = _banded(shape, dtype, device, gen)
+    itemsize = vals.element_size()
+    plan = bdia_mod.plan_steps(starts.cpu().numpy(), R, band, itemsize,
+                               lambda g, nsteps, panel: abs(g - gb))
+    if plan is None or plan[0] != gb:
+        raise RuntimeError(f"calibrate: no K5 plan with gb={gb} for {shape}")
+    _, step_lo, panel = plan
+    nsteps = step_lo.shape[1]
+    step_lo = torch.tensor(step_lo, device=device)
+    n = B * R
+    return (lambda: bdia_spmv_xl(vals, starts, x, band, n, gb, step_lo,
+                                 panel, ovf),
+            bdia_bytes(B, D, R, k, itemsize) + nsteps * panel * itemsize,
+            (nsteps, xl_resident(bdia_mod.xl_smem_bytes(panel, gb, D,
+                                                        itemsize),
+                                 bdia_mod.xl_threads(gb, R, itemsize))))
+
+
+# kernel: (operator, item types)
+CASES = {"bdia": (_bdia_case, (torch.float64,)),
+         "bell": (_bell_case, (torch.float64,)),
+         "bdia_band": (_bdia_band_case, BOTH),
+         "bdia_xl": (_bdia_xl_case, BOTH)}
+
+
+def _rounds(blocks: int, resident: int) -> float:
+    """``band_model_s``'s factor: ceil(blocks / resident) * resident /
+    blocks."""
+    return -(-blocks // resident) * resident / blocks
+
+
 def measure(device=None, log=print) -> dict:
-    """{"rate": {kernel: bytes/s}, "threads_full": {kernel: threads}} on
-    ``device`` (default: the current CUDA device)."""
+    """{"rate": {kernel: {itemsize: bytes/s}}, "threads_full": {kernel:
+    {itemsize: threads}}} on ``device`` (default: the current CUDA device);
+    the band kernels have a rate only."""
     device = device or torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     out = {"rate": {}, "threads_full": {}}
-    for kernel, make in (("bdia", _bdia_case), ("bell", _bell_case)):
-        got = {}
-        for role, shape in SHAPES[kernel].items():
-            call, nbytes, threads = make(shape, device, gen)
-            ms = time_ms(call)
-            got[role] = (nbytes, threads, ms)
-            log(f"{kernel} {role} {shape}: {nbytes / 1e6:.3f} MB, "
-                f"{threads} threads, {ms:.5f} ms, "
-                f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
-        nbytes, _, ms = got["full"]
-        rate = nbytes / (ms * 1e-3)
-        nbytes, threads, ms = got["small"]
-        out["rate"][kernel] = rate
-        out["threads_full"][kernel] = threads * rate * ms * 1e-3 / nbytes
+    for kernel, (make, dtypes) in CASES.items():
+        band = kernel in ("bdia_band", "bdia_xl")
+        for dtype in dtypes:
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            got, rate = {}, None
+            for role, shape in SHAPES[kernel].items():
+                call, nbytes, occ = make(shape, dtype, device, gen)
+                ms = time_ms(call)
+                got[role] = (nbytes, occ, ms)
+                note = ""
+                if band:
+                    if rate is None:      # the full shape comes first
+                        rate = nbytes * _rounds(*occ) / (ms * 1e-3)
+                    note = (f", model {1e3 * nbytes * _rounds(*occ) / rate:.5f}"
+                            f" ms; {occ[0]} blocks, {occ[1]} resident")
+                else:
+                    note = f", {occ} threads"
+                log(f"{kernel} f{8 * itemsize} {role} {shape}: "
+                    f"{nbytes / 1e6:.3f} MB, {ms:.5f} ms, "
+                    f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s{note}")
+            if band:
+                out["rate"].setdefault(kernel, {})[itemsize] = rate
+                continue
+            nbytes, _, ms = got["full"]
+            rate = nbytes / (ms * 1e-3)
+            nbytes, threads, ms = got["small"]
+            out["rate"].setdefault(kernel, {})[itemsize] = rate
+            out["threads_full"].setdefault(kernel, {})[itemsize] = (
+                threads * rate * ms * 1e-3 / nbytes)
     return out
+
+
+STEPS_GB = (8, 16, 27, 32, 53, 64)
+
+
+def sweep_steps(device=None, log=print) -> list:
+    """K5 at ``STEPS_GB`` blocks a step and K4 on the f32 banded full
+    shape, with the model's prices; returns (gb, steps, ms, model ms) rows
+    (gb 0: K4)."""
+    from tpusolve_torch.matrix import sharded
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    from tpusolve_torch import runtime
+    B, D, R = 6912, 23, 128          # the 96^3 gate-4 factors' shape
+    vals, starts, x, band, ovf, k = _banded((B, D, R), torch.float32,
+                                            device, gen)
+    n = B * R
+    nbytes = sharded.bdia_bytes(B, D, R, k, 4)
+    ms = time_ms(lambda: bdia_spmv(vals, starts, x, band, n + band, n, ovf))
+    model = 1e3 * sharded.band_model_s("bdia", 4, nbytes, B,
+                                       runtime.SM_COUNT)
+    log(f"K4 f32 {(B, D, R)} overflow={k}: {ms:.5f} ms (model {model:.5f})")
+    rows = [(0, B, ms, model)]
+    starts_np = starts.cpu().numpy()
+    for gb in STEPS_GB:
+        plan = bdia_mod.plan_steps(starts_np, R, band, 4,
+                                   lambda g, nsteps, panel: abs(g - gb))
+        _, step_lo, panel = plan
+        nsteps = step_lo.shape[1]
+        lo = torch.tensor(step_lo, device=device)
+        ms = time_ms(lambda: bdia_spmv_xl(vals, starts, x, band, n, gb, lo,
+                                          panel, ovf))
+        resident = sharded.xl_resident(bdia_mod.xl_smem_bytes(
+            panel, gb, D, 4), bdia_mod.xl_threads(gb, R, 4))
+        model = 1e3 * sharded.band_model_s(
+            "bdia_xl", 4, nbytes + nsteps * panel * 4, nsteps, resident)
+        log(f"K5 f32 gb={gb}: {nsteps} steps, panel {panel}, {resident} "
+            f"resident: {ms:.5f} ms (model {model:.5f})")
+        rows.append((gb, nsteps, ms, model))
+    return rows
 
 
 if __name__ == "__main__":
@@ -118,5 +278,8 @@ if __name__ == "__main__":
         print("calibrate: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     print(torch.cuda.get_device_name(0))
+    if sys.argv[1:] == ["--steps"]:
+        sweep_steps()
+        sys.exit(0)
     for _ in range(int(sys.argv[1]) if len(sys.argv) > 1 else 1):
         print(json.dumps(measure()), flush=True)

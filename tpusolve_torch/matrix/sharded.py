@@ -14,15 +14,19 @@ yet and are skipped:
 * **BDIA** (blocked DIA, ``kernels/bdia.py``) with an overflow list of the
   entries that do not fit a block's slots, kept row-sorted with a CSR row
   pointer so that the kernel adds each row's spilled entries itself; for
-  banded matrices with enough entries (file-loaded systems after RCM);
+  banded matrices with enough entries (file-loaded systems after RCM).  It
+  runs K4, or K5 by panel steps (BDIA-XL) where a step plan fits a block's
+  shared memory and the time model prices K5 strictly faster;
+* **BELL** (block ELL, ``kernels/bell.py``), run by K6;
 * **padded ELL** otherwise: every row padded to a fixed width (padding
   entries carry value 0 and column 0).
 
 The BDIA block size R and slot count D are chosen to minimise the matrix
 bytes one SpMV streams (the slot values and the overflow entries' columns
-and values; x is served from L2), instead of ``tpusolve``'s v5e-calibrated
-nanosecond model and VMEM budget; the choice is therefore the same on the
-CPU and the card.
+and values), instead of ``tpusolve``'s v5e-calibrated nanosecond model and
+VMEM budget; the kernels and the layouts then compete on a time model whose
+constants were measured on the card.  Nothing is queried from the device, so
+the choice is the same on the CPU and the card.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpusolve_torch import runtime
 from tpusolve_torch.kernels import bdia as bdia_mod
 from tpusolve_torch.kernels import bell as bell_mod
 from tpusolve_torch.matrix import coo as coo_mod
@@ -50,14 +55,20 @@ BDIA_MAX_BYTES = 4 << 30
 TILE_MAX_EXPANSION = 12.0
 TILE_EXPANSION_FLOOR = 256 << 20
 
-# Time model of one diag-block SpMV (spmv_model_s): the rate at which each
-# kernel streams the matrix's bytes when the launch fills the card, and the
-# number of threads at which it does.  Measured with
+# Time models of one diag-block SpMV, with constants measured by
 # ``python -m tpusolve_torch.kernels.calibrate 3`` on an NVIDIA H100 80GB
-# HBM3 with a 700.00 W power limit, in f64: the median of three runs
-# (PERF.md).
-SPMV_RATE = {"bdia": 2.626e12, "bell": 2.743e12}      # bytes/s
-SPMV_THREADS_FULL = {"bdia": 20_867, "bell": 15_466}
+# HBM3 with a 700.00 W power limit: medians of three runs (PERF.md).
+#
+# BDIA against BELL (K4 against K6, spmv_model_s): for each kernel, the
+# rate at which it streams the matrix's bytes when the launch fills the card
+# (bytes/s), and the number of threads at which it does; on random windows
+# and ids in f64, for every item size:
+SPMV_MODEL = {"bdia": (2.626e12, 20_867), "bell": (2.743e12, 15_466)}
+# K4 against K5 on a BDIA layout (band_model_s): each kernel's rate by item
+# size, on one banded operator with an overflow list like the RCM-ordered
+# ILU factors', in one full round of blocks (K5's bytes count its panels):
+BAND_RATE = {("bdia", 4): 1.778e12, ("bdia", 8): 2.376e12,
+             ("bdia_xl", 4): 2.483e12, ("bdia_xl", 8): 2.584e12}
 
 
 def tile_budget(total_nnz: int, itemsize: int) -> int:
@@ -67,20 +78,47 @@ def tile_budget(total_nnz: int, itemsize: int) -> int:
                                        * itemsize)))
 
 
-def spmv_model_s(kind: str, nbytes: int, threads: int) -> float:
-    """Modelled seconds of one SpMV by kernel ``kind`` ("bdia" or "bell")
-    that streams ``nbytes`` over a launch of ``threads`` threads: the bytes
-    at the kernel's full rate, slowed in proportion where the launch
-    exposes too few threads to fill the card.  Bytes alone do not bound a
-    small operator on 132 SMs: its parallelism does."""
-    return nbytes / (SPMV_RATE[kind]
-                     * min(1.0, threads / SPMV_THREADS_FULL[kind]))
+def spmv_model_s(constants: tuple, nbytes: int, threads: int) -> float:
+    """Modelled seconds of one SpMV by a kernel with ``constants`` (rate,
+    threads_full) (``SPMV_MODEL``) that streams ``nbytes``
+    over a launch of ``threads`` threads: the bytes at the kernel's full
+    rate, slowed in proportion where the launch exposes too few threads to
+    fill the card.  Bytes alone do not bound a small operator on 132 SMs:
+    its parallelism does."""
+    rate, threads_full = constants
+    return nbytes / (rate * min(1.0, threads / threads_full))
 
 
 def bdia_threads(B: int, R: int) -> int:
     """Threads of one part's K4 launch: a block of min(R, 256) threads per
     R-row block (``csrc/bdia_spmv.cu``)."""
     return B * min(R, 256)
+
+
+def band_model_s(kind: str, itemsize: int, nbytes: int, blocks: int,
+                 resident: int) -> float:
+    """Modelled seconds of one SpMV by K4 (``"bdia"``) or K5
+    (``"bdia_xl"``) on a banded BDIA layout in ``itemsize``-byte values that
+    streams ``nbytes`` in ``blocks`` thread blocks, of which the card holds
+    ``resident`` at once: the bytes at the kernel's ``BAND_RATE``, times
+    ``ceil(blocks / resident) * resident / blocks``.  The blocks run in
+    rounds; a round that is partly empty, or a launch of fewer blocks than
+    the card holds, takes as long as a full round.  K5's blocks are large
+    (:func:`xl_resident`); K4's are counted one per SM."""
+    rounds = -(-blocks // resident)
+    return nbytes / BAND_RATE[kind, itemsize] * rounds * resident / blocks
+
+
+def xl_resident(smem: int, threads: int) -> int:
+    """K5 blocks of ``smem`` bytes and ``threads`` threads that the card
+    holds at once, by shared memory (``runtime``'s H100 figures) and by
+    registers: K5's launch bounds of ``XL_THREADS`` threads give a thread
+    the registers of an SM over ``XL_THREADS``, so an SM holds that many
+    threads.  A K5 block holds up to 227 KB, so often one is all an SM
+    holds."""
+    per_sm = min(runtime.SM_SMEM // (smem + runtime.SM_SMEM_RESERVED),
+                 bdia_mod.XL_THREADS // threads)
+    return runtime.SM_COUNT * max(per_sm, 1)
 
 
 def bell_threads(G: int) -> int:
@@ -91,11 +129,48 @@ def bell_threads(G: int) -> int:
 
 def bdia_bytes(B: int, D: int, R: int, k: int, itemsize: int) -> int:
     """Matrix bytes one BDIA SpMV streams: the slot values and ``k``
-    overflow entries (int32 column and value).  On the H100 the kernel's
-    time follows this count: x, a few MB, stays in L2, so neither the
-    windows nor the overflow's gathers of x add to it (measured by a sweep
-    of D at the gate-4 96^3 shape, PERF.md)."""
+    overflow entries (int32 column and value).  x is left out: its entries
+    are read from device memory about once whatever its size, because on a
+    banded operator the windows of the blocks in flight touch only those
+    blocks' rows plus twice the band, a few MB, which L2 holds.  L2 does not
+    make the windows free: K4 reads one x entry from L2 beside each value.
+    K5 reads them from a panel in shared memory instead and pays for the
+    panels (:func:`plan_xl`)."""
     return B * D * R * itemsize + k * (4 + itemsize)
+
+
+def plan_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
+            nbytes: int):
+    """``(gb, step_lo, panel, seconds)`` of K5's cheapest step plan on a
+    BDIA layout with padded-x window ``starts`` (P, B, D) that streams
+    ``nbytes`` (:func:`bdia_bytes`), priced by :func:`band_model_s` on
+    those bytes plus every step's x panel; None when no plan fits one
+    block's shared memory."""
+    nparts, _, D = starts.shape
+
+    def price(gb, nsteps, panel):
+        return band_model_s(
+            "bdia_xl", itemsize, nbytes + nparts * nsteps * panel * itemsize,
+            nparts * nsteps, xl_resident(
+                bdia_mod.xl_smem_bytes(panel, gb, D, itemsize),
+                bdia_mod.xl_threads(gb, R, itemsize)))
+
+    plan = bdia_mod.plan_steps(starts, R, xpad, itemsize, price)
+    if plan is None:
+        return None
+    gb, step_lo, panel = plan
+    return gb, step_lo, panel, price(gb, step_lo.shape[1], panel)
+
+
+def choose_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
+              nbytes: int):
+    """K5's step plan ``(gb, step_lo, panel)`` for a BDIA layout where it is
+    eligible and its modelled time is strictly below K4's on the same
+    layout (:func:`band_model_s`), else None (K4)."""
+    nparts, B, _ = starts.shape
+    t4 = band_model_s("bdia", itemsize, nbytes, nparts * B, runtime.SM_COUNT)
+    xl = plan_xl(starts, R, xpad, itemsize, nbytes)
+    return xl[:3] if xl is not None and xl[3] < t4 else None
 
 
 def plan_bdia(diag_parts, row_pad: int, col_pad: int, itemsize: int,
@@ -147,10 +222,13 @@ def plan_bell(diag_parts, row_pad: int, itemsize: int, total_nnz: int,
 def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
                   total_nnz: int, nparts: int = 1, allow_bdia: bool = True,
                   allow_bell: bool = True):
-    """``("bdia", (R, D, bytes))``, ``("bell", (K, bytes))`` or
-    ``("ell", None)`` for a diag block: BDIA or BELL by modelled time
-    (:func:`spmv_model_s`), BDIA on a tie; ELL below ``BDIA_MIN_NNZ`` or
-    when neither fits (``tpusolve``'s order, caps and tie rule)."""
+    """``("bdia", (R, D, bytes, staging, xl))``, ``("bell", (K, bytes))``
+    or ``("ell", None)`` for a diag block: BDIA or BELL by modelled time
+    (:func:`spmv_model_s` with ``SPMV_MODEL``), BDIA on a tie; ELL below
+    ``BDIA_MIN_NNZ`` or when neither fits (``tpusolve``'s order, caps and
+    tie rule).  BDIA's (R, D) is :func:`plan_bdia`'s and ``staging``
+    :func:`_bdia_staging`'s at (R, D); ``xl`` is K5's step plan where
+    :func:`choose_xl` takes it, else None (K4)."""
     if total_nnz < BDIA_MIN_NNZ:
         return "ell", None
     best = ("ell", None, float("inf"))
@@ -158,17 +236,22 @@ def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
         plan = plan_bdia(diag_parts, row_pad, col_pad, itemsize, total_nnz,
                          nparts)
         if plan is not None:
-            R, _, nbytes = plan
-            t = spmv_model_s("bdia", nbytes, nparts * bdia_threads(
+            R, D, nbytes = plan
+            t = spmv_model_s(SPMV_MODEL["bdia"], nbytes, nparts * bdia_threads(
                 (row_pad + R - 1) // R, R))
-            best = ("bdia", plan, t)
+            best = ("bdia", (R, D, nbytes), t)
     if allow_bell:
         plan = plan_bell(diag_parts, row_pad, itemsize, total_nnz, nparts)
         if plan is not None:
-            t = spmv_model_s("bell", plan[1], nparts * bell_threads(
+            t = spmv_model_s(SPMV_MODEL["bell"], plan[1], nparts * bell_threads(
                 bell_mod._ngroups(row_pad)))
             if t < best[2]:
                 best = ("bell", plan, t)
+    if best[0] == "bdia":
+        R, D, nbytes = best[1]
+        staging = _bdia_staging(diag_parts, R, D, row_pad, col_pad)
+        xl = choose_xl(staging[0], R, staging[1], itemsize, nbytes)
+        return "bdia", (R, D, nbytes, staging, xl)
     return best[:2]
 
 
@@ -199,6 +282,10 @@ class ShardedMatrix:
     bdia_ovf_ptr: torch.Tensor | None = None   # (P, row_pad + 1) int32
     bdia_ovf_cols: torch.Tensor | None = None  # (P, k) int32 local cols
     bdia_ovf_vals: torch.Tensor | None = None  # (P, k)
+    # --- BDIA-XL step plan (K5, kernels/bdia.py:plan_steps); None -> K4
+    bdia_gb: int | None = None                  # R-row blocks per step
+    bdia_step_lo: torch.Tensor | None = None    # (P, nsteps) int32
+    bdia_panel: int | None = None               # panel length, elements
 
     @property
     def nparts(self) -> int:
@@ -215,6 +302,10 @@ class ShardedMatrix:
     @property
     def uses_bdia(self) -> bool:
         return self.bdia_vals is not None
+
+    @property
+    def uses_bdia_xl(self) -> bool:
+        return self.bdia_step_lo is not None
 
     @property
     def uses_bell(self) -> bool:
@@ -239,6 +330,10 @@ class ShardedMatrix:
         _, B, D, R = self.bdia_vals.shape
         k = 0 if self.bdia_ovf_ptr is None else int(
             self.bdia_ovf_ptr[:, -1].sum())
+        if self.uses_bdia_xl:
+            kb = self.bdia_panel * self.bdia_vals.element_size() / 1024
+            return (f"BDIA-XL R={R} D={D} B={B} gb={self.bdia_gb} "
+                    f"panel={kb:.1f} KB overflow={k}")
         return f"BDIA R={R} D={D} B={B} overflow={k}"
 
     # ------------------------------------------------------------------
@@ -329,8 +424,7 @@ class ShardedMatrix:
         fields = {}
         if kind != "ell":
             if kind == "bdia":
-                fields = _bdia_fields(diag_parts, plan[:2], row_pad, col_pad,
-                                      dtype, device)
+                fields = _bdia_fields(plan, row_pad, col_pad, dtype, device)
             else:
                 fields = _bell_fields(diag_parts, plan[0], row_pad, col_pad,
                                       dtype, device)
@@ -383,8 +477,11 @@ class ShardedMatrix:
         ``bdia_block``, ``bdia_xpad``, ``bdia_xlen``, ``bell_nwin``,
         ``has_offd``, ``uses_dia``), so that both packages can run on one
         identical layout.  The overflow list (the same entries) is converted
-        to the port's CSR form.  ``tpusolve``'s panel plan for its XL kernel
-        is not needed: the port's kernel reads x at any size."""
+        to the port's CSR form.  A ``tpusolve`` XL operator (``arrays``'
+        ``bdia_rowstart`` set) keeps its values and starts and runs the
+        port's K5 on the port's own step plan (:func:`plan_xl`), where one
+        fits a block's shared memory; ``tpusolve``'s TPU panel plan
+        (``bdia_rowstart``, ``bdia_pxrows``, ``bdia_xrows``) is not used."""
         require_single_part(len(meta["row_offsets"]) - 1)
         if meta.get("has_offd") or meta.get("uses_dia"):
             raise NotImplementedError(
@@ -411,6 +508,15 @@ class ShardedMatrix:
             bell_nwin=meta.get("bell_nwin"), **ovf)
         if A.uses_bdia:
             _check_windows(arrays["bdia_starts"], A.bdia_block, A.bdia_xlen)
+            if arrays.get("bdia_rowstart") is not None:
+                _, B, D, R = A.bdia_vals.shape
+                itemsize = A.bdia_vals.element_size()
+                k = 0 if A.bdia_ovf_ptr is None else int(
+                    A.bdia_ovf_ptr[:, -1].sum())
+                xl = plan_xl(arrays["bdia_starts"], R, A.bdia_xpad, itemsize,
+                             bdia_bytes(B, D, R, k, itemsize))
+                if xl is not None:
+                    A = A._with_xl(xl[:3])
         return A
 
     # ------------------------------------------------------------------
@@ -456,15 +562,38 @@ class ShardedMatrix:
 
     def astype(self, dtype) -> "ShardedMatrix":
         """Value-dtype cast of the same operator (layout and index tensors
-        shared).  Used for the mixed-precision f32 twin."""
+        shared).  Used for the mixed-precision f32 twin.  A BDIA operator
+        chooses between K4 and K5 again (:func:`choose_xl`): whether a
+        panel fits, and what it costs, depend on the item size."""
         dtype = torch_dtype(dtype)
         if self.dtype == dtype:
             return self
         cast = lambda a: a.to(dtype) if a is not None else None
-        return dataclasses.replace(
+        A = dataclasses.replace(
             self, diag_vals=cast(self.diag_vals),
             bdia_vals=cast(self.bdia_vals), bell_vals=cast(self.bell_vals),
             bdia_ovf_vals=cast(self.bdia_ovf_vals), diag=cast(self.diag))
+        if A.uses_bdia:
+            P, B, D, R = A.bdia_vals.shape
+            itemsize = A.bdia_vals.element_size()
+            k = 0 if A.bdia_ovf_ptr is None else int(
+                A.bdia_ovf_ptr[:, -1].sum())
+            xl = choose_xl(A.bdia_starts.cpu().numpy(), R, A.bdia_xpad,
+                           itemsize, bdia_bytes(P * B, D, R, k, itemsize))
+            A = A._with_xl(xl)
+        return A
+
+    def _with_xl(self, xl) -> "ShardedMatrix":
+        """The same operator run by K5 on step plan ``xl`` = (gb, step_lo,
+        panel), or by K4 when ``xl`` is None."""
+        if xl is None:
+            return dataclasses.replace(self, bdia_gb=None, bdia_step_lo=None,
+                                       bdia_panel=None)
+        gb, step_lo, panel = xl
+        return dataclasses.replace(
+            self, bdia_gb=int(gb), bdia_step_lo=to_tensor(step_lo,
+                                                          self.device),
+            bdia_panel=int(panel))
 
 
 def _check_windows(starts: np.ndarray, R: int, xlen: int) -> None:
@@ -474,16 +603,18 @@ def _check_windows(starts: np.ndarray, R: int, xlen: int) -> None:
         raise ValueError(f"BDIA window outside [0, {xlen})")
 
 
-def _bdia_fields(diag_parts, plan, row_pad, col_pad, dtype, device) -> dict:
-    """BDIA tensors and metadata for the planned (R, D)."""
-    R, D = plan
+def _bdia_staging(diag_parts, R, D, row_pad, col_pad):
+    """Every part's BDIA staging at (R, D), :func:`kernels.bdia.compact`'s:
+    ``(starts (P, B, D) int32 in the padded x, xpad, xlen, [flat indices],
+    [values], [(overflow rows, cols, values)])``."""
     nparts = len(diag_parts)
     B = (row_pad + R - 1) // R
     starts_raw = np.zeros((nparts, B, D), np.int64)
     s_idx, s_val, ovf_parts = [], [], []
     for p, (dlr, dlc, dv) in enumerate(diag_parts):
         starts_raw[p], fi, vo, o_r, o_c, o_v = bdia_mod.compact(
-            dlr, dlc, dv, row_pad, col_pad, R, D, dtype=dtype, overflow=True)
+            dlr, dlc, dv, row_pad, col_pad, R, D, dtype=dv.dtype,
+            overflow=True)
         s_idx.append(fi)
         s_val.append(vo)
         ovf_parts.append((o_r, o_c, o_v))
@@ -493,11 +624,23 @@ def _bdia_fields(diag_parts, plan, row_pad, col_pad, dtype, device) -> dict:
     xlen = xpad + hi
     starts = (starts_raw + xpad).astype(np.int32)
     _check_windows(starts, R, xlen)
+    return starts, xpad, xlen, s_idx, s_val, ovf_parts
+
+
+def _bdia_fields(plan, row_pad, col_pad, dtype, device) -> dict:
+    """BDIA tensors and metadata for :func:`choose_layout`'s plan."""
+    R, D, _, staging, xl = plan
+    starts, xpad, xlen, s_idx, s_val, ovf_parts = staging
+    B = starts.shape[1]
     fields = dict(
         bdia_vals=materialize(s_idx, s_val, (B, D, R), dtype, device),
         bdia_starts=to_tensor(starts, device),
         bdia_block=R, bdia_xpad=xpad, bdia_xlen=xlen)
     fields.update(_ovf_fields(ovf_parts, row_pad, col_pad, dtype, device))
+    if xl is not None:
+        gb, step_lo, panel = xl
+        fields.update(bdia_gb=int(gb), bdia_step_lo=to_tensor(step_lo, device),
+                      bdia_panel=int(panel))
     return fields
 
 

@@ -3,8 +3,9 @@
 
 The hot operation of every Krylov iteration and preconditioner sweep.  A
 BDIA diag block runs the hand-written kernel K4 through ``kernels.bdia``,
-which also adds the spilled entries of its overflow list, each row its own;
-a BELL diag block runs K6 through ``kernels.bell``.  Multi-part operators
+or K5 where it carries a step plan (BDIA-XL, as ``tpusolve`` dispatches to
+its XL kernel), each of which also adds the spilled entries of its overflow
+list, each row its own; a BELL diag block runs K6 through ``kernels.bell``.  Multi-part operators
 (offd ELL block and halo exchange, ``tpusolve``'s ``halo_exchange`` and
 ``_offd_add``) are not ported yet: ``ShardedMatrix`` refuses to build them.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from tpusolve_torch.kernels.bdia import bdia_spmv
+from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
 from tpusolve_torch.kernels.bell import bell_spmv
 
 
@@ -28,6 +29,10 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a one-part ``ShardedMatrix``: ``x`` is a padded vector
     over A's columns ``(col_pad,)``; returns one over its rows
     ``(row_pad,)``."""
+    if A.uses_bdia_xl:
+        return bdia_spmv_xl(A.bdia_vals, A.bdia_starts, x, A.bdia_xpad,
+                            A.row_pad, A.bdia_gb, A.bdia_step_lo,
+                            A.bdia_panel, A.bdia_ovf)
     if A.uses_bdia:
         return bdia_spmv(A.bdia_vals, A.bdia_starts, x, A.bdia_xpad,
                          A.bdia_xlen, A.row_pad, A.bdia_ovf)
