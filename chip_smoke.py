@@ -12,16 +12,17 @@ toolkit (nvcc) and PyTorch built for CUDA:
 3. holds the BDIA SpMV kernels K4 and K5, overflow list included, and the
    BELL SpMV kernel K6 against their plain PyTorch versions, in float32 and
    float64, and K5 against K4 bit for bit, once on an x that is not 16-byte
-   aligned;
+   aligned, and K4's launch plans (a small launch of wide blocks run as
+   chunks, an operator of 640 slots) against K5 bit for bit;
 4. gate 4: writes the momentum fixture at N^3 rows (``--side``, default
    96^3 = 884,736 rows, 23.4M nonzeros) and runs it through the port's CLI
    (``tpusolve_torch.harness.cli.main``): HYPRE-IJ files read by the native
    parser, RCM, BDIA assembly in f64 with an f32 twin, Chow-Patel ILU(0)
-   whose factors take BDIA-XL (K5), BiCGSTAB in f32 inside f64 iterative
-   refinement, golden check (at 96^3 exactly the port's 54 iterations);
-   then at the four operator shapes of that run (A, A_lo, L, U) times K4,
-   K5 where a step plan fits, the plain version, the library's CSR SpMV
-   (``torch.sparse``) and the bound;
+   whose factors run K4 or K5 as the time model prices them, BiCGSTAB in
+   f32 inside f64 iterative refinement, golden check (at 96^3 exactly the
+   port's 54 iterations); then at the four operator shapes of that run (A,
+   A_lo, L, U) times K4, K5 where a step plan fits, the plain version, the
+   library's CSR SpMV (``torch.sparse``) and the bound;
 5. gate 3: writes the pressure fixture at N^3 rows (``--side3``, default
    64^3 = 262,144 rows, 6.86M nonzeros) and runs it through the CLI:
    MatrixMarket files, RCM, BoomerAMG host setup (PMIS, extended+i,
@@ -29,17 +30,23 @@ toolkit (nvcc) and PyTorch built for CUDA:
    check; prints each level's layout, then at every BELL level times K6,
    its plain version, K4 on the BDIA layout of the same operator, the plain
    ELL SpMV and the library's SpMV, against the layout model's prediction
-   and K6's bound;
+   and K6's bound, and at every BDIA level K4, K5, plain and library;
 6. measures the constants of the time model (``kernels/calibrate.py``)
    beside the ones in the code.
 
-Each path's kernel launches are counted from 0 just before its CLI run and
-read just after; a path that launched none of its kernels fails, and gate
-4 fails unless K5 ran and L and U are BDIA-XL.  The second-to-last line is
-a JSON object with one entry per kernel (launches, times, plain, library
-and bound); the last line is ``{"ok": true, "device": {...}}``.  Any failure
-raises and exits non-zero before those lines, as does a machine without
-CUDA or a directory without the ``tpusolve_torch`` package.
+Every kernel time is given twice: device time (the kernels' durations in a
+``torch.profiler`` trace, ``calibrate.device_ms``) and time per call
+between CUDA events (``calibrate.time_ms``), which on a small launch is
+the host's.  Each path's kernel launches are counted from 0 just before its
+CLI run and read just after; a path that launched none of its kernels
+fails, and gate 4 fails unless each of its operators runs the kernel the
+model prices faster (K4 on all four at 96^3 since the register-stage K4;
+K5 is then held by the checks of step 3 and the timings alone).  The
+second-to-last line is a JSON object with one entry per kernel (launches,
+device and per-call times, plain, library and bound); the last line is
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
+before those lines, as does a machine without CUDA or a directory without
+the ``tpusolve_torch`` package.
 """
 
 from __future__ import annotations
@@ -161,6 +168,71 @@ def banded_check(device) -> tuple:
     return worst4, worst5
 
 
+def k4_launch_check(device) -> float:
+    """K4's launch plans against its plain version and K5 bit for bit, in
+    both dtypes, overflow lists included: a small launch of wide blocks
+    (5,000 rows in 10 blocks of R=512, run as chunks of 256 rows, deep
+    register stages) and an operator of D=640 slots, like gate 3's level 1
+    (688).  Returns the largest relative error against the plain
+    version."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels import bdia
+    from tpusolve_torch.matrix.sharded import _ovf_fields
+
+    rng = np.random.default_rng(12)
+    n = 5000
+    rr = np.arange(n, dtype=np.int64)
+    # a band of 9 random entries a row within 40 of the diagonal; and 12
+    # entries a row drawn from 900 offsets per 128-row block within 2,000
+    band = (np.repeat(rr, 9), np.clip(np.repeat(rr, 9) + rng.integers(
+        -40, 41, size=9 * n), 0, n - 1))
+    offs = rng.integers(-2000, 2001, size=(-(-n // 128), 900))
+    wr = np.repeat(rr, 12)
+    wide = (wr, np.clip(wr + offs[wr // 128, rng.integers(0, 900, wr.size)],
+                        0, n - 1))
+    worst = 0.0
+    for what, (rows, cols), R, D in (("small launch", band, 512, 12),
+                                     ("D=640", wide, 128, 640)):
+        key = np.unique(np.concatenate([rows, rr]) * n
+                        + np.concatenate([cols, rr]))
+        r, c = key // n, key % n
+        v = rng.standard_normal(key.size)
+        for dtype in (np.float32, np.float64):
+            st, fi, vo, o_r, o_c, o_v = bdia.compact(
+                r, c, v, n, n, R, D, dtype=dtype, overflow=True)
+            B = -(-n // R)
+            vals = np.zeros(B * D * R, dtype)
+            vals[fi] = vo
+            starts, xpad, xlen = bdia.finalize_starts(st, n, R)
+            f = _ovf_fields([(o_r, o_c, o_v)], n, n, dtype, device)
+            ovf = (f["bdia_ovf_ptr"], f["bdia_ovf_cols"], f["bdia_ovf_vals"])
+            vt = torch.tensor(vals.reshape(1, B, D, R), device=device)
+            stt = torch.tensor(starts[None], device=device)
+            x = torch.tensor(rng.standard_normal(n).astype(dtype),
+                             device=device)
+            args = (vt, stt, x, xpad, xlen, n, ovf)
+            y4 = bdia.bdia_spmv(*args)
+            err = rel_err(y4, bdia.bdia_spmv_plain(*args))
+            gb, step_lo, panel = bdia.plan_steps(
+                starts[None], R, xpad, vals.itemsize,
+                lambda g, nsteps, panel: abs(g - 4))
+            y5 = bdia.bdia_spmv_xl(vt, stt, x, xpad, n, gb, torch.tensor(
+                step_lo, device=device), panel, ovf)
+            rc, S, blocks, _ = bdia.k4_plan(1, B, D, R, vals.itemsize)
+            name = np.dtype(dtype).name
+            same = bool(torch.equal(y4, y5))
+            print(f"K4 {what} n={n} {name} R={R} D={D} overflow="
+                  f"{int(ovf[0][0, -1])}: {blocks} blocks of {rc} rows, "
+                  f"S={S}; kernel vs plain rel err {err:.3e} (limit "
+                  f"{RTOL[name]:.0e}); equal to K5 (gb={gb}): {same}",
+                  flush=True)
+            if not err <= RTOL[name] or not same:
+                fail(f"K4 {what} {name} out of tolerance or not K5's")
+            worst = max(worst, err)
+    return worst
+
+
 def bell_check(device) -> float:
     """K6 against its plain version on a blocked matrix with ragged groups
     and windows (1,501 rows: the last group and the last window are
@@ -243,9 +315,8 @@ def bdia_timings(ops, device_name: str, seed: int):
     import torch
     from tpusolve_torch.kernels.bdia import (
         bdia_spmv, bdia_spmv_plain, bdia_spmv_xl, bdia_spmv_xl_plain)
-    from tpusolve_torch.kernels.calibrate import time_ms
+    from tpusolve_torch.kernels.calibrate import device_ms, time_ms
     from tpusolve_torch.matrix import sharded
-    from tpusolve_torch.runtime import SM_COUNT
 
     rng = np.random.default_rng(seed)
     rows = []
@@ -266,8 +337,7 @@ def bdia_timings(ops, device_name: str, seed: int):
             fail(f"{name}: K4 vs plain rel err {err4:.3e} > {RTOL[dt]}")
         k = int(M.bdia_ovf_ptr[0, -1]) if M.bdia_ovf_ptr is not None else 0
         nbytes = sharded.bdia_bytes(B, D, R, k, itemsize)
-        model4 = 1e3 * sharded.band_model_s("bdia", itemsize, nbytes, B,
-                                            SM_COUNT)
+        model4 = 1e3 * sharded.k4_model_s(itemsize, nbytes, 1, B, D, R)
         plan = sharded.plan_xl(M.bdia_starts.cpu().numpy(), R, M.bdia_xpad,
                                itemsize, nbytes)
         model5 = None if plan is None else 1e3 * plan[3]
@@ -308,20 +378,26 @@ def bdia_timings(ops, device_name: str, seed: int):
         for key, ts in runs.items():
             row[key + "_ms"] = min(ts)
             row[key + "_runs"] = ts
+        for key, call in calls:
+            row[key + "_dev_ms"] = device_ms(call)
         row["bound_ms"] = bound_ms(nbytes_of(
             M.bdia_vals, M.bdia_starts, *(M.bdia_ovf or ()), x, y4),
             device_name)
         row["ms"] = row["k5_ms" if M.uses_bdia_xl else "k4_ms"]
-        k5 = (f"K5 gb={row['gb']} panel={row['panel']} {row['k5_ms']:.5f} "
-              f"ms (runs {row['k5_runs'][0]:.5f}, {row['k5_runs'][1]:.5f}; "
+        k5 = (f"K5 gb={row['gb']} panel={row['panel']} device "
+              f"{row['k5_dev_ms']:.5f} ms, per call {row['k5_ms']:.5f} ms "
+              f"(runs {row['k5_runs'][0]:.5f}, {row['k5_runs'][1]:.5f}; "
               f"model {model5:.5f}), rel err {row['xl_rel_err']:.3e}, equal "
               f"to K4; " if xargs is not None else "K5: no step plan fits; ")
-        print(f"{name} {dt} {M.layout}: K4 {row['k4_ms']:.5f} ms (runs "
+        print(f"{name} {dt} {M.layout}: K4 device {row['k4_dev_ms']:.5f} ms, "
+              f"per call {row['k4_ms']:.5f} ms (runs "
               f"{row['k4_runs'][0]:.5f}, {row['k4_runs'][1]:.5f}; model "
               f"{model4:.5f}), rel err "
-              f"{err4:.3e}; {k5}plain {row['plain_ms']:.5f} ms; library "
-              f"(torch.sparse CSR) {row['lib_ms']:.5f} ms (rel err "
-              f"{err_lib:.1e}); bound {row['bound_ms']:.5f} ms", flush=True)
+              f"{err4:.3e}; {k5}plain device {row['plain_dev_ms']:.5f} ms, "
+              f"per call {row['plain_ms']:.5f} ms; library (torch.sparse "
+              f"CSR) device {row['lib_dev_ms']:.5f} ms, per call "
+              f"{row['lib_ms']:.5f} ms (rel err {err_lib:.1e}); bound "
+              f"{row['bound_ms']:.5f} ms", flush=True)
         rows.append(row)
     return rows
 
@@ -357,6 +433,17 @@ def check_solve(system, rc: int, what: str):
     return res
 
 
+def model_takes_xl(M) -> bool:
+    """Whether the time model puts BDIA operator ``M`` on K5."""
+    from tpusolve_torch.matrix import sharded
+    _, B, D, R = M.bdia_vals.shape
+    itemsize = M.bdia_vals.element_size()
+    k = 0 if M.bdia_ovf_ptr is None else int(M.bdia_ovf_ptr[0, -1])
+    return sharded.choose_xl(M.bdia_starts.cpu().numpy(), R, M.bdia_xpad,
+                             itemsize, sharded.bdia_bytes(
+                                 B, D, R, k, itemsize)) is not None
+
+
 def gate4_phase(side: int, device_name: str, counters):
     """The gate-4 path; returns (launches, K4/K5 timing rows)."""
     from tpusolve_torch import fixtures
@@ -378,12 +465,20 @@ def gate4_phase(side: int, device_name: str, counters):
           f"L {pre.L.layout}; U {pre.U.layout}", flush=True)
     if launches["bdia_spmv"] <= 0:
         fail("the gate-4 path launched no K4 (bdia_spmv)")
-    # the factors take BDIA-XL from 62^3 (tests/test_torch_bdia_xl.py)
-    if side >= 62 and launches["bdia_spmv_xl"] <= 0:
-        fail("the gate-4 path launched no K5 (bdia_spmv_xl)")
-    if side >= 62 and not (pre.L.layout.startswith("BDIA-XL")
-                           and pre.U.layout.startswith("BDIA-XL")):
-        fail("the ILU factors L and U are not BDIA-XL")
+    # each operator runs the kernel the time model prices faster
+    # (matrix/sharded.py:choose_xl): since the register-stage K4, K4 for
+    # all four at 96^3 (tests/test_torch_bdia_xl.py)
+    xl_ops = []
+    for name, M in (("A", system.A), ("A_lo", system.A_lo), ("L", pre.L),
+                    ("U", pre.U)):
+        if M.uses_bdia_xl != model_takes_xl(M):
+            fail(f"gate-4 {name} runs {M.layout}, not the model's kernel")
+        xl_ops += [name] if M.uses_bdia_xl else []
+    if bool(xl_ops) != (launches["bdia_spmv_xl"] > 0):
+        fail(f"gate-4 launched K5 {launches['bdia_spmv_xl']} times with "
+             f"BDIA-XL on {xl_ops}")
+    print(f"gate-4 kernels, as the model prices them: K5 on "
+          f"{xl_ops or 'none'}, K4 on the rest", flush=True)
     passes = res.passes or []
     print(f"gate-4 {side}^3: {res.iters} BiCGSTAB iterations over "
           f"{len(passes)} refinement passes {passes}, relres "
@@ -413,7 +508,7 @@ def bell_level_timings(pre, device_name: str) -> list:
     import torch
     from tpusolve_torch.kernels.bdia import bdia_spmv
     from tpusolve_torch.kernels.bell import bell_spmv, bell_spmv_plain
-    from tpusolve_torch.kernels.calibrate import time_ms
+    from tpusolve_torch.kernels.calibrate import device_ms, time_ms
     from tpusolve_torch.matrix import sharded
     from tpusolve_torch.matrix.sharded import ShardedMatrix
     from tpusolve_torch.matrix.spmv import ell_spmv_local
@@ -466,6 +561,11 @@ def bell_level_timings(pre, device_name: str) -> list:
         b2 = time_ms(lambda: bdia_spmv(*bargs))
         k2 = time_ms(lambda: bell_spmv(*args))
         p2 = time_ms(lambda: bell_spmv_plain(*args))
+        dev = {key: device_ms(call) for key, call in (
+            ("ms", lambda: bell_spmv(*args)),
+            ("plain_ms", lambda: bell_spmv_plain(*args)),
+            ("k4_ms", lambda: bdia_spmv(*bargs)), ("ell_ms", ell),
+            ("library_ms", lib_call))}
         _, G, K = M.bell_ids.shape
         _, B, D, R = Mb.bdia_vals.shape
         bell_bytes = G * K * (8 * 128 * itemsize + 4)
@@ -473,7 +573,8 @@ def bell_level_timings(pre, device_name: str) -> list:
             Mb.bdia_ovf_ptr[0, -1]) if Mb.bdia_ovf_ptr is not None else 0,
             itemsize)
         model_k6 = 1e3 * sharded.spmv_model_s(
-            sharded.SPMV_MODEL["bell"], bell_bytes, sharded.bell_threads(G))
+            sharded.SPMV_MODEL["bell"], bell_bytes,
+            sharded.bell_threads(G, K))
         model_k4 = 1e3 * sharded.spmv_model_s(
             sharded.SPMV_MODEL["bdia"], bdia_bytes,
             sharded.bdia_threads(B, R))
@@ -486,17 +587,21 @@ def bell_level_timings(pre, device_name: str) -> list:
                    model_k6_ms=model_k6, model_k4_ms=model_k4,
                    bell_mb=bell_bytes / 1e6, bdia_mb=bdia_bytes / 1e6,
                    max_abs_err=abs_err, rel_err=err)
-        agree = (row["ms"] < row["k4_ms"]) == (model_k6 < model_k4)
+        row.update({k.replace("ms", "dev_ms"): v for k, v in dev.items()})
+        agree = (dev["ms"] < dev["k4_ms"]) == (model_k6 < model_k4)
         print(f"gate-3 level {i} ({M.shape[0]} rows, {M.nnz} nnz) {dt}: "
-              f"K6 BELL G={G} K={K} {bell_bytes / 1e6:.2f} MB: {row['ms']:.5f} "
-              f"ms (runs {k1:.5f}, {k2:.5f}; model {model_k6:.5f}); plain "
-              f"BELL {row['plain_ms']:.5f} ms (runs {p1:.5f}, {p2:.5f}); K4 "
-              f"BDIA B={B} D={D} R={R} {bdia_bytes / 1e6:.2f} MB: "
-              f"{row['k4_ms']:.5f} ms (runs {b1:.5f}, {b2:.5f}; model "
-              f"{model_k4:.5f}); plain ELL K={Me.diag_vals.shape[-1]} "
-              f"{row['ell_ms']:.5f} ms (runs {e1:.5f}, {e2:.5f}); library "
-              f"(torch.sparse CSR) {row['library_ms']:.5f} ms (runs "
-              f"{l1:.5f}, {l2:.5f}; rel err {err_lib:.1e}); K6 bound "
+              f"K6 BELL G={G} K={K} {bell_bytes / 1e6:.2f} MB: device "
+              f"{dev['ms']:.5f} ms, per call {row['ms']:.5f} ms (runs "
+              f"{k1:.5f}, {k2:.5f}; model {model_k6:.5f}); plain BELL device "
+              f"{dev['plain_ms']:.5f} ms, per call {row['plain_ms']:.5f} ms "
+              f"(runs {p1:.5f}, {p2:.5f}); K4 BDIA B={B} D={D} R={R} "
+              f"{bdia_bytes / 1e6:.2f} MB: device {dev['k4_ms']:.5f} ms, per "
+              f"call {row['k4_ms']:.5f} ms (runs {b1:.5f}, {b2:.5f}; model "
+              f"{model_k4:.5f}); plain ELL K={Me.diag_vals.shape[-1]} device "
+              f"{dev['ell_ms']:.5f} ms, per call {row['ell_ms']:.5f} ms (runs "
+              f"{e1:.5f}, {e2:.5f}); library (torch.sparse CSR) device "
+              f"{dev['library_ms']:.5f} ms, per call {row['library_ms']:.5f} "
+              f"ms (runs {l1:.5f}, {l2:.5f}; rel err {err_lib:.1e}); K6 bound "
               f"{row['bound_ms']:.5f} ms; layout model "
               f"{'agrees' if agree else 'DISAGREES'} with the measurement; "
               f"K6 rel err {err:.3e}", flush=True)
@@ -602,6 +707,7 @@ def main(argv) -> int:
 
     print(f"kernel build: {build.build_all():.3f} s", flush=True)
     worst4, worst5 = banded_check(device)
+    worst4 = max(worst4, k4_launch_check(device))
     worst6 = bell_check(device)
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv)
@@ -626,9 +732,10 @@ def main(argv) -> int:
              source="tpusolve_torch/csrc/bdia_spmv.cu",
              replaces="tpusolve/kernels/bdia.py:252", **launches("bdia_spmv"),
              max_abs_err=max(r["max_abs_err"] for r in rows4 + bdia_rows3),
-             ms=k4["k4_ms"], plain_ms=k4["plain_ms"],
-             bound_ms=k4["bound_ms"], bound_by="bytes",
-             library_ms=k4["lib_ms"], shape=k4["op"],
+             ms=k4["k4_ms"], device_ms=k4["k4_dev_ms"],
+             plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by="bytes", library_ms=k4["lib_ms"],
+             library_device_ms=k4["lib_dev_ms"], shape=k4["op"],
              max_rel_err=max([worst4] + [r["rel_err"]
                                          for r in rows4 + bdia_rows3]),
              shapes=rows4 + bdia_rows3),
@@ -638,9 +745,11 @@ def main(argv) -> int:
              **launches("bdia_spmv_xl"),
              max_abs_err=max(r["xl_max_abs_err"] for r in rows4 + bdia_rows3
                              if "xl_max_abs_err" in r),
-             ms=k5["k5_ms"], plain_ms=k5["plain_ms"],
-             bound_ms=k5["bound_ms"], bound_by="bytes",
-             library_ms=k5["lib_ms"], shape=k5["op"],
+             ms=k5["k5_ms"], device_ms=k5["k5_dev_ms"],
+             plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+             bound_by="bytes", library_ms=k5["lib_ms"],
+             library_device_ms=k5["lib_dev_ms"], shape=k5["op"],
+             held_by="banded_check, k4_launch_check, bdia_timings",
              max_rel_err=max([worst5] + [r["xl_rel_err"]
                                          for r in rows4 + bdia_rows3
                                          if "xl_rel_err" in r])),
@@ -648,9 +757,11 @@ def main(argv) -> int:
              source="tpusolve_torch/csrc/bell_spmv.cu",
              replaces="tpusolve/kernels/bell.py:159", **launches("bell_spmv"),
              max_abs_err=max(r["max_abs_err"] for r in rows3),
-             ms=k6["ms"], plain_ms=k6["plain_ms"],
+             ms=k6["ms"], device_ms=k6["dev_ms"], plain_ms=k6["plain_ms"],
              bound_ms=k6["bound_ms"], bound_by="bytes",
-             library_ms=k6["library_ms"], shape=f"level {k6['level']}",
+             library_ms=k6["library_ms"],
+             library_device_ms=k6["library_dev_ms"],
+             shape=f"level {k6['level']}",
              max_rel_err=max([worst6] + [r["rel_err"] for r in rows3]),
              shapes=rows3)]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -216,7 +216,7 @@ class TestLayout:
         nbytes = sharded.bdia_bytes(B, D, R, k, 8)
         xl = sharded.plan_xl(A.bdia_starts.numpy(), R, A.bdia_xpad, 8,
                              nbytes)
-        t4 = sharded.band_model_s("bdia", 8, nbytes, B, runtime.SM_COUNT)
+        t4 = sharded.k4_model_s(8, nbytes, 1, B, D, R)
         assert xl is not None
         assert A.uses_bdia_xl == (xl[3] < t4) == slow_k4, A.layout
         if not slow_k4:
@@ -306,11 +306,13 @@ def test_from_arrays_runs_a_tpusolve_xl_operator(rng, monkeypatch):
 
 def test_gate4_factors_take_xl_from_62():
     """The slice: gate 4's ILU factors, as its ``mixed`` run builds them (f32
-    twin of the RCM-ordered fixture, host Chow-Patel ILU(0)), take BDIA-XL
-    from 62^3, the smallest side of the fixture where they do (the choice
-    is the same on the CPU and the card); in f64 they stay on K4.  A CLI
-    run at that side takes too long on a CPU: the CLI comparison with
-    tpusolve runs at 16^3 (tests/test_torch_slice.py)."""
+    twin of the RCM-ordered fixture, host Chow-Patel ILU(0)), at 62^3, the
+    smallest side where they took BDIA-XL with the previous K4 and its
+    constants.  A K5 step plan fits their shared memory, but the model
+    now prices K4 (register stages) below it, as the card measures, so
+    they stay on K4 (the choice is the same on the CPU and the card); in
+    f64 too.  A CLI run at that side takes too long on a CPU: the CLI
+    comparison with tpusolve runs at 16^3 (tests/test_torch_slice.py)."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
     from tpusolve_torch.fixtures import make_system
@@ -329,10 +331,16 @@ def test_gate4_factors_take_xl_from_62():
     pre = ilu_setup(A.astype(np.float32),
                     A_host=sp.csr_matrix((vals, (r, c)), shape=(n, n)))
     for M in (pre.L, pre.U):
-        assert M.uses_bdia_xl and M.layout.startswith("BDIA-XL"), M.layout
+        assert not M.uses_bdia_xl and M.layout.startswith("BDIA R="), \
+            M.layout
         _, B, D, R = M.bdia_vals.shape
         k = int(M.bdia_ovf_ptr[0, -1])
-        assert sharded.choose_xl(M.bdia_starts.numpy(), R, M.bdia_xpad, 8,
+        starts = M.bdia_starts.numpy()
+        nbytes = sharded.bdia_bytes(B, D, R, k, 4)
+        xl = sharded.plan_xl(starts, R, M.bdia_xpad, 4, nbytes)
+        assert xl is not None
+        assert xl[3] >= sharded.k4_model_s(4, nbytes, 1, B, D, R)
+        assert sharded.choose_xl(starts, R, M.bdia_xpad, 8,
                                  sharded.bdia_bytes(B, D, R, k, 8)) is None
     assert not A.uses_bdia_xl
 

@@ -173,6 +173,51 @@ class TestLayoutChoice:
         assert choose_layout([(r, c, v)], 1000, 1000, 8, r.size)[0] == "ell"
 
 
+def one_window(rng, n, per_row=20):
+    """Every row's columns inside its own 128-column window: K = 1."""
+    rows = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    base = rows // bell.TN * bell.TN
+    cols = np.minimum(base + rng.integers(0, bell.TN, size=rows.size), n - 1)
+    key = np.unique(rows * n + cols)
+    return key // n, key % n, rng.standard_normal(key.size)
+
+
+class TestK6Launch:
+    @pytest.mark.parametrize("K", [1, 2, 12, 16, 17, 32, 40])
+    def test_warps_take_every_tile_once(self, K):
+        """K6's block has ``bell_warps(K)`` warps, warp w takes tiles w,
+        w + warps, ...: every tile once, at most ``MAX_WARPS`` warps."""
+        W = bell.bell_warps(K)
+        assert W == min(K, bell.MAX_WARPS) and 32 * W <= 1024
+        took = sorted(k for w in range(W) for k in range(w, K, W))
+        assert took == list(range(K))
+        assert max(len(range(w, K, W)) for w in range(W)) == -(-K // W)
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_tile_loads_are_16_byte_aligned(self, itemsize):
+        """K6's lane loads 4 values of each tile row as 16-byte loads (two
+        in f64): from a 16-byte aligned vals, every (group, tile, row,
+        lane) offset is a multiple of 16 bytes."""
+        G, K = 5, 3
+        off = ((np.arange(G * K)[:, None, None] * bell.TM
+                + np.arange(bell.TM)[None, :, None]) * bell.TN
+               + 4 * np.arange(32)[None, None, :]) * itemsize
+        assert not (off % 16).any()
+        assert (4 * itemsize) % 16 == 0
+
+    def test_one_window_operator_has_k1(self, rng):
+        n = 1000
+        r, c, v = one_window(rng, n)
+        assert bell.bell_plan_k(r, c, n) == 1
+        vals, ids, nwin = staged(r, c, v, n, n, np.float64)
+        x = rng.standard_normal(n)
+        y = bell.bell_spmv(torch.from_numpy(vals), torch.from_numpy(ids),
+                           torch.from_numpy(x), nwin, n).numpy()
+        ref = sp.csr_matrix((v, (r, c)), shape=(n, n)) @ x
+        np.testing.assert_allclose(y, ref, rtol=1e-12,
+                                   atol=1e-12 * np.abs(ref).max())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -207,6 +252,30 @@ class TestCudaKernel:
         ref = bell.bell_spmv_plain(*args)
         err = float((y - ref).abs().max() / ref.abs().max())
         assert err <= RTOL[dtype]
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("case", ["K=1", "K>warps"])
+    def test_kernel_k_against_warps(self, cuda, dtype, case):
+        """One tile a group (one warp a block), and more tiles than a block
+        has warps (warps take several tiles each)."""
+        rng = np.random.default_rng(9)
+        if case == "K=1":
+            n = 3001
+            r, c, v = one_window(rng, n)
+        else:
+            n = 4099
+            r, c, v = blocky(rng, n)
+        vals, ids, nwin = staged(r, c, v, n, n, dtype)
+        K = ids.shape[-1]
+        assert K == 1 if case == "K=1" else K > bell.MAX_WARPS
+        x = torch.from_numpy(rng.standard_normal(n).astype(dtype)).to(cuda)
+        args = (torch.from_numpy(vals).to(cuda),
+                torch.from_numpy(ids).to(cuda), x, nwin, n)
+        y = bell.bell_spmv(*args)
+        torch.cuda.synchronize()
+        ref = bell.bell_spmv_plain(*args)
+        assert float((y - ref).abs().max() / ref.abs().max()) <= RTOL[dtype]
+        assert torch.equal(y, bell.bell_spmv(*args))     # deterministic
 
     def test_spmv_matches_scipy(self, cuda):
         from tpusolve_torch.matrix.spmv import spmv

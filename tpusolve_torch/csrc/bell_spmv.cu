@@ -15,21 +15,28 @@
 // What bounds it: the tile stream, G*K*8*128*itemsize bytes per part, read
 // once.  Tiles are mostly zeros (2-16 % fill on AMG coarse levels), so the
 // kernel streams about 6-50 bytes for every useful one.  x is small on the
-// levels that take this layout and is served from L2.  The design:
-//   * one warp per 8-row group, so a group exposes 32 threads: 4 per row
-//     (the TPU kernel walks its groups in order inside one grid step;
-//     here every group is independent, and 4 warps share a thread block so
-//     that small levels still spread over the SMs);
+// levels that take this layout and is served from L2.  The first version
+// of this kernel ran one warp per group, 4 warps a block, each warp walking
+// its K tiles one after another: gate 3's level 2 at 64^3 (189 groups,
+// K=12) was 48 blocks on 132 SMs, 189 warps each streaming 12 tiles in
+// turn, at 0.55 of its bound on an H100.  This design spreads the tiles:
+//   * one thread block per (group, part), W = min(K, 16) warps
+//     (kernels/bell.py:bell_warps); warp w takes tiles k = w, w + W, ...,
+//     so a level of G groups exposes G*W warps (2,268 at level 2);
 //   * each lane owns 4 consecutive columns of the 128-wide window, and per
-//     tile reads its 4 values of x once and its 4 values of each of the 8
-//     tile rows: one 16-byte load per tile row in f32, two in f64, so a
-//     warp reads each 128-wide tile row as one contiguous 512- or 1024-byte
-//     segment;
-//   * 8 accumulators per lane over the K tiles, then a butterfly
-//     warp-shuffle reduction of each; lanes 0-7 store rows 0-7;
+//     tile issues the loads of its 4 values of x and of its 4 values of
+//     each of the 8 tile rows (one 16-byte load per row in f32, two in
+//     f64) before any multiply-add, so a warp has a whole 4 or 8 KB tile
+//     in flight, and each 128-wide tile row is one contiguous 512- or
+//     1024-byte segment of the warp's loads;
+//   * 8 accumulators per lane over the warp's tiles, a butterfly
+//     warp-shuffle reduction of each, then the W warps' partial sums of
+//     the 8 rows are added in shared memory in warp order (fixed: the
+//     result is deterministic), and threads 0-7 store rows 0-7;
 //   * x loads are 16 bytes when x's part is 16-byte aligned and the 4
 //     columns lie inside x, else 4 scalar loads with the bounds test.
-// Skipping all-zero sub-tiles would cut the stream; that is later work.
+// Skipping all-zero sub-tiles would cut the stream (and the bound); that is
+// later work (ROADMAP Queue 2).
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (tpusolve_torch/kernels/build.py).  Each entry point launches
@@ -41,9 +48,9 @@
 
 namespace {
 
-constexpr int TM = 8;      // tile rows
-constexpr int TN = 128;    // tile columns
-constexpr int WARPS = 4;   // warps (row groups) per thread block
+constexpr int TM = 8;          // tile rows
+constexpr int TN = 128;        // tile columns
+constexpr int MAX_WARPS = 16;  // warps per thread block (kernels/bell.py)
 
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
@@ -63,16 +70,16 @@ __device__ __forceinline__ void load4(const double* p, double v[4]) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 bell_spmv_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
                  const T* __restrict__ x, T* __restrict__ y, int ngroups,
                  int ktiles, int row_pad, int col_pad) {
+  __shared__ T s_part[MAX_WARPS][TM];
   const int lane = threadIdx.x & 31;
-  const int g = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int g = blockIdx.x;
   const int p = blockIdx.y;
-  if (g >= ngroups) {
-    return;   // the whole warp: g is the same for its 32 lanes
-  }
   const int64_t grp = (int64_t)p * ngroups + g;
   const int32_t* gid = ids + grp * ktiles;
   const T* gv = vals + grp * ktiles * (TM * TN) + lane * 4;
@@ -84,7 +91,13 @@ bell_spmv_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
   for (int r = 0; r < TM; ++r) {
     acc[r] = T(0);
   }
-  for (int k = 0; k < ktiles; ++k) {
+  for (int k = w; k < ktiles; k += nw) {
+    const T* tv = gv + (int64_t)k * (TM * TN);
+    T v[TM][4];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      load4(tv + r * TN, v[r]);
+    }
     const int c = __ldg(gid + k) * TN + lane * 4;
     T xv[4];
     if (xvec && c + 4 <= col_pad) {
@@ -95,12 +108,10 @@ bell_spmv_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
         xv[i] = (c + i < col_pad) ? __ldg(xp + c + i) : T(0);
       }
     }
-    const T* tv = gv + (int64_t)k * (TM * TN);
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
-      T v[4];
-      load4(tv + r * TN, v);
-      acc[r] += v[0] * xv[0] + v[1] * xv[1] + v[2] * xv[2] + v[3] * xv[3];
+      acc[r] += v[r][0] * xv[0] + v[r][1] * xv[1] + v[r][2] * xv[2]
+                + v[r][3] * xv[3];
     }
   }
 #pragma unroll
@@ -110,14 +121,22 @@ bell_spmv_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
       acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
     }
   }
-  const int row = g * TM + lane;
-  if (lane < TM && row < row_pad) {
+  if (lane < TM) {
     T out = acc[0];
 #pragma unroll
     for (int r = 1; r < TM; ++r) {
       if (lane == r) {
         out = acc[r];
       }
+    }
+    s_part[w][lane] = out;
+  }
+  __syncthreads();
+  const int row = g * TM + threadIdx.x;
+  if (threadIdx.x < TM && row < row_pad) {
+    T out = s_part[0][threadIdx.x];
+    for (int i = 1; i < nw; ++i) {
+      out += s_part[i][threadIdx.x];
     }
     y[(int64_t)p * row_pad + row] = out;
   }
@@ -126,9 +145,12 @@ bell_spmv_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
 template <typename T>
 int launch(const void* vals, const void* ids, const void* x, void* y,
            int nparts, int ngroups, int ktiles, int row_pad, int col_pad,
-           void* stream) {
-  const dim3 grid((ngroups + WARPS - 1) / WARPS, nparts);
-  bell_spmv_kernel<T><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+           int warps, void* stream) {
+  if (warps <= 0 || warps > MAX_WARPS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(ngroups, nparts);
+  bell_spmv_kernel<T><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
       (const T*)vals, (const int32_t*)ids, (const T*)x, (T*)y, ngroups,
       ktiles, row_pad, col_pad);
   return (int)cudaGetLastError();
@@ -140,16 +162,16 @@ extern "C" {
 
 int bell_spmv_f32(const void* vals, const void* ids, const void* x, void* y,
                   int nparts, int ngroups, int ktiles, int row_pad,
-                  int col_pad, void* stream) {
+                  int col_pad, int warps, void* stream) {
   return launch<float>(vals, ids, x, y, nparts, ngroups, ktiles, row_pad,
-                       col_pad, stream);
+                       col_pad, warps, stream);
 }
 
 int bell_spmv_f64(const void* vals, const void* ids, const void* x, void* y,
                   int nparts, int ngroups, int ktiles, int row_pad,
-                  int col_pad, void* stream) {
+                  int col_pad, int warps, void* stream) {
   return launch<double>(vals, ids, x, y, nparts, ngroups, ktiles, row_pad,
-                        col_pad, stream);
+                        col_pad, warps, stream);
 }
 
 const char* tpusolve_cuda_error_string(int code) {

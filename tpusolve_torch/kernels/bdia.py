@@ -66,6 +66,17 @@ XL_ROW_BYTES = 16
 XL_ALIGN = 4
 XL_BARRIER_BYTES = 16
 
+# K4's launch plan (csrc/bdia_spmv.cu): a thread block per chunk of
+# Rc = min(R, K4_MAX_CHUNK) rows of an R-row block, one thread a row; the
+# slots run in register stages of S: K4_SLOTS_FULL where the launch has at
+# least K4_DEEP_WARPS warps an SM, else K4_SLOTS_DEEP; S is one of the
+# kernel's instantiations K4_SLOTS
+K4_MAX_CHUNK = 256
+K4_DEEP_WARPS = 16
+K4_SLOTS_FULL = 8
+K4_SLOTS_DEEP = 32
+K4_SLOTS = (8, 16, 32)
+
 
 def plan_fill_profile(lr, lc, row_pad: int, col_pad: int,
                       R: int) -> np.ndarray:
@@ -213,6 +224,30 @@ def xl_threads(gb: int, R: int, itemsize: int) -> int:
     ``XL_THREADS`` (``csrc/bdia_spmv_xl.cu``)."""
     groups = gb * R * itemsize // XL_ROW_BYTES
     return min(XL_THREADS, -(-groups // 32) * 32)
+
+
+@functools.lru_cache(maxsize=256)
+def k4_plan(nparts: int, B: int, D: int, R: int, itemsize: int) -> tuple:
+    """K4's launch on a (nparts, B, D, R) layout: ``(Rc, S, blocks,
+    smem)``, the rows of a thread block's chunk (its threads), the slots of
+    a register stage, the thread blocks, and the block's dynamic shared
+    memory in bytes (the window starts).  Every (block, chunk) unit is one
+    thread block and covers rows ``[c*Rc, (c+1)*Rc)`` of its R-row block,
+    so each row has one thread.  Raises where ``K4_MAX_CHUNK`` neither
+    holds nor divides R, or the starts do not fit
+    ``runtime.SMEM_PER_BLOCK``: K4 has no other launch."""
+    rc = min(R, K4_MAX_CHUNK)
+    if R % rc:
+        raise ValueError(f"bdia_spmv: R={R} is not a multiple of "
+                         f"{K4_MAX_CHUNK}")
+    warps = nparts * B * R // 32
+    S = (K4_SLOTS_FULL if warps >= K4_DEEP_WARPS * runtime.SM_COUNT
+         else K4_SLOTS_DEEP)
+    smem = D * 4
+    if smem > runtime.SMEM_PER_BLOCK:
+        raise ValueError(f"bdia_spmv: {D} slots do not fit one block's "
+                         "shared memory")
+    return rc, S, nparts * B * (R // rc), smem
 
 
 def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
@@ -397,19 +432,16 @@ def bdia_spmv(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
     P, B, D, R = vals.shape
     col_pad, ovf_ptrs, ovf_len = _check_launch("bdia_spmv", vals, starts, x,
                                                row_pad, ovf)
-    if D * 4 > _SMEM_MAX:
-        raise ValueError(f"bdia_spmv: {D} slots exceed the kernel's "
-                         "shared-memory staging")
     if xlen >= 2 ** 31:
         raise ValueError("bdia_spmv: part too large for 32-bit row indices")
-    lib, fns = _kernel_fns("bdia_spmv", 7, 8)
+    rc, S, _, smem = k4_plan(P, B, D, R, x.element_size())
+    if smem > _SMEM_MAX:
+        runtime.require_smem(x.device.index)
+    lib, fns = _kernel_fns("bdia_spmv", 7, 10)
     y = torch.empty(P * row_pad, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        code = fns[x.dtype](vals.data_ptr(), starts.data_ptr(), x.data_ptr(),
-                            *ovf_ptrs, y.data_ptr(), P, B, D, R, row_pad,
-                            col_pad, xpad_lo, ovf_len, stream)
-    build.check(lib, code, "bdia_spmv launch")
+    build.launch(lib, fns[x.dtype], x, "bdia_spmv launch", vals.data_ptr(),
+                 starts.data_ptr(), x.data_ptr(), *ovf_ptrs, y.data_ptr(), P,
+                 B, D, R, row_pad, col_pad, xpad_lo, ovf_len, rc, S)
     bdia_spmv.launches += 1
     return y
 
@@ -448,13 +480,10 @@ def bdia_spmv_xl(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
     runtime.require_smem(x.device.index)
     lib, fns = _kernel_fns("bdia_spmv_xl", 8, 11)
     y = torch.empty(P * row_pad, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        code = fns[x.dtype](vals.data_ptr(), starts.data_ptr(),
-                            step_lo.data_ptr(), x.data_ptr(), *ovf_ptrs,
-                            y.data_ptr(), P, B, D, R, row_pad, col_pad,
-                            xpad_lo, ovf_len, gb, nsteps, panel, stream)
-    build.check(lib, code, "bdia_spmv_xl launch")
+    build.launch(lib, fns[x.dtype], x, "bdia_spmv_xl launch",
+                 vals.data_ptr(), starts.data_ptr(), step_lo.data_ptr(),
+                 x.data_ptr(), *ovf_ptrs, y.data_ptr(), P, B, D, R, row_pad,
+                 col_pad, xpad_lo, ovf_len, gb, nsteps, panel)
     bdia_spmv_xl.launches += 1
     return y
 

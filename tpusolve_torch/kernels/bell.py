@@ -34,6 +34,7 @@ from tpusolve_torch.kernels import build
 
 TM = 8    # tile rows
 TN = 128  # tile cols
+MAX_WARPS = 16   # K6's warps per thread block at most (csrc/bell_spmv.cu)
 
 
 # ----------------------------------------------------------------------
@@ -140,13 +141,20 @@ def bell_spmv_plain(vals: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
     return y.reshape(P, G * TM)[:, :row_pad].reshape(-1)
 
 
+def bell_warps(K: int) -> int:
+    """Warps of K6's thread block for a group of ``K`` tiles: one a tile, at
+    most ``MAX_WARPS`` (``csrc/bell_spmv.cu``); warp w takes tiles w,
+    w + warps, ..."""
+    return max(1, min(K, MAX_WARPS))
+
+
 @functools.cache
 def _kernel_fns():
     """(library, {dtype: entry point}) with ctypes signatures declared."""
     lib = build.load("bell_spmv")
     fns = {torch.float32: lib.bell_spmv_f32, torch.float64: lib.bell_spmv_f64}
     for fn in fns.values():
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fns
@@ -184,11 +192,9 @@ def bell_spmv(vals: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
         raise ValueError("bell_spmv: part too large for 32-bit indices")
     lib, fns = _kernel_fns()
     y = torch.empty(P * row_pad, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        code = fns[x.dtype](vals.data_ptr(), ids.data_ptr(), x.data_ptr(),
-                            y.data_ptr(), P, G, K, row_pad, col_pad, stream)
-    build.check(lib, code, "bell_spmv launch")
+    build.launch(lib, fns[x.dtype], x, "bell_spmv launch", vals.data_ptr(),
+                 ids.data_ptr(), x.data_ptr(), y.data_ptr(), P, G, K,
+                 row_pad, col_pad, bell_warps(K))
     bell_spmv.launches += 1
     return y
 

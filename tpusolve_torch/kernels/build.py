@@ -124,3 +124,18 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.tpusolve_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(lib: ctypes.CDLL, fn, x, what: str, *args) -> None:
+    """Call entry point ``fn`` of ``lib`` with ``args`` and the current
+    stream of CUDA tensor ``x``'s device, and raise if the launch failed.
+    The call enters that device only when it is not the current one: the
+    common case skips the context switch (a per-launch host cost)."""
+    import torch
+    dev = x.device.index
+    if dev == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    check(lib, code, what)

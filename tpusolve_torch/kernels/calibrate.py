@@ -6,9 +6,12 @@
 K6) by :func:`~tpusolve_torch.matrix.sharded.spmv_model_s`, ``bytes /
 (rate * min(1, threads / threads_full))``, and between K4 and K5 on a BDIA
 layout by :func:`~tpusolve_torch.matrix.sharded.band_model_s`, ``bytes /
-rate`` times the rounds of blocks.  For each kernel this times, with CUDA
-events, one synthetic operator whose launch fills the card, one small one,
-and one in between as a check of the model:
+rate`` times the rounds of blocks.  For each kernel this times one
+synthetic operator whose launch fills the card, one small one, and one in
+between as a check of the model.  The constants come from device time
+(:func:`device_ms`, the kernels' durations in a ``torch.profiler`` trace);
+each line also prints the time per call between CUDA events
+(:func:`time_ms`), which on a small launch is the host's time per call:
 
 * ``bdia`` (K4) and ``bell`` (K6), for BDIA against BELL, in f64: random
   window starts and ids, the small shape that of the 64^3 gate-3
@@ -35,6 +38,10 @@ times K5 on the f32 banded operator at the 96^3 factors' shape at several
 blocks per step, beside K4 and the model's prices: how the rounds of blocks
 over the SMs, and the panels' bytes, set K5's time
 (``matrix/sharded.py:band_model_s``).
+
+    python -m tpusolve_torch.kernels.calibrate --k4
+
+times K4 at each register-stage depth it is built for (``sweep_k4``).
 """
 
 from __future__ import annotations
@@ -86,6 +93,45 @@ def time_ms(fn, warmup_s: float = 0.2, window_s: float = 0.05) -> float:
     return _events_ms(fn, max(10, int(window_s * 1e3 / est)))
 
 
+# traces device_ms takes before it gives up on an empty one
+TRACE_TRIES = 3
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """Device milliseconds per call: the durations of the kernels, copies
+    and sets that ``reps`` calls put on the card, from a ``torch.profiler``
+    (CUPTI) trace.  Unlike :func:`time_ms` it leaves out the host's time
+    per call (argument checks, allocation, the launch itself), which sets
+    the event-loop time of a small launch.
+
+    On the card's machine a trace now and then lacks a few device events
+    (3 of 50 launches of a 6 us kernel, late in a long process) or all of
+    them.  So each kind of event (by name) counts its mean duration times
+    its number per call, rounded, and an empty trace is taken again; raises
+    after ``TRACE_TRIES`` empty ones."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        us = sum(round(len(d) / reps) * sum(d) / len(d)
+                 for d in by_name.values())
+        if us > 0:
+            return us / 1e3
+    raise RuntimeError(f"device_ms: the profiler saw no device activity in "
+                       f"{TRACE_TRIES} traces")
+
+
 def _bdia_case(shape, dtype, device, gen):
     """(call, bytes streamed, threads) of K4 on a random BDIA operator."""
     from tpusolve_torch.matrix.sharded import bdia_bytes, bdia_threads
@@ -112,7 +158,8 @@ def _bell_case(shape, dtype, device, gen):
                         generator=gen)
     x = torch.randn(n, dtype=dtype, device=device, generator=gen)
     nbytes = G * K * (TM * TN * vals.element_size() + 4)
-    return lambda: bell_spmv(vals, ids, x, nwin, n), nbytes, bell_threads(G)
+    return (lambda: bell_spmv(vals, ids, x, nwin, n), nbytes,
+            bell_threads(G, K))
 
 
 def _banded(shape, dtype, device, gen):
@@ -146,14 +193,14 @@ def _banded(shape, dtype, device, gen):
 def _bdia_band_case(shape, dtype, device, gen):
     """(call, bytes streamed, (blocks, resident)) of K4 on the banded
     operator."""
-    from tpusolve_torch import runtime
-    from tpusolve_torch.matrix.sharded import bdia_bytes
+    from tpusolve_torch.matrix.sharded import bdia_bytes, k4_blocks
     B, D, R = shape
     vals, starts, x, band, ovf, k = _banded(shape, dtype, device, gen)
     n = B * R
+    itemsize = vals.element_size()
     return (lambda: bdia_spmv(vals, starts, x, band, n + band, n, ovf),
-            bdia_bytes(B, D, R, k, vals.element_size()),
-            (B, runtime.SM_COUNT))
+            bdia_bytes(B, D, R, k, itemsize),
+            k4_blocks(1, B, D, R, itemsize))
 
 
 def _bdia_xl_case(shape, dtype, device, gen):
@@ -207,7 +254,8 @@ def measure(device=None, log=print) -> dict:
             got, rate = {}, None
             for role, shape in SHAPES[kernel].items():
                 call, nbytes, occ = make(shape, dtype, device, gen)
-                ms = time_ms(call)
+                call_ms = time_ms(call)
+                ms = device_ms(call)
                 got[role] = (nbytes, occ, ms)
                 note = ""
                 if band:
@@ -218,8 +266,9 @@ def measure(device=None, log=print) -> dict:
                 else:
                     note = f", {occ} threads"
                 log(f"{kernel} f{8 * itemsize} {role} {shape}: "
-                    f"{nbytes / 1e6:.3f} MB, {ms:.5f} ms, "
-                    f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s{note}")
+                    f"{nbytes / 1e6:.3f} MB, device {ms:.5f} ms, per call "
+                    f"{call_ms:.5f} ms, {nbytes / (ms * 1e-3) / 1e9:.1f} "
+                    f"GB/s{note}")
             if band:
                 out["rate"].setdefault(kernel, {})[itemsize] = rate
                 continue
@@ -243,15 +292,13 @@ def sweep_steps(device=None, log=print) -> list:
     device = device or torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    from tpusolve_torch import runtime
     B, D, R = 6912, 23, 128          # the 96^3 gate-4 factors' shape
     vals, starts, x, band, ovf, k = _banded((B, D, R), torch.float32,
                                             device, gen)
     n = B * R
     nbytes = sharded.bdia_bytes(B, D, R, k, 4)
-    ms = time_ms(lambda: bdia_spmv(vals, starts, x, band, n + band, n, ovf))
-    model = 1e3 * sharded.band_model_s("bdia", 4, nbytes, B,
-                                       runtime.SM_COUNT)
+    ms = device_ms(lambda: bdia_spmv(vals, starts, x, band, n + band, n, ovf))
+    model = 1e3 * sharded.k4_model_s(4, nbytes, 1, B, D, R)
     log(f"K4 f32 {(B, D, R)} overflow={k}: {ms:.5f} ms (model {model:.5f})")
     rows = [(0, B, ms, model)]
     starts_np = starts.cpu().numpy()
@@ -261,7 +308,7 @@ def sweep_steps(device=None, log=print) -> list:
         _, step_lo, panel = plan
         nsteps = step_lo.shape[1]
         lo = torch.tensor(step_lo, device=device)
-        ms = time_ms(lambda: bdia_spmv_xl(vals, starts, x, band, n, gb, lo,
+        ms = device_ms(lambda: bdia_spmv_xl(vals, starts, x, band, n, gb, lo,
                                           panel, ovf))
         resident = sharded.xl_resident(bdia_mod.xl_smem_bytes(
             panel, gb, D, 4), bdia_mod.xl_threads(gb, R, 4))
@@ -273,6 +320,38 @@ def sweep_steps(device=None, log=print) -> list:
     return rows
 
 
+def sweep_k4(device=None, log=print) -> list:
+    """K4's device time at every register-stage depth S of ``K4_SLOTS`` on
+    three operators with the main path's shapes: random windows like gate
+    3's 64^3 level 1 (B=169, D=688, R=128, f64), and the banded operator
+    like gate 4's A at 96^3 (B=6912, D=46, R=128) in f64 and f32.  Returns
+    (operator, S, device ms) rows; the module's plan constants are restored
+    after."""
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    ops = [("level-1 shape f64", _bdia_case((169, 688, 128), torch.float64,
+                                            device, gen)[0])]
+    for dtype in BOTH:
+        ops.append((f"A shape f{torch.finfo(dtype).bits}",
+                    _bdia_band_case((6912, 46, 128), dtype, device, gen)[0]))
+    keep = (bdia_mod.K4_DEEP_WARPS, bdia_mod.K4_SLOTS_DEEP)
+    rows = []
+    try:
+        bdia_mod.K4_DEEP_WARPS = 1 << 30       # every launch takes S below
+        for name, call in ops:
+            for S in bdia_mod.K4_SLOTS:
+                bdia_mod.K4_SLOTS_DEEP = S
+                bdia_mod.k4_plan.cache_clear()
+                ms = device_ms(call)
+                log(f"K4 {name}: S={S}: device {ms:.5f} ms")
+                rows.append((name, S, ms))
+    finally:
+        bdia_mod.K4_DEEP_WARPS, bdia_mod.K4_SLOTS_DEEP = keep
+        bdia_mod.k4_plan.cache_clear()
+    return rows
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("calibrate: CUDA is not available", file=sys.stderr)
@@ -280,6 +359,9 @@ if __name__ == "__main__":
     print(torch.cuda.get_device_name(0))
     if sys.argv[1:] == ["--steps"]:
         sweep_steps()
+        sys.exit(0)
+    if sys.argv[1:] == ["--k4"]:
+        sweep_k4()
         sys.exit(0)
     for _ in range(int(sys.argv[1]) if len(sys.argv) > 1 else 1):
         print(json.dumps(measure()), flush=True)

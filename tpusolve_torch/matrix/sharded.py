@@ -57,18 +57,20 @@ TILE_EXPANSION_FLOOR = 256 << 20
 
 # Time models of one diag-block SpMV, with constants measured by
 # ``python -m tpusolve_torch.kernels.calibrate 3`` on an NVIDIA H100 80GB
-# HBM3 with a 700.00 W power limit: medians of three runs (PERF.md).
+# HBM3 with a 700.00 W power limit, from the kernels' device time (a
+# ``torch.profiler`` trace): medians of three runs, on the register-stage
+# K4 and the warp-per-tile K6 (PERF.md).
 #
 # BDIA against BELL (K4 against K6, spmv_model_s): for each kernel, the
 # rate at which it streams the matrix's bytes when the launch fills the card
 # (bytes/s), and the number of threads at which it does; on random windows
 # and ids in f64, for every item size:
-SPMV_MODEL = {"bdia": (2.626e12, 20_867), "bell": (2.743e12, 15_466)}
+SPMV_MODEL = {"bdia": (2.922e12, 24_848), "bell": (3.164e12, 80_511)}
 # K4 against K5 on a BDIA layout (band_model_s): each kernel's rate by item
 # size, on one banded operator with an overflow list like the RCM-ordered
 # ILU factors', in one full round of blocks (K5's bytes count its panels):
-BAND_RATE = {("bdia", 4): 1.778e12, ("bdia", 8): 2.376e12,
-             ("bdia_xl", 4): 2.483e12, ("bdia_xl", 8): 2.584e12}
+BAND_RATE = {("bdia", 4): 2.530e12, ("bdia", 8): 2.542e12,
+             ("bdia_xl", 4): 2.626e12, ("bdia_xl", 8): 2.680e12}
 
 
 def tile_budget(total_nnz: int, itemsize: int) -> int:
@@ -90,9 +92,9 @@ def spmv_model_s(constants: tuple, nbytes: int, threads: int) -> float:
 
 
 def bdia_threads(B: int, R: int) -> int:
-    """Threads of one part's K4 launch: a block of min(R, 256) threads per
-    R-row block (``csrc/bdia_spmv.cu``)."""
-    return B * min(R, 256)
+    """Threads of one part's K4 launch: one per row of every R-row block
+    (``kernels/bdia.py:k4_plan``)."""
+    return B * R
 
 
 def band_model_s(kind: str, itemsize: int, nbytes: int, blocks: int,
@@ -104,9 +106,29 @@ def band_model_s(kind: str, itemsize: int, nbytes: int, blocks: int,
     ``ceil(blocks / resident) * resident / blocks``.  The blocks run in
     rounds; a round that is partly empty, or a launch of fewer blocks than
     the card holds, takes as long as a full round.  K5's blocks are large
-    (:func:`xl_resident`); K4's are counted one per SM."""
+    (:func:`xl_resident`); K4's are small and share their SM's bandwidth,
+    so they are counted one per SM (:func:`k4_blocks`): the factor is then
+    the load of the busiest SM over the mean."""
     rounds = -(-blocks // resident)
     return nbytes / BAND_RATE[kind, itemsize] * rounds * resident / blocks
+
+
+def k4_blocks(nparts: int, B: int, D: int, R: int,
+              itemsize: int) -> tuple:
+    """``(blocks, SM_COUNT)`` of K4's launch on a (nparts, B, D, R) layout:
+    its thread blocks (``kernels/bdia.py:k4_plan``), counted one per SM.
+    An SM holds several K4 blocks at once, each with its own loads in
+    flight, and they share the SM's bandwidth: the launch takes as long as
+    its busiest SM, which runs ``ceil(blocks / SM_COUNT)``."""
+    return bdia_mod.k4_plan(nparts, B, D, R, itemsize)[2], runtime.SM_COUNT
+
+
+def k4_model_s(itemsize: int, nbytes: int, nparts: int, B: int, D: int,
+               R: int) -> float:
+    """:func:`band_model_s` of K4 on a (nparts, B, D, R) layout that
+    streams ``nbytes``."""
+    return band_model_s("bdia", itemsize, nbytes,
+                        *k4_blocks(nparts, B, D, R, itemsize))
 
 
 def xl_resident(smem: int, threads: int) -> int:
@@ -121,10 +143,10 @@ def xl_resident(smem: int, threads: int) -> int:
     return runtime.SM_COUNT * max(per_sm, 1)
 
 
-def bell_threads(G: int) -> int:
-    """Threads of one part's K6 launch: one warp per 8-row group
-    (``csrc/bell_spmv.cu``)."""
-    return 32 * G
+def bell_threads(G: int, K: int) -> int:
+    """Threads of one part's K6 launch on G groups of K tiles: a block of
+    ``bell_warps(K)`` warps per group (``kernels/bell.py``)."""
+    return 32 * G * bell_mod.bell_warps(K)
 
 
 def bdia_bytes(B: int, D: int, R: int, k: int, itemsize: int) -> int:
@@ -167,8 +189,8 @@ def choose_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
     """K5's step plan ``(gb, step_lo, panel)`` for a BDIA layout where it is
     eligible and its modelled time is strictly below K4's on the same
     layout (:func:`band_model_s`), else None (K4)."""
-    nparts, B, _ = starts.shape
-    t4 = band_model_s("bdia", itemsize, nbytes, nparts * B, runtime.SM_COUNT)
+    nparts, B, D = starts.shape
+    t4 = k4_model_s(itemsize, nbytes, nparts, B, D, R)
     xl = plan_xl(starts, R, xpad, itemsize, nbytes)
     return xl[:3] if xl is not None and xl[3] < t4 else None
 
@@ -244,7 +266,7 @@ def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
         plan = plan_bell(diag_parts, row_pad, itemsize, total_nnz, nparts)
         if plan is not None:
             t = spmv_model_s(SPMV_MODEL["bell"], plan[1], nparts * bell_threads(
-                bell_mod._ngroups(row_pad)))
+                bell_mod._ngroups(row_pad), plan[0]))
             if t < best[2]:
                 best = ("bell", plan, t)
     if best[0] == "bdia":
