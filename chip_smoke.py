@@ -31,7 +31,20 @@ toolkit (nvcc) and PyTorch built for CUDA:
    its plain version, K4 on the BDIA layout of the same operator, the plain
    ELL SpMV and the library's SpMV, against the layout model's prediction
    and K6's bound, and at every BDIA level K4, K5, plain and library;
-6. measures the constants of the time model (``kernels/calibrate.py``)
+6. gate 1: ``examples/gate1_64cube_pcg_amg.yaml`` as it is (64^3 =
+   262,144 rows, ``mixed``) through the CLI: the 27-point stencil as box
+   DIA, the PFMG-style structured hierarchy (DIA-algebra RAP, box
+   transfers, l1-Jacobi, dense coarse solve), PCG in f32 inside f64
+   refinement, golden check; then K1 against its plain version on every
+   level in f32 and f64, and at each level (and on the f64 A) K1's time,
+   the plain version's, the library's CSR SpMV and the bound; then one
+   warm solve under ``torch.profiler``: device time by kernel and the
+   device's idle share;
+7. gate 2: ``examples/gate2_weakscale_gmres_cheby.yaml`` as it is (128^3 =
+   2,097,152 rows, ``single``, GMRES(20) + Chebyshev-smoothed PFMG) through
+   the CLI, then the same K1 checks and timings at its five levels, and K1
+   on a 4-wide coarse box against the exact CSR product;
+8. measures the constants of the time model (``kernels/calibrate.py``)
    beside the ones in the code.
 
 Every kernel time is given twice: device time (the kernels' durations in a
@@ -46,7 +59,9 @@ second-to-last line is a JSON object with one entry per kernel (launches,
 device and per-call times, plain, library and bound); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines, as does a machine without CUDA or a directory without
-the ``tpusolve_torch`` package.
+the ``tpusolve_torch`` package.  Gates 1 and 2 fail unless K1 ran during
+their run and no other SpMV kernel did (every operator of the structured
+path is box DIA).
 """
 
 from __future__ import annotations
@@ -69,6 +84,17 @@ TPUSOLVE_ITERS_96 = 56
 PORT_ITERS_96 = 54
 # tpusolve on CPU, gate-3 fixture 64^3, precision double: GMRES iterations
 TPUSOLVE_GATE3_ITERS_64 = 12
+# tpusolve on CPU, examples/gate1_64cube_pcg_amg.yaml as it is (64^3,
+# mixed): PCG iterations summed over the refinement passes
+TPUSOLVE_GATE1_ITERS = 14
+# tpusolve on CPU, examples/gate2_weakscale_gmres_cheby.yaml as it is
+# (128^3, single): GMRES iterations, printed for reference only.  Its f32
+# projection h = V @ w under XLA on the CPU is 450x less accurate than
+# torch's, and its GMRES stalls; with that projection in f64, or with
+# cgs: 2, tpusolve takes 6 at 64^3 (tests/test_torch_gmres_projection.py,
+# ROADMAP.md Queue 3).  The gate holds the port to 6, its count on the card
+TPUSOLVE_GATE2_ITERS = 22
+PORT_GATE2_ITERS = 6
 
 
 def fail(msg: str):
@@ -306,6 +332,16 @@ def nbytes_of(*tensors) -> int:
                if t is not None)
 
 
+def dia_nbytes(M) -> int:
+    """The bytes one box-DIA SpMV must move: each plane's in-box slots (a
+    slot whose neighbour lies outside the box is never read), x once and y
+    once."""
+    P, _, nz, ny, nx = M.dia_vals.shape
+    slots = P * sum(max(0, nz - abs(dz)) * max(0, ny - abs(dy))
+                    * max(0, nx - abs(dx)) for dz, dy, dx in M.dia_offsets)
+    return (slots + 2 * P * nz * ny * nx) * M.dia_vals.element_size()
+
+
 def bdia_timings(ops, device_name: str, seed: int):
     """At each (name, BDIA operator) of ``ops``: the layout; K4, and K5
     where a step plan fits (the operator's own, else the model's best),
@@ -417,16 +453,16 @@ def run_cli(yaml_path: str, counters) -> tuple:
     return rc, (systems[0] if systems else None), wall, launches
 
 
-def check_solve(system, rc: int, what: str):
-    """Fail unless the run passed its golden check with relres <= 1e-8 and
-    a finite solution of the padded shape."""
+def check_solve(system, rc: int, what: str, tol: float = 1e-8):
+    """Fail unless the run passed its golden check with relres <= ``tol``
+    (the run's tolerance) and a finite solution of the padded shape."""
     import torch
     if rc != 0:
         fail(f"the {what} run failed (cli exit {rc})")
     res = system.solve_results[0]
     relres = float(res.relres)
-    if not (relres <= 1e-8 and bool(res.converged)):
-        fail(f"{what}: relres {relres:.3e} above 1e-8 or not converged")
+    if not (relres <= tol and bool(res.converged)):
+        fail(f"{what}: relres {relres:.3e} above {tol:g} or not converged")
     x = system.sln[0]
     if not bool(torch.isfinite(x).all()) or x.shape != (system.A.row_pad,):
         fail(f"{what}: solution is not finite or has the wrong shape")
@@ -649,6 +685,275 @@ def gate3_phase(side: int, device_name: str, counters):
     return launches, rows, bdia_rows
 
 
+def dia_check(ops, seed: int) -> tuple:
+    """K1 against its plain version on each (name, DIA operator) of ``ops``
+    in the operator's dtype and cast to the other one.  Returns (largest
+    relative error, largest absolute error)."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.dia import dia_spmv, dia_spmv_plain
+
+    rng = np.random.default_rng(seed)
+    worst = worst_abs = 0.0
+    for name, M in ops:
+        if not M.uses_dia or M.device.type != "cuda":
+            fail(f"operator {name} is not box DIA on the card ({M.layout})")
+        for dt in (np.float32, np.float64):
+            Mc = M.astype(dt)
+            x = torch.tensor(rng.standard_normal(Mc.col_pad), dtype=Mc.dtype,
+                             device=Mc.device)
+            y = dia_spmv(Mc.dia_vals, Mc.dia_offsets, x)
+            y_p = dia_spmv_plain(Mc.dia_vals, Mc.dia_offsets, x)
+            err = rel_err(y, y_p)
+            key = np.dtype(dt).name
+            if not err <= RTOL[key]:
+                fail(f"{name} {key}: K1 vs plain rel err {err:.3e} > "
+                     f"{RTOL[key]}")
+            worst = max(worst, err)
+            worst_abs = max(worst_abs, float((y - y_p).abs().max()))
+    return worst, worst_abs
+
+
+def four_wide_check(device) -> float:
+    """K1 on the 4^3 coarse level of the structured hierarchy at 16^3 (125
+    planes; tpusolve's flat offsets collide there) against the exact CSR
+    product of its DIA dict, in both dtypes.  Returns the largest relative
+    error."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.amg import structured
+    from tpusolve_torch.amg.dia_rap import dia_rap
+    from tpusolve_torch.kernels.dia import dia_spmv
+    from tpusolve_torch.stencil import laplace27_host_parts
+
+    dia, box = laplace27_host_parts(1, 16, 16, 16)[0], (16, 16, 16)
+    for _ in range(2):
+        dia, box = dia_rap(dia, box)
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0))
+    H = structured._structured_to_csr(dia, box, [empty], 1)
+    x = np.random.default_rng(13).standard_normal(H.shape[0])
+    y_ref = H @ x
+    worst = 0.0
+    for dt in (np.float32, np.float64):
+        M = structured._dia_matrix(dia, [empty], box, 1, device, dt)
+        y = dia_spmv(M.dia_vals, M.dia_offsets, torch.tensor(
+            x, dtype=M.dtype, device=device)).double().cpu().numpy()
+        err = float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
+        key = np.dtype(dt).name
+        limit = 1e-14 if dt == np.float64 else RTOL[key]
+        print(f"K1 4-wide box {box} D={len(M.dia_offsets)} {key}: against "
+              f"the exact CSR product rel err {err:.3e} (limit {limit:.0e})",
+              flush=True)
+        if not err <= limit:
+            fail(f"K1 on the 4-wide box {key} out of tolerance")
+        worst = max(worst, err)
+    return worst
+
+
+def dia_timings(ops, device_name: str, seed: int) -> list:
+    """At each (name, DIA operator) of ``ops``: K1 against its plain
+    version, K1's device and per-call time, the plain version's, the
+    library's CSR SpMV and the bound (the planes' in-box slots, x and y over
+    the card's HBM rate).  Returns one row per operator."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.calibrate import device_ms, time_ms
+    from tpusolve_torch.kernels.dia import dia_spmv, dia_spmv_plain
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for name, M in ops:
+        dt = str(M.dtype).replace("torch.", "")
+        x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
+                         device=M.device)
+        args = (M.dia_vals, M.dia_offsets, x)
+        y = dia_spmv(*args)
+        y_p = dia_spmv_plain(*args)
+        err = rel_err(y, y_p)
+        if not err <= RTOL[dt]:
+            fail(f"{name}: K1 vs plain rel err {err:.3e} > {RTOL[dt]}")
+        lib_call, xlib = library_spmv(M)
+        xlib.copy_(x)
+        err_lib = rel_err(lib_call(), y_p)
+        calls = [("plain", lambda: dia_spmv_plain(*args)),
+                 ("k1", lambda: dia_spmv(*args)), ("lib", lib_call)]
+        runs = {key: [] for key, _ in calls}
+        for key, call in calls + calls[::-1]:
+            runs[key].append(time_ms(call))
+        _, D, nz, ny, nx = M.dia_vals.shape
+        row = dict(op=name, dtype=dt, layout=M.layout, D=D, rows=M.shape[0],
+                   nnz=M.nnz, rel_err=err,
+                   max_abs_err=float((y - y_p).abs().max()),
+                   lib_rel_err=err_lib,
+                   bound_ms=bound_ms(dia_nbytes(M), device_name))
+        for key, ts in runs.items():
+            row[key + "_ms"] = min(ts)
+            row[key + "_runs"] = ts
+            row[key + "_dev_ms"] = device_ms(dict(calls)[key])
+        print(f"{name} {dt} {M.layout} ({M.shape[0]} rows, {M.nnz} nnz): K1 "
+              f"device {row['k1_dev_ms']:.5f} ms, per call "
+              f"{row['k1_ms']:.5f} ms (runs {ts_str(row['k1_runs'])}), rel "
+              f"err {err:.3e}; plain device {row['plain_dev_ms']:.5f} ms, "
+              f"per call {row['plain_ms']:.5f} ms; library (torch.sparse "
+              f"CSR) device {row['lib_dev_ms']:.5f} ms, per call "
+              f"{row['lib_ms']:.5f} ms (rel err {err_lib:.1e}); bound "
+              f"{row['bound_ms']:.5f} ms", flush=True)
+        rows.append(row)
+    return rows
+
+
+def ts_str(ts) -> str:
+    return ", ".join(f"{t:.5f}" for t in ts)
+
+
+# kernel-name classes of the solve profile, first match wins
+PROFILE_CLASSES = (("K1", ("dia_spmv",)),
+                   ("coarse matmul", ("gemv", "gemm", "cublas", "sm90_")),
+                   ("reductions", ("reduce",)),
+                   ("copies and cat", ("copy", "cat", "memcpy", "memset")),
+                   ("elementwise", ("elementwise",)))
+
+
+def solve_profile(system) -> dict:
+    """One warm solve of ``system`` (its solver as the run built it): the
+    wall time (host clock, synchronised), then the same solve under
+    ``torch.profiler``: device time by kernel class, the device's idle share
+    of the wall time, and the K3 transfers' device time (each level's
+    prolong and restrict timed apart, times its calls in the solve)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tpusolve_torch.kernels.calibrate import device_ms
+
+    solver, b = system._solver, system.rhs[0]
+    pre = system._precond
+    solver(b)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = solver(b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = 1e3 * min(walls)
+    # count the transfers of one solve
+    calls = {}
+    saved = [(lev.prolong, lev.restrict) for lev in pre.levels]
+    for i, lev in enumerate(pre.levels):
+        for kind in ("prolong", "restrict"):
+            fn = getattr(lev, kind)
+            if fn is None:
+                continue
+
+            def counted(v, fn=fn, key=(i, kind)):
+                calls[key] = calls.get(key, 0) + 1
+                return fn(v)
+            setattr(lev, kind, counted)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solver(b)
+            torch.cuda.synchronize()
+    finally:
+        for lev, (pr, rs) in zip(pre.levels, saved):
+            lev.prolong, lev.restrict = pr, rs
+    by_class, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        low = e.name.lower()
+        cls = next((c for c, keys in PROFILE_CLASSES
+                    if any(k in low for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + us
+    busy_ms = sum(by_class.values()) / 1e3
+    k3_ms = 0.0
+    for (i, kind), n in sorted(calls.items()):
+        lev = pre.levels[i]
+        v = torch.ones(pre.levels[i + 1].A.row_pad if kind == "prolong"
+                       else lev.A.row_pad, dtype=b.dtype, device=b.device)
+        k3_ms += n * device_ms(lambda: getattr(lev, kind)(v), reps=20)
+    out = dict(wall_ms=wall_ms, walls_ms=[1e3 * w for w in walls],
+               iters=int(res.iters), busy_ms=busy_ms,
+               idle_share=1.0 - busy_ms / wall_ms,
+               by_class_ms={k: v / 1e3 for k, v in sorted(
+                   by_class.items(), key=lambda kv: -kv[1])},
+               k3_ms=k3_ms, k3_calls=sum(calls.values()),
+               top=[(n, us / 1e3) for n, us in sorted(
+                   by_name.items(), key=lambda kv: -kv[1])[:8]])
+    print(f"gate-1 warm solve: {out['iters']} iterations, wall "
+          f"{wall_ms:.3f} ms (runs {ts_str(out['walls_ms'])}); device busy "
+          f"{busy_ms:.3f} ms in the profiled solve, idle share "
+          f"{out['idle_share']:.3f}; by class (ms) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["by_class_ms"].items())
+          + f"; K3 transfers {k3_ms:.3f} ms device in {out['k3_calls']} "
+          f"calls (timed apart); top kernels "
+          + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in out["top"]),
+          flush=True)
+    return out
+
+
+def structured_phase(what: str, yaml_name: str, tol: float, device_name,
+                     counters, seed: int):
+    """Gate 1 or 2 (``examples/<yaml_name>`` as it is) through the CLI;
+    returns (launches, system, result, K1 check errors, K1 timing rows).
+    The system is left for the caller to destroy."""
+    from tpusolve_torch.kernels.dia import dia_spmv
+    yaml_path = os.path.join(REPO, "examples", yaml_name)
+    rc, system, wall, launches = run_cli(yaml_path, counters)
+    print(f"{what} path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, what, tol)
+    pre = system._precond
+    for line in pre.layouts():
+        print(f"{what} {line}", flush=True)
+    if launches[dia_spmv.__name__] <= 0:
+        fail(f"the {what} path launched no K1 (dia_spmv)")
+    other = {k: v for k, v in launches.items() if k != dia_spmv.__name__}
+    if any(other.values()):
+        fail(f"the {what} path launched other SpMV kernels: {other}")
+    ops = [(f"{what} level {i}", lev.A) for i, lev in enumerate(pre.levels)]
+    if system.A_lo is not None:
+        ops.append((f"{what} A", system.A))
+    errs = dia_check(ops, seed)
+    rows = dia_timings(ops, device_name, seed + 1)
+    return launches, system, res, errs, rows
+
+
+def gate1_phase(device_name, counters):
+    launches, system, res, errs, rows = structured_phase(
+        "gate-1", "gate1_64cube_pcg_amg.yaml", 1e-8, device_name, counters,
+        14)
+    passes = res.passes or []
+    gap = res.iters - TPUSOLVE_GATE1_ITERS
+    print(f"gate-1 64^3: {res.iters} PCG iterations over {len(passes)} "
+          f"refinement passes {passes}, relres {float(res.relres):.3e}, "
+          f"golden check PASSED; tpusolve (CPU, same YAML) "
+          f"{TPUSOLVE_GATE1_ITERS}: gap {gap:+d}", flush=True)
+    if not passes or abs(gap) > len(passes):
+        fail(f"gate-1 took {res.iters} iterations, more than one per pass "
+             f"from tpusolve's {TPUSOLVE_GATE1_ITERS}")
+    prof = solve_profile(system)
+    system.destroy_system()
+    return launches, errs, rows, prof
+
+
+def gate2_phase(device_name, counters):
+    launches, system, res, errs, rows = structured_phase(
+        "gate-2", "gate2_weakscale_gmres_cheby.yaml", 1e-6, device_name,
+        counters, 16)
+    print(f"gate-2 128^3: {res.iters} GMRES iterations, relres "
+          f"{float(res.relres):.3e}, golden check PASSED; the port's count "
+          f"{PORT_GATE2_ITERS}; tpusolve (CPU, same YAML, its f32 "
+          f"projection stalls) {TPUSOLVE_GATE2_ITERS}", flush=True)
+    if abs(res.iters - PORT_GATE2_ITERS) > 1:
+        fail(f"gate-2 took {res.iters} iterations, not within one of the "
+             f"port's {PORT_GATE2_ITERS}")
+    system.destroy_system()
+    return launches, errs, rows
+
+
 def model_constants():
     """Measured layout-model constants beside the ones in the code."""
     from tpusolve_torch.kernels import calibrate
@@ -695,6 +1000,7 @@ def main(argv) -> int:
     from tpusolve_torch.kernels import build
     from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
     from tpusolve_torch.kernels.bell import bell_spmv
+    from tpusolve_torch.kernels.dia import dia_spmv
 
     card = card_line()
     device = torch.device("cuda", 0)
@@ -710,24 +1016,43 @@ def main(argv) -> int:
     worst4 = max(worst4, k4_launch_check(device))
     worst6 = bell_check(device)
 
-    counters = (bdia_spmv, bdia_spmv_xl, bell_spmv)
+    worst1 = four_wide_check(device)
+
+    counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv)
     l4, rows4 = gate4_phase(sides["--side"], device_name, counters)
     l3, rows3, bdia_rows3 = gate3_phase(sides["--side3"], device_name,
                                         counters)
     if l3["bdia_spmv"] + l3["bdia_spmv_xl"] <= 0:
         fail("the gate-3 path launched no BDIA kernel")
+    l1, errs1, rows1, prof1 = gate1_phase(device_name, counters)
+    l2, errs2, rows2 = gate2_phase(device_name, counters)
     model_constants()
 
+    paths = {"gate4": l4, "gate3": l3, "gate1": l1, "gate2": l2}
+
     def launches(name):
-        return dict(launches=l4[name] + l3[name],
-                    launches_by_path={"gate4": l4[name], "gate3": l3[name]})
+        return dict(launches=sum(p[name] for p in paths.values()),
+                    launches_by_path={k: p[name] for k, p in paths.items()})
 
     # headline shapes: K4 on A_lo (or A), K5 on L, K6 on the largest BELL
     k4 = next(r for r in sorted(rows4, key=lambda r: r["op"] != "A_lo")
               if not r["layout"].startswith("BDIA-XL"))
     k5 = next(r for r in rows4 if r["op"] == "L")
     k6 = max(rows3, key=lambda r: r["G"] * r["K"])
+    k1 = rows1[0]            # gate 1 level 0, the f32 stencil
     kernels = [
+        dict(name="dia_spmv", route="cuda",
+             source="tpusolve_torch/csrc/dia_spmv.cu",
+             replaces="tpusolve/matrix/spmv.py:79", **launches("dia_spmv"),
+             max_abs_err=max([errs1[1], errs2[1]]
+                             + [r["max_abs_err"] for r in rows1 + rows2]),
+             ms=k1["k1_ms"], device_ms=k1["k1_dev_ms"],
+             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by="bytes", library_ms=k1["lib_ms"],
+             library_device_ms=k1["lib_dev_ms"], shape=k1["op"],
+             max_rel_err=max([worst1, errs1[0], errs2[0]]
+                             + [r["rel_err"] for r in rows1 + rows2]),
+             shapes=rows1 + rows2, gate1_profile=prof1),
         dict(name="bdia_spmv", route="cuda",
              source="tpusolve_torch/csrc/bdia_spmv.cu",
              replaces="tpusolve/kernels/bdia.py:252", **launches("bdia_spmv"),

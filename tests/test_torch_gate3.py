@@ -141,14 +141,15 @@ def test_mmio_rejects_bad_files():
 
 
 def test_unported_paths_raise(gate3, tmp_path):
-    """RS coarsening, generated stencil systems and CG are not ported yet:
-    each raises, naming ROADMAP.md."""
+    """RS coarsening, BoomerAMG on a generated stencil system (it needs the
+    stencil's host CSR) and AMG as the solver are not ported yet: each
+    raises, naming ROADMAP.md."""
     from tpusolve_torch.config import load_config
     from tpusolve_torch.harness.system import LinearSystem
     text = open(gate3).read()
     for old, new in (("coarsen_type: 8", "coarsen_type: 6"),
                      ("type: matrix_market", "type: build_27pt_stencil"),
-                     ("method: gmres", "method: cg")):
+                     ("method: gmres", "method: boomeramg")):
         path = tmp_path / "c.yaml"
         path.write_text(text.replace(old, new))
         sys_ = LinearSystem(load_config(str(path)), "cpu", verbose=False)

@@ -18,7 +18,7 @@ from tpusolve_torch.matrix.vectors import (
 CPU = torch.device("cpu")
 FIELDS = ("bdia_vals", "bdia_starts", "bdia_ovf_rows", "bdia_ovf_cols",
           "bdia_ovf_vals", "bell_vals", "bell_ids", "diag_vals", "diag_cols",
-          "diag")
+          "diag", "dia_vals")
 
 
 def tpusolve_fields(A):
@@ -31,7 +31,8 @@ def tpusolve_fields(A):
                 col_pad=A.col_pad, nnz=A.nnz, bdia_block=A.bdia_block,
                 bdia_xpad=A.bdia_xpad, bdia_xlen=A.bdia_xlen,
                 bell_nwin=A.bell_nwin, has_offd=A.has_offd,
-                uses_dia=A.uses_dia)
+                uses_dia=A.uses_dia, dia_offsets=A.dia_offsets,
+                dia_shape=A.dia_shape)
     return arrays, meta
 
 
@@ -186,13 +187,28 @@ class TestAgainstTpusolve:
                                    atol=tol * np.abs(y_tp).max())
 
     def test_from_arrays_refuses_other_layouts(self, tp, rng):
+        """An offd layout is refused; tpusolve's 1-D DIA layout (no
+        dia_shape) now comes across as the port's DIA, (0, 0, offset)
+        triples, with the same SpMV."""
         n = 600
         r, c, v = clustered(rng, n, centers=(0,), drift_amp=0)
         At = tp["ShardedMatrix"].from_coo(tp["mesh"], (n, n), r, c, v,
                                           dtype=np.float64)
-        assert At.uses_dia
-        with pytest.raises(NotImplementedError):
-            ShardedMatrix.from_arrays(*tpusolve_fields(At), device=CPU)
+        assert At.uses_dia and At.dia_shape is None
+        arrays, meta = tpusolve_fields(At)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ShardedMatrix.from_arrays(arrays, dict(meta, has_offd=True),
+                                      device=CPU)
+        A = ShardedMatrix.from_arrays(arrays, meta, device=CPU)
+        assert A.uses_dia and A.dia_shape is None
+        assert A.dia_offsets == tuple((0, 0, o) for o in At.dia_offsets)
+        assert abs(A.to_scipy() - At.to_scipy()).max() == 0.0
+        x = rng.standard_normal(n)
+        y_tp = np.asarray(tp["spmv"](At, tp["vectors"].to_device_vector(
+            tp["mesh"], x, At.col_offsets, At.col_pad)))
+        np.testing.assert_allclose(spmv(A, torch.from_numpy(x)).numpy(),
+                                   y_tp, rtol=0,
+                                   atol=1e-14 * np.abs(y_tp).max())
 
 
 class TestVectorsAndCast:

@@ -12,6 +12,9 @@ surface the reference drives (src/HypreSystem.cpp:91-326):
 * **Cycling** (smooth -> restrict -> recurse -> prolong -> smooth) is a
   Python recursion over the levels; every SpMV runs its layout's kernel and
   the coarsest level applies a dense pseudo-inverse with ``torch.matmul``.
+  A level carries sparse transfers (``P``/``R``) or, in the structured
+  hierarchy of ``amg/structured.py``, box transfers (``prolong``/
+  ``restrict``).
 
 Not ported, and raising ``NotImplementedError``: ``tpusolve``'s device
 setup paths (``lattice_parts``; its generic-ELL device setup reproduces the
@@ -49,7 +52,10 @@ _NOT_PORTED = "not ported yet; see ROADMAP.md Queue 1"
 @dataclass
 class Level:
     """One level of the hierarchy: its operator, the transfers to the next
-    level (None at the coarsest) and the smoother's vectors."""
+    level (None at the coarsest) and the smoother's vectors.  Transfers are
+    either sparse operators (``P``/``R``: the algebraic hierarchy) or
+    callables (``prolong``/``restrict``: the structured hierarchy's box
+    transfers); one pair is set on every level but the coarsest."""
     A: ShardedMatrix
     P: ShardedMatrix | None          # (n_fine, n_coarse); None at coarsest
     R: ShardedMatrix | None          # P^T
@@ -59,6 +65,8 @@ class Level:
     cheby_bounds: tuple | None = None
     n: int = 0
     nnz: int = 0
+    prolong: Callable | None = None  # coarse -> fine vector (structured)
+    restrict: Callable | None = None  # fine -> coarse vector (structured)
 
 
 @dataclass
@@ -99,6 +107,8 @@ class AMGPreconditioner:
             line = f"AMG level {i}: A {lev.A.layout}"
             if lev.P is not None:
                 line += f"; P {lev.P.layout}; R {lev.R.layout}"
+            elif lev.prolong is not None:
+                line += "; P, R box transfers"
             out.append(line)
         return out
 
@@ -141,13 +151,13 @@ def _resolve_kinds(cfg: BoomerAMGConfig):
 def _check_ported(cfg: BoomerAMGConfig, lattice_parts) -> None:
     if lattice_parts is not None:
         raise NotImplementedError(f"AMG device setup (lattice_parts) "
-                                  f"{_NOT_PORTED}, Slice 4")
+                                  f"{_NOT_PORTED}, item 16")
     if getattr(cfg, "smoother_dtype", "match") == "bfloat16":
         raise NotImplementedError(f"smoother_dtype: bfloat16 {_NOT_PORTED}")
     if cfg.smooth_num_levels > 0 and cfg.smooth_type in (5, 6, 7, 9):
         raise NotImplementedError(f"ILU smoothers on AMG levels (smooth_type "
                                   f"{cfg.smooth_type}) {_NOT_PORTED}, "
-                                  "Slice 3b")
+                                  "item 12")
 
 
 def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
@@ -434,12 +444,12 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
             return x + torch.matmul(pre.coarse_inv, rr)
         x = smooth(lev, b, x, kind_down, nu_down)
         rr = b - spmv(lev.A, x)
-        rc = spmv(lev.R, rr)
+        rc = lev.restrict(rr) if lev.R is None else spmv(lev.R, rr)
         ec = torch.zeros(levels[l + 1].A.row_pad, dtype=b.dtype,
                          device=b.device)
         for _ in range(gamma):
             ec = cycle(l + 1, rc, ec)
-        x = x + spmv(lev.P, ec)
+        x = x + (lev.prolong(ec) if lev.P is None else spmv(lev.P, ec))
         return smooth(lev, b, x, kind_up, nu_up)
 
     return lambda r: cycle(0, r, torch.zeros_like(r))

@@ -14,10 +14,13 @@ Analog of ``nalu::HypreSystem`` (ref: src/HypreSystem.h:66-298) with the same
     sys.destroy_system()
 
 Timer names match the reference's.  The port carries MatrixMarket and
-HYPRE-IJ loading, ``matrix_ordering: rcm``, precision double/single/mixed,
-the methods BiCGSTAB, GMRES, COGMRES and FlexGMRES, and the preconditioners
-BoomerAMG (host setup), ILU(0) and none; anything else raises
-``NotImplementedError`` naming where it stands in ROADMAP.md.
+HYPRE-IJ loading and the generated 27-point stencil (``build_27pt_stencil``,
+one part), ``matrix_ordering: rcm``, precision double/single/mixed, the
+methods PCG, BiCGSTAB, GMRES, COGMRES and FlexGMRES, and the
+preconditioners PFMG-style structured multigrid (on the stencil), BoomerAMG
+(host setup, on loaded systems), ILU(0) (on loaded systems) and none;
+anything else raises ``NotImplementedError`` naming where it stands in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -27,12 +30,15 @@ import scipy.sparse as sp
 import torch
 
 from tpusolve_torch.amg.builder import boomeramg_setup
+from tpusolve_torch.amg.structured import (
+    structured_mg_setup_fast, structured_possible)
 from tpusolve_torch.config import AppConfig
 from tpusolve_torch.formats import ij, mmio
 from tpusolve_torch.harness.check import check_solution
 from tpusolve_torch.ilu.ilu import ilu_setup
 from tpusolve_torch.kernels import build
 from tpusolve_torch.krylov.bicgstab import bicgstab_setup
+from tpusolve_torch.krylov.cg import pcg_setup
 from tpusolve_torch.krylov.gmres import (
     cogmres_setup, fgmres_setup, gmres_setup)
 from tpusolve_torch.krylov.refine import refined_solve_setup
@@ -40,6 +46,7 @@ from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.vectors import (
     from_device_vector, to_device_vector)
 from tpusolve_torch.parts import local_range, row_decomposition
+from tpusolve_torch.stencil import laplace27
 from tpusolve_torch.timers import Timers
 
 _NOT_PORTED = "not ported yet; see ROADMAP.md Queue 1"
@@ -81,6 +88,8 @@ class LinearSystem:
         self.sln_ref: list[np.ndarray] = []
         self.solve_results = []
         self._precond = None
+        self._solver = None        # solve(b, x0=None) of the last solve()
+        self._host_parts = None    # stencil's structured payload (pfmg)
         self._method = None
         self._precond_name = None
         self._perm = None          # matrix_ordering: new index -> old
@@ -103,11 +112,10 @@ class LinearSystem:
             raise ValueError(f"Invalid method provided: {method}")
         if precond not in {"boomeramg", "ilu", "none", "pfmg"}:
             raise ValueError(f"Invalid preconditioner provided: {precond}")
-        if method not in ("bicg", "bicgstab", "gmres", "cogmres", "fgmres"):
-            raise NotImplementedError(f"method {method}: {_NOT_PORTED}")
-        if precond not in ("boomeramg", "ilu", "none"):
-            raise NotImplementedError(f"preconditioner {precond}: "
-                                      f"{_NOT_PORTED}")
+        if method in ("boomeramg", "ilu"):
+            raise NotImplementedError(f"method {method} (the preconditioner "
+                                      f"as the solver): {_NOT_PORTED}, "
+                                      "item 10")
         self._method = method
         self._precond_name = precond
         self._log(f"Setting up solver: {method}; preconditioner: {precond}")
@@ -124,8 +132,7 @@ class LinearSystem:
         elif kind == "hypre_ij":
             self._load_hypre_ij()
         elif kind == "build_27pt_stencil":
-            raise NotImplementedError(f"linear_system type {kind}: "
-                                      f"{_NOT_PORTED}")
+            self._build_27pt_stencil()
         else:
             raise RuntimeError(f"Invalid linear system type option: {kind}")
 
@@ -233,6 +240,37 @@ class LinearSystem:
         self.check_enabled = bool(self.sln_ref) and \
             len(self.sln_ref) == len(self.rhs)
 
+    def _build_27pt_stencil(self):
+        """The generated 27-point system, one part of nx x ny x nz rows
+        (``tpusolve``'s ``_build_27pt_stencil``, its host branches).  PFMG
+        takes the generator's structured payload; BoomerAMG and ILU on the
+        stencil need its host CSR and are not ported (ROADMAP Queue 1
+        item 10), nor is the on-device generation (item 15)."""
+        ls = self.config.linear_system
+        if self._precond_name in ("boomeramg", "ilu"):
+            raise NotImplementedError(
+                f"preconditioner {self._precond_name} on build_27pt_stencil "
+                f"(needs the stencil's host CSR): {_NOT_PORTED}, item 10")
+        with self.timers.span("Build 27Pt Stencil HYPRE matrix"):
+            if self._precond_name == "pfmg" and min(ls.nx, ls.ny) >= 3:
+                # structured payload reuses the generator's arrays and the
+                # matrix-free setup never needs a host CSR
+                A, b, _, self._host_parts = laplace27(
+                    ls.nx, ls.ny, ls.nz, device=self.device,
+                    dtype=self.dtype, with_parts=True)
+            else:
+                A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, device=self.device,
+                                    dtype=self.dtype)
+            self.A = A
+            if self.precision == "mixed":
+                self.A_lo = A.astype(np.float32)
+            self.rhs = [b]
+            self.sln_ref = [np.ones(A.shape[0])]
+        self._log(f"Built 27-pt stencil system: {ls.nx}x{ls.ny}x{ls.nz} "
+                  f"per device, {A.shape[0]} global rows")
+        self._log(f"  A: {self.A.layout}")
+        self.check_enabled = True
+
     # ------------------------------------------------------------------
     @property
     def _A_solve(self):
@@ -248,7 +286,9 @@ class LinearSystem:
         kw = dict(tol=inner_tol if mixed else s.tolerance,
                   maxiter=s.max_iterations)
         A = self._A_solve
-        if self._method == "gmres":
+        if self._method in ("cg", "pcg"):
+            inner = pcg_setup(A, M, **kw)
+        elif self._method == "gmres":
             inner = gmres_setup(A, M, restart=s.kspace, **kw)
         elif self._method == "cogmres":
             inner = cogmres_setup(A, M, restart=s.kspace, cgs=s.cgs, **kw)
@@ -273,6 +313,18 @@ class LinearSystem:
                 M = self._precond.apply
                 self._log(f"  ILU L: {self._precond.L.layout}; "
                           f"U: {self._precond.U.layout}")
+            elif self._precond_name == "pfmg":
+                if not structured_possible(self._A_solve):
+                    raise ValueError("pfmg requires a structured "
+                                     "(box-generated) operator")
+                self._precond = structured_mg_setup_fast(
+                    self._A_solve, self.config.boomeramg,
+                    host_parts=self._host_parts)
+                M = self._precond.apply
+                if self.verbose:
+                    self._log(self._precond.describe())
+                    for line in self._precond.layouts():
+                        self._log(f"  {line}")
             elif self._precond_name == "boomeramg":
                 self._precond = boomeramg_setup(
                     self._A_solve, self.config.boomeramg, A_host=self.A_host)
@@ -281,7 +333,7 @@ class LinearSystem:
                     self._log(self._precond.describe())
                     for line in self._precond.layouts():
                         self._log(f"  {line}")
-            solver = self._build_solver(M)
+            solver = self._solver = self._build_solver(M)
 
         with self.timers.span("Solve"):
             self.solve_results = [solver(b) for b in self.rhs]
@@ -333,3 +385,5 @@ class LinearSystem:
         self.rhs = []
         self.sln = []
         self._precond = None
+        self._solver = None
+        self._host_parts = None

@@ -1,2 +1,2 @@
-"""Krylov solvers (BiCGSTAB, the GMRES family) and mixed-precision
+"""Krylov solvers (PCG, BiCGSTAB, the GMRES family) and mixed-precision
 iterative refinement."""

@@ -7,9 +7,18 @@ src/HypreSystem.cpp:552-636).  The port keeps ``tpusolve``'s stacked layout:
 every tensor has a leading part axis of size ``nparts``, rows are padded per
 part to ``row_pad``, padded vector entries are exact zeros and padded
 diagonal entries are 1.  This slice carries one part (no offd block, no halo
-plan) and two diag-block layouts, chosen at assembly in ``tpusolve``'s
-decision order DIA -> BDIA -> BELL -> ELL, where DIA and BELL are not ported
-yet and are skipped:
+plan) and these diag-block layouts:
+
+* **DIA** (box DIA, ``kernels/dia.py``), built only by :meth:`from_dia_parts`
+  (the stencil generator and the structured multigrid levels) and by
+  :meth:`from_arrays`: one plane of coefficients per (dz, dy, dx) triple
+  over the part's (nz, ny, nx) box, run by K1.  The triples are kept, never
+  turned back from flat offsets where that is ambiguous
+  (:func:`dia_triples`).
+
+The assembly from entries (:meth:`from_local_parts`) chooses among the
+others in ``tpusolve``'s decision order BDIA -> BELL -> ELL (its DIA-first
+candidacy is not ported):
 
 * **BDIA** (blocked DIA, ``kernels/bdia.py``) with an overflow list of the
   entries that do not fit a block's slots, kept row-sorted with a CSR row
@@ -43,7 +52,8 @@ from tpusolve_torch.kernels import bell as bell_mod
 from tpusolve_torch.matrix import coo as coo_mod
 from tpusolve_torch.matrix.build import materialize
 from tpusolve_torch.matrix.vectors import to_tensor, torch_dtype, numpy_dtype
-from tpusolve_torch.parts import require_single_part, row_decomposition
+from tpusolve_torch.parts import (
+    MULTIPART_ITEM, require_single_part, row_decomposition)
 
 # BDIA and BELL are considered when the diag block holds at least this many
 # entries (``tpusolve``'s BELL_MIN_NNZ: below it the ELL fallback is cheap)...
@@ -308,6 +318,10 @@ class ShardedMatrix:
     bdia_gb: int | None = None                  # R-row blocks per step
     bdia_step_lo: torch.Tensor | None = None    # (P, nsteps) int32
     bdia_panel: int | None = None               # panel length, elements
+    # --- box DIA (K1, kernels/dia.py); None -> another layout
+    dia_vals: torch.Tensor | None = None   # (P, D, nz, ny, nx) planes
+    dia_offsets: tuple | None = None       # D (dz, dy, dx) triples
+    dia_shape: tuple | None = None         # declared (nz, ny, nx); None: 1-D
 
     @property
     def nparts(self) -> int:
@@ -320,6 +334,10 @@ class ShardedMatrix:
     @property
     def device(self) -> torch.device:
         return self.diag_vals.device
+
+    @property
+    def uses_dia(self) -> bool:
+        return self.dia_vals is not None
 
     @property
     def uses_bdia(self) -> bool:
@@ -344,6 +362,9 @@ class ShardedMatrix:
     @property
     def layout(self) -> str:
         """One line naming the layout, for logs."""
+        if self.uses_dia:
+            box = "x".join(str(d) for d in self.dia_vals.shape[2:])
+            return f"DIA D={self.dia_vals.shape[1]} box={box}"
         if self.uses_bell:
             _, G, K = self.bell_ids.shape
             return f"BELL K={K} G={G}"
@@ -490,6 +511,64 @@ class ShardedMatrix:
             row_pad=row_pad, col_pad=col_pad, nnz=int(total_nnz), **fields)
 
     @staticmethod
+    def from_dia_parts(shape, offsets, dia_vals, offd_parts, *, device,
+                       dtype=None, dia_shape=None,
+                       dia_nnz: int | None = None) -> "ShardedMatrix":
+        """Assemble from per-part box-DIA diag blocks (``tpusolve``'s
+        ``from_dia_parts``): the stencil generator's and the structured
+        multigrid's operators, whose diag block is pure box geometry.
+
+        ``offsets``: one (dz, dy, dx) triple per plane, or flat offsets,
+        which :func:`dia_triples` decomposes over ``dia_shape`` where that is
+        unambiguous.  ``dia_vals``: (P, D, R) or (P, D, nz, ny, nx) numpy
+        array or tensor, zeros where a neighbour leaves the box.
+        ``dia_shape``: the (nz, ny, nx) box of a part's R rows; None is the
+        1-D form.  ``offd_parts``: per part (local rows, global cols, vals)
+        of the couplings that leave the part, empty on one part.  The main
+        diagonal comes from the (0, 0, 0) plane.  The caller keeps its
+        input: nothing is consumed (``tpusolve`` donates a device input)."""
+        nrows, ncols = shape
+        nparts, D = int(dia_vals.shape[0]), int(dia_vals.shape[1])
+        require_single_part(nparts)
+        if any(len(o[0]) for o in offd_parts):
+            raise NotImplementedError(
+                f"offd couplings: not ported yet; see {MULTIPART_ITEM}")
+        R = int(np.prod(dia_vals.shape[2:]))
+        if dia_shape is not None and int(np.prod(dia_shape)) != R:
+            raise ValueError("dia_shape does not tile the row space")
+        if nrows != ncols or nrows != R:
+            raise ValueError(f"DIA block of {R} rows for shape {shape}")
+        triples = dia_triples(offsets, dia_shape)
+        if len(triples) != D:
+            raise ValueError(f"{len(triples)} offsets for {D} planes")
+        dims = tuple(int(d) for d in (dia_shape or (R,)))
+        box = (1,) * (3 - len(dims)) + dims
+        if dtype is None:
+            dtype = dia_vals.dtype
+        tdt = torch_dtype(numpy_dtype(dtype))
+        if isinstance(dia_vals, torch.Tensor):
+            vals = dia_vals.to(device=device, dtype=tdt)
+        else:
+            vals = to_tensor(dia_vals, device, numpy_dtype(dtype))
+        vals = vals.reshape((nparts, D) + box).contiguous()
+        if (0, 0, 0) in triples:
+            diag = vals[:, triples.index((0, 0, 0))].reshape(nparts, R) \
+                .clone()
+        else:
+            diag = torch.zeros((nparts, R), dtype=tdt, device=device)
+        nnz = (int(dia_nnz) if dia_nnz is not None
+               else int(torch.count_nonzero(vals)))
+        zeros = torch.zeros((nparts, R, 1), dtype=tdt, device=device)
+        return ShardedMatrix(
+            diag_vals=zeros, diag_cols=zeros.to(torch.int32),
+            bdia_vals=None, bdia_starts=None, bell_vals=None, bell_ids=None,
+            diag=diag, shape=(R, R), row_offsets=(0, R), col_offsets=(0, R),
+            row_pad=R, col_pad=R, nnz=nnz, dia_vals=vals,
+            dia_offsets=triples,
+            dia_shape=(None if dia_shape is None
+                       else tuple(int(d) for d in dia_shape)))
+
+    @staticmethod
     def from_arrays(arrays: dict, meta: dict, device) -> "ShardedMatrix":
         """Build the port's matrix from ``tpusolve``'s ShardedMatrix fields
         fetched as numpy (``arrays``: ``bdia_vals``, ``bdia_starts``,
@@ -497,17 +576,27 @@ class ShardedMatrix:
         ``diag_vals``, ``diag_cols``, ``diag``; ``meta``: ``shape``,
         ``row_offsets``, ``col_offsets``, ``row_pad``, ``col_pad``, ``nnz``,
         ``bdia_block``, ``bdia_xpad``, ``bdia_xlen``, ``bell_nwin``,
-        ``has_offd``, ``uses_dia``), so that both packages can run on one
-        identical layout.  The overflow list (the same entries) is converted
+        ``has_offd``, ``uses_dia``, ``dia_offsets``, ``dia_shape``), so
+        that both packages can run on one identical layout.  A DIA operator
+        (``arrays``' ``dia_vals``) goes through :meth:`from_dia_parts`, its
+        flat offsets decomposed by :func:`dia_triples`, which raises where
+        that is ambiguous.  The overflow list (the same entries) is converted
         to the port's CSR form.  A ``tpusolve`` XL operator (``arrays``'
         ``bdia_rowstart`` set) keeps its values and starts and runs the
         port's K5 on the port's own step plan (:func:`plan_xl`), where one
         fits a block's shared memory; ``tpusolve``'s TPU panel plan
         (``bdia_rowstart``, ``bdia_pxrows``, ``bdia_xrows``) is not used."""
         require_single_part(len(meta["row_offsets"]) - 1)
-        if meta.get("has_offd") or meta.get("uses_dia"):
+        if meta.get("has_offd"):
             raise NotImplementedError(
-                "from_arrays: DIA and offd layouts are not ported yet")
+                f"from_arrays: offd layouts are not ported yet; see "
+                f"{MULTIPART_ITEM}")
+        if meta.get("uses_dia"):
+            empty = np.zeros(0, np.int64)
+            return ShardedMatrix.from_dia_parts(
+                tuple(meta["shape"]), meta["dia_offsets"],
+                arrays["dia_vals"], [(empty, empty, empty)], device=device,
+                dia_shape=meta.get("dia_shape"), dia_nnz=meta["nnz"])
         row_pad, col_pad = int(meta["row_pad"]), int(meta["col_pad"])
         ovf = {}
         if arrays.get("bdia_ovf_rows") is not None:
@@ -547,7 +636,10 @@ class ShardedMatrix:
         import scipy.sparse as sp
         nr = self.row_offsets[1] - self.row_offsets[0]
         c0 = self.col_offsets[0]
-        if self.uses_bell:
+        if self.uses_dia:
+            lr, lc, vals = _dia_entries(self.dia_vals[0].cpu().numpy(),
+                                        self.dia_offsets)
+        elif self.uses_bell:
             bv = self.bell_vals[0].cpu().numpy()        # (G, K, 8, 128)
             bi = self.bell_ids[0].cpu().numpy()         # (G, K)
             g_i, k_i, r_i, c_i = np.nonzero(bv)
@@ -594,7 +686,8 @@ class ShardedMatrix:
         A = dataclasses.replace(
             self, diag_vals=cast(self.diag_vals),
             bdia_vals=cast(self.bdia_vals), bell_vals=cast(self.bell_vals),
-            bdia_ovf_vals=cast(self.bdia_ovf_vals), diag=cast(self.diag))
+            bdia_ovf_vals=cast(self.bdia_ovf_vals), diag=cast(self.diag),
+            dia_vals=cast(self.dia_vals))
         if A.uses_bdia:
             P, B, D, R = A.bdia_vals.shape
             itemsize = A.bdia_vals.element_size()
@@ -616,6 +709,74 @@ class ShardedMatrix:
             self, bdia_gb=int(gb), bdia_step_lo=to_tensor(step_lo,
                                                           self.device),
             bdia_panel=int(panel))
+
+
+def _decompose_offset(off: int, dims: tuple) -> tuple:
+    """Mixed-radix decomposition of a flat offset into per-dim components of
+    minimal magnitude: off = ((c0*dims[1] + c1)*dims[2] + c2)... for the
+    stencil this recovers (dz, dy, dx).  (``tpusolve/matrix/spmv.py``,
+    verbatim.)"""
+    comps = []
+    rem = off
+    for d in reversed(dims[1:]):
+        c = rem % d
+        if c > d // 2:
+            c -= d
+        comps.append(c)
+        rem = (rem - c) // d
+    comps.append(rem)
+    return tuple(reversed(comps))
+
+
+def dia_triples(offsets, dia_shape=None) -> tuple:
+    """The (dz, dy, dx) triple of each DIA plane.  Triples (or pairs, for a
+    2-D ``dia_shape``) are taken as they are, padded with leading zeros.
+    Flat offsets are decomposed over ``dia_shape`` (:func:`_decompose_offset`)
+    or, without one, are the 1-D form (0, 0, offset).  Raises ``ValueError``
+    where a flat offset does not name one triple: two flat offsets equal, or
+    a component past the leading one of magnitude at least half its extent
+    (on a 4-wide box, dx = 2 and dx = -2 share their flat offsets with
+    other triples)."""
+    offsets = list(offsets)
+    if offsets and all(np.ndim(o) == 1 for o in offsets):
+        return tuple((0,) * (3 - len(o)) + tuple(int(c) for c in o)
+                     for o in offsets)
+    flat = [int(o) for o in offsets]
+    if len(set(flat)) != len(flat):
+        raise ValueError("DIA offsets: two flat offsets are equal, so their "
+                         "planes' triples cannot be told apart")
+    if dia_shape is None:
+        return tuple((0, 0, o) for o in flat)
+    dims = tuple(int(d) for d in dia_shape)
+    out = []
+    for o in flat:
+        comps = _decompose_offset(o, dims)
+        for c, d in zip(comps[1:], dims[1:]):
+            if 2 * abs(c) >= d:
+                raise ValueError(
+                    f"DIA offset {o} is ambiguous on the box {dims}: its "
+                    f"component {c} reaches half the extent {d}")
+        out.append((0,) * (3 - len(dims)) + comps)
+    return tuple(out)
+
+
+def _dia_entries(planes: np.ndarray, triples):
+    """(rows, cols, vals) of the nonzero in-box entries of one part's DIA
+    planes (D, nz, ny, nx)."""
+    box = planes.shape[1:]
+    idx = np.indices(box).reshape(3, -1)
+    flat = np.arange(int(np.prod(box)))
+    rows, cols, vals = [], [], []
+    for k, t in enumerate(triples):
+        tgt = idx + np.asarray(t)[:, None]
+        v = planes[k].reshape(-1)
+        ok = np.all((tgt >= 0) & (tgt < np.asarray(box)[:, None]), axis=0)
+        ok &= v != 0
+        rows.append(flat[ok])
+        cols.append(flat[ok] + (t[0] * box[1] + t[1]) * box[2] + t[2])
+        vals.append(v[ok])
+    cat = lambda a, dt: np.concatenate(a) if a else np.zeros(0, dt)
+    return cat(rows, np.int64), cat(cols, np.int64), cat(vals, planes.dtype)
 
 
 def _check_windows(starts: np.ndarray, R: int, xlen: int) -> None:

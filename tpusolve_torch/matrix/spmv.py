@@ -1,11 +1,13 @@
-"""SpMV for one part: BDIA (+ overflow), BELL or padded ELL (the port of
-``tpusolve/matrix/spmv.py``).
+"""SpMV for one part: box DIA, BDIA (+ overflow), BELL or padded ELL (the
+port of ``tpusolve/matrix/spmv.py``).
 
 The hot operation of every Krylov iteration and preconditioner sweep.  A
-BDIA diag block runs the hand-written kernel K4 through ``kernels.bdia``,
-or K5 where it carries a step plan (BDIA-XL, as ``tpusolve`` dispatches to
-its XL kernel), each of which also adds the spilled entries of its overflow
-list, each row its own; a BELL diag block runs K6 through ``kernels.bell``.  Multi-part operators
+box-DIA diag block (the stencil and the structured multigrid levels) runs
+the hand-written kernel K1 through ``kernels.dia``.  A BDIA diag block runs
+K4 through ``kernels.bdia``, or K5 where it carries a step plan (BDIA-XL,
+as ``tpusolve`` dispatches to its XL kernel), each of which also adds the
+spilled entries of its overflow list, each row its own; a BELL diag block
+runs K6 through ``kernels.bell``.  Multi-part operators
 (offd ELL block and halo exchange, ``tpusolve``'s ``halo_exchange`` and
 ``_offd_add``) are not ported yet: ``ShardedMatrix`` refuses to build them.
 """
@@ -16,6 +18,7 @@ import torch
 
 from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
 from tpusolve_torch.kernels.bell import bell_spmv
+from tpusolve_torch.kernels.dia import dia_spmv
 
 
 def ell_spmv_local(vals: torch.Tensor, cols: torch.Tensor,
@@ -29,6 +32,8 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a one-part ``ShardedMatrix``: ``x`` is a padded vector
     over A's columns ``(col_pad,)``; returns one over its rows
     ``(row_pad,)``."""
+    if A.uses_dia:
+        return dia_spmv(A.dia_vals, A.dia_offsets, x)
     if A.uses_bdia_xl:
         return bdia_spmv_xl(A.bdia_vals, A.bdia_starts, x, A.bdia_xpad,
                             A.row_pad, A.bdia_gb, A.bdia_step_lo,

@@ -4,7 +4,9 @@ The reference decomposes matrix rows into contiguous blocks across MPI ranks
 (ref: src/HypreSystem.cpp:525-544 ``init_row_decomposition``): each rank gets
 ``total/nproc`` rows and the remainder is spread one row at a time over the
 first ranks.  The rule is reproduced exactly so partition-dependent file
-formats (HYPRE-IJ multi-file dumps) round-trip bit-identically.
+formats (HYPRE-IJ multi-file dumps) round-trip bit-identically.  The
+stencil generator's process grid comes from
+:func:`compute_3d_process_distribution`, as in ``tpusolve``.
 
 Every device tensor of the port keeps ``tpusolve``'s stacked layout
 ``(nparts, ...)``: rows padded per part to ``row_pad``, padded diagonal
@@ -45,6 +47,33 @@ def owner_of(indices: np.ndarray, offsets: np.ndarray) -> np.ndarray:
 def local_range(offsets: np.ndarray, part: int) -> tuple[int, int]:
     """(iLower, iUpper) inclusive range for a part, reference-style."""
     return int(offsets[part]), int(offsets[part + 1]) - 1
+
+
+def compute_3d_process_distribution(nparts: int) -> tuple[int, int, int]:
+    """Factor ``nparts`` into a 3-D process grid (px, py, pz).
+
+    Functional equivalent of the reference's prime-factorization grid
+    builder (src/laplace_3d_weak_scaling.hpp:98-169): distribute prime
+    factors across the three dimensions, largest factors first, always onto
+    the currently smallest dimension, yielding a near-cubic grid.
+    """
+    if nparts <= 0:
+        raise ValueError(f"nparts must be positive, got {nparts}")
+    factors = []
+    n = nparts
+    d = 2
+    while d * d <= n:
+        while n % d == 0:
+            factors.append(d)
+            n //= d
+        d += 1
+    if n > 1:
+        factors.append(n)
+    grid = [1, 1, 1]
+    for f in sorted(factors, reverse=True):
+        grid[int(np.argmin(grid))] *= f
+    px, py, pz = sorted(grid, reverse=True)
+    return px, py, pz
 
 
 def require_single_part(nparts: int) -> None:
