@@ -33,17 +33,26 @@ toolkit (nvcc) and PyTorch built for CUDA:
    and K6's bound, and at every BDIA level K4, K5, plain and library;
 6. gate 1: ``examples/gate1_64cube_pcg_amg.yaml`` as it is (64^3 =
    262,144 rows, ``mixed``) through the CLI: the 27-point stencil as box
-   DIA, the PFMG-style structured hierarchy (DIA-algebra RAP, box
+   DIA, the PFMG-style structured hierarchy (DIA-algebra RAP, the K3 box
    transfers, l1-Jacobi, dense coarse solve), PCG in f32 inside f64
    refinement, golden check; then K1 against its plain version on every
-   level in f32 and f64, and at each level (and on the f64 A) K1's time,
-   the plain version's, the library's CSR SpMV and the bound; then one
-   warm solve under ``torch.profiler``: device time by kernel and the
-   device's idle share;
+   level in f32 and f64, in the plain form and each update form
+   ``c + w * s * (b - A x)`` of the cycle, and the same bits in two runs;
+   at each level (and on the f64 A) K1's time, the plain version's, the
+   library's CSR SpMV and the bound; the 32^3 level cold (L2 flushed) and
+   warm; K3 (prolongation with its add, restriction) against its plain
+   versions on every transition in f32 and f64, the adjoint identity on
+   the card, and each kernel's time, the plain version's, the library's
+   (``interpolate``, trilinear, for the prolongation, and its backward,
+   ``upsample_trilinear3d_backward``, for the restriction) and the bound;
+   then one warm solve under
+   ``torch.profiler``: device operations and device time by kernel class
+   (K1, K3, ...), K1's launches by form, and the device's idle share;
 7. gate 2: ``examples/gate2_weakscale_gmres_cheby.yaml`` as it is (128^3 =
    2,097,152 rows, ``single``, GMRES(20) + Chebyshev-smoothed PFMG) through
-   the CLI, then the same K1 checks and timings at its five levels, and K1
-   on a 4-wide coarse box against the exact CSR product;
+   the CLI, then the same K1 and K3 checks and timings at its five levels
+   and four transitions, its warm-solve profile, and K1 on a 4-wide coarse
+   box against the exact CSR product;
 8. measures the constants of the time model (``kernels/calibrate.py``)
    beside the ones in the code.
 
@@ -59,9 +68,10 @@ second-to-last line is a JSON object with one entry per kernel (launches,
 device and per-call times, plain, library and bound); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines, as does a machine without CUDA or a directory without
-the ``tpusolve_torch`` package.  Gates 1 and 2 fail unless K1 ran during
-their run and no other SpMV kernel did (every operator of the structured
-path is box DIA).
+the ``tpusolve_torch`` package.  Gates 1 and 2 fail unless K1 and both K3
+kernels ran during their run and no other SpMV kernel did (every operator
+of the structured path is box DIA).  ``profile_solves.py`` profiles the
+warm solves of gates 1 and 2 alone, also of an earlier checkout.
 """
 
 from __future__ import annotations
@@ -332,6 +342,30 @@ def nbytes_of(*tensors) -> int:
                if t is not None)
 
 
+def device_times(calls: dict, only: str | None = None) -> dict:
+    """``calibrate.device_ms_each`` of ``calls`` (of the kernels named like
+    ``only``, if given), or NaN for each where the profiler's traces held no
+    device event (printed; the JSON line gives null): a time that was not
+    measured fails no check."""
+    from tpusolve_torch.kernels.calibrate import device_ms_each
+    try:
+        return device_ms_each(calls, only=only)
+    except RuntimeError as err:
+        print(f"device time not measured: {err}", flush=True)
+        return {key: float("nan") for key in calls}
+
+
+def no_nan(obj):
+    """``obj`` with every NaN float replaced by None, for strict JSON."""
+    if isinstance(obj, float) and obj != obj:
+        return None
+    if isinstance(obj, dict):
+        return {k: no_nan(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [no_nan(v) for v in obj]
+    return obj
+
+
 def dia_nbytes(M) -> int:
     """The bytes one box-DIA SpMV must move: each plane's in-box slots (a
     slot whose neighbour lies outside the box is never read), x once and y
@@ -351,7 +385,7 @@ def bdia_timings(ops, device_name: str, seed: int):
     import torch
     from tpusolve_torch.kernels.bdia import (
         bdia_spmv, bdia_spmv_plain, bdia_spmv_xl, bdia_spmv_xl_plain)
-    from tpusolve_torch.kernels.calibrate import device_ms, time_ms
+    from tpusolve_torch.kernels.calibrate import time_ms
     from tpusolve_torch.matrix import sharded
 
     rng = np.random.default_rng(seed)
@@ -414,8 +448,8 @@ def bdia_timings(ops, device_name: str, seed: int):
         for key, ts in runs.items():
             row[key + "_ms"] = min(ts)
             row[key + "_runs"] = ts
-        for key, call in calls:
-            row[key + "_dev_ms"] = device_ms(call)
+        for key, ms in device_times(dict(calls)).items():
+            row[key + "_dev_ms"] = ms
         row["bound_ms"] = bound_ms(nbytes_of(
             M.bdia_vals, M.bdia_starts, *(M.bdia_ovf or ()), x, y4),
             device_name)
@@ -441,10 +475,13 @@ def bdia_timings(ops, device_name: str, seed: int):
 def run_cli(yaml_path: str, counters) -> tuple:
     """Run the port's CLI on ``yaml_path`` with every launch counter set to
     0 just before; returns (exit code, LinearSystem, wall seconds,
-    {counter name: launches})."""
+    {counter name: launches}); a counter's ``launches_by_form`` (K1's
+    launches by form) is set to {} with it."""
     from tpusolve_torch.harness import cli
     for fn in counters:
         fn.launches = 0
+        if hasattr(fn, "launches_by_form"):
+            fn.launches_by_form = {}
     systems = []
     t0 = time.perf_counter()
     rc = cli.main([yaml_path, "--device", "cuda"], keep=systems)
@@ -544,7 +581,7 @@ def bell_level_timings(pre, device_name: str) -> list:
     import torch
     from tpusolve_torch.kernels.bdia import bdia_spmv
     from tpusolve_torch.kernels.bell import bell_spmv, bell_spmv_plain
-    from tpusolve_torch.kernels.calibrate import device_ms, time_ms
+    from tpusolve_torch.kernels.calibrate import time_ms
     from tpusolve_torch.matrix import sharded
     from tpusolve_torch.matrix.sharded import ShardedMatrix
     from tpusolve_torch.matrix.spmv import ell_spmv_local
@@ -597,11 +634,11 @@ def bell_level_timings(pre, device_name: str) -> list:
         b2 = time_ms(lambda: bdia_spmv(*bargs))
         k2 = time_ms(lambda: bell_spmv(*args))
         p2 = time_ms(lambda: bell_spmv_plain(*args))
-        dev = {key: device_ms(call) for key, call in (
-            ("ms", lambda: bell_spmv(*args)),
-            ("plain_ms", lambda: bell_spmv_plain(*args)),
-            ("k4_ms", lambda: bdia_spmv(*bargs)), ("ell_ms", ell),
-            ("library_ms", lib_call))}
+        dev = device_times({
+            "ms": lambda: bell_spmv(*args),
+            "plain_ms": lambda: bell_spmv_plain(*args),
+            "k4_ms": lambda: bdia_spmv(*bargs), "ell_ms": ell,
+            "library_ms": lib_call})
         _, G, K = M.bell_ids.shape
         _, B, D, R = Mb.bdia_vals.shape
         bell_bytes = G * K * (8 * 128 * itemsize + 4)
@@ -757,7 +794,7 @@ def dia_timings(ops, device_name: str, seed: int) -> list:
     the card's HBM rate).  Returns one row per operator."""
     import numpy as np
     import torch
-    from tpusolve_torch.kernels.calibrate import device_ms, time_ms
+    from tpusolve_torch.kernels.calibrate import time_ms
     from tpusolve_torch.kernels.dia import dia_spmv, dia_spmv_plain
 
     rng = np.random.default_rng(seed)
@@ -786,10 +823,11 @@ def dia_timings(ops, device_name: str, seed: int) -> list:
                    max_abs_err=float((y - y_p).abs().max()),
                    lib_rel_err=err_lib,
                    bound_ms=bound_ms(dia_nbytes(M), device_name))
+        dev = device_times(dict(calls))
         for key, ts in runs.items():
             row[key + "_ms"] = min(ts)
             row[key + "_runs"] = ts
-            row[key + "_dev_ms"] = device_ms(dict(calls)[key])
+            row[key + "_dev_ms"] = dev[key]
         print(f"{name} {dt} {M.layout} ({M.shape[0]} rows, {M.nnz} nnz): K1 "
               f"device {row['k1_dev_ms']:.5f} ms, per call "
               f"{row['k1_ms']:.5f} ms (runs {ts_str(row['k1_runs'])}), rel "
@@ -802,31 +840,216 @@ def dia_timings(ops, device_name: str, seed: int) -> list:
     return rows
 
 
+# K1's update forms in the V-cycle: (keyword arguments, weight); the
+# Jacobi form updates the x it multiplies, as the smoother does
+K1_FORMS = (("residual b - A x", ("b",), 1.0),
+            ("Jacobi x + w s (b - A x)", ("b", "s", "x"), 0.9),
+            ("Chebyshev s (b - A x)", ("b", "s"), 1.0),
+            ("Chebyshev r - s A d", ("s", "c"), 1.0))
+
+
+def dia_mode_check(ops, seed: int) -> tuple:
+    """K1 against its plain version on each (name, DIA operator) of ``ops``
+    in f32 and f64, in the plain form and in each update form of
+    ``K1_FORMS``, and each launch's output the same bits in a second run.
+    Returns (largest relative error, largest absolute error)."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.dia import dia_spmv, dia_spmv_plain
+
+    rng = np.random.default_rng(seed)
+    worst = worst_abs = 0.0
+    for name, M in ops:
+        for dt in (np.float32, np.float64):
+            Mc = M.astype(dt)
+            vec = {k: torch.tensor(rng.standard_normal(Mc.col_pad),
+                                   dtype=Mc.dtype, device=Mc.device)
+                   for k in ("x", "b", "s", "c")}
+            key = np.dtype(dt).name
+            for form, names, w in (("A x", (), 1.0),) + K1_FORMS:
+                kw = {("c" if k == "x" else k): vec[k] for k in names}
+                args = (Mc.dia_vals, Mc.dia_offsets, vec["x"])
+                y = dia_spmv(*args, w=w, **kw)
+                again = dia_spmv(*args, w=w, **kw)
+                y_p = dia_spmv_plain(*args, w=w, **kw)
+                err = rel_err(y, y_p)
+                if not err <= RTOL[key] or not torch.equal(y, again):
+                    fail(f"{name} {key} K1 {form}: rel err {err:.3e} > "
+                         f"{RTOL[key]} or not the same bits twice")
+                worst = max(worst, err)
+                worst_abs = max(worst_abs, float((y - y_p).abs().max()))
+    return worst, worst_abs
+
+
+def cold_warm(name: str, M, device_name: str) -> dict:
+    """K1's device time on operator ``M`` warm (the loop keeps its planes
+    in the 50 MB L2 where they fit), cold (256 MB written between calls
+    flushes the L2, as the solve's larger level evicts it) and warm but
+    spaced (a kernel that spins about as long as the flush, touching no
+    memory, between calls), in one call."""
+    import torch
+    from tpusolve_torch.kernels.dia import dia_spmv
+    x = torch.randn(M.col_pad, dtype=M.dtype, device=M.device)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=M.device)
+    call = lambda: dia_spmv(M.dia_vals, M.dia_offsets, x)
+    out = device_times({
+        "warm_ms": call, "cold_ms": lambda: (flush.zero_(), call()),
+        "spaced_ms": lambda: (torch.cuda._sleep(200_000), call())},
+        only="dia_spmv")
+    out.update(op=name, bound_ms=bound_ms(dia_nbytes(M), device_name))
+    print(f"{name} K1 device warm {out['warm_ms']:.5f} ms, cold (L2 flushed "
+          f"before each call) {out['cold_ms']:.5f} ms, warm and spaced (a "
+          f"spin kernel between calls) {out['spaced_ms']:.5f} ms; bound "
+          f"{out['bound_ms']:.5f} ms", flush=True)
+    return out
+
+
+# K3's library yardsticks: one PyTorch call each that computes the same
+# function (the port calls neither)
+LIBRARY = {"prolong": "torch.nn.functional.interpolate (trilinear; P xc "
+                      "alone)",
+           "restrict": "torch.ops.aten.upsample_trilinear3d_backward"}
+
+
+def transfer_check(pre, what: str, device_name: str, seed: int) -> list:
+    """K3 on every transition of the structured hierarchy ``pre``: the
+    prolongation with its add and the restriction against their plain
+    versions in f32 and f64 (relative error under RTOL; whether equal bit
+    for bit), the adjoint identity <P u, v> = <u, P^T v> on the card in f64,
+    the library's prolongation (``interpolate``, trilinear,
+    ``align_corners=False``) and restriction (that interpolation's
+    backward, ``upsample_trilinear3d_backward``: its adjoint) against the
+    plain ones, and in the level's dtype each kernel's device and per-call
+    time beside the plain version's, the library's and the bound (the
+    coarse vector read, the fine one read and written, or the fine read and
+    the coarse written, over the card's HBM rate).  Returns one row per
+    (transition, kernel)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tpusolve_torch.kernels.calibrate import time_ms
+    from tpusolve_torch.kernels.transfer import (
+        box_prolong, box_restrict, prolong_plain, restrict_plain)
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(len(pre.levels) - 1):
+        fine = tuple(pre.levels[i].A.dia_shape)
+        coarse = tuple(pre.levels[i + 1].A.dia_shape)
+        nf, nc = int(np.prod(fine)), int(np.prod(coarse))
+        dev = pre.levels[i].A.device
+        name = (f"{what} transfer {i}->{i + 1} ({'x'.join(map(str, fine))}"
+                f" <-> {'x'.join(map(str, coarse))})")
+
+        def vec(n, dt):
+            return torch.tensor(rng.standard_normal(n), dtype=dt, device=dev)
+        errs = {"prolong": [], "restrict": []}
+        for dt in (torch.float32, torch.float64):
+            xc, rf, x = vec(nc, dt), vec(nf, dt), vec(nf, dt)
+            key = str(dt).replace("torch.", "")
+            for kind, y, y_p in (
+                    ("prolong", box_prolong(fine, coarse, xc, x),
+                     prolong_plain(fine, coarse, xc, x)),
+                    ("restrict", box_restrict(fine, coarse, rf),
+                     restrict_plain(fine, coarse, rf))):
+                err = rel_err(y, y_p)
+                if not err <= RTOL[key]:
+                    fail(f"{name} {key}: K3 {kind} vs plain rel err "
+                         f"{err:.3e} > {RTOL[key]}")
+                errs[kind].append((err, float((y - y_p).abs().max()),
+                                   bool(torch.equal(y, y_p))))
+        u, v = vec(nc, torch.float64), vec(nf, torch.float64)
+        lhs = float(torch.dot(box_prolong(fine, coarse, u), v))
+        rhs = float(torch.dot(u, box_restrict(fine, coarse, v)))
+        adj = abs(lhs - rhs) / abs(rhs)
+        if not adj <= 1e-12:
+            fail(f"{name}: <P u, v> - <u, P^T v> relative {adj:.3e}")
+        dt = pre.levels[i].A.dtype
+        xc, rf, x = vec(nc, dt), vec(nf, dt), vec(nf, dt)
+        lib = lambda: F.interpolate(xc.reshape((1, 1) + coarse),
+                                    scale_factor=2, mode="trilinear",
+                                    align_corners=False)
+        lib_t = lambda: torch.ops.aten.upsample_trilinear3d_backward(
+            rf.reshape((1, 1) + fine), list(fine), [1, 1] + list(coarse),
+            False, 2.0, 2.0, 2.0)
+        err_lib = {"prolong": rel_err(lib().reshape(-1),
+                                      prolong_plain(fine, coarse, xc)),
+                   "restrict": rel_err(lib_t().reshape(-1),
+                                       restrict_plain(fine, coarse, rf))}
+        item = xc.element_size()
+        calls = {"prolong": [
+            ("plain", lambda: prolong_plain(fine, coarse, xc, x)),
+            ("kernel", lambda: box_prolong(fine, coarse, xc, x, out=x)),
+            ("lib", lib)],
+            "restrict": [
+            ("plain", lambda: restrict_plain(fine, coarse, rf)),
+            ("kernel", lambda: box_restrict(fine, coarse, rf)),
+            ("lib", lib_t)]}
+        nbytes = {"prolong": (nc + 2 * nf) * item,
+                  "restrict": (nf + nc) * item}
+        dev = device_times({f"{kind} {k}": call
+                              for kind, cl in calls.items() for k, call in cl})
+        for kind, cl in calls.items():
+            runs = {k: [] for k, _ in cl}
+            for k, call in cl + cl[::-1]:
+                runs[k].append(time_ms(call))
+            row = dict(op=name, kernel=kind, dtype=str(dt).replace(
+                "torch.", ""), fine=fine, coarse=coarse,
+                rel_err=max(e[0] for e in errs[kind]),
+                max_abs_err=max(e[1] for e in errs[kind]),
+                equal_to_plain=all(e[2] for e in errs[kind]),
+                adjoint_rel=adj, lib_rel_err=err_lib[kind],
+                bound_ms=bound_ms(nbytes[kind], device_name))
+            for k, ts in runs.items():
+                row[k + "_ms"] = min(ts)
+                row[k + "_runs"] = ts
+                row[k + "_dev_ms"] = dev[f"{kind} {k}"]
+            lib_note = (f"library ({LIBRARY[kind]}; rel err "
+                        f"{err_lib[kind]:.1e}) device "
+                        f"{row['lib_dev_ms']:.5f} ms, per call "
+                        f"{row['lib_ms']:.5f} ms")
+            print(f"{name} {row['dtype']} K3 {kind}: device "
+                  f"{row['kernel_dev_ms']:.5f} ms, per call "
+                  f"{row['kernel_ms']:.5f} ms (runs "
+                  f"{ts_str(row['kernel_runs'])}); plain device "
+                  f"{row['plain_dev_ms']:.5f} ms, per call "
+                  f"{row['plain_ms']:.5f} ms; {lib_note}; bound "
+                  f"{row['bound_ms']:.5f} ms; vs plain rel err "
+                  f"{row['rel_err']:.3e} (f32 and f64), equal bit for bit: "
+                  f"{row['equal_to_plain']}; adjoint rel {adj:.1e}",
+                  flush=True)
+            rows.append(row)
+    return rows
+
+
 def ts_str(ts) -> str:
     return ", ".join(f"{t:.5f}" for t in ts)
 
 
 # kernel-name classes of the solve profile, first match wins
 PROFILE_CLASSES = (("K1", ("dia_spmv",)),
+                   ("K3", ("box_prolong", "box_restrict")),
                    ("coarse matmul", ("gemv", "gemm", "cublas", "sm90_")),
                    ("reductions", ("reduce",)),
                    ("copies and cat", ("copy", "cat", "memcpy", "memset")),
                    ("elementwise", ("elementwise",)))
 
 
-def solve_profile(system) -> dict:
+def solve_profile(system, what: str) -> dict:
     """One warm solve of ``system`` (its solver as the run built it): the
     wall time (host clock, synchronised), then the same solve under
-    ``torch.profiler``: device time by kernel class, the device's idle share
-    of the wall time, and the K3 transfers' device time (each level's
-    prolong and restrict timed apart, times its calls in the solve)."""
+    ``torch.profiler``: its device operations (kernel launches, copies and
+    sets) and their device time, in all and by kernel class, the device's
+    idle share of the wall time, and K1's launches by form in that
+    solve."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from tpusolve_torch.kernels.calibrate import device_ms
+    from tpusolve_torch.kernels import dia
 
+    # an earlier package (profile_solves.py) counts no launches by form
+    forms = getattr(dia, "launches_by_mode", dict)
     solver, b = system._solver, system.rhs[0]
-    pre = system._precond
     solver(b)
     torch.cuda.synchronize()
     walls = []
@@ -836,28 +1059,14 @@ def solve_profile(system) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = 1e3 * min(walls)
-    # count the transfers of one solve
-    calls = {}
-    saved = [(lev.prolong, lev.restrict) for lev in pre.levels]
-    for i, lev in enumerate(pre.levels):
-        for kind in ("prolong", "restrict"):
-            fn = getattr(lev, kind)
-            if fn is None:
-                continue
-
-            def counted(v, fn=fn, key=(i, kind)):
-                calls[key] = calls.get(key, 0) + 1
-                return fn(v)
-            setattr(lev, kind, counted)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            solver(b)
-            torch.cuda.synchronize()
-    finally:
-        for lev, (pr, rs) in zip(pre.levels, saved):
-            lev.prolong, lev.restrict = pr, rs
-    by_class, by_name = {}, {}
+    before = forms()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver(b)
+        torch.cuda.synchronize()
+    k1_modes = {k: n - before.get(k, 0) for k, n in forms().items()
+                if n > before.get(k, 0)}
+    by_class, ops, by_name = {}, {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -867,28 +1076,26 @@ def solve_profile(system) -> dict:
         cls = next((c for c, keys in PROFILE_CLASSES
                     if any(k in low for k in keys)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + us
+        ops[cls] = ops.get(cls, 0) + 1
     busy_ms = sum(by_class.values()) / 1e3
-    k3_ms = 0.0
-    for (i, kind), n in sorted(calls.items()):
-        lev = pre.levels[i]
-        v = torch.ones(pre.levels[i + 1].A.row_pad if kind == "prolong"
-                       else lev.A.row_pad, dtype=b.dtype, device=b.device)
-        k3_ms += n * device_ms(lambda: getattr(lev, kind)(v), reps=20)
     out = dict(wall_ms=wall_ms, walls_ms=[1e3 * w for w in walls],
                iters=int(res.iters), busy_ms=busy_ms,
                idle_share=1.0 - busy_ms / wall_ms,
+               device_ops=sum(ops.values()),
                by_class_ms={k: v / 1e3 for k, v in sorted(
                    by_class.items(), key=lambda kv: -kv[1])},
-               k3_ms=k3_ms, k3_calls=sum(calls.values()),
+               ops_by_class=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+               k1_launches_by_form=k1_modes,
                top=[(n, us / 1e3) for n, us in sorted(
                    by_name.items(), key=lambda kv: -kv[1])[:8]])
-    print(f"gate-1 warm solve: {out['iters']} iterations, wall "
+    print(f"{what} warm solve: {out['iters']} iterations, wall "
           f"{wall_ms:.3f} ms (runs {ts_str(out['walls_ms'])}); device busy "
           f"{busy_ms:.3f} ms in the profiled solve, idle share "
-          f"{out['idle_share']:.3f}; by class (ms) "
-          + ", ".join(f"{k} {v:.3f}" for k, v in out["by_class_ms"].items())
-          + f"; K3 transfers {k3_ms:.3f} ms device in {out['k3_calls']} "
-          f"calls (timed apart); top kernels "
+          f"{out['idle_share']:.3f}; {out['device_ops']} device operations "
+          f"(kernel launches, copies, sets); by class, ms (operations): "
+          + ", ".join(f"{k} {v:.3f} ({ops[k]})"
+                      for k, v in out["by_class_ms"].items())
+          + f"; K1 launches by form {k1_modes}; top kernels "
           + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in out["top"]),
           flush=True)
     return out
@@ -897,32 +1104,43 @@ def solve_profile(system) -> dict:
 def structured_phase(what: str, yaml_name: str, tol: float, device_name,
                      counters, seed: int):
     """Gate 1 or 2 (``examples/<yaml_name>`` as it is) through the CLI;
-    returns (launches, system, result, K1 check errors, K1 timing rows).
-    The system is left for the caller to destroy."""
-    from tpusolve_torch.kernels.dia import dia_spmv
+    returns (launches, K1's launches by form, system, result, K1 check
+    errors, K1 timing rows, K3 rows).  The system is left for the caller
+    to destroy."""
+    from tpusolve_torch.kernels.dia import dia_spmv, launches_by_mode
+    from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
     yaml_path = os.path.join(REPO, "examples", yaml_name)
     rc, system, wall, launches = run_cli(yaml_path, counters)
+    by_form = launches_by_mode()
     print(f"{what} path: cli exit {rc}, {wall:.1f} s wall, launches "
-          f"{launches}", flush=True)
+          f"{launches}; K1 by form {by_form}", flush=True)
     res = check_solve(system, rc, what, tol)
     pre = system._precond
     for line in pre.layouts():
         print(f"{what} {line}", flush=True)
-    if launches[dia_spmv.__name__] <= 0:
-        fail(f"the {what} path launched no K1 (dia_spmv)")
-    other = {k: v for k, v in launches.items() if k != dia_spmv.__name__}
+    path = (dia_spmv, box_prolong, box_restrict)
+    for fn in path:
+        if launches[fn.__name__] <= 0:
+            fail(f"the {what} path launched no {fn.__name__}")
+    if launches[box_prolong.__name__] != launches[box_restrict.__name__]:
+        fail(f"the {what} path restricted and prolonged unequally")
+    other = {k: v for k, v in launches.items()
+             if k not in {fn.__name__ for fn in path}}
     if any(other.values()):
         fail(f"the {what} path launched other SpMV kernels: {other}")
     ops = [(f"{what} level {i}", lev.A) for i, lev in enumerate(pre.levels)]
     if system.A_lo is not None:
         ops.append((f"{what} A", system.A))
     errs = dia_check(ops, seed)
+    mode_errs = dia_mode_check(ops, seed + 2)
+    errs = (max(errs[0], mode_errs[0]), max(errs[1], mode_errs[1]))
     rows = dia_timings(ops, device_name, seed + 1)
-    return launches, system, res, errs, rows
+    k3_rows = transfer_check(pre, what, device_name, seed + 3)
+    return launches, by_form, system, res, errs, rows, k3_rows
 
 
 def gate1_phase(device_name, counters):
-    launches, system, res, errs, rows = structured_phase(
+    launches, by_form, system, res, errs, rows, k3_rows = structured_phase(
         "gate-1", "gate1_64cube_pcg_amg.yaml", 1e-8, device_name, counters,
         14)
     passes = res.passes or []
@@ -934,13 +1152,15 @@ def gate1_phase(device_name, counters):
     if not passes or abs(gap) > len(passes):
         fail(f"gate-1 took {res.iters} iterations, more than one per pass "
              f"from tpusolve's {TPUSOLVE_GATE1_ITERS}")
-    prof = solve_profile(system)
+    cold = cold_warm("gate-1 level 1", system._precond.levels[1].A,
+                     device_name)
+    prof = solve_profile(system, "gate-1")
     system.destroy_system()
-    return launches, errs, rows, prof
+    return launches, by_form, errs, rows, k3_rows, prof, cold
 
 
 def gate2_phase(device_name, counters):
-    launches, system, res, errs, rows = structured_phase(
+    launches, by_form, system, res, errs, rows, k3_rows = structured_phase(
         "gate-2", "gate2_weakscale_gmres_cheby.yaml", 1e-6, device_name,
         counters, 16)
     print(f"gate-2 128^3: {res.iters} GMRES iterations, relres "
@@ -950,8 +1170,9 @@ def gate2_phase(device_name, counters):
     if abs(res.iters - PORT_GATE2_ITERS) > 1:
         fail(f"gate-2 took {res.iters} iterations, not within one of the "
              f"port's {PORT_GATE2_ITERS}")
+    prof = solve_profile(system, "gate-2")
     system.destroy_system()
-    return launches, errs, rows
+    return launches, by_form, errs, rows, k3_rows, prof
 
 
 def model_constants():
@@ -975,7 +1196,29 @@ def model_constants():
     return got
 
 
+def k3_entry(name: str, kind: str, line: int, rows: list,
+             launches: dict) -> dict:
+    """The ``kernels`` line's entry of K3's ``kind`` kernel: its launches,
+    errors and, at gate 1's first transition (64^3 <-> 32^3, f32), its
+    times; every transition's row under ``shapes``."""
+    rs = [r for r in rows if r["kernel"] == kind]
+    hl = rs[0]
+    return dict(name=name, route="cuda",
+                source="tpusolve_torch/csrc/box_transfer.cu",
+                replaces=f"tpusolve/amg/structured.py:{line}", **launches,
+                max_abs_err=max(r["max_abs_err"] for r in rs),
+                ms=hl["kernel_ms"], device_ms=hl["kernel_dev_ms"],
+                plain_ms=hl["plain_ms"], plain_device_ms=hl["plain_dev_ms"],
+                bound_ms=hl["bound_ms"], bound_by="bytes",
+                library_ms=hl["lib_ms"], library_device_ms=hl["lib_dev_ms"],
+                library=LIBRARY[kind],
+                shape=hl["op"], max_rel_err=max(r["rel_err"] for r in rs),
+                equal_to_plain=all(r["equal_to_plain"] for r in rs),
+                shapes=rs)
+
+
 def main(argv) -> int:
+    t_start = time.perf_counter()
     sides = {"--side": 96, "--side3": 64}
     it = iter(argv)
     for a in it:
@@ -998,9 +1241,6 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, REPO)
     from tpusolve_torch.kernels import build
-    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
-    from tpusolve_torch.kernels.bell import bell_spmv
-    from tpusolve_torch.kernels.dia import dia_spmv
 
     card = card_line()
     device = torch.device("cuda", 0)
@@ -1012,20 +1252,27 @@ def main(argv) -> int:
     print(f"PyYAML {yaml.__version__}", flush=True)
 
     print(f"kernel build: {build.build_all():.3f} s", flush=True)
+    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
+    from tpusolve_torch.kernels.bell import bell_spmv
+    from tpusolve_torch.kernels.dia import dia_spmv
+    from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
     worst4, worst5 = banded_check(device)
     worst4 = max(worst4, k4_launch_check(device))
     worst6 = bell_check(device)
 
     worst1 = four_wide_check(device)
 
-    counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv)
+    counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
+                box_restrict)
     l4, rows4 = gate4_phase(sides["--side"], device_name, counters)
     l3, rows3, bdia_rows3 = gate3_phase(sides["--side3"], device_name,
                                         counters)
     if l3["bdia_spmv"] + l3["bdia_spmv_xl"] <= 0:
         fail("the gate-3 path launched no BDIA kernel")
-    l1, errs1, rows1, prof1 = gate1_phase(device_name, counters)
-    l2, errs2, rows2 = gate2_phase(device_name, counters)
+    l1, forms1, errs1, rows1, k3_rows1, prof1, cold1 = gate1_phase(
+        device_name, counters)
+    l2, forms2, errs2, rows2, k3_rows2, prof2 = gate2_phase(device_name,
+                                                            counters)
     model_constants()
 
     paths = {"gate4": l4, "gate3": l3, "gate1": l1, "gate2": l2}
@@ -1052,7 +1299,13 @@ def main(argv) -> int:
              library_device_ms=k1["lib_dev_ms"], shape=k1["op"],
              max_rel_err=max([worst1, errs1[0], errs2[0]]
                              + [r["rel_err"] for r in rows1 + rows2]),
-             shapes=rows1 + rows2, gate1_profile=prof1),
+             launches_by_form={"gate1": forms1, "gate2": forms2},
+             shapes=rows1 + rows2, cold_warm=cold1, gate1_profile=prof1,
+             gate2_profile=prof2),
+        k3_entry("box_prolong", "prolong", 122, k3_rows1 + k3_rows2,
+                 launches("box_prolong")),
+        k3_entry("box_restrict", "restrict", 129, k3_rows1 + k3_rows2,
+                 launches("box_restrict")),
         dict(name="bdia_spmv", route="cuda",
              source="tpusolve_torch/csrc/bdia_spmv.cu",
              replaces="tpusolve/kernels/bdia.py:252", **launches("bdia_spmv"),
@@ -1089,7 +1342,8 @@ def main(argv) -> int:
              shape=f"level {k6['level']}",
              max_rel_err=max([worst6] + [r["rel_err"] for r in rows3]),
              shapes=rows3)]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps(no_nan({"kernels": kernels})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,9 +16,10 @@ It also reports the relative error of the first projection
 torch (``torch.mv``, as the port runs it), against f64.
 
 Run as a script for the numbers at one side (ROADMAP.md Queue 3 records
-them at 64^3; the full 128^3 is run only on the card)::
+them at 64^3 and at the gate's own 128^3, which takes about 4 minutes and
+9 GB of host memory on the CPU)::
 
-    JAX_PLATFORMS=cpu python tests/test_torch_gmres_projection.py 64
+    JAX_PLATFORMS=cpu python tests/test_torch_gmres_projection.py 128
 
 Under pytest the same probe runs at 16^3, where all four agree within one
 iteration and each projection error is below 1e-5.

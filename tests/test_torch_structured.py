@@ -24,6 +24,7 @@ from tpusolve_torch import stencil
 from tpusolve_torch.amg import builder, structured
 from tpusolve_torch.amg.dia_rap import dia_rap, dia_rap_axis
 from tpusolve_torch.config import BoomerAMGConfig
+from tpusolve_torch.kernels import transfer
 
 CPU = torch.device("cpu")
 TOL = 1e-12
@@ -109,8 +110,8 @@ def test_transfers_equal_tpusolve_and_adjoint(tp):
     rng = np.random.default_rng(7)
     xc = rng.standard_normal(72)
     rf = rng.standard_normal(576)
-    up = structured._prolong_local(fine, coarse, torch.from_numpy(xc))
-    down = structured._restrict_local(fine, coarse, torch.from_numpy(rf))
+    up = transfer.prolong_plain(fine, coarse, torch.from_numpy(xc))
+    down = transfer.restrict_plain(fine, coarse, torch.from_numpy(rf))
     up_t = tp["structured"]._prolong_local(fine, coarse, xc)
     down_t = tp["structured"]._restrict_local(fine, coarse, rf)
     assert rel(up.numpy(), up_t) <= 1e-15 and rel(down.numpy(), down_t) \
@@ -122,8 +123,8 @@ def test_transfers_equal_tpusolve_and_adjoint(tp):
     assert abs(lhs - rhs) <= 1e-13 * abs(rhs)
     np.testing.assert_array_equal(structured._p1d(6).toarray(),
                                   tp["structured"]._p1d(6).toarray())
-    up32 = structured._prolong_local(fine, coarse,
-                                     torch.from_numpy(xc.astype(np.float32)))
+    up32 = transfer.prolong_plain(fine, coarse,
+                                  torch.from_numpy(xc.astype(np.float32)))
     assert up32.dtype == torch.float32
 
 

@@ -41,7 +41,7 @@ from tpusolve_torch.amg import smoothers
 from tpusolve_torch.amg import strength as strength_mod
 from tpusolve_torch.config import BoomerAMGConfig
 from tpusolve_torch.matrix.sharded import ShardedMatrix
-from tpusolve_torch.matrix.spmv import spmv
+from tpusolve_torch.matrix.spmv import spmv, spmv_update
 from tpusolve_torch.matrix.vectors import (
     numpy_dtype, pad_vector, to_device_vector, to_tensor)
 from tpusolve_torch.parts import row_decomposition
@@ -65,7 +65,7 @@ class Level:
     cheby_bounds: tuple | None = None
     n: int = 0
     nnz: int = 0
-    prolong: Callable | None = None  # coarse -> fine vector (structured)
+    prolong: Callable | None = None  # (ec, x, out=) -> x + P ec (structured)
     restrict: Callable | None = None  # fine -> coarse vector (structured)
 
 
@@ -440,16 +440,18 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
                 # coarse-level relaxation (relax_coarse / num_coarse_sweeps,
                 # ref: src/HypreSystem.cpp:129-151)
                 return smooth(lev, b, x, kind_coarse, coarse_sweeps)
-            rr = b - spmv(lev.A, x)
+            rr = spmv_update(lev.A, x, b=b)
             return x + torch.matmul(pre.coarse_inv, rr)
         x = smooth(lev, b, x, kind_down, nu_down)
-        rr = b - spmv(lev.A, x)
+        rr = spmv_update(lev.A, x, b=b)
         rc = lev.restrict(rr) if lev.R is None else spmv(lev.R, rr)
         ec = torch.zeros(levels[l + 1].A.row_pad, dtype=b.dtype,
                          device=b.device)
         for _ in range(gamma):
             ec = cycle(l + 1, rc, ec)
-        x = x + (lev.prolong(ec) if lev.P is None else spmv(lev.P, ec))
+        # the box transfer adds its correction into x, which the cycle owns
+        x = (lev.prolong(ec, x, out=x) if lev.P is None
+             else x + spmv(lev.P, ec))
         return smooth(lev, b, x, kind_up, nu_up)
 
     return lambda r: cycle(0, r, torch.zeros_like(r))

@@ -13,8 +13,9 @@ its map:
     relax_type 16            -> Chebyshev polynomial (cheby_order/fraction)
 
 The l1 row norms and the Chebyshev eigenvalue bound are computed at setup
-on the host; each sweep is eager PyTorch around one SpMV, which runs the
-layout's kernel.
+on the host.  Each sweep's update around an SpMV is
+``matrix.spmv.spmv_update``: one K1 launch on a box-DIA level, the SpMV's
+kernel and eager PyTorch on the other layouts.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from tpusolve_torch.matrix.spmv import spmv
+from tpusolve_torch.matrix.spmv import spmv, spmv_update
 
 
 def l1_row_norms(A_csr: sp.csr_matrix) -> np.ndarray:
@@ -37,7 +38,7 @@ def l1_row_norms(A_csr: sp.csr_matrix) -> np.ndarray:
 def jacobi_sweeps(A, dinv, b, x, nsweeps: int, weight: float = 1.0):
     """x <- x + w * Dinv (b - A x), nsweeps times."""
     for _ in range(nsweeps):
-        x = x + weight * dinv * (b - spmv(A, x))
+        x = spmv_update(A, x, b=b, s=dinv, c=x, w=weight)
     return x
 
 
@@ -83,11 +84,11 @@ def chebyshev_sweeps(A, dinv, b, x, coeffs_lower_upper, order: int):
     sigma = theta / delta
     rho = 1.0 / sigma
 
-    r = dinv * (b - spmv(A, x))
+    r = spmv_update(A, x, b=b, s=dinv)
     d = r / theta
     for _ in range(order - 1):
         x = x + d
-        r = r - dinv * spmv(A, d)
+        r = spmv_update(A, d, s=dinv, c=r)
         rho_new = 1.0 / (2.0 * sigma - rho)
         d = rho_new * rho * d + (2.0 * rho_new / delta) * r
         rho = rho_new
@@ -98,11 +99,11 @@ def chebyshev4_sweeps(A, dinv, b, x, lam_max, order: int):
     """Fourth-kind Chebyshev smoothing (Lottes, "Optimal polynomial
     smoothers for multigrid V-cycles", 2022; see PAPERS.md): needs only an
     upper eigenvalue bound, ``order`` matvecs per invocation."""
-    r = dinv * (b - spmv(A, x))
+    r = spmv_update(A, x, b=b, s=dinv)
     d = (4.0 / 3.0) * r / lam_max
     for k in range(1, order):
         x = x + d
-        r = r - dinv * spmv(A, d)
+        r = spmv_update(A, d, s=dinv, c=r)
         a1 = (2.0 * k - 1.0) / (2.0 * k + 3.0)
         a2 = (8.0 * k + 4.0) / ((2.0 * k + 3.0) * lam_max)
         d = a1 * d + a2 * r

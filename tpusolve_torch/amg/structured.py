@@ -7,9 +7,10 @@ generator (a rank-3 ``A.dia_shape``):
 
 * **geometric coarsening**: each part's box halves per dim (coarsening is
   local to the part, so the transfer operators are block-diagonal);
-* **transfers** (K3): cell-centered linear interpolation applied as eager
-  PyTorch box ops, one axis at a time; the restriction is the exact adjoint
-  of the prolongation;
+* **transfers** (K3): cell-centered linear interpolation over each part's
+  box and its exact adjoint, one hand-written kernel launch each on the
+  card (``kernels/transfer.py``, ``csrc/box_transfer.cu``); the
+  prolongation adds its correction to the fine vector as it goes;
 * **Galerkin coarse operators**: DIA-algebra RAP on the host
   (``amg/dia_rap.py``), assembled as box-DIA matrices whose planes keep
   their (dz, dy, dx) triples, so every level's SpMV runs K1;
@@ -26,7 +27,6 @@ from functools import partial
 
 import numpy as np
 import scipy.sparse as sp
-import torch
 
 from tpusolve_torch.amg import smoothers
 from tpusolve_torch.amg.builder import (
@@ -34,6 +34,7 @@ from tpusolve_torch.amg.builder import (
     _NOT_PORTED, _resolve_kinds)
 from tpusolve_torch.amg.dia_rap import dia_rap
 from tpusolve_torch.config import BoomerAMGConfig
+from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.vectors import (
     numpy_dtype, to_device_vector, to_tensor)
@@ -65,66 +66,6 @@ def _p_box(box: tuple) -> sp.csr_matrix:
     return sp.kron(sp.kron(_p1d(nz), _p1d(ny)), _p1d(nx)).tocsr()
 
 
-# ----------------------------------------------------------------------
-# device-side transfers (K3): eager PyTorch over the part's box
-def _interleave(even, odd, axis):
-    """out[2i] = even[i], out[2i+1] = odd[i] along ``axis``.  (``tpusolve``
-    interleaves by dilation padding, for the TPU's tiling only.)"""
-    shape = list(even.shape)
-    shape[axis] *= 2
-    return torch.stack((even, odd), dim=axis + 1).reshape(shape)
-
-
-def _clamp_shift(a, axis, direction):
-    """shift by one with edge clamp: direction -1 -> a[i-1], +1 -> a[i+1]."""
-    n = a.shape[axis]
-    if direction < 0:
-        first = a.narrow(axis, 0, 1)
-        rest = a.narrow(axis, 0, n - 1)
-        return torch.cat([first, rest], dim=axis)
-    last = a.narrow(axis, n - 1, 1)
-    rest = a.narrow(axis, 1, n - 1)
-    return torch.cat([rest, last], dim=axis)
-
-
-def _up1(a, axis):
-    even = 0.75 * a + 0.25 * _clamp_shift(a, axis, -1)
-    odd = 0.75 * a + 0.25 * _clamp_shift(a, axis, +1)
-    return _interleave(even, odd, axis)
-
-
-def _down1(r, axis):
-    """Exact adjoint of _up1 along axis (fine size even)."""
-    n = r.shape[axis]
-    sl = [slice(None)] * r.dim()
-    sl[axis] = slice(0, n, 2)
-    even = r[tuple(sl)]
-    sl[axis] = slice(1, n, 2)
-    odd = r[tuple(sl)]
-    mc = even.shape[axis]
-    e_first = even.narrow(axis, 0, 1)
-    o_prev = odd.narrow(axis, 0, mc - 1)
-    t1 = torch.cat([e_first, o_prev], dim=axis)        # r[2c-1] | clamp
-    e_next = even.narrow(axis, 1, mc - 1)
-    o_last = odd.narrow(axis, mc - 1, 1)
-    t2 = torch.cat([e_next, o_last], dim=axis)         # r[2c+2] | clamp
-    return 0.75 * (even + odd) + 0.25 * t1 + 0.25 * t2
-
-
-def _prolong_local(fine_box, coarse_box, xc):
-    a = xc.reshape(coarse_box)
-    for axis in range(3):
-        a = _up1(a, axis)
-    return a.reshape(-1)
-
-
-def _restrict_local(fine_box, coarse_box, rf):
-    a = rf.reshape(fine_box)
-    for axis in range(3):
-        a = _down1(a, axis)
-    return a.reshape(-1)
-
-
 def _dia_nongalerkin(dia_c: dict, tol: float) -> dict:
     """Non-Galerkin sparsification on a DIA dict: drop whole offset planes
     whose max coupling is below ``tol`` x the max of the main diagonal
@@ -139,10 +80,11 @@ def _dia_nongalerkin(dia_c: dict, tol: float) -> dict:
 
 
 def _make_transfers(fine_box, coarse_box):
-    """(prolong, restrict) of one part's box: one part carries the whole
-    vector, so the box maps are the transfers."""
-    return (partial(_prolong_local, fine_box, coarse_box),
-            partial(_restrict_local, fine_box, coarse_box))
+    """(prolong, restrict) of each part's box: ``prolong(ec, x, out=x)``
+    is ``x + P ec`` and ``restrict(r)`` is ``P^T r``, each one launch of K3
+    on the card (``kernels/transfer.py``)."""
+    return (partial(box_prolong, fine_box, coarse_box),
+            partial(box_restrict, fine_box, coarse_box))
 
 
 # ----------------------------------------------------------------------

@@ -42,6 +42,12 @@ over the SMs, and the panels' bytes, set K5's time
     python -m tpusolve_torch.kernels.calibrate --k4
 
 times K4 at each register-stage depth it is built for (``sweep_k4``).
+
+    python -m tpusolve_torch.kernels.calibrate --k1
+
+times K1 at every threads-a-row count G it is built for, at the box shapes
+of gates 1 and 2 (``sweep_k1``): the measurement behind
+``kernels/dia.py:k1_plan``.
 """
 
 from __future__ import annotations
@@ -94,7 +100,8 @@ def time_ms(fn, warmup_s: float = 0.2, window_s: float = 0.05) -> float:
 
 
 # traces device_ms takes before it gives up on an empty one
-TRACE_TRIES = 3
+TRACE_TRIES = 5
+SPAN = "device_ms "   # name prefix of device_ms_each's ranges
 
 
 def device_ms(fn, reps: int = 50) -> float:
@@ -102,34 +109,68 @@ def device_ms(fn, reps: int = 50) -> float:
     and sets that ``reps`` calls put on the card, from a ``torch.profiler``
     (CUPTI) trace.  Unlike :func:`time_ms` it leaves out the host's time
     per call (argument checks, allocation, the launch itself), which sets
-    the event-loop time of a small launch.
+    the event-loop time of a small launch."""
+    return device_ms_each({"call": fn}, reps)["call"]
+
+
+def device_ms_each(calls: dict, reps: int = 50,
+                   only: str | None = None) -> dict:
+    """:func:`device_ms` of each of several calls, ``{key: fn}``, from one
+    trace: each call's ``reps`` runs sit in a ``record_function`` range of
+    their own, the card synchronised at its end and left idle for a
+    millisecond before the next, and each device event counts for the range
+    its start falls in.  With ``only``, just the device events whose name
+    holds it count (one kernel among what a call puts on the card).
 
     On the card's machine a trace now and then lacks a few device events
     (3 of 50 launches of a 6 us kernel, late in a long process) or all of
-    them.  So each kind of event (by name) counts its mean duration times
-    its number per call, rounded, and an empty trace is taken again; raises
-    after ``TRACE_TRIES`` empty ones."""
+    them (three traces in a row, late in a long ``chip_smoke.py``).  So each
+    kind of event (by name) counts its mean duration times its number per
+    call, rounded, and a trace that leaves a call without events is taken
+    again; raises after ``TRACE_TRIES`` such traces."""
+    import time
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for fn in calls.values():
+        fn()
     torch.cuda.synchronize()
+    out = {}
     for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(
+            for key, fn in calls.items():
+                with record_function(SPAN + key):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                time.sleep(1e-3)
+        events = prof.events()
+        spans = {e.name[len(SPAN):]: e.time_range for e in events
+                 if e.device_type == DeviceType.CPU
+                 and e.name.startswith(SPAN)}
+        by_key = {key: {} for key in calls}
+        for e in events:
+            if (e.device_type != DeviceType.CUDA
+                    or e.name.startswith(SPAN)
+                    or (only is not None and only not in e.name)):
+                continue
+            t = e.time_range.start
+            key = next((k for k, r in spans.items() if r.start <= t <= r.end),
+                       None)
+            if key is not None:
+                by_key[key].setdefault(e.name, []).append(
                     e.time_range.elapsed_us())
-        us = sum(round(len(d) / reps) * sum(d) / len(d)
-                 for d in by_name.values())
-        if us > 0:
-            return us / 1e3
-    raise RuntimeError(f"device_ms: the profiler saw no device activity in "
-                       f"{TRACE_TRIES} traces")
+        for key, by_name in by_key.items():
+            us = sum(round(len(d) / reps) * sum(d) / len(d)
+                     for d in by_name.values())
+            if us > 0:
+                out.setdefault(key, us / 1e3)
+        if len(out) == len(calls):
+            return out
+        time.sleep(0.2)
+    raise RuntimeError(f"device_ms_each: no device activity for "
+                       f"{sorted(set(calls) - set(out))} in {TRACE_TRIES} "
+                       f"traces")
 
 
 def _bdia_case(shape, dtype, device, gen):
@@ -352,6 +393,44 @@ def sweep_k4(device=None, log=print) -> list:
     return rows
 
 
+# (box side, slots) of the structured levels of gates 1 and 2
+K1_SHAPES = ((128, 27), (64, 27), (64, 125), (32, 125), (16, 125),
+             (8, 125))
+
+
+def sweep_k1(device=None, log=print) -> list:
+    """K1's device time, in f32, at each (side^3 box, D) of ``K1_SHAPES``
+    (random planes; the 27 stencil triples, or all 125 of [-2, 2]^3), for
+    every G of ``dia.GROUPS``, in the plain form y = A x and the Jacobi
+    form; ``k1_plan``'s choice is marked.  Returns (side, D, G, form,
+    device ms) rows."""
+    import itertools
+    from tpusolve_torch.kernels import dia
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    rows = []
+    for side, D in K1_SHAPES:
+        span = 1 if D == 27 else 2
+        offs = tuple(itertools.product(range(-span, span + 1), repeat=3))
+        box = (side,) * 3
+        vals = torch.randn((1, D) + box, generator=gen, device=device)
+        x, b, s = (torch.randn(side ** 3, generator=gen, device=device)
+                   for _ in range(3))
+        plan = dia.k1_plan(side ** 3, D)
+        for g in dia.GROUPS:
+            for form, call in (
+                    ("Ax", lambda: dia.dia_spmv(vals, offs, x, groups=g)),
+                    ("jacobi", lambda: dia.dia_spmv(vals, offs, x, b, s, x,
+                                                    0.9, groups=g))):
+                ms = device_ms(call)
+                mark = " (plan)" if plan == g else ""
+                log(f"K1 {side}^3 D={D} G={g} {form}: device {ms:.5f} "
+                    f"ms{mark}")
+                rows.append((side, D, g, form, ms))
+    return rows
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("calibrate: CUDA is not available", file=sys.stderr)
@@ -362,6 +441,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--k4"]:
         sweep_k4()
+        sys.exit(0)
+    if sys.argv[1:] == ["--k1"]:
+        sweep_k1()
         sys.exit(0)
     for _ in range(int(sys.argv[1]) if len(sys.argv) > 1 else 1):
         print(json.dumps(measure()), flush=True)
