@@ -53,7 +53,24 @@ toolkit (nvcc) and PyTorch built for CUDA:
    the CLI, then the same K1 and K3 checks and timings at its five levels
    and four transitions, its warm-solve profile, and K1 on a 4-wide coarse
    box against the exact CSR product;
-8. measures the constants of the time model (``kernels/calibrate.py``)
+8. (run right after step 3's checks, before gate 4) the device AMG setup
+   against the host pipeline: level 0 of the 32^3
+   stencil in f64 set up on the card (``amg/device_setup.py``, its row
+   floor forced) for classical-modified and direct interpolation, held
+   against the port's host pipeline on the same operator (the C/F split
+   equal, P, R and the coarse A to 1e-12 relative), with each stage's
+   seconds;
+9. the weak-scaling BoomerAMG path:
+   ``examples/weakscale_pcg_boomeramg_devsetup.yaml`` as it is (128^3 =
+   2,097,152 rows, ``single``, PCG + BoomerAMG: PMIS, classical-modified
+   interpolation, theta 0.57, l1-Jacobi, ``max_coarse_size`` 512) through
+   the CLI: level 0 set up on the card (it fails unless the hierarchy
+   carries ``amg/builder.py``'s device note), the host pipeline below, golden check; the seconds of
+   each setup stage and of the host levels, each level's layout, the
+   timer rows, K1, K4 and K6 against their plain versions at the levels
+   that run them with their times, the launch counts (it fails unless
+   each level's layout launched its kernel) and the warm-solve profile;
+10. measures the constants of the time model (``kernels/calibrate.py``)
    beside the ones in the code.
 
 Every kernel time is given twice: device time (the kernels' durations in a
@@ -105,6 +122,13 @@ TPUSOLVE_GATE1_ITERS = 14
 # ROADMAP.md Queue 3).  The gate holds the port to 6, its count on the card
 TPUSOLVE_GATE2_ITERS = 22
 PORT_GATE2_ITERS = 6
+# tpusolve on CPU, examples/weakscale_pcg_boomeramg_devsetup.yaml as it is
+# (128^3, single, its level 0 set up by its device setup on the CPU, host
+# PMIS ranks: TPUSOLVE_PMIS_HOST_RANK=1): PCG iterations, relres 5.474e-07;
+# the port is held within one of it
+TPUSOLVE_WEAKSCALE_ITERS = 23
+# the start of the note the builder records for a device level 0
+DEVICE_NOTE = "level 0 setup on device"
 
 
 def fail(msg: str):
@@ -366,14 +390,14 @@ def no_nan(obj):
     return obj
 
 
-def dia_nbytes(M) -> int:
-    """The bytes one box-DIA SpMV must move: each plane's in-box slots (a
-    slot whose neighbour lies outside the box is never read), x once and y
-    once."""
-    P, _, nz, ny, nx = M.dia_vals.shape
-    slots = P * sum(max(0, nz - abs(dz)) * max(0, ny - abs(dy))
-                    * max(0, nx - abs(dx)) for dz, dy, dx in M.dia_offsets)
-    return (slots + 2 * P * nz * ny * nx) * M.dia_vals.element_size()
+def spmv_nbytes(M) -> int:
+    """The bytes an SpMV of operator ``M`` must move, whatever its layout:
+    each nonzero's value once, x once and y once.  A layout's padding and
+    in-band zeros are not needed, and the DIA, BDIA and BELL layouts take a
+    value's column from its diagonal or tile, so no index is counted; the
+    layout's own bytes are reported beside the bound, not in it."""
+    rows, cols = M.shape
+    return (M.nnz + rows + cols) * M.diag.element_size()
 
 
 def bdia_timings(ops, device_name: str, seed: int):
@@ -450,9 +474,8 @@ def bdia_timings(ops, device_name: str, seed: int):
             row[key + "_runs"] = ts
         for key, ms in device_times(dict(calls)).items():
             row[key + "_dev_ms"] = ms
-        row["bound_ms"] = bound_ms(nbytes_of(
-            M.bdia_vals, M.bdia_starts, *(M.bdia_ovf or ()), x, y4),
-            device_name)
+        row["bound_ms"] = bound_ms(spmv_nbytes(M), device_name)
+        row["layout_mb"] = nbytes / 1e6
         row["ms"] = row["k5_ms" if M.uses_bdia_xl else "k4_ms"]
         k5 = (f"K5 gb={row['gb']} panel={row['panel']} device "
               f"{row['k5_dev_ms']:.5f} ms, per call {row['k5_ms']:.5f} ms "
@@ -467,7 +490,8 @@ def bdia_timings(ops, device_name: str, seed: int):
               f"per call {row['plain_ms']:.5f} ms; library (torch.sparse "
               f"CSR) device {row['lib_dev_ms']:.5f} ms, per call "
               f"{row['lib_ms']:.5f} ms (rel err {err_lib:.1e}); bound "
-              f"{row['bound_ms']:.5f} ms", flush=True)
+              f"{row['bound_ms']:.5f} ms ({M.nnz} nnz, x, y; the layout "
+              f"stores {row['layout_mb']:.3f} MB)", flush=True)
         rows.append(row)
     return rows
 
@@ -606,9 +630,10 @@ def bell_level_timings(pre, device_name: str) -> list:
             fail(f"level {i}: K6 vs plain rel err {err:.3e} > {RTOL[dt]}")
         np_dt = numpy_dtype(M.dtype)
         Mb = ShardedMatrix.from_csr_host(host, device=M.device, dtype=np_dt,
-                                         allow_bell=False)
+                                         allow_dia=False, allow_bell=False)
         Me = ShardedMatrix.from_csr_host(host, device=M.device, dtype=np_dt,
-                                         allow_bell=False, allow_bdia=False)
+                                         allow_dia=False, allow_bell=False,
+                                         allow_bdia=False)
         if not Mb.uses_bdia:
             fail(f"level {i}: no BDIA layout to compare ({Mb.layout})")
         bargs = (Mb.bdia_vals, Mb.bdia_starts, x, Mb.bdia_xpad, Mb.bdia_xlen,
@@ -655,8 +680,7 @@ def bell_level_timings(pre, device_name: str) -> list:
                    B=B, D=D, R=R, ms=min(k1, k2), plain_ms=min(p1, p2),
                    k4_ms=min(b1, b2), ell_ms=min(e1, e2),
                    library_ms=min(l1, l2), lib_rel_err=err_lib,
-                   bound_ms=bound_ms(nbytes_of(M.bell_vals, M.bell_ids, x,
-                                               y_plain), device_name),
+                   bound_ms=bound_ms(spmv_nbytes(M), device_name),
                    model_k6_ms=model_k6, model_k4_ms=model_k4,
                    bell_mb=bell_bytes / 1e6, bdia_mb=bdia_bytes / 1e6,
                    max_abs_err=abs_err, rel_err=err)
@@ -674,8 +698,8 @@ def bell_level_timings(pre, device_name: str) -> list:
               f"{dev['ell_ms']:.5f} ms, per call {row['ell_ms']:.5f} ms (runs "
               f"{e1:.5f}, {e2:.5f}); library (torch.sparse CSR) device "
               f"{dev['library_ms']:.5f} ms, per call {row['library_ms']:.5f} "
-              f"ms (runs {l1:.5f}, {l2:.5f}; rel err {err_lib:.1e}); K6 bound "
-              f"{row['bound_ms']:.5f} ms; layout model "
+              f"ms (runs {l1:.5f}, {l2:.5f}; rel err {err_lib:.1e}); bound "
+              f"{row['bound_ms']:.5f} ms ({M.nnz} nnz, x, y); layout model "
               f"{'agrees' if agree else 'DISAGREES'} with the measurement; "
               f"K6 rel err {err:.3e}", flush=True)
         rows.append(row)
@@ -787,15 +811,17 @@ def four_wide_check(device) -> float:
     return worst
 
 
-def dia_timings(ops, device_name: str, seed: int) -> list:
-    """At each (name, DIA operator) of ``ops``: K1 against its plain
-    version, K1's device and per-call time, the plain version's, the
-    library's CSR SpMV and the bound (the planes' in-box slots, x and y over
-    the card's HBM rate).  Returns one row per operator."""
+def spmv_timings(ops, device_name: str, seed: int, key: str, kernel, plain,
+                 layout) -> list:
+    """At each (name, operator) of ``ops``: the kernel ``kernel(M, x)``
+    (``key`` names it: ``"k1"``, ``"k6"``) against its plain version
+    ``plain(M, x)``, its device and per-call time, the plain version's, the
+    library's CSR SpMV and the bound (:func:`spmv_nbytes` over the card's
+    HBM rate), beside the bytes the layout stores (the tensors
+    ``layout(M)``).  Returns one row per operator."""
     import numpy as np
     import torch
     from tpusolve_torch.kernels.calibrate import time_ms
-    from tpusolve_torch.kernels.dia import dia_spmv, dia_spmv_plain
 
     rng = np.random.default_rng(seed)
     rows = []
@@ -803,41 +829,63 @@ def dia_timings(ops, device_name: str, seed: int) -> list:
         dt = str(M.dtype).replace("torch.", "")
         x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
                          device=M.device)
-        args = (M.dia_vals, M.dia_offsets, x)
-        y = dia_spmv(*args)
-        y_p = dia_spmv_plain(*args)
+        y = kernel(M, x)
+        y_p = plain(M, x)
         err = rel_err(y, y_p)
         if not err <= RTOL[dt]:
-            fail(f"{name}: K1 vs plain rel err {err:.3e} > {RTOL[dt]}")
+            fail(f"{name}: {key.upper()} vs plain rel err {err:.3e} > "
+                 f"{RTOL[dt]}")
         lib_call, xlib = library_spmv(M)
-        xlib.copy_(x)
-        err_lib = rel_err(lib_call(), y_p)
-        calls = [("plain", lambda: dia_spmv_plain(*args)),
-                 ("k1", lambda: dia_spmv(*args)), ("lib", lib_call)]
-        runs = {key: [] for key, _ in calls}
-        for key, call in calls + calls[::-1]:
-            runs[key].append(time_ms(call))
-        _, D, nz, ny, nx = M.dia_vals.shape
-        row = dict(op=name, dtype=dt, layout=M.layout, D=D, rows=M.shape[0],
+        xlib.copy_(x[:xlib.numel()])
+        err_lib = rel_err(lib_call(), y_p[:xlib.numel()])
+        calls = [("plain", lambda: plain(M, x)), (key, lambda: kernel(M, x)),
+                 ("lib", lib_call)]
+        runs = {k: [] for k, _ in calls}
+        for k, call in calls + calls[::-1]:
+            runs[k].append(time_ms(call))
+        row = dict(op=name, dtype=dt, layout=M.layout, rows=M.shape[0],
                    nnz=M.nnz, rel_err=err,
                    max_abs_err=float((y - y_p).abs().max()),
                    lib_rel_err=err_lib,
-                   bound_ms=bound_ms(dia_nbytes(M), device_name))
+                   bound_ms=bound_ms(spmv_nbytes(M), device_name),
+                   layout_mb=nbytes_of(*layout(M)) / 1e6)
         dev = device_times(dict(calls))
-        for key, ts in runs.items():
-            row[key + "_ms"] = min(ts)
-            row[key + "_runs"] = ts
-            row[key + "_dev_ms"] = dev[key]
-        print(f"{name} {dt} {M.layout} ({M.shape[0]} rows, {M.nnz} nnz): K1 "
-              f"device {row['k1_dev_ms']:.5f} ms, per call "
-              f"{row['k1_ms']:.5f} ms (runs {ts_str(row['k1_runs'])}), rel "
-              f"err {err:.3e}; plain device {row['plain_dev_ms']:.5f} ms, "
-              f"per call {row['plain_ms']:.5f} ms; library (torch.sparse "
+        for k, ts in runs.items():
+            row[k + "_ms"] = min(ts)
+            row[k + "_runs"] = ts
+            row[k + "_dev_ms"] = dev[k]
+        print(f"{name} {dt} {M.layout} ({M.shape[0]} rows, {M.nnz} nnz): "
+              f"{key.upper()} device {row[key + '_dev_ms']:.5f} ms, per call "
+              f"{row[key + '_ms']:.5f} ms (runs {ts_str(row[key + '_runs'])})"
+              f", rel err {err:.3e}; plain device {row['plain_dev_ms']:.5f} "
+              f"ms, per call {row['plain_ms']:.5f} ms; library (torch.sparse "
               f"CSR) device {row['lib_dev_ms']:.5f} ms, per call "
               f"{row['lib_ms']:.5f} ms (rel err {err_lib:.1e}); bound "
-              f"{row['bound_ms']:.5f} ms", flush=True)
+              f"{row['bound_ms']:.5f} ms (nnz, x, y; the layout stores "
+              f"{row['layout_mb']:.3f} MB)", flush=True)
         rows.append(row)
     return rows
+
+
+def dia_timings(ops, device_name: str, seed: int) -> list:
+    """:func:`spmv_timings` of K1 on DIA operators."""
+    from tpusolve_torch.kernels.dia import dia_spmv, dia_spmv_plain
+    return spmv_timings(
+        ops, device_name, seed, "k1",
+        lambda M, x: dia_spmv(M.dia_vals, M.dia_offsets, x),
+        lambda M, x: dia_spmv_plain(M.dia_vals, M.dia_offsets, x),
+        lambda M: (M.dia_vals,))
+
+
+def bell_timings(ops, device_name: str, seed: int) -> list:
+    """:func:`spmv_timings` of K6 on BELL operators."""
+    from tpusolve_torch.kernels.bell import bell_spmv, bell_spmv_plain
+    args = lambda M, x: (M.bell_vals, M.bell_ids, x, M.bell_nwin, M.row_pad)
+    return spmv_timings(
+        ops, device_name, seed, "k6",
+        lambda M, x: bell_spmv(*args(M, x)),
+        lambda M, x: bell_spmv_plain(*args(M, x)),
+        lambda M: (M.bell_vals, M.bell_ids))
 
 
 # K1's update forms in the V-cycle: (keyword arguments, weight); the
@@ -896,7 +944,7 @@ def cold_warm(name: str, M, device_name: str) -> dict:
         "warm_ms": call, "cold_ms": lambda: (flush.zero_(), call()),
         "spaced_ms": lambda: (torch.cuda._sleep(200_000), call())},
         only="dia_spmv")
-    out.update(op=name, bound_ms=bound_ms(dia_nbytes(M), device_name))
+    out.update(op=name, bound_ms=bound_ms(spmv_nbytes(M), device_name))
     print(f"{name} K1 device warm {out['warm_ms']:.5f} ms, cold (L2 flushed "
           f"before each call) {out['cold_ms']:.5f} ms, warm and spaced (a "
           f"spin kernel between calls) {out['spaced_ms']:.5f} ms; bound "
@@ -1027,8 +1075,11 @@ def ts_str(ts) -> str:
 
 
 # kernel-name classes of the solve profile, first match wins
-PROFILE_CLASSES = (("K1", ("dia_spmv",)),
+PROFILE_CLASSES = (("K4 and K5", ("bdia_spmv",)),
+                   ("K1", ("dia_spmv",)),
                    ("K3", ("box_prolong", "box_restrict")),
+                   ("K6", ("bell_spmv",)),
+                   ("ELL gathers", ("scatter_gather", "indexselect")),
                    ("coarse matmul", ("gemv", "gemm", "cublas", "sm90_")),
                    ("reductions", ("reduce",)),
                    ("copies and cat", ("copy", "cat", "memcpy", "memset")),
@@ -1175,6 +1226,128 @@ def gate2_phase(device_name, counters):
     return launches, by_form, errs, rows, k3_rows, prof
 
 
+def rel_sparse(M, M_ref) -> float:
+    """max |M - M_ref| / max |M_ref| of two scipy matrices."""
+    d = abs(M - M_ref)
+    return (d.max() if d.nnz else 0.0) / max(abs(M_ref).max(), 1e-300)
+
+
+def device_setup_check(device) -> list:
+    """Level 0 of the 32^3 stencil in f64 set up on the card
+    (``device_setup.device_level0``, the row floor forced) for interp types
+    0 and 3, against the port's host pipeline on the same operator: the C/F
+    split equal, P, R and the coarse A to 1e-12 relative.  Returns one row
+    per interp type, with the seconds of each stage."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.amg import builder, device_setup
+    from tpusolve_torch.config import BoomerAMGConfig
+    from tpusolve_torch.stencil import laplace27
+
+    A, _, _ = laplace27(32, 32, 32, device=device, dtype=np.float64)
+    rows = []
+    for itype in (0, 3):
+        # CF order keeps the host pipeline's split on its level 0
+        cfg = BoomerAMGConfig(max_coarse_size=64, interp_type=itype,
+                              relax_order=1)
+        if not device_setup.eligible(A, cfg, min_n=1):
+            fail("device setup check: the 32^3 stencil is not eligible")
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = device_setup.device_level0(A, cfg)
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pre_h = builder.boomeramg_setup(A, cfg, device_min_n=None)
+        t_host = time.perf_counter() - t0
+        lev0, lev1 = pre_h.levels[0], pre_h.levels[1]
+        same_split = bool(torch.equal(res["Cmask"], lev0.cmask))
+        errs = {key: rel_sparse(res[key].to_scipy(), M.to_scipy())
+                for key, M in (("P", lev0.P), ("R", lev0.R),
+                               ("Ac", lev1.A))}
+        print(f"device setup 32^3 float64 interp_type {itype} on the card: "
+              f"{res['nc']} C points, split equal to the host pipeline's: "
+              f"{same_split}; rel err P {errs['P']:.2e}, R {errs['R']:.2e}, "
+              f"coarse A {errs['Ac']:.2e} (limit 1e-12); {t_dev:.3f} s "
+              "(stages: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     res["seconds"].items())
+              + f"), host pipeline's whole setup {t_host:.3f} s", flush=True)
+        if not same_split or not max(errs.values()) <= 1e-12:
+            fail(f"device setup interp_type {itype} differs from the host "
+                 "pipeline")
+        rows.append(dict(interp_type=itype, nc=res["nc"],
+                         same_split=same_split, stages=res["seconds"],
+                         device_s=t_dev, host_pipeline_s=t_host, **errs))
+    return rows
+
+
+def weakscale_phase(device_name: str, counters):
+    """``examples/weakscale_pcg_boomeramg_devsetup.yaml`` as it is through
+    the CLI; returns (launches, setup seconds, K1 rows, K6 rows, K4 rows,
+    warm-solve profile, timer rows, layouts)."""
+    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
+    from tpusolve_torch.kernels.bell import bell_spmv
+    from tpusolve_torch.kernels.dia import dia_spmv
+    yaml_path = os.path.join(REPO, "examples",
+                             "weakscale_pcg_boomeramg_devsetup.yaml")
+    rc, system, wall, launches = run_cli(yaml_path, counters)
+    print(f"weakscale path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, "weakscale", tol=1e-6)
+    pre = system._precond
+    note = next((n for n in pre.notes if n.startswith(DEVICE_NOTE)), None)
+    if note is None:
+        fail("weakscale: level 0 was not set up on the device")
+    print(f"weakscale note: {note}", flush=True)
+    for line in pre.describe().splitlines()[1:]:
+        print(f"weakscale hierarchy {line}", flush=True)
+    layouts = pre.layouts()
+    for line in layouts:
+        print(f"weakscale {line}", flush=True)
+    stages = dict(pre.setup_seconds)
+    print("weakscale setup seconds (the card's level-0 stages, then the "
+          "host levels): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in stages.items()),
+          flush=True)
+    timers = system.timers.as_dict()
+    print("weakscale timer rows (s): " + ", ".join(
+        f"{k} {v:.6f}" for k, v in timers.items()), flush=True)
+    # each level's layout launched its kernel in the run
+    by_layout = {"DIA": (dia_spmv,), "BDIA": (bdia_spmv, bdia_spmv_xl),
+                 "BDIA-XL": (bdia_spmv_xl,), "BELL": (bell_spmv,)}
+    for lev in pre.levels:
+        fns = by_layout.get(lev.A.layout.split()[0], ())
+        if fns and not sum(launches[fn.__name__] for fn in fns):
+            fail(f"weakscale: a {lev.A.layout} level launched no "
+                 f"{fns[0].__name__}")
+    ls = system.config.linear_system
+    print(f"weakscale {ls.nx}x{ls.ny}x{ls.nz}: {res.iters} PCG iterations, "
+          f"relres "
+          f"{float(res.relres):.3e}, golden check PASSED; tpusolve (CPU, same "
+          f"YAML) {TPUSOLVE_WEAKSCALE_ITERS}; kernel "
+          f"launches: K1 {launches['dia_spmv']}, K4 "
+          f"{launches['bdia_spmv']}, K5 {launches['bdia_spmv_xl']}, K6 "
+          f"{launches['bell_spmv']}", flush=True)
+    if abs(res.iters - TPUSOLVE_WEAKSCALE_ITERS) > 1:
+        fail(f"weakscale took {res.iters} PCG iterations, not within one of "
+             f"tpusolve's {TPUSOLVE_WEAKSCALE_ITERS}")
+    dia_ops = [(f"weakscale level {i}", lev.A)
+               for i, lev in enumerate(pre.levels) if lev.A.uses_dia]
+    errs = dia_check(dia_ops, 21)
+    rows1 = dia_timings(dia_ops, device_name, 22)
+    rows6 = bell_timings([(f"weakscale level {i}", lev.A)
+                          for i, lev in enumerate(pre.levels)
+                          if lev.A.uses_bell], device_name, 24)
+    rows4 = bdia_timings([(f"weakscale level {i}", lev.A)
+                          for i, lev in enumerate(pre.levels)
+                          if lev.A.uses_bdia], device_name, 23)
+    prof = solve_profile(system, "weakscale")
+    system.destroy_system()
+    return dict(launches=launches, stages=stages, k1_rows=rows1,
+                k1_errs=errs, k6_rows=rows6, k4_rows=rows4, profile=prof,
+                timers=timers, layouts=layouts, iters=int(res.iters),
+                relres=float(res.relres))
+
+
 def model_constants():
     """Measured layout-model constants beside the ones in the code."""
     from tpusolve_torch.kernels import calibrate
@@ -1261,6 +1434,7 @@ def main(argv) -> int:
     worst6 = bell_check(device)
 
     worst1 = four_wide_check(device)
+    dev_rows = device_setup_check(device)
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
                 box_restrict)
@@ -1273,9 +1447,14 @@ def main(argv) -> int:
         device_name, counters)
     l2, forms2, errs2, rows2, k3_rows2, prof2 = gate2_phase(device_name,
                                                             counters)
+    ws = weakscale_phase(device_name, counters)
     model_constants()
 
-    paths = {"gate4": l4, "gate3": l3, "gate1": l1, "gate2": l2}
+    paths = {"gate4": l4, "gate3": l3, "gate1": l1, "gate2": l2,
+             "weakscale": ws["launches"]}
+    rows1_all = rows1 + rows2 + ws["k1_rows"]
+    rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
+    rows6_all = rows3 + ws["k6_rows"]
 
     def launches(name):
         return dict(launches=sum(p[name] for p in paths.values()),
@@ -1291,17 +1470,17 @@ def main(argv) -> int:
         dict(name="dia_spmv", route="cuda",
              source="tpusolve_torch/csrc/dia_spmv.cu",
              replaces="tpusolve/matrix/spmv.py:79", **launches("dia_spmv"),
-             max_abs_err=max([errs1[1], errs2[1]]
-                             + [r["max_abs_err"] for r in rows1 + rows2]),
+             max_abs_err=max([errs1[1], errs2[1], ws["k1_errs"][1]]
+                             + [r["max_abs_err"] for r in rows1_all]),
              ms=k1["k1_ms"], device_ms=k1["k1_dev_ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by="bytes", library_ms=k1["lib_ms"],
              library_device_ms=k1["lib_dev_ms"], shape=k1["op"],
-             max_rel_err=max([worst1, errs1[0], errs2[0]]
-                             + [r["rel_err"] for r in rows1 + rows2]),
+             max_rel_err=max([worst1, errs1[0], errs2[0], ws["k1_errs"][0]]
+                             + [r["rel_err"] for r in rows1_all]),
              launches_by_form={"gate1": forms1, "gate2": forms2},
-             shapes=rows1 + rows2, cold_warm=cold1, gate1_profile=prof1,
-             gate2_profile=prof2),
+             shapes=rows1_all, cold_warm=cold1, gate1_profile=prof1,
+             gate2_profile=prof2, weakscale_profile=ws["profile"]),
         k3_entry("box_prolong", "prolong", 122, k3_rows1 + k3_rows2,
                  launches("box_prolong")),
         k3_entry("box_restrict", "restrict", 129, k3_rows1 + k3_rows2,
@@ -1309,39 +1488,41 @@ def main(argv) -> int:
         dict(name="bdia_spmv", route="cuda",
              source="tpusolve_torch/csrc/bdia_spmv.cu",
              replaces="tpusolve/kernels/bdia.py:252", **launches("bdia_spmv"),
-             max_abs_err=max(r["max_abs_err"] for r in rows4 + bdia_rows3),
+             max_abs_err=max(r["max_abs_err"] for r in rows4_all),
              ms=k4["k4_ms"], device_ms=k4["k4_dev_ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by="bytes", library_ms=k4["lib_ms"],
              library_device_ms=k4["lib_dev_ms"], shape=k4["op"],
-             max_rel_err=max([worst4] + [r["rel_err"]
-                                         for r in rows4 + bdia_rows3]),
-             shapes=rows4 + bdia_rows3),
+             max_rel_err=max([worst4] + [r["rel_err"] for r in rows4_all]),
+             shapes=rows4_all),
         dict(name="bdia_spmv_xl", route="cuda",
              source="tpusolve_torch/csrc/bdia_spmv_xl.cu",
              replaces="tpusolve/kernels/bdia.py:336",
              **launches("bdia_spmv_xl"),
-             max_abs_err=max(r["xl_max_abs_err"] for r in rows4 + bdia_rows3
+             max_abs_err=max(r["xl_max_abs_err"] for r in rows4_all
                              if "xl_max_abs_err" in r),
              ms=k5["k5_ms"], device_ms=k5["k5_dev_ms"],
              plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
              bound_by="bytes", library_ms=k5["lib_ms"],
              library_device_ms=k5["lib_dev_ms"], shape=k5["op"],
              held_by="banded_check, k4_launch_check, bdia_timings",
-             max_rel_err=max([worst5] + [r["xl_rel_err"]
-                                         for r in rows4 + bdia_rows3
+             max_rel_err=max([worst5] + [r["xl_rel_err"] for r in rows4_all
                                          if "xl_rel_err" in r])),
         dict(name="bell_spmv", route="cuda",
              source="tpusolve_torch/csrc/bell_spmv.cu",
              replaces="tpusolve/kernels/bell.py:159", **launches("bell_spmv"),
-             max_abs_err=max(r["max_abs_err"] for r in rows3),
+             max_abs_err=max(r["max_abs_err"] for r in rows6_all),
              ms=k6["ms"], device_ms=k6["dev_ms"], plain_ms=k6["plain_ms"],
              bound_ms=k6["bound_ms"], bound_by="bytes",
              library_ms=k6["library_ms"],
              library_device_ms=k6["library_dev_ms"],
              shape=f"level {k6['level']}",
-             max_rel_err=max([worst6] + [r["rel_err"] for r in rows3]),
-             shapes=rows3)]
+             max_rel_err=max([worst6] + [r["rel_err"] for r in rows6_all]),
+             shapes=rows6_all)]
+    print(json.dumps(no_nan({"weakscale": {
+        k: ws[k] for k in ("iters", "relres", "stages", "timers", "layouts",
+                           "launches")}, "device_setup_32": dev_rows})),
+          flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(no_nan({"kernels": kernels})), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -141,17 +141,23 @@ def test_mmio_rejects_bad_files():
 
 
 def test_unported_paths_raise(gate3, tmp_path):
-    """RS coarsening, BoomerAMG on a generated stencil system (it needs the
-    stencil's host CSR) and AMG as the solver are not ported yet: each
-    raises, naming ROADMAP.md."""
+    """RS coarsening, ILU smoothers on AMG levels and the bfloat16 smoother
+    twin (here with AMG as the solver, which itself runs) are not
+    ported yet: each raises, naming ROADMAP.md."""
     from tpusolve_torch.config import load_config
     from tpusolve_torch.harness.system import LinearSystem
     text = open(gate3).read()
-    for old, new in (("coarsen_type: 8", "coarsen_type: 6"),
-                     ("type: matrix_market", "type: build_27pt_stencil"),
-                     ("method: gmres", "method: boomeramg")):
+    for swap in ({"coarsen_type: 8": "coarsen_type: 6"},
+                 {"relax_type: 18": "relax_type: 18\n  smooth_type: 9\n"
+                  "  smooth_num_levels: 2"},
+                 {"method: gmres": "method: boomeramg",
+                  "max_levels: 20": "max_levels: 20\n"
+                  "  smoother_dtype: bfloat16"}):
         path = tmp_path / "c.yaml"
-        path.write_text(text.replace(old, new))
+        edited = text
+        for old, new in swap.items():
+            edited = edited.replace(old, new)
+        path.write_text(edited)
         sys_ = LinearSystem(load_config(str(path)), "cpu", verbose=False)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sys_.setup_precon_and_solver()

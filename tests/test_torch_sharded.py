@@ -107,11 +107,74 @@ class TestLayoutSelection:
                                    atol=1e-12)
         assert abs(A.to_scipy() - S).max() == 0.0
 
+    @pytest.mark.parametrize("case", ["stencil", "5-point", "few offsets",
+                                      "too many offsets", "low fill",
+                                      "96 offsets", "97 offsets",
+                                      "fill 0.14", "rectangular",
+                                      "disabled"])
+    def test_dia_first_candidacy_equals_tpusolve(self, tp, rng, case):
+        """tpusolve's DIA-first rule (at most 96 offsets filling 0.2 of the
+        planes): the same choice, the same flat offsets (as (0, 0, offset)
+        triples in the 1-D form) and the same matrix."""
+        from tpusolve_torch.stencil import laplace27_scipy
+        if case in ("stencil", "disabled"):
+            H = laplace27_scipy(7, 6, 5)[0]
+        elif case in ("96 offsets", "97 offsets"):
+            half = 48 if case == "96 offsets" else 49
+            offs = np.arange(-48, half)
+            H = sp.diags([rng.standard_normal(600 - abs(o)) for o in offs],
+                         offs, shape=(600, 600))
+        elif case == "5-point":
+            lap = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(40, 40))
+            H = sp.kron(sp.eye(40), lap) + sp.kron(lap, sp.eye(40))
+        elif case == "few offsets":
+            H = sp.csr_matrix((lambda r, c, v: (v, (r, c)))(
+                *clustered(rng, 3000, centers=(-40, 0, 40), drift_amp=0)),
+                shape=(3000, 3000))
+        elif case == "too many offsets":
+            H = sp.random(500, 500, density=0.3, random_state=3) \
+                + sp.eye(500)
+        elif case == "low fill":
+            H = sp.random(3000, 3000, density=0.0004, random_state=4)
+            H = (H + sp.eye(3000)).tocsr()
+            H = H[:, np.argsort(np.arange(3000) % 50, kind="stable")]
+        elif case == "fill 0.14":
+            H = laplace27_scipy(12, 12, 12)[0].tolil()
+            H[np.arange(1728)[np.arange(1728) % 8 != 0], :] = 0
+            H = (H + sp.eye(1728)).tocsr()
+        else:
+            H = sp.random(300, 200, density=0.05, random_state=5)
+        H = sp.csr_matrix(H)
+        H.sum_duplicates()
+        Hc = H.tocoo()
+        allow = case != "disabled"
+        A = ShardedMatrix.from_coo(H.shape, Hc.row, Hc.col, Hc.data,
+                                   device=CPU, dtype=np.float64,
+                                   allow_dia=allow)
+        At = tp["ShardedMatrix"].from_coo(
+            tp["mesh"], H.shape, Hc.row, Hc.col, Hc.data, dtype=np.float64,
+            allow_dia=allow)
+        assert A.uses_dia == At.uses_dia
+        assert A.uses_dia == (case in ("stencil", "5-point", "few offsets",
+                                       "96 offsets"))
+        if A.uses_dia:
+            flat = [(dz * A.dia_vals.shape[3] + dy) * A.dia_vals.shape[4]
+                    + dx for dz, dy, dx in A.dia_offsets]
+            assert flat == list(At.dia_offsets)
+            assert A.dia_shape is None and At.dia_shape is None
+            assert A.nnz == At.nnz == H.nnz
+        assert abs(A.to_scipy() - H).max() == 0.0
+        x = rng.standard_normal(H.shape[1])
+        np.testing.assert_allclose(spmv(A, torch.from_numpy(x)).numpy()
+                                   [:H.shape[0]], H @ x, rtol=1e-12,
+                                   atol=1e-12)
+
     @pytest.mark.parametrize("case", ["small", "disabled"])
     def test_ell_fallback(self, rng, case):
         n = 1000 if case == "small" else 6000
         r, c, v = clustered(rng, n, centers=(-30, 0, 30), drift_amp=3)
         A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU,
+                                   allow_dia=False,
                                    allow_bdia=case != "disabled",
                                    allow_bell=case != "disabled")
         assert not A.uses_bdia

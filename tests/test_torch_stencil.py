@@ -86,7 +86,9 @@ def test_tiny_box_takes_coo_path(tp, box):
     nx, ny, nz = box
     A, b, _ = stencil.laplace27(nx, ny, nz, device=CPU)
     At, bt, _ = tp["stencil"].laplace27(tp["mesh"], nx, ny, nz)
-    assert not A.uses_dia
+    # the COO path's assembly takes tpusolve's DIA-first rule: the 1-D form
+    assert A.dia_shape is None and At.dia_shape is None
+    assert A.uses_dia == At.uses_dia
     assert csr_equal(A.to_scipy(), At.to_scipy())
     np.testing.assert_array_equal(b.numpy(), np.asarray(bt))
     with pytest.raises(ValueError, match="DIA fast path"):

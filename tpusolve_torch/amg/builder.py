@@ -1,33 +1,39 @@
-"""BoomerAMG-equivalent multilevel hierarchy: host setup and the V-cycle (the
-port of ``tpusolve/amg/builder.py``, its host branch).
+"""BoomerAMG-equivalent multilevel hierarchy: setup and the V-cycle (the
+port of ``tpusolve/amg/builder.py``).
 
 Replacement for ``HYPRE_BoomerAMG{Create,Setup,Solve}`` and the setter
 surface the reference drives (src/HypreSystem.cpp:91-326):
 
-* **Setup** (strength -> PMIS coarsening -> interpolation -> Galerkin RAP)
-  runs vectorized on the host, as ``tpusolve``'s host pipeline
-  (``builder.py:283-405``) does, and produces a static hierarchy of
-  ShardedMatrix operators.  Square level operators take the layout the
-  assembly chooses (BDIA, BELL or ELL); P and R stay padded ELL.
+* **Setup** (strength -> PMIS coarsening -> interpolation -> Galerkin RAP).
+  A box-DIA level 0 of at least ``device_setup.MIN_DEVICE_N`` rows is set
+  up on its device in offset algebra (``amg/device_setup.py``), as
+  ``tpusolve`` sets it up on the TPU (``builder.py:236-281``); every other
+  level runs vectorized on the host, as ``tpusolve``'s host pipeline
+  (``builder.py:283-405``) does.  Square level operators take the layout
+  the assembly chooses (DIA, BDIA, BELL or ELL); P and R stay padded ELL,
+  and so does the device setup's coarse operator.
 * **Cycling** (smooth -> restrict -> recurse -> prolong -> smooth) is a
   Python recursion over the levels; every SpMV runs its layout's kernel and
   the coarsest level applies a dense pseudo-inverse with ``torch.matmul``.
-  A level carries sparse transfers (``P``/``R``) or, in the structured
-  hierarchy of ``amg/structured.py``, box transfers (``prolong``/
-  ``restrict``).
+  Every level but the coarsest carries ``prolong``/``restrict`` callables:
+  the sparse ``P``/``R`` products of the algebraic hierarchy, or the box
+  transfers of the structured one (``amg/structured.py``).
+* **Solve**: AMG as the solver is the harness's stationary iteration
+  (``krylov/stationary.py``) with ``apply`` (one V-cycle) as M.
 
-Not ported, and raising ``NotImplementedError``: ``tpusolve``'s device
-setup paths (``lattice_parts``; its generic-ELL device setup reproduces the
-host hierarchy to roundoff, so the port always runs the host pipeline),
-ILU smoothers on AMG levels (``smooth_type`` 5/6/7/9) and the bfloat16
-smoother twin (``smoother_dtype: bfloat16``).
+Not ported, and raising ``NotImplementedError``: ``tpusolve``'s multi-part
+device setup (``lattice_parts``, item 18), ILU smoothers on AMG levels
+(``smooth_type`` 5/6/7/9) and the bfloat16 smoother twin
+(``smoother_dtype: bfloat16``).  Where ``tpusolve`` would set a level up by
+its generic-ELL device setup (``amg/device_setup_ell.py``, item 16), the
+host pipeline stands in and ``describe()`` says so.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -35,6 +41,7 @@ import scipy.sparse as sp
 import torch
 
 from tpusolve_torch.amg import coarsen as coarsen_mod
+from tpusolve_torch.amg import device_setup
 from tpusolve_torch.amg import galerkin
 from tpusolve_torch.amg import interp as interp_mod
 from tpusolve_torch.amg import smoothers
@@ -52,10 +59,10 @@ _NOT_PORTED = "not ported yet; see ROADMAP.md Queue 1"
 @dataclass
 class Level:
     """One level of the hierarchy: its operator, the transfers to the next
-    level (None at the coarsest) and the smoother's vectors.  Transfers are
-    either sparse operators (``P``/``R``: the algebraic hierarchy) or
-    callables (``prolong``/``restrict``: the structured hierarchy's box
-    transfers); one pair is set on every level but the coarsest."""
+    level (None at the coarsest) and the smoother's vectors.  Every level
+    but the coarsest has the ``prolong``/``restrict`` callables the cycle
+    runs; an algebraic level also keeps the sparse ``P``/``R`` they apply,
+    a structured level has box transfers and no ``P``/``R``."""
     A: ShardedMatrix
     P: ShardedMatrix | None          # (n_fine, n_coarse); None at coarsest
     R: ShardedMatrix | None          # P^T
@@ -65,8 +72,8 @@ class Level:
     cheby_bounds: tuple | None = None
     n: int = 0
     nnz: int = 0
-    prolong: Callable | None = None  # (ec, x, out=) -> x + P ec (structured)
-    restrict: Callable | None = None  # fine -> coarse vector (structured)
+    prolong: Callable | None = None  # (ec, x, out=) -> x + P ec
+    restrict: Callable | None = None  # fine -> coarse vector, P^T r
 
 
 @dataclass
@@ -77,6 +84,9 @@ class AMGPreconditioner:
     notes: list[str]
     cycle: Callable | None = None    # z = cycle(r), one V- or W-cycle
     num_levels: int = 0
+    # wall seconds of the setup's stages (the device setup's, then the host
+    # levels'); empty when the host pipeline built every level
+    setup_seconds: dict = field(default_factory=dict)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """z = (one AMG cycle)(r) from zero initial guess — the
@@ -150,8 +160,8 @@ def _resolve_kinds(cfg: BoomerAMGConfig):
 
 def _check_ported(cfg: BoomerAMGConfig, lattice_parts) -> None:
     if lattice_parts is not None:
-        raise NotImplementedError(f"AMG device setup (lattice_parts) "
-                                  f"{_NOT_PORTED}, item 16")
+        raise NotImplementedError(f"multi-part AMG device setup "
+                                  f"(lattice_parts) {_NOT_PORTED}, item 18")
     if getattr(cfg, "smoother_dtype", "match") == "bfloat16":
         raise NotImplementedError(f"smoother_dtype: bfloat16 {_NOT_PORTED}")
     if cfg.smooth_num_levels > 0 and cfg.smooth_type in (5, 6, 7, 9):
@@ -162,13 +172,18 @@ def _check_ported(cfg: BoomerAMGConfig, lattice_parts) -> None:
 
 def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
                     *, A_host: sp.csr_matrix | None = None,
-                    seed: int = 1234, lattice_parts=None) -> AMGPreconditioner:
-    """Build the AMG hierarchy for ``A`` on the host.
+                    seed: int = 1234, lattice_parts=None,
+                    device_min_n: int | None = device_setup.MIN_DEVICE_N
+                    ) -> AMGPreconditioner:
+    """Build the AMG hierarchy for ``A``.
 
-    ``A_host`` may supply the host CSR (straight after file load).  Set
-    ``TPUSOLVE_SETUP_LOG=1`` for per-level phase timings (the analog of
-    BoomerAMG's setup print_level output)."""
+    Level 0 is set up on A's device when ``device_setup.eligible`` holds
+    for ``A`` at ``device_min_n`` rows (None: never), every other level on
+    the host.  ``A_host`` may supply the host CSR (straight after file
+    load).  Set ``TPUSOLVE_SETUP_LOG=1`` for per-level phase timings (the
+    analog of BoomerAMG's setup print_level output)."""
     log_on = os.environ.get("TPUSOLVE_SETUP_LOG", "0") == "1"
+    log = (lambda s: print(s, flush=True)) if log_on else None
     _t = [time.perf_counter()]
 
     def _phase(label):
@@ -200,13 +215,48 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
 
     levels: list[Level] = []
     A_sh = A
-    Ah = (A_host if A_host is not None else A.to_scipy()).tocsr()
-    Ah.sum_duplicates()
+    Ah = None
+    Ah_fn = None       # the device setup's deferred coarse-CSR fetch
+    lvl_start = 0
+    seconds = {}
 
-    for lvl in range(cfg.max_levels):
+    # --- level 0 on the device (amg/device_setup.py): a box-DIA operator
+    # runs strength/PMIS/interp/RAP in offset algebra, as tpusolve's TPU
+    # setup does, and hands the 8x smaller level 1 to the host pipeline
+    if A.shape[0] > max_coarse and cfg.max_levels > 1:
+        res = None
+        if device_min_n is not None and device_setup.eligible(
+                A, cfg, min_n=device_min_n):
+            if log_on:
+                print(f"  setup level 0 [device]: n={A.shape[0]} "
+                      f"nnz={A.nnz}", flush=True)
+            res = device_setup.device_level0(A, cfg, seed=seed, log=log)
+        if res is not None and res["nc"] >= min_coarse:
+            levels.append(_make_level_device(A, res, kind_down, kind_up,
+                                             cfg))
+            Ah_fn = res["Ah_c_fn"]
+            A_sh = res["Ac"]
+            lvl_start = 1
+            seconds.update(res["seconds"])
+            notes.append("level 0 setup on device (DIA offset algebra: "
+                         "strength/PMIS/interp/RAP as shifted streaming ops)")
+            if cfg.coarsen_type != 8:
+                notes.append(f"device setup: coarsen_type "
+                             f"{cfg.coarsen_type} runs PMIS (as in hypre's "
+                             "device setup)")
+    t_host = time.perf_counter()
+    if lvl_start == 0:
+        Ah = (A_host if A_host is not None else A.to_scipy()).tocsr()
+        Ah.sum_duplicates()
+
+    for lvl in range(lvl_start, cfg.max_levels):
         n = A_sh.shape[0]
         if n <= max_coarse or lvl == cfg.max_levels - 1:
             break
+        if Ah is None:
+            Ah = Ah_fn().tocsr()
+        if device_setup.ell_setup_would_run(A_sh, cfg, Ah):
+            _note_ell_level(notes, lvl)
         if log_on:
             print(f"  setup level {lvl}: n={n} nnz={Ah.nnz}", flush=True)
         _t[0] = time.perf_counter()
@@ -277,19 +327,34 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
         _phase("coarse A device assembly")
 
     # coarsest level: dense (pseudo)inverse or relaxation sweeps
+    if Ah is None:
+        Ah = Ah_fn().tocsr()
     kind_coarse, coarse_sweeps = _guard_coarse(kind_coarse, Ah.shape[0],
                                                cfg, notes)
     lev = _make_level(A_sh, Ah, dtype, kind_down, kind_up, cfg,
                       kind_coarse=kind_coarse)
     levels.append(lev)
     coarse_inv = _coarse_solver_data(Ah, A_sh, dtype, kind_coarse)
+    if seconds:
+        seconds["host levels"] = time.perf_counter() - t_host
 
     pre = AMGPreconditioner(levels=levels, coarse_inv=coarse_inv, config=cfg,
-                            notes=notes, num_levels=len(levels))
+                            notes=notes, num_levels=len(levels),
+                            setup_seconds=seconds)
     pre.cycle = _build_cycle(pre, kind_down, kind_up, cfg,
                              kind_coarse=kind_coarse,
                              coarse_sweeps=coarse_sweeps)
     return pre
+
+
+def _note_ell_level(notes: list, lvl: int) -> None:
+    """Record that ``tpusolve`` would set level ``lvl`` up on its device by
+    its generic-ELL setup, which the port has not (item 16)."""
+    note = (f"level {lvl} setup on the host: tpusolve runs its generic-ELL "
+            "device setup here (amg/device_setup_ell.py), not ported yet; "
+            "see ROADMAP.md Queue 1, item 16")
+    if note not in notes:
+        notes.append(note)
 
 
 def hierarchy_from_arrays(levels: list[dict], coarse_inv: np.ndarray,
@@ -353,6 +418,22 @@ def _coarse_solver_data(Ah, A_sh, dtype, kind_coarse) -> torch.Tensor:
         return _padded_pinv(Ah, A_sh, dtype)
     # relaxation-based coarse solve: a (1,1) placeholder
     return to_tensor(np.zeros((1, 1), dtype), A_sh.device)
+
+
+def _make_level_device(A_sh, res, kind_down, kind_up, cfg) -> Level:
+    """Level 0 from the device setup's results, without a host CSR: the
+    Chebyshev bounds by power iteration on the device."""
+    kinds = (kind_down, kind_up)
+    dinv_l1 = (res["dinv_l1"] if smoothers.RELAX_L1_JACOBI in kinds
+               else None)
+    cheby_bounds = None
+    if smoothers.RELAX_CHEBYSHEV in kinds:
+        lam = device_setup.power_lambda(A_sh, res["dinv"])
+        cheby_bounds = (cfg.cheby_fraction * lam, 1.1 * lam)
+    cmask = res["Cmask"].to(A_sh.dtype) if cfg.relax_order == 1 else None
+    return Level(A=A_sh, P=res["P"], R=res["R"], dinv_l1=dinv_l1,
+                 dinv=res["dinv"], cmask=cmask, cheby_bounds=cheby_bounds,
+                 n=A_sh.shape[0], nnz=A_sh.nnz)
 
 
 def _make_level(A_sh, Ah, dtype, kind_down, kind_up, cfg,
@@ -433,6 +514,10 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
             return x
         raise ValueError(kind)
 
+    for lev in levels[:-1]:
+        if lev.P is not None:
+            lev.prolong, lev.restrict = _sparse_transfers(lev.P, lev.R)
+
     def cycle(l: int, b, x):
         lev = levels[l]
         if l == L - 1:
@@ -444,14 +529,26 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
             return x + torch.matmul(pre.coarse_inv, rr)
         x = smooth(lev, b, x, kind_down, nu_down)
         rr = spmv_update(lev.A, x, b=b)
-        rc = lev.restrict(rr) if lev.R is None else spmv(lev.R, rr)
+        rc = lev.restrict(rr)
         ec = torch.zeros(levels[l + 1].A.row_pad, dtype=b.dtype,
                          device=b.device)
         for _ in range(gamma):
             ec = cycle(l + 1, rc, ec)
-        # the box transfer adds its correction into x, which the cycle owns
-        x = (lev.prolong(ec, x, out=x) if lev.P is None
-             else x + spmv(lev.P, ec))
+        # the correction is added into x, which the cycle owns
+        x = lev.prolong(ec, x, out=x)
         return smooth(lev, b, x, kind_up, nu_up)
 
     return lambda r: cycle(0, r, torch.zeros_like(r))
+
+
+def _sparse_transfers(P: ShardedMatrix, R: ShardedMatrix):
+    """(prolong, restrict) of an algebraic level, in the box transfers'
+    form: ``prolong(ec, x, out=None)`` is ``x + P ec`` (into ``out`` when
+    given) and ``restrict(r)`` is ``R r``."""
+    def prolong(ec, x, out=None):
+        return torch.add(x, spmv(P, ec), out=out)
+
+    def restrict(r):
+        return spmv(R, r)
+
+    return prolong, restrict

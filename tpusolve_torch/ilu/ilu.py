@@ -8,8 +8,10 @@ reference exposes for its GPU path:
 * **Factorization**: Chow-Patel fixed-point iterative ILU on the host (the
   algorithm behind ``ilu_iterative_setup_*``, src/HypreSystem.cpp:352-361),
   a numpy copy of ``tpusolve``'s ``chow_patel_ilu`` for fill level 0.
-  ``tpusolve``'s device factorizers do not apply here: it takes its host
-  path for BDIA operators too.
+  ``tpusolve`` factors a DIA or ELL operator of 65,536 rows or more on the
+  device (``ilu/device_setup.py``); the port's host factorization stands in
+  there and says so in a note (ROADMAP.md Queue 1, item 14).  BDIA
+  operators, as gate 4's, take the host path in both packages.
 * **Triangular solves**: Jacobi iterations (``ilu_tri_solve: 0`` with
   ``ilu_lower/upper_jacobi_iters``, src/HypreSystem.cpp:363-365); each
   iteration is one SpMV on a strict triangle, which runs the BDIA kernel
@@ -18,7 +20,7 @@ reference exposes for its GPU path:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import scipy.sparse as sp
@@ -103,6 +105,12 @@ def ilu_apply(L: ShardedMatrix, U: ShardedMatrix, dinv: torch.Tensor,
     return x
 
 
+# tpusolve factors ILU(0) on the device from this many rows
+# (tpusolve/ilu/device_setup.py:38), ELL operators up to this row width
+DEVICE_ILU_MIN_N = 1 << 16
+DEVICE_ILU_MAX_K = 128
+
+
 @dataclass
 class ILUPreconditioner:
     L: ShardedMatrix          # strict lower
@@ -110,11 +118,35 @@ class ILUPreconditioner:
     udiag_inv: torch.Tensor   # padded 1/u_ii
     lower_iters: int
     upper_iters: int
+    notes: list[str] = field(default_factory=list)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """z ~= U^-1 L^-1 r via Jacobi trisolve iterations."""
         return ilu_apply(self.L, self.U, self.udiag_inv, r,
                          self.lower_iters, self.upper_iters)
+
+
+def device_factorization_note(A: ShardedMatrix) -> str | None:
+    """The note that ``tpusolve`` would factor ``A`` on the device (its
+    ``_device_path`` for ILU(0): a DIA operator with the main and both
+    off-diagonal sides, or an ELL one of at most ``DEVICE_ILU_MAX_K``
+    entries a row, from ``DEVICE_ILU_MIN_N`` rows), or None."""
+    if A.shape[0] < DEVICE_ILU_MIN_N:
+        return None
+    if A.uses_dia:
+        flat = [(dz * A.dia_vals.shape[3] + dy) * A.dia_vals.shape[4] + dx
+                for dz, dy, dx in A.dia_offsets]
+        if not (0 in flat and min(flat) < 0 < max(flat)):
+            return None
+        kind = "DIA"
+    elif A.uses_bdia or A.uses_bell \
+            or A.diag_vals.shape[-1] > DEVICE_ILU_MAX_K:
+        return None
+    else:
+        kind = "ELL"
+    return (f"ILU(0) factored on the host: tpusolve factors this {kind} "
+            "operator on the device (ilu/device_setup.py), not ported yet; "
+            "see ROADMAP.md Queue 1, item 14")
 
 
 def ilu_setup(A: ShardedMatrix, config: ILUConfig | None = None, *,
@@ -143,7 +175,9 @@ def ilu_setup(A: ShardedMatrix, config: ILUConfig | None = None, *,
                                   row_offsets=ro, col_offsets=ro)
     udiag_inv = to_device_vector(1.0 / ujj, ro, A.row_pad, A.device,
                                  dtype=np_dtype)
+    note = device_factorization_note(A)
     return ILUPreconditioner(
         L=L_sh, U=U_sh, udiag_inv=udiag_inv,
         lower_iters=max(cfg.ilu_lower_jacobi_iters, 1),
-        upper_iters=max(cfg.ilu_upper_jacobi_iters, 1))
+        upper_iters=max(cfg.ilu_upper_jacobi_iters, 1),
+        notes=[note] if note else [])

@@ -9,16 +9,20 @@ part to ``row_pad``, padded vector entries are exact zeros and padded
 diagonal entries are 1.  This slice carries one part (no offd block, no halo
 plan) and these diag-block layouts:
 
-* **DIA** (box DIA, ``kernels/dia.py``), built only by :meth:`from_dia_parts`
-  (the stencil generator and the structured multigrid levels) and by
-  :meth:`from_arrays`: one plane of coefficients per (dz, dy, dx) triple
-  over the part's (nz, ny, nx) box, run by K1.  The triples are kept, never
-  turned back from flat offsets where that is ambiguous
-  (:func:`dia_triples`).
+* **DIA** (box DIA, ``kernels/dia.py``), built by :meth:`from_dia_parts`
+  (the stencil generator and the structured multigrid levels), by
+  :meth:`from_arrays` and by the assembly's DIA-first candidacy: one plane
+  of coefficients per (dz, dy, dx) triple over the part's (nz, ny, nx) box,
+  run by K1.  The triples are kept, never turned back from flat offsets
+  where that is ambiguous (:func:`dia_triples`); an assembled operator
+  without a ``dia_shape`` is the 1-D form, triples (0, 0, offset).
 
-The assembly from entries (:meth:`from_local_parts`) chooses among the
-others in ``tpusolve``'s decision order BDIA -> BELL -> ELL (its DIA-first
-candidacy is not ported):
+The assembly from entries (:meth:`from_local_parts`) takes ``tpusolve``'s
+decision order DIA -> BDIA -> BELL -> ELL:
+
+* **DIA** first, where the diag block has at most ``DIA_MAX_OFFSETS``
+  distinct offsets and fills at least ``DIA_MIN_FILL`` of its planes
+  (``tpusolve``'s rule and constants), in the 1-D form;
 
 * **BDIA** (blocked DIA, ``kernels/bdia.py``) with an overflow list of the
   entries that do not fit a block's slots, kept row-sorted with a CSR row
@@ -54,6 +58,12 @@ from tpusolve_torch.matrix.build import materialize
 from tpusolve_torch.matrix.vectors import to_tensor, torch_dtype, numpy_dtype
 from tpusolve_torch.parts import (
     MULTIPART_ITEM, require_single_part, row_decomposition)
+
+# DIA is used when the diag block has at most this many distinct offsets...
+DIA_MAX_OFFSETS = 96
+# ...and the dense-diagonal storage is at least this full of real entries
+# (tpusolve/matrix/sharded.py:54-56)
+DIA_MIN_FILL = 0.2
 
 # BDIA and BELL are considered when the diag block holds at least this many
 # entries (``tpusolve``'s BELL_MIN_NNZ: below it the ELL fallback is cheap)...
@@ -383,7 +393,8 @@ class ShardedMatrix:
     @staticmethod
     def from_coo(shape, rows, cols, vals, *, device, dtype=None,
                  dedup="add", row_offsets=None, col_offsets=None,
-                 allow_bdia: bool = True, allow_bell: bool = True):
+                 allow_dia: bool = True, allow_bdia: bool = True,
+                 allow_bell: bool = True):
         """Assemble a global COO (any order, duplicates combined per
         ``dedup``) — the IJ ``SetValues/AddToValues + Assemble`` pipeline
         (ref: src/HypreSystem.cpp:600-636, 897-955)."""
@@ -403,12 +414,13 @@ class ShardedMatrix:
         return ShardedMatrix.from_local_parts(
             shape, parts, device=device, dtype=dtype,
             row_offsets=row_offsets, col_offsets=col_offsets,
-            allow_bdia=allow_bdia, allow_bell=allow_bell)
+            allow_dia=allow_dia, allow_bdia=allow_bdia,
+            allow_bell=allow_bell)
 
     @staticmethod
     def from_csr_host(M, *, device, dtype=None, row_offsets=None,
-                      col_offsets=None, allow_bdia: bool = True,
-                      allow_bell: bool = True):
+                      col_offsets=None, allow_dia: bool = True,
+                      allow_bdia: bool = True, allow_bell: bool = True):
         """Assemble a host CSR directly: row blocks are contiguous indptr
         slices, already row-sorted, so no global COO sort (the AMG setup's
         P, R and Galerkin coarse operators arrive as CSR)."""
@@ -427,12 +439,14 @@ class ShardedMatrix:
         return ShardedMatrix.from_local_parts(
             M.shape, parts, device=device, dtype=dtype,
             row_offsets=row_offsets, col_offsets=col_offsets,
-            allow_bdia=allow_bdia, allow_bell=allow_bell)
+            allow_dia=allow_dia, allow_bdia=allow_bdia,
+            allow_bell=allow_bell)
 
     @staticmethod
     def from_local_parts(shape, parts, *, device, dtype=None,
                          row_offsets=None, col_offsets=None,
-                         allow_bdia: bool = True, allow_bell: bool = True):
+                         allow_dia: bool = True, allow_bdia: bool = True,
+                         allow_bell: bool = True):
         """Assemble from per-part (local_rows, global_cols, vals) triples,
         unique per (row, col), in any order."""
         nrows, ncols = shape
@@ -462,6 +476,25 @@ class ShardedMatrix:
                                np.asarray(v, dtype)))
         total_nnz = sum(dp[0].size for dp in diag_parts)
 
+        same_partition = np.array_equal(row_offsets, col_offsets)
+        if allow_dia and same_partition:
+            union = _dia_candidate(diag_parts, row_pad, total_nnz)
+            if union is not None:
+                empty = np.zeros(0, np.int64)
+                vals = materialize(
+                    [np.searchsorted(union, dlc - dlr) * row_pad + dlr
+                     for dlr, dlc, _ in diag_parts],
+                    [dv for _, _, dv in diag_parts],
+                    (union.size, row_pad), dtype, device)
+                return ShardedMatrix.from_dia_parts(
+                    shape, [int(o) for o in union], vals,
+                    [(empty, empty, empty)] * nparts, device=device,
+                    dtype=dtype, dia_nnz=total_nnz)
+
+        # f64 keeps BDIA and BELL: tpusolve turns them off for 8-byte
+        # values off the CPU (tpusolve/matrix/sharded.py:326-328), a TPU
+        # restriction (XLA's f64 emulation cannot rewrite its Pallas calls)
+        # that K4, K5 and K6 do not have
         kind, plan = choose_layout(diag_parts, row_pad, col_pad, itemsize,
                                    total_nnz, nparts, allow_bdia, allow_bell)
         fields = {}
@@ -490,7 +523,6 @@ class ShardedMatrix:
 
         # main diagonal: only where rows and columns share one partition
         # (square operators; a rectangular P or R has none)
-        same_partition = np.array_equal(row_offsets, col_offsets)
         diag_main = np.zeros((nparts, row_pad), dtype)
         for p, (dlr, dlc, dv) in enumerate(diag_parts):
             diag_main[p, int(row_counts[p]):] = 1.0  # padded rows
@@ -709,6 +741,25 @@ class ShardedMatrix:
             self, bdia_gb=int(gb), bdia_step_lo=to_tensor(step_lo,
                                                           self.device),
             bdia_panel=int(panel))
+
+
+def _dia_candidate(diag_parts, row_pad: int, total_nnz: int):
+    """The sorted flat (col - row) offsets of the 1-D DIA layout when
+    ``tpusolve``'s DIA-first rule takes the diag block
+    (``tpusolve/matrix/sharded.py:287-302``): at most ``DIA_MAX_OFFSETS``
+    distinct offsets filling at least ``DIA_MIN_FILL`` of the planes.  None
+    when DIA is not taken.  (``tpusolve``'s looser rule under a
+    caller-vouched ``dia_shape`` serves only its scipy-RAP
+    ``structured_mg_setup``, which the port does not run.)"""
+    sets = [np.unique(dlc - dlr) for dlr, dlc, _ in diag_parts if dlr.size]
+    if not sets or not total_nnz:
+        return None
+    union = np.unique(np.concatenate(sets))
+    D = union.size
+    fill = total_nnz / max(D * len(diag_parts) * row_pad, 1)
+    if 0 < D <= DIA_MAX_OFFSETS and fill >= DIA_MIN_FILL:
+        return union
+    return None
 
 
 def _decompose_offset(off: int, dims: tuple) -> tuple:

@@ -2,8 +2,9 @@
 port of ``tpusolve/matrix/spmv.py``).
 
 The hot operation of every Krylov iteration and preconditioner sweep.  A
-box-DIA diag block (the stencil and the structured multigrid levels) runs
-the hand-written kernel K1 through ``kernels.dia``.  A BDIA diag block runs
+box-DIA diag block (the stencil, the structured multigrid levels and the
+banded operators the assembly stores as DIA) runs the hand-written kernel
+K1 through ``kernels.dia``.  A BDIA diag block runs
 K4 through ``kernels.bdia``, or K5 where it carries a step plan (BDIA-XL,
 as ``tpusolve`` dispatches to its XL kernel), each of which also adds the
 spilled entries of its overflow list, each row its own; a BELL diag block
