@@ -13,7 +13,10 @@ toolkit (nvcc) and PyTorch built for CUDA:
    BELL SpMV kernel K6 against their plain PyTorch versions, in float32 and
    float64, and K5 against K4 bit for bit, once on an x that is not 16-byte
    aligned, and K4's launch plans (a small launch of wide blocks run as
-   chunks, an operator of 640 slots) against K5 bit for bit;
+   chunks, an operator of 640 slots) against K5 bit for bit; the padded-ELL
+   SpMV kernel K2 against its plain version on square and rectangular
+   operators of K = 1, 8, 40, 131 and 638 slots, in f32 and f64, at every
+   threads-a-row count and in every update form, in place too;
 4. gate 4: writes the momentum fixture at N^3 rows (``--side``, default
    96^3 = 884,736 rows, 23.4M nonzeros) and runs it through the port's CLI
    (``tpusolve_torch.harness.cli.main``): HYPRE-IJ files read by the native
@@ -26,11 +29,17 @@ toolkit (nvcc) and PyTorch built for CUDA:
 5. gate 3: writes the pressure fixture at N^3 rows (``--side3``, default
    64^3 = 262,144 rows, 6.86M nonzeros) and runs it through the CLI:
    MatrixMarket files, RCM, BoomerAMG host setup (PMIS, extended+i,
-   l1-Jacobi) with BDIA, BELL and ELL levels, GMRES(20) in f64, golden
-   check; prints each level's layout, then at every BELL level times K6,
-   its plain version, K4 on the BDIA layout of the same operator, the plain
-   ELL SpMV and the library's SpMV, against the layout model's prediction
-   and K6's bound, and at every BDIA level K4, K5, plain and library;
+   l1-Jacobi; the native setup kernels of ``csrc/spkernels.cpp``) with
+   BDIA, BELL and ELL levels and ELL transfers (K2), GMRES(20) in f64,
+   golden check; prints each level's layout and the timer rows, then at
+   every BELL level times K6, its plain version, K4 on the BDIA layout of
+   the same operator, the plain ELL SpMV and the library's SpMV, against
+   the layout model's prediction and K6's bound, at every BDIA level K4,
+   K5, plain and library, at every ELL operator (A, P and R by level) K2,
+   plain, library and bound, K2 on an ELL copy of the low-fill BDIA level
+   1 beside K4, and the warm-solve profile; then the same fixture with
+   ``coarsen_type: 6`` (Falgout, run as serial RS): its hierarchy, timer
+   rows and, at 64^3, tpusolve's 11 iterations;
 6. gate 1: ``examples/gate1_64cube_pcg_amg.yaml`` as it is (64^3 =
    262,144 rows, ``mixed``) through the CLI: the 27-point stencil as box
    DIA, the PFMG-style structured hierarchy (DIA-algebra RAP, the K3 box
@@ -68,8 +77,10 @@ toolkit (nvcc) and PyTorch built for CUDA:
    carries ``amg/builder.py``'s device note), the host pipeline below, golden check; the seconds of
    each setup stage and of the host levels, each level's layout, the
    timer rows, K1, K4 and K6 against their plain versions at the levels
-   that run them with their times, the launch counts (it fails unless
-   each level's layout launched its kernel) and the warm-solve profile;
+   that run them with their times, K2 at every ELL operator, K2 on ELL
+   copies of the BDIA levels 2 and 3 beside K4, the launch counts (it
+   fails unless each operator's layout launched its kernel) and the
+   warm-solve profile;
 10. measures the constants of the time model (``kernels/calibrate.py``)
    beside the ones in the code.
 
@@ -127,6 +138,10 @@ PORT_GATE2_ITERS = 6
 # PMIS ranks: TPUSOLVE_PMIS_HOST_RANK=1): PCG iterations, relres 5.474e-07;
 # the port is held within one of it
 TPUSOLVE_WEAKSCALE_ITERS = 23
+# tpusolve on CPU, gate-3 fixture 64^3 with coarsen_type 6 (Falgout, run as
+# serial RS by its native kernel), precision double: GMRES iterations,
+# relres 1.417e-09, eight levels (262144 ... 53 rows)
+TPUSOLVE_GATE3_RS_ITERS_64 = 11
 # the start of the note the builder records for a device level 0
 DEVICE_NOTE = "level 0 setup on device"
 
@@ -598,7 +613,7 @@ def gate4_phase(side: int, device_name: str, counters):
 
 def bell_level_timings(pre, device_name: str) -> list:
     """At every BELL level of the hierarchy: K6 against its plain version,
-    K4 on the BDIA layout of the same operator, the plain ELL SpMV and the
+    K4 on the BDIA layout of the same operator, K2 on its ELL layout and the
     library's SpMV; the layout model's prediction for K6 and K4, and K6's
     bound.  Returns one row per level."""
     import numpy as np
@@ -608,7 +623,7 @@ def bell_level_timings(pre, device_name: str) -> list:
     from tpusolve_torch.kernels.calibrate import time_ms
     from tpusolve_torch.matrix import sharded
     from tpusolve_torch.matrix.sharded import ShardedMatrix
-    from tpusolve_torch.matrix.spmv import ell_spmv_local
+    from tpusolve_torch.kernels.ell import ell_spmv
     from tpusolve_torch.matrix.vectors import numpy_dtype
 
     rng = np.random.default_rng(10)
@@ -639,7 +654,7 @@ def bell_level_timings(pre, device_name: str) -> list:
         bargs = (Mb.bdia_vals, Mb.bdia_starts, x, Mb.bdia_xpad, Mb.bdia_xlen,
                  Mb.row_pad, Mb.bdia_ovf)
         err_b = rel_err(bdia_spmv(*bargs), y_plain)
-        err_e = rel_err(ell_spmv_local(Me.diag_vals[0], Me.diag_cols[0], x),
+        err_e = rel_err(ell_spmv(Me.diag_vals[0], Me.diag_cols[0], x),
                         y_plain)
         if not max(err_b, err_e) <= RTOL[dt]:
             fail(f"level {i}: K4 or ELL against K6's plain version "
@@ -651,7 +666,7 @@ def bell_level_timings(pre, device_name: str) -> list:
         p1 = time_ms(lambda: bell_spmv_plain(*args))
         k1 = time_ms(lambda: bell_spmv(*args))
         b1 = time_ms(lambda: bdia_spmv(*bargs))
-        ell = lambda: ell_spmv_local(Me.diag_vals[0], Me.diag_cols[0], x)
+        ell = lambda: ell_spmv(Me.diag_vals[0], Me.diag_cols[0], x)
         e1 = time_ms(ell)
         l1 = time_ms(lib_call)
         l2 = time_ms(lib_call)
@@ -694,7 +709,7 @@ def bell_level_timings(pre, device_name: str) -> list:
               f"(runs {p1:.5f}, {p2:.5f}); K4 BDIA B={B} D={D} R={R} "
               f"{bdia_bytes / 1e6:.2f} MB: device {dev['k4_ms']:.5f} ms, per "
               f"call {row['k4_ms']:.5f} ms (runs {b1:.5f}, {b2:.5f}; model "
-              f"{model_k4:.5f}); plain ELL K={Me.diag_vals.shape[-1]} device "
+              f"{model_k4:.5f}); K2 ELL K={Me.diag_vals.shape[-1]} device "
               f"{dev['ell_ms']:.5f} ms, per call {row['ell_ms']:.5f} ms (runs "
               f"{e1:.5f}, {e2:.5f}); library (torch.sparse CSR) device "
               f"{dev['library_ms']:.5f} ms, per call {row['library_ms']:.5f} "
@@ -706,30 +721,77 @@ def bell_level_timings(pre, device_name: str) -> list:
     return rows
 
 
-def gate3_phase(side: int, device_name: str, counters):
-    """The gate-3 path; returns (launches, K6 timing rows, K4/K5 timing
-    rows of the BDIA levels)."""
+def check_launched(pre, launches: dict, what: str) -> None:
+    """Fail unless every layout the cycle of hierarchy ``pre`` applies
+    launched its kernel in the run: each level's A, and P and R where they
+    are sparse operators (an algebraic hierarchy's are padded ELL, K2)."""
+    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
+    from tpusolve_torch.kernels.bell import bell_spmv
+    from tpusolve_torch.kernels.dia import dia_spmv
+    from tpusolve_torch.kernels.ell import ell_spmv
+    by_layout = {"DIA": (dia_spmv,), "BDIA": (bdia_spmv, bdia_spmv_xl),
+                 "BDIA-XL": (bdia_spmv_xl,), "BELL": (bell_spmv,),
+                 "ELL": (ell_spmv,)}
+    for i, lev in enumerate(pre.levels):
+        for key in ("A", "P", "R"):
+            M = getattr(lev, key)
+            if M is None:
+                continue
+            fns = by_layout[M.layout.split()[0]]
+            if not sum(launches[fn.__name__] for fn in fns):
+                fail(f"{what}: level {i}'s {key} ({M.layout}) launched no "
+                     f"{fns[0].__name__}")
+
+
+def print_timers(system, what: str) -> dict:
+    """Print the run's timer rows on one line; returns them."""
+    timers = system.timers.as_dict()
+    print(f"{what} timer rows (s): " + ", ".join(
+        f"{k} {v:.6f}" for k, v in timers.items()), flush=True)
+    return timers
+
+
+def run_gate3(side: int, counters, what: str, edit=None):
+    """Write the gate-3 fixture at side^3 (its YAML passed through
+    ``edit``) and run it through the CLI; returns :func:`run_cli`'s
+    (exit code, system, wall, launches)."""
     from tpusolve_torch import fixtures
     work = os.path.join(REPO, "build", f"gate3_{side}")
     shutil.rmtree(work, ignore_errors=True)
     try:
         t0 = time.perf_counter()
         yaml_path = fixtures.write_gate3(work, side)
-        print(f"gate-3 fixture {side}^3 written in "
+        if edit is not None:
+            with open(yaml_path) as fh:
+                text = edit(fh.read())
+            with open(yaml_path, "w") as fh:
+                fh.write(text)
+        print(f"{what} fixture {side}^3 written in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        rc, system, wall, launches = run_cli(yaml_path, counters)
+        return run_cli(yaml_path, counters)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def gate3_phase(side: int, device_name: str, counters):
+    """The gate-3 path; returns a dict of its launches, K6 timing rows,
+    K4/K5 timing rows of the BDIA levels, K2 rows of its ELL operators,
+    K2 on an ELL copy of its low-fill BDIA level 1, timer rows and warm
+    solve profile."""
+    rc, system, wall, launches = run_gate3(side, counters, "gate-3")
     print(f"gate-3 path: cli exit {rc}, {wall:.1f} s wall, launches "
           f"{launches}", flush=True)
     res = check_solve(system, rc, "gate-3")
     pre = system._precond
     for line in pre.layouts():
         print(f"gate-3 {line}", flush=True)
+    timers = print_timers(system, "gate-3")
     if launches["bell_spmv"] <= 0:
         fail("the gate-3 path launched no BELL kernel")
+    check_launched(pre, launches, "gate-3")
     print(f"gate-3 {side}^3: {res.iters} GMRES iterations, relres "
-          f"{float(res.relres):.3e}, golden check PASSED", flush=True)
+          f"{float(res.relres):.3e}, golden check PASSED; Preconditioner "
+          f"setup {timers['Preconditioner setup']:.3f} s", flush=True)
     if side == 64:
         print(f"iterations: port {res.iters}, tpusolve (CPU, same fixture) "
               f"{TPUSOLVE_GATE3_ITERS_64}", flush=True)
@@ -742,8 +804,47 @@ def gate3_phase(side: int, device_name: str, counters):
     bdia_rows = bdia_timings([(f"level {i}", lev.A)
                               for i, lev in enumerate(pre.levels)
                               if lev.A.uses_bdia], device_name, 11)
+    k2_rows = ell_timings(ell_ops(pre, "gate-3"), device_name, 25)
+    copy_rows = ell_copy_timings([("gate-3 level 1", pre.levels[1].A)]
+                                 if pre.levels[1].A.uses_bdia else [],
+                                 device_name, 26)
+    prof = solve_profile(system, "gate-3")
     system.destroy_system()
-    return launches, rows, bdia_rows
+    return dict(launches=launches, k6_rows=rows, k4_rows=bdia_rows,
+                k2_rows=k2_rows, copy_rows=copy_rows, timers=timers,
+                profile=prof, iters=int(res.iters))
+
+
+def gate3_rs_phase(side: int, counters) -> dict:
+    """Gate 3 with ``coarsen_type: 6`` (Falgout, run as serial RS by the
+    native kernel): the same fixture through the CLI, every layout of the
+    hierarchy launched, and at 64^3 tpusolve's iteration count."""
+    rc, system, wall, launches = run_gate3(
+        side, counters, "gate-3 RS",
+        lambda t: t.replace("coarsen_type: 8", "coarsen_type: 6"))
+    print(f"gate-3 RS path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, "gate-3 RS")
+    pre = system._precond
+    if not any("serial RS" in n for n in pre.notes):
+        fail("gate-3 RS: the hierarchy was not coarsened by serial RS")
+    for line in pre.describe().splitlines()[1:] + pre.layouts():
+        print(f"gate-3 RS {line}", flush=True)
+    timers = print_timers(system, "gate-3 RS")
+    check_launched(pre, launches, "gate-3 RS")
+    print(f"gate-3 RS {side}^3: {res.iters} GMRES iterations, relres "
+          f"{float(res.relres):.3e}, golden check PASSED; Preconditioner "
+          f"setup {timers['Preconditioner setup']:.3f} s; tpusolve (CPU, "
+          f"same fixture and settings) {TPUSOLVE_GATE3_RS_ITERS_64} at 64^3",
+          flush=True)
+    if side == 64 and res.iters != TPUSOLVE_GATE3_RS_ITERS_64:
+        fail(f"gate-3 RS took {res.iters} GMRES iterations, tpusolve "
+             f"{TPUSOLVE_GATE3_RS_ITERS_64}")
+    out = dict(launches=launches, timers=timers, iters=int(res.iters),
+               relres=float(res.relres), levels=[lev.n for lev in pre.levels],
+               layouts=pre.layouts())
+    system.destroy_system()
+    return out
 
 
 def dia_check(ops, seed: int) -> tuple:
@@ -837,7 +938,8 @@ def spmv_timings(ops, device_name: str, seed: int, key: str, kernel, plain,
                  f"{RTOL[dt]}")
         lib_call, xlib = library_spmv(M)
         xlib.copy_(x[:xlib.numel()])
-        err_lib = rel_err(lib_call(), y_p[:xlib.numel()])
+        y_lib = lib_call()
+        err_lib = rel_err(y_lib, y_p[:y_lib.numel()])
         calls = [("plain", lambda: plain(M, x)), (key, lambda: kernel(M, x)),
                  ("lib", lib_call)]
         runs = {k: [] for k, _ in calls}
@@ -886,6 +988,150 @@ def bell_timings(ops, device_name: str, seed: int) -> list:
         lambda M, x: bell_spmv(*args(M, x)),
         lambda M, x: bell_spmv_plain(*args(M, x)),
         lambda M: (M.bell_vals, M.bell_ids))
+
+
+def ell_timings(ops, device_name: str, seed: int) -> list:
+    """:func:`spmv_timings` of K2 on padded-ELL operators."""
+    from tpusolve_torch.kernels.ell import ell_spmv, ell_spmv_plain
+    return spmv_timings(
+        ops, device_name, seed, "k2",
+        lambda M, x: ell_spmv(M.diag_vals[0], M.diag_cols[0], x),
+        lambda M, x: ell_spmv_plain(M.diag_vals[0], M.diag_cols[0], x),
+        lambda M: (M.diag_vals, M.diag_cols))
+
+
+def ell_ops(pre, what: str) -> list:
+    """(name, operator) of every padded-ELL operator of hierarchy ``pre``
+    that its cycle applies: each level's A, P and R on that layout."""
+    ops = []
+    for i, lev in enumerate(pre.levels):
+        for key in ("A", "P", "R"):
+            M = getattr(lev, key)
+            if M is not None and M.uses_ell:
+                ops.append((f"{what} level {i} {key}", M))
+    return ops
+
+
+# K2 check shapes: (rows, x length, K); square and rectangular, K as on the
+# BoomerAMG paths (1 and 8 as P, 40 as the weak-scaling level 1, 131 and
+# 638 as gate 3's level-3 A and level-2 R)
+K2_CHECKS = ((50_000, 50_000, 1), (200_000, 25_000, 8),
+             (30_000, 30_000, 40), (3_000, 24_000, 131), (700, 6_000, 638))
+
+
+def ell_check(device) -> tuple:
+    """K2 against its plain version on random padded-ELL operators
+    (``K2_CHECKS``, a quarter of each row's slots padded, the last rows all
+    padding) in f32 and f64, at every threads-a-row count G, in the plain
+    form and every update form, the accumulate form into ``c`` in place
+    too; the same bits in two runs.  Returns (largest relative error,
+    largest absolute error)."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels import ell
+
+    rng = np.random.default_rng(13)
+    forms = (("Ax", {}), ("b-Ax", dict(b=1)), ("c+w*s*(b-Ax)",
+             dict(b=1, s=1, c=1, w=0.8)), ("s*(b-Ax)", dict(b=1, s=1)),
+             ("c-s*Ax", dict(s=1, c=1)), ("c+Ax", dict(c=1, w=-1.0)))
+    worst = worst_abs = 0.0
+    for rows, ncols, K in K2_CHECKS:
+        cols = rng.integers(0, ncols, (rows, K))
+        pad = rng.random((rows, K)) < 0.25
+        pad[-max(1, rows // 64):] = True
+        cols[pad] = 0
+        vals = rng.standard_normal((rows, K))
+        vals[pad] = 0
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace("torch.", "")
+            V = torch.tensor(vals, dtype=dtype, device=device)
+            C = torch.tensor(cols, dtype=torch.int32, device=device)
+            vec = lambda n: torch.tensor(rng.standard_normal(n), dtype=dtype,
+                                         device=device)
+            x, b, s, c = vec(ncols), vec(rows), vec(rows), vec(rows)
+            errs = []
+            for form, kw in forms:
+                kw = {k: (v if k == "w" else dict(b=b, s=s, c=c)[k])
+                      for k, v in kw.items()}
+                ref = ell.ell_spmv_plain(V, C, x, **kw)
+                for g in ell.GROUPS:
+                    y = ell.ell_spmv(V, C, x, **kw, groups=g)
+                    errs.append(rel_err(y, ref))
+                    worst_abs = max(worst_abs, float((y - ref).abs().max()))
+                    if not torch.equal(y, ell.ell_spmv(V, C, x, **kw,
+                                                       groups=g)):
+                        fail(f"K2 {form} G={g} gave other bits on a rerun")
+                if "c" in kw:
+                    out = c.clone()
+                    ell.ell_spmv(V, C, x, **dict(kw, c=out), out=out)
+                    errs.append(rel_err(out, ref))
+            torch.cuda.synchronize()
+            err = max(errs)
+            print(f"K2 check rows={rows} x={ncols} K={K} {dt}: every G "
+                  f"{ell.GROUPS} and form ({len(forms)}, in place into c "
+                  f"too) against the plain version: max rel err {err:.3e} "
+                  f"(limit {RTOL[dt]:.0e}); plan G={ell.k2_plan(rows, K)}",
+                  flush=True)
+            if not err <= RTOL[dt]:
+                fail(f"K2 check rows={rows} K={K} {dt} out of tolerance")
+            worst = max(worst, err)
+    return worst, worst_abs
+
+
+def ell_copy_timings(ops, device_name: str, seed: int) -> list:
+    """At each (name, BDIA operator) of ``ops``: K2 on a padded-ELL copy of
+    the operator beside K4 on its BDIA layout and the library's CSR SpMV,
+    device and per-call times, against the same bound.  Data for the
+    layout choice at low slot fill; the layouts the solves use stay as
+    they are.  Returns one row per operator."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.calibrate import time_ms
+    from tpusolve_torch.kernels.ell import ell_spmv
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    from tpusolve_torch.matrix.spmv import spmv
+    from tpusolve_torch.matrix.vectors import numpy_dtype
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for name, M in ops:
+        dt = str(M.dtype).replace("torch.", "")
+        Me = ShardedMatrix.from_csr_host(
+            M.to_scipy(), device=M.device, dtype=numpy_dtype(M.dtype),
+            allow_dia=False, allow_bdia=False, allow_bell=False)
+        x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
+                         device=M.device)
+        k2 = lambda: ell_spmv(Me.diag_vals[0], Me.diag_cols[0], x)
+        k4 = lambda: spmv(M, x)
+        err = rel_err(k2(), k4())
+        if not err <= RTOL[dt]:
+            fail(f"{name}: K2 on the ELL copy vs K4 rel err {err:.3e}")
+        lib_call, xlib = library_spmv(M)
+        xlib.copy_(x[:xlib.numel()])
+        calls = [("k2", k2), ("k4", k4), ("lib", lib_call)]
+        runs = {k: [] for k, _ in calls}
+        for k, call in calls + calls[::-1]:
+            runs[k].append(time_ms(call))
+        dev = device_times(dict(calls))
+        K = Me.diag_vals.shape[-1]
+        row = dict(op=name, dtype=dt, layout=M.layout, ell_k=K,
+                   rows=M.shape[0], nnz=M.nnz, rel_err=err,
+                   bound_ms=bound_ms(spmv_nbytes(M), device_name),
+                   ell_mb=nbytes_of(Me.diag_vals, Me.diag_cols) / 1e6,
+                   bdia_mb=nbytes_of(M.bdia_vals, M.bdia_starts) / 1e6)
+        for k, ts in runs.items():
+            row[k + "_ms"], row[k + "_runs"] = min(ts), ts
+            row[k + "_dev_ms"] = dev[k]
+        print(f"{name} {dt} ({M.shape[0]} rows, {M.nnz} nnz) as ELL K={K} "
+              f"({row['ell_mb']:.3f} MB): K2 device {row['k2_dev_ms']:.5f} "
+              f"ms, per call {row['k2_ms']:.5f} ms; K4 on {M.layout} "
+              f"({row['bdia_mb']:.3f} MB) device {row['k4_dev_ms']:.5f} ms, "
+              f"per call {row['k4_ms']:.5f} ms; library (torch.sparse CSR) "
+              f"device {row['lib_dev_ms']:.5f} ms, per call "
+              f"{row['lib_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms; K2 "
+              f"vs K4 rel err {err:.1e}", flush=True)
+        rows.append(row)
+    return rows
 
 
 # K1's update forms in the V-cycle: (keyword arguments, weight); the
@@ -1079,6 +1325,7 @@ PROFILE_CLASSES = (("K4 and K5", ("bdia_spmv",)),
                    ("K1", ("dia_spmv",)),
                    ("K3", ("box_prolong", "box_restrict")),
                    ("K6", ("bell_spmv",)),
+                   ("K2", ("ell_spmv",)),
                    ("ELL gathers", ("scatter_gather", "indexselect")),
                    ("coarse matmul", ("gemv", "gemm", "cublas", "sm90_")),
                    ("reductions", ("reduce",)),
@@ -1091,15 +1338,23 @@ def solve_profile(system, what: str) -> dict:
     wall time (host clock, synchronised), then the same solve under
     ``torch.profiler``: its device operations (kernel launches, copies and
     sets) and their device time, in all and by kernel class, the device's
-    idle share of the wall time, and K1's launches by form in that
-    solve."""
+    idle share of the wall time, K1's and K2's launches by form in that
+    solve, and the names of the kernels in the "ELL gathers" class."""
+    import importlib
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from tpusolve_torch.kernels import dia
 
-    # an earlier package (profile_solves.py) counts no launches by form
+    # an earlier package (profile_solves.py) counts no launches by form,
+    # or has no K2
     forms = getattr(dia, "launches_by_mode", dict)
+    try:
+        k2 = importlib.import_module("tpusolve_torch.kernels.ell").ell_spmv
+        k2_forms = lambda: dict(k2.launches_by_form)
+    except ImportError:
+        k2_forms = dict
     solver, b = system._solver, system.rhs[0]
     solver(b)
     torch.cuda.synchronize()
@@ -1110,14 +1365,16 @@ def solve_profile(system, what: str) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = 1e3 * min(walls)
-    before = forms()
+    before, before2 = forms(), k2_forms()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         solver(b)
         torch.cuda.synchronize()
     k1_modes = {k: n - before.get(k, 0) for k, n in forms().items()
                 if n > before.get(k, 0)}
-    by_class, ops, by_name = {}, {}, {}
+    k2_modes = {k: n - before2.get(k, 0) for k, n in k2_forms().items()
+                if n > before2.get(k, 0)}
+    by_class, ops, by_name, gathers = {}, {}, {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1128,6 +1385,8 @@ def solve_profile(system, what: str) -> dict:
                     if any(k in low for k in keys)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + us
         ops[cls] = ops.get(cls, 0) + 1
+        if cls == "ELL gathers":
+            gathers[e.name] = gathers.get(e.name, 0) + 1
     busy_ms = sum(by_class.values()) / 1e3
     out = dict(wall_ms=wall_ms, walls_ms=[1e3 * w for w in walls],
                iters=int(res.iters), busy_ms=busy_ms,
@@ -1136,7 +1395,8 @@ def solve_profile(system, what: str) -> dict:
                by_class_ms={k: v / 1e3 for k, v in sorted(
                    by_class.items(), key=lambda kv: -kv[1])},
                ops_by_class=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
-               k1_launches_by_form=k1_modes,
+               k1_launches_by_form=k1_modes, k2_launches_by_form=k2_modes,
+               gathers=gathers,
                top=[(n, us / 1e3) for n, us in sorted(
                    by_name.items(), key=lambda kv: -kv[1])[:8]])
     print(f"{what} warm solve: {out['iters']} iterations, wall "
@@ -1146,7 +1406,8 @@ def solve_profile(system, what: str) -> dict:
           f"(kernel launches, copies, sets); by class, ms (operations): "
           + ", ".join(f"{k} {v:.3f} ({ops[k]})"
                       for k, v in out["by_class_ms"].items())
-          + f"; K1 launches by form {k1_modes}; top kernels "
+          + f"; K1 launches by form {k1_modes}; K2 launches by form "
+          f"{k2_modes}; gathers {gathers}; top kernels "
           + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in out["top"]),
           flush=True)
     return out
@@ -1282,11 +1543,9 @@ def device_setup_check(device) -> list:
 
 def weakscale_phase(device_name: str, counters):
     """``examples/weakscale_pcg_boomeramg_devsetup.yaml`` as it is through
-    the CLI; returns (launches, setup seconds, K1 rows, K6 rows, K4 rows,
-    warm-solve profile, timer rows, layouts)."""
-    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
-    from tpusolve_torch.kernels.bell import bell_spmv
-    from tpusolve_torch.kernels.dia import dia_spmv
+    the CLI; returns a dict of its launches, setup seconds, K1, K6, K4 and
+    K2 rows, K2 on ELL copies of its BDIA levels, warm-solve profile, timer
+    rows and layouts."""
     yaml_path = os.path.join(REPO, "examples",
                              "weakscale_pcg_boomeramg_devsetup.yaml")
     rc, system, wall, launches = run_cli(yaml_path, counters)
@@ -1308,24 +1567,18 @@ def weakscale_phase(device_name: str, counters):
           "host levels): " + ", ".join(f"{k} {v:.3f}"
                                        for k, v in stages.items()),
           flush=True)
-    timers = system.timers.as_dict()
-    print("weakscale timer rows (s): " + ", ".join(
-        f"{k} {v:.6f}" for k, v in timers.items()), flush=True)
-    # each level's layout launched its kernel in the run
-    by_layout = {"DIA": (dia_spmv,), "BDIA": (bdia_spmv, bdia_spmv_xl),
-                 "BDIA-XL": (bdia_spmv_xl,), "BELL": (bell_spmv,)}
-    for lev in pre.levels:
-        fns = by_layout.get(lev.A.layout.split()[0], ())
-        if fns and not sum(launches[fn.__name__] for fn in fns):
-            fail(f"weakscale: a {lev.A.layout} level launched no "
-                 f"{fns[0].__name__}")
+    timers = print_timers(system, "weakscale")
+    setup = timers["Preconditioner setup"]
+    print(f"weakscale Preconditioner setup {setup:.3f} s, of it the host "
+          f"levels {stages.get('host levels', 0.0):.3f} s", flush=True)
+    check_launched(pre, launches, "weakscale")
     ls = system.config.linear_system
     print(f"weakscale {ls.nx}x{ls.ny}x{ls.nz}: {res.iters} PCG iterations, "
           f"relres "
           f"{float(res.relres):.3e}, golden check PASSED; tpusolve (CPU, same "
           f"YAML) {TPUSOLVE_WEAKSCALE_ITERS}; kernel "
-          f"launches: K1 {launches['dia_spmv']}, K4 "
-          f"{launches['bdia_spmv']}, K5 {launches['bdia_spmv_xl']}, K6 "
+          f"launches: K1 {launches['dia_spmv']}, K2 {launches['ell_spmv']}"
+          f", K4 {launches['bdia_spmv']}, K5 {launches['bdia_spmv_xl']}, K6 "
           f"{launches['bell_spmv']}", flush=True)
     if abs(res.iters - TPUSOLVE_WEAKSCALE_ITERS) > 1:
         fail(f"weakscale took {res.iters} PCG iterations, not within one of "
@@ -1337,14 +1590,17 @@ def weakscale_phase(device_name: str, counters):
     rows6 = bell_timings([(f"weakscale level {i}", lev.A)
                           for i, lev in enumerate(pre.levels)
                           if lev.A.uses_bell], device_name, 24)
-    rows4 = bdia_timings([(f"weakscale level {i}", lev.A)
-                          for i, lev in enumerate(pre.levels)
-                          if lev.A.uses_bdia], device_name, 23)
+    bdia_ops = [(f"weakscale level {i}", lev.A)
+                for i, lev in enumerate(pre.levels) if lev.A.uses_bdia]
+    rows4 = bdia_timings(bdia_ops, device_name, 23)
+    rows2 = ell_timings(ell_ops(pre, "weakscale"), device_name, 27)
+    copy_rows = ell_copy_timings(bdia_ops, device_name, 28)
     prof = solve_profile(system, "weakscale")
     system.destroy_system()
     return dict(launches=launches, stages=stages, k1_rows=rows1,
-                k1_errs=errs, k6_rows=rows6, k4_rows=rows4, profile=prof,
-                timers=timers, layouts=layouts, iters=int(res.iters),
+                k1_errs=errs, k6_rows=rows6, k4_rows=rows4, k2_rows=rows2,
+                copy_rows=copy_rows, profile=prof, timers=timers,
+                layouts=layouts, iters=int(res.iters),
                 relres=float(res.relres))
 
 
@@ -1428,21 +1684,24 @@ def main(argv) -> int:
     from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
     from tpusolve_torch.kernels.bell import bell_spmv
     from tpusolve_torch.kernels.dia import dia_spmv
+    from tpusolve_torch.kernels.ell import ell_spmv
     from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
     worst4, worst5 = banded_check(device)
     worst4 = max(worst4, k4_launch_check(device))
     worst6 = bell_check(device)
+    worst2 = ell_check(device)
 
     worst1 = four_wide_check(device)
     dev_rows = device_setup_check(device)
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
-                box_restrict)
+                box_restrict, ell_spmv)
     l4, rows4 = gate4_phase(sides["--side"], device_name, counters)
-    l3, rows3, bdia_rows3 = gate3_phase(sides["--side3"], device_name,
-                                        counters)
+    g3 = gate3_phase(sides["--side3"], device_name, counters)
+    l3, rows3, bdia_rows3 = g3["launches"], g3["k6_rows"], g3["k4_rows"]
     if l3["bdia_spmv"] + l3["bdia_spmv_xl"] <= 0:
         fail("the gate-3 path launched no BDIA kernel")
+    rs = gate3_rs_phase(sides["--side3"], counters)
     l1, forms1, errs1, rows1, k3_rows1, prof1, cold1 = gate1_phase(
         device_name, counters)
     l2, forms2, errs2, rows2, k3_rows2, prof2 = gate2_phase(device_name,
@@ -1450,11 +1709,12 @@ def main(argv) -> int:
     ws = weakscale_phase(device_name, counters)
     model_constants()
 
-    paths = {"gate4": l4, "gate3": l3, "gate1": l1, "gate2": l2,
-             "weakscale": ws["launches"]}
+    paths = {"gate4": l4, "gate3": l3, "gate3_rs": rs["launches"],
+             "gate1": l1, "gate2": l2, "weakscale": ws["launches"]}
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
     rows6_all = rows3 + ws["k6_rows"]
+    rows2_all = g3["k2_rows"] + ws["k2_rows"]
 
     def launches(name):
         return dict(launches=sum(p[name] for p in paths.values()),
@@ -1466,6 +1726,8 @@ def main(argv) -> int:
     k5 = next(r for r in rows4 if r["op"] == "L")
     k6 = max(rows3, key=lambda r: r["G"] * r["K"])
     k1 = rows1[0]            # gate 1 level 0, the f32 stencil
+    # K2's headline: the weak-scaling ELL operator with the largest bound
+    k2 = max(ws["k2_rows"], key=lambda r: r["bound_ms"])
     kernels = [
         dict(name="dia_spmv", route="cuda",
              source="tpusolve_torch/csrc/dia_spmv.cu",
@@ -1518,11 +1780,30 @@ def main(argv) -> int:
              library_device_ms=k6["library_dev_ms"],
              shape=f"level {k6['level']}",
              max_rel_err=max([worst6] + [r["rel_err"] for r in rows6_all]),
-             shapes=rows6_all)]
+             shapes=rows6_all),
+        dict(name="ell_spmv", route="cuda",
+             source="tpusolve_torch/csrc/ell_spmv.cu",
+             replaces="tpusolve/matrix/spmv.py:74", **launches("ell_spmv"),
+             max_abs_err=max([worst2[1]] + [r["max_abs_err"]
+                                            for r in rows2_all]),
+             ms=k2["k2_ms"], device_ms=k2["k2_dev_ms"],
+             plain_ms=k2["plain_ms"], plain_device_ms=k2["plain_dev_ms"],
+             bound_ms=k2["bound_ms"], bound_by="bytes",
+             library_ms=k2["lib_ms"], library_device_ms=k2["lib_dev_ms"],
+             shape=k2["op"],
+             max_rel_err=max([worst2[0]] + [r["rel_err"] for r in rows2_all]),
+             launches_by_form_warm_solve={
+                 "gate3": g3["profile"]["k2_launches_by_form"],
+                 "weakscale": ws["profile"]["k2_launches_by_form"]},
+             shapes=rows2_all,
+             ell_copies_of_bdia=g3["copy_rows"] + ws["copy_rows"],
+             gate3_profile=g3["profile"],
+             weakscale_profile=ws["profile"])]
     print(json.dumps(no_nan({"weakscale": {
         k: ws[k] for k in ("iters", "relres", "stages", "timers", "layouts",
-                           "launches")}, "device_setup_32": dev_rows})),
-          flush=True)
+                           "launches")}, "gate3": {
+        k: g3[k] for k in ("iters", "timers", "launches")}, "gate3_rs": rs,
+        "device_setup_32": dev_rows})), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(no_nan({"kernels": kernels})), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,31 +1,39 @@
 #!/usr/bin/env python3
-"""Warm-solve profiles of gates 1 and 2 on one CUDA card.
+"""Warm-solve profiles and setup rows of the port's paths on one CUDA card.
 
     python3 profile_solves.py [ROOT]
 
-Runs ``examples/gate1_64cube_pcg_amg.yaml`` and
-``examples/gate2_weakscale_gmres_cheby.yaml`` as they are through the CLI of
-the ``tpusolve_torch`` package under ROOT (default: this script's
-directory), fails unless each passes its golden check, and profiles one
+Runs ``examples/gate1_64cube_pcg_amg.yaml``,
+``examples/gate2_weakscale_gmres_cheby.yaml``,
+``examples/weakscale_pcg_boomeramg_devsetup.yaml`` as they are and the
+gate-3 pressure fixture at 64^3 (``tools/gatefix.py:GATE3_YAML``, written
+by the package's ``fixtures.write_gate3``) through the CLI of the
+``tpusolve_torch`` package under ROOT (default: this script's directory),
+fails unless each passes its golden check, prints its timer rows (the
+setup's among them) and the weak-scaling setup's stages, and profiles one
 warm solve of each as ``chip_smoke.py`` does (``chip_smoke.solve_profile``:
 wall time, device operations and device time by kernel class, the device's
-idle share).  It uses nothing of that package but its kernel build and its
-CLI, so ROOT may be an earlier checkout, unpacked with ``git archive`` into
-a directory ``.gitignore`` lists (``build/parent``), profiled in the same
-call as this one.  Prints the profiles as one JSON line.  It holds no kernel
-against its plain version and prints no ``ok`` line: ``chip_smoke.py`` is
-the smoke run.
+idle share).  It uses nothing of that package but its kernel build, its
+fixture writer and its CLI, so ROOT may be an earlier checkout, unpacked
+with ``git archive`` into a directory ``.gitignore`` lists
+(``build/parent``), profiled in the same call as this one.  Prints the
+profiles as one JSON line.  It holds no kernel against its plain version
+and prints no ``ok`` line: ``chip_smoke.py`` is the smoke run.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GATES = (("gate-1", "gate1_64cube_pcg_amg.yaml", 1e-8),
-         ("gate-2", "gate2_weakscale_gmres_cheby.yaml", 1e-6))
+         ("gate-2", "gate2_weakscale_gmres_cheby.yaml", 1e-6),
+         ("weakscale", "weakscale_pcg_boomeramg_devsetup.yaml", 1e-6),
+         ("gate-3", None, 1e-8))
+GATE3_SIDE = 64
 
 
 def main(argv) -> int:
@@ -44,6 +52,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     import chip_smoke             # this checkout's, before ROOT's path
     sys.path.insert(0, root)
+    from tpusolve_torch import fixtures
     from tpusolve_torch.harness import cli
     from tpusolve_torch.kernels import build
 
@@ -51,16 +60,30 @@ def main(argv) -> int:
     print(f"package {os.path.dirname(cli.__file__)}; kernel build "
           f"{build.build_all():.3f} s", flush=True)
     out = {}
+    work = os.path.join(HERE, "build", "profile_gate3")
     for what, name, tol in GATES:
         systems = []
-        rc = cli.main([os.path.join(HERE, "examples", name), "--device",
-                       "cuda"], keep=systems)
-        res = chip_smoke.check_solve(systems[0] if systems else None, rc,
-                                     what, tol)
+        if name is None:
+            shutil.rmtree(work, ignore_errors=True)
+            path = fixtures.write_gate3(work, GATE3_SIDE)
+        else:
+            path = os.path.join(HERE, "examples", name)
+        try:
+            rc = cli.main([path, "--device", "cuda"], keep=systems)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        system = systems[0] if systems else None
+        res = chip_smoke.check_solve(system, rc, what, tol)
         print(f"{what}: {res.iters} iterations, relres "
               f"{float(res.relres):.3e}, golden check PASSED", flush=True)
-        out[what] = chip_smoke.solve_profile(systems[0], what)
-        systems[0].destroy_system()
+        timers = chip_smoke.print_timers(system, what)
+        stages = dict(getattr(system._precond, "setup_seconds", None) or {})
+        if stages:
+            print(f"{what} setup stages (s): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+        out[what] = dict(chip_smoke.solve_profile(system, what),
+                         timers=timers, setup_stages=stages)
+        system.destroy_system()
     print(json.dumps({"profiles": out}), flush=True)
     return 0
 

@@ -4,12 +4,11 @@ On the gate-3 pressure fixture (the 27-pt SPD system of tools/gatefix.py
 after RCM, as the harness orders it) both packages build the hierarchy of
 gate 3's settings: PMIS, extended+i, strength threshold 0.25, l1-Jacobi.
 The PMIS splittings are equal level by level; strength, P and the Galerkin
-operators agree to 1e-12 relative (tpusolve runs its native C++ kernels,
-the port tpusolve's numpy/scipy fallbacks: the same formulas summed in
-another order).  One V-cycle on operators carried over from tpusolve agrees
-to 1e-12 relative in f64.  Also: the main-diagonal repair for rectangular
-operators, the coarsen codes that are not ported, and the interpolation,
-smoother and truncation options.
+operators agree to 1e-12 relative (both packages run the same native C++
+kernels, each built with its own compiler flags).  One V-cycle on
+operators carried over from tpusolve agrees to 1e-12 relative in f64.
+Also: the main-diagonal repair for rectangular operators, the RS coarsen
+codes, and the interpolation, smoother and truncation options.
 """
 
 import numpy as np
@@ -142,10 +141,15 @@ class TestSetupPieces:
         assert note == note_t
 
     @pytest.mark.parametrize("code", [1, 3, 6])
-    def test_rs_codes_raise(self, A16, code):
+    def test_rs_codes_raise(self, tp, A16, code):
+        """The RS codes raised until the native kernels were ported; now
+        they run serial RS, and the split and note equal tpusolve's."""
         S = strength.classical_strength(A16, 0.25)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            coarsen.coarsen(S, code)
+        split, note = coarsen.coarsen(S, code)
+        split_t, note_t = tp["coarsen"].coarsen(S, code)
+        np.testing.assert_array_equal(split, split_t)
+        assert note == note_t
+        assert 0 < split.sum() < split.size
 
     def test_aggressive_pmis_equal_tpusolve(self, tp, A16):
         S = strength.classical_strength(A16, 0.25)

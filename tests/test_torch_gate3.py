@@ -141,14 +141,14 @@ def test_mmio_rejects_bad_files():
 
 
 def test_unported_paths_raise(gate3, tmp_path):
-    """RS coarsening, ILU smoothers on AMG levels and the bfloat16 smoother
-    twin (here with AMG as the solver, which itself runs) are not
-    ported yet: each raises, naming ROADMAP.md."""
+    """ILU smoothers on AMG levels and the bfloat16 smoother twin (here
+    with AMG as the solver, which itself runs) are not ported yet: each
+    raises, naming ROADMAP.md.  RS coarsening runs
+    (``test_torch_native_setup.py::test_gate3_rs_equals_tpusolve_cli``)."""
     from tpusolve_torch.config import load_config
     from tpusolve_torch.harness.system import LinearSystem
     text = open(gate3).read()
-    for swap in ({"coarsen_type: 8": "coarsen_type: 6"},
-                 {"relax_type: 18": "relax_type: 18\n  smooth_type: 9\n"
+    for swap in ({"relax_type: 18": "relax_type: 18\n  smooth_type: 9\n"
                   "  smooth_num_levels: 2"},
                  {"method: gmres": "method: boomeramg",
                   "max_levels: 20": "max_levels: 20\n"

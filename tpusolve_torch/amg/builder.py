@@ -9,9 +9,10 @@ surface the reference drives (src/HypreSystem.cpp:91-326):
   up on its device in offset algebra (``amg/device_setup.py``), as
   ``tpusolve`` sets it up on the TPU (``builder.py:236-281``); every other
   level runs vectorized on the host, as ``tpusolve``'s host pipeline
-  (``builder.py:283-405``) does.  Square level operators take the layout
-  the assembly chooses (DIA, BDIA, BELL or ELL); P and R stay padded ELL,
-  and so does the device setup's coarse operator.
+  (``builder.py:283-405``) does, on the native setup kernels
+  (``amg/spk.py``).  Square level operators take the layout the assembly
+  chooses (DIA, BDIA, BELL or ELL); P and R stay padded ELL (K2), and so
+  does the device setup's coarse operator.
 * **Cycling** (smooth -> restrict -> recurse -> prolong -> smooth) is a
   Python recursion over the levels; every SpMV runs its layout's kernel and
   the coarsest level applies a dense pseudo-inverse with ``torch.matmul``.
@@ -47,6 +48,7 @@ from tpusolve_torch.amg import interp as interp_mod
 from tpusolve_torch.amg import smoothers
 from tpusolve_torch.amg import strength as strength_mod
 from tpusolve_torch.config import BoomerAMGConfig
+from tpusolve_torch.kernels.ell import ell_spmv
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.spmv import spmv, spmv_update
 from tpusolve_torch.matrix.vectors import (
@@ -544,8 +546,13 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
 def _sparse_transfers(P: ShardedMatrix, R: ShardedMatrix):
     """(prolong, restrict) of an algebraic level, in the box transfers'
     form: ``prolong(ec, x, out=None)`` is ``x + P ec`` (into ``out`` when
-    given) and ``restrict(r)`` is ``R r``."""
+    given) and ``restrict(r)`` is ``R r``.  On padded ELL (as the builders
+    lay P and R out) each is one K2 launch, the prolongation's add its
+    epilogue ``c - w * (P ec)`` with ``c = x`` and ``w = -1``."""
     def prolong(ec, x, out=None):
+        if P.uses_ell:
+            return ell_spmv(P.diag_vals[0], P.diag_cols[0], ec, c=x,
+                            w=-1.0, out=out)
         return torch.add(x, spmv(P, ec), out=out)
 
     def restrict(r):

@@ -1,5 +1,4 @@
-"""C/F splitting (coarsening) (the port of ``tpusolve/amg/coarsen.py``, its
-numpy paths).
+"""C/F splitting (coarsening) (the port of ``tpusolve/amg/coarsen.py``).
 
 PMIS (parallel modified independent set, De Sterck-Yang-Heys) is the
 data-parallel algorithm: every step is a neighborhood max.  The
@@ -7,17 +6,22 @@ data-parallel algorithm: every step is a neighborhood max.  The
 default 8 = PMIS) map as in ``tpusolve``:
 
     0/7 (CLJP family), 8 (PMIS), 10 (HMIS), 21/22 (CGC) -> PMIS
-    1/3/6 (RS, RS3, Falgout)                            -> not ported
+    1/3/6 (RS, RS3, Falgout)                            -> serial RS
 
-``tpusolve`` runs the RS codes through its native serial Ruge-Stueben
-kernel (``native/spkernels.cpp``), which the port has not rebuilt yet, so
-they raise rather than change the algorithm under the same setting.
+PMIS and RS run in the native kernels ``sk_pmis`` and ``sk_rs_coarsen``
+(``amg/spk.py``), the aggressive pass's distance-2 product in its SpGEMM,
+as ``tpusolve`` runs them; :func:`pmis_rounds` is PMIS in numpy, the plain
+version.  Serial RS is the reference's own default coarsening (Falgout
+reduces to RS on one process); it has no numpy version in either package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+from tpusolve_torch.amg import spk
+from tpusolve_torch.amg.galerkin import spgemm
 
 F_PT, C_PT, UNDECIDED = 0, 1, -1
 
@@ -37,7 +41,18 @@ def pmis(S: sp.csr_matrix, seed: int = 1234) -> np.ndarray:
     rng = np.random.default_rng(seed)
     influence = np.bincount(S.indices, minlength=n).astype(np.float64)
     w = influence + rng.random(n)
+    # the native kernel: the same synchronous rounds on the same w, with
+    # active-set shrinking
+    state = spk.pmis(S, w)
+    return pmis_rounds(S, w) if state is None else state
 
+
+def pmis_rounds(S: sp.csr_matrix, w: np.ndarray) -> np.ndarray:
+    """PMIS's synchronous rounds in numpy on measures ``w``
+    (``tpusolve``'s fallback of ``sk_pmis``, the plain version)."""
+    S = S.tocsr()
+    n = S.shape[0]
+    influence = np.bincount(S.indices, minlength=n)
     St = S.T.tocsr()
 
     state = np.full(n, UNDECIDED, np.int64)
@@ -100,7 +115,7 @@ def aggressive_pmis(S: sp.csr_matrix, seed: int = 1234) -> np.ndarray:
     Sb = S.tocsr().astype(bool)
     Sb_rows = Sb[C1]                       # (|C1|, n)
     Sb_cols = Sb.tocsc()[:, C1].tocsr()    # (n, |C1|)
-    prod = Sb_rows @ Sb_cols
+    prod = spgemm(Sb_rows.astype(np.float64), Sb_cols.astype(np.float64))
     S2 = (prod.astype(bool) + Sb_rows[:, C1]).tocsr()
     S2.setdiag(False)
     S2.eliminate_zeros()
@@ -116,7 +131,8 @@ def aggressive_pmis(S: sp.csr_matrix, seed: int = 1234) -> np.ndarray:
 
 
 # hypre coarsen_type codes: 0=CLJP, 1=RS(classical), 3=RS(strong boundary),
-# 6=Falgout, 7=CLJP-c, 8=PMIS, 10=HMIS, 21/22=CGC
+# 6=Falgout, 7=CLJP-c, 8=PMIS, 10=HMIS, 21/22=CGC.  CLJP-family codes map to
+# the PMIS independent-set path; the serial-RS kernel backs the RS family
 COARSEN_MAP = {
     0: "pmis", 1: "rs", 3: "rs", 6: "rs", 7: "pmis", 8: "pmis", 10: "pmis",
     21: "pmis", 22: "pmis",
@@ -127,17 +143,28 @@ def coarsen(S: sp.csr_matrix, coarsen_type: int = 8, seed: int = 1234):
     """Dispatch on the reference's coarsen_type codes -> (splitting, note).
 
     note records any substitution performed (CLJP-family codes mapped to
-    PMIS) for reporting parity with BoomerAMG settings.
+    PMIS, the RS family run as serial RS) for reporting parity with
+    BoomerAMG settings, in ``tpusolve``'s words.
     """
     algo = COARSEN_MAP.get(coarsen_type)
     if algo is None:
         raise ValueError(f"unsupported coarsen_type {coarsen_type}")
-    if algo == "rs":
-        raise NotImplementedError(
-            f"coarsen_type {coarsen_type}: serial Ruge-Stueben coarsening "
-            "runs in tpusolve's native kernels, not ported yet; see "
-            "ROADMAP.md Queue 1 (native/spkernels.cpp)")
     note = None
+    if algo == "rs":
+        # classical Ruge-Stueben, first and second pass, by the native
+        # kernel: the exact serial semantics of the reference's coarsen_type
+        # 6 (Falgout reduces to RS on one process)
+        split = spk.rs_coarsen(S)
+        if split is None:
+            raise ValueError(f"coarsen_type {coarsen_type}: the strength "
+                             "graph exceeds the RS kernel's int32 indexing")
+        if coarsen_type == 6:
+            note = ("coarsen_type 6 (Falgout) run as serial RS "
+                    "(Falgout reduces to RS without subdomains)")
+        elif coarsen_type == 3:
+            note = ("coarsen_type 3 (RS + strong boundary) run as "
+                    "serial RS (no subdomain boundaries single-process)")
+        return split, note
     if coarsen_type not in (8,):
         note = (f"coarsen_type {coarsen_type} mapped to PMIS "
                 "(CLJP-family independent-set coarsening, "

@@ -1,6 +1,6 @@
 """Galerkin coarse-grid operator: A_c = R A P (R = P^T) (the port of
-``tpusolve/amg/galerkin.py``, with scipy's sparse products where
-``tpusolve`` calls its native SpGEMM).
+``tpusolve/amg/galerkin.py``: the two products by the native SpGEMM,
+``amg/spk.py``, as ``tpusolve`` computes them).
 
 The sparse triple product BoomerAMG performs per level (``rap2`` /
 ``keep_transpose`` knobs ref: src/HypreSystem.cpp:184-190), plus the
@@ -15,10 +15,18 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from tpusolve_torch.amg import spk
+
+
+def spgemm(X: sp.csr_matrix, Y: sp.csr_matrix) -> sp.csr_matrix:
+    """X @ Y by the native SpGEMM, or scipy's where it declines."""
+    out = spk.spgemm(X, Y)
+    return (X @ Y).tocsr() if out is None else out
+
 
 def rap(A: sp.csr_matrix, P: sp.csr_matrix) -> sp.csr_matrix:
-    AP = (A.tocsr() @ P.tocsr()).tocsr()
-    Ac = (P.T.tocsr() @ AP).tocsr()
+    AP = spgemm(A.tocsr(), P.tocsr())
+    Ac = spgemm(P.T.tocsr(), AP)
     Ac.sum_duplicates()
     # drop exact cancellations (stencil RAP produces them in droves)
     Ac.eliminate_zeros()

@@ -14,9 +14,10 @@ All are vectorized over scipy CSR (masked sparse products replace the
 per-row loops of the classical formulation), and P's truncation knobs
 (``trunc_factor``, ``p_max_elmts``, src/HypreSystem.cpp:195-205) are applied
 with row-sum-preserving rescaling as in BoomerAMG.  Where ``tpusolve`` calls
-its native kernels (sampled products, SpGEMM, the one-pass interpolation
-kernels, the pattern mask), the port takes ``tpusolve``'s own scipy
-fallbacks: the same formulas, summed in another order.
+its native kernels (sampled products, SpGEMM, the one-pass classical and
+extended+i kernels, the pattern mask), the port calls the same kernels
+(``amg/spk.py``), and takes ``tpusolve``'s numpy and scipy fallbacks, the
+plain versions (``*_plain``), only where a kernel declines its input.
 """
 
 from __future__ import annotations
@@ -24,23 +25,41 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from tpusolve_torch.amg import spk
 from tpusolve_torch.amg.coarsen import C_PT
+from tpusolve_torch.amg.galerkin import spgemm
+
+
+def _on_pattern(vals, Pat: sp.csr_matrix) -> sp.csr_matrix:
+    return sp.csr_matrix((vals, Pat.indices.copy(), Pat.indptr.copy()),
+                         shape=Pat.shape)
 
 
 def _sampled_abt(X: sp.csr_matrix, Y: sp.csr_matrix,
                  Pat: sp.csr_matrix) -> sp.csr_matrix:
-    """CSR with Pat's exact pattern holding (X @ Y.T)[i, k] there."""
+    """CSR with Pat's exact pattern holding (X @ Y.T)[i, k] there: the
+    native SDDMM computes the values at Pat's entries only; the plain
+    version materializes the whole (distance-2) product first."""
+    vals = spk.masked_abt(X, Y, Pat)
+    if vals is not None:
+        return _on_pattern(vals, Pat)
     return _restrict_to_pattern((X @ Y.T).tocsr(), Pat)
 
 
 def _sampled_ab(X: sp.csr_matrix, Y: sp.csr_matrix,
                 Pat: sp.csr_matrix) -> sp.csr_matrix:
     """CSR with Pat's exact pattern holding (X @ Y)[i, j] there."""
+    vals = spk.masked_ab(X, Y, Pat)
+    if vals is not None:
+        return _on_pattern(vals, Pat)
     return _restrict_to_pattern((X @ Y).tocsr(), Pat)
 
 
 def _sampled_transpose(Y: sp.csr_matrix, Pat: sp.csr_matrix) -> sp.csr_matrix:
     """CSR with Pat's exact pattern holding Y^T's values there."""
+    vals = spk.sampled_transpose(Y, Pat)
+    if vals is not None:
+        return _on_pattern(vals, Pat)
     return _restrict_to_pattern(Y.T.tocsr(), Pat)
 
 
@@ -99,6 +118,23 @@ def direct_interpolation(A: sp.csr_matrix, S: sp.csr_matrix,
 
 def classical_interpolation(A: sp.csr_matrix, S: sp.csr_matrix,
                             splitting: np.ndarray) -> sp.csr_matrix:
+    """P of interp_type 0 (:func:`classical_interpolation_plain` gives the
+    formulas) by the native one-pass kernel ``sk_classical_interp_*``, as
+    ``tpusolve`` builds it, where A's and S's columns are sorted; else the
+    plain version."""
+    A = A.tocsr()
+    is_C = splitting == C_PT
+    if is_C.any() and A.has_sorted_indices and getattr(
+            S, "has_sorted_indices", False):
+        P = spk.classical_interp(A, S.tocsr(), is_C,
+                                 _coarse_numbering(splitting))
+        if P is not None:
+            return P
+    return classical_interpolation_plain(A, S, splitting)
+
+
+def classical_interpolation_plain(A: sp.csr_matrix, S: sp.csr_matrix,
+                                  splitting: np.ndarray) -> sp.csr_matrix:
     """Classical modified interpolation (interp_type 0).
 
     For F-point i with strong C-set C_i, strong F-set F_i and weak set W_i:
@@ -219,6 +255,23 @@ def truncate(P: sp.csr_matrix, trunc_factor: float = 0.0,
 
 def extended_i_interpolation(A: sp.csr_matrix, S: sp.csr_matrix,
                              splitting: np.ndarray) -> sp.csr_matrix:
+    """P of interp_type 6/7 (:func:`extended_i_interpolation_plain` gives the
+    formulas) by the native one-pass kernel ``sk_exti_interp_*``, as
+    ``tpusolve`` builds it, where A's and S's columns are sorted; else the
+    plain version."""
+    A = A.tocsr()
+    is_C = splitting == C_PT
+    if is_C.any() and A.has_sorted_indices and getattr(
+            S, "has_sorted_indices", False):
+        P = spk.exti_interp(A, S.tocsr(), is_C,
+                            _coarse_numbering(splitting))
+        if P is not None:
+            return P
+    return extended_i_interpolation_plain(A, S, splitting)
+
+
+def extended_i_interpolation_plain(A: sp.csr_matrix, S: sp.csr_matrix,
+                                   splitting: np.ndarray) -> sp.csr_matrix:
     """Extended+i interpolation (interp_type 6/7; De Sterck, Falgout,
     Nolting, Yang, "Distance-two interpolation for parallel algebraic
     multigrid", 2008).  The distance-2 repair for PMIS-style coarsenings.
@@ -265,7 +318,7 @@ def extended_i_interpolation(A: sp.csr_matrix, S: sp.csr_matrix,
                            shape=A.shape)
     SF_pat = sp.csr_matrix((np.ones(A_sF.nnz), A_sF.indices, A_sF.indptr),
                            shape=A.shape)
-    Ce_pat = (SC_pat + (SF_pat @ SC_pat).tocsr()).tocsr()
+    Ce_pat = (SC_pat + spgemm(SF_pat.tocsr(), SC_pat.tocsr())).tocsr()
     Ce_pat.data = np.ones_like(Ce_pat.data)
 
     # d_ik over A_sF's pattern: sum_m Ce_pat[i,m] Ahat[k,m] + Ahat[k,i]
@@ -439,6 +492,12 @@ def _keys(M: sp.csr_matrix) -> np.ndarray:
 
 def _pattern_mask(A: sp.csr_matrix, S: sp.csr_matrix) -> np.ndarray:
     """Boolean mask over A.data: True where (i,j) is in S's pattern."""
+    m = spk.pattern_mask(A, S)
+    return _pattern_mask_plain(A, S) if m is None else m
+
+
+def _pattern_mask_plain(A: sp.csr_matrix, S: sp.csr_matrix) -> np.ndarray:
+    """:func:`_pattern_mask` in numpy, for any column order."""
     keyA = _keys(A)
     keyS = np.sort(_keys(S.tocsr()))
     pos = np.searchsorted(keyS, keyA)

@@ -1,5 +1,6 @@
-"""Classical strength-of-connection (the port of ``tpusolve/amg/strength.py``,
-its numpy path).
+"""Classical strength-of-connection (the port of ``tpusolve/amg/strength.py``):
+the native kernel ``sk_strength`` (``amg/spk.py``), with the numpy version
+beside it as its plain version.
 
 The first stage of BoomerAMG setup (configured via ``strong_threshold``,
 default 0.57 in the reference: src/HypreSystem.cpp:158-159, yaml
@@ -18,12 +19,23 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from tpusolve_torch.amg import spk
+
 
 def classical_strength(A: sp.csr_matrix, theta: float = 0.25) -> sp.csr_matrix:
-    """Strength graph S (pattern-only CSR, no diagonal).
+    """Strength graph S (pattern-only CSR, no diagonal, sorted columns).
 
-    S[i, j] = 1 iff j strongly influences i.
+    S[i, j] = 1 iff j strongly influences i.  The native kernel, as
+    ``tpusolve`` calls it; :func:`classical_strength_plain` where it
+    declines the input.
     """
+    S = spk.strength(A.tocsr(), theta)
+    return classical_strength_plain(A, theta) if S is None else S
+
+
+def classical_strength_plain(A: sp.csr_matrix,
+                             theta: float = 0.25) -> sp.csr_matrix:
+    """:func:`classical_strength` in numpy (``tpusolve``'s fallback)."""
     A = A.tocsr()
     n = A.shape[0]
     diag = A.diagonal()

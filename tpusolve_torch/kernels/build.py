@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface and loaded with ``ctypes``; each
-``csrc/*.cpp`` file (host code: the text parser ``fastio.cpp``) is compiled
-the same way by ``g++``, on any machine.  The library's file name carries a
+``csrc/*.cpp`` file (host code: the text parser ``fastio.cpp`` and the AMG
+setup's sparse kernels ``spkernels.cpp``) is compiled the same way by
+``g++``, on any machine.  The library's file name carries a
 hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is loaded from ``build/kernels/`` at the root of the
 checkout.  Building happens at first use, never at import: the CPU tests
@@ -28,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -108,10 +109,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Compile every CUDA kernel library, one nvcc per source, all started
-    together, then load them; returns the seconds taken."""
+    """Compile every library of ``csrc/``, one nvcc or g++ per source, all
+    started together, then load them; returns the seconds taken."""
     t0 = time.perf_counter()
-    names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(CSRC)
+                   if f.endswith((".cu", ".cpp")))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         list(pool.map(compile_library, names))
     for name in names:

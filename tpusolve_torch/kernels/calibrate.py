@@ -48,6 +48,14 @@ times K4 at each register-stage depth it is built for (``sweep_k4``).
 times K1 at every threads-a-row count G it is built for, at the box shapes
 of gates 1 and 2 (``sweep_k1``): the measurement behind
 ``kernels/dia.py:k1_plan``.
+
+    python -m tpusolve_torch.kernels.calibrate --k2
+
+times K2 at every threads-a-row count on the padded-ELL shapes of the
+BoomerAMG paths, in f32 and f64 (``sweep_k2``), and prints K2's rate and
+``threads_full`` for the SpMV time model: the measurement behind
+``kernels/ell.py:k2_plan`` and ``K2_MODEL`` there, which no layout choice
+reads yet.
 """
 
 from __future__ import annotations
@@ -431,6 +439,74 @@ def sweep_k1(device=None, log=print) -> list:
     return rows
 
 
+# (rows, K, x length) of padded-ELL operators on the BoomerAMG paths: the
+# weak-scaling YAML at 128^3 (level 0's P and R, level 1's A) and the 64^3
+# gate-3 hierarchy (the R of levels 0, 1 and 2); the first fills the card,
+# the last is the small shape
+K2_SHAPES = ((2_097_152, 8, 170_854), (170_854, 27, 2_097_152),
+             (170_854, 40, 170_854), (21_588, 123, 262_144),
+             (1_507, 371, 21_588), (131, 638, 1_507))
+
+
+def _ell_case(rows: int, K: int, ncols: int, dtype, device, gen):
+    """(vals, cols, x, bytes) of a padded-ELL operator with every slot
+    filled, row i's columns near i * ncols / rows (within 4 K), as an AMG
+    transfer's are."""
+    base = torch.arange(rows, device=device, dtype=torch.int64) * ncols \
+        // rows
+    off = torch.randint(-4 * K, 4 * K + 1, (rows, K), generator=gen,
+                        device=device)
+    cols = (base[:, None] + off).clamp_(0, ncols - 1).to(torch.int32)
+    vals = torch.randn((rows, K), generator=gen, device=device, dtype=dtype)
+    x = torch.randn(ncols, generator=gen, device=device, dtype=dtype)
+    itemsize = vals.element_size()
+    nbytes = (itemsize + 4) * rows * K + (ncols + rows) * itemsize
+    return vals, cols, x, nbytes
+
+
+def sweep_k2(device=None, log=print) -> dict:
+    """K2's device time, in f32 and f64, at each (rows, K, x length) of
+    ``K2_SHAPES`` for every G of ``ell.GROUPS`` (``k2_plan``'s choice
+    marked), and the constants of the SpMV time model
+    (``matrix/sharded.py:spmv_model_s``) for K2 from device time: ``rate``
+    = the first shape's bytes (values, int32 columns, x and y) over its
+    time at the plan's G, ``threads_full`` = the last shape's threads
+    (rows x G) x rate x time / bytes.  Returns {"rows": [(dtype, rows, K,
+    G, device ms, plan)], "rate": {itemsize: bytes/s}, "threads_full":
+    {itemsize: threads}}."""
+    from tpusolve_torch.kernels import ell
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    out = {"rows": [], "rate": {}, "threads_full": {}}
+    for dtype in BOTH:
+        got = []
+        for rows, K, ncols in K2_SHAPES:
+            vals, cols, x, nbytes = _ell_case(rows, K, ncols, dtype, device,
+                                              gen)
+            plan = ell.k2_plan(rows, K)
+            ms = device_ms_each({
+                str(g): (lambda g=g: ell.ell_spmv(vals, cols, x, groups=g))
+                for g in ell.GROUPS})
+            ms = {g: ms[str(g)] for g in ell.GROUPS}
+            for g in ell.GROUPS:
+                mark = " (plan)" if g == plan else ""
+                gbps = nbytes / (ms[g] * 1e-3) / 1e9
+                log(f"K2 {str(dtype)[6:]} rows={rows} K={K} x={ncols} G={g}: "
+                    f"device {ms[g]:.5f} ms, {gbps:.1f} GB/s{mark}")
+                out["rows"].append((str(dtype)[6:], rows, K, g, ms[g],
+                                    g == plan))
+            got.append((nbytes, rows * plan, ms[plan]))
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        rate = got[0][0] / (got[0][2] * 1e-3)
+        nbytes, threads, ms = got[-1]
+        out["rate"][itemsize] = rate
+        out["threads_full"][itemsize] = threads * rate * ms * 1e-3 / nbytes
+        log(f"K2 f{8 * itemsize}: rate {rate / 1e12:.3f} TB/s, threads_full "
+            f"{out['threads_full'][itemsize]:.0f}")
+    return out
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("calibrate: CUDA is not available", file=sys.stderr)
@@ -444,6 +520,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--k1"]:
         sweep_k1()
+        sys.exit(0)
+    if sys.argv[1:] == ["--k2"]:
+        print(json.dumps(sweep_k2()), flush=True)
         sys.exit(0)
     for _ in range(int(sys.argv[1]) if len(sys.argv) > 1 else 1):
         print(json.dumps(measure()), flush=True)

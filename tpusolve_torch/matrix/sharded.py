@@ -362,6 +362,12 @@ class ShardedMatrix:
         return self.bell_vals is not None
 
     @property
+    def uses_ell(self) -> bool:
+        """The padded-ELL layout: ``diag_vals``/``diag_cols`` hold the
+        operator (K2), no other layout's arrays are set."""
+        return not (self.uses_dia or self.uses_bdia or self.uses_bell)
+
+    @property
     def bdia_ovf(self):
         """(ptr, cols, vals) of the overflow list, as ``bdia_spmv`` takes
         it, or None."""

@@ -244,19 +244,10 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
     if with_host:
         import scipy.sparse as sp
         if parts is None:
-            # the DIA fast path's CSR in row-major order (tpusolve's numpy
-            # fallback of its native dia_to_csr)
-            dia_t = np.ascontiguousarray(dia_one.T)       # (box, 27)
-            r_k, k_idx = np.nonzero(dia_t)                # row-major
-            cols_one = (r_k + offs[k_idx]).astype(np.int32)
-            vals_one = dia_t[r_k, k_idx].astype(np.float64)
-            counts_one = np.count_nonzero(dia_t, axis=1)
-            indptr = np.empty(n + 1, np.int64)
-            indptr[0] = 0
-            np.cumsum(counts_one, out=indptr[1:])
-            A_host = sp.csr_matrix((vals_one, cols_one.astype(np.int64),
-                                    indptr), shape=(n, n))
-            A_host.has_sorted_indices = True   # offsets ascend per row
+            # the DIA fast path's CSR in row-major order, in one native
+            # pass (no 2x-nnz index temporaries), as tpusolve builds it
+            from tpusolve_torch.amg import spk
+            A_host = spk.dia_to_csr(np.ascontiguousarray(dia_one.T), offs)
         else:
             rows_l, cols_l, vals_l = [], [], []
             for q, p in enumerate(parts):
@@ -330,3 +321,20 @@ def laplace27_host_parts(nparts: int, nx: int, ny: int, nz: int, *,
                                                 dtype)
         offd.append((olr, ogc, ov))
     return dia, offd
+
+
+def dia_to_csr_plain(dia_t: np.ndarray, offs) -> "sp.csr_matrix":
+    """The CSR of a (rows, ndiag) DIA-value table with diagonal offsets
+    ``offs`` in numpy (``tpusolve``'s fallback of its native
+    ``dia_to_csr``): the plain version of ``amg.spk.dia_to_csr``."""
+    import scipy.sparse as sp
+    dia_t = np.ascontiguousarray(dia_t, np.float32)
+    n = dia_t.shape[0]
+    r_k, k_idx = np.nonzero(dia_t)                # row-major
+    cols = r_k + np.asarray(offs, np.int64)[k_idx]
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.count_nonzero(dia_t, axis=1), out=indptr[1:])
+    out = sp.csr_matrix((dia_t[r_k, k_idx].astype(np.float64), cols, indptr),
+                        shape=(n, n))
+    out.has_sorted_indices = True   # offsets ascend per row
+    return out
