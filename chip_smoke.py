@@ -13,33 +13,39 @@ toolkit (nvcc) and PyTorch built for CUDA:
    BELL SpMV kernel K6 against their plain PyTorch versions, in float32 and
    float64, and K5 against K4 bit for bit, once on an x that is not 16-byte
    aligned, and K4's launch plans (a small launch of wide blocks run as
-   chunks, an operator of 640 slots) against K5 bit for bit; the padded-ELL
-   SpMV kernel K2 against its plain version on square and rectangular
-   operators of K = 1, 8, 40, 131 and 638 slots, in f32 and f64, at every
-   threads-a-row count and in every update form, in place too;
+   chunks, an operator of 640 slots) against K5 bit for bit; the ELL SpMV
+   kernel K2 against its plain version on ragged square and rectangular
+   operators of K = 1, 8, 40, 131 and 638 slots, in f32 and f64, in both
+   storage forms (padded, row-pointer), at every threads-a-row count and
+   in every update form, in place too, the same bits in both forms;
 4. gate 4: writes the momentum fixture at N^3 rows (``--side``, default
    96^3 = 884,736 rows, 23.4M nonzeros) and runs it through the port's CLI
    (``tpusolve_torch.harness.cli.main``): HYPRE-IJ files read by the native
    parser, RCM, BDIA assembly in f64 with an f32 twin, Chow-Patel ILU(0)
-   whose factors run K4 or K5 as the time model prices them, BiCGSTAB in
-   f32 inside f64 iterative refinement, golden check (at 96^3 exactly the
-   port's 54 iterations); then at the four operator shapes of that run (A,
-   A_lo, L, U) times K4, K5 where a step plan fits, the plain version, the
-   library's CSR SpMV (``torch.sparse``) and the bound;
+   whose operators run K2, K4 or K5 as the time model prices them,
+   BiCGSTAB in f32 inside f64 iterative refinement, golden check (at 96^3
+   exactly the port's 54 iterations); then at the four operator shapes of
+   that run (A, A_lo, L, U) on their BDIA layouts times K4, K5 where a step
+   plan fits, the plain version, the library's CSR SpMV (``torch.sparse``)
+   and the bound, K2 at the operators that run it (plain, library, bound,
+   both forms), and each operator's kernel now against the one it ran
+   before K2 was priced among the layouts (the moved operators' table,
+   which fails where a new kernel is slower but for K6's frozen prices);
 5. gate 3: writes the pressure fixture at N^3 rows (``--side3``, default
    64^3 = 262,144 rows, 6.86M nonzeros) and runs it through the CLI:
    MatrixMarket files, RCM, BoomerAMG host setup (PMIS, extended+i,
    l1-Jacobi; the native setup kernels of ``csrc/spkernels.cpp``) with
-   BDIA, BELL and ELL levels and ELL transfers (K2), GMRES(20) in f64,
-   golden check; prints each level's layout and the timer rows, then at
-   every BELL level times K6, its plain version, K4 on the BDIA layout of
-   the same operator, the plain ELL SpMV and the library's SpMV, against
-   the layout model's prediction and K6's bound, at every BDIA level K4,
-   K5, plain and library, at every ELL operator (A, P and R by level) K2,
-   plain, library and bound, K2 on an ELL copy of the low-fill BDIA level
-   1 beside K4, and the warm-solve profile; then the same fixture with
-   ``coarsen_type: 6`` (Falgout, run as serial RS): its hierarchy, timer
-   rows and, at 64^3, tpusolve's 11 iterations;
+   each level's A, P and R in the layout the model prices fastest (K2 in
+   either storage form, K4, K6), GMRES(20) in f64, golden check; prints
+   each level's layout and the timer rows, then K6 and K4/K5 (plain,
+   library, bound) at the BELL and BDIA levels and at the old layouts of
+   the levels that left them, at every ELL operator (A, P and R by level)
+   K2, plain, library and bound with K2 in both forms and the library on
+   it, every moved operator's old
+   kernel against its new one, and the warm-solve profile; then the same
+   fixture with ``coarsen_type: 6`` (Falgout, run as serial RS): its
+   hierarchy, timer rows, moved operators and, at 64^3, tpusolve's 11
+   iterations;
 6. gate 1: ``examples/gate1_64cube_pcg_amg.yaml`` as it is (64^3 =
    262,144 rows, ``mixed``) through the CLI: the 27-point stencil as box
    DIA, the PFMG-style structured hierarchy (DIA-algebra RAP, the K3 box
@@ -77,10 +83,11 @@ toolkit (nvcc) and PyTorch built for CUDA:
    carries ``amg/builder.py``'s device note), the host pipeline below, golden check; the seconds of
    each setup stage and of the host levels, each level's layout, the
    timer rows, K1, K4 and K6 against their plain versions at the levels
-   that run them with their times, K2 at every ELL operator, K2 on ELL
-   copies of the BDIA levels 2 and 3 beside K4, the launch counts (it
-   fails unless each operator's layout launched its kernel) and the
-   warm-solve profile;
+   that run them (K4 and K6 also on the old layouts of the levels that
+   left them) with their times, K2 at every ELL operator in both forms,
+   the moved operators, the launch counts (it fails unless each
+   operator's layout launched its kernel, K2 in each storage form it
+   holds) and the warm-solve profile;
 10. measures the constants of the time model (``kernels/calibrate.py``)
    beside the ones in the code.
 
@@ -89,9 +96,9 @@ Every kernel time is given twice: device time (the kernels' durations in a
 between CUDA events (``calibrate.time_ms``), which on a small launch is
 the host's.  Each path's kernel launches are counted from 0 just before its
 CLI run and read just after; a path that launched none of its kernels
-fails, and gate 4 fails unless each of its operators runs the kernel the
-model prices faster (K4 on all four at 96^3 since the register-stage K4;
-K5 is then held by the checks of step 3 and the timings alone).  The
+fails, and gate 4 fails unless each of its operators launched the kernel
+the model prices fastest (K5 and, where no operator takes them, K4 and
+K6 are held by the checks of step 3 and the timings alone).  The
 second-to-last line is a JSON object with one entry per kernel (launches,
 device and per-call times, plain, library and bound); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -117,9 +124,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 # tpusolve on CPU, gate-4 fixture 96^3, precision mixed: BiCGSTAB
 # iterations summed over the refinement passes; the port's count on the
-# card (31 + 23), the same whether BDIA runs K4 or K5 (equal bit for bit)
+# card (31 + 25) with A and its f32 twin on K2 (padded, K = 27), as the
+# layout model prices them: each row's f32 sum in K2's order.  On K4's BDIA
+# layout (the same whether K4 or K5 runs it, equal bit for bit) the port
+# took 54 (31 + 23)
 TPUSOLVE_ITERS_96 = 56
-PORT_ITERS_96 = 54
+PORT_ITERS_96 = 56
 # tpusolve on CPU, gate-3 fixture 64^3, precision double: GMRES iterations
 TPUSOLVE_GATE3_ITERS_64 = 12
 # tpusolve on CPU, examples/gate1_64cube_pcg_amg.yaml as it is (64^3,
@@ -193,7 +203,7 @@ def banded_check(device) -> tuple:
     worst4 = worst5 = 0.0
     for dtype in (np.float32, np.float64):
         A = ShardedMatrix.from_coo((n, n), rows, cols, vals, device=device,
-                                   dtype=dtype)
+                                   dtype=dtype, allow_ell=False)
         if not A.uses_bdia or A.bdia_ovf_vals is None:
             fail(f"banded check: expected BDIA with overflow, got {A.layout}")
         x = torch.tensor(rng.standard_normal(n), dtype=A.dtype, device=device)
@@ -332,7 +342,7 @@ def bell_check(device) -> float:
     worst = 0.0
     for dtype in (np.float32, np.float64):
         A = ShardedMatrix.from_coo((n, n), rows, cols, vals, device=device,
-                                   dtype=dtype)
+                                   dtype=dtype, allow_ell=False)
         if not A.uses_bell:
             fail(f"blocked check: expected BELL, got {A.layout}")
         x = torch.tensor(rng.standard_normal(n), dtype=A.dtype, device=device)
@@ -382,16 +392,23 @@ def nbytes_of(*tensors) -> int:
 
 
 def device_times(calls: dict, only: str | None = None) -> dict:
-    """``calibrate.device_ms_each`` of ``calls`` (of the kernels named like
-    ``only``, if given), or NaN for each where the profiler's traces held no
-    device event (printed; the JSON line gives null): a time that was not
-    measured fails no check."""
+    """``calibrate.device_ms_each`` of each of ``calls`` (of the kernels
+    named like ``only``, if given), each call in a trace of its own, or NaN
+    for one whose traces held no device event (printed; the JSON line gives
+    null): a time that was not measured fails no check.  One trace for
+    several calls counts each device event for the call whose host span
+    holds its start, and on the card's machine such a trace once counted
+    a call's events for the span before it (a K2 call read the next call's
+    time, and the call before it gained K2's)."""
     from tpusolve_torch.kernels.calibrate import device_ms_each
-    try:
-        return device_ms_each(calls, only=only)
-    except RuntimeError as err:
-        print(f"device time not measured: {err}", flush=True)
-        return {key: float("nan") for key in calls}
+    out = {}
+    for key, call in calls.items():
+        try:
+            out.update(device_ms_each({key: call}, only=only))
+        except RuntimeError as err:
+            print(f"device time not measured: {err}", flush=True)
+            out[key] = float("nan")
+    return out
 
 
 def no_nan(obj):
@@ -514,18 +531,24 @@ def bdia_timings(ops, device_name: str, seed: int):
 def run_cli(yaml_path: str, counters) -> tuple:
     """Run the port's CLI on ``yaml_path`` with every launch counter set to
     0 just before; returns (exit code, LinearSystem, wall seconds,
-    {counter name: launches}); a counter's ``launches_by_form`` (K1's
-    launches by form) is set to {} with it."""
+    {counter name: launches}); a counter's ``launches_by_form`` (K1's and
+    K2's launches by update form) and ``launches_by_layout`` (K2's by
+    storage form) are set to {} with it."""
     from tpusolve_torch.harness import cli
     for fn in counters:
         fn.launches = 0
-        if hasattr(fn, "launches_by_form"):
-            fn.launches_by_form = {}
+        for key in ("launches_by_form", "launches_by_layout"):
+            if hasattr(fn, key):
+                setattr(fn, key, {})
     systems = []
     t0 = time.perf_counter()
     rc = cli.main([yaml_path, "--device", "cuda"], keep=systems)
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    k2 = next((fn for fn in counters if fn.__name__ == "ell_spmv"), None)
+    if k2 is not None:
+        for form in ("padded", "rowptr"):
+            launches[f"ell_spmv {form}"] = k2.launches_by_layout.get(form, 0)
     return rc, (systems[0] if systems else None), wall, launches
 
 
@@ -557,7 +580,9 @@ def model_takes_xl(M) -> bool:
 
 
 def gate4_phase(side: int, device_name: str, counters):
-    """The gate-4 path; returns (launches, K4/K5 timing rows)."""
+    """The gate-4 path; returns (launches, K4/K5 timing rows of its four
+    operators on their BDIA layouts, K2 rows of those that run K2, the
+    old-against-new rows of :func:`moved_timings` for all four)."""
     from tpusolve_torch import fixtures
     work = os.path.join(REPO, "build", f"gate4_{side}")
     shutil.rmtree(work, ignore_errors=True)
@@ -573,24 +598,25 @@ def gate4_phase(side: int, device_name: str, counters):
           f"{launches}", flush=True)
     res = check_solve(system, rc, "gate-4")
     pre = system._precond
-    print(f"gate-4 layouts: A {system.A.layout}; A_lo {system.A_lo.layout}; "
-          f"L {pre.L.layout}; U {pre.U.layout}", flush=True)
-    if launches["bdia_spmv"] <= 0:
-        fail("the gate-4 path launched no K4 (bdia_spmv)")
+    ops = (("A", system.A), ("A_lo", system.A_lo), ("L", pre.L),
+           ("U", pre.U))
+    print("gate-4 layouts: " + "; ".join(f"{name} {M.layout}"
+                                         for name, M in ops), flush=True)
     # each operator runs the kernel the time model prices faster
-    # (matrix/sharded.py:choose_xl): since the register-stage K4, K4 for
-    # all four at 96^3 (tests/test_torch_bdia_xl.py)
-    xl_ops = []
-    for name, M in (("A", system.A), ("A_lo", system.A_lo), ("L", pre.L),
-                    ("U", pre.U)):
-        if M.uses_bdia_xl != model_takes_xl(M):
+    # (matrix/sharded.py:choose_layout, choose_xl) and launched it
+    for name, M in ops:
+        if M.uses_bdia and M.uses_bdia_xl != model_takes_xl(M):
             fail(f"gate-4 {name} runs {M.layout}, not the model's kernel")
-        xl_ops += [name] if M.uses_bdia_xl else []
-    if bool(xl_ops) != (launches["bdia_spmv_xl"] > 0):
+        fn = launch_counter(M)
+        if launches[fn.__name__] <= 0:
+            fail(f"the gate-4 path launched no {fn.__name__} for {name} "
+                 f"({M.layout})")
+    if launches["bdia_spmv_xl"] > 0 and not any(M.uses_bdia_xl
+                                                 for _, M in ops):
         fail(f"gate-4 launched K5 {launches['bdia_spmv_xl']} times with "
-             f"BDIA-XL on {xl_ops}")
-    print(f"gate-4 kernels, as the model prices them: K5 on "
-          f"{xl_ops or 'none'}, K4 on the rest", flush=True)
+             "no BDIA-XL operator")
+    print("gate-4 kernels, as the model prices them: " + ", ".join(
+        f"{name} {kernel_of(M)}" for name, M in ops), flush=True)
     passes = res.passes or []
     print(f"gate-4 {side}^3: {res.iters} BiCGSTAB iterations over "
           f"{len(passes)} refinement passes {passes}, relres "
@@ -605,142 +631,218 @@ def gate4_phase(side: int, device_name: str, counters):
         if res.iters != PORT_ITERS_96:
             fail(f"gate-4 took {res.iters} iterations, not the port's "
                  f"{PORT_ITERS_96}")
-    rows = bdia_timings((("A", system.A), ("A_lo", system.A_lo),
-                         ("L", pre.L), ("U", pre.U)), device_name, 9)
+    # the layouts before K2 was priced: BDIA for all four (A_lo is A's f32
+    # twin; an operator still on BDIA is its own); K4 and K5 rows on them,
+    # and old against new
+    old_a = system.A if system.A.uses_bdia else old_layout(system.A)
+    olds = {"A": old_a, "A_lo": system.A_lo if system.A_lo.uses_bdia
+            else old_a.astype(system.A_lo.dtype)}
+    for name, M in (("L", pre.L), ("U", pre.U)):
+        olds[name] = M if M.uses_bdia else old_layout(M)
+    bdia_ops = [(name, M, M if M.uses_bdia else olds[name])
+                for name, M in ops]
+    bdia_ops = [op for op in bdia_ops if op[2].uses_bdia]
+    rows = bdia_timings([(name, B) for name, _, B in bdia_ops],
+                        device_name, 9)
+    for row, (_, M, _) in zip(rows, bdia_ops):
+        row["main_path"] = bool(M.uses_bdia)
+    k2_rows = ell_timings([(f"gate-4 {name}", M) for name, M in ops
+                           if M.uses_ell], device_name, 32)
+    moved = moved_timings([(f"gate-4 {name}", M, olds[name])
+                           for name, M in ops], device_name, 31)
     system.destroy_system()
-    return launches, rows
+    return launches, rows, k2_rows, moved
 
 
-def bell_level_timings(pre, device_name: str) -> list:
-    """At every BELL level of the hierarchy: K6 against its plain version,
-    K4 on the BDIA layout of the same operator, K2 on its ELL layout and the
-    library's SpMV; the layout model's prediction for K6 and K4, and K6's
-    bound.  Returns one row per level."""
-    import numpy as np
-    import torch
-    from tpusolve_torch.kernels.bdia import bdia_spmv
-    from tpusolve_torch.kernels.bell import bell_spmv, bell_spmv_plain
-    from tpusolve_torch.kernels.calibrate import time_ms
-    from tpusolve_torch.matrix import sharded
-    from tpusolve_torch.matrix.sharded import ShardedMatrix
+# the kernel each layout runs, by the first word of its name
+KERNEL_OF = {"DIA": "K1", "BDIA": "K4", "BDIA-XL": "K5", "BELL": "K6",
+             "ELL": "K2 padded", "ELL-RP": "K2 row-pointer"}
+
+
+def kernel_of(M) -> str:
+    return KERNEL_OF[M.layout.split()[0]]
+
+
+def launch_counter(M):
+    """The wrapper (and launch counter) of the kernel operator ``M`` runs."""
+    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
+    from tpusolve_torch.kernels.bell import bell_spmv
+    from tpusolve_torch.kernels.dia import dia_spmv
     from tpusolve_torch.kernels.ell import ell_spmv
-    from tpusolve_torch.matrix.vectors import numpy_dtype
-
-    rng = np.random.default_rng(10)
-    rows = []
-    for i, lev in enumerate(pre.levels):
-        M = lev.A
-        if not M.uses_bell:
-            continue
-        host = M.to_scipy()
-        dt = str(M.dtype).replace("torch.", "")
-        itemsize = M.bell_vals.element_size()
-        x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
-                         device=M.device)
-        args = (M.bell_vals, M.bell_ids, x, M.bell_nwin, M.row_pad)
-        y_plain = bell_spmv_plain(*args)
-        err = rel_err(bell_spmv(*args), y_plain)
-        abs_err = float((bell_spmv(*args) - y_plain).abs().max())
-        if not err <= RTOL[dt]:
-            fail(f"level {i}: K6 vs plain rel err {err:.3e} > {RTOL[dt]}")
-        np_dt = numpy_dtype(M.dtype)
-        Mb = ShardedMatrix.from_csr_host(host, device=M.device, dtype=np_dt,
-                                         allow_dia=False, allow_bell=False)
-        Me = ShardedMatrix.from_csr_host(host, device=M.device, dtype=np_dt,
-                                         allow_dia=False, allow_bell=False,
-                                         allow_bdia=False)
-        if not Mb.uses_bdia:
-            fail(f"level {i}: no BDIA layout to compare ({Mb.layout})")
-        bargs = (Mb.bdia_vals, Mb.bdia_starts, x, Mb.bdia_xpad, Mb.bdia_xlen,
-                 Mb.row_pad, Mb.bdia_ovf)
-        err_b = rel_err(bdia_spmv(*bargs), y_plain)
-        err_e = rel_err(ell_spmv(Me.diag_vals[0], Me.diag_cols[0], x),
-                        y_plain)
-        if not max(err_b, err_e) <= RTOL[dt]:
-            fail(f"level {i}: K4 or ELL against K6's plain version "
-                 f"{max(err_b, err_e):.3e} > {RTOL[dt]}")
-        # alternate plain, kernel, kernel, plain on the same card
-        lib_call, xlib = library_spmv(M)
-        xlib.copy_(x[:xlib.numel()])
-        err_lib = rel_err(lib_call(), y_plain[:xlib.numel()])
-        p1 = time_ms(lambda: bell_spmv_plain(*args))
-        k1 = time_ms(lambda: bell_spmv(*args))
-        b1 = time_ms(lambda: bdia_spmv(*bargs))
-        ell = lambda: ell_spmv(Me.diag_vals[0], Me.diag_cols[0], x)
-        e1 = time_ms(ell)
-        l1 = time_ms(lib_call)
-        l2 = time_ms(lib_call)
-        e2 = time_ms(ell)
-        b2 = time_ms(lambda: bdia_spmv(*bargs))
-        k2 = time_ms(lambda: bell_spmv(*args))
-        p2 = time_ms(lambda: bell_spmv_plain(*args))
-        dev = device_times({
-            "ms": lambda: bell_spmv(*args),
-            "plain_ms": lambda: bell_spmv_plain(*args),
-            "k4_ms": lambda: bdia_spmv(*bargs), "ell_ms": ell,
-            "library_ms": lib_call})
-        _, G, K = M.bell_ids.shape
-        _, B, D, R = Mb.bdia_vals.shape
-        bell_bytes = G * K * (8 * 128 * itemsize + 4)
-        bdia_bytes = sharded.bdia_bytes(B, D, R, int(
-            Mb.bdia_ovf_ptr[0, -1]) if Mb.bdia_ovf_ptr is not None else 0,
-            itemsize)
-        model_k6 = 1e3 * sharded.spmv_model_s(
-            sharded.SPMV_MODEL["bell"], bell_bytes,
-            sharded.bell_threads(G, K))
-        model_k4 = 1e3 * sharded.spmv_model_s(
-            sharded.SPMV_MODEL["bdia"], bdia_bytes,
-            sharded.bdia_threads(B, R))
-        row = dict(level=i, dtype=dt, rows=M.shape[0], nnz=M.nnz, G=G, K=K,
-                   B=B, D=D, R=R, ms=min(k1, k2), plain_ms=min(p1, p2),
-                   k4_ms=min(b1, b2), ell_ms=min(e1, e2),
-                   library_ms=min(l1, l2), lib_rel_err=err_lib,
-                   bound_ms=bound_ms(spmv_nbytes(M), device_name),
-                   model_k6_ms=model_k6, model_k4_ms=model_k4,
-                   bell_mb=bell_bytes / 1e6, bdia_mb=bdia_bytes / 1e6,
-                   max_abs_err=abs_err, rel_err=err)
-        row.update({k.replace("ms", "dev_ms"): v for k, v in dev.items()})
-        agree = (dev["ms"] < dev["k4_ms"]) == (model_k6 < model_k4)
-        print(f"gate-3 level {i} ({M.shape[0]} rows, {M.nnz} nnz) {dt}: "
-              f"K6 BELL G={G} K={K} {bell_bytes / 1e6:.2f} MB: device "
-              f"{dev['ms']:.5f} ms, per call {row['ms']:.5f} ms (runs "
-              f"{k1:.5f}, {k2:.5f}; model {model_k6:.5f}); plain BELL device "
-              f"{dev['plain_ms']:.5f} ms, per call {row['plain_ms']:.5f} ms "
-              f"(runs {p1:.5f}, {p2:.5f}); K4 BDIA B={B} D={D} R={R} "
-              f"{bdia_bytes / 1e6:.2f} MB: device {dev['k4_ms']:.5f} ms, per "
-              f"call {row['k4_ms']:.5f} ms (runs {b1:.5f}, {b2:.5f}; model "
-              f"{model_k4:.5f}); K2 ELL K={Me.diag_vals.shape[-1]} device "
-              f"{dev['ell_ms']:.5f} ms, per call {row['ell_ms']:.5f} ms (runs "
-              f"{e1:.5f}, {e2:.5f}); library (torch.sparse CSR) device "
-              f"{dev['library_ms']:.5f} ms, per call {row['library_ms']:.5f} "
-              f"ms (runs {l1:.5f}, {l2:.5f}; rel err {err_lib:.1e}); bound "
-              f"{row['bound_ms']:.5f} ms ({M.nnz} nnz, x, y); layout model "
-              f"{'agrees' if agree else 'DISAGREES'} with the measurement; "
-              f"K6 rel err {err:.3e}", flush=True)
-        rows.append(row)
-    return rows
+    return {"K1": dia_spmv, "K4": bdia_spmv, "K5": bdia_spmv_xl,
+            "K6": bell_spmv}.get(kernel_of(M), ell_spmv)
 
 
 def check_launched(pre, launches: dict, what: str) -> None:
     """Fail unless every layout the cycle of hierarchy ``pre`` applies
     launched its kernel in the run: each level's A, and P and R where they
-    are sparse operators (an algebraic hierarchy's are padded ELL, K2)."""
-    from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
-    from tpusolve_torch.kernels.bell import bell_spmv
-    from tpusolve_torch.kernels.dia import dia_spmv
-    from tpusolve_torch.kernels.ell import ell_spmv
-    by_layout = {"DIA": (dia_spmv,), "BDIA": (bdia_spmv, bdia_spmv_xl),
-                 "BDIA-XL": (bdia_spmv_xl,), "BELL": (bell_spmv,),
-                 "ELL": (ell_spmv,)}
+    are sparse operators (an algebraic hierarchy's are ELL, K2), K2 in each
+    of its storage forms the hierarchy holds."""
     for i, lev in enumerate(pre.levels):
         for key in ("A", "P", "R"):
             M = getattr(lev, key)
             if M is None:
                 continue
-            fns = by_layout[M.layout.split()[0]]
-            if not sum(launches[fn.__name__] for fn in fns):
+            name = launch_counter(M).__name__
+            if M.uses_ell:
+                name += " rowptr" if M.uses_ell_rowptr else " padded"
+            if not launches[name]:
                 fail(f"{what}: level {i}'s {key} ({M.layout}) launched no "
-                     f"{fns[0].__name__}")
+                     f"{name}")
+
+
+def padded_copy(M):
+    """ELL operator ``M`` in the padded form (itself if it is padded), at
+    its ``row_width``."""
+    import dataclasses
+    from tpusolve_torch.kernels.ell import rowptr_to_padded
+    if not M.uses_ell_rowptr:
+        return M
+    pv, pc = rowptr_to_padded(M.ell_rowptr[0], M.ell_vals[0],
+                              M.ell_cols[0], M.row_width)
+    return dataclasses.replace(M, diag_vals=pv[None], diag_cols=pc[None],
+                               ell_rowptr=None, ell_vals=None, ell_cols=None)
+
+
+def old_layout(M, tiles: bool = True):
+    """Operator ``M`` as the assembly laid it out before K2 was priced
+    among the layouts: with ``tiles`` (an operator that could take BDIA or
+    BELL), the choice of ``allow_ell=False`` on its entries; ELL in the
+    padded form, as every ELL operator was."""
+    import numpy as np
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    from tpusolve_torch.matrix.vectors import numpy_dtype
+    if tiles:
+        M = ShardedMatrix.from_csr_host(
+            M.to_scipy(), device=M.device, dtype=numpy_dtype(M.dtype),
+            row_offsets=np.asarray(M.row_offsets),
+            col_offsets=np.asarray(M.col_offsets), allow_ell=False)
+    return padded_copy(M) if M.uses_ell else M
+
+
+def moved_pairs(pre, what: str) -> list:
+    """(name, operator, its old layout) of every operator of hierarchy
+    ``pre`` whose kernel differs from the one it ran before K2 was priced
+    (:func:`old_layout`): a coarse A that left BDIA or BELL for K2, or an
+    ELL operator that took the row-pointer form.  P and R, and the card's
+    level-0 operators, were padded ELL."""
+    device_made = {(0, "P"), (0, "R"), (1, "A")} if any(
+        n.startswith(DEVICE_NOTE) for n in pre.notes) else set()
+    pairs = []
+    for i, lev in enumerate(pre.levels):
+        for key in ("A", "P", "R"):
+            M = getattr(lev, key)
+            if M is None or M.uses_dia:
+                continue
+            old = old_layout(M, key == "A" and (i, key) not in device_made)
+            if kernel_of(old) != kernel_of(M):
+                pairs.append((f"{what} level {i} {key}", M, old))
+    return pairs
+
+
+def k6_model_ms(M) -> float:
+    """The layout model's price (ms) of K6 on BELL operator ``M``: its
+    frozen constants (``SPMV_MODEL["bell"]``) on the tiles' and ids'
+    bytes."""
+    from tpusolve_torch.matrix import sharded
+    _, G, K = M.bell_ids.shape
+    return 1e3 * sharded.spmv_model_s(
+        sharded.SPMV_MODEL["bell"], nbytes_of(M.bell_vals, M.bell_ids),
+        sharded.bell_threads(G, K))
+
+
+def k2_model_ms(M) -> float:
+    """The layout model's price (ms) of K2 on ELL operator ``M`` in its
+    form (``matrix/sharded.py:ell_model_s``)."""
+    from tpusolve_torch.matrix import sharded
+    form = "rowptr" if M.uses_ell_rowptr else "padded"
+    K = M.row_width if M.uses_ell_rowptr else M.diag_vals.shape[-1]
+    return 1e3 * sharded.ell_model_s(form, M.row_pad, M.col_pad, K, M.nnz,
+                                     M.diag.element_size(), M.row_width)
+
+
+# traces more of each kernel, in turn, where a moved operator's first
+# reading is slower than its old kernel's
+SLOWER_REPEATS = 4
+
+
+def moved_timings(pairs, device_name: str, seed: int) -> list:
+    """At each (name, operator, old layout) of ``pairs``: the device time
+    of the kernel it runs now and of the one its old layout ran, on the
+    same x (the two products agree to the dtype's tolerance), beside the
+    library's CSR SpMV and the bound.  Where the first reading of the new
+    kernel is slower, ``SLOWER_REPEATS`` more traces of each, in turn,
+    judge it: slower where the median of its times exceeds the old one's
+    by more than the wider spread of either's.  Fails if a new kernel is
+    slower, but where K6 ran it before and K2's price is at least K6's
+    measured time: then only K6's frozen constants (its ramp prices a small
+    operator at twice its time) put it on K2.  Returns one row per
+    operator."""
+    import statistics
+    import numpy as np
+    import torch
+    from tpusolve_torch.matrix.spmv import spmv
+
+    rng = np.random.default_rng(seed)
+    rows, slower = [], []
+    for name, M, old in pairs:
+        dt = str(M.dtype).replace("torch.", "")
+        x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
+                         device=M.device)
+        err = rel_err(spmv(M, x), spmv(old, x))
+        if not err <= RTOL[dt]:
+            fail(f"{name}: {kernel_of(M)} vs {kernel_of(old)} rel err "
+                 f"{err:.3e}")
+        lib_call, xlib = library_spmv(M)
+        xlib.copy_(x[:xlib.numel()])
+        calls = {"new": lambda: spmv(M, x), "old": lambda: spmv(old, x)}
+        dev = device_times(dict(calls, lib=lib_call))
+        runs = {k: [dev[k]] for k in calls}
+        if dev["new"] > dev["old"]:
+            for r in range(SLOWER_REPEATS):
+                order = ("old", "new") if r % 2 else ("new", "old")
+                for k, t in device_times({k: calls[k]
+                                          for k in order}).items():
+                    runs[k].append(t)
+        med = {k: statistics.median(ts) for k, ts in runs.items()}
+        spread = max(max(ts) - min(ts) for ts in runs.values())
+        row = dict(op=name, dtype=dt, rows=M.shape[0], nnz=M.nnz,
+                   old=old.layout, new=M.layout, old_kernel=kernel_of(old),
+                   new_kernel=kernel_of(M), old_dev_ms=med["old"],
+                   new_dev_ms=med["new"], old_runs=runs["old"],
+                   new_runs=runs["new"], lib_dev_ms=dev["lib"],
+                   bound_ms=bound_ms(spmv_nbytes(M), device_name),
+                   rel_err=err,
+                   no_slower=not med["new"] > med["old"] + spread)
+        if kernel_of(old) == kernel_of(M):
+            verdict = "the same kernel"
+        elif row["no_slower"]:
+            verdict = "no slower" if len(runs["new"]) == 1 else (
+                f"no slower beyond the spread of {len(runs['new'])} "
+                f"traces each, {spread:.5f} ms")
+        else:
+            verdict = (f"SLOWER by more than the spread of "
+                       f"{len(runs['new'])} traces each, {spread:.5f} ms")
+            row["k2_model_ms"] = k2_model_ms(M) if M.uses_ell else None
+            if kernel_of(old) == "K6" and M.uses_ell:
+                row["k6_model_ms"] = k6_model_ms(old)
+                row["k6_conflict"] = row["k2_model_ms"] >= med["old"]
+            if row.get("k6_conflict"):
+                verdict += (f"; K6's frozen constants price it at "
+                            f"{row['k6_model_ms']:.5f} ms, K2 at "
+                            f"{row['k2_model_ms']:.5f}")
+            else:
+                slower.append(name)
+        print(f"moved {name} {dt} ({M.shape[0]} rows, {M.nnz} nnz): "
+              f"{row['old_kernel']} on {old.layout} device "
+              f"{med['old']:.5f} ms -> {row['new_kernel']} on {M.layout} "
+              f"device {med['new']:.5f} ms ({verdict}); library "
+              f"(torch.sparse CSR) device {dev['lib']:.5f} ms; bound "
+              f"{row['bound_ms']:.5f} ms; rel err {err:.1e}", flush=True)
+        rows.append(row)
+    if slower:
+        fail(f"moved operators slower than their old kernel: {slower}")
+    return rows
 
 
 def print_timers(system, what: str) -> dict:
@@ -774,10 +876,10 @@ def run_gate3(side: int, counters, what: str, edit=None):
 
 
 def gate3_phase(side: int, device_name: str, counters):
-    """The gate-3 path; returns a dict of its launches, K6 timing rows,
-    K4/K5 timing rows of the BDIA levels, K2 rows of its ELL operators,
-    K2 on an ELL copy of its low-fill BDIA level 1, timer rows and warm
-    solve profile."""
+    """The gate-3 path; returns a dict of its launches, K4/K5 and K6 timing
+    rows (on the BDIA and BELL levels, and on the old layouts of the levels
+    that left them for K2), K2 rows of its ELL operators, the moved
+    operators' old-against-new rows, timer rows and warm-solve profile."""
     rc, system, wall, launches = run_gate3(side, counters, "gate-3")
     print(f"gate-3 path: cli exit {rc}, {wall:.1f} s wall, launches "
           f"{launches}", flush=True)
@@ -786,8 +888,6 @@ def gate3_phase(side: int, device_name: str, counters):
     for line in pre.layouts():
         print(f"gate-3 {line}", flush=True)
     timers = print_timers(system, "gate-3")
-    if launches["bell_spmv"] <= 0:
-        fail("the gate-3 path launched no BELL kernel")
     check_launched(pre, launches, "gate-3")
     print(f"gate-3 {side}^3: {res.iters} GMRES iterations, relres "
           f"{float(res.relres):.3e}, golden check PASSED; Preconditioner "
@@ -798,27 +898,35 @@ def gate3_phase(side: int, device_name: str, counters):
         if res.iters != TPUSOLVE_GATE3_ITERS_64:
             fail(f"gate-3 took {res.iters} GMRES iterations, tpusolve "
                  f"{TPUSOLVE_GATE3_ITERS_64}")
-    rows = bell_level_timings(pre, device_name)
-    if not rows:
-        fail("the gate-3 hierarchy has no BELL level")
-    bdia_rows = bdia_timings([(f"level {i}", lev.A)
-                              for i, lev in enumerate(pre.levels)
-                              if lev.A.uses_bdia], device_name, 11)
+    moved = moved_pairs(pre, "gate-3")
+    rows6, bdia_rows = tile_timings(pre, moved, "gate-3", device_name, 11)
     k2_rows = ell_timings(ell_ops(pre, "gate-3"), device_name, 25)
-    copy_rows = ell_copy_timings([("gate-3 level 1", pre.levels[1].A)]
-                                 if pre.levels[1].A.uses_bdia else [],
-                                 device_name, 26)
+    moved_rows = moved_timings(moved, device_name, 26)
     prof = solve_profile(system, "gate-3")
     system.destroy_system()
-    return dict(launches=launches, k6_rows=rows, k4_rows=bdia_rows,
-                k2_rows=k2_rows, copy_rows=copy_rows, timers=timers,
+    return dict(launches=launches, k6_rows=rows6, k4_rows=bdia_rows,
+                k2_rows=k2_rows, moved_rows=moved_rows, timers=timers,
                 profile=prof, iters=int(res.iters))
 
 
-def gate3_rs_phase(side: int, counters) -> dict:
+def tile_timings(pre, moved, what: str, device_name: str, seed: int):
+    """(K6 rows, K4/K5 rows) of :func:`bell_timings` and
+    :func:`bdia_timings` at the BELL and BDIA levels of hierarchy ``pre``
+    and at the old BELL and BDIA layouts of the ``moved`` operators
+    (:func:`moved_pairs`)."""
+    ops = [(f"{what} level {i}", lev.A) for i, lev in enumerate(pre.levels)]
+    ops += [(f"{name} (old layout)", old) for name, _, old in moved]
+    return (bell_timings([op for op in ops if op[1].uses_bell],
+                         device_name, seed),
+            bdia_timings([op for op in ops if op[1].uses_bdia],
+                         device_name, seed + 1))
+
+
+def gate3_rs_phase(side: int, device_name: str, counters) -> dict:
     """Gate 3 with ``coarsen_type: 6`` (Falgout, run as serial RS by the
     native kernel): the same fixture through the CLI, every layout of the
-    hierarchy launched, and at 64^3 tpusolve's iteration count."""
+    hierarchy launched, the moved operators' old-against-new rows, and at
+    64^3 tpusolve's iteration count."""
     rc, system, wall, launches = run_gate3(
         side, counters, "gate-3 RS",
         lambda t: t.replace("coarsen_type: 8", "coarsen_type: 6"))
@@ -832,6 +940,8 @@ def gate3_rs_phase(side: int, counters) -> dict:
         print(f"gate-3 RS {line}", flush=True)
     timers = print_timers(system, "gate-3 RS")
     check_launched(pre, launches, "gate-3 RS")
+    moved_rows = moved_timings(moved_pairs(pre, "gate-3 RS"), device_name,
+                               29)
     print(f"gate-3 RS {side}^3: {res.iters} GMRES iterations, relres "
           f"{float(res.relres):.3e}, golden check PASSED; Preconditioner "
           f"setup {timers['Preconditioner setup']:.3f} s; tpusolve (CPU, "
@@ -842,7 +952,7 @@ def gate3_rs_phase(side: int, counters) -> dict:
              f"{TPUSOLVE_GATE3_RS_ITERS_64}")
     out = dict(launches=launches, timers=timers, iters=int(res.iters),
                relres=float(res.relres), levels=[lev.n for lev in pre.levels],
-               layouts=pre.layouts())
+               layouts=pre.layouts(), moved_rows=moved_rows)
     system.destroy_system()
     return out
 
@@ -991,13 +1101,69 @@ def bell_timings(ops, device_name: str, seed: int) -> list:
 
 
 def ell_timings(ops, device_name: str, seed: int) -> list:
-    """:func:`spmv_timings` of K2 on padded-ELL operators."""
-    from tpusolve_torch.kernels.ell import ell_spmv, ell_spmv_plain
-    return spmv_timings(
-        ops, device_name, seed, "k2",
-        lambda M, x: ell_spmv(M.diag_vals[0], M.diag_cols[0], x),
-        lambda M, x: ell_spmv_plain(M.diag_vals[0], M.diag_cols[0], x),
-        lambda M: (M.diag_vals, M.diag_cols))
+    """:func:`spmv_timings` of K2 on ELL operators, each row with its
+    storage form and K2's device times on it in both forms
+    (:func:`k2_forms`)."""
+    from tpusolve_torch.kernels.ell import ell_rowptr_plain, ell_spmv_plain
+    from tpusolve_torch.matrix.spmv import spmv
+
+    def plain(M, x):
+        vals, cols, rowptr = M.ell_arrays
+        if rowptr is None:
+            return ell_spmv_plain(vals, cols, x)
+        return ell_rowptr_plain(rowptr, vals, cols, x)
+
+    rows = spmv_timings(
+        ops, device_name, seed, "k2", spmv, plain,
+        lambda M: (M.ell_rowptr, M.ell_vals, M.ell_cols)
+        if M.uses_ell_rowptr else (M.diag_vals, M.diag_cols))
+    for row, (name, M) in zip(rows, ops):
+        row["form"] = "rowptr" if M.uses_ell_rowptr else "padded"
+        row["forms_dev_ms"], row["forms_model_ms"] = k2_forms(name, M, seed)
+    return rows
+
+
+def k2_forms(name: str, M, seed: int) -> dict:
+    """(device ms, modelled ms) of K2 on ELL operator ``M`` in both storage
+    forms, each at its plan's G (the device ms also of the library's CSR
+    SpMV; each against the plain version), the model's
+    (``matrix/sharded.py:ell_model_s``) at the padded width."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.ell import (
+        FORMS, ell_spmv, ell_spmv_plain, padded_to_rowptr)
+    from tpusolve_torch.matrix.sharded import ell_model_s
+
+    P = padded_copy(M)
+    pv, pc = P.diag_vals[0], P.diag_cols[0]
+    if M.uses_ell_rowptr:
+        rv, rc, rp = M.ell_arrays
+    else:
+        rp, rv, rc = padded_to_rowptr(pv, pc)
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
+                     device=M.device)
+    calls = {"rowptr": lambda: ell_spmv(rv, rc, x, rowptr=rp),
+             "padded": lambda: ell_spmv(pv, pc, x)}
+    ref = ell_spmv_plain(pv, pc, x)
+    dt = str(M.dtype).replace("torch.", "")
+    for key, call in calls.items():
+        err = rel_err(call(), ref)
+        if not err <= RTOL[dt]:
+            fail(f"{name}: K2 {key} vs plain rel err {err:.3e}")
+    lib_call, xlib = library_spmv(M)
+    xlib.copy_(x[:xlib.numel()])
+    calls["library"] = lib_call
+    dev = device_times(calls)
+    model = {f: 1e3 * ell_model_s(f, M.row_pad, M.col_pad, pv.shape[-1],
+                                  rv.numel(), pv.element_size(), M.row_width)
+             for f in FORMS}
+    form = "row-pointer" if M.uses_ell_rowptr else "padded"
+    print(f"{name} {dt} K2 forms ({form} form runs): device ms "
+          + ", ".join(f"{k} {v:.5f}" for k, v in dev.items())
+          + "; model ms " + ", ".join(f"{k} {v:.5f}" for k, v in
+                                     model.items()), flush=True)
+    return dev, model
 
 
 def ell_ops(pre, what: str) -> list:
@@ -1020,12 +1186,13 @@ K2_CHECKS = ((50_000, 50_000, 1), (200_000, 25_000, 8),
 
 
 def ell_check(device) -> tuple:
-    """K2 against its plain version on random padded-ELL operators
-    (``K2_CHECKS``, a quarter of each row's slots padded, the last rows all
-    padding) in f32 and f64, at every threads-a-row count G, in the plain
-    form and every update form, the accumulate form into ``c`` in place
-    too; the same bits in two runs.  Returns (largest relative error,
-    largest absolute error)."""
+    """K2 against its plain version on random ragged ELL operators
+    (``K2_CHECKS``: each row 0 to K entries, about 3 in 4 slots filled, at
+    its first slots; the last rows empty) in f32 and f64, in the padded
+    and the row-pointer form, at every threads-a-row count G, in the plain form and every update form, the
+    accumulate form into ``c`` in place too; the same bits in two runs,
+    and the same bits in both forms at the same G.  Returns (largest
+    relative error, largest absolute error)."""
     import numpy as np
     import torch
     from tpusolve_torch.kernels import ell
@@ -1036,9 +1203,10 @@ def ell_check(device) -> tuple:
              ("c-s*Ax", dict(s=1, c=1)), ("c+Ax", dict(c=1, w=-1.0)))
     worst = worst_abs = 0.0
     for rows, ncols, K in K2_CHECKS:
+        counts = rng.binomial(K, 0.75, rows)
+        counts[-max(1, rows // 64):] = 0
+        pad = np.arange(K)[None] >= counts[:, None]
         cols = rng.integers(0, ncols, (rows, K))
-        pad = rng.random((rows, K)) < 0.25
-        pad[-max(1, rows // 64):] = True
         cols[pad] = 0
         vals = rng.standard_normal((rows, K))
         vals[pad] = 0
@@ -1046,6 +1214,7 @@ def ell_check(device) -> tuple:
             dt = str(dtype).replace("torch.", "")
             V = torch.tensor(vals, dtype=dtype, device=device)
             C = torch.tensor(cols, dtype=torch.int32, device=device)
+            rp, rv, rc = ell.padded_to_rowptr(V, C)
             vec = lambda n: torch.tensor(rng.standard_normal(n), dtype=dtype,
                                          device=device)
             x, b, s, c = vec(ncols), vec(rows), vec(rows), vec(rows)
@@ -1058,80 +1227,33 @@ def ell_check(device) -> tuple:
                     y = ell.ell_spmv(V, C, x, **kw, groups=g)
                     errs.append(rel_err(y, ref))
                     worst_abs = max(worst_abs, float((y - ref).abs().max()))
-                    if not torch.equal(y, ell.ell_spmv(V, C, x, **kw,
-                                                       groups=g)):
-                        fail(f"K2 {form} G={g} gave other bits on a rerun")
+                    runs = [ell.ell_spmv(V, C, x, **kw, groups=g)] + [
+                        ell.ell_spmv(rv, rc, x, **kw, rowptr=rp, groups=g)
+                        for _ in range(2)]
+                    if not all(torch.equal(y, r) for r in runs):
+                        fail(f"K2 {form} G={g}: other bits on a rerun or in "
+                             "the row-pointer form")
                 if "c" in kw:
-                    out = c.clone()
-                    ell.ell_spmv(V, C, x, **dict(kw, c=out), out=out)
-                    errs.append(rel_err(out, ref))
+                    for rowptr in (None, rp):
+                        out = c.clone()
+                        args = (V, C) if rowptr is None else (rv, rc)
+                        ell.ell_spmv(*args, x, **dict(kw, c=out), out=out,
+                                     rowptr=rowptr)
+                        errs.append(rel_err(out, ref))
             torch.cuda.synchronize()
             err = max(errs)
-            print(f"K2 check rows={rows} x={ncols} K={K} {dt}: every G "
-                  f"{ell.GROUPS} and form ({len(forms)}, in place into c "
-                  f"too) against the plain version: max rel err {err:.3e} "
-                  f"(limit {RTOL[dt]:.0e}); plan G={ell.k2_plan(rows, K)}",
-                  flush=True)
+            print(f"K2 check rows={rows} x={ncols} K={K} nnz={rv.numel()} "
+                  f"{dt}: both forms (padded, row-pointer), every G "
+                  f"{ell.GROUPS} and form ({len(forms)}, "
+                  f"in place into c too) against the plain version: max "
+                  f"rel err {err:.3e} (limit {RTOL[dt]:.0e}), the same "
+                  f"bits in both forms and on a rerun; plans: padded "
+                  f"G={ell.k2_plan(rows, K)}, row-pointer "
+                  f"G={ell.k2_rowptr_plan(rows, rv.numel())}", flush=True)
             if not err <= RTOL[dt]:
                 fail(f"K2 check rows={rows} K={K} {dt} out of tolerance")
             worst = max(worst, err)
     return worst, worst_abs
-
-
-def ell_copy_timings(ops, device_name: str, seed: int) -> list:
-    """At each (name, BDIA operator) of ``ops``: K2 on a padded-ELL copy of
-    the operator beside K4 on its BDIA layout and the library's CSR SpMV,
-    device and per-call times, against the same bound.  Data for the
-    layout choice at low slot fill; the layouts the solves use stay as
-    they are.  Returns one row per operator."""
-    import numpy as np
-    import torch
-    from tpusolve_torch.kernels.calibrate import time_ms
-    from tpusolve_torch.kernels.ell import ell_spmv
-    from tpusolve_torch.matrix.sharded import ShardedMatrix
-    from tpusolve_torch.matrix.spmv import spmv
-    from tpusolve_torch.matrix.vectors import numpy_dtype
-
-    rng = np.random.default_rng(seed)
-    rows = []
-    for name, M in ops:
-        dt = str(M.dtype).replace("torch.", "")
-        Me = ShardedMatrix.from_csr_host(
-            M.to_scipy(), device=M.device, dtype=numpy_dtype(M.dtype),
-            allow_dia=False, allow_bdia=False, allow_bell=False)
-        x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
-                         device=M.device)
-        k2 = lambda: ell_spmv(Me.diag_vals[0], Me.diag_cols[0], x)
-        k4 = lambda: spmv(M, x)
-        err = rel_err(k2(), k4())
-        if not err <= RTOL[dt]:
-            fail(f"{name}: K2 on the ELL copy vs K4 rel err {err:.3e}")
-        lib_call, xlib = library_spmv(M)
-        xlib.copy_(x[:xlib.numel()])
-        calls = [("k2", k2), ("k4", k4), ("lib", lib_call)]
-        runs = {k: [] for k, _ in calls}
-        for k, call in calls + calls[::-1]:
-            runs[k].append(time_ms(call))
-        dev = device_times(dict(calls))
-        K = Me.diag_vals.shape[-1]
-        row = dict(op=name, dtype=dt, layout=M.layout, ell_k=K,
-                   rows=M.shape[0], nnz=M.nnz, rel_err=err,
-                   bound_ms=bound_ms(spmv_nbytes(M), device_name),
-                   ell_mb=nbytes_of(Me.diag_vals, Me.diag_cols) / 1e6,
-                   bdia_mb=nbytes_of(M.bdia_vals, M.bdia_starts) / 1e6)
-        for k, ts in runs.items():
-            row[k + "_ms"], row[k + "_runs"] = min(ts), ts
-            row[k + "_dev_ms"] = dev[k]
-        print(f"{name} {dt} ({M.shape[0]} rows, {M.nnz} nnz) as ELL K={K} "
-              f"({row['ell_mb']:.3f} MB): K2 device {row['k2_dev_ms']:.5f} "
-              f"ms, per call {row['k2_ms']:.5f} ms; K4 on {M.layout} "
-              f"({row['bdia_mb']:.3f} MB) device {row['k4_dev_ms']:.5f} ms, "
-              f"per call {row['k4_ms']:.5f} ms; library (torch.sparse CSR) "
-              f"device {row['lib_dev_ms']:.5f} ms, per call "
-              f"{row['lib_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms; K2 "
-              f"vs K4 rel err {err:.1e}", flush=True)
-        rows.append(row)
-    return rows
 
 
 # K1's update forms in the V-cycle: (keyword arguments, weight); the
@@ -1325,7 +1447,7 @@ PROFILE_CLASSES = (("K4 and K5", ("bdia_spmv",)),
                    ("K1", ("dia_spmv",)),
                    ("K3", ("box_prolong", "box_restrict")),
                    ("K6", ("bell_spmv",)),
-                   ("K2", ("ell_spmv",)),
+                   ("K2", ("ell_spmv", "ell_rowptr")),
                    ("ELL gathers", ("scatter_gather", "indexselect")),
                    ("coarse matmul", ("gemv", "gemm", "cublas", "sm90_")),
                    ("reductions", ("reduce",)),
@@ -1353,8 +1475,9 @@ def solve_profile(system, what: str) -> dict:
     try:
         k2 = importlib.import_module("tpusolve_torch.kernels.ell").ell_spmv
         k2_forms = lambda: dict(k2.launches_by_form)
+        k2_layouts = lambda: dict(getattr(k2, "launches_by_layout", {}))
     except ImportError:
-        k2_forms = dict
+        k2_forms = k2_layouts = dict
     solver, b = system._solver, system.rhs[0]
     solver(b)
     torch.cuda.synchronize()
@@ -1365,7 +1488,7 @@ def solve_profile(system, what: str) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = 1e3 * min(walls)
-    before, before2 = forms(), k2_forms()
+    before, before2, before3 = forms(), k2_forms(), k2_layouts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         solver(b)
@@ -1374,6 +1497,8 @@ def solve_profile(system, what: str) -> dict:
                 if n > before.get(k, 0)}
     k2_modes = {k: n - before2.get(k, 0) for k, n in k2_forms().items()
                 if n > before2.get(k, 0)}
+    k2_layout = {k: n - before3.get(k, 0) for k, n in k2_layouts().items()
+                 if n > before3.get(k, 0)}
     by_class, ops, by_name, gathers = {}, {}, {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1396,6 +1521,7 @@ def solve_profile(system, what: str) -> dict:
                    by_class.items(), key=lambda kv: -kv[1])},
                ops_by_class=dict(sorted(ops.items(), key=lambda kv: -kv[1])),
                k1_launches_by_form=k1_modes, k2_launches_by_form=k2_modes,
+               k2_launches_by_layout=k2_layout,
                gathers=gathers,
                top=[(n, us / 1e3) for n, us in sorted(
                    by_name.items(), key=lambda kv: -kv[1])[:8]])
@@ -1407,7 +1533,8 @@ def solve_profile(system, what: str) -> dict:
           + ", ".join(f"{k} {v:.3f} ({ops[k]})"
                       for k, v in out["by_class_ms"].items())
           + f"; K1 launches by form {k1_modes}; K2 launches by form "
-          f"{k2_modes}; gathers {gathers}; top kernels "
+          f"{k2_modes} and by storage form {k2_layout}; gathers {gathers}; "
+          "top kernels "
           + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in out["top"]),
           flush=True)
     return out
@@ -1544,8 +1671,9 @@ def device_setup_check(device) -> list:
 def weakscale_phase(device_name: str, counters):
     """``examples/weakscale_pcg_boomeramg_devsetup.yaml`` as it is through
     the CLI; returns a dict of its launches, setup seconds, K1, K6, K4 and
-    K2 rows, K2 on ELL copies of its BDIA levels, warm-solve profile, timer
-    rows and layouts."""
+    K2 rows (K6 and K4 also on the old layouts of the levels that left
+    them for K2), the moved operators' old-against-new rows, warm-solve
+    profile, timer rows and layouts."""
     yaml_path = os.path.join(REPO, "examples",
                              "weakscale_pcg_boomeramg_devsetup.yaml")
     rc, system, wall, launches = run_cli(yaml_path, counters)
@@ -1587,19 +1715,15 @@ def weakscale_phase(device_name: str, counters):
                for i, lev in enumerate(pre.levels) if lev.A.uses_dia]
     errs = dia_check(dia_ops, 21)
     rows1 = dia_timings(dia_ops, device_name, 22)
-    rows6 = bell_timings([(f"weakscale level {i}", lev.A)
-                          for i, lev in enumerate(pre.levels)
-                          if lev.A.uses_bell], device_name, 24)
-    bdia_ops = [(f"weakscale level {i}", lev.A)
-                for i, lev in enumerate(pre.levels) if lev.A.uses_bdia]
-    rows4 = bdia_timings(bdia_ops, device_name, 23)
+    moved = moved_pairs(pre, "weakscale")
+    rows6, rows4 = tile_timings(pre, moved, "weakscale", device_name, 23)
     rows2 = ell_timings(ell_ops(pre, "weakscale"), device_name, 27)
-    copy_rows = ell_copy_timings(bdia_ops, device_name, 28)
+    moved_rows = moved_timings(moved, device_name, 28)
     prof = solve_profile(system, "weakscale")
     system.destroy_system()
     return dict(launches=launches, stages=stages, k1_rows=rows1,
                 k1_errs=errs, k6_rows=rows6, k4_rows=rows4, k2_rows=rows2,
-                copy_rows=copy_rows, profile=prof, timers=timers,
+                moved_rows=moved_rows, profile=prof, timers=timers,
                 layouts=layouts, iters=int(res.iters),
                 relres=float(res.relres))
 
@@ -1686,6 +1810,10 @@ def main(argv) -> int:
     from tpusolve_torch.kernels.dia import dia_spmv
     from tpusolve_torch.kernels.ell import ell_spmv
     from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
+    def phase_done(what):
+        print(f"chip_smoke: {what} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     worst4, worst5 = banded_check(device)
     worst4 = max(worst4, k4_launch_check(device))
     worst6 = bell_check(device)
@@ -1693,20 +1821,25 @@ def main(argv) -> int:
 
     worst1 = four_wide_check(device)
     dev_rows = device_setup_check(device)
+    phase_done("the kernel checks")
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
                 box_restrict, ell_spmv)
-    l4, rows4 = gate4_phase(sides["--side"], device_name, counters)
+    l4, rows4, k2_rows4, moved4 = gate4_phase(sides["--side"], device_name,
+                                              counters)
+    phase_done("gate 4")
     g3 = gate3_phase(sides["--side3"], device_name, counters)
     l3, rows3, bdia_rows3 = g3["launches"], g3["k6_rows"], g3["k4_rows"]
-    if l3["bdia_spmv"] + l3["bdia_spmv_xl"] <= 0:
-        fail("the gate-3 path launched no BDIA kernel")
-    rs = gate3_rs_phase(sides["--side3"], counters)
+    phase_done("gate 3")
+    rs = gate3_rs_phase(sides["--side3"], device_name, counters)
+    phase_done("gate 3 RS")
     l1, forms1, errs1, rows1, k3_rows1, prof1, cold1 = gate1_phase(
         device_name, counters)
     l2, forms2, errs2, rows2, k3_rows2, prof2 = gate2_phase(device_name,
                                                             counters)
+    phase_done("gates 1 and 2")
     ws = weakscale_phase(device_name, counters)
+    phase_done("the weak-scaling cell")
     model_constants()
 
     paths = {"gate4": l4, "gate3": l3, "gate3_rs": rs["launches"],
@@ -1714,17 +1847,23 @@ def main(argv) -> int:
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
     rows6_all = rows3 + ws["k6_rows"]
-    rows2_all = g3["k2_rows"] + ws["k2_rows"]
+    rows2_all = k2_rows4 + g3["k2_rows"] + ws["k2_rows"]
 
     def launches(name):
         return dict(launches=sum(p[name] for p in paths.values()),
                     launches_by_path={k: p[name] for k, p in paths.items()})
 
-    # headline shapes: K4 on A_lo (or A), K5 on L, K6 on the largest BELL
-    k4 = next(r for r in sorted(rows4, key=lambda r: r["op"] != "A_lo")
-              if not r["layout"].startswith("BDIA-XL"))
+    moved_all = moved4 + g3["moved_rows"] + rs["moved_rows"] \
+        + ws["moved_rows"]
+    # headline shapes: K4 on the first of A_lo, A, U, L that runs it on the
+    # gate-4 path, K5 on L, K6 on the BELL layout of largest bound
+    k4 = next(r for r in sorted(rows4, key=lambda r: (
+        not r["main_path"], ["A_lo", "A", "U", "L"].index(r["op"])))
+        if not r["layout"].startswith("BDIA-XL"))
     k5 = next(r for r in rows4 if r["op"] == "L")
-    k6 = max(rows3, key=lambda r: r["G"] * r["K"])
+    if not rows6_all:
+        fail("no BELL layout to time K6 on")
+    k6 = max(rows6_all, key=lambda r: r["bound_ms"])
     k1 = rows1[0]            # gate 1 level 0, the f32 stencil
     # K2's headline: the weak-scaling ELL operator with the largest bound
     k2 = max(ws["k2_rows"], key=lambda r: r["bound_ms"])
@@ -1755,6 +1894,7 @@ def main(argv) -> int:
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by="bytes", library_ms=k4["lib_ms"],
              library_device_ms=k4["lib_dev_ms"], shape=k4["op"],
+             held_by="banded_check, k4_launch_check, bdia_timings",
              max_rel_err=max([worst4] + [r["rel_err"] for r in rows4_all]),
              shapes=rows4_all),
         dict(name="bdia_spmv_xl", route="cuda",
@@ -1774,11 +1914,11 @@ def main(argv) -> int:
              source="tpusolve_torch/csrc/bell_spmv.cu",
              replaces="tpusolve/kernels/bell.py:159", **launches("bell_spmv"),
              max_abs_err=max(r["max_abs_err"] for r in rows6_all),
-             ms=k6["ms"], device_ms=k6["dev_ms"], plain_ms=k6["plain_ms"],
+             ms=k6["k6_ms"], device_ms=k6["k6_dev_ms"],
+             plain_ms=k6["plain_ms"], plain_device_ms=k6["plain_dev_ms"],
              bound_ms=k6["bound_ms"], bound_by="bytes",
-             library_ms=k6["library_ms"],
-             library_device_ms=k6["library_dev_ms"],
-             shape=f"level {k6['level']}",
+             library_ms=k6["lib_ms"], library_device_ms=k6["lib_dev_ms"],
+             shape=k6["op"], held_by="bell_check, tile_timings",
              max_rel_err=max([worst6] + [r["rel_err"] for r in rows6_all]),
              shapes=rows6_all),
         dict(name="ell_spmv", route="cuda",
@@ -1792,11 +1932,16 @@ def main(argv) -> int:
              library_ms=k2["lib_ms"], library_device_ms=k2["lib_dev_ms"],
              shape=k2["op"],
              max_rel_err=max([worst2[0]] + [r["rel_err"] for r in rows2_all]),
+             form=k2["form"],
+             forms={f: sum(r["form"] == f for r in rows2_all)
+                    for f in ("padded", "rowptr")},
+             launches_by_layout={k: {f: p[f"ell_spmv {f}"]
+                                     for f in ("padded", "rowptr")}
+                                 for k, p in paths.items()},
              launches_by_form_warm_solve={
                  "gate3": g3["profile"]["k2_launches_by_form"],
                  "weakscale": ws["profile"]["k2_launches_by_form"]},
-             shapes=rows2_all,
-             ell_copies_of_bdia=g3["copy_rows"] + ws["copy_rows"],
+             shapes=rows2_all, moved_operators=moved_all,
              gate3_profile=g3["profile"],
              weakscale_profile=ws["profile"])]
     print(json.dumps(no_nan({"weakscale": {

@@ -20,7 +20,7 @@ from tpusolve_torch.amg import builder, coarsen, galerkin, interp, strength
 from tpusolve_torch.config import BoomerAMGConfig
 from tpusolve_torch.fixtures import make_system
 from tpusolve_torch.matrix.sharded import ShardedMatrix
-from test_torch_sharded import tpusolve_fields
+from test_torch_sharded import k2_priced_out, tpusolve_fields
 
 CPU = torch.device("cpu")
 GATE3 = dict(coarsen_type=8, interp_type=6, strong_threshold=0.25,
@@ -182,8 +182,14 @@ class TestHierarchy:
                                    .max())
         assert pre.describe() == pre_t.describe()
 
-    def test_hierarchy_holds_a_bell_level(self, hierarchies):
-        _, pre = hierarchies
+    def test_hierarchy_holds_a_bell_level(self, A32, monkeypatch):
+        """With K2 priced out of the choice (tpusolve's candidates), the
+        gate-3 hierarchy at 32^3 runs K4 on level 0 and K6 on a coarse level
+        (tests/test_torch_ell_rowptr.py holds the choice with K2 priced)."""
+        k2_priced_out(monkeypatch)
+        A = ShardedMatrix.from_csr_host(A32, device=CPU, dtype=np.float64)
+        pre = builder.boomeramg_setup(A, BoomerAMGConfig(**GATE3),
+                                      A_host=A32)
         layouts = pre.layouts()
         assert any(lev.A.uses_bell for lev in pre.levels), layouts
         assert pre.levels[0].A.uses_bdia, layouts

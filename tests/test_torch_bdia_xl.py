@@ -304,7 +304,7 @@ def test_from_arrays_runs_a_tpusolve_xl_operator(rng, monkeypatch):
                                atol=1e-12 * np.abs(y_tp).max())
 
 
-def test_gate4_factors_take_xl_from_62():
+def test_gate4_factors_take_xl_from_62(monkeypatch):
     """The slice: gate 4's ILU factors, as its ``mixed`` run builds them (f32
     twin of the RCM-ordered fixture, host Chow-Patel ILU(0)), at 62^3, the
     smallest side where they took BDIA-XL with the previous K4 and its
@@ -312,7 +312,11 @@ def test_gate4_factors_take_xl_from_62():
     now prices K4 (register stages) below it, as the card measures, so
     they stay on K4 (the choice is the same on the CPU and the card); in
     f64 too.  A CLI run at that side takes too long on a CPU: the CLI
-    comparison with tpusolve runs at 16^3 (tests/test_torch_slice.py)."""
+    comparison with tpusolve runs at 16^3 (tests/test_torch_slice.py).
+    K2 is priced out of the layout choice here, which holds the K4 and K5
+    planners (tests/test_torch_ell_rowptr.py holds the choice with it)."""
+    from test_torch_sharded import k2_priced_out
+    k2_priced_out(monkeypatch)
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
     from tpusolve_torch.fixtures import make_system

@@ -129,7 +129,8 @@ class TestLayoutChoice:
         n = 1500
         r, c, v = blocky(rng, n, nblk=8, width=40)
         assert r.size >= 20_000
-        A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU)
+        A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU,
+                                   allow_ell=False)
         assert A.uses_bell and not A.uses_bdia, A.layout
         S = sp.csr_matrix((v, (r, c)), shape=(n, n))
         assert abs(A.to_scipy() - S).max() == 0.0
@@ -156,7 +157,8 @@ class TestLayoutChoice:
         inv[perm] = np.arange(n)
         r, c, v = coo.dedup_coo(inv[rows], inv[cols], vals, mode="add")
         for itemsize in (8, 4):
-            kind, plan = choose_layout([(r, c, v)], n, n, itemsize, r.size)
+            kind, plan = choose_layout([(r, c, v)], n, n, itemsize, r.size,
+                                       allow_ell=False)
             assert kind == "bdia", (itemsize, plan)
 
     @pytest.mark.parametrize("kind", ["bdia", "bell"])
@@ -165,7 +167,7 @@ class TestLayoutChoice:
         r, c, v = blocky(rng, n, nblk=8, width=40)
         got, _ = choose_layout([(r, c, v)], n, n, 8, r.size,
                                allow_bdia=kind == "bdia",
-                               allow_bell=kind == "bell")
+                               allow_bell=kind == "bell", allow_ell=False)
         assert got == kind
 
     def test_below_min_nnz_is_ell(self, rng):
@@ -282,7 +284,8 @@ class TestCudaKernel:
         rng = np.random.default_rng(8)
         n = 1500
         r, c, v = blocky(rng, n, nblk=8, width=40)
-        A = ShardedMatrix.from_coo((n, n), r, c, v, device=cuda)
+        A = ShardedMatrix.from_coo((n, n), r, c, v, device=cuda,
+                                   allow_ell=False)
         assert A.uses_bell
         x = rng.standard_normal(n)
         y = spmv(A, torch.from_numpy(x).to(cuda)).cpu().numpy()

@@ -248,7 +248,8 @@ def test_update_on_other_layouts_is_the_composition(layout, n, form):
     rng = np.random.default_rng(14)
     r, c, v = blocky(rng, n, nblk=8, width=40) if layout == "BELL" \
         else banded(rng, n)
-    A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU)
+    A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU,
+                               allow_ell=layout == "ELL")
     assert A.layout.startswith(layout) and not A.uses_dia, A.layout
     vecs = {k: torch.from_numpy(rng.standard_normal(A.row_pad))
             for k in ("x", "b", "s", "c")}

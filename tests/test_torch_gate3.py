@@ -45,7 +45,10 @@ def test_both_clis_agree_in_double(gate3, monkeypatch, capsys):
     assert table.split("  AMG level 0")[0].strip() == \
         out_t.split("AMG hierarchy:")[1].split("Solve 0:")[0].strip()
     layouts = [ln for ln in out.splitlines() if ln.startswith("  AMG level")]
-    assert len(layouts) == 4 and "BELL" in " ".join(layouts)
+    # K2 priced beside K4 and K6: every level above the 1-D DIA coarsest
+    # runs K2 (test_torch_amg.py holds the BELL level with K2 priced out)
+    assert [ln.split()[4] for ln in layouts] == ["ELL", "ELL-RP", "ELL",
+                                                 "DIA"]
 
 
 def test_fixture_files_equal_gatefix(tmp_path):
@@ -174,11 +177,14 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_cli_on_cuda_runs_k6(cuda, tmp_path):
+def test_cli_on_cuda_runs_k6(cuda, tmp_path, monkeypatch):
     """Needs only the card: the 24^3 gate-3 run on CUDA passes and launches
-    K6 on its BELL level."""
+    K6 on its BELL level, with K2 priced out of the layout choice
+    (tests/test_torch_ell_rowptr.py runs it with K2 priced)."""
+    from test_torch_sharded import k2_priced_out
     from tpusolve_torch.harness import cli
     from tpusolve_torch.kernels.bell import bell_spmv
+    k2_priced_out(monkeypatch)
     path = fixtures.write_gate3(str(tmp_path), 24)
     keep = []
     bell_spmv.launches = 0

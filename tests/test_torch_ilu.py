@@ -78,8 +78,9 @@ def test_apply_on_tpusolve_factors(tpi):
 
 
 def test_setup_on_port_layout(tpi):
-    """ilu_setup through each package: the port stores its factors in BDIA,
-    tpusolve picks its own layouts at this size; the applications agree."""
+    """ilu_setup through each package: the port stores its factors in the
+    layout its model prices fastest (ELL, K2, at this size),
+    tpusolve picks its own layouts; the applications agree."""
     from tpusolve.config import ILUConfig as TpILUConfig
     from tpusolve.matrix.sharded import ShardedMatrix as TpMatrix
     from tpusolve.matrix.vectors import to_device_vector as tp_vec
@@ -88,7 +89,7 @@ def test_setup_on_port_layout(tpi):
     n = S.shape[0]
     A = ShardedMatrix.from_coo(S.shape, S.row, S.col, S.data, device=CPU)
     pre = ilu_setup(A, ILUConfig(), A_host=S.tocsr())
-    assert pre.L.uses_bdia and pre.U.uses_bdia
+    assert pre.L.uses_ell and pre.U.uses_ell
     At = TpMatrix.from_coo(mesh, S.shape, S.row, S.col, S.data,
                            dtype=np.float64)
     pre_t = tp_ilu.ilu_setup(At, TpILUConfig(), A_host=S.tocsr())

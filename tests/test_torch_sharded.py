@@ -21,6 +21,19 @@ FIELDS = ("bdia_vals", "bdia_starts", "bdia_ovf_rows", "bdia_ovf_cols",
           "diag", "dia_vals")
 
 
+def k2_priced_out(monkeypatch):
+    """Price K2 out of the layout choice (its every time a billion times
+    the card's, both forms alike, so the form choice stands): the assembly
+    takes ``tpusolve``'s candidates, BDIA and BELL, as before K2 was
+    priced, for tests that hold the K4, K5 and K6 planners on a path that
+    passes no ``allow_ell``."""
+    from tpusolve_torch.matrix import sharded
+    monkeypatch.setitem(sharded.SPMV_MODEL, "ell", {
+        form: {size: (rate * 1e-9, floor * 1e9, round_s * 1e9)
+               for size, (rate, floor, round_s) in by_size.items()}
+        for form, by_size in sharded.SPMV_MODEL["ell"].items()})
+
+
 def tpusolve_fields(A):
     """(arrays, meta) of a one-part tpusolve ShardedMatrix, fetched as numpy
     for ``tpusolve_torch.ShardedMatrix.from_arrays``."""
@@ -82,7 +95,8 @@ class TestLayoutSelection:
     def test_bdia_selected_for_band_and_matches_scipy(self, rng):
         n = 6000
         r, c, v = clustered(rng, n)
-        A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU)
+        A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU,
+                                   allow_ell=False)
         assert A.uses_bdia and A.bdia_block in (128, 256, 512, 1024, 2048)
         S = sp.csr_matrix((v, (r, c)), shape=(n, n))
         x = rng.standard_normal(n)
@@ -177,8 +191,8 @@ class TestLayoutSelection:
                                    allow_dia=False,
                                    allow_bdia=case != "disabled",
                                    allow_bell=case != "disabled")
-        assert not A.uses_bdia
-        assert A.diag_vals.shape[-1] == np.bincount(r).max()
+        assert not A.uses_bdia and A.uses_ell
+        assert A.row_width == np.bincount(r).max()
         S = sp.csr_matrix((v, (r, c)), shape=(n, n))
         x = rng.standard_normal(n)
         np.testing.assert_allclose(_spmv_np(A, x), S @ x, rtol=1e-12,
@@ -285,7 +299,8 @@ class TestVectorsAndCast:
     def test_astype_shares_layout(self, rng):
         n = 6000
         r, c, v = clustered(rng, n)
-        A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU)
+        A = ShardedMatrix.from_coo((n, n), r, c, v, device=CPU,
+                                   allow_ell=False)
         A32 = A.astype(np.float32)
         assert A32.dtype == torch.float32 and A.dtype == torch.float64
         assert A32.bdia_starts is A.bdia_starts

@@ -76,7 +76,7 @@ def test_double_equal_iterations_and_solution(gate4, monkeypatch, capsys):
                                              capsys)
     rc, out, x, perm, res = _run_port(gate4["double"], capsys)
     assert rc == 0 and rc_t == 0, out[-800:]
-    assert "Check solution: PASSED" in out and "A: BDIA" in out
+    assert "Check solution: PASSED" in out and "A: ELL" in out
     assert "Check solution: PASSED" in out_t
     assert _iters(out) == _iters(out_t)
     np.testing.assert_array_equal(perm, perm_t)

@@ -48,7 +48,6 @@ from tpusolve_torch.amg import interp as interp_mod
 from tpusolve_torch.amg import smoothers
 from tpusolve_torch.amg import strength as strength_mod
 from tpusolve_torch.config import BoomerAMGConfig
-from tpusolve_torch.kernels.ell import ell_spmv
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.spmv import spmv, spmv_update
 from tpusolve_torch.matrix.vectors import (
@@ -128,10 +127,11 @@ class AMGPreconditioner:
 def _sharded_from_scipy(M: sp.spmatrix, device, dtype, row_offsets=None,
                         col_offsets=None,
                         allow_tiles: bool = True) -> ShardedMatrix:
-    """``allow_tiles=False`` forces the plain padded-ELL layout.  Used for
-    P/R: transfer operators average ~2-4 entries/row, so the dense-tile
-    layouts (BELL/BDIA) would expand them 40-60x.  Square coarse operators
-    are denser per row and keep the full layout selection."""
+    """``allow_tiles=False`` forces ELL, padded or row-pointer as K2's
+    model prices them (``matrix/sharded.py:ell_form``).  Used for P/R:
+    transfer operators average ~2-4 entries/row, so the dense-tile layouts
+    (BELL/BDIA) would expand them 40-60x.  Square coarse operators are
+    denser per row and keep the full layout selection, ELL among it."""
     return ShardedMatrix.from_csr_host(
         M.tocsr(), device=device, dtype=dtype, row_offsets=row_offsets,
         col_offsets=col_offsets, allow_bell=allow_tiles,
@@ -546,13 +546,13 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
 def _sparse_transfers(P: ShardedMatrix, R: ShardedMatrix):
     """(prolong, restrict) of an algebraic level, in the box transfers'
     form: ``prolong(ec, x, out=None)`` is ``x + P ec`` (into ``out`` when
-    given) and ``restrict(r)`` is ``R r``.  On padded ELL (as the builders
-    lay P and R out) each is one K2 launch, the prolongation's add its
-    epilogue ``c - w * (P ec)`` with ``c = x`` and ``w = -1``."""
+    given) and ``restrict(r)`` is ``R r``.  On ELL, padded or row-pointer
+    (as the builders lay P and R out), each is one K2 launch, the
+    prolongation's add its epilogue ``c - w * (P ec)`` with ``c = x`` and
+    ``w = -1``."""
     def prolong(ec, x, out=None):
         if P.uses_ell:
-            return ell_spmv(P.diag_vals[0], P.diag_cols[0], ec, c=x,
-                            w=-1.0, out=out)
+            return spmv_update(P, ec, c=x, w=-1.0, out=out)
         return torch.add(x, spmv(P, ec), out=out)
 
     def restrict(r):

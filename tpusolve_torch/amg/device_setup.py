@@ -51,7 +51,8 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
-from tpusolve_torch.matrix.sharded import ShardedMatrix
+from tpusolve_torch.kernels.ell import pack_rowptr
+from tpusolve_torch.matrix.sharded import ShardedMatrix, ell_form
 from tpusolve_torch.matrix.spmv import spmv
 
 # the device path is used when the fine level has at least this many rows
@@ -114,12 +115,14 @@ def ell_setup_would_run(A: ShardedMatrix, cfg, A_host=None) -> bool:
     setup (``amg/device_setup_ell.py:eligible``, one part): a square
     operator of ``ELL_MIN_N`` to 2**31 rows, an ELL source of at most
     ``ELL_MAX_K`` entries a row (its ELL layout, or else the host CSR),
-    and interpolation 0, 3 or 6."""
+    and interpolation 0, 3 or 6.  It reads the layout ``tpusolve`` gives
+    ``A``: an ELL operator that K2's pricing took from BDIA or BELL
+    (``A.priced_over``) is not ELL there."""
     n = A.shape[0]
     if A.shape[0] != A.shape[1] or not ELL_MIN_N <= n < 2 ** 31:
         return False
-    if not (A.uses_dia or A.uses_bdia or A.uses_bell):
-        if A.diag_vals.shape[-1] > ELL_MAX_K:
+    if A.uses_ell and A.priced_over is None:
+        if A.row_width > ELL_MAX_K:
             return False
     elif A_host is None or int(np.diff(
             A_host.tocsr().indptr).max(initial=0)) > ELL_MAX_K:
@@ -386,19 +389,60 @@ def _pack_ell(planes, cols_of, K: int):
     return out_v, out_c
 
 
+def _pack_rowptr(planes, cols_of):
+    """Pack (D, nrows) value planes into the row-pointer ELL form
+    ``(rowptr, vals, cols)`` by ``kernels/ell.py:pack_rowptr``: each row's
+    nonzeros in plane order (the slot order of :func:`_pack_ell`), columns
+    from ``cols_of`` as there."""
+    D, nrows = planes.shape
+    dev = planes.device
+    counts = torch.zeros(nrows, dtype=torch.int64, device=dev)
+    for s in range(0, nrows, PACK_ROWS):
+        e = min(nrows, s + PACK_ROWS)
+        counts[s:e] = (planes[:, s:e] != 0).sum(0)
+
+    def chunks():
+        for s in range(0, nrows, PACK_ROWS):
+            e = min(nrows, s + PACK_ROWS)
+            v = planes[:, s:e]
+            live = v != 0
+            rows = torch.arange(s, e, device=dev).expand(D, e - s)
+            yield (rows[live], (live.cumsum(0) - 1)[live], v[live],
+                   cols_of(s, e)[live])
+
+    return pack_rowptr(counts, chunks(), planes.dtype)
+
+
 def _width(planes) -> int:
     """The largest count of nonzeros a row has across the planes."""
     return int((planes != 0).sum(0).max()) if planes.numel() else 0
 
 
-def _ell_matrix(shape, vals, cols, diag, nnz: int) -> ShardedMatrix:
-    """A one-part padded-ELL ``ShardedMatrix`` from (rows, K) tensors."""
+def _ell_matrix(shape, planes, cols_of, K: int, width: int, diag,
+                nnz: int) -> ShardedMatrix:
+    """A one-part ELL ``ShardedMatrix`` of the (D, rows) value ``planes``
+    (columns by ``cols_of``, as :func:`_pack_ell` takes them) with ``nnz``
+    nonzeros, at most ``width`` a row, in the form K2's model prices
+    cheaper (``matrix/sharded.py:ell_form``): padded to ``K`` slots
+    (:func:`_pack_ell`) or row-pointer (:func:`_pack_rowptr`)."""
     nr, nc = int(shape[0]), int(shape[1])
+    fields = dict(bdia_vals=None, bdia_starts=None, bell_vals=None,
+                  bell_ids=None, diag=diag[None], shape=(nr, nc),
+                  row_offsets=(0, nr), col_offsets=(0, nc), row_pad=nr,
+                  col_pad=nc, nnz=int(nnz), row_width=int(width))
+    if ell_form(nr, nc, K, int(nnz), planes.element_size(),
+                width)[0] == "padded":
+        vals, cols = _pack_ell(planes, cols_of, K)
+        return ShardedMatrix(diag_vals=vals[None], diag_cols=cols[None],
+                             **fields)
+    rowptr, vals, cols = _pack_rowptr(planes, cols_of)
     return ShardedMatrix(
-        diag_vals=vals[None], diag_cols=cols[None], bdia_vals=None,
-        bdia_starts=None, bell_vals=None, bell_ids=None, diag=diag[None],
-        shape=(nr, nc), row_offsets=(0, nr), col_offsets=(0, nc),
-        row_pad=nr, col_pad=nc, nnz=int(nnz))
+        diag_vals=torch.zeros((1, nr, 1), dtype=planes.dtype,
+                              device=planes.device),
+        diag_cols=torch.zeros((1, nr, 1), dtype=torch.int32,
+                              device=planes.device),
+        ell_rowptr=rowptr[None], ell_vals=vals[None], ell_cols=cols[None],
+        **fields)
 
 
 # ----------------------------------------------------------------------
@@ -409,7 +453,8 @@ def device_level0(A: ShardedMatrix, cfg, seed: int = 1234, log=None):
 
     Returns None when coarsening stalls (no C point, or all C), else a dict:
     ``Cmask`` (1.0 at C points), ``nc``, ``P`` (n, nc), ``R`` (nc, n) and
-    ``Ac`` (nc, nc) as padded-ELL operators on the device, ``Ah_c_fn``
+    ``Ac`` (nc, nc) as ELL operators on the device (each in the form K2's
+    model prices cheaper), ``Ah_c_fn``
     (fetches the coarse operator as a sorted host CSR), ``dinv`` and
     ``dinv_l1`` (level 0's smoother vectors) and ``seconds`` (wall seconds
     of each stage, the device synchronised at each stage's end).  ``log``
@@ -464,12 +509,13 @@ def device_level0(A: ShardedMatrix, cfg, seed: int = 1234, log=None):
     # --- P and R = P^T as device ELL ---
     flats = torch.tensor([_flat(c, dims) for c in comps], device=dev)
     Ps = Pv.reshape(D, -1)
-    Kp = min(D, max(8, _round_up(_width(Ps), 8)))
-    P_v, P_c = _pack_ell(Ps, lambda s, e: cnum[torch.clamp(
-        torch.arange(s, e, device=dev)[None] + flats[:, None], 0, n - 1)], Kp)
-    nnz_p = int((P_v != 0).sum())
+    wp = _width(Ps)
+    Kp = min(D, max(8, _round_up(wp, 8)))
+    nnz_p = int((Ps != 0).sum())
     zeros = lambda k: torch.zeros(k, dtype=Av.dtype, device=dev)
-    P_sh = _ell_matrix((n, nc), P_v, P_c, zeros(n), nnz_p)
+    P_sh = _ell_matrix((n, nc), Ps, lambda s, e: cnum[torch.clamp(
+        torch.arange(s, e, device=dev)[None] + flats[:, None], 0, n - 1)],
+        Kp, wp, zeros(n), nnz_p)
     m = _margins(comps)
     Pvp = _pad(Pv, m)
     # R[I, j] = P[j, I]: plane d at coarse row I reads fine row
@@ -477,11 +523,12 @@ def device_level0(A: ShardedMatrix, cfg, seed: int = 1234, log=None):
     Rs = torch.stack([_at(Pvp[d], _neg(comps[d]), m, dims).reshape(-1)[cidx]
                       for d in range(D)])
     del Pvp
-    Kr = min(D, max(8, _round_up(_width(Rs), 8)))
-    R_v, R_c = _pack_ell(Rs, lambda s, e: torch.clamp(
-        cidx[s:e][None] - flats[:, None], 0, n - 1), Kr)
+    wr = _width(Rs)
+    Kr = min(D, max(8, _round_up(wr, 8)))
+    R_sh = _ell_matrix((nc, n), Rs, lambda s, e: torch.clamp(
+        cidx[s:e][None] - flats[:, None], 0, n - 1), Kr, wr, zeros(nc),
+        nnz_p)
     del Rs
-    R_sh = _ell_matrix((nc, n), R_v, R_c, zeros(nc), nnz_p)
     stage("P/R compaction")
 
     # --- Galerkin RAP in offset algebra, gathered to the C rows ---
@@ -491,7 +538,8 @@ def device_level0(A: ShardedMatrix, cfg, seed: int = 1234, log=None):
     del Pv
     counts = (Dv != 0).sum(0)
     nnz_c = int(counts.sum())
-    Kc = min(len(dcs), max(8, _round_up(int(counts.max()), 8)))
+    wc = int(counts.max())
+    Kc = min(len(dcs), max(8, _round_up(wc, 8)))
     stage("galerkin RAP")
 
     zero_dc = next((i for i, dc in enumerate(dcs) if dc == (0, 0, 0)), None)
@@ -499,23 +547,27 @@ def device_level0(A: ShardedMatrix, cfg, seed: int = 1234, log=None):
              else Dv[zero_dc])
     dmain = torch.where(dmain == 0, 1.0, dmain)
     shifts = torch.tensor([_flat(dc, dims) for dc in dcs], device=dev)
-    ell_v, ell_c = _pack_ell(Dv, lambda s, e: cnum[torch.clamp(
-        cidx[s:e][None] + shifts[:, None], 0, n - 1)], Kc)
+    Ac_sh = _ell_matrix((nc, nc), Dv, lambda s, e: cnum[torch.clamp(
+        cidx[s:e][None] + shifts[:, None], 0, n - 1)], Kc, wc, dmain, nnz_c)
     del Dv
-    Ac_sh = _ell_matrix((nc, nc), ell_v, ell_c, dmain, nnz_c)
     stage("coarse A compaction")
 
     def fetch_coarse_csr() -> sp.csr_matrix:
         """The coarse operator as host CSR in f64, indices sorted (the ELL
-        slots are in plane order)."""
-        v = ell_v.cpu().numpy()
-        c = ell_c.cpu().numpy()
-        mask = v != 0
-        indptr = np.zeros(nc + 1, np.int64)
-        np.cumsum(mask.sum(axis=1), out=indptr[1:])
-        Ah = sp.csr_matrix((v[mask].astype(np.float64),
-                            c[mask].astype(np.int64), indptr),
-                           shape=(nc, nc))
+        entries are in plane order)."""
+        if Ac_sh.uses_ell_rowptr:
+            indptr = Ac_sh.ell_rowptr[0].cpu().numpy().astype(np.int64)
+            v = Ac_sh.ell_vals[0, :indptr[-1]].cpu().numpy()
+            c = Ac_sh.ell_cols[0, :indptr[-1]].cpu().numpy()
+        else:
+            v = Ac_sh.diag_vals[0].cpu().numpy()
+            c = Ac_sh.diag_cols[0].cpu().numpy()
+            mask = v != 0
+            indptr = np.zeros(nc + 1, np.int64)
+            np.cumsum(mask.sum(axis=1), out=indptr[1:])
+            v, c = v[mask], c[mask]
+        Ah = sp.csr_matrix((v.astype(np.float64), c.astype(np.int64),
+                            indptr), shape=(nc, nc))
         Ah.sort_indices()
         return Ah
 

@@ -130,7 +130,9 @@ def device_factorization_note(A: ShardedMatrix) -> str | None:
     """The note that ``tpusolve`` would factor ``A`` on the device (its
     ``_device_path`` for ILU(0): a DIA operator with the main and both
     off-diagonal sides, or an ELL one of at most ``DEVICE_ILU_MAX_K``
-    entries a row, from ``DEVICE_ILU_MIN_N`` rows), or None."""
+    entries a row, from ``DEVICE_ILU_MIN_N`` rows), or None.  It reads the
+    layout ``tpusolve`` gives ``A``: an ELL operator that K2's pricing took
+    from BDIA or BELL (``A.priced_over``) is not ELL there."""
     if A.shape[0] < DEVICE_ILU_MIN_N:
         return None
     if A.uses_dia:
@@ -139,8 +141,8 @@ def device_factorization_note(A: ShardedMatrix) -> str | None:
         if not (0 in flat and min(flat) < 0 < max(flat)):
             return None
         kind = "DIA"
-    elif A.uses_bdia or A.uses_bell \
-            or A.diag_vals.shape[-1] > DEVICE_ILU_MAX_K:
+    elif A.uses_bdia or A.uses_bell or A.priced_over is not None \
+            or A.row_width > DEVICE_ILU_MAX_K:
         return None
     else:
         kind = "ELL"

@@ -51,11 +51,14 @@ of gates 1 and 2 (``sweep_k1``): the measurement behind
 
     python -m tpusolve_torch.kernels.calibrate --k2
 
-times K2 at every threads-a-row count on the padded-ELL shapes of the
-BoomerAMG paths, in f32 and f64 (``sweep_k2``), and prints K2's rate and
-``threads_full`` for the SpMV time model: the measurement behind
-``kernels/ell.py:k2_plan`` and ``K2_MODEL`` there, which no layout choice
-reads yet.
+times K2 at every threads-a-row count, in the padded and the row-pointer
+form, on a 64-row operator and the ELL shapes of the BoomerAMG paths with
+their rows' real spread of lengths, in f32 and f64, beside the library's
+CSR SpMV (``sweep_k2``), and prints each form's rate, floor and round for
+K2's time model: the measurement behind ``kernels/ell.py:k2_plan``,
+``k2_rowptr_plan`` and ``K2_MODEL`` there, with which ``matrix/sharded.py``
+picks an ELL operator's form (``ell_form``) and prices K2 beside K4 and K6
+(``choose_layout``).
 """
 
 from __future__ import annotations
@@ -439,72 +442,139 @@ def sweep_k1(device=None, log=print) -> list:
     return rows
 
 
-# (rows, K, x length) of padded-ELL operators on the BoomerAMG paths: the
-# weak-scaling YAML at 128^3 (level 0's P and R, level 1's A) and the 64^3
-# gate-3 hierarchy (the R of levels 0, 1 and 2); the first fills the card,
-# the last is the small shape
-K2_SHAPES = ((2_097_152, 8, 170_854), (170_854, 27, 2_097_152),
-             (170_854, 40, 170_854), (21_588, 123, 262_144),
-             (1_507, 371, 21_588), (131, 638, 1_507))
+# (rows, K, x length, mean entries a row) of the ELL operators on the
+# BoomerAMG paths: the weak-scaling YAML at 128^3 (level 0's P and R, level
+# 1's A) and the 64^3 gate-3 hierarchy (level 0's P, the R of levels 0, 1
+# and 2); the first fills the card, the last is the small shape.  The means
+# are the operators' (PERF.md), estimated where PERF.md has no count
+K2_SHAPES = ((2_097_152, 8, 170_854, 2.17), (170_854, 27, 2_097_152, 26.6),
+             (170_854, 40, 170_854, 26.4), (262_144, 21, 21_588, 8.9),
+             (21_588, 123, 262_144, 108.0), (1_507, 371, 21_588, 185.0),
+             (131, 638, 1_507, 320.0))
+# the shape of K2's floor: a launch's time with almost nothing to move
+K2_FLOOR_SHAPE = (64, 4, 64, 2.5)
 
 
-def _ell_case(rows: int, K: int, ncols: int, dtype, device, gen):
-    """(vals, cols, x, bytes) of a padded-ELL operator with every slot
-    filled, row i's columns near i * ncols / rows (within 4 K), as an AMG
-    transfer's are."""
+def _ell_case(rows: int, K: int, ncols: int, mean: float, dtype, device,
+              gen):
+    """(padded (vals, cols), row-pointer (rowptr, vals, cols), x) of an
+    operator of ``rows`` rows whose counts of entries are 1 + Binomial(K -
+    1, p) with mean ``mean``, as ragged as an AMG transfer's (1 to K a row),
+    row i's columns near i * ncols / rows (within 4 K), as an AMG
+    transfer's are; the padded form pads each row to K slots."""
+    from tpusolve_torch.kernels import ell
+    p = min(1.0, max(0.0, (mean - 1) / max(K - 1, 1)))
+    counts = 1 + torch.binomial(
+        torch.full((rows,), float(K - 1), device=device),
+        torch.full((rows,), p, device=device), generator=gen).long()
     base = torch.arange(rows, device=device, dtype=torch.int64) * ncols \
         // rows
     off = torch.randint(-4 * K, 4 * K + 1, (rows, K), generator=gen,
                         device=device)
     cols = (base[:, None] + off).clamp_(0, ncols - 1).to(torch.int32)
     vals = torch.randn((rows, K), generator=gen, device=device, dtype=dtype)
+    pad = torch.arange(K, device=device)[None] >= counts[:, None]
+    vals[pad] = 0
+    cols[pad] = 0
     x = torch.randn(ncols, generator=gen, device=device, dtype=dtype)
-    itemsize = vals.element_size()
-    nbytes = (itemsize + 4) * rows * K + (ncols + rows) * itemsize
-    return vals, cols, x, nbytes
+    return (vals, cols), ell.padded_to_rowptr(vals, cols), x
 
 
 def sweep_k2(device=None, log=print) -> dict:
-    """K2's device time, in f32 and f64, at each (rows, K, x length) of
-    ``K2_SHAPES`` for every G of ``ell.GROUPS`` (``k2_plan``'s choice
-    marked), and the constants of the SpMV time model
-    (``matrix/sharded.py:spmv_model_s``) for K2 from device time: ``rate``
-    = the first shape's bytes (values, int32 columns, x and y) over its
-    time at the plan's G, ``threads_full`` = the last shape's threads
-    (rows x G) x rate x time / bytes.  Returns {"rows": [(dtype, rows, K,
-    G, device ms, plan)], "rate": {itemsize: bytes/s}, "threads_full":
-    {itemsize: threads}}."""
+    """K2's device time, in f32 and f64, at each (rows, K, x length, mean)
+    of ``K2_SHAPES``, for every G of ``ell.GROUPS`` in both forms (each
+    plan's choice marked) beside the library's CSR SpMV (cuSPARSE), each
+    row-pointer launch checked against the padded kernel at the same G (the
+    same bits) and the plain version; and the constants of K2's time model
+    (``matrix/sharded.py:ell_model_s``) for each form from device time at
+    the plans: ``floor`` = a launch's time on ``K2_FLOOR_SHAPE``, ``rate``
+    = the first shape's ``ell.ell_bytes`` over its time less the floor,
+    ``round`` = the last shape's time less the floor over its
+    ``ell.ell_stages`` (at its longest row).  Returns {"rows": [(dtype,
+    rows, K, nnz, form, G, device ms, plan)], "library": [(dtype, rows, K,
+    device ms)], "model": {form: {itemsize: (rate, floor, round)}}}."""
     from tpusolve_torch.kernels import ell
     device = device or torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    out = {"rows": [], "rate": {}, "threads_full": {}}
+    out = {"rows": [], "library": [], "model": {f: {} for f in ell.FORMS}}
     for dtype in BOTH:
-        got = []
-        for rows, K, ncols in K2_SHAPES:
-            vals, cols, x, nbytes = _ell_case(rows, K, ncols, dtype, device,
-                                              gen)
-            plan = ell.k2_plan(rows, K)
-            ms = device_ms_each({
-                str(g): (lambda g=g: ell.ell_spmv(vals, cols, x, groups=g))
-                for g in ell.GROUPS})
-            ms = {g: ms[str(g)] for g in ell.GROUPS}
-            for g in ell.GROUPS:
-                mark = " (plan)" if g == plan else ""
-                gbps = nbytes / (ms[g] * 1e-3) / 1e9
-                log(f"K2 {str(dtype)[6:]} rows={rows} K={K} x={ncols} G={g}: "
-                    f"device {ms[g]:.5f} ms, {gbps:.1f} GB/s{mark}")
-                out["rows"].append((str(dtype)[6:], rows, K, g, ms[g],
-                                    g == plan))
-            got.append((nbytes, rows * plan, ms[plan]))
+        got = {f: [] for f in ell.FORMS}
         itemsize = torch.empty((), dtype=dtype).element_size()
-        rate = got[0][0] / (got[0][2] * 1e-3)
-        nbytes, threads, ms = got[-1]
-        out["rate"][itemsize] = rate
-        out["threads_full"][itemsize] = threads * rate * ms * 1e-3 / nbytes
-        log(f"K2 f{8 * itemsize}: rate {rate / 1e12:.3f} TB/s, threads_full "
-            f"{out['threads_full'][itemsize]:.0f}")
+        dt = str(dtype)[6:]
+        for rows, K, ncols, mean in (K2_FLOOR_SHAPE,) + K2_SHAPES:
+            (pv, pc), (rp, rv, rc), x = _ell_case(rows, K, ncols, mean,
+                                                  dtype, device, gen)
+            nnz = rv.numel()
+            width = int((rp[1:] - rp[:-1]).max())
+            ref = ell.ell_spmv_plain(pv, pc, x)
+            scale = float(ref.abs().max())
+            plan = {"padded": ell.k2_plan(rows, K),
+                    "rowptr": ell.k2_rowptr_plan(rows, nnz)}
+            calls = {}
+            for form in ell.FORMS:
+                for g in ell.GROUPS:
+                    if form == "padded":
+                        fn = (lambda g=g: ell.ell_spmv(pv, pc, x, groups=g))
+                    else:
+                        fn = (lambda g=g: ell.ell_spmv(rv, rc, x, rowptr=rp,
+                                                       groups=g))
+                        y = fn()
+                        y_pad = ell.ell_spmv(pv, pc, x, groups=g)
+                        err = float((y - ref).abs().max()) / scale
+                        if not torch.equal(y, y_pad) or err > (
+                                1e-5 if itemsize == 4 else 1e-12):
+                            raise RuntimeError(
+                                f"K2 rowptr G={g} rows={rows} K={K} {dt}: "
+                                f"rel err {err:.3e}, equal to the padded "
+                                f"kernel: {torch.equal(y, y_pad)}")
+                    calls[f"{form} {g}"] = fn
+            csr = torch.sparse_csr_tensor(rp.long(), rc.long(), rv,
+                                          size=(rows, ncols))
+            calls["library"] = lambda: csr @ x
+            # each call in a trace of its own: one trace for several calls
+            # has counted a call's device events for the call before it
+            ms = {k: device_ms_each({k: fn})[k] for k, fn in calls.items()}
+            lib = ms.pop("library")
+            out["library"].append((dt, rows, K, lib))
+            for key, t in ms.items():
+                form, g = key.split()
+                g = int(g)
+                nbytes = ell.ell_bytes(form, rows, ncols, K, nnz, itemsize)
+                mark = " (plan)" if plan[form] == g else ""
+                log(f"K2 {dt} rows={rows} K={K} W={width} nnz={nnz} "
+                    f"x={ncols} {form} G={g}: device {t:.5f} ms, "
+                    f"{nbytes / 1e6:.2f} MB, "
+                    f"{nbytes / (t * 1e-3) / 1e9:.1f} GB/s{mark}")
+                out["rows"].append((dt, rows, K, nnz, form, g, t,
+                                    bool(mark)))
+                if mark:
+                    got[form].append((nbytes, ell.ell_stages(
+                        form, rows, K, nnz, width), t * 1e-3))
+            log(f"K2 {dt} rows={rows} K={K} nnz={nnz}: library (torch.sparse "
+                f"CSR) device {lib:.5f} ms")
+        for form, runs in got.items():
+            floor = runs[0][2]
+            rate = runs[1][0] / (runs[1][2] - floor)
+            round_s = (runs[-1][2] - floor) / runs[-1][1]
+            out["model"][form][itemsize] = (rate, floor, round_s)
+            log(f"K2 {form} f{8 * itemsize}: rate {rate / 1e12:.3f} TB/s, "
+                f"floor {floor * 1e3:.5f} ms, round {round_s * 1e3:.5f} ms "
+                f"({runs[-1][1]} rounds at the last shape)")
+    model = {f: {s: tuple(float(f"{v:.4g}") for v in c)
+                 for s, c in by.items()} for f, by in out["model"].items()}
+    log(f"K2_MODEL = SPMV_MODEL['ell'] = {model} ({card_line()})")
     return out
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
 
 
 if __name__ == "__main__":

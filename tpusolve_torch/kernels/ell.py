@@ -1,11 +1,19 @@
-"""Padded-ELL SpMV: plain PyTorch version and the CUDA kernel K2.
+"""ELL SpMV: plain PyTorch versions and the CUDA kernel K2, in two forms.
 
 A padded-ELL block stores, for each of its ``rows`` rows, ``K`` slots:
 
 * ``vals``: (rows, K) values, zero in padded slots and padded rows;
 * ``cols``: (rows, K) int32 columns into x, zero in padded slots.
 
-SpMV gathers x at every slot's column::
+The row-pointer form stores the same entries without the padding:
+
+* ``rowptr``: (rows + 1,) int32 or int64, row i's entries at
+  ``[rowptr[i], rowptr[i + 1])``;
+* ``vals``: (nnz,) values and ``cols``: (nnz,) int32 columns, each row's
+  entries in the padded form's slot order (so that a row sums them in the
+  same order in either form).
+
+SpMV gathers x at every entry's column::
 
     y[i] = sum_k vals[i, k] * x[cols[i, k]]
 
@@ -17,7 +25,11 @@ into x in place.
 
 ``ell_spmv`` launches the hand-written Hopper kernel K2,
 ``csrc/ell_spmv.cu`` (the port of ``tpusolve``'s ``ell_spmv_local``), on
-CUDA tensors and runs ``ell_spmv_plain`` on CPU tensors.
+CUDA tensors in either form and runs the plain versions
+(``ell_spmv_plain``, ``ell_rowptr_plain``) on CPU tensors.  Which form an
+operator is stored in is the time model's choice
+(``matrix/sharded.py:ell_form``, on :func:`ell_bytes` and
+:func:`ell_stages` with ``K2_MODEL``).
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from tpusolve_torch.kernels import build
 from tpusolve_torch.kernels.dia import epilogue_mode, epilogue_plain
 
 GROUPS = (1, 2, 4, 8, 16, 32)   # threads a row K2 is built for
+FORMS = ("padded", "rowptr")    # the two storage forms K2 runs
 # K2's launch plan (k2_plan): G threads a row until a launch has
 # K2_FILL_THREADS threads and a lane at most K2_LANE_SLOTS slots.  On the
 # ELL shapes of the BoomerAMG paths (H100 80GB HBM3 at 700 W,
@@ -38,10 +51,34 @@ GROUPS = (1, 2, 4, 8, 16, 32)   # threads a row K2 is built for
 # the fastest G but at K = 123 (32 where 8 is 13 % faster in f64)
 K2_FILL_THREADS = 131_072
 K2_LANE_SLOTS = 6
-# K2's constants for the SpMV time model (matrix/sharded.py:spmv_model_s),
-# by item size: (bytes/s at the full shape, threads_full), from the same
-# measurement; no layout choice reads them yet
-K2_MODEL = {4: (2.952e12, 48_954), 8: (2.992e12, 38_661)}
+# The row-pointer form's plan (k2_rowptr_plan): G threads a row until a
+# launch has K2_FILL_THREADS threads and a lane at most
+# K2_ROWPTR_LANE_ENTRIES of the mean row's entries
+K2_ROWPTR_LANE_ENTRIES = 4
+K2_STAGE = 4    # entries a lane loads before its adds (csrc kStage)
+# K2's constants for its time model (matrix/sharded.py:ell_model_s), by
+# form and item size: (rate in bytes/s, floor s, round s): a launch takes
+# the floor, then the longer of streaming ell_bytes at the rate and its
+# longest lane's ell_stages rounds of dependent loads.  The floor is a
+# launch's time on a 64-row operator, the rate the largest shape's bytes
+# over its time less the floor, the round the smallest shape's time less
+# the floor over its rounds; all at the plans, from `calibrate --k2` (its
+# K2_MODEL line; NVIDIA H100 80GB HBM3, 700.00 W).  The layout choice
+# (matrix/sharded.py:choose_layout) prices K2 with them beside K4 and K6,
+# and ell_form keeps the cheaper form (padded on a tie, K2_FORM_TIE)
+K2_MODEL = {"padded": {4: (3.046e12, 1.451e-06, 2.455e-07),
+                       8: (3.052e12, 1.484e-06, 2.68e-07)},
+            "rowptr": {4: (2.349e12, 1.529e-06, 2.035e-07),
+                       8: (2.583e12, 1.583e-06, 1.888e-07)}}
+# The model's resolution between K2's forms: ell_form keeps the padded form
+# unless the row-pointer form is priced lower by more than this fraction.
+# Near the floor the model cannot tell the forms apart: on the card gate
+# 3's level-2 P and R (1,507 and 131 rows) measured within 1 % in the two
+# forms while the model priced them 3-4 % apart, which of the two was
+# faster differed between two cards, and the row-pointer floor measured
+# 1.51-1.58 us (4.8 %) in separate calls of `calibrate --k2` (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md)
+K2_FORM_TIE = 0.05
 
 
 def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
@@ -63,6 +100,106 @@ def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     return out.copy_(y)
 
 
+def rowptr_to_padded(rowptr: torch.Tensor, vals: torch.Tensor,
+                     cols: torch.Tensor, width: int | None = None):
+    """(vals, cols) of the padded form, (rows, width), of a row-pointer
+    operator: row i's entries in slots ``0 .. count - 1`` in their order,
+    the rest value 0 and column 0.  ``width`` defaults to the largest count
+    of entries a row has (at least 1)."""
+    rows = rowptr.numel() - 1
+    counts = rowptr[1:] - rowptr[:-1]
+    nnz = int(rowptr[-1])
+    if width is None:
+        width = max(1, int(counts.max())) if rows else 1
+    row = torch.repeat_interleave(
+        torch.arange(rows, device=rowptr.device), counts.long())
+    slot = torch.arange(nnz, device=rowptr.device) - rowptr[row].long()
+    pv = torch.zeros((rows, width), dtype=vals.dtype, device=vals.device)
+    pc = torch.zeros((rows, width), dtype=torch.int32, device=cols.device)
+    pv[row, slot] = vals[:nnz]
+    pc[row, slot] = cols[:nnz]
+    return pv, pc
+
+
+def pack_rowptr(counts: torch.Tensor, chunks, dtype) -> tuple:
+    """(rowptr, vals, cols) of the row-pointer form of an operator with
+    ``counts[i]`` entries in row i, from ``chunks``: an iterable (read
+    after the row pointer is made) of (row, rank, vals, cols) tensors, the
+    entry of rank r in row i going to ``rowptr[i] + r``.  ``rowptr`` is
+    int32 unless the entries need int64; ``vals`` of ``dtype``, ``cols``
+    int32.  Every site that makes the form packs it here."""
+    dev = counts.device
+    rowptr = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=rowptr[1:])
+    nnz = int(rowptr[-1])
+    out_v = torch.zeros(nnz, dtype=dtype, device=dev)
+    out_c = torch.zeros(nnz, dtype=torch.int32, device=dev)
+    for row, rank, v, c in chunks:
+        pos = rowptr[row] + rank
+        out_v[pos] = v.to(dtype)
+        out_c[pos] = c.to(torch.int32)
+    if nnz < 2 ** 31:
+        rowptr = rowptr.to(torch.int32)
+    return rowptr, out_v, out_c
+
+
+def padded_to_rowptr(vals: torch.Tensor, cols: torch.Tensor):
+    """(rowptr, vals, cols) of the row-pointer form of a padded operator
+    (:func:`pack_rowptr`): each row keeps its slots up to its last one that
+    is not padding (value or column not 0), in slot order.
+    :func:`rowptr_to_padded` at the padded width gives the padded form back
+    exactly."""
+    rows, K = vals.shape
+    live = (vals != 0) | (cols != 0)
+    slot1 = torch.arange(1, K + 1, device=vals.device)
+    counts = torch.where(live, slot1, 0).amax(dim=1) if K else \
+        torch.zeros(rows, dtype=torch.int64, device=vals.device)
+    keep = slot1[None] <= counts[:, None]
+    row, rank = keep.nonzero(as_tuple=True)
+    return pack_rowptr(counts, [(row, rank, vals[keep], cols[keep])],
+                       vals.dtype)
+
+
+def ell_rowptr_plain(rowptr: torch.Tensor, vals: torch.Tensor,
+                     cols: torch.Tensor, x: torch.Tensor, b=None, s=None,
+                     c=None, w: float = 1.0, out=None,
+                     width: int | None = None) -> torch.Tensor:
+    """Plain PyTorch SpMV of the row-pointer form: the padded form at
+    ``width`` (:func:`rowptr_to_padded`) through :func:`ell_spmv_plain`, so
+    that it gives the padded plain version's bits on the same operator at
+    the same width.  Arguments as :func:`ell_spmv_plain`; ``rowptr``
+    (rows + 1,), ``vals`` and ``cols`` (nnz,)."""
+    pv, pc = rowptr_to_padded(rowptr, vals, cols, width)
+    return ell_spmv_plain(pv, pc, x, b, s, c, w, out)
+
+
+def ell_bytes(form: str, rows: int, ncols: int, K: int, nnz: int,
+              itemsize: int) -> int:
+    """Bytes one K2 launch moves in ``form``: the padded slots (value and
+    int32 column) or the entries and the row pointer (int32, int64 past
+    2**31 entries), plus x (``ncols``) and y once each."""
+    vec = (rows + ncols) * itemsize
+    if form == "padded":
+        return (itemsize + 4) * rows * K + vec
+    ptr = 4 if nnz < 2 ** 31 else 8
+    return (itemsize + 4) * nnz + ptr * (rows + 1) + vec
+
+
+def ell_stages(form: str, rows: int, K: int, nnz: int,
+               width: int | None = None) -> int:
+    """Rounds of dependent loads of K2's longest lane in ``form``: its
+    entries (``K`` slots padded, the longest row's ``width`` entries in the
+    row-pointer form, ``K`` unless given) over the plan's G, in stages of
+    ``K2_STAGE``; in the row-pointer form one more, the row's two pointers,
+    which a lane reads before it can load an entry."""
+    if form == "padded":
+        g, w = k2_plan(rows, K), K
+    else:
+        g, w = k2_rowptr_plan(rows, nnz), K if width is None else width
+    lane = -(-w // g)
+    return -(-lane // K2_STAGE) + (form != "padded")
+
+
 @functools.cache
 def k2_plan(rows: int, K: int) -> int:
     """G, the threads a row of K2 on a block of ``rows`` rows and ``K``
@@ -78,46 +215,95 @@ def k2_plan(rows: int, K: int) -> int:
 
 
 @functools.cache
+def k2_rowptr_plan(rows: int, nnz: int) -> int:
+    """G, the threads a row of K2 on a row-pointer operator of ``rows``
+    rows and ``nnz`` entries: the least G of ``GROUPS`` with ``rows * G``
+    at least ``K2_FILL_THREADS`` and at most ``K2_ROWPTR_LANE_ENTRIES`` of
+    the mean row's entries a lane, but none at or above the mean (every
+    lane of a mean row at least one entry)."""
+    g = 1
+    while g < GROUPS[-1] and g * rows < nnz and (
+            rows * g < K2_FILL_THREADS
+            or -(-nnz // (rows * g)) > K2_ROWPTR_LANE_ENTRIES):
+        g *= 2
+    return g
+
+
+@functools.cache
 def _kernel_fns():
-    """(library, {dtype: entry point}) with ctypes signatures declared."""
+    """(library, {(form, dtype): entry point}) with ctypes signatures
+    declared."""
     lib = build.load("ell_spmv")
-    fns = {torch.float32: lib.ell_spmv_f32, torch.float64: lib.ell_spmv_f64}
-    for fn in fns.values():
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_double, ctypes.c_void_p])
+    fns = {("padded", torch.float32): lib.ell_spmv_f32,
+           ("padded", torch.float64): lib.ell_spmv_f64,
+           ("rowptr", torch.float32): lib.ell_rowptr_spmv_f32,
+           ("rowptr", torch.float64): lib.ell_rowptr_spmv_f64}
+    tail = [ctypes.c_void_p] * 3 + [ctypes.c_double, ctypes.c_void_p]
+    for (form, _), fn in fns.items():
+        if form == "padded":
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                           + [ctypes.c_int] * 2 + tail)
+        else:
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                           + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                           + [ctypes.c_int] + tail)
         fn.restype = ctypes.c_int
     return lib, fns
 
 
-def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
-             b=None, s=None, c=None, w: float = 1.0, *, out=None,
-             groups: int | None = None) -> torch.Tensor:
-    """Padded-ELL SpMV, ``y = A @ x``, or with any of ``b``, ``s``, ``c``
-    given its update form ``y = c + w * s * (b - A x)`` (arguments as
-    :func:`ell_spmv_plain`); written into ``out`` when given, which may be
-    ``c`` but not x, b or s.
-
-    CPU tensors take the plain version.  CUDA tensors launch the kernel of
-    ``csrc/ell_spmv.cu`` (building it on first use) once, on the launch
-    plan of :func:`k2_plan` unless ``groups`` names another G, or raise;
-    there is no fallback.  ``ell_spmv.launches`` counts kernel launches,
-    ``ell_spmv.launches_by_form`` the same by the form's name
-    (:func:`~tpusolve_torch.kernels.dia.epilogue_mode`)."""
-    if x.device.type == "cpu":
-        return ell_spmv_plain(vals, cols, x, b, s, c, w, out)
+def _check_operands(vals, cols, x, rowptr) -> tuple:
+    """(form, rows, K or nnz) of K2's operands, or raise."""
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"ell_spmv: unsupported dtype {x.dtype}")
-    if vals.dim() != 2 or vals.dtype != x.dtype:
-        raise TypeError("ell_spmv: vals must be (rows, K) of x's dtype")
+    if rowptr is None:
+        if vals.dim() != 2 or vals.dtype != x.dtype:
+            raise TypeError("ell_spmv: vals must be (rows, K) of x's dtype")
+        if cols.dtype != torch.int32 or cols.shape != vals.shape:
+            raise TypeError("ell_spmv: cols must be int32 of vals' shape")
+        rows, K = vals.shape
+        if x.dim() != 1 or rows >= 2 ** 31 or K >= 2 ** 31 or rows * K == 0:
+            raise ValueError("ell_spmv: x must be flat and vals (rows, K) "
+                             "non-empty, below 2**31 rows")
+        return "padded", rows, K
+    if vals.dim() != 1 or vals.dtype != x.dtype:
+        raise TypeError("ell_spmv: row-pointer vals must be (nnz,) of x's "
+                        "dtype")
     if cols.dtype != torch.int32 or cols.shape != vals.shape:
         raise TypeError("ell_spmv: cols must be int32 of vals' shape")
-    rows, K = vals.shape
-    if x.dim() != 1 or rows >= 2 ** 31 or K >= 2 ** 31 or rows * K == 0:
-        raise ValueError("ell_spmv: x must be flat and vals (rows, K) "
-                         "non-empty, below 2**31 rows")
-    for name, t in (("vals", vals), ("cols", cols), ("x", x), ("b", b),
-                    ("s", s), ("c", c), ("out", out)):
+    if rowptr.dim() != 1 or rowptr.dtype not in (torch.int32, torch.int64):
+        raise TypeError("ell_spmv: rowptr must be (rows + 1,) int32 or int64")
+    rows = rowptr.numel() - 1
+    if x.dim() != 1 or not 1 <= rows < 2 ** 31:
+        raise ValueError("ell_spmv: x must be flat and rowptr hold 1 to "
+                         "2**31 - 1 rows")
+    return "rowptr", rows, vals.numel()
+
+
+def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+             b=None, s=None, c=None, w: float = 1.0, *, out=None,
+             groups: int | None = None, rowptr=None) -> torch.Tensor:
+    """ELL SpMV, ``y = A @ x``, or with any of ``b``, ``s``, ``c`` given its
+    update form ``y = c + w * s * (b - A x)`` (arguments as
+    :func:`ell_spmv_plain`); written into ``out`` when given, which may be
+    ``c`` but not x, b or s.  Without ``rowptr`` the operator is padded
+    (``vals``, ``cols`` (rows, K)); with it, row-pointer (``vals``, ``cols``
+    (nnz,)).
+
+    CPU tensors take the plain version of their form.  CUDA tensors launch
+    the kernel of ``csrc/ell_spmv.cu`` (building it on first use) once, on
+    the launch plan of :func:`k2_plan` or :func:`k2_rowptr_plan` unless
+    ``groups`` names another G, or raise; there is no fallback.
+    ``ell_spmv.launches`` counts kernel launches,
+    ``ell_spmv.launches_by_form`` the same by the update form's name
+    (:func:`~tpusolve_torch.kernels.dia.epilogue_mode`) and
+    ``ell_spmv.launches_by_layout`` by storage form (``FORMS``)."""
+    if x.device.type == "cpu":
+        if rowptr is None:
+            return ell_spmv_plain(vals, cols, x, b, s, c, w, out)
+        return ell_rowptr_plain(rowptr, vals, cols, x, b, s, c, w, out)
+    form, rows, size = _check_operands(vals, cols, x, rowptr)
+    for name, t in (("vals", vals), ("cols", cols), ("rowptr", rowptr),
+                    ("x", x), ("b", b), ("s", s), ("c", c), ("out", out)):
         if t is None:
             continue
         if t.device != x.device or not t.is_contiguous():
@@ -131,7 +317,10 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
             t is not None and t.data_ptr() == out.data_ptr()
             for t in (x, b, s)):
         raise ValueError("ell_spmv: out may be c, never x, b or s")
-    g = k2_plan(rows, K) if groups is None else groups
+    if form == "padded":
+        g = k2_plan(rows, size) if groups is None else groups
+    else:
+        g = k2_rowptr_plan(rows, size) if groups is None else groups
     if g not in GROUPS:
         raise ValueError(f"ell_spmv: groups must be one of {GROUPS}")
     # the device last: tensors on the meta device try every check above
@@ -141,15 +330,23 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     y = torch.empty(rows, dtype=x.dtype, device=x.device) if out is None \
         else out
     ptr = lambda t: None if t is None else t.data_ptr()
-    build.launch(lib, fns[x.dtype], x, "ell_spmv launch", vals.data_ptr(),
-                 cols.data_ptr(), x.data_ptr(), y.data_ptr(), rows, K, g,
-                 ptr(b), ptr(s), ptr(c), float(w))
+    tail = (ptr(b), ptr(s), ptr(c), float(w))
+    if form == "padded":
+        build.launch(lib, fns[form, x.dtype], x, "ell_spmv launch",
+                     vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
+                     y.data_ptr(), rows, size, g, *tail)
+    else:
+        build.launch(lib, fns[form, x.dtype], x, "ell_spmv launch",
+                     rowptr.data_ptr(), int(rowptr.dtype == torch.int64),
+                     vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
+                     y.data_ptr(), rows, g, *tail)
     ell_spmv.launches += 1
-    form = epilogue_mode(b, s, c)
-    forms = ell_spmv.launches_by_form
-    forms[form] = forms.get(form, 0) + 1
+    for counts, key in ((ell_spmv.launches_by_form, epilogue_mode(b, s, c)),
+                        (ell_spmv.launches_by_layout, form)):
+        counts[key] = counts.get(key, 0) + 1
     return y
 
 
 ell_spmv.launches = 0
 ell_spmv.launches_by_form = {}
+ell_spmv.launches_by_layout = {}

@@ -31,8 +31,13 @@ decision order DIA -> BDIA -> BELL -> ELL:
   runs K4, or K5 by panel steps (BDIA-XL) where a step plan fits a block's
   shared memory and the time model prices K5 strictly faster;
 * **BELL** (block ELL, ``kernels/bell.py``), run by K6;
-* **padded ELL** otherwise: every row padded to a fixed width (padding
-  entries carry value 0 and column 0).
+* **ELL** otherwise, or where K2's modelled time is below both (from
+  ``BDIA_MIN_NNZ`` entries up), run by K2 (``kernels/ell.py``) in one of two
+  forms, whichever K2's model prices faster (:func:`ell_form`; padded
+  where the two are within ``K2_FORM_TIE``): padded
+  (every row padded to a fixed width; padding entries carry value 0 and
+  column 0) or row-pointer (the entries alone, in the padded slot order,
+  under a CSR row pointer).
 
 The BDIA block size R and slot count D are chosen to minimise the matrix
 bytes one SpMV streams (the slot values and the overflow entries' columns
@@ -53,6 +58,7 @@ import torch
 from tpusolve_torch import runtime
 from tpusolve_torch.kernels import bdia as bdia_mod
 from tpusolve_torch.kernels import bell as bell_mod
+from tpusolve_torch.kernels import ell as ell_mod
 from tpusolve_torch.matrix import coo as coo_mod
 from tpusolve_torch.matrix.build import materialize
 from tpusolve_torch.matrix.vectors import to_tensor, torch_dtype, numpy_dtype
@@ -85,7 +91,12 @@ TILE_EXPANSION_FLOOR = 256 << 20
 # rate at which it streams the matrix's bytes when the launch fills the card
 # (bytes/s), and the number of threads at which it does; on random windows
 # and ids in f64, for every item size:
-SPMV_MODEL = {"bdia": (2.922e12, 24_848), "bell": (3.164e12, 80_511)}
+# and K2 (ELL), priced by its own model (ell_model_s: a launch's floor, then
+# the longer of its bytes at its rate and its longest lane's rounds of
+# dependent loads) with its own constants by storage form and item size
+# (kernels/ell.py:K2_MODEL, from `calibrate --k2`):
+SPMV_MODEL = {"bdia": (2.922e12, 24_848), "bell": (3.164e12, 80_511),
+              "ell": ell_mod.K2_MODEL}
 # K4 against K5 on a BDIA layout (band_model_s): each kernel's rate by item
 # size, on one banded operator with an overflow list like the RCM-ordered
 # ILU factors', in one full round of blocks (K5's bytes count its panels):
@@ -261,16 +272,67 @@ def plan_bell(diag_parts, row_pad: int, itemsize: int, total_nnz: int,
     return bk, tile_bytes + nparts * G * bk * 4
 
 
+def ell_model_s(form: str, rows: int, ncols: int, K: int, nnz: int,
+                itemsize: int, width: int | None = None) -> float:
+    """Modelled seconds of one K2 launch in ``form`` (``kernels/ell.py``
+    ``FORMS``) on ``rows`` rows padded to ``K`` slots, at most ``width``
+    entries a row (``K`` unless given), ``nnz`` in all, over an x of
+    ``ncols``: with ``K2_MODEL``'s (rate, floor, round), the floor plus the
+    longer of :func:`~tpusolve_torch.kernels.ell.ell_bytes` at the rate and
+    ``ell_stages`` rounds.  A launch on a few hundred rows takes about the
+    floor in either form, however many bytes it moves: its lanes' loads are
+    in flight at once.  Past the floor, a row-pointer launch that waits on
+    its loads pays one more round than the padded one, for the row
+    pointer."""
+    rate, floor, round_s = SPMV_MODEL["ell"][form][itemsize]
+    return floor + max(
+        ell_mod.ell_bytes(form, rows, ncols, K, nnz, itemsize) / rate,
+        ell_mod.ell_stages(form, rows, K, nnz, width) * round_s)
+
+
+def ell_form(rows: int, ncols: int, K: int, nnz: int, itemsize: int,
+             width: int | None = None) -> tuple:
+    """``(form, seconds)``: the storage form in which K2 runs an ELL
+    operator of ``rows`` rows padded to ``K`` slots (at most ``width``
+    entries a row, ``K`` unless given), ``nnz`` entries and ``ncols``
+    columns fastest by :func:`ell_model_s`: the row-pointer form where it
+    is priced below the padded form by more than ``K2_FORM_TIE``, else
+    padded (``tpusolve``'s form) as on a tie.  Every site that makes an ELL
+    operator stores it in this form, and only in it."""
+    t = {form: ell_model_s(form, rows, ncols, K, nnz, itemsize, width)
+         for form in ell_mod.FORMS}
+    form = ("rowptr" if t["rowptr"] * (1 + ell_mod.K2_FORM_TIE)
+            < t["padded"] else "padded")
+    return form, t[form]
+
+
+def row_counts_max(diag_parts, row_counts) -> int:
+    """The largest count of entries a row of the parts has (at least 1):
+    the padded ELL width."""
+    kd = 1
+    for p, (dlr, _, _) in enumerate(diag_parts):
+        if dlr.size:
+            kd = max(kd, int(np.bincount(
+                dlr, minlength=int(row_counts[p])).max()))
+    return kd
+
+
 def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
                   total_nnz: int, nparts: int = 1, allow_bdia: bool = True,
-                  allow_bell: bool = True):
+                  allow_bell: bool = True, allow_ell: bool = True):
     """``("bdia", (R, D, bytes, staging, xl))``, ``("bell", (K, bytes))``
-    or ``("ell", None)`` for a diag block: BDIA or BELL by modelled time
-    (:func:`spmv_model_s` with ``SPMV_MODEL``), BDIA on a tie; ELL below
-    ``BDIA_MIN_NNZ`` or when neither fits (``tpusolve``'s order, caps and
-    tie rule).  BDIA's (R, D) is :func:`plan_bdia`'s and ``staging``
+    or ``("ell", over)`` for a diag block: BDIA, BELL or ELL by modelled
+    time (:func:`spmv_model_s` with ``SPMV_MODEL``, ELL by
+    :func:`ell_form`'s cheaper form), BDIA on a tie and ELL only where
+    strictly faster; ELL below ``BDIA_MIN_NNZ`` or when neither BDIA nor
+    BELL fits (``tpusolve``'s order, caps and tie rule).  With
+    ``allow_ell=False`` ELL is only that fallback, as in ``tpusolve``.
+    BDIA's (R, D) is :func:`plan_bdia`'s and ``staging``
     :func:`_bdia_staging`'s at (R, D); ``xl`` is K5's step plan where
-    :func:`choose_xl` takes it, else None (K4)."""
+    :func:`choose_xl` takes it, else None (K4).  ``over`` is the layout
+    that ``tpusolve``'s choice (``allow_ell=False``) takes where K2 was
+    priced below it, ``"bdia"`` or ``"bell"``; None where ELL is that
+    choice too."""
     if total_nnz < BDIA_MIN_NNZ:
         return "ell", None
     best = ("ell", None, float("inf"))
@@ -289,6 +351,12 @@ def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
                 bell_mod._ngroups(row_pad), plan[0]))
             if t < best[2]:
                 best = ("bell", plan, t)
+    if allow_ell and best[0] != "ell":
+        K = row_counts_max(diag_parts, [row_pad] * len(diag_parts))
+        t = nparts * ell_form(row_pad, col_pad, K, total_nnz // nparts,
+                              itemsize)[1]
+        if t < best[2]:
+            best = ("ell", best[0], t)
     if best[0] == "bdia":
         R, D, nbytes = best[1]
         staging = _bdia_staging(diag_parts, R, D, row_pad, col_pad)
@@ -300,8 +368,8 @@ def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
 @dataclass(frozen=True)
 class ShardedMatrix:
     # --- device data (leading axis = part) ---
-    diag_vals: torch.Tensor   # (P, row_pad, Kd) ELL values (1 wide if BDIA)
-    diag_cols: torch.Tensor   # (P, row_pad, Kd) int32 local column
+    diag_vals: torch.Tensor   # (P, row_pad, Kd) padded-ELL values (1 wide
+    diag_cols: torch.Tensor   # and zero in other layouts); int32 columns
     bdia_vals: torch.Tensor | None    # (P, B, D, R) blocked-DIA rows
     bdia_starts: torch.Tensor | None  # (P, B, D) int32 x-window starts
     bell_vals: torch.Tensor | None    # (P, G, K, 8, 128) dense tiles
@@ -332,6 +400,18 @@ class ShardedMatrix:
     dia_vals: torch.Tensor | None = None   # (P, D, nz, ny, nx) planes
     dia_offsets: tuple | None = None       # D (dz, dy, dx) triples
     dia_shape: tuple | None = None         # declared (nz, ny, nx); None: 1-D
+    # --- row-pointer ELL (K2's other form); None -> padded or another
+    # layout.  Part p's row i holds entries [rowptr[p, i], rowptr[p, i+1])
+    # of ell_vals[p], ell_cols[p], in the padded form's slot order
+    ell_rowptr: torch.Tensor | None = None  # (P, row_pad + 1) int32 / int64
+    ell_vals: torch.Tensor | None = None    # (P, nnz)
+    ell_cols: torch.Tensor | None = None    # (P, nnz) int32 local columns
+    # the largest count of entries a row has, on either ELL form
+    row_width: int | None = None
+    # ELL where K2 was priced below this layout, the one tpusolve's choice
+    # takes ("bdia" or "bell"; choose_layout); None where tpusolve's is ELL
+    # too or the operator is in another layout
+    priced_over: str | None = None
 
     @property
     def nparts(self) -> int:
@@ -363,9 +443,25 @@ class ShardedMatrix:
 
     @property
     def uses_ell(self) -> bool:
-        """The padded-ELL layout: ``diag_vals``/``diag_cols`` hold the
-        operator (K2), no other layout's arrays are set."""
+        """An ELL layout, run by K2: padded (``diag_vals``/``diag_cols``
+        hold the operator) or row-pointer (:attr:`uses_ell_rowptr`); no
+        other layout's arrays are set."""
         return not (self.uses_dia or self.uses_bdia or self.uses_bell)
+
+    @property
+    def uses_ell_rowptr(self) -> bool:
+        """The row-pointer ELL form (``ell_rowptr``, ``ell_vals``,
+        ``ell_cols``)."""
+        return self.ell_rowptr is not None
+
+    @property
+    def ell_arrays(self) -> tuple:
+        """``(vals, cols, rowptr)`` of part 0 of an ELL operator, as
+        ``kernels.ell.ell_spmv`` takes them: the padded (rows, K) arrays
+        and None, or the row-pointer form's."""
+        if self.uses_ell_rowptr:
+            return self.ell_vals[0], self.ell_cols[0], self.ell_rowptr[0]
+        return self.diag_vals[0], self.diag_cols[0], None
 
     @property
     def bdia_ovf(self):
@@ -384,6 +480,8 @@ class ShardedMatrix:
         if self.uses_bell:
             _, G, K = self.bell_ids.shape
             return f"BELL K={K} G={G}"
+        if self.uses_ell_rowptr:
+            return f"ELL-RP nnz={self.nnz} W={self.row_width}"
         if not self.uses_bdia:
             return f"ELL K={self.diag_vals.shape[-1]}"
         _, B, D, R = self.bdia_vals.shape
@@ -400,7 +498,7 @@ class ShardedMatrix:
     def from_coo(shape, rows, cols, vals, *, device, dtype=None,
                  dedup="add", row_offsets=None, col_offsets=None,
                  allow_dia: bool = True, allow_bdia: bool = True,
-                 allow_bell: bool = True):
+                 allow_bell: bool = True, allow_ell: bool = True):
         """Assemble a global COO (any order, duplicates combined per
         ``dedup``) — the IJ ``SetValues/AddToValues + Assemble`` pipeline
         (ref: src/HypreSystem.cpp:600-636, 897-955)."""
@@ -421,12 +519,13 @@ class ShardedMatrix:
             shape, parts, device=device, dtype=dtype,
             row_offsets=row_offsets, col_offsets=col_offsets,
             allow_dia=allow_dia, allow_bdia=allow_bdia,
-            allow_bell=allow_bell)
+            allow_bell=allow_bell, allow_ell=allow_ell)
 
     @staticmethod
     def from_csr_host(M, *, device, dtype=None, row_offsets=None,
                       col_offsets=None, allow_dia: bool = True,
-                      allow_bdia: bool = True, allow_bell: bool = True):
+                      allow_bdia: bool = True, allow_bell: bool = True,
+                      allow_ell: bool = True):
         """Assemble a host CSR directly: row blocks are contiguous indptr
         slices, already row-sorted, so no global COO sort (the AMG setup's
         P, R and Galerkin coarse operators arrive as CSR)."""
@@ -446,15 +545,16 @@ class ShardedMatrix:
             M.shape, parts, device=device, dtype=dtype,
             row_offsets=row_offsets, col_offsets=col_offsets,
             allow_dia=allow_dia, allow_bdia=allow_bdia,
-            allow_bell=allow_bell)
+            allow_bell=allow_bell, allow_ell=allow_ell)
 
     @staticmethod
     def from_local_parts(shape, parts, *, device, dtype=None,
                          row_offsets=None, col_offsets=None,
                          allow_dia: bool = True, allow_bdia: bool = True,
-                         allow_bell: bool = True):
+                         allow_bell: bool = True, allow_ell: bool = True):
         """Assemble from per-part (local_rows, global_cols, vals) triples,
-        unique per (row, col), in any order."""
+        unique per (row, col), in any order.  ``allow_*`` take a layout out
+        of the choice (:func:`choose_layout`); ELL stays the fallback."""
         nrows, ncols = shape
         nparts = len(parts)
         require_single_part(nparts)
@@ -502,7 +602,8 @@ class ShardedMatrix:
         # restriction (XLA's f64 emulation cannot rewrite its Pallas calls)
         # that K4, K5 and K6 do not have
         kind, plan = choose_layout(diag_parts, row_pad, col_pad, itemsize,
-                                   total_nnz, nparts, allow_bdia, allow_bell)
+                                   total_nnz, nparts, allow_bdia, allow_bell,
+                                   allow_ell)
         fields = {}
         if kind != "ell":
             if kind == "bdia":
@@ -510,22 +611,24 @@ class ShardedMatrix:
             else:
                 fields = _bell_fields(diag_parts, plan[0], row_pad, col_pad,
                                       dtype, device)
-            dvals = torch.zeros((nparts, row_pad, 1), dtype=torch_dtype(dtype),
-                                device=device)
-            dcols = torch.zeros((nparts, row_pad, 1), dtype=torch.int32,
-                                device=device)
+            dvals, dcols = _placeholders(nparts, row_pad, dtype, device)
         else:
-            kd = 1
-            for p, (dlr, _, _) in enumerate(diag_parts):
-                if dlr.size:
-                    kd = max(kd, int(np.bincount(
-                        dlr, minlength=int(row_counts[p])).max()))
-            compacted = [_ell_compact(kd, *dp) for dp in diag_parts]
-            idx = [c[0] for c in compacted]
-            dvals = materialize(idx, [c[1] for c in compacted],
-                                (row_pad, kd), dtype, device)
-            dcols = materialize(idx, [c[2] for c in compacted],
-                                (row_pad, kd), np.int32, device)
+            kd = row_counts_max(diag_parts, row_counts)
+            form = ell_form(row_pad, col_pad, kd, total_nnz // nparts,
+                            itemsize)[0]
+            fields["priced_over"] = plan
+            if form == "rowptr":
+                fields.update(_ell_rowptr_fields(kd, diag_parts[0], row_pad,
+                                                 dtype, device))
+                dvals, dcols = _placeholders(nparts, row_pad, dtype, device)
+            else:
+                compacted = [_ell_compact(kd, *dp) for dp in diag_parts]
+                idx = [c[0] for c in compacted]
+                dvals = materialize(idx, [c[1] for c in compacted],
+                                    (row_pad, kd), dtype, device)
+                dcols = materialize(idx, [c[2] for c in compacted],
+                                    (row_pad, kd), np.int32, device)
+            fields["row_width"] = kd
 
         # main diagonal: only where rows and columns share one partition
         # (square operators; a rectangular P or R has none)
@@ -543,6 +646,9 @@ class ShardedMatrix:
             bell_vals=fields.pop("bell_vals", None),
             bell_ids=fields.pop("bell_ids", None),
             diag=to_tensor(diag_main, device),
+            ell_rowptr=fields.pop("ell_rowptr", None),
+            ell_vals=fields.pop("ell_vals", None),
+            ell_cols=fields.pop("ell_cols", None),
             shape=(int(nrows), int(ncols)),
             row_offsets=tuple(int(o) for o in row_offsets),
             col_offsets=tuple(int(o) for o in col_offsets),
@@ -615,7 +721,10 @@ class ShardedMatrix:
         ``row_offsets``, ``col_offsets``, ``row_pad``, ``col_pad``, ``nnz``,
         ``bdia_block``, ``bdia_xpad``, ``bdia_xlen``, ``bell_nwin``,
         ``has_offd``, ``uses_dia``, ``dia_offsets``, ``dia_shape``), so
-        that both packages can run on one identical layout.  A DIA operator
+        that both packages can run on one identical layout.  A padded-ELL
+        operator takes the form K2's model prices cheaper
+        (:func:`ell_form`), as every ELL operator of the port does: the
+        same entries in the same slot order.  A DIA operator
         (``arrays``' ``dia_vals``) goes through :meth:`from_dia_parts`, its
         flat offsets decomposed by :func:`dia_triples`, which raises where
         that is ambiguous.  The overflow list (the same entries) is converted
@@ -655,6 +764,8 @@ class ShardedMatrix:
             nnz=int(meta["nnz"]), bdia_block=meta.get("bdia_block"),
             bdia_xpad=meta.get("bdia_xpad"), bdia_xlen=meta.get("bdia_xlen"),
             bell_nwin=meta.get("bell_nwin"), **ovf)
+        if A.uses_ell:
+            A = A.with_ell_form()
         if A.uses_bdia:
             _check_windows(arrays["bdia_starts"], A.bdia_block, A.bdia_xlen)
             if arrays.get("bdia_rowstart") is not None:
@@ -701,6 +812,14 @@ class ShardedMatrix:
                                      .numpy()])
                 vals = np.concatenate([vals, self.bdia_ovf_vals[0, :k].cpu()
                                        .numpy()])
+        elif self.uses_ell_rowptr:
+            ptr = self.ell_rowptr[0].cpu().numpy().astype(np.int64)
+            k = int(ptr[-1])
+            lr = np.repeat(np.arange(self.row_pad), np.diff(ptr))
+            lc = self.ell_cols[0, :k].cpu().numpy().astype(np.int64)
+            vals = self.ell_vals[0, :k].cpu().numpy()
+            live = vals != 0   # as the padded form: stored zeros dropped
+            lr, lc, vals = lr[live], lc[live], vals[live]
         else:
             ev = self.diag_vals[0].cpu().numpy()
             ec = self.diag_cols[0].cpu().numpy()
@@ -716,7 +835,8 @@ class ShardedMatrix:
         """Value-dtype cast of the same operator (layout and index tensors
         shared).  Used for the mixed-precision f32 twin.  A BDIA operator
         chooses between K4 and K5 again (:func:`choose_xl`): whether a
-        panel fits, and what it costs, depend on the item size."""
+        panel fits, and what it costs, depend on the item size.  An ELL
+        operator keeps its form."""
         dtype = torch_dtype(dtype)
         if self.dtype == dtype:
             return self
@@ -725,7 +845,7 @@ class ShardedMatrix:
             self, diag_vals=cast(self.diag_vals),
             bdia_vals=cast(self.bdia_vals), bell_vals=cast(self.bell_vals),
             bdia_ovf_vals=cast(self.bdia_ovf_vals), diag=cast(self.diag),
-            dia_vals=cast(self.dia_vals))
+            dia_vals=cast(self.dia_vals), ell_vals=cast(self.ell_vals))
         if A.uses_bdia:
             P, B, D, R = A.bdia_vals.shape
             itemsize = A.bdia_vals.element_size()
@@ -735,6 +855,24 @@ class ShardedMatrix:
                            itemsize, bdia_bytes(P * B, D, R, k, itemsize))
             A = A._with_xl(xl)
         return A
+
+    def with_ell_form(self) -> "ShardedMatrix":
+        """A one-part padded-ELL operator in the form K2's model prices
+        cheaper (:func:`ell_form`): itself, or the row-pointer form of the
+        same entries (``kernels/ell.py:padded_to_rowptr``).  ``row_width``
+        is set from the entries."""
+        require_single_part(self.nparts)
+        vals, cols = self.diag_vals[0], self.diag_cols[0]
+        rowptr, rv, rc = ell_mod.padded_to_rowptr(vals, cols)
+        width = max(1, int((rowptr[1:] - rowptr[:-1]).max()))
+        form = ell_form(self.row_pad, self.col_pad, vals.shape[-1],
+                        rv.numel(), vals.element_size(), width)[0]
+        if form == "padded":
+            return dataclasses.replace(self, row_width=width)
+        dvals, dcols = _placeholders(1, self.row_pad, vals.dtype, self.device)
+        return dataclasses.replace(
+            self, diag_vals=dvals, diag_cols=dcols, ell_rowptr=rowptr[None],
+            ell_vals=rv[None], ell_cols=rc[None], row_width=width)
 
     def _with_xl(self, xl) -> "ShardedMatrix":
         """The same operator run by K5 on step plan ``xl`` = (gb, step_lo,
@@ -929,6 +1067,30 @@ def _ovf_fields(ovf_parts, row_pad, col_pad, dtype, device) -> dict:
     return dict(bdia_ovf_ptr=to_tensor(ptr, device),
                 bdia_ovf_cols=to_tensor(cols, device),
                 bdia_ovf_vals=to_tensor(vals, device))
+
+
+def _placeholders(nparts: int, row_pad: int, dtype, device) -> tuple:
+    """The (P, row_pad, 1) zero ``diag_vals`` and ``diag_cols`` of a layout
+    that keeps its operator elsewhere (they carry its dtype and device)."""
+    tdt = dtype if isinstance(dtype, torch.dtype) else torch_dtype(dtype)
+    return (torch.zeros((nparts, row_pad, 1), dtype=tdt, device=device),
+            torch.zeros((nparts, row_pad, 1), dtype=torch.int32,
+                        device=device))
+
+
+def _ell_rowptr_fields(k, diag_part, row_pad, dtype, device) -> dict:
+    """Row-pointer ELL tensors of one part's (local rows, cols, vals), packed
+    by ``kernels/ell.py:pack_rowptr``: each row's entries at their ranks in
+    :func:`_ell_compact`'s padded layout of width ``k`` (its slot order)."""
+    idx, vals, cols = _ell_compact(k, *diag_part)
+    row, rank = idx // k, idx % k
+    t = lambda a: to_tensor(a, device)
+    rowptr, vals, cols = ell_mod.pack_rowptr(
+        t(np.bincount(row, minlength=row_pad)), [(t(row), t(rank), t(vals),
+                                                  t(cols))],
+        torch_dtype(dtype))
+    return dict(ell_rowptr=rowptr[None], ell_vals=vals[None],
+                ell_cols=cols[None])
 
 
 def _ell_compact(k, lrows, lcols, vals):

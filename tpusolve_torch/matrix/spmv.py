@@ -8,10 +8,12 @@ K1 through ``kernels.dia``.  A BDIA diag block runs
 K4 through ``kernels.bdia``, or K5 where it carries a step plan (BDIA-XL,
 as ``tpusolve`` dispatches to its XL kernel), each of which also adds the
 spilled entries of its overflow list, each row its own; a BELL diag block
-runs K6 through ``kernels.bell``, and a padded-ELL one (the AMG transfers
-and some AMG levels) K2 through ``kernels.ell``.  ``spmv_update`` computes
-the update form ``c + w * s * (b - A x)`` of the V-cycle's residuals and
-smoothers: one K1 launch on a box-DIA operator, one K2 launch on ELL.
+runs K6 through ``kernels.bell``, and an ELL one (the AMG transfers and
+the AMG levels K2's model prices fastest), padded or row-pointer, K2
+through ``kernels.ell``.  ``spmv_update`` computes the update form ``c + w
+* s * (b - A x)`` of the V-cycle's residuals and smoothers and the
+prolongation's add: one K1 launch on a box-DIA operator, one K2 launch on
+ELL.
 Multi-part operators
 (offd ELL block and halo exchange, ``tpusolve``'s ``halo_exchange`` and
 ``_offd_add``) are not ported yet: ``ShardedMatrix`` refuses to build them.
@@ -42,16 +44,18 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
                          A.bdia_xlen, A.row_pad, A.bdia_ovf)
     if A.uses_bell:
         return bell_spmv(A.bell_vals, A.bell_ids, x, A.bell_nwin, A.row_pad)
-    return ell_spmv(A.diag_vals[0], A.diag_cols[0], x)
+    vals, cols, rowptr = A.ell_arrays
+    return ell_spmv(vals, cols, x, rowptr=rowptr)
 
 
 def spmv_update(A, x: torch.Tensor, *, b=None, s=None, c=None,
-                w: float = 1.0) -> torch.Tensor:
+                w: float = 1.0, out=None) -> torch.Tensor:
     """``y = c + w * s * (b - A x)`` over A's padded rows, each of ``b``,
     ``s``, ``c`` (padded vectors) possibly None (b = 0, s = 1, c = 0), at
     least one given: the residual ``b - A x``, the Jacobi sweep
     ``x + w * dinv * (b - A x)``, Chebyshev's ``dinv * (b - A x)`` and
-    ``r - dinv * A d``.
+    ``r - dinv * A d``; with ``out`` (which may be ``c``) the result is
+    written there: the prolongation ``x + P e`` is ``c = x``, ``w = -1``.
 
     On a box-DIA operator it is one K1 launch, on padded ELL one K2
     launch, the update fused into the kernel.  On BDIA, BDIA-XL and BELL it
@@ -61,8 +65,11 @@ def spmv_update(A, x: torch.Tensor, *, b=None, s=None, c=None,
     before, bit for bit."""
     if b is None and s is None and c is None:
         raise ValueError("spmv_update: give b, s or c (spmv computes A x)")
-    if A.uses_dia:
-        return dia_spmv(A.dia_vals, A.dia_offsets, x, b, s, c, w)
     if A.uses_ell:
-        return ell_spmv(A.diag_vals[0], A.diag_cols[0], x, b, s, c, w)
-    return epilogue_plain(spmv(A, x), b, s, c, w)
+        vals, cols, rowptr = A.ell_arrays
+        return ell_spmv(vals, cols, x, b, s, c, w, out=out, rowptr=rowptr)
+    if A.uses_dia:
+        y = dia_spmv(A.dia_vals, A.dia_offsets, x, b, s, c, w)
+    else:
+        y = epilogue_plain(spmv(A, x), b, s, c, w)
+    return y if out is None else out.copy_(y)
