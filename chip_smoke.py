@@ -48,9 +48,11 @@ toolkit (nvcc) and PyTorch built for CUDA:
    iterations;
 6. gate 1: ``examples/gate1_64cube_pcg_amg.yaml`` as it is (64^3 =
    262,144 rows, ``mixed``) through the CLI: the 27-point stencil as box
-   DIA, the PFMG-style structured hierarchy (DIA-algebra RAP, the K3 box
-   transfers, l1-Jacobi, dense coarse solve), PCG in f32 inside f64
-   refinement, golden check; then K1 against its plain version on every
+   DIA, the PFMG-style structured hierarchy (DIA-algebra RAP, the box
+   transfers carried inside K1's launches by the fused kernels of
+   ``csrc/box_cycle.cu``, l1-Jacobi, dense coarse solve), PCG in f32 inside
+   f64 refinement, golden check, the preconditioner's applications
+   counted; then K1 against its plain version on every
    level in f32 and f64, in the plain form and each update form
    ``c + w * s * (b - A x)`` of the cycle, and the same bits in two runs;
    at each level (and on the f64 A) K1's time, the plain version's, the
@@ -60,12 +62,20 @@ toolkit (nvcc) and PyTorch built for CUDA:
    the card, and each kernel's time, the plain version's, the library's
    (``interpolate``, trilinear, for the prolongation, and its backward,
    ``upsample_trilinear3d_backward``, for the restriction) and the bound;
+   the fused kernels (the restriction with K1's residual, the
+   prolongation with K1's first post-smoothing update, in its Jacobi and
+   Chebyshev forms) against their plain versions and, bit for bit,
+   against the pairs of launches they replace on every transition in f32
+   and f64, each one's time in turns with the pair's, the plain version's,
+   a library reference (no single PyTorch call computes either) and the
+   bound; one whole V-cycle against the pair-form cycle bit for bit;
    then one warm solve under
    ``torch.profiler``: device operations and device time by kernel class
    (K1, K3, ...), K1's launches by form, and the device's idle share;
 7. gate 2: ``examples/gate2_weakscale_gmres_cheby.yaml`` as it is (128^3 =
    2,097,152 rows, ``single``, GMRES(20) + Chebyshev-smoothed PFMG) through
-   the CLI, then the same K1 and K3 checks and timings at its five levels
+   the CLI, then the same K1, K3 and fused checks and timings at its five
+   levels
    and four transitions, its warm-solve profile, and K1 on a 4-wide coarse
    box against the exact CSR product;
 8. (run right after step 3's checks, before gate 4) the device AMG setup
@@ -103,9 +113,11 @@ second-to-last line is a JSON object with one entry per kernel (launches,
 device and per-call times, plain, library and bound); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines, as does a machine without CUDA or a directory without
-the ``tpusolve_torch`` package.  Gates 1 and 2 fail unless K1 and both K3
-kernels ran during their run and no other SpMV kernel did (every operator
-of the structured path is box DIA).  ``profile_solves.py`` profiles the
+the ``tpusolve_torch`` package.  Gates 1 and 2 fail unless K1 and both
+fused kernels ran during their run, each fused kernel exactly once a
+transition and preconditioner application, the standalone K3 kernels not
+at all (they stay as the yardstick of the fused ones) and no other SpMV
+kernel (every operator of the structured path is box DIA).  ``profile_solves.py`` profiles the
 warm solves of gates 1 and 2 alone, also of an earlier checkout.
 """
 
@@ -1438,12 +1450,195 @@ def transfer_check(pre, what: str, device_name: str, seed: int) -> list:
     return rows
 
 
+# the fused kernels' library note: no single PyTorch call computes either
+FUSED_LIBRARY = ("none: no single PyTorch call computes the fused function; "
+                 "the reference beside it is the sum of the CSR SpMV "
+                 "(cuSPARSE) and the transfer's library call")
+
+
+def fused_check(pre, what: str, device_name: str, seed: int) -> list:
+    """The fused cycle kernels (``csrc/box_cycle.cu``) on every transition
+    of the structured hierarchy ``pre``, on the level's own operator, in
+    f32 and f64: ``box_restrict_residual`` against its plain version
+    (relative error under RTOL) and against the pair it replaces, K1's
+    residual then K3's restriction (bit for bit); ``box_prolong_update`` in
+    the Jacobi form (c = x') and in Chebyshev's first step (x' written out)
+    the same way against K3's prolongation then K1's update.  Then in the
+    level's dtype each kernel's device and per-call time, in turns with the
+    pair's two launches (fused, pair, pair, fused), the plain version's,
+    the library reference (the CSR SpMV plus ``interpolate``'s backward, or
+    ``interpolate``) and the bound: A's planes (its nonzeros), x, b (and s,
+    ec) read once and the outputs written once, over the card's HBM rate.
+    Returns one row per (transition, kernel)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tpusolve_torch.kernels.calibrate import time_ms
+    from tpusolve_torch.kernels.dia import dia_spmv
+    from tpusolve_torch.kernels.transfer import (
+        box_prolong, box_prolong_update, box_restrict, box_restrict_residual,
+        prolong_update_plain, restrict_residual_plain)
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(len(pre.levels) - 1):
+        A = pre.levels[i].A
+        fine = tuple(A.dia_shape)
+        coarse = tuple(pre.levels[i + 1].A.dia_shape)
+        offs = A.dia_offsets
+        nf, nc = int(np.prod(fine)), int(np.prod(coarse))
+        dev = A.device
+        name = (f"{what} transition {i}->{i + 1} ({'x'.join(map(str, fine))}"
+                f" <-> {'x'.join(map(str, coarse))}, D={len(offs)})")
+
+        def vec(n, dt):
+            return torch.tensor(rng.standard_normal(n), dtype=dt, device=dev)
+        errs = {"restrict": [], "prolong": []}
+        for dt in (torch.float32, torch.float64):
+            vals = A.dia_vals.to(dt)
+            x, b, s, ec = vec(nf, dt), vec(nf, dt), vec(nf, dt), vec(nc, dt)
+            key = str(dt).replace("torch.", "")
+            xn = torch.empty_like(x)
+            xp = box_prolong(fine, coarse, ec, x)
+            cases = (
+                ("restrict", box_restrict_residual(fine, coarse, vals, offs,
+                                                   x, b),
+                 box_restrict(fine, coarse, dia_spmv(vals, offs, x, b=b)),
+                 restrict_residual_plain(fine, coarse, vals, offs, x, b)),
+                ("prolong", box_prolong_update(fine, coarse, vals, offs, ec,
+                                               x, b, s, 1.0, True),
+                 dia_spmv(vals, offs, xp, b, s, xp, 1.0),
+                 prolong_update_plain(fine, coarse, vals, offs, ec, x, b, s,
+                                      1.0, True)),
+                ("prolong", box_prolong_update(fine, coarse, vals, offs, ec,
+                                               x, b, s, 1.0, False, xn),
+                 dia_spmv(vals, offs, xp, b, s),
+                 prolong_update_plain(fine, coarse, vals, offs, ec, x, b, s,
+                                      1.0, False)))
+            torch.cuda.synchronize()
+            for kind, y, y_pair, y_plain in cases:
+                err = rel_err(y, y_plain)
+                if not err <= RTOL[key]:
+                    fail(f"{name} {key}: fused {kind} vs plain rel err "
+                         f"{err:.3e} > {RTOL[key]}")
+                same = bool(torch.equal(y, y_pair))
+                if not same:
+                    fail(f"{name} {key}: fused {kind} differs from the pair "
+                         "of launches it replaces")
+                errs[kind].append((err, float((y - y_plain).abs().max())))
+            if not torch.equal(xn, xp):
+                fail(f"{name} {key}: the fused prolongation's x' differs "
+                     "from K3's")
+        dt = A.dtype
+        vals = A.dia_vals
+        x, b, s, ec = vec(nf, dt), vec(nf, dt), vec(nf, dt), vec(nc, dt)
+        lib_spmv, lx = library_spmv(A)
+        lx.copy_(x)
+        rf = vec(nf, dt)
+        lib_up = lambda: F.interpolate(ec.reshape((1, 1) + coarse),
+                                       scale_factor=2, mode="trilinear",
+                                       align_corners=False)
+        lib_down = lambda: torch.ops.aten.upsample_trilinear3d_backward(
+            rf.reshape((1, 1) + fine), list(fine), [1, 1] + list(coarse),
+            False, 2.0, 2.0, 2.0)
+        calls = {
+            "restrict": {
+                "fused": lambda: box_restrict_residual(fine, coarse, vals,
+                                                       offs, x, b),
+                "pair": lambda: box_restrict(fine, coarse, dia_spmv(
+                    vals, offs, x, b=b)),
+                "plain": lambda: restrict_residual_plain(fine, coarse, vals,
+                                                         offs, x, b)},
+            "prolong": {
+                "fused": lambda: box_prolong_update(fine, coarse, vals, offs,
+                                                    ec, x, b, s, 1.0, True),
+                "pair": lambda: dia_spmv(vals, offs, box_prolong(
+                    fine, coarse, ec, x), b, s, None, 1.0),
+                "plain": lambda: prolong_update_plain(fine, coarse, vals,
+                                                      offs, ec, x, b, s, 1.0,
+                                                      True)}}
+        lib = {"restrict": (lib_spmv, lib_down), "prolong": (lib_spmv,
+                                                             lib_up)}
+        item = x.element_size()
+        nbytes = {"restrict": (A.nnz + 2 * nf + nc) * item,
+                  "prolong": (A.nnz + 4 * nf + nc) * item}
+        dev_ms = device_times({f"{kind} {k}": call
+                               for kind, cl in calls.items()
+                               for k, call in cl.items()})
+        dev_ms.update(device_times({
+            f"{kind} lib {j}": call for kind, pair in lib.items()
+            for j, call in enumerate(pair)}))
+        for kind, cl in calls.items():
+            runs = {k: [] for k in cl}
+            for k in ("fused", "pair", "pair", "fused", "plain"):
+                runs[k].append(time_ms(cl[k]))
+            row = dict(op=name, kernel=kind, dtype=str(dt).replace(
+                "torch.", ""), fine=fine, coarse=coarse, slots=len(offs),
+                rel_err=max(e[0] for e in errs[kind]),
+                max_abs_err=max(e[1] for e in errs[kind]),
+                equal_to_pair=True,
+                bound_ms=bound_ms(nbytes[kind], device_name),
+                library=FUSED_LIBRARY,
+                library_reference_dev_ms=dev_ms[f"{kind} lib 0"]
+                + dev_ms[f"{kind} lib 1"])
+            for k, ts in runs.items():
+                row[k + "_ms"] = min(ts)
+                row[k + "_runs"] = ts
+                row[k + "_dev_ms"] = dev_ms[f"{kind} {k}"]
+            print(f"{name} {row['dtype']} fused {kind}: device "
+                  f"{row['fused_dev_ms']:.5f} ms, per call "
+                  f"{row['fused_ms']:.5f} ms (runs "
+                  f"{ts_str(row['fused_runs'])}); the pair device "
+                  f"{row['pair_dev_ms']:.5f} ms, per call "
+                  f"{row['pair_ms']:.5f} ms (runs "
+                  f"{ts_str(row['pair_runs'])}); plain device "
+                  f"{row['plain_dev_ms']:.5f} ms, per call "
+                  f"{row['plain_ms']:.5f} ms; library none (reference: CSR "
+                  f"SpMV + {'interpolate backward' if kind == 'restrict' else 'interpolate'} "
+                  f"device {row['library_reference_dev_ms']:.5f} ms); bound "
+                  f"{row['bound_ms']:.5f} ms; vs plain rel err "
+                  f"{row['rel_err']:.3e} (f32 and f64), equal to the pair "
+                  "bit for bit (f32 and f64)", flush=True)
+            rows.append(row)
+    return rows
+
+
+def cycle_check(pre, what: str, seed: int) -> dict:
+    """One V-cycle of the hierarchy ``pre`` as the run built it (the fused
+    kernels on every transition) against the same cycle built in the pair
+    form (``amg/builder.py:_build_cycle(..., fused=False)``), on one random
+    vector, bit for bit; fails otherwise."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.amg import builder
+    cfg = pre.config
+    kind_down, kind_up, kind_coarse, _ = builder._resolve_kinds(cfg)
+    kind_coarse, coarse_sweeps = builder._guard_coarse(
+        kind_coarse, pre.levels[-1].n, cfg, [])
+    pair = builder._build_cycle(pre, kind_down, kind_up, cfg,
+                                kind_coarse=kind_coarse,
+                                coarse_sweeps=coarse_sweeps, fused=False)
+    A = pre.levels[0].A
+    r = torch.tensor(np.random.default_rng(seed).standard_normal(
+        A.row_pad), dtype=A.dtype, device=A.device)
+    z, z_pair = pre.apply(r), pair(r)
+    same = bool(torch.equal(z, z_pair))
+    print(f"{what} one V-cycle, fused against the pair form "
+          f"{pre.cycle.fused} vs {pair.fused}: equal bit for bit: {same}",
+          flush=True)
+    if not same or not all(all(f) for f in pre.cycle.fused):
+        fail(f"{what}: the fused V-cycle differs from the pair form, or a "
+             "transition runs the pair")
+    return dict(equal=same, fused=pre.cycle.fused)
+
+
 def ts_str(ts) -> str:
     return ", ".join(f"{t:.5f}" for t in ts)
 
 
 # kernel-name classes of the solve profile, first match wins
 PROFILE_CLASSES = (("K4 and K5", ("bdia_spmv",)),
+                   ("K1 with K3", ("restrict_residual", "prolong_update")),
                    ("K1", ("dia_spmv",)),
                    ("K3", ("box_prolong", "box_restrict")),
                    ("K6", ("bell_spmv",)),
@@ -1542,31 +1737,52 @@ def solve_profile(system, what: str) -> dict:
 
 def structured_phase(what: str, yaml_name: str, tol: float, device_name,
                      counters, seed: int):
-    """Gate 1 or 2 (``examples/<yaml_name>`` as it is) through the CLI;
-    returns (launches, K1's launches by form, system, result, K1 check
-    errors, K1 timing rows, K3 rows).  The system is left for the caller
-    to destroy."""
+    """Gate 1 or 2 (``examples/<yaml_name>`` as it is) through the CLI,
+    counting the preconditioner's applications; returns (launches, K1's
+    launches by form, system, result, K1 check errors, K1 timing rows, K3
+    rows, fused rows, cycle check).  The system is left for the caller to
+    destroy."""
+    from tpusolve_torch.amg import builder
     from tpusolve_torch.kernels.dia import dia_spmv, launches_by_mode
-    from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
+    from tpusolve_torch.kernels.transfer import (
+        box_prolong, box_prolong_update, box_restrict, box_restrict_residual)
     yaml_path = os.path.join(REPO, "examples", yaml_name)
-    rc, system, wall, launches = run_cli(yaml_path, counters)
+    apply, applied = builder.AMGPreconditioner.apply, [0]
+
+    def counted(self, r):
+        applied[0] += 1
+        return apply(self, r)
+    builder.AMGPreconditioner.apply = counted
+    try:
+        rc, system, wall, launches = run_cli(yaml_path, counters)
+    finally:
+        builder.AMGPreconditioner.apply = apply
     by_form = launches_by_mode()
     print(f"{what} path: cli exit {rc}, {wall:.1f} s wall, launches "
-          f"{launches}; K1 by form {by_form}", flush=True)
+          f"{launches}; K1 by form {by_form}; {applied[0]} preconditioner "
+          "applications", flush=True)
     res = check_solve(system, rc, what, tol)
     pre = system._precond
     for line in pre.layouts():
         print(f"{what} {line}", flush=True)
-    path = (dia_spmv, box_prolong, box_restrict)
+    path = (dia_spmv, box_restrict_residual, box_prolong_update)
     for fn in path:
         if launches[fn.__name__] <= 0:
             fail(f"the {what} path launched no {fn.__name__}")
-    if launches[box_prolong.__name__] != launches[box_restrict.__name__]:
-        fail(f"the {what} path restricted and prolonged unequally")
+    transitions = len(pre.levels) - 1
+    want = transitions * applied[0]
+    for fn in path[1:]:
+        if launches[fn.__name__] != want:
+            fail(f"the {what} path launched {fn.__name__} "
+                 f"{launches[fn.__name__]} times, not {transitions} "
+                 f"transitions x {applied[0]} applications = {want}")
+    for fn in (box_prolong, box_restrict):
+        if launches[fn.__name__]:
+            fail(f"the {what} path launched the standalone {fn.__name__}")
     other = {k: v for k, v in launches.items()
              if k not in {fn.__name__ for fn in path}}
     if any(other.values()):
-        fail(f"the {what} path launched other SpMV kernels: {other}")
+        fail(f"the {what} path launched other kernels: {other}")
     ops = [(f"{what} level {i}", lev.A) for i, lev in enumerate(pre.levels)]
     if system.A_lo is not None:
         ops.append((f"{what} A", system.A))
@@ -1575,13 +1791,16 @@ def structured_phase(what: str, yaml_name: str, tol: float, device_name,
     errs = (max(errs[0], mode_errs[0]), max(errs[1], mode_errs[1]))
     rows = dia_timings(ops, device_name, seed + 1)
     k3_rows = transfer_check(pre, what, device_name, seed + 3)
-    return launches, by_form, system, res, errs, rows, k3_rows
+    fused_rows = fused_check(pre, what, device_name, seed + 4)
+    cycle = cycle_check(pre, what, seed + 5)
+    return (launches, by_form, system, res, errs, rows, k3_rows, fused_rows,
+            cycle)
 
 
 def gate1_phase(device_name, counters):
-    launches, by_form, system, res, errs, rows, k3_rows = structured_phase(
-        "gate-1", "gate1_64cube_pcg_amg.yaml", 1e-8, device_name, counters,
-        14)
+    (launches, by_form, system, res, errs, rows, k3_rows, fused_rows,
+     cycle) = structured_phase("gate-1", "gate1_64cube_pcg_amg.yaml", 1e-8,
+                               device_name, counters, 14)
     passes = res.passes or []
     gap = res.iters - TPUSOLVE_GATE1_ITERS
     print(f"gate-1 64^3: {res.iters} PCG iterations over {len(passes)} "
@@ -1595,13 +1814,14 @@ def gate1_phase(device_name, counters):
                      device_name)
     prof = solve_profile(system, "gate-1")
     system.destroy_system()
-    return launches, by_form, errs, rows, k3_rows, prof, cold
+    return (launches, by_form, errs, rows, k3_rows, fused_rows, cycle, prof,
+            cold)
 
 
 def gate2_phase(device_name, counters):
-    launches, by_form, system, res, errs, rows, k3_rows = structured_phase(
-        "gate-2", "gate2_weakscale_gmres_cheby.yaml", 1e-6, device_name,
-        counters, 16)
+    (launches, by_form, system, res, errs, rows, k3_rows, fused_rows,
+     cycle) = structured_phase("gate-2", "gate2_weakscale_gmres_cheby.yaml",
+                               1e-6, device_name, counters, 16)
     print(f"gate-2 128^3: {res.iters} GMRES iterations, relres "
           f"{float(res.relres):.3e}, golden check PASSED; the port's count "
           f"{PORT_GATE2_ITERS}; tpusolve (CPU, same YAML, its f32 "
@@ -1611,7 +1831,8 @@ def gate2_phase(device_name, counters):
              f"port's {PORT_GATE2_ITERS}")
     prof = solve_profile(system, "gate-2")
     system.destroy_system()
-    return launches, by_form, errs, rows, k3_rows, prof
+    return (launches, by_form, errs, rows, k3_rows, fused_rows, cycle,
+            prof)
 
 
 def rel_sparse(M, M_ref) -> float:
@@ -1759,6 +1980,8 @@ def k3_entry(name: str, kind: str, line: int, rows: list,
     return dict(name=name, route="cuda",
                 source="tpusolve_torch/csrc/box_transfer.cu",
                 replaces=f"tpusolve/amg/structured.py:{line}", **launches,
+                held_by="transfer_check, and fused_check as the pair the "
+                        "fused kernels equal",
                 max_abs_err=max(r["max_abs_err"] for r in rs),
                 ms=hl["kernel_ms"], device_ms=hl["kernel_dev_ms"],
                 plain_ms=hl["plain_ms"], plain_device_ms=hl["plain_dev_ms"],
@@ -1768,6 +1991,31 @@ def k3_entry(name: str, kind: str, line: int, rows: list,
                 shape=hl["op"], max_rel_err=max(r["rel_err"] for r in rs),
                 equal_to_plain=all(r["equal_to_plain"] for r in rs),
                 shapes=rs)
+
+
+def fused_entry(name: str, kind: str, rows: list, launches: dict,
+                cycles: dict) -> dict:
+    """The ``kernels`` line's entry of the fused ``kind`` kernel: its
+    launches, errors and, at gate 1's first transition (64^3 -> 32^3, f32),
+    its times beside the pair's; every transition's row under ``shapes``."""
+    rs = [r for r in rows if r["kernel"] == kind]
+    hl = rs[0]
+    return dict(name=name, route="cuda",
+                source="tpusolve_torch/csrc/box_cycle.cu",
+                replaces=("tpusolve/amg/structured.py:129 with "
+                          "tpusolve/matrix/spmv.py:79" if kind == "restrict"
+                          else "tpusolve/amg/structured.py:122 with "
+                          "tpusolve/matrix/spmv.py:79"), **launches,
+                max_abs_err=max(r["max_abs_err"] for r in rs),
+                ms=hl["fused_ms"], device_ms=hl["fused_dev_ms"],
+                plain_ms=hl["plain_ms"], plain_device_ms=hl["plain_dev_ms"],
+                pair_ms=hl["pair_ms"], pair_device_ms=hl["pair_dev_ms"],
+                bound_ms=hl["bound_ms"], bound_by="bytes", library_ms=None,
+                library=FUSED_LIBRARY,
+                library_reference_device_ms=hl["library_reference_dev_ms"],
+                shape=hl["op"], max_rel_err=max(r["rel_err"] for r in rs),
+                equal_to_pair=all(r["equal_to_pair"] for r in rs),
+                cycle_equal_to_pair=cycles, shapes=rs)
 
 
 def main(argv) -> int:
@@ -1809,7 +2057,9 @@ def main(argv) -> int:
     from tpusolve_torch.kernels.bell import bell_spmv
     from tpusolve_torch.kernels.dia import dia_spmv
     from tpusolve_torch.kernels.ell import ell_spmv
-    from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
+    from tpusolve_torch.kernels.transfer import (
+        box_prolong, box_prolong_update, box_restrict, box_restrict_residual)
+
     def phase_done(what):
         print(f"chip_smoke: {what} done at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1824,7 +2074,8 @@ def main(argv) -> int:
     phase_done("the kernel checks")
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
-                box_restrict, ell_spmv)
+                box_restrict, box_restrict_residual, box_prolong_update,
+                ell_spmv)
     l4, rows4, k2_rows4, moved4 = gate4_phase(sides["--side"], device_name,
                                               counters)
     phase_done("gate 4")
@@ -1833,10 +2084,10 @@ def main(argv) -> int:
     phase_done("gate 3")
     rs = gate3_rs_phase(sides["--side3"], device_name, counters)
     phase_done("gate 3 RS")
-    l1, forms1, errs1, rows1, k3_rows1, prof1, cold1 = gate1_phase(
-        device_name, counters)
-    l2, forms2, errs2, rows2, k3_rows2, prof2 = gate2_phase(device_name,
-                                                            counters)
+    (l1, forms1, errs1, rows1, k3_rows1, fused_rows1, cycle1, prof1,
+     cold1) = gate1_phase(device_name, counters)
+    (l2, forms2, errs2, rows2, k3_rows2, fused_rows2, cycle2,
+     prof2) = gate2_phase(device_name, counters)
     phase_done("gates 1 and 2")
     ws = weakscale_phase(device_name, counters)
     phase_done("the weak-scaling cell")
@@ -1882,6 +2133,14 @@ def main(argv) -> int:
              launches_by_form={"gate1": forms1, "gate2": forms2},
              shapes=rows1_all, cold_warm=cold1, gate1_profile=prof1,
              gate2_profile=prof2, weakscale_profile=ws["profile"]),
+        fused_entry("box_restrict_residual", "restrict",
+                    fused_rows1 + fused_rows2,
+                    launches("box_restrict_residual"),
+                    {"gate1": cycle1, "gate2": cycle2}),
+        fused_entry("box_prolong_update", "prolong",
+                    fused_rows1 + fused_rows2,
+                    launches("box_prolong_update"),
+                    {"gate1": cycle1, "gate2": cycle2}),
         k3_entry("box_prolong", "prolong", 122, k3_rows1 + k3_rows2,
                  launches("box_prolong")),
         k3_entry("box_restrict", "restrict", 129, k3_rows1 + k3_rows2,

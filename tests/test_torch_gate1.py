@@ -161,21 +161,25 @@ def cuda():
 @pytest.mark.cuda
 def test_cli_on_cuda_runs_k1(cuda, tmp_path):
     """Needs only the card: gate 1 at 32^3 on CUDA passes, every level is
-    box DIA, K1 runs every SpMV of the solve and K3 every transfer."""
+    box DIA, K1 runs every SpMV of the solve and every transfer rides in a
+    K1 launch (the fused kernels; the standalone K3 kernels run none)."""
     from tpusolve_torch.harness import cli
     from tpusolve_torch.kernels import bdia, bell
     from tpusolve_torch.kernels.dia import dia_spmv
-    from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
+    from tpusolve_torch.kernels.transfer import (
+        box_prolong, box_prolong_update, box_restrict, box_restrict_residual)
     path = _yaml(tmp_path, "gate1_64cube_pcg_amg.yaml", 32)
     keep = []
     for fn in (dia_spmv, bdia.bdia_spmv, bdia.bdia_spmv_xl, bell.bell_spmv,
-               box_prolong, box_restrict):
+               box_prolong, box_restrict, box_restrict_residual,
+               box_prolong_update):
         fn.launches = 0
     assert cli.main([path, "--device", "cuda"], keep=keep) == 0
     res = keep[0].solve_results[0]
     assert bool(res.converged) and float(res.relres) <= 1e-8
     assert all(lev.A.uses_dia for lev in keep[0]._precond.levels)
     assert dia_spmv.launches > 0
-    assert box_prolong.launches == box_restrict.launches > 0
+    assert box_restrict_residual.launches == box_prolong_update.launches > 0
+    assert box_prolong.launches == box_restrict.launches == 0
     assert bdia.bdia_spmv.launches == bdia.bdia_spmv_xl.launches == \
         bell.bell_spmv.launches == 0

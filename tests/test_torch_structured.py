@@ -198,7 +198,9 @@ def test_hierarchy_level_by_level(tp, h16):
     assert rel(ci, ci_t) <= TOL
     assert pre.describe() == pre_t.describe()
     assert pre.layouts()[0] == ("AMG level 0: A DIA D=27 box=16x16x16; "
-                                "P, R box transfers")
+                                "P, R box transfers inside K1 (restriction "
+                                "with the residual, prolongation with the "
+                                "first post-sweep)")
 
 
 def test_one_vcycle_equals_tpusolve(tp, h16):

@@ -63,7 +63,10 @@ class Level:
     level (None at the coarsest) and the smoother's vectors.  Every level
     but the coarsest has the ``prolong``/``restrict`` callables the cycle
     runs; an algebraic level also keeps the sparse ``P``/``R`` they apply,
-    a structured level has box transfers and no ``P``/``R``."""
+    a structured level has box transfers and no ``P``/``R``, and also
+    their forms fused with K1 on its A (``restrict_residual``,
+    ``prolong_update``; ``amg/structured.py:_make_transfers``), which stay
+    None on an algebraic level."""
     A: ShardedMatrix
     P: ShardedMatrix | None          # (n_fine, n_coarse); None at coarsest
     R: ShardedMatrix | None          # P^T
@@ -75,6 +78,11 @@ class Level:
     nnz: int = 0
     prolong: Callable | None = None  # (ec, x, out=) -> x + P ec
     restrict: Callable | None = None  # fine -> coarse vector, P^T r
+    # (x, b) -> P^T (b - A x), one launch
+    restrict_residual: Callable | None = None
+    # (ec, x, b, s, w, c_is_xnew, xnew_out) -> [x'] + w s (b - A x'),
+    # x' = x + P ec, one launch
+    prolong_update: Callable | None = None
 
 
 @dataclass
@@ -112,7 +120,9 @@ class AMGPreconditioner:
         return "\n".join(lines)
 
     def layouts(self) -> list[str]:
-        """One line per level naming the layout of each operator."""
+        """One line per level naming the layout of each operator, and which
+        box transfers the cycle carries inside K1's launches."""
+        fused = getattr(self.cycle, "fused", None) or []
         out = []
         for i, lev in enumerate(self.levels):
             line = f"AMG level {i}: A {lev.A.layout}"
@@ -120,6 +130,12 @@ class AMGPreconditioner:
                 line += f"; P {lev.P.layout}; R {lev.R.layout}"
             elif lev.prolong is not None:
                 line += "; P, R box transfers"
+                down, up = fused[i] if i < len(fused) else (False, False)
+                kinds = (["restriction with the residual"] if down else []) \
+                    + (["prolongation with the first post-sweep"] if up
+                       else [])
+                if kinds:
+                    line += " inside K1 (" + ", ".join(kinds) + ")"
             out.append(line)
         return out
 
@@ -473,8 +489,19 @@ def _padded_pinv(Ah, A_sh, dtype) -> torch.Tensor:
 
 def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
                  cfg: BoomerAMGConfig,
-                 kind_coarse=smoothers.RELAX_DIRECT, coarse_sweeps=None):
-    """Build cycle(r) -> z over ``pre.levels`` and ``pre.coarse_inv``."""
+                 kind_coarse=smoothers.RELAX_DIRECT, coarse_sweeps=None,
+                 fused: bool = True):
+    """Build cycle(r) -> z over ``pre.levels`` and ``pre.coarse_inv``.
+
+    On a box level the restriction rides inside the residual's K1 launch,
+    and the prolongation inside the first post-smoothing update's, when the
+    level has the fused callables and (for the prolongation) the
+    post-smoother is l1-Jacobi, Jacobi or Chebyshev with at least one sweep
+    and no CF order; any other level runs the pair of launches.
+    ``fused=False`` runs the pairs everywhere (the yardstick the fused cycle
+    equals bit for bit).  The choice is made here, once, and kept as the
+    cycle's ``fused`` attribute, one (restriction, prolongation) pair of
+    flags per level, which ``layouts()`` shows."""
     levels = pre.levels
     L = len(levels)
     if coarse_sweeps is None:
@@ -488,6 +515,15 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
     gamma = 2 if cfg.cycle_type == 2 else 1
     weight = 1.0
     cf_order = cfg.relax_order == 1
+
+    def cheby(lev: Level, b, x, r=None):
+        if cfg.cheby_variant == 4:
+            return smoothers.chebyshev4_sweeps(lev.A, lev.dinv, b, x,
+                                               lev.cheby_bounds[1],
+                                               cfg.cheby_order, r=r)
+        return smoothers.chebyshev_sweeps(lev.A, lev.dinv, b, x,
+                                          lev.cheby_bounds, cfg.cheby_order,
+                                          r=r)
 
     def smooth(lev: Level, b, x, kind, ns):
         if ns <= 0:
@@ -505,20 +541,36 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
             return smoothers.jacobi_sweeps(lev.A, lev.dinv, b, x, ns, weight)
         if kind == smoothers.RELAX_CHEBYSHEV:
             for _ in range(ns):
-                if cfg.cheby_variant == 4:
-                    x = smoothers.chebyshev4_sweeps(lev.A, lev.dinv, b, x,
-                                                    lev.cheby_bounds[1],
-                                                    cfg.cheby_order)
-                else:
-                    x = smoothers.chebyshev_sweeps(lev.A, lev.dinv, b, x,
-                                                   lev.cheby_bounds,
-                                                   cfg.cheby_order)
+                x = cheby(lev, b, x)
             return x
         raise ValueError(kind)
 
     for lev in levels[:-1]:
         if lev.P is not None:
             lev.prolong, lev.restrict = _sparse_transfers(lev.P, lev.R)
+    fuse_up_kinds = (smoothers.RELAX_L1_JACOBI, smoothers.RELAX_JACOBI,
+                     smoothers.RELAX_CHEBYSHEV)
+    plan = [(fused and lev.restrict_residual is not None,
+             fused and lev.prolong_update is not None and nu_up > 0
+             and kind_up in fuse_up_kinds
+             and not (cf_order and lev.cmask is not None))
+            for lev in levels[:-1]]
+
+    def post_smooth(l: int, lev: Level, b, x, ec):
+        """x + P ec, then the post-smoother: the first update in the
+        prolongation's launch where the level fuses them."""
+        if not plan[l][1]:
+            x = lev.prolong(ec, x, out=x)
+            return smooth(lev, b, x, kind_up, nu_up)
+        if kind_up == smoothers.RELAX_CHEBYSHEV:
+            xn = torch.empty_like(x)
+            r = lev.prolong_update(ec, x, b, lev.dinv, 1.0, False, xn)
+            x = cheby(lev, b, xn, r)
+        elif kind_up == smoothers.RELAX_L1_JACOBI:
+            x = lev.prolong_update(ec, x, b, lev.dinv_l1, 1.0, True)
+        else:
+            x = lev.prolong_update(ec, x, b, lev.dinv, weight, True)
+        return smooth(lev, b, x, kind_up, nu_up - 1)
 
     def cycle(l: int, b, x):
         lev = levels[l]
@@ -530,17 +582,20 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
             rr = spmv_update(lev.A, x, b=b)
             return x + torch.matmul(pre.coarse_inv, rr)
         x = smooth(lev, b, x, kind_down, nu_down)
-        rr = spmv_update(lev.A, x, b=b)
-        rc = lev.restrict(rr)
+        if plan[l][0]:
+            rc = lev.restrict_residual(x, b)
+        else:
+            rc = lev.restrict(spmv_update(lev.A, x, b=b))
         ec = torch.zeros(levels[l + 1].A.row_pad, dtype=b.dtype,
                          device=b.device)
         for _ in range(gamma):
             ec = cycle(l + 1, rc, ec)
         # the correction is added into x, which the cycle owns
-        x = lev.prolong(ec, x, out=x)
-        return smooth(lev, b, x, kind_up, nu_up)
+        return post_smooth(l, lev, b, x, ec)
 
-    return lambda r: cycle(0, r, torch.zeros_like(r))
+    run = lambda r: cycle(0, r, torch.zeros_like(r))
+    run.fused = plan
+    return run
 
 
 def _sparse_transfers(P: ShardedMatrix, R: ShardedMatrix):

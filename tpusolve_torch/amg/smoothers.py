@@ -74,17 +74,21 @@ def chebyshev_bounds(A_csr: sp.csr_matrix, dinv: np.ndarray,
     return max(abs(lam), 1e-12)
 
 
-def chebyshev_sweeps(A, dinv, b, x, coeffs_lower_upper, order: int):
+def chebyshev_sweeps(A, dinv, b, x, coeffs_lower_upper, order: int,
+                     r=None):
     """Chebyshev polynomial smoothing of D^-1 A on [lower, upper]:
     the standard three-term recurrence on the preconditioned residual,
-    ``order`` matvecs per invocation (hypre's cheby_order, default 2)."""
+    ``order`` matvecs per invocation (hypre's cheby_order, default 2).
+    ``r``, when given, is the first step ``dinv * (b - A x)`` the caller
+    already computed (the V-cycle's prolongation fused with it)."""
     lower, upper = coeffs_lower_upper
     theta = 0.5 * (upper + lower)
     delta = 0.5 * (upper - lower)
     sigma = theta / delta
     rho = 1.0 / sigma
 
-    r = spmv_update(A, x, b=b, s=dinv)
+    if r is None:
+        r = spmv_update(A, x, b=b, s=dinv)
     d = r / theta
     for _ in range(order - 1):
         x = x + d
@@ -95,11 +99,13 @@ def chebyshev_sweeps(A, dinv, b, x, coeffs_lower_upper, order: int):
     return x + d
 
 
-def chebyshev4_sweeps(A, dinv, b, x, lam_max, order: int):
+def chebyshev4_sweeps(A, dinv, b, x, lam_max, order: int, r=None):
     """Fourth-kind Chebyshev smoothing (Lottes, "Optimal polynomial
     smoothers for multigrid V-cycles", 2022; see PAPERS.md): needs only an
-    upper eigenvalue bound, ``order`` matvecs per invocation."""
-    r = spmv_update(A, x, b=b, s=dinv)
+    upper eigenvalue bound, ``order`` matvecs per invocation; ``r`` as in
+    :func:`chebyshev_sweeps`."""
+    if r is None:
+        r = spmv_update(A, x, b=b, s=dinv)
     d = (4.0 / 3.0) * r / lam_max
     for k in range(1, order):
         x = x + d

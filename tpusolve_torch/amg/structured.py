@@ -8,9 +8,11 @@ generator (a rank-3 ``A.dia_shape``):
 * **geometric coarsening**: each part's box halves per dim (coarsening is
   local to the part, so the transfer operators are block-diagonal);
 * **transfers** (K3): cell-centered linear interpolation over each part's
-  box and its exact adjoint, one hand-written kernel launch each on the
-  card (``kernels/transfer.py``, ``csrc/box_transfer.cu``); the
-  prolongation adds its correction to the fine vector as it goes;
+  box and its exact adjoint.  On the cycle they ride inside K1's launches
+  (``kernels/transfer.py``, ``csrc/box_cycle.cu``): the restriction with
+  the residual ``b - A x`` before it, the prolongation (and its add) with
+  the first post-smoothing update after it; the standalone kernels
+  (``csrc/box_transfer.cu``) serve the cycles that cannot fuse;
 * **Galerkin coarse operators**: DIA-algebra RAP on the host
   (``amg/dia_rap.py``), assembled as box-DIA matrices whose planes keep
   their (dz, dy, dx) triples, so every level's SpMV runs K1;
@@ -34,7 +36,8 @@ from tpusolve_torch.amg.builder import (
     _NOT_PORTED, _resolve_kinds)
 from tpusolve_torch.amg.dia_rap import dia_rap
 from tpusolve_torch.config import BoomerAMGConfig
-from tpusolve_torch.kernels.transfer import box_prolong, box_restrict
+from tpusolve_torch.kernels.transfer import (
+    box_prolong, box_prolong_update, box_restrict, box_restrict_residual)
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.vectors import (
     numpy_dtype, to_device_vector, to_tensor)
@@ -79,12 +82,21 @@ def _dia_nongalerkin(dia_c: dict, tol: float) -> dict:
             if off == zero or float(np.abs(plane).max()) >= tol * ref}
 
 
-def _make_transfers(fine_box, coarse_box):
-    """(prolong, restrict) of each part's box: ``prolong(ec, x, out=x)``
-    is ``x + P ec`` and ``restrict(r)`` is ``P^T r``, each one launch of K3
-    on the card (``kernels/transfer.py``)."""
-    return (partial(box_prolong, fine_box, coarse_box),
-            partial(box_restrict, fine_box, coarse_box))
+def _make_transfers(lev: Level, fine_box, coarse_box) -> None:
+    """Give box level ``lev`` its transfers to the coarse box:
+    ``prolong(ec, x, out=x)`` is ``x + P ec`` and ``restrict(r)`` is
+    ``P^T r`` (each one K3 launch on the card), and their forms fused with
+    K1 on the level's A (one launch each, ``kernels/transfer.py``):
+    ``restrict_residual(x, b)`` is ``P^T (b - A x)`` and
+    ``prolong_update(ec, x, b, s, w, c_is_xnew, xnew_out)`` is
+    ``[x'] + w * s * (b - A x')`` for ``x' = x + P ec``."""
+    A = lev.A
+    lev.prolong = partial(box_prolong, fine_box, coarse_box)
+    lev.restrict = partial(box_restrict, fine_box, coarse_box)
+    lev.restrict_residual = partial(box_restrict_residual, fine_box,
+                                    coarse_box, A.dia_vals, A.dia_offsets)
+    lev.prolong_update = partial(box_prolong_update, fine_box, coarse_box,
+                                 A.dia_vals, A.dia_offsets)
 
 
 # ----------------------------------------------------------------------
@@ -261,7 +273,7 @@ def structured_mg_setup_fast(A: ShardedMatrix, config=None, *,
 
         lev = _make_level_structured(A_sh, dia, offd_parts, box, dtype,
                                      kind_down, kind_up, cfg)
-        lev.prolong, lev.restrict = _make_transfers(box, coarse_box)
+        _make_transfers(lev, box, coarse_box)
         levels.append(lev)
 
         dia_c, _ = dia_rap(dia, box)
@@ -318,8 +330,7 @@ def hierarchy_from_dia_dicts(levels: list[dict], coarse_inv: np.ndarray,
                     cheby_bounds=d.get("cheby_bounds"), n=A.shape[0],
                     nnz=A.nnz)
         if i + 1 < len(levels):
-            lev.prolong, lev.restrict = _make_transfers(
-                box, tuple(levels[i + 1]["box"]))
+            _make_transfers(lev, box, tuple(levels[i + 1]["box"]))
         levs.append(lev)
     kind_coarse, coarse_sweeps = _guard_coarse(kind_coarse, levs[-1].n, cfg,
                                                notes)

@@ -33,6 +33,9 @@
 //   * restriction: one thread a coarse point reads its 4 x 4 x 4 fine
 //     neighbours and sums them in the plain version's fixed order: no
 //     atomics, the same bits in every run.
+// The steps live in csrc/box_cycle.cuh.  On the V-cycle the fused kernels
+// of csrc/box_cycle.cu carry both transfers inside K1's launches, and
+// these two kernels are the yardstick the fused ones must equal.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (tpusolve_torch/kernels/build.py).  Each entry point launches
@@ -42,35 +45,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "box_cycle.cuh"
+
 namespace {
 
+using box_cycle::add_rn;
+
 constexpr int kThreads = 256;  // threads a block
-
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-
-// .75 a + .25 b, the plain version's step of the prolongation
-template <typename T>
-__device__ __forceinline__ T up(T a, T b) {
-  return add_rn(mul_rn(T(0.75), a), mul_rn(T(0.25), b));
-}
-
-// .75 (e + o) + .25 lo + .25 hi, the plain version's step of the restriction
-template <typename T>
-__device__ __forceinline__ T down(T e, T o, T lo, T hi) {
-  return add_rn(add_rn(mul_rn(T(0.75), add_rn(e, o)), mul_rn(T(0.25), lo)),
-                mul_rn(T(0.25), hi));
-}
 
 // out = (x +) P xc over each part's fine box; x may be null, out may be x
 template <typename T>
@@ -88,27 +69,12 @@ box_prolong_kernel(const T* __restrict__ xc, const T* x, T* out, int nz,
   const int64_t zy = i / fx;
   const int iy = (int)(zy % fy);
   const int iz = (int)(zy / fy);
-  // each axis: the coarse cell and its clamped neighbour on i's side
-  const int cz = iz >> 1, cy = iy >> 1, cx = ix >> 1;
-  const int nbz = (iz & 1) ? min(cz + 1, nz - 1) : max(cz - 1, 0);
-  const int nby = (iy & 1) ? min(cy + 1, ny - 1) : max(cy - 1, 0);
-  const int nbx = (ix & 1) ? min(cx + 1, nx - 1) : max(cx - 1, 0);
   const T* a = xc + (int64_t)p * nz * ny * nx;
-  const int ys[2] = {cy, nby};
-  const int xs[2] = {cx, nbx};
-  T v[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    T u[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int64_t yx = (int64_t)ys[j] * nx + xs[k];
-      u[j] = up(__ldg(a + (int64_t)cz * ny * nx + yx),
-                __ldg(a + (int64_t)nbz * ny * nx + yx));   // along z
-    }
-    v[k] = up(u[0], u[1]);                                 // along y
-  }
-  T w = up(v[0], v[1]);                                    // along x
+  T w = box_cycle::prolong_point<T>(
+      [&](int z, int y, int xx) {
+        return __ldg(a + ((int64_t)z * ny + y) * nx + xx);
+      },
+      iz, iy, ix, nz, ny, nx);
   const int64_t o = (int64_t)p * fine + i;
   if (x != nullptr) {
     w = add_rn(x[o], w);
@@ -132,32 +98,15 @@ box_restrict_kernel(const T* __restrict__ rf, T* __restrict__ out, int nz,
   const int cy = (int)(zy % ny);
   const int cz = (int)(zy / ny);
   const int fy = 2 * ny, fx = 2 * nx;
-  // each axis: the fine cells 2c, 2c+1, and 2c-1 and 2c+2 with the edge
-  // cell standing in for a missing one
-  const int zs[4] = {2 * cz, 2 * cz + 1, cz > 0 ? 2 * cz - 1 : 2 * cz,
-                     cz < nz - 1 ? 2 * cz + 2 : 2 * cz + 1};
-  const int ys[4] = {2 * cy, 2 * cy + 1, cy > 0 ? 2 * cy - 1 : 2 * cy,
-                     cy < ny - 1 ? 2 * cy + 2 : 2 * cy + 1};
-  const int xs[4] = {2 * cx, 2 * cx + 1, cx > 0 ? 2 * cx - 1 : 2 * cx,
-                     cx < nx - 1 ? 2 * cx + 2 : 2 * cx + 1};
+  int zs[4], ys[4], xs[4];
+  box_cycle::window(cz, nz, zs);
+  box_cycle::window(cy, ny, ys);
+  box_cycle::window(cx, nx, xs);
   const T* r = rf + (int64_t)p * 8 * coarse;
-  T v[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    T u[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t yx = (int64_t)ys[j] * fx + xs[k];
-      T t[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        t[m] = __ldg(r + (int64_t)zs[m] * fy * fx + yx);
-      }
-      u[j] = down(t[0], t[1], t[2], t[3]);                 // along z
-    }
-    v[k] = down(u[0], u[1], u[2], u[3]);                   // along y
-  }
-  out[(int64_t)p * coarse + i] = down(v[0], v[1], v[2], v[3]);  // along x
+  out[(int64_t)p * coarse + i] = box_cycle::restrict_point<T>(
+      [&](int m, int j, int k) {
+        return __ldg(r + ((int64_t)zs[m] * fy + ys[j]) * fx + xs[k]);
+      });
 }
 
 bool bad_box(int nparts, int nz, int ny, int nx) {

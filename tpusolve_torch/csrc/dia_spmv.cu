@@ -23,7 +23,12 @@
 //     dinv (.) (b - A x) and r - dinv (.) A d.  It is computed as the plain
 //     version computes it (tpusolve_torch/kernels/dia.py: epilogue_plain):
 //     t = b - A x (or A x without b), t = (w s) t, then c + t (c - t
-//     without b).  y must not be x, b, s or c.
+//     without b), each step rounded on its own (no fused multiply-add).
+//     y must not be x, b, s or c.
+//
+// The row sum and the epilogue live in csrc/box_cycle.cuh, which the fused
+// cycle kernels of csrc/box_cycle.cu include too: they equal this kernel's
+// residual and update forms bit for bit.
 //
 // What bounds it: bytes on the large boxes, a launch's latency on the small
 // ones.  One SpMV reads each plane's in-box slots once (a slot whose
@@ -66,22 +71,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "box_cycle.cuh"
+
 namespace {
 
-constexpr int kMaxSlots = 128;  // slots a table holds (kernels/dia.py)
-constexpr int kStage = 8;       // slots whose loads are issued together
-
-// rows a block, and threads a block, at G threads a row
-template <int G>
-struct Plan {
-  static constexpr int RB = G == 1 ? 256 : (G <= 8 ? 256 / G : 32);
-  static constexpr int kThreads = RB * G;
-};
-
-// (dz, dy, dx, flat offset) of each slot, in stored order
-struct Slots {
-  int d[kMaxSlots][4];
-};
+using box_cycle::kMaxSlots;
+using box_cycle::Plan;   // rows a block, and threads a block, at G a row
+using box_cycle::Slots;
 
 // the optional epilogue y = c + w * s (.) (b - A x), applied when any of
 // b, s, c is given
@@ -96,8 +92,8 @@ struct Epilogue {
 template <typename T, int G>
 __global__ void __launch_bounds__(Plan<G>::kThreads)
 dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
-                T* __restrict__ y, const Slots slots, int nslots, int nz,
-                int ny, int nx, const Epilogue<T> ep) {
+                T* __restrict__ y, const __grid_constant__ Slots slots,
+                int nslots, int nz, int ny, int nx, const Epilogue<T> ep) {
   constexpr int RB = Plan<G>::RB;
   const int64_t box = (int64_t)nz * ny * nx;
   const int r = threadIdx.x % RB;
@@ -119,31 +115,9 @@ dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
   const int d_lo = g * chunk;
   const int d_hi = min(nslots, d_lo + chunk);
 
-  T acc = T(0);
-  for (int d0 = d_lo; d0 < d_hi; d0 += kStage) {
-    T v[kStage];
-    T xv[kStage];
-#pragma unroll
-    for (int s = 0; s < kStage; ++s) {
-      const int d = d0 + s;
-      v[s] = T(0);
-      xv[s] = T(0);
-      if (valid && d < d_hi) {
-        const int z = iz + slots.d[d][0];
-        const int yy = iy + slots.d[d][1];
-        const int xx = ix + slots.d[d][2];
-        if ((unsigned)z < (unsigned)nz && (unsigned)yy < (unsigned)ny &&
-            (unsigned)xx < (unsigned)nx) {
-          v[s] = __ldg(vp + (int64_t)d * box);
-          xv[s] = __ldg(xw + slots.d[d][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kStage; ++s) {
-      acc = fma(v[s], xv[s], acc);
-    }
-  }
+  T acc = box_cycle::row_partial<T>(
+      vp, box, slots, d_lo, d_hi, valid, iz, iy, ix, nz, ny, nx,
+      [&](int d) { return __ldg(xw + slots.d[d][3]); });
 
   if constexpr (G > 1) {
     __shared__ T part[G][RB];
@@ -162,14 +136,10 @@ dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
   }
   const int64_t o = (int64_t)p * box + i;
   if (ep.b != nullptr || ep.s != nullptr || ep.c != nullptr) {
-    T t = ep.b != nullptr ? ep.b[o] - acc : acc;
-    t = ep.s != nullptr ? (ep.w * ep.s[o]) * t : ep.w * t;
-    if (ep.c != nullptr) {
-      t = ep.b != nullptr ? ep.c[o] + t : ep.c[o] - t;
-    } else if (ep.b == nullptr) {
-      t = -t;
-    }
-    acc = t;
+    acc = box_cycle::epilogue(
+        acc, ep.b != nullptr, ep.b != nullptr ? ep.b[o] : T(0),
+        ep.s != nullptr, ep.s != nullptr ? ep.s[o] : T(0), ep.c != nullptr,
+        ep.c != nullptr ? ep.c[o] : T(0), ep.w);
   }
   y[o] = acc;
 }

@@ -7,8 +7,10 @@ setup's sparse kernels ``spkernels.cpp``) is compiled the same way by
 ``g++``, on any machine.  The library's file name carries a
 hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is loaded from ``build/kernels/`` at the root of the
-checkout.  Building happens at first use, never at import: the CPU tests
-import every module on machines without ``nvcc``.
+checkout; a CUDA source's hash also covers the headers of ``csrc/``
+(``*.cuh``), which it may include.  Building happens at first use, never
+at import: the CPU tests import every module on machines without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -62,9 +64,13 @@ def _source(name: str) -> tuple[str, bool, tuple]:
 
 
 def library_path(name: str) -> str:
-    src, _, flags = _source(name)
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(flags).encode())
+    src, cuda, flags = _source(name)
+    digest = hashlib.sha256(" ".join(flags).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")) \
+        if cuda else []
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -59,6 +59,14 @@ K2's time model: the measurement behind ``kernels/ell.py:k2_plan``,
 ``k2_rowptr_plan`` and ``K2_MODEL`` there, with which ``matrix/sharded.py``
 picks an ELL operator's form (``ell_form``) and prices K2 beside K4 and K6
 (``choose_layout``).
+
+    python -m tpusolve_torch.kernels.calibrate --fused
+
+times the fused cycle kernels of ``csrc/box_cycle.cu`` at the structured
+transitions of gates 1 and 2, in f32 and f64, beside the pair of launches
+each replaces (K1's residual then K3's restriction; K3's prolongation then
+K1's Jacobi update), after checking each result against the pair's bit for
+bit (``sweep_fused``).
 """
 
 from __future__ import annotations
@@ -442,6 +450,58 @@ def sweep_k1(device=None, log=print) -> list:
     return rows
 
 
+# (fine box side, slots) of the structured transitions of gates 1 and 2
+FUSED_SHAPES = ((128, 27), (64, 27), (64, 125), (32, 125), (16, 125))
+
+
+def sweep_fused(device=None, log=print) -> list:
+    """At each (side^3 fine box, D) of ``FUSED_SHAPES`` (random planes under
+    the 27 stencil triples or all 125 of [-2, 2]^3), in f32 and f64: the
+    fused restriction and prolongation, each checked against the pair of
+    launches it replaces bit for bit (raises otherwise), then both and both
+    pairs timed in one trace.  Returns (side, D, dtype, kernel, fused
+    device ms, pair device ms) rows."""
+    import itertools
+    from tpusolve_torch.kernels import dia, transfer
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    rows = []
+    for (side, D), dt in itertools.product(FUSED_SHAPES, BOTH[::-1]):
+        span = 1 if D == 27 else 2
+        offs = tuple(itertools.product(range(-span, span + 1), repeat=3))
+        fine, coarse = (side,) * 3, (side // 2,) * 3
+        vals = torch.randn((1, D) + fine, generator=gen, device=device,
+                           dtype=dt)
+        x, b, s = (torch.randn(side ** 3, generator=gen, device=device,
+                               dtype=dt) for _ in range(3))
+        ec = torch.randn((side // 2) ** 3, generator=gen, device=device,
+                         dtype=dt)
+        calls = {
+            "restrict pair": lambda: transfer.box_restrict(
+                fine, coarse, dia.dia_spmv(vals, offs, x, b=b)),
+            "restrict fused": lambda: transfer.box_restrict_residual(
+                fine, coarse, vals, offs, x, b),
+            "prolong pair": lambda: dia.dia_spmv(
+                vals, offs, transfer.box_prolong(fine, coarse, ec, x), b, s,
+                None, 1.0),
+            "prolong fused": lambda: transfer.box_prolong_update(
+                fine, coarse, vals, offs, ec, x, b, s, 1.0, False)}
+        for kind in ("restrict", "prolong"):
+            if not torch.equal(calls[kind + " pair"](),
+                               calls[kind + " fused"]()):
+                raise RuntimeError(f"fused {kind} {side}^3 D={D} {dt} "
+                                   "differs from the pair")
+        ms = device_ms_each(calls)
+        name = str(dt).replace("torch.", "")
+        for kind in ("restrict", "prolong"):
+            f, p = ms[kind + " fused"], ms[kind + " pair"]
+            log(f"fused {side}^3 D={D} {name} {kind}: device {f:.5f} ms, "
+                f"the pair {p:.5f} ms ({f / p:.3f})")
+            rows.append((side, D, name, kind, f, p))
+    return rows
+
+
 # (rows, K, x length, mean entries a row) of the ELL operators on the
 # BoomerAMG paths: the weak-scaling YAML at 128^3 (level 0's P and R, level
 # 1's A) and the 64^3 gate-3 hierarchy (level 0's P, the R of levels 0, 1
@@ -590,6 +650,10 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--k1"]:
         sweep_k1()
+        sys.exit(0)
+    if sys.argv[1:] == ["--fused"]:
+        print(card_line(), flush=True)
+        print(json.dumps(sweep_fused()), flush=True)
         sys.exit(0)
     if sys.argv[1:] == ["--k2"]:
         print(json.dumps(sweep_k2()), flush=True)

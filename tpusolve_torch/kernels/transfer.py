@@ -18,6 +18,15 @@ and ``_restrict_local``, an XLA fusion there) on CUDA tensors, one launch a
 transfer with the three axes in one pass, and run ``prolong_plain`` and
 ``restrict_plain`` on CPU tensors.  The kernels do the plain versions'
 arithmetic in their order, so the two agree bit for bit.
+
+On the V-cycle the transfers ride inside K1's launches:
+``box_restrict_residual`` computes ``P^T (b - A x)`` and
+``box_prolong_update`` computes ``x' = x + P ec`` and K1's update
+``[x'] + w * s * (b - A x')`` in one launch each (``csrc/box_cycle.cu``),
+equal to the K1 -> K3 and K3 -> K1 pairs bit for bit; on CPU tensors they
+run ``restrict_residual_plain`` and ``prolong_update_plain``, the plain
+versions of those pairs in their order.  ``box_prolong`` and
+``box_restrict`` stay as the yardstick the fused kernels must equal.
 """
 
 from __future__ import annotations
@@ -25,9 +34,12 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from tpusolve_torch.kernels import build
+from tpusolve_torch.kernels.dia import (
+    MAX_SLOTS, _table, dia_spmv_plain, k1_plan)
 
 
 # ----------------------------------------------------------------------
@@ -113,6 +125,31 @@ def restrict_plain(fine_box, coarse_box, rf: torch.Tensor) -> torch.Tensor:
     return a.reshape(-1)
 
 
+def restrict_residual_plain(fine_box, coarse_box, vals, offsets,
+                            x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``P^T (b - A x)`` for the box-DIA operator ``A`` (``vals``,
+    ``offsets`` as :func:`kernels.dia.dia_spmv_plain` takes them): the
+    residual, then the restriction, as the cycle ran them in turn."""
+    return restrict_plain(fine_box, coarse_box,
+                          dia_spmv_plain(vals, offsets, x, b=b))
+
+
+def prolong_update_plain(fine_box, coarse_box, vals, offsets,
+                         ec: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                         s=None, w: float = 1.0, c_is_xnew: bool = True,
+                         xnew_out=None, out=None) -> torch.Tensor:
+    """``y = [x'] + w * s * (b - A x')`` for ``x' = x + P ec``, the bracket
+    (``c = x'``) present when ``c_is_xnew``: the prolongation with its add,
+    then K1's update form, as the cycle ran them in turn.  ``x'`` is copied
+    into ``xnew_out`` and ``y`` into ``out`` when they are given."""
+    xn = prolong_plain(fine_box, coarse_box, ec, x)
+    y = dia_spmv_plain(vals, offsets, xn, b=b, s=s,
+                       c=xn if c_is_xnew else None, w=w)
+    if xnew_out is not None:
+        xnew_out.copy_(xn)
+    return y if out is None else out.copy_(y)
+
+
 # ----------------------------------------------------------------------
 # the kernels
 @functools.cache
@@ -130,6 +167,26 @@ def _kernel_fns():
         for fn in (fp, fr):
             fn.restype = ctypes.c_int
         fns["prolong", dt], fns["restrict", dt] = fp, fr
+    return lib, fns
+
+
+@functools.cache
+def _fused_fns():
+    """(library, {(kind, dtype): entry point}) of ``csrc/box_cycle.cu``."""
+    lib = build.load("box_cycle")
+    fns = {}
+    for dt, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
+        fr = getattr(lib, f"box_restrict_residual_{suffix}")
+        fr.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fp = getattr(lib, f"box_prolong_update_{suffix}")
+        fp.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
+        for fn in (fr, fp):
+            fn.restype = ctypes.c_int
+        fns["restrict", dt], fns["prolong", dt] = fr, fp
     return lib, fns
 
 
@@ -206,3 +263,118 @@ def box_restrict(fine_box, coarse_box, rf: torch.Tensor) -> torch.Tensor:
 
 box_prolong.launches = 0
 box_restrict.launches = 0
+
+
+def _aliases(a, b) -> bool:
+    """Whether tensors ``a`` and ``b`` share memory (on the ``meta``
+    device, whether they are one tensor)."""
+    if a is None or b is None:
+        return False
+    if a is b:
+        return True
+    if a.device.type == "meta" or b.device.type == "meta":
+        return False
+    sa, sb = a.untyped_storage(), b.untyped_storage()
+    return sa.data_ptr() == sb.data_ptr() and sa.nbytes() > 0
+
+
+def _check_fused(what: str, fine_box, coarse_box, vals, offsets, x,
+                 others) -> tuple:
+    """Raise unless ``vals`` is the (P, D, *fine_box) plane stack of x's
+    dtype under D triples K1 takes, and ``x`` and ``others`` pass
+    :func:`_check`; returns (parts, G)."""
+    if vals.dim() != 5 or tuple(vals.shape[2:]) != tuple(fine_box):
+        raise ValueError(f"{what}: vals must be (P, D) + the fine box "
+                         f"{tuple(fine_box)}")
+    if vals.dtype != x.dtype:
+        raise TypeError(f"{what}: vals must be of x's dtype")
+    D = vals.shape[1]
+    if len(offsets) != D or any(len(o) != 3 for o in offsets) \
+            or D > MAX_SLOTS:
+        raise ValueError(f"{what}: need {D} offset triples, at most "
+                         f"{MAX_SLOTS}")
+    if vals.device != x.device or not vals.is_contiguous():
+        raise ValueError(f"{what}: vals must be contiguous on {x.device}")
+    parts = _check(what, fine_box, coarse_box, x, fine_box, others)
+    if parts != vals.shape[0]:
+        raise ValueError(f"{what}: {parts} parts of x, {vals.shape[0]} of "
+                         "vals")
+    return parts, k1_plan(int(np.prod(fine_box)), D)
+
+
+def box_restrict_residual(fine_box, coarse_box, vals, offsets,
+                          x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``P^T (b - A x)``, as :func:`restrict_residual_plain`.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel of
+    ``csrc/box_cycle.cu`` once (cooperatively: K1's residual at K1's G
+    threads a row, ``k1_plan``, into a scratch vector, a grid barrier, then
+    the restriction), or raise; there is no fallback.
+    ``box_restrict_residual.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return restrict_residual_plain(fine_box, coarse_box, vals, offsets,
+                                       x, b)
+    if b is None:
+        raise ValueError("box_restrict_residual: b is required")
+    nf = x.numel()
+    parts, g = _check_fused("box_restrict_residual", fine_box, coarse_box,
+                            vals, offsets, x, (("b", b, (nf,)),))
+    rr = torch.empty_like(x)
+    out = torch.empty(nf // 8, dtype=x.dtype, device=x.device)
+    lib, fns = _fused_fns()
+    build.launch(lib, fns["restrict", x.dtype], x,
+                 "box_restrict_residual launch", vals.data_ptr(),
+                 ctypes.addressof(_table(tuple(offsets))), len(offsets),
+                 x.data_ptr(), b.data_ptr(), rr.data_ptr(), out.data_ptr(),
+                 parts, *fine_box, g)
+    box_restrict_residual.launches += 1
+    return out
+
+
+def box_prolong_update(fine_box, coarse_box, vals, offsets,
+                       ec: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       s=None, w: float = 1.0, c_is_xnew: bool = True,
+                       xnew_out=None, out=None) -> torch.Tensor:
+    """``y = [x'] + w * s * (b - A x')`` for ``x' = x + P ec``, as
+    :func:`prolong_update_plain` (``x'`` into ``xnew_out`` when given).
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel of
+    ``csrc/box_cycle.cu`` once (cooperatively: x' into ``xnew_out`` or a
+    scratch vector, a grid barrier, then K1's update at K1's G threads a
+    row), or raise; there is no fallback.  ``y`` (``out``) and ``xnew_out``
+    must not share memory with ``x``, ``b``, ``s``, ``ec`` or each other.
+    ``box_prolong_update.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return prolong_update_plain(fine_box, coarse_box, vals, offsets, ec,
+                                    x, b, s, w, c_is_xnew, xnew_out, out)
+    if b is None or ec is None:
+        raise ValueError("box_prolong_update: ec and b are required")
+    for name, t in (("out", out), ("xnew_out", xnew_out)):
+        for other in (x, b, s, ec) + ((xnew_out,) if name == "out" else ()):
+            if _aliases(t, other):
+                raise ValueError(f"box_prolong_update: {name} must not "
+                                 "share memory with x, b, s, ec or the "
+                                 "other output")
+    nf = x.numel()
+    parts, g = _check_fused(
+        "box_prolong_update", fine_box, coarse_box, vals, offsets, x,
+        (("ec", ec, (nf // 8,)), ("b", b, (nf,)), ("s", s, (nf,)),
+         ("xnew_out", xnew_out, (nf,)), ("out", out, (nf,))))
+    if out is None:
+        out = torch.empty_like(x)
+    if xnew_out is None:
+        xnew_out = torch.empty_like(x)     # x' between the two phases
+    lib, fns = _fused_fns()
+    build.launch(lib, fns["prolong", x.dtype], x,
+                 "box_prolong_update launch", vals.data_ptr(),
+                 ctypes.addressof(_table(tuple(offsets))), len(offsets),
+                 ec.data_ptr(), x.data_ptr(), b.data_ptr(),
+                 None if s is None else s.data_ptr(), out.data_ptr(),
+                 xnew_out.data_ptr(), parts, *fine_box, g, float(w),
+                 int(bool(c_is_xnew)))
+    box_prolong_update.launches += 1
+    return out
+
+
+box_restrict_residual.launches = 0
+box_prolong_update.launches = 0
