@@ -11,8 +11,10 @@ toolkit (nvcc) and PyTorch built for CUDA:
    at once) and prints the seconds;
 3. holds the BDIA SpMV kernels K4 and K5, overflow list included, and the
    BELL SpMV kernel K6 against their plain PyTorch versions, in float32 and
-   float64, and K5 against K4 bit for bit, once on an x that is not 16-byte
-   aligned, and K4's launch plans (a small launch of wide blocks run as
+   float64, and K5 with and without its segment mask against K4 bit for
+   bit, once on an x that is not 16-byte aligned, K5's update forms (the
+   ILU sweeps') against the plain update of its product bit for bit, and
+   K4's launch plans (a small launch of wide blocks run as
    chunks, an operator of 640 slots) against K5 bit for bit; the ELL SpMV
    kernel K2 against its plain version on ragged square and rectangular
    operators of K = 1, 8, 40, 131 and 638 slots, in f32 and f64, in both
@@ -22,15 +24,19 @@ toolkit (nvcc) and PyTorch built for CUDA:
    96^3 = 884,736 rows, 23.4M nonzeros) and runs it through the port's CLI
    (``tpusolve_torch.harness.cli.main``): HYPRE-IJ files read by the native
    parser, RCM, BDIA assembly in f64 with an f32 twin, Chow-Patel ILU(0)
-   whose operators run K2, K4 or K5 as the time model prices them,
-   BiCGSTAB in f32 inside f64 iterative refinement, golden check (at 96^3
-   exactly the port's 54 iterations); then at the four operator shapes of
-   that run (A, A_lo, L, U) on their BDIA layouts times K4, K5 where a step
-   plan fits, the plain version, the library's CSR SpMV (``torch.sparse``)
+   whose operators run K2, K4 or K5 as the time model prices them (the
+   factors K5, its Jacobi sweeps fused into its launches), BiCGSTAB in
+   f32 inside f64 iterative refinement, golden check (at 96^3 exactly the
+   port's 56 iterations); then at the four operator shapes of that run (A,
+   A_lo, L, U) on their BDIA layouts times K4, K5 where a step plan fits
+   (the bytes it reads against the bytes stored, the share of segments it
+   skips), the plain version, the library's CSR SpMV (``torch.sparse``)
    and the bound, K2 at the operators that run it (plain, library, bound,
-   both forms), and each operator's kernel now against the one it ran
-   before K2 was priced among the layouts (the moved operators' table,
-   which fails where a new kernel is slower but for K6's frozen prices);
+   both forms), each operator's kernel now against the one it ran before
+   K2 was priced among the layouts and, for the factors, before K5 was
+   priced on the bytes it reads (K4; the moved operators' table, which
+   fails where a new kernel is slower but for K6's frozen prices), and one
+   warm solve's profile;
 5. gate 3: writes the pressure fixture at N^3 rows (``--side3``, default
    64^3 = 262,144 rows, 6.86M nonzeros) and runs it through the CLI:
    MatrixMarket files, RCM, BoomerAMG host setup (PMIS, extended+i,
@@ -107,8 +113,8 @@ between CUDA events (``calibrate.time_ms``), which on a small launch is
 the host's.  Each path's kernel launches are counted from 0 just before its
 CLI run and read just after; a path that launched none of its kernels
 fails, and gate 4 fails unless each of its operators launched the kernel
-the model prices fastest (K5 and, where no operator takes them, K4 and
-K6 are held by the checks of step 3 and the timings alone).  The
+the model prices fastest (K4 and K6, which no operator of the paths takes,
+are held by the checks of step 3 and the timings alone).  The
 second-to-last line is a JSON object with one entry per kernel (launches,
 device and per-call times, plain, library and bound); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -189,15 +195,17 @@ def rel_err(y, y_ref) -> float:
 
 def banded_check(device) -> tuple:
     """K4 and K5 against their plain versions on a banded matrix whose
-    clipped boundary blocks spill to the overflow list, K5 against K4 bit
-    for bit (also on an x that is not 16-byte aligned), and the whole SpMV
-    against scipy.  Returns the largest relative error of K4 and of K5."""
+    clipped boundary blocks spill to the overflow list, K5 with and without
+    its segment mask against K4 bit for bit (also on an x that is not
+    16-byte aligned), K5's update forms against their plain versions bit
+    for bit, and the whole SpMV against scipy.  Returns the largest
+    relative error of K4 and of K5."""
     import numpy as np
     import scipy.sparse as sp
     import torch
     from tpusolve_torch.kernels.bdia import (
-        bdia_spmv, bdia_spmv_plain, bdia_spmv_xl, bdia_spmv_xl_plain)
-    from tpusolve_torch.matrix import sharded
+        bdia_spmv, bdia_spmv_plain, bdia_spmv_xl, bdia_spmv_xl_plain,
+        full_mask)
     from tpusolve_torch.matrix.sharded import ShardedMatrix
     from tpusolve_torch.matrix.spmv import spmv
 
@@ -236,33 +244,82 @@ def banded_check(device) -> tuple:
         # K5 on the same layout, on the step plan the model prices best
         # (whether or not it would beat K4 there)
         _, B, D, R = A.bdia_vals.shape
-        itemsize = A.bdia_vals.element_size()
-        plan = sharded.plan_xl(A.bdia_starts.cpu().numpy(), R, A.bdia_xpad,
-                               itemsize, sharded.bdia_bytes(
-                                   B, D, R, int(A.bdia_ovf_ptr[0, -1]),
-                                   itemsize))
-        if plan is None:
+        Ax = xl_operator(A)
+        if Ax is None:
             fail("banded check: no K5 step plan fits")
-        gb, step_lo, panel = plan[0], torch.tensor(plan[1], device=device), \
-            plan[2]
-        xargs = (A.bdia_vals, A.bdia_starts, x, A.bdia_xpad, A.row_pad, gb,
-                 step_lo, panel, A.bdia_ovf)
-        y5 = bdia_spmv_xl(*xargs)
-        err5 = rel_err(y5, bdia_spmv_xl_plain(*xargs))
+        xargs, kw = xl_args(Ax, x)
+        y5 = bdia_spmv_xl(*xargs, **kw)
+        err5 = rel_err(y5, bdia_spmv_xl_plain(*xargs, **kw))
         buf = torch.empty(n + 1, dtype=A.dtype, device=device)
         buf[1:] = x
-        y5u = bdia_spmv_xl(A.bdia_vals, A.bdia_starts, buf[1:], A.bdia_xpad,
-                           A.row_pad, gb, step_lo, panel, A.bdia_ovf)
-        same, same_u = bool(torch.equal(y5, y4)), bool(torch.equal(y5u, y4))
-        print(f"K5 banded n={n} {name} gb={gb} panel={panel} steps="
-              f"{step_lo.shape[1]}: kernel vs plain rel err {err5:.3e} "
-              f"(limit {RTOL[name]:.0e}); equal to K4: {same}; on an x at "
-              f"a 16-byte misalignment ({buf[1:].data_ptr() % 16} bytes off "
-              f"16): equal to K4: {same_u}", flush=True)
-        if not err5 <= RTOL[name] or not (same and same_u):
+        y5u = bdia_spmv_xl(*xl_args(Ax, buf[1:])[0], **kw)
+        same = all(bool(torch.equal(y, y4)) for y in (
+            y5, y5u, bdia_spmv_xl(*xargs, **dict(kw, mask=full_mask(
+                1, B, D, R, device)))))
+        upd_same = update_forms_equal(xargs, kw, rng)
+        print(f"K5 banded n={n} {name} gb={Ax.bdia_gb} panel={Ax.bdia_panel}"
+              f" steps={Ax.bdia_step_lo.shape[1]} stage={Ax.bdia_stage} "
+              f"segments live {A.bdia_live}/"
+              f"{B * D * R // 32}: kernel vs plain rel err {err5:.3e} "
+              f"(limit {RTOL[name]:.0e}); equal to K4, with the mask and "
+              f"with every segment set, and on an x at a 16-byte misalignment "
+              f"({buf[1:].data_ptr() % 16} bytes off 16): {same}; update "
+              f"forms equal to their plain versions: {upd_same}", flush=True)
+        if not err5 <= RTOL[name] or not same or not all(upd_same.values()):
             fail(f"banded check: K5 {name} out of tolerance or not K4's")
         worst5 = max(worst5, err5)
     return worst4, worst5
+
+
+def xl_operator(M):
+    """BDIA operator ``M`` run by K5: itself where it is BDIA-XL, else on
+    the step plan the model prices best (whether or not it beats K4), or
+    None where no plan fits."""
+    from tpusolve_torch.matrix import sharded
+    if M.uses_bdia_xl:
+        return M
+    plan = sharded.plan_xl(M.bdia_starts.cpu().numpy(), M.bdia_block,
+                           M.bdia_xpad, M.bdia_vals.element_size(),
+                           M.bdia_nbytes, M.bdia_live, M.xl_work())
+    return None if plan is None else M._with_xl(plan[:5])
+
+
+def xl_args(M, x) -> tuple:
+    """(positional, keyword) arguments of ``bdia_spmv_xl`` for BDIA-XL
+    operator ``M`` on ``x``, as ``matrix/spmv.py`` passes them."""
+    return ((M.bdia_vals, M.bdia_starts, x, M.bdia_xpad, M.row_pad,
+             M.bdia_gb, M.bdia_step_lo, M.bdia_panel, M.bdia_ovf),
+            dict(mask=M.bdia_mask, step_b0=M.bdia_step_b0,
+                 stage=M.bdia_stage))
+
+
+def update_forms_equal(xargs, kw, rng) -> dict:
+    """K5's update forms (the ILU's lower sweep ``b - A x`` and upper sweep
+    ``s * (b - A x)``, and ``c + w * s * (b - A x)``) on arguments
+    ``xargs`` and keywords ``kw`` of ``bdia_spmv_xl``, each against the
+    plain update (``epilogue_plain``, the eager steps the path ran before)
+    of K5's own ``A x``: {form: equal bit for bit}.  (The plain SpMV sums the slots
+    in torch's order, so against it the update form agrees to RTOL.)
+    Fails where an update form strays from the whole plain version by more
+    than RTOL."""
+    import torch
+    from tpusolve_torch.kernels.bdia import bdia_spmv_xl, bdia_spmv_xl_plain
+    from tpusolve_torch.kernels.dia import epilogue_plain
+    x = xargs[2]
+    n = xargs[4]
+    dt = str(x.dtype).replace("torch.", "")
+    b, s, c = (torch.tensor(rng.standard_normal(n), dtype=x.dtype,
+                            device=x.device) for _ in range(3))
+    y = bdia_spmv_xl(*xargs, **kw)
+    out = {}
+    for form, upd in (("b", dict(b=b)), ("b,s", dict(b=b, s=s)),
+                      ("b,s,c,w", dict(b=b, s=s, c=c, w=0.7))):
+        got = bdia_spmv_xl(*xargs, **kw, **upd)
+        out[form] = bool(torch.equal(got, epilogue_plain(y, **upd)))
+        err = rel_err(got, bdia_spmv_xl_plain(*xargs, **kw, **upd))
+        if not err <= RTOL[dt]:
+            fail(f"K5 update form {form} {dt} vs plain rel err {err:.3e}")
+    return out
 
 
 def k4_launch_check(device) -> float:
@@ -311,11 +368,13 @@ def k4_launch_check(device) -> float:
             args = (vt, stt, x, xpad, xlen, n, ovf)
             y4 = bdia.bdia_spmv(*args)
             err = rel_err(y4, bdia.bdia_spmv_plain(*args))
-            gb, step_lo, panel = bdia.plan_steps(
+            gb, step_lo, panel, step_b0, stage = bdia.plan_steps(
                 starts[None], R, xpad, vals.itemsize,
-                lambda g, nsteps, panel: abs(g - 4))
-            y5 = bdia.bdia_spmv_xl(vt, stt, x, xpad, n, gb, torch.tensor(
-                step_lo, device=device), panel, ovf)
+                lambda g, nsteps, panel, smem: abs(g - 4))
+            y5 = bdia.bdia_spmv_xl(
+                vt, stt, x, xpad, n, gb, torch.tensor(step_lo, device=device),
+                panel, ovf, mask=bdia.segment_mask(vt),
+                step_b0=torch.tensor(step_b0, device=device), stage=stage)
             rc, S, blocks, _ = bdia.k4_plan(1, B, D, R, vals.itemsize)
             name = np.dtype(dtype).name
             same = bool(torch.equal(y4, y5))
@@ -446,15 +505,20 @@ def spmv_nbytes(M) -> int:
 
 def bdia_timings(ops, device_name: str, seed: int):
     """At each (name, BDIA operator) of ``ops``: the layout; K4, and K5
-    where a step plan fits (the operator's own, else the model's best),
-    each against its plain version, K5 against K4 bit for bit; the
-    library's SpMV; the bound.  Returns one row per operator."""
+    with the operator's segment mask where a step plan fits (the
+    operator's own, else the model's best), each against its plain version,
+    K5 against K4 bit for bit and its update forms against the plain
+    update of its product (:func:`update_forms_equal`); the library's SpMV;
+    the bound; the bytes the layout stores, the bytes K5 reads (the
+    segments its mask keeps, the overflow, the panels) and the share of
+    segments it skips.  Returns one row per operator."""
     import numpy as np
     import torch
     from tpusolve_torch.kernels.bdia import (
         bdia_spmv, bdia_spmv_plain, bdia_spmv_xl, bdia_spmv_xl_plain)
     from tpusolve_torch.kernels.calibrate import time_ms
     from tpusolve_torch.matrix import sharded
+    from tpusolve_torch.matrix.spmv import spmv
 
     rng = np.random.default_rng(seed)
     rows = []
@@ -475,40 +539,49 @@ def bdia_timings(ops, device_name: str, seed: int):
             fail(f"{name}: K4 vs plain rel err {err4:.3e} > {RTOL[dt]}")
         k = int(M.bdia_ovf_ptr[0, -1]) if M.bdia_ovf_ptr is not None else 0
         nbytes = sharded.bdia_bytes(B, D, R, k, itemsize)
+        live = M.bdia_live
+        reads = nbytes - sharded.skipped_bytes(1, B, D, R, itemsize, live)
         model4 = 1e3 * sharded.k4_model_s(itemsize, nbytes, 1, B, D, R)
         plan = sharded.plan_xl(M.bdia_starts.cpu().numpy(), R, M.bdia_xpad,
-                               itemsize, nbytes)
-        model5 = None if plan is None else 1e3 * plan[3]
-        if M.uses_bdia_xl:
-            plan = (M.bdia_gb, M.bdia_step_lo, M.bdia_panel)
-        elif plan is not None:
-            plan = (plan[0], torch.tensor(plan[1], device=M.device), plan[2])
-        xargs = None if plan is None else (
-            M.bdia_vals, M.bdia_starts, x, M.bdia_xpad, M.row_pad, *plan,
-            M.bdia_ovf)
+                               itemsize, nbytes, live, M.xl_work())
+        model5 = None if plan is None else 1e3 * plan[5]
+        Mx = xl_operator(M)
+        xargs, kw = (None, {}) if Mx is None else xl_args(Mx, x)
         lib_call, xlib = library_spmv(M)
         xlib.copy_(x[:xlib.numel()])
         err_lib = rel_err(lib_call(), y4p[:xlib.numel()])
         row = dict(op=name, dtype=dt, layout=M.layout, B=B, D=D, R=R,
                    overflow=k, rel_err=err4, max_abs_err=float(
                        (y4 - y4p).abs().max()), lib_rel_err=err_lib,
-                   model_k4_ms=model4, model_k5_ms=model5)
+                   model_k4_ms=model4, model_k5_ms=model5,
+                   layout_mb=nbytes / 1e6, segments_live=live,
+                   segments=B * D * R // 32,
+                   skipped_share=1 - live * 32 / (B * D * R))
         if xargs is not None:
-            y5 = bdia_spmv_xl(*xargs)
-            y5p = bdia_spmv_xl_plain(*xargs)
+            y5 = bdia_spmv_xl(*xargs, **kw)
+            y5p = bdia_spmv_xl_plain(*xargs, **kw)
             err5 = rel_err(y5, y5p)
             if not err5 <= RTOL[dt] or not torch.equal(y5, y4):
                 fail(f"{name}: K5 vs plain rel err {err5:.3e} or not equal "
                      "to K4")
-            row.update(gb=plan[0], panel=plan[2], steps=plan[1].shape[1],
+            upd = update_forms_equal(xargs, kw, rng)
+            if not all(upd.values()):
+                fail(f"{name}: K5's update forms {upd}")
+            nsteps = Mx.bdia_step_lo.shape[1]
+            row.update(gb=Mx.bdia_gb, panel=Mx.bdia_panel, steps=nsteps,
+                       stage=Mx.bdia_stage,
                        xl_rel_err=err5, xl_max_abs_err=float(
-                           (y5 - y5p).abs().max()))
-        # alternate plain, kernels, library, kernels, plain on the card
-        plain = (lambda: bdia_spmv_xl_plain(*xargs)) if M.uses_bdia_xl \
-            else (lambda: bdia_spmv_plain(*args))
-        calls = [("plain", plain), ("k4", lambda: bdia_spmv(*args))]
-        if xargs is not None:
-            calls.append(("k5", lambda: bdia_spmv_xl(*xargs)))
+                           (y5 - y5p).abs().max()), xl_equal_to_k4=True,
+                       update_forms_equal=upd,
+                       xl_read_mb=(reads + nsteps * Mx.bdia_panel
+                                   * itemsize) / 1e6)
+        # alternate plain, kernels, library, kernels, plain on the card;
+        # "plain" is K4's plain version, "xl_plain" K5's
+        calls = [("plain", lambda: bdia_spmv_plain(*args)),
+                 ("k4", lambda: bdia_spmv(*args))]
+        if xargs is not None:       # as the solve calls it
+            calls += [("xl_plain", lambda: bdia_spmv_xl_plain(*xargs, **kw)),
+                      ("k5", lambda: spmv(Mx, x))]
         calls.append(("lib", lib_call))
         runs = {key: [] for key, _ in calls}
         for key, call in calls + calls[::-1]:
@@ -519,18 +592,24 @@ def bdia_timings(ops, device_name: str, seed: int):
         for key, ms in device_times(dict(calls)).items():
             row[key + "_dev_ms"] = ms
         row["bound_ms"] = bound_ms(spmv_nbytes(M), device_name)
-        row["layout_mb"] = nbytes / 1e6
         row["ms"] = row["k5_ms" if M.uses_bdia_xl else "k4_ms"]
         k5 = (f"K5 gb={row['gb']} panel={row['panel']} device "
               f"{row['k5_dev_ms']:.5f} ms, per call {row['k5_ms']:.5f} ms "
               f"(runs {row['k5_runs'][0]:.5f}, {row['k5_runs'][1]:.5f}; "
               f"model {model5:.5f}), rel err {row['xl_rel_err']:.3e}, equal "
-              f"to K4; " if xargs is not None else "K5: no step plan fits; ")
+              f"to K4, update forms equal to the plain update "
+              f"{row['update_forms_equal']}; reads {row['xl_read_mb']:.3f} "
+              f"MB with its panels, {row['skipped_share']:.3f} of the "
+              f"segments skipped; K5's plain version device "
+              f"{row['xl_plain_dev_ms']:.5f} ms, per call "
+              f"{row['xl_plain_ms']:.5f} ms; " if xargs is not None
+              else "K5: no step plan fits; ")
         print(f"{name} {dt} {M.layout}: K4 device {row['k4_dev_ms']:.5f} ms, "
               f"per call {row['k4_ms']:.5f} ms (runs "
               f"{row['k4_runs'][0]:.5f}, {row['k4_runs'][1]:.5f}; model "
               f"{model4:.5f}), rel err "
-              f"{err4:.3e}; {k5}plain device {row['plain_dev_ms']:.5f} ms, "
+              f"{err4:.3e}; {k5}K4's plain version device "
+              f"{row['plain_dev_ms']:.5f} ms, "
               f"per call {row['plain_ms']:.5f} ms; library (torch.sparse "
               f"CSR) device {row['lib_dev_ms']:.5f} ms, per call "
               f"{row['lib_ms']:.5f} ms (rel err {err_lib:.1e}); bound "
@@ -581,20 +660,19 @@ def check_solve(system, rc: int, what: str, tol: float = 1e-8):
 
 
 def model_takes_xl(M) -> bool:
-    """Whether the time model puts BDIA operator ``M`` on K5."""
-    from tpusolve_torch.matrix import sharded
-    _, B, D, R = M.bdia_vals.shape
-    itemsize = M.bdia_vals.element_size()
-    k = 0 if M.bdia_ovf_ptr is None else int(M.bdia_ovf_ptr[0, -1])
-    return sharded.choose_xl(M.bdia_starts.cpu().numpy(), R, M.bdia_xpad,
-                             itemsize, sharded.bdia_bytes(
-                                 B, D, R, k, itemsize)) is not None
+    """Whether the time model puts BDIA operator ``M`` on K5: the decision
+    the layout makes (``ShardedMatrix.with_kernel``, priced on the segments
+    its mask keeps and on steps balanced by the work K5 reads)."""
+    return M.with_kernel().uses_bdia_xl
 
 
 def gate4_phase(side: int, device_name: str, counters):
     """The gate-4 path; returns (launches, K4/K5 timing rows of its four
     operators on their BDIA layouts, K2 rows of those that run K2, the
-    old-against-new rows of :func:`moved_timings` for all four)."""
+    old-against-new rows of :func:`moved_timings` for all four, K5's
+    launches by update form, the warm-solve profile).  The factors' old
+    kernel is K4 on the same BDIA layout: the one they ran before K5's
+    segment mask priced K5 below it."""
     from tpusolve_torch import fixtures
     work = os.path.join(REPO, "build", f"gate4_{side}")
     shutil.rmtree(work, ignore_errors=True)
@@ -627,6 +705,15 @@ def gate4_phase(side: int, device_name: str, counters):
                                                  for _, M in ops):
         fail(f"gate-4 launched K5 {launches['bdia_spmv_xl']} times with "
              "no BDIA-XL operator")
+    if launches["bdia_spmv"] > 0 and not any(
+            M.uses_bdia and not M.uses_bdia_xl for _, M in ops):
+        fail(f"gate-4 launched K4 {launches['bdia_spmv']} times with no "
+             "operator on K4")
+    from tpusolve_torch.kernels.bdia import bdia_spmv_xl
+    from tpusolve_torch.kernels.dia import epilogue_mode
+    xl_forms = {epilogue_mode(*(True if f else None for f in form)): n
+                for form, n in bdia_spmv_xl.launches_by_form.items()}
+    print(f"gate-4 K5 launches by update form {xl_forms}", flush=True)
     print("gate-4 kernels, as the model prices them: " + ", ".join(
         f"{name} {kernel_of(M)}" for name, M in ops), flush=True)
     passes = res.passes or []
@@ -650,7 +737,7 @@ def gate4_phase(side: int, device_name: str, counters):
     olds = {"A": old_a, "A_lo": system.A_lo if system.A_lo.uses_bdia
             else old_a.astype(system.A_lo.dtype)}
     for name, M in (("L", pre.L), ("U", pre.U)):
-        olds[name] = M if M.uses_bdia else old_layout(M)
+        olds[name] = (M._with_xl(None) if M.uses_bdia else old_layout(M))
     bdia_ops = [(name, M, M if M.uses_bdia else olds[name])
                 for name, M in ops]
     bdia_ops = [op for op in bdia_ops if op[2].uses_bdia]
@@ -662,8 +749,9 @@ def gate4_phase(side: int, device_name: str, counters):
                            if M.uses_ell], device_name, 32)
     moved = moved_timings([(f"gate-4 {name}", M, olds[name])
                            for name, M in ops], device_name, 31)
+    prof = solve_profile(system, "gate-4")
     system.destroy_system()
-    return launches, rows, k2_rows, moved
+    return launches, rows, k2_rows, moved, xl_forms, prof
 
 
 # the kernel each layout runs, by the first word of its name
@@ -2076,8 +2164,8 @@ def main(argv) -> int:
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
                 box_restrict, box_restrict_residual, box_prolong_update,
                 ell_spmv)
-    l4, rows4, k2_rows4, moved4 = gate4_phase(sides["--side"], device_name,
-                                              counters)
+    l4, rows4, k2_rows4, moved4, xl_forms4, prof4 = gate4_phase(
+        sides["--side"], device_name, counters)
     phase_done("gate 4")
     g3 = gate3_phase(sides["--side3"], device_name, counters)
     l3, rows3, bdia_rows3 = g3["launches"], g3["k6_rows"], g3["k4_rows"]
@@ -2106,12 +2194,9 @@ def main(argv) -> int:
 
     moved_all = moved4 + g3["moved_rows"] + rs["moved_rows"] \
         + ws["moved_rows"]
-    # headline shapes: K4 on the first of A_lo, A, U, L that runs it on the
-    # gate-4 path, K5 on L, K6 on the BELL layout of largest bound
-    k4 = next(r for r in sorted(rows4, key=lambda r: (
-        not r["main_path"], ["A_lo", "A", "U", "L"].index(r["op"])))
-        if not r["layout"].startswith("BDIA-XL"))
-    k5 = next(r for r in rows4 if r["op"] == "L")
+    # headline shapes: K4 and K5 on gate 4's L, K6 on the BELL layout of
+    # largest bound
+    k4 = k5 = next(r for r in rows4 if r["op"] == "L")
     if not rows6_all:
         fail("no BELL layout to time K6 on")
     k6 = max(rows6_all, key=lambda r: r["bound_ms"])
@@ -2151,9 +2236,11 @@ def main(argv) -> int:
              max_abs_err=max(r["max_abs_err"] for r in rows4_all),
              ms=k4["k4_ms"], device_ms=k4["k4_dev_ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             plain_device_ms=k4["plain_dev_ms"],
              bound_by="bytes", library_ms=k4["lib_ms"],
              library_device_ms=k4["lib_dev_ms"], shape=k4["op"],
-             held_by="banded_check, k4_launch_check, bdia_timings",
+             held_by="banded_check, k4_launch_check, bdia_timings, and "
+                     "moved_timings as the factors' old kernel",
              max_rel_err=max([worst4] + [r["rel_err"] for r in rows4_all]),
              shapes=rows4_all),
         dict(name="bdia_spmv_xl", route="cuda",
@@ -2163,12 +2250,20 @@ def main(argv) -> int:
              max_abs_err=max(r["xl_max_abs_err"] for r in rows4_all
                              if "xl_max_abs_err" in r),
              ms=k5["k5_ms"], device_ms=k5["k5_dev_ms"],
-             plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+             plain_ms=k5["xl_plain_ms"],
+             plain_device_ms=k5["xl_plain_dev_ms"],
+             bound_ms=k5["bound_ms"],
              bound_by="bytes", library_ms=k5["lib_ms"],
              library_device_ms=k5["lib_dev_ms"], shape=k5["op"],
-             held_by="banded_check, k4_launch_check, bdia_timings",
+             k4_device_ms=k5["k4_dev_ms"], stored_mb=k5["layout_mb"],
+             read_mb=k5["xl_read_mb"], skipped_share=k5["skipped_share"],
+             launches_by_form=xl_forms4,
              max_rel_err=max([worst5] + [r["xl_rel_err"] for r in rows4_all
-                                         if "xl_rel_err" in r])),
+                                         if "xl_rel_err" in r]),
+             update_forms_equal=[r["update_forms_equal"] for r in rows4_all
+                                 if "update_forms_equal" in r],
+             moved=[r for r in moved4 if r["new_kernel"] == "K5"],
+             gate4_profile=prof4),
         dict(name="bell_spmv", route="cuda",
              source="tpusolve_torch/csrc/bell_spmv.cu",
              replaces="tpusolve/kernels/bell.py:159", **launches("bell_spmv"),

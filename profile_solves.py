@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
 """Warm-solve profiles and setup rows of the port's paths on one CUDA card.
 
-    python3 profile_solves.py [ROOT]
+    python3 profile_solves.py [ROOT] [--only NAME[,NAME...]]
 
 Runs ``examples/gate1_64cube_pcg_amg.yaml``,
 ``examples/gate2_weakscale_gmres_cheby.yaml``,
-``examples/weakscale_pcg_boomeramg_devsetup.yaml`` as they are and the
+``examples/weakscale_pcg_boomeramg_devsetup.yaml`` as they are, the
 gate-3 pressure fixture at 64^3 (``tools/gatefix.py:GATE3_YAML``, written
-by the package's ``fixtures.write_gate3``) through the CLI of the
+by the package's ``fixtures.write_gate3``) and the gate-4 momentum fixture
+at 96^3 (``GATE4_YAML``, ``fixtures.write_gate4``; BiCGSTAB + ILU(0),
+whose factors run K5 or K4) through the CLI of the
 ``tpusolve_torch`` package under ROOT (default: this script's directory),
 fails unless each passes its golden check, prints its timer rows (the
 setup's among them) and the weak-scaling setup's stages, and profiles one
 warm solve of each as ``chip_smoke.py`` does (``chip_smoke.solve_profile``:
 wall time, device operations and device time by kernel class, the device's
-idle share).  It uses nothing of that package but its kernel build, its
-fixture writer and its CLI, so ROOT may be an earlier checkout, unpacked
-with ``git archive`` into a directory ``.gitignore`` lists
-(``build/parent``), profiled in the same call as this one.  Prints the
-profiles as one JSON line.  It holds no kernel against its plain version
+idle share).  ``--only`` runs just the named paths (``gate-1``,
+``gate-2``, ``weakscale``, ``gate-3``, ``gate-4``).  It uses nothing of
+that package but its kernel build, its fixture writers and its CLI, so
+ROOT may be an earlier checkout, unpacked with ``git archive`` into a
+directory ``.gitignore`` lists (``build/parent``), profiled in the same
+call as this one.  Prints the profiles as one JSON line.  It holds no kernel against its plain version
 and prints no ``ok`` line: ``chip_smoke.py`` is the smoke run.
 """
 
@@ -29,18 +32,28 @@ import shutil
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GATES = (("gate-1", "gate1_64cube_pcg_amg.yaml", 1e-8),
-         ("gate-2", "gate2_weakscale_gmres_cheby.yaml", 1e-6),
-         ("weakscale", "weakscale_pcg_boomeramg_devsetup.yaml", 1e-6),
-         ("gate-3", None, 1e-8))
-GATE3_SIDE = 64
+# (name, example YAML or fixture writer's name, tolerance, fixture side)
+GATES = (("gate-1", "gate1_64cube_pcg_amg.yaml", 1e-8, None),
+         ("gate-2", "gate2_weakscale_gmres_cheby.yaml", 1e-6, None),
+         ("weakscale", "weakscale_pcg_boomeramg_devsetup.yaml", 1e-6, None),
+         ("gate-3", "write_gate3", 1e-8, 64),
+         ("gate-4", "write_gate4", 1e-8, 96))
+USAGE = "usage: python3 profile_solves.py [ROOT] [--only NAME[,NAME...]]"
 
 
 def main(argv) -> int:
-    if len(argv) > 1:
-        print("usage: python3 profile_solves.py [ROOT]", file=sys.stderr)
+    names = [g[0] for g in GATES]
+    only, rest = names, []
+    it = iter(argv)
+    for a in it:
+        if a == "--only":
+            only = next(it, "").split(",")
+        else:
+            rest.append(a)
+    if len(rest) > 1 or not set(only) <= set(names):
+        print(USAGE, file=sys.stderr)
         return 1
-    root = os.path.abspath(argv[0]) if argv else HERE
+    root = os.path.abspath(rest[0]) if rest else HERE
     import torch
     if not torch.cuda.is_available():
         print("profile_solves: CUDA is not available", file=sys.stderr)
@@ -60,12 +73,14 @@ def main(argv) -> int:
     print(f"package {os.path.dirname(cli.__file__)}; kernel build "
           f"{build.build_all():.3f} s", flush=True)
     out = {}
-    work = os.path.join(HERE, "build", "profile_gate3")
-    for what, name, tol in GATES:
+    work = os.path.join(HERE, "build", "profile_fixture")
+    for what, name, tol, side in GATES:
+        if what not in only:
+            continue
         systems = []
-        if name is None:
+        if side is not None:
             shutil.rmtree(work, ignore_errors=True)
-            path = fixtures.write_gate3(work, GATE3_SIDE)
+            path = getattr(fixtures, name)(work, side)
         else:
             path = os.path.join(HERE, "examples", name)
         try:

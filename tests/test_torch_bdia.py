@@ -277,8 +277,9 @@ class TestCudaKernel:
         rc, S, _, _ = bdia.k4_plan(1, vals.shape[1], D, R, itemsize)
         assert S == bdia.K4_SLOTS_DEEP and (rc < R if case == "small"
                                             else rc == R)
-        gb, step_lo, panel = bdia.plan_steps(
-            starts, R, xpad, itemsize, lambda g, nsteps, panel: abs(g - 4))
+        gb, step_lo, panel, step_b0, stage = bdia.plan_steps(
+            starts, R, xpad, itemsize,
+            lambda g, nsteps, panel, smem: abs(g - 4))
         ovf = to(ovf, cuda)
         vt, st = (torch.from_numpy(vals).to(cuda),
                   torch.from_numpy(starts).to(cuda))
@@ -291,7 +292,10 @@ class TestCudaKernel:
         ref = bdia.bdia_spmv_plain(*args)
         assert float((y - ref).abs().max() / ref.abs().max()) <= RTOL[dtype]
         y5 = bdia.bdia_spmv_xl(vt, st, x, xpad, n, gb,
-                               torch.from_numpy(step_lo).to(cuda), panel, ovf)
+                               torch.from_numpy(step_lo).to(cuda), panel, ovf,
+                               mask=bdia.segment_mask(vt),
+                               step_b0=torch.from_numpy(step_b0).to(cuda),
+                               stage=stage)
         assert torch.equal(y, y5)
 
     def test_spmv_with_overflow_matches_scipy(self, cuda):

@@ -72,13 +72,17 @@ def staged(r, c, v, n, R, dtype, D=None, overflow=False):
     return vals.reshape(1, B, D, R), sa[None], xpad, xlen, ovf
 
 
-def forced_plan(starts, R, xpad, itemsize, gb):
-    """The port's step plan at ``gb`` blocks a step, or None."""
+def forced_plan(starts, R, xpad, itemsize, gb, device=CPU):
+    """The port's step plan at ``gb`` blocks a step, ``((gb, step_lo,
+    panel), {"step_b0": ..., "stage": ...})`` with the tables on
+    ``device``, or None."""
     plan = bdia.plan_steps(starts, R, xpad, itemsize,
-                           lambda g, nsteps, panel: abs(g - gb))
+                           lambda g, nsteps, panel, smem: abs(g - gb))
     if plan is None or plan[0] != gb:
         return None
-    return plan[0], torch.from_numpy(plan[1]), plan[2]
+    return ((plan[0], torch.from_numpy(plan[1]).to(device), plan[2]),
+            dict(step_b0=torch.from_numpy(plan[3]).to(device),
+                 stage=plan[4]))
 
 
 @pytest.fixture(scope="module")
@@ -111,9 +115,12 @@ class TestPlanner:
         _, starts, xpad, _, _ = staged(r, c, v, n, R, np.float64)
         B = starts.shape[1]
         for gb in (1, 5, 16, B):
-            gb_, step_lo, panel = forced_plan(starts, R, xpad, itemsize, gb)
+            (gb_, step_lo, panel), kw = forced_plan(starts, R, xpad,
+                                                    itemsize, gb)
             lo = step_lo.numpy()
             assert lo.shape == (1, -(-B // gb))
+            assert kw["step_b0"].numpy().tolist() == [
+                list(range(0, B, gb)) + [B]]
             assert panel % bdia.XL_ALIGN == 0
             assert not (lo % bdia.XL_ALIGN).any()
             s = starts[0].astype(np.int64) - xpad
@@ -153,9 +160,12 @@ class TestPlainAgainstTpusolve:
         args = (torch.from_numpy(vals), torch.from_numpy(starts),
                 torch.from_numpy(x))
         y4 = bdia.bdia_spmv_plain(*args, xpad, xlen, n)
+        mask = bdia.segment_mask(args[0])
         for gb in (1, 5, 12):
-            plan = forced_plan(starts, R, xpad, np.dtype(dtype).itemsize, gb)
-            y = bdia.bdia_spmv_xl_plain(*args, xpad, n, *plan)
+            plan, kw = forced_plan(starts, R, xpad, np.dtype(dtype).itemsize,
+                                   gb)
+            y = bdia.bdia_spmv_xl_plain(*args, xpad, n, *plan, mask=mask,
+                                        **kw)
             np.testing.assert_allclose(y.numpy(), ref, rtol=RTOL[dtype],
                                        atol=RTOL[dtype] * np.abs(ref).max())
             assert torch.equal(y, y4)
@@ -168,13 +178,14 @@ class TestPlainAgainstTpusolve:
                                                D=12, overflow=True)
         assert int(ovf[0][0, -1]) > 0
         x = torch.from_numpy(rng.standard_normal(n))
-        plan = forced_plan(starts, R, xpad, 8, 4)
+        plan, kw = forced_plan(starts, R, xpad, 8, 4)
         args = (torch.from_numpy(vals), torch.from_numpy(starts), x, xpad, n,
                 *plan, ovf)
+        kw["mask"] = bdia.segment_mask(args[0])
         before = bdia.bdia_spmv_xl.launches
-        y = bdia.bdia_spmv_xl(*args)         # CPU tensors: the plain version
+        y = bdia.bdia_spmv_xl(*args, **kw)   # CPU tensors: the plain version
         assert bdia.bdia_spmv_xl.launches == before
-        assert torch.equal(y, bdia.bdia_spmv_xl_plain(*args))
+        assert torch.equal(y, bdia.bdia_spmv_xl_plain(*args, **kw))
         assert torch.equal(y, bdia.bdia_spmv_plain(
             torch.from_numpy(vals), torch.from_numpy(starts), x, xpad, xlen,
             n, ovf))
@@ -186,12 +197,13 @@ class TestPlainAgainstTpusolve:
         n, R = 3000, 128
         r, c, v = clustered(rng, n, centers=(-300, 0, 300), drift_amp=10)
         vals, starts, xpad, _, _ = staged(r, c, v, n, R, np.float64)
-        gb, step_lo, panel = forced_plan(starts, R, xpad, 8, 4)
+        (gb, step_lo, panel), kw = forced_plan(starts, R, xpad, 8, 4)
+        vt = torch.from_numpy(vals)
         with pytest.raises(ValueError, match="panel"):
             bdia.bdia_spmv_xl_plain(
-                torch.from_numpy(vals), torch.from_numpy(starts),
+                vt, torch.from_numpy(starts),
                 torch.zeros(n, dtype=torch.float64), xpad, n, gb, step_lo,
-                panel - bdia.XL_ALIGN)
+                panel - bdia.XL_ALIGN, mask=bdia.segment_mask(vt), **kw)
 
 
 def k4_priced_slow(monkeypatch):
@@ -215,10 +227,10 @@ class TestLayout:
         k = 0 if A.bdia_ovf_ptr is None else int(A.bdia_ovf_ptr[0, -1])
         nbytes = sharded.bdia_bytes(B, D, R, k, 8)
         xl = sharded.plan_xl(A.bdia_starts.numpy(), R, A.bdia_xpad, 8,
-                             nbytes)
+                             nbytes, A.bdia_live, A.xl_work())
         t4 = sharded.k4_model_s(8, nbytes, 1, B, D, R)
         assert xl is not None
-        assert A.uses_bdia_xl == (xl[3] < t4) == slow_k4, A.layout
+        assert A.uses_bdia_xl == (xl[5] < t4) == slow_k4, A.layout
         if not slow_k4:
             assert A.layout.startswith("BDIA R=")
             return
@@ -247,7 +259,8 @@ class TestLayout:
             B, D, R, k, 8)) is None
         A32 = A.astype(np.float32)
         want = sharded.choose_xl(starts, R, A.bdia_xpad, 4,
-                                 sharded.bdia_bytes(B, D, R, k, 4))
+                                 sharded.bdia_bytes(B, D, R, k, 4),
+                                 A32.bdia_live, A32.xl_work())
         assert sharded.plan_xl(starts, R, A.bdia_xpad, 4, sharded.bdia_bytes(
             B, D, R, k, 4)) is not None
         assert A32.uses_bdia_xl == (want is not None)
@@ -308,13 +321,15 @@ def test_gate4_factors_take_xl_from_62(monkeypatch):
     """The slice: gate 4's ILU factors, as its ``mixed`` run builds them (f32
     twin of the RCM-ordered fixture, host Chow-Patel ILU(0)), at 62^3, the
     smallest side where they took BDIA-XL with the previous K4 and its
-    constants.  A K5 step plan fits their shared memory, but the model
-    now prices K4 (register stages) below it, as the card measures, so
-    they stay on K4 (the choice is the same on the CPU and the card); in
-    f64 too.  A CLI run at that side takes too long on a CPU: the CLI
-    comparison with tpusolve runs at 16^3 (tests/test_torch_slice.py).
-    K2 is priced out of the layout choice here, which holds the K4 and K5
-    planners (tests/test_torch_ell_rowptr.py holds the choice with it)."""
+    constants.  A K5 step plan fits their shared memory, and the model
+    prices K5 on the bytes it reads (the segments its mask keeps: a third of
+    the factors' segments are all zero) below K4 on every slot value, so
+    they run K5 (the choice is the same on the CPU and the card); in f64
+    too, and A, on the bytes its own mask keeps, where the model says so.
+    A CLI run at that side takes too long on a CPU: the CLI comparison with
+    tpusolve runs at 16^3 (tests/test_torch_slice.py).  K2 is priced out of
+    the layout choice here, which holds the K4 and K5 planners
+    (tests/test_torch_ell_rowptr.py holds the choice with it)."""
     from test_torch_sharded import k2_priced_out
     k2_priced_out(monkeypatch)
     import scipy.sparse as sp
@@ -335,18 +350,24 @@ def test_gate4_factors_take_xl_from_62(monkeypatch):
     pre = ilu_setup(A.astype(np.float32),
                     A_host=sp.csr_matrix((vals, (r, c)), shape=(n, n)))
     for M in (pre.L, pre.U):
-        assert not M.uses_bdia_xl and M.layout.startswith("BDIA R="), \
+        assert M.uses_bdia_xl and M.layout.startswith("BDIA-XL R="), \
             M.layout
         _, B, D, R = M.bdia_vals.shape
         k = int(M.bdia_ovf_ptr[0, -1])
         starts = M.bdia_starts.numpy()
+        assert M.bdia_live < 0.7 * B * D * R // 32
         nbytes = sharded.bdia_bytes(B, D, R, k, 4)
-        xl = sharded.plan_xl(starts, R, M.bdia_xpad, 4, nbytes)
+        xl = sharded.plan_xl(starts, R, M.bdia_xpad, 4, nbytes, M.bdia_live,
+                             M.xl_work())
         assert xl is not None
-        assert xl[3] >= sharded.k4_model_s(4, nbytes, 1, B, D, R)
-        assert sharded.choose_xl(starts, R, M.bdia_xpad, 8,
-                                 sharded.bdia_bytes(B, D, R, k, 8)) is None
-    assert not A.uses_bdia_xl
+        assert xl[5] < sharded.k4_model_s(4, nbytes, 1, B, D, R)
+        assert (M.bdia_gb, M.bdia_panel, M.bdia_stage) == \
+            (xl[0], xl[2], xl[4])
+        M64 = M.astype(np.float64)
+        assert M64.uses_bdia_xl == (sharded.choose_xl(
+            starts, R, M.bdia_xpad, 8, sharded.bdia_bytes(B, D, R, k, 8),
+            M64.bdia_live, M64.xl_work()) is not None) is True
+    assert A.uses_bdia_xl == (A.with_kernel().bdia_step_lo is not None)
 
 
 @pytest.fixture
@@ -370,22 +391,23 @@ class TestCudaKernel:
         vals, starts, xpad, xlen, ovf = staged(r, c, v, n, R, dtype, D=24,
                                                overflow=True)
         assert int(ovf[0][0, -1]) > 0
-        gb, step_lo, panel = forced_plan(starts, R, xpad,
-                                         np.dtype(dtype).itemsize, gb)
+        (gb, step_lo, panel), kw = forced_plan(
+            starts, R, xpad, np.dtype(dtype).itemsize, gb, cuda)
         ovf = tuple(t.to(cuda) for t in ovf)
         vt, st = torch.from_numpy(vals).to(cuda), torch.from_numpy(
             starts).to(cuda)
+        kw["mask"] = bdia.segment_mask(vt)
         x = torch.from_numpy(rng.standard_normal(n).astype(dtype)).to(cuda)
         buf = torch.empty(n + 1, dtype=x.dtype, device=cuda)
         buf[1:] = x
-        args = (vt, st, x, xpad, n, gb, step_lo.to(cuda), panel, ovf)
+        args = (vt, st, x, xpad, n, gb, step_lo, panel, ovf)
         before = bdia.bdia_spmv_xl.launches
-        y = bdia.bdia_spmv_xl(*args)
-        y_u = bdia.bdia_spmv_xl(vt, st, buf[1:], xpad, n, gb,
-                                step_lo.to(cuda), panel, ovf)
+        y = bdia.bdia_spmv_xl(*args, **kw)
+        y_u = bdia.bdia_spmv_xl(vt, st, buf[1:], xpad, n, gb, step_lo, panel,
+                                ovf, **kw)
         torch.cuda.synchronize()
         assert bdia.bdia_spmv_xl.launches == before + 2
-        ref = bdia.bdia_spmv_xl_plain(*args)
+        ref = bdia.bdia_spmv_xl_plain(*args, **kw)
         assert float((y - ref).abs().max() / ref.abs().max()) <= RTOL[dtype]
         y4 = bdia.bdia_spmv(vt, st, x, xpad, xlen, n, ovf)
         assert torch.equal(y, y4) and torch.equal(y_u, y4)
@@ -408,7 +430,11 @@ class TestCudaKernel:
         starts = torch.zeros((1, 2, 1), dtype=torch.int32, device=cuda)
         x = torch.zeros(256, dtype=torch.float32, device=cuda)
         lo = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+        mask = bdia.segment_mask(vals)
+        b0 = lambda *s: torch.tensor([s], dtype=torch.int32, device=cuda)
         with pytest.raises(TypeError, match="step_lo"):
-            bdia.bdia_spmv_xl(vals, starts, x, 0, 256, 1, lo, 256)
+            bdia.bdia_spmv_xl(vals, starts, x, 0, 256, 1, lo, 256, mask=mask,
+                              step_b0=b0(0, 1, 2))
         with pytest.raises(ValueError, match="does not fit"):
-            bdia.bdia_spmv_xl(vals, starts, x, 0, 256, 2, lo, 1 << 20)
+            bdia.bdia_spmv_xl(vals, starts, x, 0, 256, 2, lo, 1 << 20,
+                              mask=mask, step_b0=b0(0, 2))

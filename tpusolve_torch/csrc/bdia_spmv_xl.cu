@@ -1,52 +1,80 @@
-// Blocked-DIA (BDIA) SpMV by x panels in shared memory, for Hopper (sm_90a).
+// Blocked-DIA (BDIA) SpMV by x panels in shared memory, for Hopper (sm_90a):
+// K5.
 //
 // Replaces tpusolve/kernels/bdia.py:_bdia_kernel_xl (the Pallas TPU kernel
 // behind bdia_spmv_pallas_xl), which DMAs one x panel per grid step of 8
 // R-row blocks into VMEM.  It computes exactly what K4 (bdia_spmv.cu)
 // computes, on the same values, starts and overflow list:
 //
-//     y[p, b*R + r] = sum_d vals[p, b, d, r] * x[p, starts[p, b, d] - xpad_lo + r]
-//                     + sum_j ovf_vals[p, j] * x[p, ovf_cols[p, j]]
+//     (A x)[p, b*R + r] = sum_d vals[p, b, d, r] * x[p, starts[p, b, d] - xpad_lo + r]
+//                         + sum_j ovf_vals[p, j] * x[p, ovf_cols[p, j]]
 //
 // with x entries outside [0, col_pad) read as 0, the slots summed in slot
 // order and then the overflow entries in list order, one multiply-add each,
-// as K4 sums them: y is K4's bit for bit, so a solve cannot tell them apart.
+// as K4 sums them: A x is K4's bit for bit (for finite x), so a solve cannot
+// tell them apart.  One launch also computes the update form
 //
-// What bounds it: the values stream, B*D*R*itemsize bytes per part, read
-// once, and the overflow list.  K4 reads each window from L1/L2, one
-// 4-byte load of a value and one of x per slot and row, and reached 0.35-
-// 0.49 of HBM peak on the 96^3 gate-4 ILU factors in f32.  The design:
-//   * one thread block per (part, step), step = gb consecutive R-row blocks
-//     (blockIdx.x = step, blockIdx.y = part); the host's step plan gives
-//     each step's panel start step_lo (a multiple of 4 elements, may be
-//     negative) and one panel length for all steps (a multiple of 4);
+//     y = c + w * s (.) (b - A x)
+//
+// with any of b, s, c absent (null), each step rounded apart as the plain
+// version computes it (csrc/box_cycle.cuh: epilogue; the Jacobi sweeps of
+// the ILU apply, ilu/ilu.py).  y may be b, s or c, never x.
+//
+// What bounds it: the bytes it reads.  On gate 4's ILU factors half the
+// slot values are zeros, and the overflow list (1.6 entries a row) crowds
+// into some regions of the rows: at 96^3 a step of 53 blocks held from 0 to
+// 38,000 entries.  The design:
+//   * one thread block per (part, step), a step being consecutive R-row
+//     blocks: [step_b0[p, i], step_b0[p, i + 1]), where the host's plan
+//     balances the steps by the bytes K5 reads (kernels/bdia.py:
+//     plan_steps); at most kAccRows rows a thread (blockIdx.x = step,
+//     blockIdx.y = part).  The plan also gives each step's panel start
+//     step_lo (a multiple of 4 elements, may be negative) and one panel
+//     length for all steps (a multiple of 4);
 //   * the step's panel of x is copied into dynamic shared memory by one TMA
 //     1-D bulk copy (cp.async.bulk ... mbarrier::complete_tx) that completes
 //     on an mbarrier; the copy covers the 16-byte units inside [0, col_pad),
 //     and the threads fill the rest: x's tail past the last whole unit, and
 //     zeros outside [0, col_pad).  Where x's base is not 16-byte aligned
-//     (a view such as buf[1:]) the threads copy the whole panel themselves;
-//   * the step's window offsets into the panel are staged in shared memory;
-//   * up to 1024 threads; a warp owns 32 * kRows consecutive rows of one
-//     block per pass (128 in f32, 64 in f64), a lane the rows 32 apart, so
-//     that a warp's loads of a slot's values are one coalesced line each
+//     (a view such as buf[1:]) the threads copy the whole panel themselves.
+//     The panel keeps each slot's x window, as many bytes as its values,
+//     off L2;
+//   * the step's window offsets into the panel, and its rows of the segment
+//     mask, are staged in shared memory.  The mask (kernels/bdia.py:
+//     segment_mask) has bit q of byte (b, d, q / 8) set where rows 32q ...
+//     32q + 31 of slot d of block b hold a nonzero value (every bit set
+//     where the values are not known: kernels/bdia.py: full_mask);
+//   * up to 1024 threads; in pass ps a warp owns 32 * kRows consecutive
+//     rows of one block (128 in f32, 64 in f64), a lane the rows 32 apart,
+//     so that a warp's loads of a slot's values are one coalesced line each
 //     (evict-first: they are read once) and its reads of the window from
-//     the panel hit 32 consecutive banks; the slot loop is unrolled by 4,
-//     so kRows * 4 value loads are in flight per thread;
-//   * each row's first overflow entry (value, and x at its column) is
-//     loaded before the slots, behind the panel copy on the first pass, and
-//     added after them; the rest of the list follows in order;
+//     the panel hit 32 consecutive banks.  Row group j of the warp is one
+//     mask bit, uniform over the warp: a segment whose bit is clear loads
+//     nothing and adds 0 * x, which leaves the sum's bits as they are.  The
+//     loads are predicated, not branched around, so those of the slot loop
+//     (unrolled by 4) issue together; the first kPreSlots slots' loads of
+//     the first pass issue before the wait for the panel;
+//   * the overflow, staged by the block: the step's entries are one span of
+//     the CSR list, [ovf_ptr[first row], ovf_ptr[last row + 1]), copied
+//     into shared memory (columns and values) in chunks of `stage` entries
+//     by bulk copies, the first issued with the panel's so that it arrives
+//     during the slots.  After the slots each thread adds its rows' entries
+//     of each chunk in list order, x at the column from the panel (from
+//     global memory where the column lies outside it): K4's order.  A
+//     thread keeps the sums of all its rows across the passes;
 //   * offsets into vals are 64-bit (B*D*R passes 2^31 at production sizes).
-// On the chip, against variants of this design: the bulk copy as one
-// request, as 4 or 16 KB pieces or as per-thread cp.async 16-byte copies
-// timed the same; loads of the first slots' values before the panel
-// arrived, and two row groups per thread, were slower; 16-byte vector loads
-// of 4 consecutive rows a thread were slower than rows 32 apart, whose
-// overflow reads coalesce (PERF.md).  Rounds of blocks matter most:
-// a K5 block holds one panel of up to 227 KB, so an SM often holds one
-// block, and the step plan prices a partly empty last round as a full one.
-// The shared memory above 48 KB is opted in per instantiation with
-// cudaFuncSetAttribute before the first launch that needs it.
+// On the chip, against variants of this design (PERF.md; calibrate --k5):
+// the parent's (every segment read, each lane walking its own row's
+// overflow entries after the slots), the mask alone, the overflow read by
+// the warp in coalesced rounds of 32 with shuffles, the overflow staged
+// pass by pass into two buffers, steps of equal blocks, and no or 8 slots
+// loaded before the panel's wait were all slower.  Earlier: the bulk copy
+// as one request, as 4 or 16 KB pieces or as per-thread cp.async copies
+// timed the same; 16-byte vector loads of 4 consecutive rows a thread were
+// slower than rows 32 apart; one persistent block per SM sliding an x ring
+// was slower on every operator.  The shared memory above 48 KB is opted in
+// per instantiation with cudaFuncSetAttribute before the first launch that
+// needs it.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (tpusolve_torch/kernels/build.py).  Each entry point launches
@@ -56,13 +84,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "box_cycle.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;    // kernels/bdia.py: XL_THREADS
-constexpr int kPre = 1;              // overflow entries per row loaded early
 constexpr int kBarrierBytes = 16;    // kernels/bdia.py: XL_BARRIER_BYTES
 constexpr int kAlign = 4;            // kernels/bdia.py: XL_ALIGN, elements
 constexpr int kRowBytes = 16;        // kernels/bdia.py: XL_ROW_BYTES
+constexpr int kSegRows = 32;         // kernels/bdia.py: SEG_ROWS
+constexpr int kAccRows = 8;          // kernels/bdia.py: XL_ACC_ROWS
+constexpr int kPreSlots = 4;         // slots loaded before the panel's wait
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -78,6 +110,11 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
@@ -98,51 +135,141 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// x at column g of the part: from the step's panel [lo, lo + panel) when g
+// lies inside it, else from global memory
+template <typename T>
+__device__ __forceinline__ T x_at(int g, const T* s_x, int lo, int panel,
+                                  const T* xp) {
+  const int i = g - lo;
+  return (i >= 0 && i < panel) ? s_x[i] : __ldg(xp + g);
+}
+
+// The pointers and factor of the update form c + w * s (.) (b - A x)
+template <typename T>
+struct Update {
+  const T* b;
+  const T* s;
+  const T* c;
+  T w;
+  __device__ __forceinline__ T operator()(T acc, int64_t i) const {
+    if (b == nullptr && s == nullptr && c == nullptr) {
+      return acc;
+    }
+    return box_cycle::epilogue(acc, b != nullptr, b ? b[i] : T(0),
+                               s != nullptr, s ? s[i] : T(0), c != nullptr,
+                               c ? c[i] : T(0), w);
+  }
+};
+
+// The overflow entries [lo, hi) of the list (columns oc, values ov) into
+// the staging arrays s_oc, s_ov at index e - lo (lo a multiple of 4): one
+// bulk copy of each array for the whole 16-byte units (where both lists
+// are 16-byte aligned), which completes on barrier bar (thread 0 arrives on
+// it, with or without bytes), the rest by every thread of the block (the
+// caller synchronises).
+template <typename T>
+__device__ __forceinline__ void stage_overflow(const int32_t* oc, const T* ov,
+                                               int lo, int hi, int32_t* s_oc,
+                                               T* s_ov, uint32_t bar,
+                                               bool bulk) {
+  const int mid = bulk ? max(lo, hi & ~3) : lo;
+  if (threadIdx.x == 0) {
+    if (mid > lo) {
+      const uint32_t n = (uint32_t)(mid - lo);
+      mbar_expect_tx(bar, n * (uint32_t)(sizeof(int32_t) + sizeof(T)));
+      bulk_copy_g2s(smem_u32(s_oc), oc + lo, n * sizeof(int32_t), bar);
+      bulk_copy_g2s(smem_u32(s_ov), ov + lo, n * sizeof(T), bar);
+    } else {
+      mbar_arrive(bar);
+    }
+  }
+  for (int e = mid + threadIdx.x; e < hi; e += blockDim.x) {
+    s_oc[e - lo] = __ldg(oc + e);
+    s_ov[e - lo] = __ldg(ov + e);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 bdia_spmv_xl_kernel(const T* __restrict__ vals,
                     const int32_t* __restrict__ starts,
                     const int32_t* __restrict__ step_lo,
+                    const int32_t* __restrict__ step_b0,
                     const T* __restrict__ x,
                     const int32_t* __restrict__ ovf_ptr,
                     const int32_t* __restrict__ ovf_cols,
                     const T* __restrict__ ovf_vals,
-                    T* __restrict__ y,
+                    const uint8_t* __restrict__ mask,
+                    Update<T> upd, T* y,
                     int nblocks, int nslots, int block_rows, int row_pad,
                     int col_pad, int xpad_lo, int ovf_len, int gb, int nsteps,
-                    int panel) {
+                    int panel, int mask_bytes, int stage) {
   constexpr int kRows = kRowBytes / sizeof(T);   // rows per thread and pass
+  constexpr int kPasses = kAccRows / kRows;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);   // panel, overflow
   T* s_x = reinterpret_cast<T*>(smem + kBarrierBytes);
   int32_t* s_off = reinterpret_cast<int32_t*>(
       smem + kBarrierBytes + (size_t)panel * sizeof(T));
+  uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_off + gb * nslots);
+  const size_t fixed = kBarrierBytes + (size_t)panel * sizeof(T)
+                       + (size_t)gb * nslots * (4 + mask_bytes);
+  int32_t* s_oc = reinterpret_cast<int32_t*>(smem + (fixed + 15) / 16 * 16);
+  T* s_ov = reinterpret_cast<T*>(s_oc + stage);
 
   const int step = blockIdx.x;
   const int p = blockIdx.y;
-  const int b0 = step * gb;
-  const int nb = min(gb, nblocks - b0);
+  const int64_t si = (int64_t)p * (nsteps + 1) + step;
+  const int b0 = step_b0[si];
+  const int nb = step_b0[si + 1] - b0;
   const T* xp = x + (int64_t)p * col_pad;
   const int lo = step_lo[(int64_t)p * nsteps + step];
+  const int nrows = nb * block_rows;
+  const int row_first = b0 * block_rows;
+  const int row_end = min(row_first + nrows, row_pad);
 
   // the part of the panel the bulk copy moves: whole 16-byte units of x
   const int c_lo = max(lo, 0);
   const int c_hi = min(lo + panel, col_pad - col_pad % kAlign);
   const bool bulk = c_hi > c_lo && (reinterpret_cast<uintptr_t>(xp) % 16) == 0;
-  const uint32_t bar_addr = smem_u32(bar);
-  if (bulk && threadIdx.x == 0) {
-    mbar_init(bar_addr, 1);
+  // the step's overflow span, its start rounded down to a 16-byte unit
+  const int32_t* pp = ovf_ptr + (int64_t)p * (row_pad + 1);
+  const int32_t* oc = ovf_cols + (int64_t)p * ovf_len;
+  const T* ov = ovf_vals + (int64_t)p * ovf_len;
+  const bool has_ovf = ovf_ptr != nullptr && row_first < row_end;
+  const int e_lo = has_ovf ? __ldg(pp + row_first) & ~3 : 0;
+  const int e_hi = has_ovf ? __ldg(pp + row_end) : 0;
+  const bool ovf_bulk = (reinterpret_cast<uintptr_t>(oc) % 16) == 0
+                        && (reinterpret_cast<uintptr_t>(ov) % 16) == 0;
+  const uint32_t bar_x = smem_u32(bar), bar_o = smem_u32(bar + 1);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_x, 1);
+    mbar_init(bar_o, 1);
   }
   __syncthreads();
   if (bulk && threadIdx.x == 0) {
     const uint32_t bytes = (uint32_t)(c_hi - c_lo) * sizeof(T);
-    mbar_expect_tx(bar_addr, bytes);
-    bulk_copy_g2s(smem_u32(s_x + (c_lo - lo)), xp + c_lo, bytes, bar_addr);
+    mbar_expect_tx(bar_x, bytes);
+    bulk_copy_g2s(smem_u32(s_x + (c_lo - lo)), xp + c_lo, bytes, bar_x);
   }
-  // the threads: window offsets, and the panel outside the bulk copy
-  const int32_t* st = starts + ((int64_t)p * nblocks + b0) * nslots;
+  if (e_lo < e_hi) {   // the first chunk of the overflow, during the slots
+    stage_overflow(oc, ov, e_lo, min(e_lo + stage, e_hi), s_oc, s_ov, bar_o,
+                   ovf_bulk);
+  }
+  // the threads: window offsets, mask rows, and the panel outside the copy
+  const int64_t blk0 = (int64_t)p * nblocks + b0;
+  const int32_t* st = starts + blk0 * nslots;
   for (int i = threadIdx.x; i < nb * nslots; i += blockDim.x) {
     s_off[i] = st[i] - xpad_lo - lo;
+  }
+  const uint8_t* mk = mask + blk0 * nslots * mask_bytes;
+  for (int i = threadIdx.x; i < nb * nslots * mask_bytes; i += blockDim.x) {
+    s_mask[i] = mk[i];
   }
   // panel entries [copy_lo, copy_hi) are the bulk copy's, the rest ours
   const int copy_lo = bulk ? c_lo - lo : panel;
@@ -157,105 +284,153 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
   }
   __syncthreads();
 
-  // Rows.  Per pass, warp w owns the 32 * kRows rows from base + w * 32 *
-  // kRows, one R-row block's (R is a multiple of 128), and its lane owns
-  // rows lane, lane + 32, ...: a warp's loads of a slot's values, and its
-  // reads of the slot's window from the panel, are consecutive.
-  const int32_t* pp = ovf_ptr + (int64_t)p * (row_pad + 1);
-  const int32_t* oc = ovf_cols + (int64_t)p * ovf_len;
-  const T* ov = ovf_vals + (int64_t)p * ovf_len;
-  T* yp = y + (int64_t)p * row_pad;
-  const int nrows = nb * block_rows;
+  // Slots.  Pass ps: warp w owns the 32 * kRows rows from (w + ps * warps)
+  // * 32 * kRows of the step, one R-row block's (R is a multiple of 128),
+  // its lane the rows lane, lane + 32, ...
   const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
   bool waited = !bulk;
-  for (int base = (threadIdx.x / 32) * 32 * kRows; base < nrows;
-       base += blockDim.x * kRows) {
+  T acc[kPasses][kRows];
+#pragma unroll
+  for (int ps = 0; ps < kPasses; ++ps) {
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      acc[ps][j] = T(0);
+    }
+    const int base = (threadIdx.x / 32 + ps * warps) * 32 * kRows;
+    if (base >= nrows || row_first + base >= row_pad) {
+      continue;
+    }
     const int k = base / block_rows;                 // block within the step
     const int r0 = base - k * block_rows + lane;     // row in the block, j = 0
-    const int row0 = (b0 + k) * block_rows + r0;     // global row, j = 0
-    // the first kPre overflow entries of each row, loaded now so that their
-    // latency hides behind the panel copy (first pass) and the slots
-    int e_beg[kRows], e_end[kRows];
-    T pre_v[kRows][kPre], pre_x[kRows][kPre];
+    const T* v = vals + (blk0 + k) * nslots * (int64_t)block_rows + r0;
+    const int32_t* off = s_off + k * nslots;
+    // the warp's row groups are mask bits seg0 ... seg0 + kRows - 1, all in
+    // one byte (seg0 is a multiple of kRows, kRows divides 8)
+    const int seg0 = (base - k * block_rows) / kSegRows;
+    const uint8_t* mrow = s_mask + k * nslots * mask_bytes + seg0 / 8;
+    const int mshift = seg0 % 8;
+    auto live = [&](int d) -> unsigned {
+      return (unsigned)mrow[d * mask_bytes] >> mshift;
+    };
+    int d = 0;
+    if (ps == 0) {
+      // the first slots' values, loaded while the panel is on its way
+      T pre[kPreSlots][kRows];
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int row = row0 + 32 * j;
-      e_beg[j] = e_end[j] = 0;
-      if (ovf_ptr != nullptr && row < row_pad) {
-        e_beg[j] = __ldg(pp + row);
-        e_end[j] = __ldg(pp + row + 1);
-      }
+      for (int dd = 0; dd < kPreSlots; ++dd) {
+        const unsigned m = dd < nslots ? live(dd) : 0u;
 #pragma unroll
-      for (int q = 0; q < kPre; ++q) {
-        const int e = e_beg[j] + q;
-        pre_v[j][q] = T(0);
-        pre_x[j][q] = T(0);
-        if (e < e_end[j]) {
-          pre_v[j][q] = __ldg(ov + e);
-          pre_x[j][q] = __ldg(xp + __ldg(oc + e));
+        for (int j = 0; j < kRows; ++j) {
+          pre[dd][j] = (m >> j) & 1u
+              ? __ldcs(v + (int64_t)dd * block_rows + 32 * j) : T(0);
         }
       }
-    }
-    if (!waited) {
-      while (!mbar_try_wait(bar_addr, 0)) {
+      if (!waited) {
+        mbar_wait(bar_x, 0);
+        waited = true;
       }
-      waited = true;
-    }
-    if (row0 >= row_pad) {
-      continue;   // the whole 32-row group of j = 0 and beyond is padding
-    }
-    const T* v = vals + ((int64_t)p * nblocks + b0 + k) * nslots * block_rows
-                 + r0;
-    const int32_t* off = s_off + k * nslots;
-    T acc[kRows];
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      acc[j] = T(0);
+      for (int dd = 0; dd < kPreSlots; ++dd) {
+        if (dd < nslots) {
+          const T* xw = s_x + off[dd] + r0;
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            acc[ps][j] += pre[dd][j] * xw[32 * j];
+          }
+        }
+      }
+      d = kPreSlots;
     }
 #pragma unroll 4
-    for (int d = 0; d < nslots; ++d) {
+    for (; d < nslots; ++d) {
+      const unsigned m = live(d);
       const T* vd = v + (int64_t)d * block_rows;
       const T* xw = s_x + off[d] + r0;
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
-        acc[j] += __ldcs(vd + 32 * j) * xw[32 * j];
+        const T vv = (m >> j) & 1u ? __ldcs(vd + 32 * j) : T(0);
+        acc[ps][j] += vv * xw[32 * j];
       }
-    }
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int row = row0 + 32 * j;
-      if (row >= row_pad) {
-        break;
-      }
-#pragma unroll
-      for (int q = 0; q < kPre; ++q) {
-        if (e_beg[j] + q < e_end[j]) {
-          acc[j] += pre_v[j][q] * pre_x[j][q];
-        }
-      }
-      for (int e = e_beg[j] + kPre; e < e_end[j]; ++e) {
-        acc[j] += __ldg(ov + e) * __ldg(xp + __ldg(oc + e));
-      }
-      yp[row] = acc[j];
     }
   }
   if (!waited) {
-    while (!mbar_try_wait(bar_addr, 0)) {   // never leave a copy in flight
+    mbar_wait(bar_x, 0);   // the panel: the overflow's x, and no copy left
+  }
+
+  // The overflow, chunk by chunk, each row's entries in list order
+  if (e_lo < e_hi) {
+    int eb[kPasses][kRows], ee[kPasses][kRows];
+#pragma unroll
+    for (int ps = 0; ps < kPasses; ++ps) {
+      const int base = (threadIdx.x / 32 + ps * warps) * 32 * kRows;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int row = row_first + base + lane + 32 * j;
+        const bool mine = base < nrows && row < row_end;
+        eb[ps][j] = mine ? __ldg(pp + row) : 0;
+        ee[ps][j] = mine ? __ldg(pp + row + 1) : 0;
+      }
+    }
+    for (int c0 = e_lo, phase = 0; c0 < e_hi; c0 += stage, phase ^= 1) {
+      const int c1 = min(c0 + stage, e_hi);
+      if (c0 != e_lo) {
+        __syncthreads();   // every thread is done with the last chunk
+        if (threadIdx.x == 0) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        }
+        stage_overflow(oc, ov, c0, c1, s_oc, s_ov, bar_o, ovf_bulk);
+      }
+      __syncthreads();     // the threads' part of the chunk is in
+      mbar_wait(bar_o, phase);
+#pragma unroll
+      for (int ps = 0; ps < kPasses; ++ps) {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          const int q1 = min(ee[ps][j], c1);
+          for (int e = max(eb[ps][j], c0); e < q1; ++e) {
+            acc[ps][j] += s_ov[e - c0] * x_at(s_oc[e - c0], s_x, lo, panel,
+                                              xp);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int ps = 0; ps < kPasses; ++ps) {
+    const int base = (threadIdx.x / 32 + ps * warps) * 32 * kRows;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int row = row_first + base + lane + 32 * j;
+      if (base < nrows && row < row_pad) {
+        const int64_t i = (int64_t)p * row_pad + row;
+        y[i] = upd(acc[ps][j], i);
+      }
     }
   }
 }
 
 template <typename T>
 int launch(const void* vals, const void* starts, const void* step_lo,
-           const void* x, const void* ovf_ptr, const void* ovf_cols,
-           const void* ovf_vals, void* y, int nparts, int nblocks, int nslots,
-           int block_rows, int row_pad, int col_pad, int xpad_lo, int ovf_len,
-           int gb, int nsteps, int panel, void* stream) {
-  const int groups = gb * block_rows / (kRowBytes / (int)sizeof(T));
-  const int warps32 = (groups + 31) / 32 * 32;
-  const int threads = warps32 < kMaxThreads ? warps32 : kMaxThreads;
-  const size_t smem = kBarrierBytes + (size_t)panel * sizeof(T)
-                      + (size_t)gb * nslots * sizeof(int32_t);
+           const void* step_b0, const void* x, const void* ovf_ptr,
+           const void* ovf_cols, const void* ovf_vals, const void* mask,
+           const void* b, const void* s, const void* c, void* y, double w,
+           int nparts, int nblocks, int nslots, int block_rows, int row_pad,
+           int col_pad, int xpad_lo, int ovf_len, int gb, int nsteps,
+           int panel, int stage, void* stream) {
+  constexpr int kRows = kRowBytes / (int)sizeof(T);
+  const int threads = min(kMaxThreads,
+                          (gb * block_rows / kRows + 31) / 32 * 32);
+  if (block_rows % (kSegRows * kRows) || gb * block_rows > threads * kAccRows
+      || stage % 4 || (ovf_ptr != nullptr && stage < 4) || step_b0 == nullptr
+      || mask == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int mask_bytes = (block_rows / kSegRows + 7) / 8;
+  const size_t fixed = kBarrierBytes + (size_t)panel * sizeof(T)
+                       + (size_t)gb * nslots * (sizeof(int32_t) + mask_bytes);
+  const size_t smem = (fixed + 15) / 16 * 16
+                      + (size_t)stage * (sizeof(int32_t) + sizeof(T));
   // opt in to the shared memory above the default 48 KB, once per device
   static size_t opted[kMaxDevices];
   int dev = 0;
@@ -274,12 +449,14 @@ int launch(const void* vals, const void* starts, const void* step_lo,
       opted[dev] = smem;
     }
   }
+  const Update<T> upd{(const T*)b, (const T*)s, (const T*)c, (T)w};
   const dim3 grid(nsteps, nparts);
   bdia_spmv_xl_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const T*)vals, (const int32_t*)starts, (const int32_t*)step_lo,
-      (const T*)x, (const int32_t*)ovf_ptr, (const int32_t*)ovf_cols,
-      (const T*)ovf_vals, (T*)y, nblocks, nslots, block_rows, row_pad,
-      col_pad, xpad_lo, ovf_len, gb, nsteps, panel);
+      (const int32_t*)step_b0, (const T*)x, (const int32_t*)ovf_ptr,
+      (const int32_t*)ovf_cols, (const T*)ovf_vals, (const uint8_t*)mask,
+      upd, (T*)y, nblocks, nslots, block_rows, row_pad, col_pad, xpad_lo,
+      ovf_len, gb, nsteps, panel, mask_bytes, stage);
   return (int)cudaGetLastError();
 }
 
@@ -288,25 +465,31 @@ int launch(const void* vals, const void* starts, const void* step_lo,
 extern "C" {
 
 int bdia_spmv_xl_f32(const void* vals, const void* starts, const void* step_lo,
-                     const void* x, const void* ovf_ptr, const void* ovf_cols,
-                     const void* ovf_vals, void* y, int nparts, int nblocks,
-                     int nslots, int block_rows, int row_pad, int col_pad,
-                     int xpad_lo, int ovf_len, int gb, int nsteps, int panel,
-                     void* stream) {
-  return launch<float>(vals, starts, step_lo, x, ovf_ptr, ovf_cols, ovf_vals,
-                       y, nparts, nblocks, nslots, block_rows, row_pad,
-                       col_pad, xpad_lo, ovf_len, gb, nsteps, panel, stream);
+                     const void* step_b0, const void* x, const void* ovf_ptr,
+                     const void* ovf_cols, const void* ovf_vals,
+                     const void* mask, const void* b, const void* s,
+                     const void* c, void* y, double w, int nparts,
+                     int nblocks, int nslots, int block_rows, int row_pad,
+                     int col_pad, int xpad_lo, int ovf_len, int gb,
+                     int nsteps, int panel, int stage, void* stream) {
+  return launch<float>(vals, starts, step_lo, step_b0, x, ovf_ptr, ovf_cols,
+                       ovf_vals, mask, b, s, c, y, w, nparts, nblocks, nslots,
+                       block_rows, row_pad, col_pad, xpad_lo, ovf_len, gb,
+                       nsteps, panel, stage, stream);
 }
 
 int bdia_spmv_xl_f64(const void* vals, const void* starts, const void* step_lo,
-                     const void* x, const void* ovf_ptr, const void* ovf_cols,
-                     const void* ovf_vals, void* y, int nparts, int nblocks,
-                     int nslots, int block_rows, int row_pad, int col_pad,
-                     int xpad_lo, int ovf_len, int gb, int nsteps, int panel,
-                     void* stream) {
-  return launch<double>(vals, starts, step_lo, x, ovf_ptr, ovf_cols, ovf_vals,
-                        y, nparts, nblocks, nslots, block_rows, row_pad,
-                        col_pad, xpad_lo, ovf_len, gb, nsteps, panel, stream);
+                     const void* step_b0, const void* x, const void* ovf_ptr,
+                     const void* ovf_cols, const void* ovf_vals,
+                     const void* mask, const void* b, const void* s,
+                     const void* c, void* y, double w, int nparts,
+                     int nblocks, int nslots, int block_rows, int row_pad,
+                     int col_pad, int xpad_lo, int ovf_len, int gb,
+                     int nsteps, int panel, int stage, void* stream) {
+  return launch<double>(vals, starts, step_lo, step_b0, x, ovf_ptr, ovf_cols,
+                        ovf_vals, mask, b, s, c, y, w, nparts, nblocks,
+                        nslots, block_rows, row_pad, col_pad, xpad_lo,
+                        ovf_len, gb, nsteps, panel, stage, stream);
 }
 
 const char* tpusolve_cuda_error_string(int code) {

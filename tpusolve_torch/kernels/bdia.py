@@ -28,19 +28,32 @@ hand-written Hopper kernel K4, ``csrc/bdia_spmv.cu`` (the port of
 
 **Panel steps (BDIA-XL).**  ``bdia_spmv_xl`` computes the same function with
 K5, ``csrc/bdia_spmv_xl.cu`` (the port of ``_bdia_kernel_xl``): one thread
-block per *step* of ``gb`` consecutive R-row blocks copies the step's x
-panel, every x entry its windows read, into shared memory, and reads the
-windows from there.  ``plan_steps`` is the port's own step plan: ``gb``,
-each step's panel start ``step_lo`` (P, nsteps) int32 in the unpadded x
-(negative where the panel begins before x; entries outside ``[0, col_pad)``
-read as 0), and one panel length for all steps, in elements.  Starts and
-lengths are multiples of ``XL_ALIGN`` elements, so the kernel's bulk copy
-moves whole 16-byte units in f32 and f64 alike.
+block per *step* of consecutive R-row blocks copies the step's x panel,
+every x entry its windows read, into shared memory, and reads the windows
+from there; it stages the step's overflow entries in shared memory too.
+``plan_steps`` is the port's own step plan: ``gb`` (the most blocks a step
+holds), each step's panel start ``step_lo`` (P, nsteps) int32 in the
+unpadded x (negative where the panel begins before x; entries outside
+``[0, col_pad)`` read as 0), one panel length for all steps, in elements,
+each step's first block ``step_b0`` (steps balanced by the bytes K5 reads,
+or steps of ``gb`` blocks where those are not known) and the overflow
+entries a block stages at once, ``stage``.  Starts and lengths are
+multiples of ``XL_ALIGN`` elements, so the kernel's bulk copy moves whole
+16-byte units in f32 and f64 alike.
+
+**Segment mask.**  ``segment_mask`` marks, for each (block, slot), which
+32-row segments of its values hold a nonzero: K5 skips the others, whose
+products are exact zeros (a warp's row group is one segment, so the skip
+never diverges); every K5 operator has one (:func:`full_mask` where its
+values are not known).  ``bdia_spmv_xl`` also computes the update form
+``c + w * s * (b - A x)`` of ``kernels.dia.epilogue_plain`` in the same
+launch (the Jacobi sweeps of the ILU apply).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -59,12 +72,34 @@ _PALLAS_GB = 8
 # most, and the bytes of rows a thread owns per pass (4 rows in f32, 2 in
 # f64) (csrc/bdia_spmv_xl.cu: kMaxThreads, kRowBytes); the panel's
 # alignment in elements; and the shared memory a block holds besides its
-# panel: an mbarrier (16 bytes) and the step's window offsets (gb * D int32)
+# panel: two mbarriers (16 bytes), the step's window offsets (gb * D int32)
+# and mask rows, and its staged overflow entries
 XL_GB = tuple(range(1, 65))
 XL_THREADS = 1024
 XL_ROW_BYTES = 16
 XL_ALIGN = 4
 XL_BARRIER_BYTES = 16
+# rows of one bit of the segment mask: a warp's 32 lanes, one row each
+# (csrc/bdia_spmv_xl.cu: kSegRows)
+SEG_ROWS = 32
+# rows a K5 thread sums at once (kAccRows): a step holds at most
+# XL_THREADS * XL_ACC_ROWS rows; and the overflow entries a K5 block stages
+# in shared memory at once, at most, and at least where its step has that
+# many
+XL_ACC_ROWS = 8
+XL_STAGE_MAX = 16384
+XL_STAGE_MIN = 256
+# the weight of an overflow byte against a value byte when plan_steps
+# balances steps: K5 reads the overflow at a lower rate (its chunks follow
+# the slots).  Measured on gate 4's L and U at 96^3 on an H100 80GB HBM3
+# at 700 W, weights 1, 1.5, 2, 3, 4: 4 fastest (PERF.md)
+XL_OVF_WEIGHT = 4.0
+# plan_steps balances the step counts of its XL_BALANCE_TRIES cheapest
+# candidates of at most XL_BALANCE_STEPS steps (four rounds of one block an
+# SM; beyond, each SM runs many steps one after another and equal steps
+# are balanced enough)
+XL_BALANCE_STEPS = 4 * runtime.SM_COUNT
+XL_BALANCE_TRIES = 4
 
 # K4's launch plan (csrc/bdia_spmv.cu): a thread block per chunk of
 # Rc = min(R, K4_MAX_CHUNK) rows of an R-row block, one thread a row; the
@@ -213,9 +248,75 @@ def plan_panels(starts_adj: np.ndarray, R: int, gb: int = _PALLAS_GB):
     return rowstart, pxrows, xrows_min
 
 
-def xl_smem_bytes(panel: int, gb: int, D: int, itemsize: int) -> int:
-    """Shared memory of one K5 block: barrier, x panel, window offsets."""
-    return XL_BARRIER_BYTES + panel * itemsize + gb * D * 4
+def mask_bytes(R: int) -> int:
+    """Bytes of the segment mask per (block, slot): one bit per
+    ``SEG_ROWS`` rows of R."""
+    return -(-(R // SEG_ROWS) // 8)
+
+
+def xl_smem_bytes(panel: int, gb: int, D: int, itemsize: int,
+                  R: int = 128, stage: int = 0) -> int:
+    """Shared memory of one K5 block of at most ``gb`` R-row blocks:
+    barriers, x panel, window offsets and the step's rows of the segment
+    mask (to 16 bytes), and ``stage`` staged overflow entries (column and
+    value)."""
+    fixed = (XL_BARRIER_BYTES + panel * itemsize
+             + gb * D * (4 + mask_bytes(R)))
+    return -(-fixed // 16) * 16 + stage * (4 + itemsize)
+
+
+def xl_stage(panel: int, gb: int, D: int, itemsize: int, R: int,
+             need: int) -> int | None:
+    """Overflow entries a K5 block stages at once, where its steps hold at
+    most ``need``: ``need`` and the aligned head (a multiple of 8), at most
+    ``XL_STAGE_MAX`` and what fits beside the rest of the block's shared
+    memory; 0 without an overflow list, None where fewer than
+    ``min(need, XL_STAGE_MIN)`` fit (the chunks would be too many)."""
+    if need <= 0:
+        return 0
+    room = (runtime.SMEM_PER_BLOCK - xl_smem_bytes(panel, gb, D, itemsize,
+                                                   R)) // (4 + itemsize)
+    want = min(-(-(need + 3) // 8) * 8, XL_STAGE_MAX)
+    stage = min(want, room // 8 * 8)
+    return stage if stage >= min(want, XL_STAGE_MIN) else None
+
+
+def segment_mask(vals: torch.Tensor) -> torch.Tensor:
+    """The segment mask of BDIA values ``vals`` (P, B, D, R), on their
+    device: uint8 (P, B, D, ``mask_bytes(R)``), bit ``q % 8`` of byte ``q //
+    8`` set where rows ``[32 q, 32 q + 32)`` of the slot hold a nonzero
+    value."""
+    P, B, D, R = vals.shape
+    nseg = R // SEG_ROWS
+    live = (vals.reshape(P, B, D, nseg, SEG_ROWS) != 0).any(dim=-1)
+    W = mask_bytes(R)
+    live = torch.nn.functional.pad(live.to(torch.uint8), (0, 8 * W - nseg))
+    bits = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
+                        device=vals.device)
+    return (live.reshape(P, B, D, W, 8) * bits).sum(dim=-1,
+                                                    dtype=torch.uint8)
+
+
+def full_mask(P: int, B: int, D: int, R: int, device=None) -> torch.Tensor:
+    """The segment mask of a (P, B, D, R) layout with every segment set: K5
+    reads every value, as where they are not known."""
+    one = segment_mask(torch.ones((1, 1, 1, R), dtype=torch.uint8,
+                                  device=device))
+    return one.expand(P, B, D, -1).contiguous()
+
+
+def live_segments(mask: torch.Tensor) -> int:
+    """The number of bits set in segment mask ``mask``: the 32-row segments
+    K5 reads."""
+    bits = torch.arange(8, dtype=torch.uint8, device=mask.device)
+    return int(((mask.unsqueeze(-1) >> bits) & 1).sum())
+
+
+def _segments_live(mask: torch.Tensor, R: int) -> torch.Tensor:
+    """Segment mask (P, B, D, W) as bool (P, B, D, R // SEG_ROWS)."""
+    bits = torch.arange(8, dtype=torch.uint8, device=mask.device)
+    live = ((mask.unsqueeze(-1) >> bits) & 1).bool()
+    return live.reshape(*mask.shape[:3], -1)[..., :R // SEG_ROWS]
 
 
 def xl_threads(gb: int, R: int, itemsize: int) -> int:
@@ -250,34 +351,122 @@ def k4_plan(nparts: int, B: int, D: int, R: int, itemsize: int) -> tuple:
     return rc, S, nparts * B * (R // rc), smem
 
 
-def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
-               price):
-    """The BDIA-XL step plan ``(gb, step_lo, panel)`` of least
-    ``price(gb, nsteps, panel)`` (seconds, the caller's time model) over
-    ``XL_GB``, or None when no candidate's block fits
-    ``runtime.SMEM_PER_BLOCK``.
+def balanced_starts(work: np.ndarray, nsteps: int, cap: int):
+    """The first block of each step, and the block count last, of the
+    partition of blocks into at most ``nsteps`` steps of at most ``cap``
+    consecutive blocks whose heaviest step by ``work`` (per block) is the
+    least, to a thousandth; None when no such partition exists."""
+    B = work.size
+    cum = np.concatenate([[0], np.cumsum(work, dtype=np.int64)])
 
-    ``starts`` (P, B, D) are the padded-x window starts; step i of part p
-    holds blocks ``[i*gb, min((i+1)*gb, B))``, and its panel
-    ``[step_lo[p, i], step_lo[p, i] + panel)`` of the unpadded x covers
-    every window of those blocks.  ``step_lo`` is int32 (P, nsteps)."""
+    def cut(T):
+        b0 = [0]
+        while b0[-1] < B:
+            if len(b0) > nsteps:
+                return None
+            i = b0[-1]
+            j = int(np.searchsorted(cum, cum[i] + T, side="right")) - 1
+            b0.append(min(max(j, i + 1), i + cap, B))
+        return b0
+
+    lo = max(int(work.max(initial=0)), -(-int(cum[-1]) // nsteps))
+    hi = max(lo, int(cum[-1]))
+    if cut(hi) is None:
+        return None
+    while hi - lo > lo // 1000:
+        mid = (lo + hi) // 2
+        if cut(mid) is None:
+            lo = mid + 1
+        else:
+            hi = mid
+    return np.asarray(cut(hi), np.int64)
+
+
+def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
+               price, work=None):
+    """The BDIA-XL step plan ``(gb, step_lo, panel, step_b0, stage)`` of
+    least ``price(gb, nsteps, panel, smem)`` (seconds, the caller's time
+    model; ``smem`` a block's shared memory), or None when no candidate's
+    block fits ``runtime.SMEM_PER_BLOCK``.
+
+    ``starts`` (P, B, D) are the padded-x window starts.  The candidates
+    are steps of ``gb`` blocks for each ``gb`` of ``XL_GB``: step i of part
+    p holds blocks ``[i*gb, min((i+1)*gb, B))``.  With ``work =
+    (block_bytes, block_ovf)`` ((P, B) each: the bytes of the values K5
+    reads for each block, its overflow entries), the ``XL_BALANCE_TRIES``
+    step counts of least price, of at most ``XL_BALANCE_STEPS`` steps, are
+    cut again into steps of balanced work, the overflow's bytes weighted
+    by ``XL_OVF_WEIGHT`` (:func:`balanced_starts`), and the plan is the best
+    of those: step i of part p holds blocks ``[step_b0[p, i], step_b0[p, i
+    + 1])`` (int32 (P, nsteps + 1); a part with fewer steps ends in empty
+    ones), ``gb`` is the most a step holds.  Without ``work``,
+    the plan is the cheapest of the steps of ``gb`` blocks (``step_b0``
+    their table).  A step's panel ``[step_lo[p, i], step_lo[p, i] +
+    panel)`` of the unpadded x covers every window of its blocks;
+    ``step_lo`` is int32 (P, nsteps).  ``stage`` is :func:`xl_stage` for
+    the most overflow entries a step holds (as many as fit, up to
+    ``XL_STAGE_MAX``, without ``work``)."""
     s = np.asarray(starts, np.int64) - xpad_lo
     P, B, D = s.shape
     first = s.min(axis=2)                     # (P, B) window starts
     last = s.max(axis=2) + R                  # (P, B) window ends
-    best = None
-    for gb in XL_GB:
-        idx = np.arange(0, B, gb)
-        lo = np.minimum.reduceat(first, idx, axis=1) // XL_ALIGN * XL_ALIGN
-        hi = np.maximum.reduceat(last, idx, axis=1)
+    cap = min(XL_GB[-1], XL_THREADS * XL_ACC_ROWS // R)
+    if work is not None:
+        ovf = np.concatenate([np.zeros((P, 1), np.int64), np.cumsum(
+            np.asarray(work[1], np.int64), axis=1)], axis=1)
+
+    def candidate(b0):
+        """(price, plan) of the steps starting at ``b0`` (P, nsteps + 1),
+        or None where a block does not fit."""
+        nsteps = b0.shape[1] - 1
+        lo = np.zeros((P, nsteps), np.int64)
+        hi = np.zeros((P, nsteps), np.int64)
+        for p in range(P):
+            full = b0[p, :-1] < b0[p, 1:]
+            lo[p, full] = np.minimum.reduceat(first[p], b0[p, :-1][full])
+            hi[p, full] = np.maximum.reduceat(last[p], b0[p, :-1][full])
+        lo = lo // XL_ALIGN * XL_ALIGN
         panel = int(-(-int((hi - lo).max()) // XL_ALIGN) * XL_ALIGN)
-        if xl_smem_bytes(panel, gb, D, itemsize) <= runtime.SMEM_PER_BLOCK:
-            t = price(gb, idx.size, panel)
-            if best is None or t < best[0]:
-                best = (t, gb, lo.astype(np.int32), panel)
-        if gb >= B:
+        gb = int(np.diff(b0, axis=1).max())
+        need = XL_STAGE_MAX if work is None else int(
+            (np.take_along_axis(ovf, b0[:, 1:], 1)
+             - np.take_along_axis(ovf, b0[:, :-1], 1)).max())
+        stage = xl_stage(panel, gb, D, itemsize, R, need)
+        if stage is None:
+            return None
+        smem = xl_smem_bytes(panel, gb, D, itemsize, R, stage)
+        if smem > runtime.SMEM_PER_BLOCK:
+            return None
+        return price(gb, nsteps, panel, smem), (
+            gb, lo.astype(np.int32), panel, b0.astype(np.int32), stage)
+
+    found = []
+    for g in XL_GB[:cap]:
+        got = candidate(np.repeat(np.append(np.arange(0, B, g), B)[None], P,
+                                  0))
+        if got is not None:
+            found.append(got)
+        if g >= B:
             break       # one step already: larger gb plans the same
-    return None if best is None else best[1:]
+    if not found:
+        return None
+    if work is None:
+        return min(found, key=lambda f: f[0])[1]
+    weighted = [np.asarray(vb + XL_OVF_WEIGHT * ob * (4 + itemsize),
+                           np.int64) for vb, ob in zip(*work)]
+    tries = sorted({f[1][1].shape[1] for f in sorted(
+        found, key=lambda f: f[0]) if f[1][1].shape[1] <= XL_BALANCE_STEPS},
+        key=lambda n: min(f[0] for f in found if f[1][1].shape[1] == n))
+    balanced = []
+    for nsteps in tries[:XL_BALANCE_TRIES]:
+        cuts = [balanced_starts(w, nsteps, cap) for w in weighted]
+        if any(c is None for c in cuts):
+            continue
+        got = candidate(np.stack([np.pad(c, (0, nsteps + 1 - c.size),
+                                         constant_values=B) for c in cuts]))
+        if got is not None:
+            balanced.append(got)
+    return min(balanced or found, key=lambda f: f[0])[1]
 
 
 def _add_overflow(y: torch.Tensor, xs: torch.Tensor, ovf,
@@ -322,19 +511,27 @@ def bdia_spmv_plain(vals: torch.Tensor, starts: torch.Tensor,
 
 def bdia_spmv_xl_plain(vals: torch.Tensor, starts: torch.Tensor,
                        x: torch.Tensor, xpad_lo: int, row_pad: int, gb: int,
-                       step_lo: torch.Tensor, panel: int,
-                       ovf=None) -> torch.Tensor:
+                       step_lo: torch.Tensor, panel: int, ovf=None, *,
+                       mask: torch.Tensor, step_b0: torch.Tensor,
+                       stage=None, b=None, s=None, c=None, w: float = 1.0,
+                       out=None) -> torch.Tensor:
     """Plain PyTorch BDIA SpMV by panel steps (K5's function, which is
     K4's): a gather of each step's panel of x (0 outside ``[0, col_pad)``),
     a gather of every (block, slot) window out of its step's panel, a sum
-    over slots, then the overflow list as in :func:`bdia_spmv_plain`.
+    over slots, then the overflow list as in :func:`bdia_spmv_plain`.  A
+    product in a segment whose bit of ``mask`` (:func:`segment_mask`) is
+    clear counts as 0, as K5 skips it.  With any of ``b``, ``s``, ``c``
+    given, the update form (``kernels.dia.epilogue_plain``) of that
+    product, written into ``out`` when given.
 
-    ``step_lo`` (P, nsteps) int32 and ``panel`` as :func:`plan_steps` gives
-    them.  Every window must lie inside its step's panel: this is checked."""
+    ``gb``, ``step_lo`` (P, nsteps) int32, ``panel`` and ``step_b0`` (P,
+    nsteps + 1) int32 as :func:`plan_steps` gives them (``gb`` and
+    ``stage``, launch details, are not used).  Every window must lie inside
+    its step's panel: this is checked."""
+    from tpusolve_torch.kernels.dia import epilogue_plain
     P, B, D, R = vals.shape
     xs = x.reshape(P, -1)
     col_pad = xs.shape[1]
-    nsteps = step_lo.shape[1]
     dev = x.device
     # (P, nsteps, panel) panels of the unpadded x
     pidx = step_lo.to(torch.int64).unsqueeze(-1) + torch.arange(panel,
@@ -343,77 +540,82 @@ def bdia_spmv_xl_plain(vals: torch.Tensor, starts: torch.Tensor,
     pan = torch.where(inside, torch.gather(
         xs, 1, pidx.clamp(0, col_pad - 1).reshape(P, -1)).reshape(pidx.shape),
         torch.zeros((), dtype=x.dtype, device=dev))
-    if nsteps != -(-B // gb):
-        raise ValueError(f"BDIA-XL: {nsteps} steps for {B} blocks of {gb}")
-    # each window's offset in its step's panel
-    step = torch.arange(B, device=dev) // gb
-    off = (starts.to(torch.int64) - xpad_lo
-           - step_lo.to(torch.int64)[:, step].unsqueeze(-1))     # (P, B, D)
+    # each block's step (P, B), and each window's offset in its panel
+    blocks = torch.arange(B, device=dev).expand(P, B).contiguous()
+    step = torch.searchsorted(step_b0.to(torch.int64), blocks, right=True) - 1
+    off = (starts.to(torch.int64) - xpad_lo - torch.gather(
+        step_lo.to(torch.int64), 1, step).unsqueeze(-1))        # (P, B, D)
     if int(off.min()) < 0 or int(off.max()) + R > panel:
         raise ValueError("BDIA-XL window outside its step's panel")
     # windows as flat indices into the (P, nsteps * panel) panels
-    widx = ((step * panel).reshape(1, B, 1, 1) + off.unsqueeze(-1)
+    widx = ((step * panel).reshape(P, B, 1, 1) + off.unsqueeze(-1)
             + torch.arange(R, device=dev))
     win = torch.gather(pan.reshape(P, -1), 1,
                        widx.reshape(P, -1)).reshape(P, B, D, R)
-    y = (vals * win).sum(dim=2).reshape(P, B * R)[:, :row_pad]
+    live = _segments_live(mask, R).repeat_interleave(SEG_ROWS, dim=-1)
+    prod = torch.where(live, vals * win, torch.zeros((), dtype=x.dtype,
+                                                     device=dev))
+    y = prod.sum(dim=2).reshape(P, B * R)[:, :row_pad]
     if ovf is not None:
         _add_overflow(y, xs, ovf, row_pad)
-    return y.reshape(-1)
+    y = y.reshape(-1)
+    if b is None and s is None and c is None:
+        return y if out is None else out.copy_(y)
+    return epilogue_plain(y, b, s, c, w, out=out)
 
 
 _SMEM_MAX = 48 * 1024   # default dynamic shared memory without opt-in
 
 
 @functools.cache
-def _kernel_fns(name: str, nptrs: int, nints: int):
+def _kernel_fns(name: str, nptrs: int, nints: int, ndoubles: int = 0):
     """(library, {dtype: entry point}) of ``csrc/<name>.cu``, with ctypes
-    signatures declared: ``nptrs`` pointers, ``nints`` ints, the stream."""
+    signatures declared: ``nptrs`` pointers, ``ndoubles`` doubles, ``nints``
+    ints, the stream."""
     lib = build.load(name)
     fns = {torch.float32: getattr(lib, name + "_f32"),
            torch.float64: getattr(lib, name + "_f64")}
     for fn in fns.values():
-        fn.argtypes = ([ctypes.c_void_p] * nptrs + [ctypes.c_int] * nints
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * nptrs + [ctypes.c_double] * ndoubles
+                       + [ctypes.c_int] * nints + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fns
 
 
 def _check_launch(what: str, vals, starts, x, row_pad: int, ovf,
                   extra=()) -> tuple:
-    """Check the arguments K4 and K5 share (``extra``: more (name, tensor)
-    pairs that must be contiguous on x's device); returns (col_pad, overflow
-    pointers, overflow length)."""
+    """Check the arguments K4 and K5 share for an x of ``x = (dtype,
+    device, col_pad)`` (``extra``: more (name, tensor) pairs that must be
+    contiguous on x's device); returns (overflow pointers, overflow
+    length)."""
+    dtype, device, col_pad = x
     P, B, D, R = vals.shape
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{what}: unsupported dtype {x.dtype}")
-    if vals.dtype != x.dtype:
-        raise TypeError(f"{what}: vals {vals.dtype} != x {x.dtype}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: unsupported dtype {dtype}")
+    if vals.dtype != dtype:
+        raise TypeError(f"{what}: vals {vals.dtype} != x {dtype}")
     if starts.dtype != torch.int32 or starts.shape != (P, B, D):
         raise TypeError(f"{what}: starts must be int32 of shape (P, B, D)")
-    tensors = [("vals", vals), ("starts", starts), ("x", x), *extra]
+    tensors = [("vals", vals), ("starts", starts), *extra]
     ovf_ptrs, ovf_len = (None, None, None), 0
     if ovf is not None:
         ptr, ocols, ovals = ovf
         ovf_len = ocols.shape[-1]
         if ptr.dtype != torch.int32 or ptr.shape != (P, row_pad + 1) \
                 or ocols.dtype != torch.int32 or ocols.shape != (P, ovf_len) \
-                or ovals.dtype != x.dtype or ovals.shape != (P, ovf_len):
+                or ovals.dtype != dtype or ovals.shape != (P, ovf_len):
             raise TypeError(f"{what}: ovf must be int32 ptr (P, row_pad+1), "
                             "int32 cols (P, k) and vals (P, k) of x's dtype")
         tensors += [("ovf ptr", ptr), ("ovf cols", ocols),
                     ("ovf vals", ovals)]
         ovf_ptrs = (ptr.data_ptr(), ocols.data_ptr(), ovals.data_ptr())
     for name, t in tensors:
-        if t.device != x.device or not t.is_contiguous():
+        if t.device != device or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous on "
-                             f"{x.device}")
-    if x.dim() != 1 or x.numel() % P:
-        raise ValueError(f"{what}: x must be flat (P * col_pad,)")
-    col_pad = x.numel() // P
+                             f"{device}")
     if max(B * R, row_pad + 1, col_pad, ovf_len) >= 2 ** 31:
         raise ValueError(f"{what}: part too large for 32-bit row indices")
-    return col_pad, ovf_ptrs, ovf_len
+    return ovf_ptrs, ovf_len
 
 
 def bdia_spmv(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
@@ -430,8 +632,12 @@ def bdia_spmv(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"bdia_spmv: unsupported device {x.device}")
     P, B, D, R = vals.shape
-    col_pad, ovf_ptrs, ovf_len = _check_launch("bdia_spmv", vals, starts, x,
-                                               row_pad, ovf)
+    if x.dim() != 1 or x.numel() % P:
+        raise ValueError("bdia_spmv: x must be flat (P * col_pad,)")
+    col_pad = x.numel() // P
+    ovf_ptrs, ovf_len = _check_launch("bdia_spmv", vals, starts,
+                                      (x.dtype, x.device, col_pad), row_pad,
+                                      ovf, extra=[("x", x)])
     if xlen >= 2 ** 31:
         raise ValueError("bdia_spmv: part too large for 32-bit row indices")
     rc, S, _, smem = k4_plan(P, B, D, R, x.element_size())
@@ -451,41 +657,148 @@ bdia_spmv.launches = 0
 
 def bdia_spmv_xl(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
                  xpad_lo: int, row_pad: int, gb: int, step_lo: torch.Tensor,
-                 panel: int, ovf=None) -> torch.Tensor:
-    """BDIA SpMV by panel steps, ``y = A @ x`` (arguments as
-    :func:`bdia_spmv_xl_plain`); equal to :func:`bdia_spmv` bit for bit.
+                 panel: int, ovf=None, *, mask: torch.Tensor,
+                 step_b0: torch.Tensor, stage=None, b=None, s=None, c=None,
+                 w: float = 1.0, out=None) -> torch.Tensor:
+    """BDIA SpMV by panel steps, ``y = A @ x``, or with any of ``b``, ``s``,
+    ``c`` given its update form ``y = c + w * s * (b - A x)`` (arguments as
+    :func:`bdia_spmv_xl_plain`); written into ``out`` when given, which may
+    be ``b``, ``s`` or ``c`` but never overlaps x.  ``A @ x`` equals
+    :func:`bdia_spmv`'s bit for bit (for finite x).  ``mask``: the
+    operator's :func:`segment_mask`, whose clear segments K5 skips;
+    ``step_b0`` and ``stage`` (None: as many as fit, :func:`xl_stage`) as
+    :func:`plan_steps` gives them.
 
     CPU tensors take the plain version.  CUDA tensors launch K5, the kernel
     of ``csrc/bdia_spmv_xl.cu`` (building it on first use), or raise; there
-    is no fallback.  ``bdia_spmv_xl.launches`` counts kernel launches."""
+    is no fallback: :func:`xl_operator` checks the operator's arguments,
+    :func:`bdia_spmv_xl_run` the vectors and launches (the one launch
+    route: ``matrix/spmv.py`` keeps an operator's :class:`XLOperator`).
+    ``bdia_spmv_xl.launches`` counts kernel launches,
+    ``bdia_spmv_xl.launches_by_form`` the same by which of (b, s, c) were
+    given (``kernels.dia.epilogue_mode`` names them)."""
+    if out is not None and _overlaps(out, x):
+        raise ValueError("bdia_spmv_xl: out may not overlap x")
     if x.device.type == "cpu":
         return bdia_spmv_xl_plain(vals, starts, x, xpad_lo, row_pad, gb,
-                                  step_lo, panel, ovf)
+                                  step_lo, panel, ovf, mask=mask,
+                                  step_b0=step_b0, b=b, s=s, c=c, w=w,
+                                  out=out)
     if x.device.type != "cuda":
         raise ValueError(f"bdia_spmv_xl: unsupported device {x.device}")
+    if x.dim() != 1 or x.numel() % vals.shape[0]:
+        raise ValueError("bdia_spmv_xl: x must be flat (P * col_pad,)")
+    op = xl_operator(vals, starts, xpad_lo, row_pad, x.numel() // vals.shape[0],
+                     gb, step_lo, panel, ovf, mask=mask, step_b0=step_b0,
+                     stage=stage)
+    return bdia_spmv_xl_run(op, x, b=b, s=s, c=c, w=w, out=out)
+
+
+@dataclasses.dataclass(frozen=True)
+class XLOperator:
+    """K5's operator arguments, checked once (:func:`xl_operator`): the
+    operator's tensors (kept alive for the pointers' sake), its dtype and
+    device, its parts, rows and x entries a part, and K5's launch arguments
+    before x (``head``: values, starts, ``step_lo``, ``step_b0``), after x
+    (``tail``: the overflow list and the mask) and after the update form
+    (``ints``)."""
+    tensors: tuple
+    dtype: torch.dtype
+    device: torch.device
+    nparts: int
+    row_pad: int
+    col_pad: int
+    head: tuple
+    tail: tuple
+    ints: tuple
+
+
+def xl_operator(vals: torch.Tensor, starts: torch.Tensor, xpad_lo: int,
+                row_pad: int, col_pad: int, gb: int, step_lo: torch.Tensor,
+                panel: int, ovf=None, *, mask: torch.Tensor,
+                step_b0: torch.Tensor, stage=None) -> XLOperator:
+    """Check the arguments of a K5 operator on a CUDA device (as
+    :func:`bdia_spmv_xl` takes them, for an x of ``col_pad`` entries a
+    part) and return them as K5's launch takes them; raises on an argument
+    K5 does not take."""
     P, B, D, R = vals.shape
-    nsteps = -(-B // gb)
-    col_pad, ovf_ptrs, ovf_len = _check_launch(
-        "bdia_spmv_xl", vals, starts, x, row_pad, ovf,
-        extra=[("step_lo", step_lo)])
+    nsteps = step_b0.shape[-1] - 1
+    ovf_ptrs, ovf_len = _check_launch(
+        "bdia_spmv_xl", vals, starts, (vals.dtype, vals.device, col_pad),
+        row_pad, ovf, extra=[("step_lo", step_lo), ("mask", mask),
+                             ("step_b0", step_b0)])
     if step_lo.dtype != torch.int32 or step_lo.shape != (P, nsteps):
         raise TypeError("bdia_spmv_xl: step_lo must be int32 of shape "
                         f"(P, {nsteps})")
-    if panel % XL_ALIGN or R % 128:
+    if step_b0.dtype != torch.int32 or step_b0.shape != (P, nsteps + 1):
+        raise TypeError("bdia_spmv_xl: step_b0 must be int32 of shape "
+                        f"(P, {nsteps + 1})")
+    if mask.dtype != torch.uint8 or mask.shape != (P, B, D, mask_bytes(R)):
+        raise TypeError("bdia_spmv_xl: mask must be uint8 of shape "
+                        f"(P, B, D, {mask_bytes(R)})")
+    if panel % XL_ALIGN or R % 128 or gb * R > XL_THREADS * XL_ACC_ROWS:
         raise ValueError(f"bdia_spmv_xl: the panel must be a multiple of "
-                         f"{XL_ALIGN} and R of 128")
-    if xl_smem_bytes(panel, gb, D, x.element_size()) > runtime.SMEM_PER_BLOCK:
+                         f"{XL_ALIGN}, R of 128, and a step at most "
+                         f"{XL_THREADS * XL_ACC_ROWS} rows")
+    itemsize = vals.element_size()
+    if stage is None:
+        stage = xl_stage(panel, gb, D, itemsize, R,
+                         XL_STAGE_MAX if ovf is not None else 0)
+    if stage is None or xl_smem_bytes(panel, gb, D, itemsize, R,
+                                      stage) > runtime.SMEM_PER_BLOCK:
         raise ValueError(f"bdia_spmv_xl: a panel of {panel} does not fit "
                          "one block's shared memory")
-    runtime.require_smem(x.device.index)
-    lib, fns = _kernel_fns("bdia_spmv_xl", 8, 11)
-    y = torch.empty(P * row_pad, dtype=x.dtype, device=x.device)
-    build.launch(lib, fns[x.dtype], x, "bdia_spmv_xl launch",
-                 vals.data_ptr(), starts.data_ptr(), step_lo.data_ptr(),
-                 x.data_ptr(), *ovf_ptrs, y.data_ptr(), P, B, D, R, row_pad,
-                 col_pad, xpad_lo, ovf_len, gb, nsteps, panel)
+    runtime.require_smem(vals.device.index)
+    return XLOperator(
+        tensors=(vals, starts, step_lo, step_b0, ovf, mask),
+        dtype=vals.dtype, device=vals.device, nparts=P, row_pad=row_pad,
+        col_pad=col_pad,
+        head=(vals.data_ptr(), starts.data_ptr(), step_lo.data_ptr(),
+              step_b0.data_ptr()),
+        tail=ovf_ptrs + (mask.data_ptr(),),
+        ints=(P, B, D, R, row_pad, col_pad, xpad_lo, ovf_len, gb, nsteps,
+              panel, stage))
+
+
+def bdia_spmv_xl_run(op: XLOperator, x: torch.Tensor, *, b=None, s=None,
+                     c=None, w: float = 1.0, out=None) -> torch.Tensor:
+    """K5 on the operator ``op`` of :func:`xl_operator` (checked then),
+    ``A @ x`` or its update form (as :func:`bdia_spmv_xl`): checks the
+    vectors, launches K5 once, counts the launch."""
+    dtype, device, P = op.dtype, op.device, op.nparts
+    row_pad, col_pad = op.row_pad, op.col_pad
+    if x.dtype != dtype or x.device != device or x.shape != (P * col_pad,) \
+            or not x.is_contiguous():
+        raise ValueError(f"bdia_spmv_xl: x must be contiguous "
+                         f"({P * col_pad},) {dtype} on {device}")
+    for k, t in (("b", b), ("s", s), ("c", c), ("out", out)):
+        if t is not None and (t.dtype != dtype or t.device != device
+                              or t.shape != (P * row_pad,)
+                              or not t.is_contiguous()):
+            raise ValueError(f"bdia_spmv_xl: {k} must be contiguous "
+                             f"({P * row_pad},) {dtype} on {device}")
+    if out is not None and _overlaps(out, x):
+        raise ValueError("bdia_spmv_xl: out may not overlap x")
+    lib, fns = _kernel_fns("bdia_spmv_xl", 13, 12, 1)
+    y = torch.empty(P * row_pad, dtype=dtype, device=device) \
+        if out is None else out
+    ptr = lambda t: None if t is None else t.data_ptr()
+    build.launch(lib, fns[dtype], x, "bdia_spmv_xl launch", *op.head,
+                 x.data_ptr(), *op.tail, ptr(b), ptr(s), ptr(c),
+                 y.data_ptr(), float(w), *op.ints)
     bdia_spmv_xl.launches += 1
+    form = (b is not None, s is not None, c is not None)
+    forms = bdia_spmv_xl.launches_by_form
+    forms[form] = forms.get(form, 0) + 1
     return y
 
 
 bdia_spmv_xl.launches = 0
+bdia_spmv_xl.launches_by_form = {}
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory of tensors ``a`` and ``b`` overlaps."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())

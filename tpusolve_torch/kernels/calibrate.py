@@ -23,11 +23,13 @@ each line also prints the time per call between CUDA events
   f64, on one banded operator like the RCM-ordered gate-4 ILU factors: D=23
   slots, each block's windows within ``XL_BAND`` entries below its rows
   (27,500 in f32, the 96^3 factors' band; 13,000 in f64, gate 3's 64^3
-  level 0), so that K5's panels have real lengths, and an overflow list of
-  1.5 entries a row.  The full shape is 132 x 52 blocks: one round of 132
-  K5 steps of 52 blocks on 132 SMs; K5's bytes count the panels.  ``rate``
-  = the full shape's bytes over its time; the other shapes print the
-  model's time beside the measured one.
+  level 0), so that K5's panels have real lengths, an overflow list of
+  1.5 entries a row, and ``ZERO_SHARE`` of its 32-row (block, slot)
+  segments all zero, as in the factors.  The full shape is 132 x 52
+  blocks: one round of 132 K5 steps of 52 blocks on 132 SMs; K5's bytes
+  count the panels and only the segments its mask keeps.  ``rate`` = the
+  full shape's bytes over its time; the other shapes print the model's
+  time beside the measured one.
 
 It prints one line per shape and, last, the constants as JSON.  Needs a
 CUDA card; the numbers belong to the card they were taken on.
@@ -38,6 +40,17 @@ times K5 on the f32 banded operator at the 96^3 factors' shape at several
 blocks per step, beside K4 and the model's prices: how the rounds of blocks
 over the SMs, and the panels' bytes, set K5's time
 (``matrix/sharded.py:band_model_s``).
+
+    python -m tpusolve_torch.kernels.calibrate --k5
+
+times K5 against K4 on gate 4's ILU factors L and U at 96^3 (the
+fixture's pattern, RCM, host Chow-Patel ILU(0) of the f32 twin, as the
+CLI's ``mixed`` run builds them) and on the banded operator in f32 and
+f64: without the segment mask on the parent's steps of equal blocks, with
+it, with it on steps of balanced work at several weights of the overflow
+(``kernels/bdia.py:XL_OVF_WEIGHT``), the update forms of the ILU sweeps,
+and the slots alone; each checked equal to K4 bit for bit first
+(``sweep_k5``).
 
     python -m tpusolve_torch.kernels.calibrate --k4
 
@@ -91,6 +104,9 @@ SHAPES = {
                 "small": (96, 23, 128, 8)},
 }
 XL_BAND = {4: 27_500, 8: 13_000}
+# share of the banded operator's 32-row (block, slot) segments left all
+# zero: gate 4's L at 96^3 has 32.1 % (U 31.4 %)
+ZERO_SHARE = 0.32
 BOTH = (torch.float64, torch.float32)
 
 
@@ -225,15 +241,19 @@ def _bell_case(shape, dtype, device, gen):
 def _banded(shape, dtype, device, gen):
     """A banded BDIA operator like the RCM-ordered gate-4 ILU factors':
     each block's D windows start within ``XL_BAND`` entries below its rows,
-    in slot order, and rows spill 1 and 2 entries in turn to an overflow
-    list (1.5 a row; the 96^3 factors spill 1.57), columns within the band.
-    Returns (vals, starts, x, xpad, ovf, overflow entries)."""
+    in slot order, ``ZERO_SHARE`` of its 32-row segments all zero, and rows
+    spill 1 and 2 entries in turn to an overflow list (1.5 a row; the 96^3
+    factors spill 1.57), columns within the band.  Returns (vals, starts,
+    x, xpad, ovf, overflow entries)."""
     B, D, R = shape[:3]
     itemsize = torch.empty((), dtype=dtype).element_size()
     band = XL_BAND[itemsize]
     n = B * R
+    seg = bdia_mod.SEG_ROWS
+    keep = torch.rand((1, B, D, R // seg), device=device,
+                      generator=gen) >= ZERO_SHARE
     vals = torch.randn((1, B, D, R), dtype=dtype, device=device,
-                       generator=gen)
+                       generator=gen) * keep.repeat_interleave(seg, dim=-1)
     off = torch.randint(-band, 1, (1, B, D), device=device, generator=gen)
     starts = (torch.arange(B, device=device).view(1, B, 1) * R
               + off.sort(dim=2).values + band).to(torch.int32)
@@ -264,25 +284,31 @@ def _bdia_band_case(shape, dtype, device, gen):
 
 
 def _bdia_xl_case(shape, dtype, device, gen):
-    """(call, bytes streamed with the panels, (blocks, resident)) of K5 on
-    the banded operator, in steps of gb blocks."""
-    from tpusolve_torch.matrix.sharded import bdia_bytes, xl_resident
+    """(call, bytes read with the panels, (blocks, resident)) of K5 on the
+    banded operator, in steps of gb blocks."""
+    from tpusolve_torch.matrix.sharded import (bdia_bytes, skipped_bytes,
+                                               xl_resident)
     B, D, R, gb = shape
     vals, starts, x, band, ovf, k = _banded(shape, dtype, device, gen)
     itemsize = vals.element_size()
+    mask = bdia_mod.segment_mask(vals)
     plan = bdia_mod.plan_steps(starts.cpu().numpy(), R, band, itemsize,
-                               lambda g, nsteps, panel: abs(g - gb))
+                               lambda g, nsteps, panel, smem: abs(g - gb))
     if plan is None or plan[0] != gb:
         raise RuntimeError(f"calibrate: no K5 plan with gb={gb} for {shape}")
-    _, step_lo, panel = plan
+    _, step_lo, panel, step_b0, stage = plan
     nsteps = step_lo.shape[1]
-    step_lo = torch.tensor(step_lo, device=device)
+    step_lo, step_b0 = (torch.tensor(a, device=device)
+                        for a in (step_lo, step_b0))
     n = B * R
     return (lambda: bdia_spmv_xl(vals, starts, x, band, n, gb, step_lo,
-                                 panel, ovf),
-            bdia_bytes(B, D, R, k, itemsize) + nsteps * panel * itemsize,
+                                 panel, ovf, mask=mask, step_b0=step_b0,
+                                 stage=stage),
+            bdia_bytes(B, D, R, k, itemsize) - skipped_bytes(
+                1, B, D, R, itemsize, bdia_mod.live_segments(mask))
+            + nsteps * panel * itemsize,
             (nsteps, xl_resident(bdia_mod.xl_smem_bytes(panel, gb, D,
-                                                        itemsize),
+                                                        itemsize, R, stage),
                                  bdia_mod.xl_threads(gb, R, itemsize))))
 
 
@@ -357,6 +383,9 @@ def sweep_steps(device=None, log=print) -> list:
                                             device, gen)
     n = B * R
     nbytes = sharded.bdia_bytes(B, D, R, k, 4)
+    mask = bdia_mod.segment_mask(vals)
+    reads = nbytes - sharded.skipped_bytes(1, B, D, R, 4,
+                                           bdia_mod.live_segments(mask))
     ms = device_ms(lambda: bdia_spmv(vals, starts, x, band, n + band, n, ovf))
     model = 1e3 * sharded.k4_model_s(4, nbytes, 1, B, D, R)
     log(f"K4 f32 {(B, D, R)} overflow={k}: {ms:.5f} ms (model {model:.5f})")
@@ -364,19 +393,174 @@ def sweep_steps(device=None, log=print) -> list:
     starts_np = starts.cpu().numpy()
     for gb in STEPS_GB:
         plan = bdia_mod.plan_steps(starts_np, R, band, 4,
-                                   lambda g, nsteps, panel: abs(g - gb))
-        _, step_lo, panel = plan
+                                   lambda g, nsteps, panel, smem: abs(g - gb))
+        _, step_lo, panel, step_b0, stage = plan
         nsteps = step_lo.shape[1]
-        lo = torch.tensor(step_lo, device=device)
+        lo, b0 = (torch.tensor(a, device=device) for a in (step_lo, step_b0))
         ms = device_ms(lambda: bdia_spmv_xl(vals, starts, x, band, n, gb, lo,
-                                          panel, ovf))
+                                          panel, ovf, mask=mask, step_b0=b0,
+                                          stage=stage))
         resident = sharded.xl_resident(bdia_mod.xl_smem_bytes(
-            panel, gb, D, 4), bdia_mod.xl_threads(gb, R, 4))
+            panel, gb, D, 4, R, stage), bdia_mod.xl_threads(gb, R, 4))
         model = 1e3 * sharded.band_model_s(
-            "bdia_xl", 4, nbytes + nsteps * panel * 4, nsteps, resident)
+            "bdia_xl", 4, reads + nsteps * panel * 4, nsteps, resident)
         log(f"K5 f32 gb={gb}: {nsteps} steps, panel {panel}, {resident} "
             f"resident: {ms:.5f} ms (model {model:.5f})")
         rows.append((gb, nsteps, ms, model))
+    return rows
+
+
+def gate4_factors(side: int, device):
+    """(L, U): gate 4's ILU(0) factors at side^3 as the CLI's ``mixed`` run
+    builds them: the momentum fixture's matrix (``fixtures.make_system``,
+    seed 11, skew 0.35), RCM, assembled on ``device`` in f64, host
+    Chow-Patel ILU(0) of the f32 twin (the fixture's ILU settings are the
+    defaults), each factor laid out as the model chooses."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    from tpusolve_torch.fixtures import make_system
+    from tpusolve_torch.ilu.ilu import ilu_setup
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    rows, cols, vals, _, n = make_system(side, side, side, seed=11,
+                                         nonsym=0.35)
+    pat = sp.csr_matrix((np.ones(rows.size, np.int8), (rows, cols)),
+                        shape=(n, n))
+    perm = np.asarray(reverse_cuthill_mckee(pat + pat.T,
+                                            symmetric_mode=True))
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    r, c = inv[rows], inv[cols]
+    A = ShardedMatrix.from_coo((n, n), r, c, vals, device=device)
+    pre = ilu_setup(A.astype(np.float32),
+                    A_host=sp.csr_matrix((vals, (r, c)), shape=(n, n)))
+    return pre.L, pre.U
+
+
+# K5's designs in --k5: (name, the operator's segment mask used (else every
+# segment set, kernels/bdia.py:full_mask), the overflow's weight in the
+# steps' balance, None: steps of equal blocks); the last is the plan's
+# (kernels/bdia.py:XL_OVF_WEIGHT)
+K5_DESIGNS = (("every segment, equal steps", False, None),
+              ("mask, equal steps", True, None),
+              ("mask, balanced steps, overflow weight 1", True, 1.0),
+              ("mask, balanced steps, overflow weight 2", True, 2.0),
+              ("mask, balanced steps (the plan's)", True,
+               bdia_mod.XL_OVF_WEIGHT))
+
+
+def sweep_k5(device=None, log=print, side: int = 96) -> list:
+    """K5's designs (``K5_DESIGNS``: every segment read and the segments of
+    the mask, on
+    steps of equal blocks (the parent's plan) and of balanced work at
+    several weights of the overflow (the last the model's plan)) and K4 on
+    gate 4's L and U at side^3 (:func:`gate4_factors`)
+    and on the banded operator at the full shape in f32 and f64: every
+    design checked equal to K4 by ``torch.equal`` (raises otherwise), then
+    each timed in a trace of its own; then the ILU sweeps' update forms,
+    ``r - A z`` and ``dinv * (z - A x)``, fused into K5's launch against
+    K4 and the eager update, each equal bit for bit; then the slots alone
+    (no overflow list), K5 against K4.  Prints the bytes the layout stores
+    and the bytes K5 reads.  Returns (operator, dtype, design, device ms)
+    rows."""
+    from tpusolve_torch.kernels.dia import epilogue_plain
+    from tpusolve_torch.matrix import sharded
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    ops = []
+    L, U = gate4_factors(side, device)
+    for name, M in (("L", L), ("U", U)):
+        ops.append((f"gate-4 {name}", M.bdia_vals, M.bdia_starts,
+                    M.bdia_xpad, M.bdia_xlen, M.row_pad, M.bdia_ovf))
+    for dtype in BOTH[::-1]:
+        B, D, R = SHAPES["bdia_band"]["full"]
+        vals, starts, x, band, ovf, _ = _banded((B, D, R), dtype, device, gen)
+        ops.append(("banded", vals, starts, band, B * R + band, B * R, ovf))
+    rows = []
+    for name, vals, starts, xpad, xlen, row_pad, ovf in ops:
+        P, B, D, R = vals.shape
+        itemsize = vals.element_size()
+        dt = str(vals.dtype)[6:]
+        mask = bdia_mod.segment_mask(vals)
+        live = bdia_mod.live_segments(mask)
+        k = 0 if ovf is None else int(ovf[0][0, -1])
+        nbytes = sharded.bdia_bytes(B, D, R, k, itemsize)
+        reads = nbytes - sharded.skipped_bytes(1, B, D, R, itemsize, live)
+        # the parent's plan (steps of gb blocks), and the model's balanced
+        # at each weight of the overflow
+        work = sharded.xl_work(mask, None if ovf is None else ovf[0], R,
+                               row_pad, itemsize)
+        plans, keep = {}, bdia_mod.XL_OVF_WEIGHT
+        try:
+            for _, _, wgt in K5_DESIGNS:
+                if wgt is not None:
+                    bdia_mod.XL_OVF_WEIGHT = wgt
+                got = sharded.plan_xl(starts.cpu().numpy(), R, xpad,
+                                      itemsize, nbytes,
+                                      *(() if wgt is None else (live, work)))
+                if got is None:
+                    raise RuntimeError(f"calibrate: no K5 plan for {name} "
+                                       f"{dt}")
+                plans[wgt] = dict(
+                    gb=got[0], step_lo=torch.tensor(got[1], device=device),
+                    panel=got[2], step_b0=torch.tensor(got[3], device=device),
+                    stage=got[4])
+        finally:
+            bdia_mod.XL_OVF_WEIGHT = keep
+        final = plans[keep]
+        panels = final["step_lo"].shape[1] * final["panel"] * itemsize
+        x = torch.randn(row_pad, dtype=vals.dtype, device=device,
+                        generator=gen)
+        y4 = bdia_spmv(vals, starts, x, xpad, xlen, row_pad, ovf)
+        calls = {"K4": lambda: bdia_spmv(vals, starts, x, xpad, xlen,
+                                         row_pad, ovf)}
+        every = bdia_mod.full_mask(P, B, D, R, device)
+        for design, use_mask, wgt in K5_DESIGNS:
+            call = (lambda m=mask if use_mask else every, pl=plans[wgt]:
+                    bdia_spmv_xl(vals, starts, x, xpad, row_pad, pl["gb"],
+                                 pl["step_lo"], pl["panel"], ovf, mask=m,
+                                 step_b0=pl["step_b0"], stage=pl["stage"]))
+            if not torch.equal(call(), y4):
+                raise RuntimeError(f"K5 {design} on {name} {dt} is not K4")
+            calls[design] = call
+        kw = dict(mask=mask, step_b0=final["step_b0"], stage=final["stage"])
+        args = (vals, starts, x, xpad, row_pad, final["gb"],
+                final["step_lo"], final["panel"])
+        r = torch.randn_like(x)
+        dinv = torch.randn_like(x)
+        for form, upd in (("lower r - A z", dict(b=r)),
+                          ("upper dinv * (z - A x)", dict(b=r, s=dinv))):
+            fused = (lambda u=upd: bdia_spmv_xl(*args, ovf, **kw, **u))
+            eager = (lambda u=upd: epilogue_plain(bdia_spmv(
+                vals, starts, x, xpad, xlen, row_pad, ovf), **u))
+            if not torch.equal(fused(), eager()):
+                raise RuntimeError(f"K5 update {form} on {name} {dt} is not "
+                                   "K4 and the eager update")
+            calls[f"{form}: K5 fused"] = fused
+            calls[f"{form}: K4 + eager"] = eager
+        # the slots alone, without the overflow list
+        k5_slots = (lambda: bdia_spmv_xl(*args, mask=mask,
+                                         step_b0=final["step_b0"], stage=0))
+        k4_slots = (lambda: bdia_spmv(vals, starts, x, xpad, xlen, row_pad))
+        if not torch.equal(k5_slots(), k4_slots()):
+            raise RuntimeError(f"K5 without overflow on {name} {dt} is not K4")
+        calls["slots only: K4"] = k4_slots
+        calls["slots only: K5 mask, balanced"] = k5_slots
+        ms = {key: device_ms_each({key: fn})[key] for key, fn in calls.items()}
+        log(f"K5 {name} {dt} B={B} D={D} R={R} overflow={k}; parent plan "
+            f"gb={plans[None]['gb']} panel={plans[None]['panel']} steps="
+            f"{plans[None]['step_lo'].shape[1]}; the plan's gb="
+            f"{final['gb']} panel={final['panel']} steps="
+            f"{final['step_lo'].shape[1]} stage={final['stage']}: segments live "
+            f"{live}/{B * D * R // bdia_mod.SEG_ROWS} "
+            f"({1 - live * bdia_mod.SEG_ROWS / (B * D * R):.3f} skipped); "
+            f"stored {nbytes / 1e6:.3f} MB, K5 reads {reads / 1e6:.3f} MB "
+            f"with the mask, panels {panels / 1e6:.3f} MB; all designs equal "
+            "to K4")
+        for key, t in ms.items():
+            log(f"K5 {name} {dt} {key}: device {t:.5f} ms")
+            rows.append((name, dt, key, t))
     return rows
 
 
@@ -647,6 +831,10 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--k4"]:
         sweep_k4()
+        sys.exit(0)
+    if sys.argv[1:] == ["--k5"]:
+        print(card_line(), flush=True)
+        print(json.dumps(sweep_k5()), flush=True)
         sys.exit(0)
     if sys.argv[1:] == ["--k1"]:
         sweep_k1()

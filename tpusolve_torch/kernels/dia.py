@@ -48,21 +48,31 @@ K1_THREAD_SLOTS = 64
 
 
 def epilogue_plain(y: torch.Tensor, b=None, s=None, c=None,
-                   w: float = 1.0) -> torch.Tensor:
+                   w: float = 1.0, out=None) -> torch.Tensor:
     """``c + w * s * (b - y)`` for ``y = A x``, each of ``b``, ``s``, ``c``
     possibly None (b = 0, s = 1, c = 0), in the order the eager callers
     computed it: ``t = b - y`` (or ``y``), ``t = (w * s) * t``, then
     ``c + t`` (``c - t`` without b).  With ``w == 1`` the factor is
     skipped, so ``s * (b - y)``, ``b - y`` and ``c - s * y`` are the bits
-    of the expressions they replace."""
-    t = y if b is None else b - y
+    of the expressions they replace.  With ``out`` the last step writes
+    its result there (no copy)."""
+    steps = []
+    if b is not None:
+        steps.append(lambda t, o: torch.sub(b, t, out=o))
     if s is not None:
-        t = (s if w == 1.0 else w * s) * t
+        ws = s if w == 1.0 else w * s
+        steps.append(lambda t, o: torch.mul(ws, t, out=o))
     elif w != 1.0:
-        t = w * t
-    if c is None:
-        return t if b is not None else -t
-    return c + t if b is not None else c - t
+        steps.append(lambda t, o: torch.mul(t, w, out=o))
+    if c is not None:
+        op = torch.add if b is not None else torch.sub
+        steps.append(lambda t, o: op(c, t, out=o))
+    elif b is None:
+        steps.append(lambda t, o: torch.neg(t, out=o))
+    t = y
+    for i, step in enumerate(steps):
+        t = step(t, out if i == len(steps) - 1 else None)
+    return t
 
 
 def epilogue_mode(b=None, s=None, c=None) -> str:
@@ -145,11 +155,12 @@ def _table(offsets: tuple):
 
 
 def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor, b=None,
-             s=None, c=None, w: float = 1.0, *, groups: int | None = None
-             ) -> torch.Tensor:
+             s=None, c=None, w: float = 1.0, *, groups: int | None = None,
+             out=None) -> torch.Tensor:
     """Box-DIA SpMV, ``y = A @ x``, or with any of ``b``, ``s``, ``c``
     given its update form ``y = c + w * s * (b - A x)`` (arguments as
-    :func:`dia_spmv_plain`; ``offsets`` a tuple of int triples).
+    :func:`dia_spmv_plain`; ``offsets`` a tuple of int triples); written
+    into ``out`` when given, which may be ``b``, ``s`` or ``c``, never x.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel of
     ``csrc/dia_spmv.cu`` (building it on first use) once, on the launch plan
@@ -158,7 +169,8 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor, b=None,
     launches, ``dia_spmv.launches_by_form`` the same by which of (b, s, c)
     were given (named by :func:`launches_by_mode`)."""
     if x.device.type == "cpu":
-        return dia_spmv_plain(vals, offsets, x, b, s, c, w)
+        y = dia_spmv_plain(vals, offsets, x, b, s, c, w)
+        return y if out is None else out.copy_(y)
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_spmv: unsupported dtype {x.dtype}")
     if vals.dim() != 5 or vals.dtype != x.dtype:
@@ -174,7 +186,8 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor, b=None,
     if box >= 2 ** 31 or x.shape != (P * box,):
         raise ValueError("dia_spmv: x must be flat (P * nz * ny * nx,) "
                          "below 2**31 rows a part")
-    for name, t in (("vals", vals), ("x", x), ("b", b), ("s", s), ("c", c)):
+    for name, t in (("vals", vals), ("x", x), ("b", b), ("s", s), ("c", c),
+                    ("out", out)):
         if t is None:
             continue
         if t.device != x.device or not t.is_contiguous():
@@ -183,6 +196,8 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor, b=None,
         if name != "vals" and (t.dtype != x.dtype or t.shape != x.shape):
             raise TypeError(f"dia_spmv: {name} must be of x's dtype and "
                             "shape")
+    if out is not None and out.data_ptr() == x.data_ptr():
+        raise ValueError("dia_spmv: out may not be x")
     g = k1_plan(box, D) if groups is None else groups
     if g not in GROUPS:
         raise ValueError(f"dia_spmv: groups must be one of {GROUPS}")
@@ -190,7 +205,7 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor, b=None,
     if x.device.type != "cuda":
         raise ValueError(f"dia_spmv: unsupported device {x.device}")
     lib, fns = _kernel_fns()
-    y = torch.empty_like(x)
+    y = torch.empty_like(x) if out is None else out
     ptr = lambda t: None if t is None else t.data_ptr()
     build.launch(lib, fns[x.dtype], x, "dia_spmv launch", vals.data_ptr(),
                  x.data_ptr(), y.data_ptr(), ctypes.addressof(_table(

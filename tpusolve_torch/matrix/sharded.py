@@ -29,7 +29,10 @@ decision order DIA -> BDIA -> BELL -> ELL:
   pointer so that the kernel adds each row's spilled entries itself; for
   banded matrices with enough entries (file-loaded systems after RCM).  It
   runs K4, or K5 by panel steps (BDIA-XL) where a step plan fits a block's
-  shared memory and the time model prices K5 strictly faster;
+  shared memory and the time model prices K5 strictly faster: K5 skips the
+  32-row segments of a slot that hold no entry (the segment mask, built
+  from the stored values on the operator's device), so it is priced on the
+  bytes it reads;
 * **BELL** (block ELL, ``kernels/bell.py``), run by K6;
 * **ELL** otherwise, or where K2's modelled time is below both (from
   ``BDIA_MIN_NNZ`` entries up), run by K2 (``kernels/ell.py``) in one of two
@@ -99,9 +102,11 @@ SPMV_MODEL = {"bdia": (2.922e12, 24_848), "bell": (3.164e12, 80_511),
               "ell": ell_mod.K2_MODEL}
 # K4 against K5 on a BDIA layout (band_model_s): each kernel's rate by item
 # size, on one banded operator with an overflow list like the RCM-ordered
-# ILU factors', in one full round of blocks (K5's bytes count its panels):
+# ILU factors', in one full round of blocks (K5's bytes count its panels
+# and only the segments its mask keeps; K5's rates from the redesigned
+# kernel's device time):
 BAND_RATE = {("bdia", 4): 2.530e12, ("bdia", 8): 2.542e12,
-             ("bdia_xl", 4): 2.626e12, ("bdia_xl", 8): 2.680e12}
+             ("bdia_xl", 4): 2.681e12, ("bdia_xl", 8): 2.542e12}
 
 
 def tile_budget(total_nnz: int, itemsize: int) -> int:
@@ -192,38 +197,74 @@ def bdia_bytes(B: int, D: int, R: int, k: int, itemsize: int) -> int:
     return B * D * R * itemsize + k * (4 + itemsize)
 
 
+def skipped_bytes(nparts: int, B: int, D: int, R: int, itemsize: int,
+                  live: int | None) -> int:
+    """Bytes of a BDIA layout's values that K5 does not read: those of the
+    32-row segments its mask clears, where ``live`` of the layout's
+    segments are set (None: all)."""
+    if live is None:
+        return 0
+    return ((nparts * B * D * (R // bdia_mod.SEG_ROWS) - live)
+            * bdia_mod.SEG_ROWS * itemsize)
+
+
 def plan_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
-            nbytes: int):
-    """``(gb, step_lo, panel, seconds)`` of K5's cheapest step plan on a
-    BDIA layout with padded-x window ``starts`` (P, B, D) that streams
-    ``nbytes`` (:func:`bdia_bytes`), priced by :func:`band_model_s` on
-    those bytes plus every step's x panel; None when no plan fits one
-    block's shared memory."""
-    nparts, _, D = starts.shape
+            nbytes: int, live: int | None = None, work=None):
+    """``(gb, step_lo, panel, step_b0, stage, seconds)`` of K5's cheapest
+    step plan (``kernels/bdia.py:plan_steps``, steps of balanced ``work``
+    where it is given: :meth:`ShardedMatrix.xl_work`) on a BDIA layout with
+    padded-x window ``starts`` (P, B, D) that streams ``nbytes``
+    (:func:`bdia_bytes`), ``live`` of its 32-row segments set in its mask
+    (None: all), priced by :func:`band_model_s` on the bytes K5 reads:
+    ``nbytes`` less the segments the mask skips (:func:`skipped_bytes`),
+    plus every step's x panel; None when no plan fits one block's shared
+    memory."""
+    nparts, B, D = starts.shape
+    reads = nbytes - skipped_bytes(nparts, B, D, R, itemsize, live)
 
-    def price(gb, nsteps, panel):
+    def price(gb, nsteps, panel, smem):
         return band_model_s(
-            "bdia_xl", itemsize, nbytes + nparts * nsteps * panel * itemsize,
+            "bdia_xl", itemsize, reads + nparts * nsteps * panel * itemsize,
             nparts * nsteps, xl_resident(
-                bdia_mod.xl_smem_bytes(panel, gb, D, itemsize),
-                bdia_mod.xl_threads(gb, R, itemsize)))
+                smem, bdia_mod.xl_threads(gb, R, itemsize)))
 
-    plan = bdia_mod.plan_steps(starts, R, xpad, itemsize, price)
+    plan = bdia_mod.plan_steps(starts, R, xpad, itemsize, price, work)
     if plan is None:
         return None
-    gb, step_lo, panel = plan
-    return gb, step_lo, panel, price(gb, step_lo.shape[1], panel)
+    gb, step_lo, panel = plan[:3]
+    return (*plan, price(gb, step_lo.shape[1], panel, bdia_mod.xl_smem_bytes(
+        panel, gb, D, itemsize, R, plan[4])))
+
+
+def xl_work(mask: torch.Tensor, ovf_ptr, R: int, row_pad: int,
+            itemsize: int) -> tuple:
+    """``(block_bytes, block_ovf)``, numpy (P, B) each, of a BDIA layout
+    with segment mask ``mask`` and overflow row pointer ``ovf_ptr`` (or
+    None): the bytes of the values K5 reads for each R-row block (those of
+    the segments its mask keeps) and its rows' overflow entries; what
+    ``kernels/bdia.py:plan_steps`` balances steps by."""
+    P, B = mask.shape[:2]
+    bits = torch.arange(8, dtype=torch.uint8, device=mask.device)
+    live = ((mask.unsqueeze(-1) >> bits) & 1).sum(
+        dim=(2, 3, 4)).cpu().numpy().astype(np.int64)
+    ovf = np.zeros((P, B), np.int64)
+    if ovf_ptr is not None:
+        rows = np.minimum(np.arange(B + 1) * R, row_pad)
+        ptr = ovf_ptr.cpu().numpy().astype(np.int64)[:, rows]
+        ovf = ptr[:, 1:] - ptr[:, :-1]
+    return live * bdia_mod.SEG_ROWS * itemsize, ovf
 
 
 def choose_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
-              nbytes: int):
-    """K5's step plan ``(gb, step_lo, panel)`` for a BDIA layout where it is
-    eligible and its modelled time is strictly below K4's on the same
-    layout (:func:`band_model_s`), else None (K4)."""
+              nbytes: int, live: int | None = None, work=None):
+    """K5's step plan ``(gb, step_lo, panel, step_b0, stage)`` for a BDIA
+    layout where it is eligible and its modelled time (:func:`plan_xl`, on
+    the bytes it reads) is strictly below K4's on the same layout
+    (:func:`k4_model_s`, every slot value), else None (K4)."""
     nparts, B, D = starts.shape
     t4 = k4_model_s(itemsize, nbytes, nparts, B, D, R)
-    xl = plan_xl(starts, R, xpad, itemsize, nbytes)
-    return xl[:3] if xl is not None and xl[3] < t4 else None
+    xl = plan_xl(starts, R, xpad, itemsize, nbytes, live, work)
+    return xl[:5] if xl is not None and xl[5] < t4 else None
 
 
 def plan_bdia(diag_parts, row_pad: int, col_pad: int, itemsize: int,
@@ -320,7 +361,7 @@ def row_counts_max(diag_parts, row_counts) -> int:
 def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
                   total_nnz: int, nparts: int = 1, allow_bdia: bool = True,
                   allow_bell: bool = True, allow_ell: bool = True):
-    """``("bdia", (R, D, bytes, staging, xl))``, ``("bell", (K, bytes))``
+    """``("bdia", (R, D, bytes, staging))``, ``("bell", (K, bytes))``
     or ``("ell", over)`` for a diag block: BDIA, BELL or ELL by modelled
     time (:func:`spmv_model_s` with ``SPMV_MODEL``, ELL by
     :func:`ell_form`'s cheaper form), BDIA on a tie and ELL only where
@@ -328,8 +369,9 @@ def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
     BELL fits (``tpusolve``'s order, caps and tie rule).  With
     ``allow_ell=False`` ELL is only that fallback, as in ``tpusolve``.
     BDIA's (R, D) is :func:`plan_bdia`'s and ``staging``
-    :func:`_bdia_staging`'s at (R, D); ``xl`` is K5's step plan where
-    :func:`choose_xl` takes it, else None (K4).  ``over`` is the layout
+    :func:`_bdia_staging`'s at (R, D); whether K4 or K5 runs it is decided
+    on the assembled values (:meth:`ShardedMatrix.with_kernel`).  ``over``
+    is the layout
     that ``tpusolve``'s choice (``allow_ell=False``) takes where K2 was
     priced below it, ``"bdia"`` or ``"bell"``; None where ELL is that
     choice too."""
@@ -360,8 +402,7 @@ def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
     if best[0] == "bdia":
         R, D, nbytes = best[1]
         staging = _bdia_staging(diag_parts, R, D, row_pad, col_pad)
-        xl = choose_xl(staging[0], R, staging[1], itemsize, nbytes)
-        return "bdia", (R, D, nbytes, staging, xl)
+        return "bdia", (R, D, nbytes, staging)
     return best[:2]
 
 
@@ -392,10 +433,18 @@ class ShardedMatrix:
     bdia_ovf_ptr: torch.Tensor | None = None   # (P, row_pad + 1) int32
     bdia_ovf_cols: torch.Tensor | None = None  # (P, k) int32 local cols
     bdia_ovf_vals: torch.Tensor | None = None  # (P, k)
+    # --- BDIA segment mask (kernels/bdia.py:segment_mask): (P, B, D, W)
+    # uint8, bit q set where rows 32q ... 32q + 31 of the slot hold a value
+    bdia_mask: torch.Tensor | None = None
     # --- BDIA-XL step plan (K5, kernels/bdia.py:plan_steps); None -> K4
-    bdia_gb: int | None = None                  # R-row blocks per step
+    bdia_gb: int | None = None                  # R-row blocks per step, most
     bdia_step_lo: torch.Tensor | None = None    # (P, nsteps) int32
     bdia_panel: int | None = None               # panel length, elements
+    bdia_step_b0: torch.Tensor | None = None    # (P, nsteps + 1) int32
+    bdia_stage: int | None = None               # overflow entries staged
+    # K5's launch arguments, checked once (kernels/bdia.py:xl_operator), on
+    # a CUDA device
+    bdia_xl_op: bdia_mod.XLOperator | None = None
     # --- box DIA (K1, kernels/dia.py); None -> another layout
     dia_vals: torch.Tensor | None = None   # (P, D, nz, ny, nx) planes
     dia_offsets: tuple | None = None       # D (dz, dy, dx) triples
@@ -492,6 +541,14 @@ class ShardedMatrix:
             return (f"BDIA-XL R={R} D={D} B={B} gb={self.bdia_gb} "
                     f"panel={kb:.1f} KB overflow={k}")
         return f"BDIA R={R} D={D} B={B} overflow={k}"
+
+    @property
+    def bdia_live(self) -> int | None:
+        """The 32-row segments set in a BDIA operator's mask (K5 reads
+        those), or None."""
+        if self.bdia_mask is None:
+            return None
+        return bdia_mod.live_segments(self.bdia_mask)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -639,7 +696,7 @@ class ShardedMatrix:
                     and dlr.size:
                 on_diag = dlc == dlr
                 diag_main[p, dlr[on_diag]] += dv[on_diag]
-        return ShardedMatrix(
+        A = ShardedMatrix(
             diag_vals=dvals, diag_cols=dcols,
             bdia_vals=fields.pop("bdia_vals", None),
             bdia_starts=fields.pop("bdia_starts", None),
@@ -653,6 +710,7 @@ class ShardedMatrix:
             row_offsets=tuple(int(o) for o in row_offsets),
             col_offsets=tuple(int(o) for o in col_offsets),
             row_pad=row_pad, col_pad=col_pad, nnz=int(total_nnz), **fields)
+        return A.with_kernel() if A.uses_bdia else A
 
     @staticmethod
     def from_dia_parts(shape, offsets, dia_vals, offd_parts, *, device,
@@ -768,15 +826,14 @@ class ShardedMatrix:
             A = A.with_ell_form()
         if A.uses_bdia:
             _check_windows(arrays["bdia_starts"], A.bdia_block, A.bdia_xlen)
+            A = dataclasses.replace(
+                A, bdia_mask=bdia_mod.segment_mask(A.bdia_vals))
             if arrays.get("bdia_rowstart") is not None:
-                _, B, D, R = A.bdia_vals.shape
-                itemsize = A.bdia_vals.element_size()
-                k = 0 if A.bdia_ovf_ptr is None else int(
-                    A.bdia_ovf_ptr[:, -1].sum())
-                xl = plan_xl(arrays["bdia_starts"], R, A.bdia_xpad, itemsize,
-                             bdia_bytes(B, D, R, k, itemsize))
+                xl = plan_xl(A.bdia_starts.cpu().numpy(), A.bdia_block,
+                             A.bdia_xpad, A.bdia_vals.element_size(),
+                             A.bdia_nbytes, A.bdia_live, A.xl_work())
                 if xl is not None:
-                    A = A._with_xl(xl[:3])
+                    A = A._with_xl(xl[:5])
         return A
 
     # ------------------------------------------------------------------
@@ -834,8 +891,9 @@ class ShardedMatrix:
     def astype(self, dtype) -> "ShardedMatrix":
         """Value-dtype cast of the same operator (layout and index tensors
         shared).  Used for the mixed-precision f32 twin.  A BDIA operator
-        chooses between K4 and K5 again (:func:`choose_xl`): whether a
-        panel fits, and what it costs, depend on the item size.  An ELL
+        builds its segment mask from the cast values and chooses between K4
+        and K5 again (:meth:`with_kernel`): whether a panel fits, and what
+        it costs, depend on the item size.  An ELL
         operator keeps its form."""
         dtype = torch_dtype(dtype)
         if self.dtype == dtype:
@@ -847,13 +905,9 @@ class ShardedMatrix:
             bdia_ovf_vals=cast(self.bdia_ovf_vals), diag=cast(self.diag),
             dia_vals=cast(self.dia_vals), ell_vals=cast(self.ell_vals))
         if A.uses_bdia:
-            P, B, D, R = A.bdia_vals.shape
-            itemsize = A.bdia_vals.element_size()
-            k = 0 if A.bdia_ovf_ptr is None else int(
-                A.bdia_ovf_ptr[:, -1].sum())
-            xl = choose_xl(A.bdia_starts.cpu().numpy(), R, A.bdia_xpad,
-                           itemsize, bdia_bytes(P * B, D, R, k, itemsize))
-            A = A._with_xl(xl)
+            # a cast may round a value to zero: the mask follows the values
+            A = dataclasses.replace(
+                A, bdia_mask=bdia_mod.segment_mask(A.bdia_vals)).with_kernel()
         return A
 
     def with_ell_form(self) -> "ShardedMatrix":
@@ -874,17 +928,49 @@ class ShardedMatrix:
             self, diag_vals=dvals, diag_cols=dcols, ell_rowptr=rowptr[None],
             ell_vals=rv[None], ell_cols=rc[None], row_width=width)
 
+    @property
+    def bdia_nbytes(self) -> int:
+        """:func:`bdia_bytes` of a BDIA operator: what K4 streams."""
+        P, B, D, R = self.bdia_vals.shape
+        k = 0 if self.bdia_ovf_ptr is None else int(
+            self.bdia_ovf_ptr[:, -1].sum())
+        return bdia_bytes(P * B, D, R, k, self.bdia_vals.element_size())
+
+    def xl_work(self) -> tuple:
+        """:func:`xl_work` of a BDIA operator."""
+        return xl_work(self.bdia_mask, self.bdia_ovf_ptr, self.bdia_block,
+                       self.row_pad, self.bdia_vals.element_size())
+
+    def with_kernel(self) -> "ShardedMatrix":
+        """A BDIA operator run by the kernel the time model prices faster
+        on it (:func:`choose_xl` on its mask's live segments, steps of
+        balanced work): K5 on its step plan, else K4."""
+        return self._with_xl(choose_xl(
+            self.bdia_starts.cpu().numpy(), self.bdia_block, self.bdia_xpad,
+            self.bdia_vals.element_size(), self.bdia_nbytes, self.bdia_live,
+            self.xl_work()))
+
     def _with_xl(self, xl) -> "ShardedMatrix":
         """The same operator run by K5 on step plan ``xl`` = (gb, step_lo,
-        panel), or by K4 when ``xl`` is None."""
+        panel, step_b0, stage) (``kernels/bdia.py:plan_steps``), or by K4
+        when ``xl`` is None."""
         if xl is None:
             return dataclasses.replace(self, bdia_gb=None, bdia_step_lo=None,
-                                       bdia_panel=None)
-        gb, step_lo, panel = xl
-        return dataclasses.replace(
+                                       bdia_panel=None, bdia_step_b0=None,
+                                       bdia_stage=None, bdia_xl_op=None)
+        gb, step_lo, panel, step_b0, stage = xl
+        A = dataclasses.replace(
             self, bdia_gb=int(gb), bdia_step_lo=to_tensor(step_lo,
                                                           self.device),
-            bdia_panel=int(panel))
+            bdia_panel=int(panel), bdia_step_b0=to_tensor(step_b0,
+                                                          self.device),
+            bdia_stage=int(stage), bdia_xl_op=None)
+        if A.device.type != "cuda":
+            return A
+        return dataclasses.replace(A, bdia_xl_op=bdia_mod.xl_operator(
+            A.bdia_vals, A.bdia_starts, A.bdia_xpad, A.row_pad, A.col_pad,
+            A.bdia_gb, A.bdia_step_lo, A.bdia_panel, A.bdia_ovf,
+            mask=A.bdia_mask, step_b0=A.bdia_step_b0, stage=A.bdia_stage))
 
 
 def _dia_candidate(diag_parts, row_pad: int, total_nnz: int):
@@ -1006,19 +1092,17 @@ def _bdia_staging(diag_parts, R, D, row_pad, col_pad):
 
 
 def _bdia_fields(plan, row_pad, col_pad, dtype, device) -> dict:
-    """BDIA tensors and metadata for :func:`choose_layout`'s plan."""
-    R, D, _, staging, xl = plan
+    """BDIA tensors and metadata for :func:`choose_layout`'s plan, with the
+    segment mask of the stored values, built on ``device``."""
+    R, D, _, staging = plan
     starts, xpad, xlen, s_idx, s_val, ovf_parts = staging
     B = starts.shape[1]
+    vals = materialize(s_idx, s_val, (B, D, R), dtype, device)
     fields = dict(
-        bdia_vals=materialize(s_idx, s_val, (B, D, R), dtype, device),
-        bdia_starts=to_tensor(starts, device),
+        bdia_vals=vals, bdia_starts=to_tensor(starts, device),
+        bdia_mask=bdia_mod.segment_mask(vals),
         bdia_block=R, bdia_xpad=xpad, bdia_xlen=xlen)
     fields.update(_ovf_fields(ovf_parts, row_pad, col_pad, dtype, device))
-    if xl is not None:
-        gb, step_lo, panel = xl
-        fields.update(bdia_gb=int(gb), bdia_step_lo=to_tensor(step_lo, device),
-                      bdia_panel=int(panel))
     return fields
 
 

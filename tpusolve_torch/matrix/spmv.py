@@ -11,9 +11,9 @@ spilled entries of its overflow list, each row its own; a BELL diag block
 runs K6 through ``kernels.bell``, and an ELL one (the AMG transfers and
 the AMG levels K2's model prices fastest), padded or row-pointer, K2
 through ``kernels.ell``.  ``spmv_update`` computes the update form ``c + w
-* s * (b - A x)`` of the V-cycle's residuals and smoothers and the
-prolongation's add: one K1 launch on a box-DIA operator, one K2 launch on
-ELL.
+* s * (b - A x)`` of the V-cycle's residuals and smoothers, the
+prolongation's add and the ILU apply's Jacobi sweeps: one K1 launch on a
+box-DIA operator, one K2 launch on ELL, one K5 launch on BDIA-XL.
 Multi-part operators
 (offd ELL block and halo exchange, ``tpusolve``'s ``halo_exchange`` and
 ``_offd_add``) are not ported yet: ``ShardedMatrix`` refuses to build them.
@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
+from tpusolve_torch.kernels.bdia import (bdia_spmv, bdia_spmv_xl,
+                                         bdia_spmv_xl_run)
 from tpusolve_torch.kernels.bell import bell_spmv
 from tpusolve_torch.kernels.dia import dia_spmv, epilogue_plain
 from tpusolve_torch.kernels.ell import ell_spmv
@@ -36,9 +37,7 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     if A.uses_dia:
         return dia_spmv(A.dia_vals, A.dia_offsets, x)
     if A.uses_bdia_xl:
-        return bdia_spmv_xl(A.bdia_vals, A.bdia_starts, x, A.bdia_xpad,
-                            A.row_pad, A.bdia_gb, A.bdia_step_lo,
-                            A.bdia_panel, A.bdia_ovf)
+        return _xl(A, x)
     if A.uses_bdia:
         return bdia_spmv(A.bdia_vals, A.bdia_starts, x, A.bdia_xpad,
                          A.bdia_xlen, A.row_pad, A.bdia_ovf)
@@ -57,19 +56,33 @@ def spmv_update(A, x: torch.Tensor, *, b=None, s=None, c=None,
     ``r - dinv * A d``; with ``out`` (which may be ``c``) the result is
     written there: the prolongation ``x + P e`` is ``c = x``, ``w = -1``.
 
-    On a box-DIA operator it is one K1 launch, on padded ELL one K2
-    launch, the update fused into the kernel.  On BDIA, BDIA-XL and BELL it
-    is ``spmv`` followed by the same update in eager PyTorch
-    (``kernels.dia.epilogue_plain``): those layouts have no fused kernel
-    yet.  On the CPU all are the eager expressions the callers computed
+    On a box-DIA operator it is one K1 launch, on ELL (either form) one K2
+    launch and on BDIA-XL one K5 launch, the update fused into the kernel
+    and written into ``out`` when given.
+    On BDIA (K4) and BELL it is ``spmv`` followed by the same update in
+    eager PyTorch (``kernels.dia.epilogue_plain``, its last step writing
+    into ``out``): those layouts have no fused kernel.  ``out`` must not
+    be x.  On the CPU all are the eager expressions the callers computed
     before, bit for bit."""
     if b is None and s is None and c is None:
         raise ValueError("spmv_update: give b, s or c (spmv computes A x)")
     if A.uses_ell:
         vals, cols, rowptr = A.ell_arrays
         return ell_spmv(vals, cols, x, b, s, c, w, out=out, rowptr=rowptr)
+    if A.uses_bdia_xl:
+        return _xl(A, x, b=b, s=s, c=c, w=w, out=out)
     if A.uses_dia:
-        y = dia_spmv(A.dia_vals, A.dia_offsets, x, b, s, c, w)
-    else:
-        y = epilogue_plain(spmv(A, x), b, s, c, w)
-    return y if out is None else out.copy_(y)
+        return dia_spmv(A.dia_vals, A.dia_offsets, x, b, s, c, w, out=out)
+    return epilogue_plain(spmv(A, x), b, s, c, w, out=out)
+
+
+def _xl(A, x: torch.Tensor, **update) -> torch.Tensor:
+    """K5 on BDIA-XL operator ``A``, with its segment mask and, given,
+    the update form's arguments: on the card from the launch arguments the
+    operator checked once (``A.bdia_xl_op``)."""
+    if A.bdia_xl_op is not None and x.device.type == "cuda":
+        return bdia_spmv_xl_run(A.bdia_xl_op, x, **update)
+    return bdia_spmv_xl(A.bdia_vals, A.bdia_starts, x, A.bdia_xpad,
+                        A.row_pad, A.bdia_gb, A.bdia_step_lo, A.bdia_panel,
+                        A.bdia_ovf, mask=A.bdia_mask, step_b0=A.bdia_step_b0,
+                        stage=A.bdia_stage, **update)
