@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tpusolve_torch on one CUDA card.
 
-    python3 chip_smoke.py [--side N] [--side3 N]
+    python3 chip_smoke.py [--side N] [--side3 N] [--side-ilu N]
 
 From the root of a checkout, on a machine with one NVIDIA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA:
@@ -104,8 +104,39 @@ toolkit (nvcc) and PyTorch built for CUDA:
    the moved operators, the launch counts (it fails unless each
    operator's layout launched its kernel, K2 in each storage form it
    holds) and the warm-solve profile;
-10. measures the constants of the time model (``kernels/calibrate.py``)
-   beside the ones in the code.
+10. (right after step 8, early in the process, where the traces it times
+   by are whole) measures the constants of the time model
+   (``kernels/calibrate.py``) beside the ones in the code;
+
+Step 4 also times the ELL device factorization of gate 4's RCM'd A
+against the run's host ILU setup (not adopted).  After step 9:
+
+11. the stencil
+   (``fixtures.STENCIL_ILU_YAML``, ``--side-ilu``, default 128^3 =
+   2,097,152 rows) under BiCGSTAB + ILU(0) in double through the CLI: ILU(0)
+   factored on the card over the DIA band (``ilu/device_setup.py``; it
+   fails if the host factors), K1 running A and the factors' sweeps, the
+   count held to tpusolve's (within ``STENCIL_ILU_SPREAD`` at 128^3, and
+   exactly in a second run at 64^3); K1 on L and U against its plain
+   version; the factorization's profile (device operations, busy, idle
+   share) and, at 64^3, the device factorization against the port's host
+   ``chow_patel_ilu`` on the same band (time and the factors' largest
+   difference), each beside the card's name and power limit;
+12. the gate-4 fixture as written (``matrix_ordering: none``) at ``--side``
+   in double: ILU(0) factored on the card by the ELL path, K2 running A,
+   L and U, the count held to tpusolve's; K2 on the three against its
+   plain version, the factorization's profile and, at 64^3, device
+   against host;
+13. the RCM'd gate-4 fixture at 32^3 in double with ILU(1), ILUT and RCM
+   local reordering (``fixtures.ILU_OPTIONS``), each count held to
+   tpusolve's;
+14. gate 3 with ``smooth_type: 5`` on its finest level (ILU(0)
+   smoothing), the count held to tpusolve's;
+15. gate 3 at 32^3 with ``write_outputs``,
+   ``write_solution`` and ``write_amg_matrices``, the files read back by
+   the port's IJ reader as the system; then two tests with
+   ``reuse_preconditioner`` (the second's setup row under 1 % of the
+   first's) and ``check_memory``, and the memory probe on the card.
 
 Every kernel time is given twice: device time (the kernels' durations in a
 ``torch.profiler`` trace, ``calibrate.device_ms``) and time per call
@@ -170,6 +201,35 @@ TPUSOLVE_WEAKSCALE_ITERS = 23
 # serial RS by its native kernel), precision double: GMRES iterations,
 # relres 1.417e-09, eight levels (262144 ... 53 rows)
 TPUSOLVE_GATE3_RS_ITERS_64 = 11
+# tpusolve on CPU (one device), fixtures.STENCIL_ILU_YAML (BiCGSTAB +
+# ILU(0), double; its ILU(0) factored by its device DIA path) by side:
+# BiCGSTAB iterations, relres 4.315e-09 at 128^3 and 7.808e-09 at 64^3.  The
+# YAML is the one `python -c "from tpusolve_torch import fixtures;
+# print(fixtures.write_stencil_ilu('/tmp/s', 128))"` writes, run by
+# `JAX_PLATFORMS=cpu python -m tpusolve.harness.cli /tmp/s/stencil_ilu.yaml`
+TPUSOLVE_STENCIL_ILU_ITERS = {128: 53, 64: 33}
+# at 128^3 that count follows the summation order: the port's and tpusolve's
+# residual histories on the CPU agree to 7 digits for 27 iterations, then
+# part, roundoff growing about threefold an iteration, and the port takes
+# 51 on the CPU and 54 on the card (ROADMAP.md Queue 3).  So 128^3 is held
+# within this many of tpusolve's count, 64^3 exactly
+STENCIL_ILU_SPREAD = 3
+# the same for the gate-4 fixture as written, precision double and
+# matrix_ordering none (fixtures.write_gate4(d, side, precision="double",
+# solver_settings={"matrix_ordering": "none"})): tpusolve stores it ELL and
+# factors ILU(0) by its device ELL path; relres 3.200e-09 at 96^3 (312 s
+# and 9 GB on the CPU), 2.286e-09 at 64^3
+TPUSOLVE_GATE4_ELL_ITERS = {64: 34, 96: 46}
+# ... the RCM'd gate-4 fixture in double with each of fixtures.ILU_OPTIONS
+# (fixtures.write_gate4(d, 32, precision="double",
+# ilu_preconditioner_settings=fixtures.ILU_OPTIONS[name])): relres
+# 1.662e-09, 2.172e-09, 7.472e-09
+TPUSOLVE_ILU_OPTION_ITERS = {("fill1", 32): 16, ("ilut", 32): 30,
+                             ("rcm", 32): 21}
+# ... the gate-3 fixture with smooth_type 5 on one level (double,
+# fixtures.write_gate3(d, side, boomeramg_settings={"smooth_type": 5,
+# "smooth_num_levels": 1})): GMRES iterations, relres 4.580e-09 at 64^3
+TPUSOLVE_GATE3_ST5_ITERS = {64: 7, 32: 7}
 # the start of the note the builder records for a device level 0
 DEVICE_NOTE = "level 0 setup on device"
 
@@ -482,6 +542,34 @@ def device_times(calls: dict, only: str | None = None) -> dict:
     return out
 
 
+def fresh_device_ms(M, x, what: str) -> float:
+    """The device time of ``spmv(M, x)`` taken in a fresh process
+    (``python -m tpusolve_torch.kernels.calibrate --retrace FILE``), for a
+    headline row whose trace lost the kernel's device events late in this
+    one; NaN, printed, if that fails too."""
+    import torch
+    path = os.path.join(REPO, "build", "retrace.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(dict(M=M, x=x), path)
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "tpusolve_torch.kernels.calibrate",
+             "--retrace", path], cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+    finally:
+        os.remove(path)
+    try:
+        ms = float(json.loads(out.stdout.strip().splitlines()[-1])
+                   ["device_ms"])
+    except (ValueError, IndexError, KeyError):
+        print(f"{what}: device time not measured in a fresh process either "
+              f"(exit {out.returncode}): {out.stderr.strip()[-400:]}",
+              flush=True)
+        return float("nan")
+    print(f"{what}: device {ms:.5f} ms, taken in a fresh process", flush=True)
+    return ms
+
+
 def no_nan(obj):
     """``obj`` with every NaN float replaced by None, for strict JSON."""
     if isinstance(obj, float) and obj != obj:
@@ -619,19 +707,20 @@ def bdia_timings(ops, device_name: str, seed: int):
     return rows
 
 
-def run_cli(yaml_path: str, counters) -> tuple:
+def run_cli(yaml_path: str, counters, keep: list | None = None) -> tuple:
     """Run the port's CLI on ``yaml_path`` with every launch counter set to
     0 just before; returns (exit code, LinearSystem, wall seconds,
-    {counter name: launches}); a counter's ``launches_by_form`` (K1's and
-    K2's launches by update form) and ``launches_by_layout`` (K2's by
-    storage form) are set to {} with it."""
+    {counter name: launches}); ``keep``, where given, receives every test's
+    LinearSystem, as ``cli.main``'s does; a counter's ``launches_by_form``
+    (K1's and K2's launches by update form) and ``launches_by_layout``
+    (K2's by storage form) are set to {} with it."""
     from tpusolve_torch.harness import cli
     for fn in counters:
         fn.launches = 0
         for key in ("launches_by_form", "launches_by_layout"):
             if hasattr(fn, key):
                 setattr(fn, key, {})
-    systems = []
+    systems = [] if keep is None else keep
     t0 = time.perf_counter()
     rc = cli.main([yaml_path, "--device", "cuda"], keep=systems)
     wall = time.perf_counter() - t0
@@ -641,6 +730,34 @@ def run_cli(yaml_path: str, counters) -> tuple:
         for form in ("padded", "rowptr"):
             launches[f"ell_spmv {form}"] = k2.launches_by_layout.get(form, 0)
     return rc, (systems[0] if systems else None), wall, launches
+
+
+FIXTURES = os.path.join(REPO, "build", "fixtures")
+
+
+def fixture_yaml(gate: int, side: int, name: str, edit=None,
+                 **sections) -> str:
+    """The path of a YAML ``name`` for the gate-``gate`` (3 or 4) fixture at
+    side^3, its text passed through ``edit`` and its settings changed as
+    ``fixtures.with_settings`` takes them.  The fixture's files are written
+    once, under ``FIXTURES``, for every phase that runs them (the 96^3
+    gate-4 fixture takes some 40 s to write)."""
+    from tpusolve_torch import fixtures
+    d = os.path.join(FIXTURES, f"gate{gate}_{side}")
+    base = os.path.join(d, f"gate{gate}.yaml")
+    if not os.path.exists(base):
+        t0 = time.perf_counter()
+        (fixtures.write_gate3 if gate == 3 else fixtures.write_gate4)(d, side)
+        print(f"gate-{gate} fixture {side}^3 written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with open(base) as fh:
+        text = fh.read()
+    if edit is not None:
+        text = edit(text)
+    path = os.path.join(d, name)
+    with open(path, "w") as fh:
+        fh.write(fixtures.with_settings(text, **sections))
+    return path
 
 
 def check_solve(system, rc: int, what: str, tol: float = 1e-8):
@@ -670,20 +787,12 @@ def gate4_phase(side: int, device_name: str, counters):
     """The gate-4 path; returns (launches, K4/K5 timing rows of its four
     operators on their BDIA layouts, K2 rows of those that run K2, the
     old-against-new rows of :func:`moved_timings` for all four, K5's
-    launches by update form, the warm-solve profile).  The factors' old
-    kernel is K4 on the same BDIA layout: the one they ran before K5's
-    segment mask priced K5 below it."""
-    from tpusolve_torch import fixtures
-    work = os.path.join(REPO, "build", f"gate4_{side}")
-    shutil.rmtree(work, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        yaml_path = fixtures.write_gate4(work, side)
-        print(f"gate-4 fixture {side}^3 written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        rc, system, wall, launches = run_cli(yaml_path, counters)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    launches by update form, the warm-solve profile, the ELL device
+    factorization's trial on its A, :func:`gate4_rcm_ell_trial`).  The
+    factors' old kernel is K4 on the same BDIA layout: the one they ran
+    before K5's segment mask priced K5 below it."""
+    rc, system, wall, launches = run_cli(
+        fixture_yaml(4, side, "gate4.yaml"), counters)
     print(f"gate-4 path: cli exit {rc}, {wall:.1f} s wall, launches "
           f"{launches}", flush=True)
     res = check_solve(system, rc, "gate-4")
@@ -750,8 +859,10 @@ def gate4_phase(side: int, device_name: str, counters):
     moved = moved_timings([(f"gate-4 {name}", M, olds[name])
                            for name, M in ops], device_name, 31)
     prof = solve_profile(system, "gate-4")
+    trial = (gate4_rcm_ell_trial(system, card_line())
+             if system.A.uses_ell else None)
     system.destroy_system()
-    return launches, rows, k2_rows, moved, xl_forms, prof
+    return launches, rows, k2_rows, moved, xl_forms, prof, trial
 
 
 # the kernel each layout runs, by the first word of its name
@@ -954,25 +1065,11 @@ def print_timers(system, what: str) -> dict:
 
 
 def run_gate3(side: int, counters, what: str, edit=None):
-    """Write the gate-3 fixture at side^3 (its YAML passed through
-    ``edit``) and run it through the CLI; returns :func:`run_cli`'s
+    """Run the gate-3 fixture at side^3 (its YAML passed through ``edit``;
+    :func:`fixture_yaml`) through the CLI; returns :func:`run_cli`'s
     (exit code, system, wall, launches)."""
-    from tpusolve_torch import fixtures
-    work = os.path.join(REPO, "build", f"gate3_{side}")
-    shutil.rmtree(work, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        yaml_path = fixtures.write_gate3(work, side)
-        if edit is not None:
-            with open(yaml_path) as fh:
-                text = edit(fh.read())
-            with open(yaml_path, "w") as fh:
-                fh.write(text)
-        print(f"{what} fixture {side}^3 written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        return run_cli(yaml_path, counters)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    name = what.replace(" ", "_") + ".yaml"
+    return run_cli(fixture_yaml(3, side, name, edit), counters)
 
 
 def gate3_phase(side: int, device_name: str, counters):
@@ -2026,7 +2123,19 @@ def weakscale_phase(device_name: str, counters):
     rows1 = dia_timings(dia_ops, device_name, 22)
     moved = moved_pairs(pre, "weakscale")
     rows6, rows4 = tile_timings(pre, moved, "weakscale", device_name, 23)
-    rows2 = ell_timings(ell_ops(pre, "weakscale"), device_name, 27)
+    ell = ell_ops(pre, "weakscale")
+    rows2 = ell_timings(ell, device_name, 27)
+    # K2's headline (the operator of largest bound): where this process's
+    # traces lost its device events, they are taken in a fresh one
+    head, M = max(zip(rows2, (M for _, M in ell)),
+                  key=lambda p: p[0]["bound_ms"])
+    if head["k2_dev_ms"] != head["k2_dev_ms"]:
+        import numpy as np
+        import torch
+        x = torch.tensor(np.random.default_rng(27).standard_normal(M.col_pad),
+                         dtype=M.dtype, device=M.device)
+        head["k2_dev_ms"] = fresh_device_ms(M, x, f"{head['op']} K2")
+        head["k2_dev_ms_from"] = "a fresh process"
     moved_rows = moved_timings(moved, device_name, 28)
     prof = solve_profile(system, "weakscale")
     system.destroy_system()
@@ -2035,6 +2144,467 @@ def weakscale_phase(device_name: str, counters):
                 moved_rows=moved_rows, profile=prof, timers=timers,
                 layouts=layouts, iters=int(res.iters),
                 relres=float(res.relres))
+
+
+# --------------------------------------------------------------------------
+# ILU made whole: the device ILU(0) (DIA and ELL), the host ILU options, ILU
+# smoothers on AMG levels, and the lifecycle's output, reuse and memory
+
+
+def host_factorizations(run):
+    """Run ``run()`` with the host Chow-Patel factorization of ILU's setup
+    counted; returns (its result, how often the host factored)."""
+    from tpusolve_torch.ilu import ilu as ilu_mod
+    orig = ilu_mod.chow_patel_ilu
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+
+    ilu_mod.chow_patel_ilu = counted
+    try:
+        return run(), calls[0]
+    finally:
+        ilu_mod.chow_patel_ilu = orig
+
+
+def timed(fn):
+    """(result, wall seconds) of ``fn()``, the card synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def factor_profile(fn, what: str, card: str) -> dict:
+    """``fn()`` (a device factorization) timed warm, then once under
+    ``torch.profiler``: its wall seconds, the device operations it puts on
+    the card, their device time and the device's idle share of the wall,
+    which says whether the eager factorization is host-issue-bound.  Every
+    device event of the trace counts, so nothing hangs on matching the
+    device's clock to the host's; a trace with no device event (seen late
+    in a long process) is taken again, and after ``TRACE_TRIES`` the busy
+    time is "not measured" (None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tpusolve_torch.kernels.calibrate import TRACE_TRIES
+    fn()
+    _, wall = timed(fn)
+    out = dict(wall_s=wall, wall_profiled_s=None, device_ops=None,
+               busy_s=None, idle_share=None)
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall_p = timed(fn)
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ev:
+            busy = sum(e.time_range.elapsed_us() for e in ev) / 1e6
+            out.update(wall_profiled_s=wall_p, device_ops=len(ev),
+                       busy_s=busy, idle_share=1.0 - busy / wall_p)
+            break
+    busy = ("not measured" if out["busy_s"] is None else
+            f"{out['device_ops']} device operations, busy "
+            f"{out['busy_s']:.4f} s, idle share {out['idle_share']:.3f}")
+    print(f"{what} device factorization ({card}): wall {wall:.4f} s (warm); "
+          f"{busy}", flush=True)
+    return out
+
+
+def factors_rel(pre, L_ref, d_ref, U_ref) -> float:
+    """Largest difference of ``pre``'s factors and 1 / u_ii from the
+    reference ones, relative to each one's largest magnitude."""
+    import numpy as np
+    n = L_ref.shape[0]
+    errs = []
+    for M, M_ref in ((pre.L, L_ref), (pre.U, U_ref)):
+        d = abs(M.to_scipy() - M_ref)
+        errs.append((d.max() if d.nnz else 0.0) / abs(M_ref).max())
+    dinv = pre.udiag_inv.cpu().numpy()[:n]
+    errs.append(float(np.abs(dinv - d_ref).max() / np.abs(d_ref).max()))
+    return max(errs)
+
+
+def device_against_host(what: str, A, H, device_setup_fn,
+                        card: str) -> dict:
+    """The device factorization of ``A`` (``device_setup_fn``) against the
+    port's host ``chow_patel_ilu`` of ``H`` (the same operator on the same
+    pattern), each timed once warm, with the factors' largest difference."""
+    from tpusolve_torch.config import ILUConfig
+    from tpusolve_torch.ilu.ilu import chow_patel_ilu
+    cfg = ILUConfig()
+    device_setup_fn(A, cfg)
+    pre, dev_s = timed(lambda: device_setup_fn(A, cfg))
+    (L, ujj, U), host_s = timed(lambda: chow_patel_ilu(H, sweeps=5))
+    err = factors_rel(pre, L, 1.0 / ujj, U)
+    print(f"{what} ({card}): device factorization {dev_s:.4f} s, the "
+          f"port's host "
+          f"chow_patel_ilu {host_s:.3f} s on the same operator and pattern "
+          f"({A.shape[0]} rows); factors' largest relative difference "
+          f"{err:.2e}", flush=True)
+    if not err <= 1e-12:
+        fail(f"{what}: device and host factors differ by {err:.2e}")
+    return dict(rows=A.shape[0], device_s=dev_s, host_s=host_s,
+                max_rel_diff=err)
+
+
+def stencil_ilu_run(side: int, counters) -> tuple:
+    """One CLI run of ``fixtures.STENCIL_ILU_YAML`` at side^3; fails unless
+    ILU(0) was factored on the card (no host factorization), the factors
+    are DIA and K1 ran A and the factors' sweeps (the upper sweeps are
+    K1's only launches with s = 1 / u_ii, the lower as many without it) and
+    nothing else.  Returns (system, result, launches, K1's launches by
+    form)."""
+    from tpusolve_torch import fixtures
+    from tpusolve_torch.kernels.dia import launches_by_mode
+    work = os.path.join(REPO, "build", f"stencil_ilu_{side}")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        yaml_path = fixtures.write_stencil_ilu(work, side)
+        (rc, system, wall, launches), host = host_factorizations(
+            lambda: run_cli(yaml_path, counters))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    forms = launches_by_mode()
+    what = f"stencil-ILU {side}^3"
+    print(f"{what} path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}; K1 by form {forms}", flush=True)
+    res = check_solve(system, rc, what)
+    pre = system._precond
+    print(f"{what} layouts: A {system.A.layout}; L {pre.L.layout}; U "
+          f"{pre.U.layout}; notes {pre.notes}", flush=True)
+    if host or not any("on device (DIA" in n for n in pre.notes):
+        fail(f"{what}: ILU(0) was not factored on the device ({host} host "
+             f"factorizations; notes {pre.notes})")
+    if not (pre.L.uses_dia and pre.U.uses_dia) or launches["dia_spmv"] <= 0:
+        fail(f"{what}: the factors are not DIA on K1")
+    other = {k: n for k, n in launches.items()
+             if n and not k.startswith("dia_spmv")}
+    upper = forms.get("w*s*(b-Ax)", 0)
+    if other or upper <= 0 or forms.get("w*(b-Ax)", 0) < upper:
+        fail(f"{what} launched {other}, or K1 did not run the factors' "
+             f"sweeps ({forms})")
+    return system, res, launches, forms
+
+
+def stencil_ilu_phase(side: int, card: str, counters) -> dict:
+    """(a) The stencil under BiCGSTAB + ILU(0) in double
+    (``fixtures.STENCIL_ILU_YAML``) through the CLI at side^3 and at 64^3
+    (:func:`stencil_ilu_run`): at 64^3 the count is tpusolve's exactly; at
+    side^3 it follows the summation order (``STENCIL_ILU_SPREAD``) and is
+    held within that spread of tpusolve's.  Then K1 on the side^3 factors
+    against its plain version, the device factorization's profile and, at
+    64^3, the device factorization against the port's host
+    ``chow_patel_ilu`` on the same band."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.ilu import device_setup
+    from tpusolve_torch.stencil import laplace27
+    iters, total = {}, {}
+    for s in sorted({side, 64}, reverse=True):
+        system, res, launches, forms = stencil_ilu_run(s, counters)
+        iters[s] = int(res.iters)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        ref = TPUSOLVE_STENCIL_ILU_ITERS.get(s)
+        gap = STENCIL_ILU_SPREAD if s == 128 else 0
+        print(f"stencil-ILU {s}^3: {res.iters} BiCGSTAB iterations, relres "
+              f"{float(res.relres):.3e}, golden check PASSED; tpusolve (CPU, "
+              f"same YAML) {ref}" + (f", held within {gap}" if gap else ""),
+              flush=True)
+        if ref is not None and abs(res.iters - ref) > gap:
+            fail(f"stencil-ILU {s}^3 took {res.iters} iterations, tpusolve "
+                 f"{ref}")
+        if s != side:
+            system.destroy_system()
+            continue
+        big = dict(relres=float(res.relres), k1_by_form=forms,
+                   timers=print_timers(system, f"stencil-ILU {s}^3"))
+        pre = system._precond
+        ops = [(f"stencil-ILU {k}", M) for k, M in (("L", pre.L),
+                                                    ("U", pre.U))]
+        errs = dia_check(ops, 41)
+        prof = factor_profile(
+            lambda: device_setup.ilu_setup_device(system.A,
+                                                  system.config.ilu),
+            f"stencil-ILU {s}^3 DIA", card)
+        system.destroy_system()
+    A64 = laplace27(64, 64, 64, device=torch.device("cuda", 0),
+                    dtype=np.float64)[0]
+    pair = device_against_host("stencil-ILU 64^3 DIA", A64,
+                               device_setup.band_csr(A64),
+                               device_setup.ilu_setup_device, card)
+    return dict(big, launches=total, iters=iters, k1_errs=errs,
+                factorization=prof, against_host=pair)
+
+
+def ell_plain_check(ops, seed: int) -> tuple:
+    """K2 against its plain version on each (name, ELL operator) of
+    ``ops`` in its storage form.  Returns (largest relative error, largest
+    absolute error)."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.ell import ell_rowptr_plain, ell_spmv_plain
+    from tpusolve_torch.matrix.spmv import spmv
+    rng = np.random.default_rng(seed)
+    worst = worst_abs = 0.0
+    for name, M in ops:
+        x = torch.tensor(rng.standard_normal(M.col_pad), dtype=M.dtype,
+                         device=M.device)
+        vals, cols, rowptr = M.ell_arrays
+        y_p = (ell_spmv_plain(vals, cols, x) if rowptr is None
+               else ell_rowptr_plain(rowptr, vals, cols, x))
+        y = spmv(M, x)
+        err = rel_err(y, y_p)
+        key = str(M.dtype).replace("torch.", "")
+        if not err <= RTOL[key]:
+            fail(f"{name}: K2 vs plain rel err {err:.3e} > {RTOL[key]}")
+        worst = max(worst, err)
+        worst_abs = max(worst_abs, float((y - y_p).abs().max()))
+    return worst, worst_abs
+
+
+def gate4_ell_phase(side: int, card: str, counters) -> dict:
+    """(b) The gate-4 fixture at side^3 as written (``matrix_ordering:
+    none``) in double through the CLI: tpusolve stores it ELL, so ILU(0) is
+    factored on the card by the ELL path, no host factorization, K2 running
+    A, L and U (each in its storage form), the count held to tpusolve's;
+    then K2 on the three against its plain version, the device
+    factorization's profile and, at 64^3, the device factorization against
+    the host's on the same operator (assembled as ELL directly: no layout
+    is priced)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from tpusolve_torch import fixtures
+    from tpusolve_torch.ilu import device_setup
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    yaml_path = fixture_yaml(4, side, "gate4_ell.yaml", solver_settings={
+        "precision": "double", "matrix_ordering": "none"})
+    (rc, system, wall, launches), host = host_factorizations(
+        lambda: run_cli(yaml_path, counters))
+    print(f"gate-4 ELL path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, "gate-4 ELL")
+    pre = system._precond
+    ops = (("A", system.A), ("L", pre.L), ("U", pre.U))
+    print("gate-4 ELL layouts: " + "; ".join(
+        f"{k} {M.layout}" for k, M in ops) + f"; notes {pre.notes}",
+        flush=True)
+    if host or not any("generic-ELL" in n for n in pre.notes):
+        fail(f"gate-4 ELL: ILU(0) was not factored on the device "
+             f"({host} host factorizations; notes {pre.notes})")
+    for k, M in ops:
+        form = "rowptr" if M.uses_ell_rowptr else "padded"
+        if not M.uses_ell or not launches[f"ell_spmv {form}"]:
+            fail(f"gate-4 ELL: {k} ({M.layout}) launched no K2 {form}")
+    timers = print_timers(system, "gate-4 ELL")
+    ref = TPUSOLVE_GATE4_ELL_ITERS.get(side)
+    print(f"gate-4 ELL {side}^3: {res.iters} BiCGSTAB iterations, relres "
+          f"{float(res.relres):.3e}, golden check PASSED; tpusolve (CPU, "
+          f"same fixture and YAML) {ref}", flush=True)
+    if ref is not None and res.iters != ref:
+        fail(f"gate-4 ELL took {res.iters} iterations, tpusolve {ref}")
+    errs = ell_plain_check([(f"gate-4 ELL {k}", M) for k, M in ops], 43)
+    prof = factor_profile(
+        lambda: device_setup.ilu_setup_device_ell(system.A,
+                                                  system.config.ilu),
+        f"gate-4 ELL {side}^3", card)
+    # the ELL sweeps scatter one lower slot at a time, with no two terms on
+    # one destination: the card's factors have the same bits on every run
+    again = device_setup.ilu_setup_device_ell(system.A, system.config.ilu)
+    same = (torch.equal(again.udiag_inv, pre.udiag_inv) and all(
+        (a.to_scipy() != b.to_scipy()).nnz == 0
+        for a, b in ((again.L, pre.L), (again.U, pre.U))))
+    print(f"gate-4 ELL {side}^3: the device factorization run again gives "
+          f"the CLI run's factors bit for bit: {same}", flush=True)
+    if not same:
+        fail("gate-4 ELL: the device factors differ from run to run")
+    system.destroy_system()
+    r, c, v, _, n = fixtures.make_system(64, 64, 64, seed=11, nonsym=0.35)
+    H = sp.csr_matrix((v, (r, c)), shape=(n, n))
+    A64 = ShardedMatrix.from_csr_host(
+        H, device=torch.device("cuda", 0), dtype=np.float64,
+        allow_dia=False, allow_bdia=False, allow_bell=False)
+    pair = device_against_host("gate-4 ELL 64^3", A64, H,
+                               device_setup.ilu_setup_device_ell, card)
+    return dict(launches=launches, iters=int(res.iters),
+                relres=float(res.relres), timers=timers, k2_errs=errs,
+                factorization=prof, against_host=pair)
+
+
+def gate4_rcm_ell_trial(system, card: str) -> dict:
+    """The ELL device factorization of gate 4's RCM'd A (the port stores it
+    ELL; tpusolve stores it BDIA and factors on the host, as the port's
+    main path does), timed and held against the host factors the run used:
+    measured for a later decision, not adopted."""
+    import numpy as np
+    from tpusolve_torch.ilu import device_setup
+    pre = system._precond
+    A = system.A
+    prof = factor_profile(
+        lambda: device_setup.ilu_setup_device_ell(A, system.config.ilu),
+        "gate-4 RCM'd A (f64, not adopted)", card)
+    trial = device_setup.ilu_setup_device_ell(A, system.config.ilu)
+    n = A.shape[0]
+    d_ref = pre.udiag_inv.double().cpu().numpy()[:n]
+    err = factors_rel(trial, pre.L.to_scipy().astype(np.float64), d_ref,
+                      pre.U.to_scipy().astype(np.float64))
+    setup = system.timers.as_dict()["Preconditioner setup"]
+    print(f"gate-4 RCM'd A: the ELL device factorization takes "
+          f"{prof['wall_s']:.4f} s against this run's host ILU setup "
+          f"{setup:.3f} s; factors' largest relative difference from the "
+          f"host factors (stored f32) {err:.2e}; not adopted", flush=True)
+    return dict(prof, host_setup_s=setup, max_rel_diff=err)
+
+
+def ilu_options_phase(side: int, counters) -> dict:
+    """(c) The RCM'd gate-4 fixture at side^3 in double with each host ILU
+    option (``fixtures.ILU_OPTIONS``: ILU(1), ILUT, RCM local reordering)
+    through the CLI: each factor's kernel launched, each count held to
+    tpusolve's."""
+    from tpusolve_torch import fixtures
+    out = {}
+    total = {}
+    for name, keys in fixtures.ILU_OPTIONS.items():
+        rc, system, wall, launches = run_cli(fixture_yaml(
+            4, side, f"ilu_{name}.yaml",
+            solver_settings={"precision": "double"},
+            ilu_preconditioner_settings=keys), counters)
+        res = check_solve(system, rc, f"ILU {name}")
+        pre = system._precond
+        for k, M in (("A", system.A), ("L", pre.L), ("U", pre.U)):
+            if not launches[launch_counter(M).__name__]:
+                fail(f"ILU {name}: {k} ({M.layout}) launched no "
+                     f"{kernel_of(M)}")
+        ref = TPUSOLVE_ILU_OPTION_ITERS.get((name, side))
+        print(f"ILU {name} {side}^3: {res.iters} BiCGSTAB iterations, "
+              f"relres {float(res.relres):.3e}; tpusolve {ref}; L "
+              f"{pre.L.layout}, U {pre.U.layout}; notes {pre.notes}; "
+              f"launches {launches}", flush=True)
+        if ref is not None and res.iters != ref:
+            fail(f"ILU {name} took {res.iters} iterations, tpusolve {ref}")
+        out[name] = dict(iters=int(res.iters), relres=float(res.relres))
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        system.destroy_system()
+    return dict(launches=total, runs=out)
+
+
+def gate3_ilu_smoother_phase(side: int, counters) -> dict:
+    """(d) Gate 3 at side^3 with ``smooth_type: 5`` on the finest level
+    (ILU(0) smoothing in place of the relaxation there) through the CLI:
+    every operator's kernel launched, the ILU factors' too, the count held
+    to tpusolve's."""
+    rc, system, wall, launches = run_gate3(
+        side, counters, "gate-3 ILU smoother",
+        edit=lambda t: t.replace("relax_type: 18", "relax_type: 18\n"
+                                 "  smooth_type: 5\n  smooth_num_levels: 1"))
+    res = check_solve(system, rc, "gate-3 ILU smoother")
+    pre = system._precond
+    check_launched(pre, launches, "gate-3 ILU smoother")
+    lev = pre.levels[0]
+    if lev.ilu_L is None or not any("smooth_type 5" in n for n in pre.notes):
+        fail("gate-3 ILU smoother: level 0 carries no ILU factors")
+    for k, M in (("L", lev.ilu_L), ("U", lev.ilu_U)):
+        if not launches[launch_counter(M).__name__]:
+            fail(f"gate-3 ILU smoother: {k} ({M.layout}) launched nothing")
+    timers = print_timers(system, "gate-3 ILU smoother")
+    ref = TPUSOLVE_GATE3_ST5_ITERS.get(side)
+    print(f"gate-3 ILU smoother {side}^3: {res.iters} GMRES iterations, "
+          f"relres {float(res.relres):.3e}; tpusolve {ref}; level 0 L "
+          f"{lev.ilu_L.layout}, U {lev.ilu_U.layout}; launches {launches}; "
+          f"wall {wall:.1f} s", flush=True)
+    if ref is not None and res.iters != ref:
+        fail(f"gate-3 ILU smoother took {res.iters} iterations, tpusolve "
+             f"{ref}")
+    system.destroy_system()
+    return dict(launches=launches, iters=int(res.iters),
+                relres=float(res.relres), timers=timers)
+
+
+def lifecycle_phase(side: int, device, counters) -> dict:
+    """(e) Gate 3 at side^3: with ``write_outputs``, ``write_solution`` and
+    ``write_amg_matrices`` (run inside its work directory), the files read
+    back by the port's IJ reader equal the system (to the 16 digits
+    written); then two tests with ``reuse_preconditioner``, the second's
+    setup row under 1 % of the first's; then the memory probe on the card."""
+    import numpy as np
+    import scipy.sparse as sp
+    from tpusolve_torch.formats import ij, mmio
+    from tpusolve_torch.harness.memory import check_memory
+    work = os.path.join(REPO, "build", f"lifecycle_{side}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    total = {}
+    try:
+        yaml_path = fixture_yaml(3, side, "lifecycle.yaml", linear_system={
+            "write_outputs": True, "write_solution": True,
+            "write_amg_matrices": True})
+        data = os.path.dirname(yaml_path)
+        os.chdir(work)
+        rc, system, wall, launches = run_cli(yaml_path, counters)
+        check_solve(system, rc, "lifecycle")
+        nlev = len(system._precond.levels)
+        r, c, v, shape = mmio.read_matrix(os.path.join(data, "pressure.mm"))
+        A = sp.csr_matrix((v, (r, c)), shape=shape)
+        r2, c2, v2 = ij.read_matrix("IJM.mat", 1)
+        dA = abs(sp.csr_matrix((v2, (r2, c2)), shape=shape) - A).max()
+        b = mmio.read_vector(os.path.join(data, "pressure_rhs.mm"))
+        db = np.abs(ij.read_dense_vector("IJV0.rhs", 1) - b).max()
+        xs = ij.read_dense_vector("IJV0.sln", 1)
+        res_x = np.abs(A @ xs - b).max() / np.abs(b).max()
+        levels = sorted(f for f in os.listdir(work)
+                        if f.startswith("IJM.mat_level_"))
+        lev0 = ij.read_matrix("IJM.mat_level_0", 1)
+        L0 = sp.csr_matrix((lev0[2], (lev0[0], lev0[1])), shape=shape)
+        dL0 = abs(L0 - system._precond.levels[0].A.to_scipy()).max()
+        print(f"lifecycle files: {sorted(os.listdir(work))}; read back: A "
+              f"{dA:.2e}, b {db:.2e} from the fixture's, level 0 {dL0:.2e} "
+              f"from the hierarchy's (16 digits written), |A x - b| / |b| "
+              f"{res_x:.2e} on the written x; {len(levels)} level files for "
+              f"{nlev} levels", flush=True)
+        scale = abs(A).max()
+        if not (dA <= 1e-15 * scale and db <= 1e-15 * np.abs(b).max()
+                and dL0 <= 1e-15 * scale and res_x <= 1e-6
+                and len(levels) == nlev):
+            fail("lifecycle: the written files do not read back as the "
+                 "system")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        system.destroy_system()
+        reuse = fixture_yaml(3, side, "reuse.yaml", solver_settings={
+            "num_tests": 2, "reuse_preconditioner": True,
+            "check_memory": True})
+        systems = []
+        rc, _, wall, launches = run_cli(reuse, counters, keep=systems)
+        if rc != 0 or len(systems) != 2:
+            fail(f"lifecycle reuse: cli exit {rc}, {len(systems)} tests")
+        setup = [s.timers.as_dict()["Preconditioner setup"]
+                 for s in systems]
+        iters = [int(s.solve_results[0].iters) for s in systems]
+        print(f"lifecycle reuse: Preconditioner setup {setup[0]:.4f} s, then "
+              f"{setup[1]:.6f} s ({setup[1] / setup[0]:.5f} of it); "
+              f"iterations {iters}", flush=True)
+        if not (setup[1] < 0.01 * setup[0] and iters[0] == iters[1]
+                and systems[1]._precond is systems[0]._precond):
+            fail("lifecycle reuse: the second test did not reuse the setup")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        for s in systems:
+            s.destroy_system()
+        rep = check_memory(device)
+        if "in_use=" not in rep or "limit=" not in rep:
+            fail(f"lifecycle: the memory probe read nothing: {rep}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=total, setup_s=setup, iters=iters, memory=rep,
+                read_back=dict(A=float(dA), b=float(db), level0=float(dL0),
+                               residual=float(res_x)))
 
 
 def model_constants():
@@ -2108,12 +2678,12 @@ def fused_entry(name: str, kind: str, rows: list, launches: dict,
 
 def main(argv) -> int:
     t_start = time.perf_counter()
-    sides = {"--side": 96, "--side3": 64}
+    sides = {"--side": 96, "--side3": 64, "--side-ilu": 128}
     it = iter(argv)
     for a in it:
         if a not in sides:
-            print("usage: python3 chip_smoke.py [--side N] [--side3 N]",
-                  file=sys.stderr)
+            print("usage: python3 chip_smoke.py [--side N] [--side3 N] "
+                  "[--side-ilu N]", file=sys.stderr)
             return 1
         sides[a] = int(next(it, "0"))
     try:
@@ -2152,6 +2722,7 @@ def main(argv) -> int:
         print(f"chip_smoke: {what} done at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
+    shutil.rmtree(FIXTURES, ignore_errors=True)
     worst4, worst5 = banded_check(device)
     worst4 = max(worst4, k4_launch_check(device))
     worst6 = bell_check(device)
@@ -2160,11 +2731,13 @@ def main(argv) -> int:
     worst1 = four_wide_check(device)
     dev_rows = device_setup_check(device)
     phase_done("the kernel checks")
+    model_constants()
+    phase_done("the models' constants")
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
                 box_restrict, box_restrict_residual, box_prolong_update,
                 ell_spmv)
-    l4, rows4, k2_rows4, moved4, xl_forms4, prof4 = gate4_phase(
+    l4, rows4, k2_rows4, moved4, xl_forms4, prof4, trial4 = gate4_phase(
         sides["--side"], device_name, counters)
     phase_done("gate 4")
     g3 = gate3_phase(sides["--side3"], device_name, counters)
@@ -2179,9 +2752,26 @@ def main(argv) -> int:
     phase_done("gates 1 and 2")
     ws = weakscale_phase(device_name, counters)
     phase_done("the weak-scaling cell")
-    model_constants()
+    # the ILU paths and the lifecycle's steps time no kernel by a trace
+    # (calibrate.device_ms_each), which a long process can lose; their
+    # factorization profiles count every device event of a trace
+    st_ilu = stencil_ilu_phase(sides["--side-ilu"], card, counters)
+    phase_done("the stencil ILU path")
+    g4_ell = gate4_ell_phase(sides["--side"], card, counters)
+    phase_done("the gate-4 ELL ILU path")
+    ilu_opts = ilu_options_phase(32, counters)
+    phase_done("the host ILU options")
+    st5 = gate3_ilu_smoother_phase(sides["--side3"], counters)
+    phase_done("gate 3 with ILU smoothing")
+    life = lifecycle_phase(32, device, counters)
+    phase_done("the lifecycle's steps")
+    shutil.rmtree(FIXTURES, ignore_errors=True)
 
-    paths = {"gate4": l4, "gate3": l3, "gate3_rs": rs["launches"],
+    paths = {"gate4": l4, "stencil_ilu": st_ilu["launches"],
+             "gate4_ell": g4_ell["launches"],
+             "ilu_options": ilu_opts["launches"], "gate3": l3,
+             "gate3_ilu_smoother": st5["launches"],
+             "gate3_rs": rs["launches"], "lifecycle": life["launches"],
              "gate1": l1, "gate2": l2, "weakscale": ws["launches"]}
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
@@ -2207,15 +2797,18 @@ def main(argv) -> int:
         dict(name="dia_spmv", route="cuda",
              source="tpusolve_torch/csrc/dia_spmv.cu",
              replaces="tpusolve/matrix/spmv.py:79", **launches("dia_spmv"),
-             max_abs_err=max([errs1[1], errs2[1], ws["k1_errs"][1]]
+             max_abs_err=max([errs1[1], errs2[1], ws["k1_errs"][1],
+                              st_ilu["k1_errs"][1]]
                              + [r["max_abs_err"] for r in rows1_all]),
              ms=k1["k1_ms"], device_ms=k1["k1_dev_ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by="bytes", library_ms=k1["lib_ms"],
              library_device_ms=k1["lib_dev_ms"], shape=k1["op"],
-             max_rel_err=max([worst1, errs1[0], errs2[0], ws["k1_errs"][0]]
+             max_rel_err=max([worst1, errs1[0], errs2[0], ws["k1_errs"][0],
+                              st_ilu["k1_errs"][0]]
                              + [r["rel_err"] for r in rows1_all]),
-             launches_by_form={"gate1": forms1, "gate2": forms2},
+             launches_by_form={"gate1": forms1, "gate2": forms2,
+                               "stencil_ilu": st_ilu["k1_by_form"]},
              shapes=rows1_all, cold_warm=cold1, gate1_profile=prof1,
              gate2_profile=prof2, weakscale_profile=ws["profile"]),
         fused_entry("box_restrict_residual", "restrict",
@@ -2278,14 +2871,16 @@ def main(argv) -> int:
         dict(name="ell_spmv", route="cuda",
              source="tpusolve_torch/csrc/ell_spmv.cu",
              replaces="tpusolve/matrix/spmv.py:74", **launches("ell_spmv"),
-             max_abs_err=max([worst2[1]] + [r["max_abs_err"]
-                                            for r in rows2_all]),
+             max_abs_err=max([worst2[1], g4_ell["k2_errs"][1]]
+                             + [r["max_abs_err"] for r in rows2_all]),
              ms=k2["k2_ms"], device_ms=k2["k2_dev_ms"],
+             device_ms_from=k2.get("k2_dev_ms_from", "this process"),
              plain_ms=k2["plain_ms"], plain_device_ms=k2["plain_dev_ms"],
              bound_ms=k2["bound_ms"], bound_by="bytes",
              library_ms=k2["lib_ms"], library_device_ms=k2["lib_dev_ms"],
              shape=k2["op"],
-             max_rel_err=max([worst2[0]] + [r["rel_err"] for r in rows2_all]),
+             max_rel_err=max([worst2[0], g4_ell["k2_errs"][0]]
+                             + [r["rel_err"] for r in rows2_all]),
              form=k2["form"],
              forms={f: sum(r["form"] == f for r in rows2_all)
                     for f in ("padded", "rowptr")},
@@ -2302,7 +2897,10 @@ def main(argv) -> int:
         k: ws[k] for k in ("iters", "relres", "stages", "timers", "layouts",
                            "launches")}, "gate3": {
         k: g3[k] for k in ("iters", "timers", "launches")}, "gate3_rs": rs,
-        "device_setup_32": dev_rows})), flush=True)
+        "device_setup_32": dev_rows, "ilu": {
+            "stencil": st_ilu, "gate4_ell": g4_ell,
+            "gate4_rcm_ell_trial": trial4, "options": ilu_opts,
+            "gate3_ilu_smoother": st5, "lifecycle": life}})), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(no_nan({"kernels": kernels})), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -292,13 +292,12 @@ def test_from_arrays_takes_the_cheaper_form(tp):
 
 @pytest.mark.parametrize("width", [9, 128, 129])
 def test_width_notes_read_row_width(width):
-    """ILU's device-factor note and the AMG generic-ELL note read
-    ``row_width``, the largest count of entries a row has: on an operator
-    in either form they say what they said on the padded width."""
+    """ILU's device path and the AMG generic-ELL note read ``row_width``,
+    the largest count of entries a row has: on an operator in either form
+    they decide what they decided on the padded width."""
     from tpusolve_torch.amg import device_setup
-    from tpusolve_torch.config import BoomerAMGConfig
-    from tpusolve_torch.ilu.ilu import DEVICE_ILU_MAX_K, \
-        device_factorization_note
+    from tpusolve_torch.config import BoomerAMGConfig, ILUConfig
+    from tpusolve_torch.ilu.device_setup import MAX_ELL_K, device_path
     n = device_setup.ELL_MIN_N
     rng = np.random.default_rng(width)
     counts = np.full(n, 3)
@@ -314,9 +313,8 @@ def test_width_notes_read_row_width(width):
                                    allow_bell=False, allow_ell=allow_ell)
         assert A.uses_ell and A.row_width == width
         seen.add(A.uses_ell_rowptr)
-        note = device_factorization_note(A)
-        assert (note is not None and "ELL" in note) == (
-            width <= DEVICE_ILU_MAX_K)
+        assert (device_path(A, ILUConfig()) == "ell") == (
+            width <= MAX_ELL_K)
         assert device_setup.ell_setup_would_run(A, BoomerAMGConfig()) == (
             width <= device_setup.ELL_MAX_K)
     assert seen == {True}     # the model stores this operator row-pointer
@@ -324,26 +322,26 @@ def test_width_notes_read_row_width(width):
         # the same on the padded form of the same entries
         Ap = dataclass_padded(A)
         assert not Ap.uses_ell_rowptr and Ap.diag_vals.shape[-1] == width
-        assert device_factorization_note(Ap) == device_factorization_note(A)
+        assert device_path(Ap, ILUConfig()) == device_path(A, ILUConfig())
         assert device_setup.ell_setup_would_run(Ap, BoomerAMGConfig())
 
 
 def test_width_notes_follow_tpusolves_layout():
     """The gate-4 fixture at 41^3 (68,921 rows, past ILU's device row floor)
-    takes K2, but tpusolve lays it out BDIA: ILU's note and the AMG
-    generic-ELL note say what they say on the BDIA layout tpusolve gives
-    it (no ELL device path), as before K2 was priced."""
+    takes K2, but tpusolve lays it out BDIA: ILU's device path and the
+    AMG generic-ELL note decide what they decide on the BDIA layout
+    tpusolve gives it (no ELL device path), as before K2 was priced."""
     from tpusolve_torch.amg import device_setup
-    from tpusolve_torch.config import BoomerAMGConfig
-    from tpusolve_torch.ilu.ilu import DEVICE_ILU_MAX_K, \
-        DEVICE_ILU_MIN_N, device_factorization_note
+    from tpusolve_torch.config import BoomerAMGConfig, ILUConfig
+    from tpusolve_torch.ilu.device_setup import MAX_ELL_K, MIN_DEVICE_N, \
+        device_path
     n, (r, c, v) = _gate4_parts(41)
     kw = dict(device=CPU, dtype=np.float64)
     A = ShardedMatrix.from_coo((n, n), r, c, v, **kw)
     old = ShardedMatrix.from_coo((n, n), r, c, v, allow_ell=False, **kw)
-    assert n >= DEVICE_ILU_MIN_N and A.row_width <= DEVICE_ILU_MAX_K
+    assert n >= MIN_DEVICE_N and A.row_width <= MAX_ELL_K
     assert A.uses_ell and A.priced_over == "bdia" and old.uses_bdia
-    assert device_factorization_note(A) is device_factorization_note(old) \
+    assert device_path(A, ILUConfig()) is device_path(old, ILUConfig()) \
         is None
     cfg = BoomerAMGConfig()
     assert device_setup.ell_setup_would_run(A, cfg) == \

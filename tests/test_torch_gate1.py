@@ -116,21 +116,65 @@ def test_pcg_pfmg_double_equal(tmp_path, monkeypatch, capsys):
     np.testing.assert_allclose(x, x_t, rtol=0, atol=1e-10 * np.abs(x_t).max())
 
 
+@pytest.mark.parametrize("swap", [
+    {"preconditioner: pfmg": "preconditioner: ilu",
+     "max_levels: 6": "max_levels: 6\n"
+     "ilu_preconditioner_settings:\n  ilu_fill_level: 1"},
+    {"method: cg": "method: boomeramg",
+     "max_levels: 6": "max_levels: 6\n  smooth_type: 5\n"
+     "  smooth_num_levels: 1"}], ids=["ilu_fill_level", "smooth_type"])
+def test_ilu_stencil_paths_equal_tpusolve(tmp_path, monkeypatch, capsys,
+                                          swap):
+    """ILU(1) as PCG's preconditioner and the ILU smoother on AMG's finest
+    level (AMG as the solver) on the 16^3 stencil in double: the port's
+    count is tpusolve's, its relres too to the printed digits (1e-3), and
+    both pass the golden check."""
+    swap = dict(swap, **{"precision: mixed": "precision: double"})
+    path = _yaml(tmp_path, "gate1_64cube_pcg_amg.yaml", SIDE, **swap)
+    rc_t, out_t, x_t = _run_tpusolve(path, monkeypatch, capsys)
+    rc, out, x, res = _run_port(path, capsys)
+    assert rc == 0 and rc_t == 0, out[-800:]
+    assert "Check solution: PASSED" in out
+    assert _iters(out) == _iters(out_t) > 1
+    relres = lambda o: float(o.split("Solve 0:")[1].split("relres=")[1]
+                             .split()[0])
+    assert relres(out) == pytest.approx(relres(out_t), rel=1e-3)
+    np.testing.assert_allclose(x, x_t, rtol=0, atol=1e-10 * np.abs(x_t).max())
+
+
+def test_stencil_device_ilu_equals_tpusolve(tmp_path, monkeypatch, capsys):
+    """``fixtures.STENCIL_ILU_YAML`` at 16^3 (BiCGSTAB + ILU(0), double)
+    with the device row floor at 1 row in both packages: ILU(0) factored
+    on the device over the DIA band, the factors DIA (K1 on the card), the
+    count and relres tpusolve's."""
+    import functools
+    from tpusolve_torch import fixtures
+    from tpusolve_torch.harness import system
+    monkeypatch.setenv("TPUSOLVE_ILU_DEVICE_MIN_N", "1")
+    monkeypatch.setattr(system, "ilu_setup", functools.partial(
+        system.ilu_setup, device_min_n=1))
+    path = fixtures.write_stencil_ilu(str(tmp_path), SIDE)
+    rc_t, out_t, x_t = _run_tpusolve(path, monkeypatch, capsys)
+    rc, out, x, res = _run_port(path, capsys)
+    assert rc == 0 and rc_t == 0, out[-800:]
+    assert "Check solution: PASSED" in out
+    note = "note: ILU(0) setup on device (DIA Chow-Patel, 5 sweeps"
+    assert note in out and note in out_t
+    assert f"ILU L: DIA D=13 box={SIDE}x{SIDE}x{SIDE}" in out
+    solve = lambda o: [ln for ln in o.splitlines() if ln.startswith("Solve 0")]
+    assert solve(out) == solve(out_t)
+    np.testing.assert_allclose(x, x_t, rtol=0, atol=1e-10 * np.abs(x_t).max())
+
+
 def test_unported_stencil_paths_raise(tmp_path):
-    """BoomerAMG and ILU on the stencil run; what they still refuse
-    raises, naming ROADMAP.md: the bfloat16 smoother twin, ILU
-    smoothers on AMG levels (AMG as the solver) and ILU(k > 0)."""
+    """BoomerAMG and ILU on the stencil run, ILU(k > 0) and ILU smoothers
+    too (:func:`test_ilu_stencil_paths_equal_tpusolve`); what they still
+    refuse raises, naming ROADMAP.md: the bfloat16 smoother twin."""
     from tpusolve_torch.config import load_config
     from tpusolve_torch.harness.system import LinearSystem
     amg = "max_levels: 6\n  smoother_dtype: bfloat16"
     for swap in ({"preconditioner: pfmg": "preconditioner: boomeramg",
-                  "max_levels: 6": amg},
-                 {"preconditioner: pfmg": "preconditioner: ilu",
-                  "max_levels: 6": "max_levels: 6\n"
-                  "ilu_preconditioner_settings:\n  ilu_fill_level: 1"},
-                 {"method: cg": "method: boomeramg",
-                  "max_levels: 6": "max_levels: 6\n  smooth_type: 5\n"
-                  "  smooth_num_levels: 1"}):
+                  "max_levels: 6": amg},):
         path = _yaml(tmp_path, "gate1_64cube_pcg_amg.yaml", 8, **swap)
         sys_ = LinearSystem(load_config(path), "cpu", verbose=False)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

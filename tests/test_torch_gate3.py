@@ -143,19 +143,37 @@ def test_mmio_rejects_bad_files():
             "%%MatrixMarket matrix array real general\n2 1\n1\n2\n"))
 
 
+def test_ilu_smoothers_equal_tpusolve_cli(gate3, tmp_path, monkeypatch,
+                                          capsys):
+    """ILU smoothers (``smooth_type: 9`` on the two finest levels) under
+    GMRES on the 32^3 fixture: the port's count, relres and notes are
+    tpusolve's and both pass the golden check."""
+    text = open(gate3).read().replace(
+        "relax_type: 18", "relax_type: 18\n  smooth_type: 9\n"
+        "  smooth_num_levels: 2")
+    path = tmp_path / "st9.yaml"
+    path.write_text(text)
+    rc_t, out_t, x_t, _ = _run_tpusolve(str(path), monkeypatch, capsys)
+    rc, out, x, _, res = _run_port(str(path), capsys)
+    assert rc == 0 and rc_t == 0, out[-800:]
+    assert "Check solution: PASSED" in out
+    pick = lambda o: [ln for ln in o.splitlines()
+                      if ln.startswith("Solve 0") or "smooth_type" in ln]
+    assert pick(out) == pick(out_t) and len(pick(out)) == 2
+    np.testing.assert_allclose(x, x_t, rtol=0, atol=1e-10 * np.abs(x_t).max())
+
+
 def test_unported_paths_raise(gate3, tmp_path):
-    """ILU smoothers on AMG levels and the bfloat16 smoother twin (here
-    with AMG as the solver, which itself runs) are not ported yet: each
-    raises, naming ROADMAP.md.  RS coarsening runs
-    (``test_torch_native_setup.py::test_gate3_rs_equals_tpusolve_cli``)."""
+    """The bfloat16 smoother twin (here with AMG as the solver, which itself
+    runs) is not ported yet: it raises, naming ROADMAP.md.  RS coarsening
+    runs (``test_torch_native_setup.py::test_gate3_rs_equals_tpusolve_cli``)
+    and ILU smoothers too (:func:`test_ilu_smoothers_equal_tpusolve_cli`)."""
     from tpusolve_torch.config import load_config
     from tpusolve_torch.harness.system import LinearSystem
     text = open(gate3).read()
-    for swap in ({"relax_type: 18": "relax_type: 18\n  smooth_type: 9\n"
-                  "  smooth_num_levels: 2"},
-                 {"method: gmres": "method: boomeramg",
+    for swap in ({"method: gmres": "method: boomeramg",
                   "max_levels: 20": "max_levels: 20\n"
-                  "  smoother_dtype: bfloat16"}):
+                  "  smoother_dtype: bfloat16"},):
         path = tmp_path / "c.yaml"
         edited = text
         for old, new in swap.items():

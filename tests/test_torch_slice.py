@@ -214,3 +214,28 @@ def test_config_extra_keys_and_components():
     with pytest.raises(ValueError, match="rhs_file1"):
         parse_config({"linear_system": {"num_components": 2,
                                         "rhs_file0": "r0"}})
+
+
+def test_natural_numbering_device_ilu_equals_tpusolve(tmp_path, monkeypatch,
+                                                      capsys):
+    """The gate-4 fixture at 24^3 as written (``matrix_ordering: none``) in
+    double, tpusolve on one part: tpusolve stores it ELL, so both packages
+    factor ILU(0) on the device by the ELL path (the row floor at 1 row),
+    the factors ELL (K2 on the card); count and relres are tpusolve's."""
+    import functools
+    from test_torch_gate1 import _run_tpusolve as run_one_part
+    from tpusolve_torch.harness import system
+    monkeypatch.setenv("TPUSOLVE_ILU_DEVICE_MIN_N", "1")
+    monkeypatch.setattr(system, "ilu_setup", functools.partial(
+        system.ilu_setup, device_min_n=1))
+    path = fixtures.write_gate4(str(tmp_path), 24, precision="double",
+                                solver_settings={"matrix_ordering": "none"})
+    rc_t, out_t, x_t = run_one_part(path, monkeypatch, capsys)
+    rc, out, x, perm, res = _run_port(path, capsys)
+    assert rc == 0 and rc_t == 0 and perm is None, out[-800:]
+    assert "Check solution: PASSED" in out and "A: ELL K=27" in out
+    note = "note: ILU(0) setup on device (generic-ELL Chow-Patel, 5 sweeps"
+    assert note in out and note in out_t
+    solve = lambda o: [ln for ln in o.splitlines() if ln.startswith("Solve 0")]
+    assert solve(out) == solve(out_t)
+    np.testing.assert_allclose(x, x_t, rtol=0, atol=1e-10 * np.abs(x_t).max())

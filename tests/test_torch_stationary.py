@@ -140,26 +140,29 @@ def test_stationary_step_is_one_application(method):
 
 def test_ilu_device_note():
     """From 65,536 rows, tpusolve factors a DIA operator (main and both
-    off-diagonal sides) or a narrow ELL one on the device: the port's host
-    factorization says it stands in; not below, nor for BDIA."""
-    n = ilu.DEVICE_ILU_MIN_N
+    off-diagonal sides) or a narrow ELL one on the device, and so does the
+    port, saying so in its note; not below, nor for BDIA, nor for a DIA
+    operator with one side only."""
+    from tpusolve_torch.ilu import device_setup
+    n = device_setup.MIN_DEVICE_N
+    cfg = ILUConfig()
     H = sp.diags([-1.0, 4.0, -1.0], [-1, 0, 1], shape=(n, n)).tocsr()
     A = ShardedMatrix.from_csr_host(H, device=CPU, dtype=np.float64)
     assert A.uses_dia
-    pre = ilu.ilu_setup(A, ILUConfig(), A_host=H)
-    assert len(pre.notes) == 1 and "DIA" in pre.notes[0] \
-        and "item 14" in pre.notes[0]
+    pre = ilu.ilu_setup(A, cfg, A_host=H)
+    assert len(pre.notes) == 1 and "on device (DIA" in pre.notes[0]
+    assert pre.L.uses_dia and pre.U.uses_dia
     E = ShardedMatrix.from_csr_host(H, device=CPU, dtype=np.float64,
                                     allow_dia=False, allow_bdia=False,
                                     allow_bell=False)
-    assert "ELL" in ilu.device_factorization_note(E)
+    assert device_setup.device_path(E, cfg) == "ell"
     Bd = ShardedMatrix.from_csr_host(H, device=CPU, dtype=np.float64,
                                      allow_dia=False, allow_bell=False)
-    assert Bd.uses_bdia and ilu.device_factorization_note(Bd) is None
+    assert Bd.uses_bdia and device_setup.device_path(Bd, cfg) is None
     Lw = ShardedMatrix.from_csr_host(sp.tril(H).tocsr(), device=CPU)
-    assert Lw.uses_dia and ilu.device_factorization_note(Lw) is None
+    assert Lw.uses_dia and device_setup.device_path(Lw, cfg) is None
     small = ShardedMatrix.from_csr_host(H[:1000, :1000], device=CPU)
-    assert ilu.device_factorization_note(small) is None
+    assert device_setup.device_path(small, cfg) is None
 
 
 @pytest.fixture

@@ -22,9 +22,12 @@ surface the reference drives (src/HypreSystem.cpp:91-326):
 * **Solve**: AMG as the solver is the harness's stationary iteration
   (``krylov/stationary.py``) with ``apply`` (one V-cycle) as M.
 
+ILU smoothers on the finest ``smooth_num_levels`` levels (``smooth_type``
+5, 6, 7, 9; ``_attach_ilu_smoother``): host Chow-Patel ILU(0) factors whose
+``smooth_num_sweeps`` corrections take the relaxation's place there.
+
 Not ported, and raising ``NotImplementedError``: ``tpusolve``'s multi-part
-device setup (``lattice_parts``, item 18), ILU smoothers on AMG levels
-(``smooth_type`` 5/6/7/9) and the bfloat16 smoother twin
+device setup (``lattice_parts``, item 18) and the bfloat16 smoother twin
 (``smoother_dtype: bfloat16``).  Where ``tpusolve`` would set a level up by
 its generic-ELL device setup (``amg/device_setup_ell.py``, item 16), the
 host pipeline stands in and ``describe()`` says so.
@@ -48,6 +51,7 @@ from tpusolve_torch.amg import interp as interp_mod
 from tpusolve_torch.amg import smoothers
 from tpusolve_torch.amg import strength as strength_mod
 from tpusolve_torch.config import BoomerAMGConfig
+from tpusolve_torch.ilu.ilu import chow_patel_ilu, ilu_apply
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.spmv import spmv, spmv_update
 from tpusolve_torch.matrix.vectors import (
@@ -83,6 +87,11 @@ class Level:
     # (ec, x, b, s, w, c_is_xnew, xnew_out) -> [x'] + w s (b - A x'),
     # x' = x + P ec, one launch
     prolong_update: Callable | None = None
+    # ILU smoother factors (smooth_type), which replace the relaxation on
+    # this level: strict L and U and 1 / u_ii
+    ilu_L: ShardedMatrix | None = None
+    ilu_U: ShardedMatrix | None = None
+    ilu_dinv: torch.Tensor | None = None
 
 
 @dataclass
@@ -182,10 +191,6 @@ def _check_ported(cfg: BoomerAMGConfig, lattice_parts) -> None:
                                   f"(lattice_parts) {_NOT_PORTED}, item 18")
     if getattr(cfg, "smoother_dtype", "match") == "bfloat16":
         raise NotImplementedError(f"smoother_dtype: bfloat16 {_NOT_PORTED}")
-    if cfg.smooth_num_levels > 0 and cfg.smooth_type in (5, 6, 7, 9):
-        raise NotImplementedError(f"ILU smoothers on AMG levels (smooth_type "
-                                  f"{cfg.smooth_type}) {_NOT_PORTED}, "
-                                  "item 12")
 
 
 def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
@@ -321,10 +326,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
         lev = _make_level(A_sh, Ah, dtype, kind_down, kind_up, cfg)
         _phase("level vectors")
         if lvl < cfg.smooth_num_levels and cfg.smooth_type is not None:
-            note = (f"smooth_type {cfg.smooth_type} unsupported: levels use "
-                    "relax_type instead")
-            if note not in notes:
-                notes.append(note)
+            _attach_ilu_smoother(lev, A_sh, Ah, dtype, cfg, notes)
         if cfg.relax_order == 1:
             lev.cmask = to_device_vector(
                 (split == coarsen_mod.C_PT).astype(np.float64),
@@ -363,6 +365,40 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
                              kind_coarse=kind_coarse,
                              coarse_sweeps=coarse_sweeps)
     return pre
+
+
+def _attach_ilu_smoother(lev: Level, A_sh, Ah, dtype, cfg, notes) -> None:
+    """ILU(0) factors on a fine level (``smooth_type``,
+    ``smooth_num_levels``, ``smooth_num_sweeps``, ref:
+    src/HypreSystem.cpp:237-321): HYPRE's codes 5 (ParILUK), 7 (Pilut) and
+    9 (Euclid) are ILU-family, 6 (Schwarz) is substituted; the factors come
+    from the host Chow-Patel ILU(0) with 5 sweeps (``tpusolve``'s
+    ``_attach_ilu_smoother``).  Other codes leave the level's relaxation
+    and say so."""
+    st = cfg.smooth_type
+    if st not in (5, 6, 7, 9):
+        note = f"smooth_type {st} unsupported: levels use relax_type instead"
+        if note not in notes:
+            notes.append(note)
+        return
+    note = {5: "smooth_type 5 (ParILUK) as Chow-Patel ILU(0) + Jacobi "
+               "trisolve",
+            7: "smooth_type 7 (Pilut) as Chow-Patel ILU(0) + Jacobi trisolve",
+            9: "smooth_type 9 (Euclid) as Chow-Patel ILU(0) + Jacobi "
+               "trisolve",
+            6: "smooth_type 6 (Schwarz) mapped to ILU(0) smoothing"}[st]
+    if note not in notes:
+        notes.append(note)
+    L_host, ujj, U_host = chow_patel_ilu(Ah.tocsr(), sweeps=5, fill_level=0)
+    ro = np.asarray(A_sh.row_offsets)
+    lev.ilu_L = ShardedMatrix.from_csr_host(
+        L_host, device=A_sh.device, dtype=dtype, row_offsets=ro,
+        col_offsets=ro)
+    lev.ilu_U = ShardedMatrix.from_csr_host(
+        U_host, device=A_sh.device, dtype=dtype, row_offsets=ro,
+        col_offsets=ro)
+    lev.ilu_dinv = to_device_vector(1.0 / ujj, ro, A_sh.row_pad,
+                                    A_sh.device, dtype=dtype)
 
 
 def _note_ell_level(notes: list, lvl: int) -> None:
@@ -527,6 +563,12 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
 
     def smooth(lev: Level, b, x, kind, ns):
         if ns <= 0:
+            return x
+        if lev.ilu_L is not None:
+            # the ILU smoother replaces the relaxation on this level
+            for _ in range(cfg.smooth_num_sweeps):
+                x = x + ilu_apply(lev.ilu_L, lev.ilu_U, lev.ilu_dinv,
+                                  spmv_update(lev.A, x, b=b), 5, 5)
             return x
         use_cf = cf_order and lev.cmask is not None
         if kind == smoothers.RELAX_L1_JACOBI:

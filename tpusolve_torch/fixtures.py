@@ -20,7 +20,8 @@ writers write the same files as ``tools/gatefix.py`` for the same arguments.
     python -m tpusolve_torch.fixtures OUTDIR [SIDE] [GATE]
 
 writes the fixture of gate GATE (3 or 4, default 4) at SIDE^3 (default 48)
-and its YAML, and prints the YAML's path.
+and its YAML, and prints the YAML's path.  ``STENCIL_ILU_YAML`` and
+``ILU_OPTIONS`` are the templates of the ILU paths beside them.
 """
 
 from __future__ import annotations
@@ -173,28 +174,88 @@ ilu_preconditioner_settings:
 """
 
 
-def write_gate4(dirpath: str, side: int, nfiles: int = 2,
-                precision: str = "mixed") -> str:
-    """Write the gate-4 fixture at side^3 and its YAML; returns the YAML
-    path."""
-    m, r, s, _ = write_momentum_ij(dirpath, side, side, side, nfiles=nfiles)
-    text = GATE4_YAML.format(mat=m, rhs=r, sln=s, nfiles=nfiles)
-    if precision != "mixed":
-        text = text.replace("precision: mixed", f"precision: {precision}")
-    path = os.path.join(dirpath, "gate4.yaml")
+STENCIL_ILU_YAML = """\
+# the generated 27-point stencil (hypre-mini-app's weak-scaling generator,
+# examples/stencil_pcg_amg.yaml) under BiCGSTAB + ILU(0) in double: from
+# 65,536 rows ILU(0) is factored on the device over the whole DIA band
+# (tpusolve/ilu/device_setup.py:402)
+linear_system:
+  type: build_27pt_stencil
+  nx: {side}
+  ny: {side}
+  nz: {side}
+  rtol: 1.0e-5
+  atol: 1.0e-6
+solver_settings:
+  method: bicgstab
+  preconditioner: ilu
+  tolerance: 1.0e-8
+  max_iterations: 500
+  precision: double
+ilu_preconditioner_settings:
+  ilu_type: 0
+  ilu_fill_level: 0
+  ilu_lower_jacobi_iters: 5
+  ilu_upper_jacobi_iters: 5
+"""
+
+# the host ILU options, each on its own (ilu_preconditioner_settings keys):
+# ILU(1), ILUT (ILU(0) with a drop and a row cap that both bite) and RCM
+# local reordering
+ILU_OPTIONS = {
+    "fill1": {"ilu_fill_level": 1},
+    "ilut": {"ilu_type": 1, "ilu_drop_threshold": 0.02,
+             "ilu_max_nnz_per_row": 10},
+    "rcm": {"ilu_local_reordering": 1},
+}
+
+
+def with_settings(text: str, **sections) -> str:
+    """A YAML text with keys set: ``sections`` maps a top-level section
+    (``linear_system``, ``solver_settings``, ``boomeramg_settings``,
+    ``ilu_preconditioner_settings``) to the keys and values to set in it.
+    Without any, the text unchanged."""
+    if not sections:
+        return text
+    import yaml
+    doc = yaml.safe_load(text)
+    for name, keys in sections.items():
+        doc.setdefault(name, {}).update(keys)
+    return yaml.safe_dump(doc, sort_keys=False)
+
+
+def _write_yaml(dirpath: str, name: str, text: str) -> str:
+    path = os.path.join(dirpath, name)
     with open(path, "w") as fh:
         fh.write(text)
     return path
 
 
-def write_gate3(dirpath: str, side: int) -> str:
-    """Write the gate-3 fixture at side^3 and its YAML; returns the YAML
-    path."""
+def write_gate4(dirpath: str, side: int, nfiles: int = 2,
+                precision: str = "mixed", **sections) -> str:
+    """Write the gate-4 fixture at side^3 and its YAML (its settings changed
+    as :func:`with_settings` takes them); returns the YAML path."""
+    m, r, s, _ = write_momentum_ij(dirpath, side, side, side, nfiles=nfiles)
+    text = GATE4_YAML.format(mat=m, rhs=r, sln=s, nfiles=nfiles)
+    if precision != "mixed":
+        text = text.replace("precision: mixed", f"precision: {precision}")
+    return _write_yaml(dirpath, "gate4.yaml", with_settings(text, **sections))
+
+
+def write_gate3(dirpath: str, side: int, **sections) -> str:
+    """Write the gate-3 fixture at side^3 and its YAML (its settings changed
+    as :func:`with_settings` takes them); returns the YAML path."""
     m, r, s, _ = write_pressure_mm(dirpath, side, side, side)
-    path = os.path.join(dirpath, "gate3.yaml")
-    with open(path, "w") as fh:
-        fh.write(GATE3_YAML.format(mat=m, rhs=r, sln=s))
-    return path
+    return _write_yaml(dirpath, "gate3.yaml", with_settings(
+        GATE3_YAML.format(mat=m, rhs=r, sln=s), **sections))
+
+
+def write_stencil_ilu(dirpath: str, side: int, **sections) -> str:
+    """Write the stencil-ILU YAML at side^3 (no data files: the YAML
+    generates the system); returns its path."""
+    os.makedirs(dirpath, exist_ok=True)
+    return _write_yaml(dirpath, "stencil_ilu.yaml", with_settings(
+        STENCIL_ILU_YAML.format(side=side), **sections))
 
 
 if __name__ == "__main__":

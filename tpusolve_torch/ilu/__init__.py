@@ -1,1 +1,2 @@
-"""ILU(0) preconditioner: host Chow-Patel factors, Jacobi triangular solves."""
+"""ILU(k) preconditioner: Chow-Patel factors, on the device for ILU(0) of a
+DIA or ELL operator, Jacobi triangular solves."""

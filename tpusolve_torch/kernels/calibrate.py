@@ -208,6 +208,17 @@ def device_ms_each(calls: dict, reps: int = 50,
                        f"traces")
 
 
+def retrace(path: str) -> float:
+    """:func:`device_ms` of ``spmv(M, x)`` on the operator and vector that
+    ``torch.save`` left at ``path`` (``{"M": ..., "x": ...}``), taken in
+    this process: late in a long process a trace can lack a kernel's device
+    events in every try (``chip_smoke.py:fresh_device_ms``)."""
+    from tpusolve_torch.matrix.spmv import spmv
+    saved = torch.load(path, weights_only=False)
+    M, x = saved["M"], saved["x"]
+    return device_ms(lambda: spmv(M, x))
+
+
 def _bdia_case(shape, dtype, device, gen):
     """(call, bytes streamed, threads) of K4 on a random BDIA operator."""
     from tpusolve_torch.matrix.sharded import bdia_bytes, bdia_threads
@@ -842,6 +853,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--fused"]:
         print(card_line(), flush=True)
         print(json.dumps(sweep_fused()), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--retrace"] and len(sys.argv) == 3:
+        print(json.dumps({"device_ms": retrace(sys.argv[2])}), flush=True)
         sys.exit(0)
     if sys.argv[1:] == ["--k2"]:
         print(json.dumps(sweep_k2()), flush=True)

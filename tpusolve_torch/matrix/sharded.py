@@ -267,25 +267,42 @@ def choose_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
     return xl[:5] if xl is not None and xl[5] < t4 else None
 
 
+def _spill_counts(diag_parts, row_pad: int, col_pad: int, R: int,
+                  profiles: dict | None = None) -> np.ndarray:
+    """``ovf`` with ``ovf[D]`` the entries a BDIA layout of R-row blocks
+    and D slots spills to its overflow list, summed over the parts
+    (``kernels/bdia.py:plan_fill_profile``; empty when the parts hold no
+    entry).  ``profiles``, where given, keeps it by R: the port's plan and
+    the record of ``tpusolve``'s (:func:`tpusolve_layout`) share it, and
+    :func:`_bell_k`'s count beside it."""
+    if profiles is not None and R in profiles:
+        return profiles[R]
+    profs = [bdia_mod.plan_fill_profile(dp[0], dp[1], row_pad, col_pad, R)
+             for dp in diag_parts]
+    Dfull = max((len(pr) for pr in profs), default=0)
+    rank_totals = np.zeros(Dfull, np.int64)
+    for pr in profs:
+        rank_totals[:len(pr)] += pr
+    ovf = (np.concatenate([np.cumsum(rank_totals[::-1])[::-1], [0]])
+           if Dfull else np.zeros(0, np.int64))
+    if profiles is not None:
+        profiles[R] = ovf
+    return ovf
+
+
 def plan_bdia(diag_parts, row_pad: int, col_pad: int, itemsize: int,
-              total_nnz: int, nparts: int = 1):
+              total_nnz: int, nparts: int = 1, profiles: dict | None = None):
     """``(R, D, bytes)`` of the (R, D) pair of least :func:`bdia_bytes`, or
     None when no layout fits the memory cap with an overflow list of at
     most ``max(4096, total_nnz // 8)`` entries (the overflow must stay a
-    correction, not a layout)."""
+    correction, not a layout).  ``profiles``: :func:`_spill_counts`'."""
     budget = tile_budget(total_nnz, itemsize)
     best, best_bytes = None, None
     for R in bdia_mod.BLOCK_SIZES:
-        profs = [bdia_mod.plan_fill_profile(dp[0], dp[1], row_pad, col_pad, R)
-                 for dp in diag_parts]
-        Dfull = max((len(pr) for pr in profs), default=0)
+        ovf = _spill_counts(diag_parts, row_pad, col_pad, R, profiles)
+        Dfull = ovf.size - 1
         if Dfull <= 0:
             continue
-        rank_totals = np.zeros(Dfull, np.int64)
-        for pr in profs:
-            rank_totals[:len(pr)] += pr
-        # ovf[D] = entries spilled to the overflow list at cap D
-        ovf = np.concatenate([np.cumsum(rank_totals[::-1])[::-1], [0]])
         B = (row_pad + R - 1) // R
         for D in range(1, Dfull + 1):
             if nparts * B * D * R * itemsize > budget:
@@ -299,13 +316,109 @@ def plan_bdia(diag_parts, row_pad: int, col_pad: int, itemsize: int,
     return best
 
 
-def plan_bell(diag_parts, row_pad: int, itemsize: int, total_nnz: int,
-              nparts: int = 1):
-    """``(K, bytes)`` of the BELL layout (K tiles per 8-row group; bytes of
-    its tiles and window ids), or None when its tiles do not fit the memory
-    cap."""
+# tpusolve's own choice between BDIA, BELL and ELL
+# (tpusolve/matrix/sharded.py:335-423), copied to record the layout class
+# tpusolve gives an operator (ShardedMatrix.tpusolve_layout), which decides
+# where tpusolve factors ILU(0) and sets AMG levels up; it never chooses the
+# port's layout.  Its constants are the v5e's that its CPU runs assume
+# (tpusolve/runtime.py:device_profile): the HBM rate, the BDIA kernels'
+# per-slot issue costs and the overflow's per-entry cost
+# (tpusolve/kernels/bdia.py:55-131), and the VMEM budget that a BDIA plan's
+# x (whole or a panel) and double-buffered values must fit
+# (tpusolve/matrix/sharded.py:70, :374-398).
+TPU_HBM_BPS = 819.0e9
+TPU_BELL_SHARE = 0.67          # of the HBM rate that its BELL kernel streams
+TPU_OVF_S = 25.0e-9            # an overflow entry's gather and scatter-add
+TPU_VMEM_BUDGET = 13 << 20
+TPU_LANE = 128
+TPU_STEP_BLOCKS = 8
+TPU_UNROLL_MAX = 64
+
+
+def _tpu_slot_s(D: int, R: int) -> float:
+    """``tpusolve``'s per-slot issue seconds of its BDIA kernels
+    (``tpusolve/kernels/bdia.py:_per_slot_ns``)."""
+    if D <= TPU_UNROLL_MAX:
+        return (4.0 + R / 128.0) * 1e-9
+    return (40.0 + 12.0 * R / 128.0) * 1e-9
+
+
+def tpusolve_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
+                    total_nnz: int, nparts: int = 1, allow_bdia: bool = True,
+                    allow_bell: bool = True,
+                    profiles: dict | None = None) -> str:
+    """``"bdia"``, ``"bell"`` or ``"ell"``: the layout ``tpusolve``'s
+    ``from_local_parts`` gives a diag block that is not DIA, on the CPU
+    (f64 keeps BDIA and BELL there).  BDIA and BELL by its modelled
+    seconds, BDIA on a tie; a BDIA plan must fit the VMEM budget with its
+    whole x or, banded, an x panel a step; ELL below ``BDIA_MIN_NNZ`` or
+    when neither fits.  ``profiles``: :func:`_spill_counts`'."""
+    if total_nnz < BDIA_MIN_NNZ:
+        return "ell"
+    budget = tile_budget(total_nnz, itemsize)
+    bell_t = bdia_t = float("inf")
+    if allow_bell:
+        bk = _bell_k(diag_parts, row_pad, profiles)
+        tile_bytes = (nparts * bell_mod._ngroups(row_pad) * bk * bell_mod.TM
+                      * bell_mod.TN * itemsize)
+        if bk > 0 and tile_bytes <= budget:
+            bell_t = 1.125 * tile_bytes / (TPU_BELL_SHARE * TPU_HBM_BPS
+                                           * nparts)
+    if allow_bdia:
+        d_min = min([0] + [int((dc - dr).min()) for dr, dc, _ in diag_parts
+                           if dr.size])
+        d_max = max([0] + [int((dc - dr).max()) for dr, dc, _ in diag_parts
+                           if dr.size])
+        gb = TPU_STEP_BLOCKS
+        for R in bdia_mod.BLOCK_SIZES:
+            ovf = _spill_counts(diag_parts, row_pad, col_pad, R, profiles)
+            B = (row_pad + R - 1) // R
+            rr = R // TPU_LANE
+            xlen = max(col_pad, row_pad + d_max + R) - d_min
+            for D in range(1, ovf.size):
+                if nparts * B * D * R * itemsize > budget:
+                    break
+                k = int(ovf[D])
+                if k > max(4096, total_nnz // 8):
+                    continue
+                stream = 2 * gb * D * R * itemsize
+                issue = B * D * _tpu_slot_s(D, R)
+                if xlen * itemsize + stream <= TPU_VMEM_BUDGET:
+                    t = max(2.0 * B * D * R * itemsize / TPU_HBM_BPS, issue)
+                else:
+                    span = (d_max - d_min + gb * R) // TPU_LANE + rr + 2
+                    pxrows = max(8, 1 << max(0, span - 1).bit_length())
+                    if 2 * pxrows * TPU_LANE * itemsize + stream \
+                            > TPU_VMEM_BUDGET:
+                        continue
+                    nsteps = (B + gb - 1) // gb
+                    t = max((B * D * R + nsteps * pxrows * TPU_LANE)
+                            * itemsize / TPU_HBM_BPS, issue)
+                bdia_t = min(bdia_t, t + k * TPU_OVF_S)
+    if bdia_t <= bell_t and bdia_t < float("inf"):
+        return "bdia"
+    return "bell" if bell_t < float("inf") else "ell"
+
+
+def _bell_k(diag_parts, row_pad: int, profiles: dict | None = None) -> int:
+    """The BELL tile count K a group needs (``kernels/bell.py:
+    bell_plan_k``, the largest over the parts), kept in ``profiles`` under
+    ``"bell"`` where given, as :func:`_spill_counts` keeps its counts."""
+    if profiles is not None and "bell" in profiles:
+        return profiles["bell"]
     bk = max((bell_mod.bell_plan_k(dp[0], dp[1], row_pad)
               for dp in diag_parts), default=0)
+    if profiles is not None:
+        profiles["bell"] = bk
+    return bk
+
+
+def plan_bell(diag_parts, row_pad: int, itemsize: int, total_nnz: int,
+              nparts: int = 1, profiles: dict | None = None):
+    """``(K, bytes)`` of the BELL layout (K tiles per 8-row group; bytes of
+    its tiles and window ids), or None when its tiles do not fit the memory
+    cap.  ``profiles``: :func:`_bell_k`'s."""
+    bk = _bell_k(diag_parts, row_pad, profiles)
     G = bell_mod._ngroups(row_pad)
     tile_bytes = nparts * G * bk * bell_mod.TM * bell_mod.TN * itemsize
     if bk <= 0 or tile_bytes > tile_budget(total_nnz, itemsize):
@@ -360,7 +473,8 @@ def row_counts_max(diag_parts, row_counts) -> int:
 
 def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
                   total_nnz: int, nparts: int = 1, allow_bdia: bool = True,
-                  allow_bell: bool = True, allow_ell: bool = True):
+                  allow_bell: bool = True, allow_ell: bool = True,
+                  profiles: dict | None = None):
     """``("bdia", (R, D, bytes, staging))``, ``("bell", (K, bytes))``
     or ``("ell", over)`` for a diag block: BDIA, BELL or ELL by modelled
     time (:func:`spmv_model_s` with ``SPMV_MODEL``, ELL by
@@ -372,22 +486,24 @@ def choose_layout(diag_parts, row_pad: int, col_pad: int, itemsize: int,
     :func:`_bdia_staging`'s at (R, D); whether K4 or K5 runs it is decided
     on the assembled values (:meth:`ShardedMatrix.with_kernel`).  ``over``
     is the layout
-    that ``tpusolve``'s choice (``allow_ell=False``) takes where K2 was
-    priced below it, ``"bdia"`` or ``"bell"``; None where ELL is that
-    choice too."""
+    this choice takes with ``allow_ell=False`` where K2 was priced below it,
+    ``"bdia"`` or ``"bell"``; None where ELL is that choice too.  It is the
+    port's: :func:`tpusolve_layout` records ``tpusolve``'s.  ``profiles``:
+    :func:`_spill_counts`'."""
     if total_nnz < BDIA_MIN_NNZ:
         return "ell", None
     best = ("ell", None, float("inf"))
     if allow_bdia:
         plan = plan_bdia(diag_parts, row_pad, col_pad, itemsize, total_nnz,
-                         nparts)
+                         nparts, profiles)
         if plan is not None:
             R, D, nbytes = plan
             t = spmv_model_s(SPMV_MODEL["bdia"], nbytes, nparts * bdia_threads(
                 (row_pad + R - 1) // R, R))
             best = ("bdia", (R, D, nbytes), t)
     if allow_bell:
-        plan = plan_bell(diag_parts, row_pad, itemsize, total_nnz, nparts)
+        plan = plan_bell(diag_parts, row_pad, itemsize, total_nnz, nparts,
+                         profiles)
         if plan is not None:
             t = spmv_model_s(SPMV_MODEL["bell"], plan[1], nparts * bell_threads(
                 bell_mod._ngroups(row_pad), plan[0]))
@@ -455,16 +571,27 @@ class ShardedMatrix:
     ell_rowptr: torch.Tensor | None = None  # (P, row_pad + 1) int32 / int64
     ell_vals: torch.Tensor | None = None    # (P, nnz)
     ell_cols: torch.Tensor | None = None    # (P, nnz) int32 local columns
-    # the largest count of entries a row has, on either ELL form
+    # the largest count of entries a row has: on either ELL form, and on
+    # BDIA and BELL built from entries (ILU reads it where tpusolve stores
+    # such an operator ELL); None where it is not known
     row_width: int | None = None
-    # ELL where K2 was priced below this layout, the one tpusolve's choice
-    # takes ("bdia" or "bell"; choose_layout); None where tpusolve's is ELL
-    # too or the operator is in another layout
-    priced_over: str | None = None
+    # the layout class tpusolve gives this operator ("dia", "bdia", "bell"
+    # or "ell"; tpusolve_layout), which may differ from the port's; None
+    # where it is not known
+    tpusolve_layout: str | None = None
 
     @property
     def nparts(self) -> int:
         return len(self.row_offsets) - 1
+
+    @property
+    def priced_over(self) -> str | None:
+        """The layout ``tpusolve`` takes (``"bdia"`` or ``"bell"``) where
+        the port stores ELL, K2 priced below it; None where ``tpusolve``'s
+        is ELL too or the operator is in another layout."""
+        if self.uses_ell and self.tpusolve_layout in ("bdia", "bell"):
+            return self.tpusolve_layout
+        return None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -658,22 +785,25 @@ class ShardedMatrix:
         # values off the CPU (tpusolve/matrix/sharded.py:326-328), a TPU
         # restriction (XLA's f64 emulation cannot rewrite its Pallas calls)
         # that K4, K5 and K6 do not have
+        profiles = {}
         kind, plan = choose_layout(diag_parts, row_pad, col_pad, itemsize,
                                    total_nnz, nparts, allow_bdia, allow_bell,
-                                   allow_ell)
-        fields = {}
+                                   allow_ell, profiles)
+        kd = row_counts_max(diag_parts, row_counts)
+        fields = {"tpusolve_layout": tpusolve_layout(
+            diag_parts, row_pad, col_pad, itemsize, total_nnz, nparts,
+            allow_bdia, allow_bell, profiles), "row_width": kd}
         if kind != "ell":
             if kind == "bdia":
-                fields = _bdia_fields(plan, row_pad, col_pad, dtype, device)
+                fields.update(_bdia_fields(plan, row_pad, col_pad, dtype,
+                                           device))
             else:
-                fields = _bell_fields(diag_parts, plan[0], row_pad, col_pad,
-                                      dtype, device)
+                fields.update(_bell_fields(diag_parts, plan[0], row_pad,
+                                           col_pad, dtype, device))
             dvals, dcols = _placeholders(nparts, row_pad, dtype, device)
         else:
-            kd = row_counts_max(diag_parts, row_counts)
             form = ell_form(row_pad, col_pad, kd, total_nnz // nparts,
                             itemsize)[0]
-            fields["priced_over"] = plan
             if form == "rowptr":
                 fields.update(_ell_rowptr_fields(kd, diag_parts[0], row_pad,
                                                  dtype, device))
@@ -685,7 +815,6 @@ class ShardedMatrix:
                                     (row_pad, kd), dtype, device)
                 dcols = materialize(idx, [c[2] for c in compacted],
                                     (row_pad, kd), np.int32, device)
-            fields["row_width"] = kd
 
         # main diagonal: only where rows and columns share one partition
         # (square operators; a rectangular P or R has none)
@@ -766,7 +895,7 @@ class ShardedMatrix:
             bdia_vals=None, bdia_starts=None, bell_vals=None, bell_ids=None,
             diag=diag, shape=(R, R), row_offsets=(0, R), col_offsets=(0, R),
             row_pad=R, col_pad=R, nnz=nnz, dia_vals=vals,
-            dia_offsets=triples,
+            dia_offsets=triples, tpusolve_layout="dia",
             dia_shape=(None if dia_shape is None
                        else tuple(int(d) for d in dia_shape)))
 
@@ -821,7 +950,10 @@ class ShardedMatrix:
             row_pad=row_pad, col_pad=col_pad,
             nnz=int(meta["nnz"]), bdia_block=meta.get("bdia_block"),
             bdia_xpad=meta.get("bdia_xpad"), bdia_xlen=meta.get("bdia_xlen"),
-            bell_nwin=meta.get("bell_nwin"), **ovf)
+            bell_nwin=meta.get("bell_nwin"), **ovf,
+            tpusolve_layout=("bdia" if arrays.get("bdia_vals") is not None
+                             else "bell" if arrays.get("bell_vals")
+                             is not None else "ell"))
         if A.uses_ell:
             A = A.with_ell_form()
         if A.uses_bdia:
