@@ -112,8 +112,9 @@ Step 4 also times the ELL device factorization of gate 4's RCM'd A
 against the run's host ILU setup (not adopted).  After step 9:
 
 11. the stencil
-   (``fixtures.STENCIL_ILU_YAML``, ``--side-ilu``, default 128^3 =
-   2,097,152 rows) under BiCGSTAB + ILU(0) in double through the CLI: ILU(0)
+   (``fixtures.STENCIL_ILU_YAML``, ``--side-ilu``, default 64^3 = 262,144
+   rows; 128^3 before phases (f) and (g)) under BiCGSTAB + ILU(0) in
+   double through the CLI: ILU(0)
    factored on the card over the DIA band (``ilu/device_setup.py``; it
    fails if the host factors), K1 running A and the factors' sweeps, the
    count held to tpusolve's (within ``STENCIL_ILU_SPREAD`` at 128^3, and
@@ -122,7 +123,8 @@ against the run's host ILU setup (not adopted).  After step 9:
    share) and, at 64^3, the device factorization against the port's host
    ``chow_patel_ilu`` on the same band (time and the factors' largest
    difference), each beside the card's name and power limit;
-12. the gate-4 fixture as written (``matrix_ordering: none``) at ``--side``
+12. the gate-4 fixture as written (``matrix_ordering: none``) at 64^3 (96^3
+   before phases (f) and (g))
    in double: ILU(0) factored on the card by the ELL path, K2 running A,
    L and U, the count held to tpusolve's; K2 on the three against its
    plain version, the factorization's profile and, at 64^3, device
@@ -130,13 +132,40 @@ against the run's host ILU setup (not adopted).  After step 9:
 13. the RCM'd gate-4 fixture at 32^3 in double with ILU(1), ILUT and RCM
    local reordering (``fixtures.ILU_OPTIONS``), each count held to
    tpusolve's;
-14. gate 3 with ``smooth_type: 5`` on its finest level (ILU(0)
-   smoothing), the count held to tpusolve's;
+14. gate 3 at 32^3 (64^3 before phases (f) and (g)) with ``smooth_type:
+   5`` on its finest level (ILU(0) smoothing), the count held to
+   tpusolve's;
 15. gate 3 at 32^3 with ``write_outputs``,
    ``write_solution`` and ``write_amg_matrices``, the files read back by
    the port's IJ reader as the system; then two tests with
    ``reuse_preconditioner`` (the second's setup row under 1 % of the
    first's) and ``check_memory``, and the memory probe on the card.
+
+Between steps 9 and 11, the generic-ELL device setup
+(``amg/device_setup_ell.py``) and on-device generation:
+
+(f) the weak-scaling YAML with its box at 256^3 (16,777,216 rows), the
+   example's settings otherwise, through the CLI: the system generated on
+   the card (the host generators fail if called), level 0 set up on the
+   card by the DIA setup and every level of 2^19 rows or more below it by
+   the generic-ELL setup (it fails otherwise, or if such a level's coarse
+   operator went to the host), K1 and K2 launched, golden check, the count
+   within one of tpusolve's;
+   the hierarchy, each level's setup stages, the timer rows and the
+   setup's peak of allocated device memory (step 9's 128^3 run also
+   generates on the card, its build row printed beside the host's);
+(g) gate 3 at 96^3 (884,736 rows) through the CLI: level 0 set up on the
+   card by the generic-ELL setup (extended+i), K2 on every ELL level, the
+   count tpusolve's; then on its operator, and on gate 3's 64^3 one, the
+   ELL setup of level 0 against the port's host pipeline (the same C/F
+   split, P to 1e-11, the coarse A to 1e-10 relative, R = P^T exactly),
+   its runs the same bits, both setups timed, and the ELL setup's wall,
+   device operations, busy time and idle share (on the 64^3 operator in
+   step 5's run).
+
+Every fixture is written once, in a process of its own (gate 4's before
+the kernel build, the others after step 10), so that the writes overlap
+the phases before their use.
 
 Every kernel time is given twice: device time (the kernels' durations in a
 ``torch.profiler`` trace, ``calibrate.device_ms``) and time per call
@@ -160,6 +189,7 @@ warm solves of gates 1 and 2 alone, also of an earlier checkout.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import shutil
@@ -230,8 +260,27 @@ TPUSOLVE_ILU_OPTION_ITERS = {("fill1", 32): 16, ("ilut", 32): 30,
 # fixtures.write_gate3(d, side, boomeramg_settings={"smooth_type": 5,
 # "smooth_num_levels": 1})): GMRES iterations, relres 4.580e-09 at 64^3
 TPUSOLVE_GATE3_ST5_ITERS = {64: 7, 32: 7}
+# tpusolve on CPU, the weak-scaling YAML at 256^3
+# (fixtures.write_weakscale(d, 256): the example's settings, single; its
+# planes generated on the host, level 0 set up by its DIA device setup and
+# level 1 (1,360,076 rows) by its generic-ELL device setup on the CPU, host
+# PMIS ranks): PCG iterations, relres 9.572e-07, eight levels (16777216,
+# 1360076, 332795, 79060, 15974, 3348, 744, 186 rows); 1,474 s and 24.4 GB
+# of host memory.  The command: `TPUSOLVE_PMIS_HOST_RANK=1
+# JAX_PLATFORMS=cpu python -m tpusolve.harness.cli d/weakscale.yaml`.  The
+# port is held within one of it, as at 128^3 (f32)
+TPUSOLVE_WEAKSCALE_ITERS_256 = 38
+# tpusolve on CPU, the gate-3 fixture at 96^3 (fixtures.write_gate3(d, 96)),
+# double: its level 0 (884,736 rows) set up by its generic-ELL device setup
+# on the CPU (host PMIS ranks, as above): GMRES iterations, relres
+# 5.726e-09, five levels (884736, 72320, 4863, 362, 25 rows)
+TPUSOLVE_GATE3_ITERS_96 = 12
 # the start of the note the builder records for a device level 0
 DEVICE_NOTE = "level 0 setup on device"
+# the weak-scaling YAML's "Build 27Pt Stencil HYPRE matrix" row at 128^3
+# when the planes were generated on the host (chip_smoke.py, H100 80GB
+# HBM3, 700.00 W, before on-device generation), printed beside the row
+WEAKSCALE_HOST_BUILD_S = 0.526165
 
 
 def fail(msg: str):
@@ -733,6 +782,33 @@ def run_cli(yaml_path: str, counters, keep: list | None = None) -> tuple:
 
 
 FIXTURES = os.path.join(REPO, "build", "fixtures")
+# (gate, side) -> the process writing that fixture (start_fixture_writers)
+WRITERS = {}
+
+
+def start_fixture_writers(specs) -> None:
+    """Write the fixtures of ``specs`` ((gate, side) pairs) under
+    ``FIXTURES`` as :func:`fixture_yaml` would, one process each
+    (``python -m tpusolve_torch.fixtures``), all started now, so that the
+    writes overlap the checks and phases before each one's first use.
+    The processes are stopped at exit (:func:`stop_fixture_writers`)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (REPO, os.environ.get("PYTHONPATH")))))
+    if not WRITERS:
+        atexit.register(stop_fixture_writers)
+    for gate, side in specs:
+        d = os.path.join(FIXTURES, f"gate{gate}_{side}")
+        WRITERS[(gate, side)] = subprocess.Popen(
+            [sys.executable, "-m", "tpusolve_torch.fixtures", d, str(side),
+             str(gate)], cwd=REPO, env=env, stdout=subprocess.DEVNULL)
+
+
+def stop_fixture_writers() -> None:
+    for proc in WRITERS.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    WRITERS.clear()
 
 
 def fixture_yaml(gate: int, side: int, name: str, edit=None,
@@ -745,6 +821,13 @@ def fixture_yaml(gate: int, side: int, name: str, edit=None,
     from tpusolve_torch import fixtures
     d = os.path.join(FIXTURES, f"gate{gate}_{side}")
     base = os.path.join(d, f"gate{gate}.yaml")
+    writer = WRITERS.pop((gate, side), None)
+    if writer is not None:
+        t0 = time.perf_counter()
+        if writer.wait() != 0:
+            fail(f"writing the gate-{gate} fixture at {side}^3 failed")
+        print(f"gate-{gate} fixture {side}^3 written in the background, "
+              f"waited {time.perf_counter() - t0:.1f} s", flush=True)
     if not os.path.exists(base):
         t0 = time.perf_counter()
         (fixtures.write_gate3 if gate == 3 else fixtures.write_gate4)(d, side)
@@ -1100,10 +1183,14 @@ def gate3_phase(side: int, device_name: str, counters):
     k2_rows = ell_timings(ell_ops(pre, "gate-3"), device_name, 25)
     moved_rows = moved_timings(moved, device_name, 26)
     prof = solve_profile(system, "gate-3")
+    # phase (g)'s crossover: the generic-ELL setup of this operator's level
+    # 0 against the host pipeline, the floors at 1 row
+    crossover = ell_against_host(system, f"gate-3 {side}^3", card_line(), 1)
     system.destroy_system()
     return dict(launches=launches, k6_rows=rows6, k4_rows=bdia_rows,
                 k2_rows=k2_rows, moved_rows=moved_rows, timers=timers,
-                profile=prof, iters=int(res.iters))
+                profile=prof, iters=int(res.iters),
+                ell_against_host=crossover)
 
 
 def tile_timings(pre, moved, what: str, device_name: str, seed: int):
@@ -2082,7 +2169,8 @@ def weakscale_phase(device_name: str, counters):
     profile, timer rows and layouts."""
     yaml_path = os.path.join(REPO, "examples",
                              "weakscale_pcg_boomeramg_devsetup.yaml")
-    rc, system, wall, launches = run_cli(yaml_path, counters)
+    with host_generation_forbidden():
+        rc, system, wall, launches = run_cli(yaml_path, counters)
     print(f"weakscale path: cli exit {rc}, {wall:.1f} s wall, launches "
           f"{launches}", flush=True)
     res = check_solve(system, rc, "weakscale", tol=1e-6)
@@ -2102,6 +2190,10 @@ def weakscale_phase(device_name: str, counters):
                                        for k, v in stages.items()),
           flush=True)
     timers = print_timers(system, "weakscale")
+    print(f"weakscale Build 27Pt Stencil HYPRE matrix "
+          f"{timers['Build 27Pt Stencil HYPRE matrix']:.6f} s, generated on "
+          f"the card (the host generation's: {WEAKSCALE_HOST_BUILD_S} s)",
+          flush=True)
     setup = timers["Preconditioner setup"]
     print(f"weakscale Preconditioner setup {setup:.3f} s, of it the host "
           f"levels {stages.get('host levels', 0.0):.3f} s", flush=True)
@@ -2144,6 +2236,274 @@ def weakscale_phase(device_name: str, counters):
                 moved_rows=moved_rows, profile=prof, timers=timers,
                 layouts=layouts, iters=int(res.iters),
                 relres=float(res.relres))
+
+
+# --------------------------------------------------------------------------
+# the generic-ELL device setup and on-device generation: (f) weak scaling
+# at 256^3, (g) gate 3 at 96^3
+
+
+class host_generation_forbidden:
+    """Within the block, the stencil's host generators (its numpy plane
+    tables and the host CSR of them) fail: a run that completes generated
+    its system on the device."""
+
+    def __enter__(self):
+        from tpusolve_torch import stencil
+        from tpusolve_torch.amg import spk
+
+        def forbidden(*a, **k):
+            fail("the stencil was generated on the host")
+
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (stencil, "_dia_box"), (stencil, "_dia_box_lattice"),
+            (spk, "dia_to_csr"))]
+        for mod, name, _ in self.saved:
+            setattr(mod, name, forbidden)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+class setup_peak:
+    """Within the block, the CLI's BoomerAMG setup records the peak of
+    ``torch.cuda.max_memory_allocated`` during it (``self.peak_gb``)."""
+
+    def __enter__(self):
+        import torch
+        from tpusolve_torch.harness import system as system_mod
+        self.orig = system_mod.boomeramg_setup
+        self.peak_gb = None
+
+        def measured(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = self.orig(*a, **k)
+            torch.cuda.synchronize()
+            self.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            return out
+
+        system_mod.boomeramg_setup = measured
+        return self
+
+    def __exit__(self, *exc):
+        from tpusolve_torch.harness import system as system_mod
+        system_mod.boomeramg_setup = self.orig
+        return False
+
+
+def level_stages(pre) -> dict:
+    """The setup's stage seconds by level: level 0's (the unprefixed
+    stages), each later device level's ("level i <stage>"), and the host
+    levels' in all."""
+    out = {}
+    for k, v in pre.setup_seconds.items():
+        if k == "host levels":
+            lvl, stage = "host", k
+        elif k.startswith("level "):
+            _, lvl, stage = k.split(" ", 2)
+        else:
+            lvl, stage = "0", k
+        out.setdefault(lvl, {})[stage] = v
+    return out
+
+
+def check_ell_levels(pre, what: str) -> None:
+    """Fail unless every level of ``tpusolve``'s generic-ELL floor or more
+    below level 0 was set up on the device (its stages recorded) and no
+    coarse operator of that size was fetched to the host."""
+    from tpusolve_torch.amg import device_setup_ell
+    floor = device_setup_ell.MIN_DEVICE_N
+    for i, lev in enumerate(pre.levels[1:-1], start=1):
+        if lev.n >= floor and f"level {i} R@(AP)" not in pre.setup_seconds:
+            fail(f"{what}: level {i} ({lev.n} rows) was set up on the host")
+    big = [f for f in pre.host_fetches if f[1] >= floor]
+    if big:
+        fail(f"{what}: coarse operators of {floor} rows or more fetched to "
+             f"the host: {big}")
+
+
+def weakscale_large_phase(side: int, card: str, counters) -> dict:
+    """(f) The weak-scaling YAML at side^3 (the example's settings) through
+    the CLI: the system generated on the card (the host generators fail in
+    the run), level 0 set up on the card by the DIA setup and every level
+    of 2^19 rows or more below it by the generic-ELL setup (fails
+    otherwise, or if such a level's coarse operator was fetched to the
+    host), K1 and K2 launched, golden check; prints the hierarchy, each
+    level's setup stages, the timer rows and the setup's peak of allocated
+    device memory.  Returns its numbers."""
+    from tpusolve_torch import fixtures
+    from tpusolve_torch.amg.builder import DIA_NOTE, RECURSION_NOTE
+    what = f"weakscale {side}^3"
+    yaml_path = fixtures.write_weakscale(
+        os.path.join(FIXTURES, f"weakscale_{side}"), side)
+    with host_generation_forbidden(), setup_peak() as peak:
+        rc, system, wall, launches = run_cli(yaml_path, counters)
+    print(f"{what} path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, what, tol=1e-6)
+    pre = system._precond
+    for line in pre.describe().splitlines()[1:]:
+        print(f"{what} hierarchy {line}", flush=True)
+    for line in pre.layouts():
+        print(f"{what} {line}", flush=True)
+    if DIA_NOTE not in pre.notes or RECURSION_NOTE not in pre.notes:
+        fail(f"{what}: notes {pre.notes} lack the DIA device setup of level "
+             "0 or the device recursion")
+    check_ell_levels(pre, what)
+    check_launched(pre, launches, what)
+    if not launches["dia_spmv"] or not launches["ell_spmv"]:
+        fail(f"{what}: K1 or K2 was not launched")
+    stages = level_stages(pre)
+    for lvl, st in stages.items():
+        print(f"{what} setup stages, level {lvl} (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.items()), flush=True)
+    timers = print_timers(system, what)
+    print(f"{what}: {res.iters} PCG iterations, relres "
+          f"{float(res.relres):.3e}, golden check PASSED; Build 27Pt Stencil "
+          f"{timers['Build 27Pt Stencil HYPRE matrix']:.3f} s on the card, "
+          f"Preconditioner setup {timers['Preconditioner setup']:.3f} s, "
+          f"peak allocated during setup {peak.peak_gb:.2f} GB; host fetches "
+          f"{pre.host_fetches} ({card})", flush=True)
+    out = dict(iters=int(res.iters), relres=float(res.relres),
+               levels=[lev.n for lev in pre.levels], layouts=pre.layouts(),
+               stages=stages, timers=timers, setup_peak_gb=peak.peak_gb,
+               host_fetches=pre.host_fetches, launches=launches, card=card)
+    system.destroy_system()
+    return out
+
+
+def sparse_bits(M) -> tuple:
+    """An ELL operator's stored arrays on the host, to compare bit for bit."""
+    arrs = ((M.ell_rowptr, M.ell_vals, M.ell_cols) if M.uses_ell_rowptr
+            else (M.diag_vals, M.diag_cols))
+    return tuple(a.cpu() for a in arrs + (M.diag,))
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def ell_against_host(system, what: str, card: str, min_n) -> dict:
+    """The generic-ELL setup of level 0 of ``system``'s operator on the card
+    (``device_level0_ell``) against the port's host pipeline on the same
+    operator: the same C/F split, P to 1e-11 and the coarse A to 1e-10
+    relative, R = P^T exactly; the whole setup timed with the device
+    floors ``min_n`` and by the host pipeline (the card's crossover); the
+    ELL setup's wall, device operations, busy time and idle share
+    (:func:`factor_profile`), each of its runs, and the CLI run's level 0
+    where the CLI set it up on the card, the same bits."""
+    import dataclasses
+    import torch
+    from tpusolve_torch.amg import builder, device_setup_ell
+    A, H = system._A_solve, system.A_host
+    cfg = system.config.boomeramg
+    if not device_setup_ell.eligible(A, cfg, H, min_n=1):
+        fail(f"{what}: level 0 is not eligible for the generic-ELL setup")
+    first, runs = [], [0]
+
+    def bits(P, R, Ac, cmask=None):
+        out = sparse_bits(P) + sparse_bits(R) + sparse_bits(Ac)
+        return out if cmask is None else out + (cmask.cpu(),)
+
+    def level0():
+        res = device_setup_ell.device_level0_ell(A, cfg, A_host=H)
+        if res is None:
+            fail(f"{what}: the ELL setup's coarsening stalled")
+        b = bits(res["P"], res["R"], res["Ac"])
+        if not first:
+            first.extend([res, b])
+        elif not same_bits(b, first[1]):
+            fail(f"{what}: the ELL setup's P, R or Ac changed from run to "
+                 "run")
+        runs[0] += 1
+        return res
+
+    prof = factor_profile(level0, f"{what} generic-ELL level-0 setup", card)
+    res = first[0]
+    cli = system._precond
+    if builder.ELL_NOTE in cli.notes:
+        if not same_bits(bits(cli.levels[0].P, cli.levels[0].R,
+                              cli.levels[1].A), first[1]):
+            fail(f"{what}: the CLI run's level 0 differs from the ELL "
+                 "setup run again")
+        runs[0] += 1
+    # CF order keeps the host pipeline's level-0 split on its level
+    cfg_cf = dataclasses.replace(cfg, relax_order=1)
+    pre_h, host_s = timed(lambda: builder.boomeramg_setup(
+        A, cfg_cf, A_host=H, device_min_n=None))
+    pre_d, dev_s = timed(lambda: builder.boomeramg_setup(
+        A, cfg, A_host=H, device_min_n=min_n))
+    lev0, lev1 = pre_h.levels[0], pre_h.levels[1]
+    same_split = bool(torch.equal(res["Cmask"], lev0.cmask))
+    P = res["P"].to_scipy()
+    errs = dict(P=rel_sparse(P, lev0.P.to_scipy()),
+                Ac=rel_sparse(res["Ac"].to_scipy(), lev1.A.to_scipy()),
+                R_vs_PT=rel_sparse(res["R"].to_scipy(), P.T.tocsr()))
+    print(f"{what}: level 0 by the generic-ELL setup on the card against "
+          f"the host pipeline: {res['nc']} C points, split equal: "
+          f"{same_split}; rel err P {errs['P']:.2e} (limit 1e-11), coarse A "
+          f"{errs['Ac']:.2e} (limit 1e-10), R - P^T {errs['R_vs_PT']:.1e}; "
+          f"{runs[0]} runs the same bits; whole setup "
+          f"{dev_s:.3f} s with level 0 on the card, {host_s:.3f} s by the "
+          f"host pipeline ({card}); stages "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["seconds"].items()),
+          flush=True)
+    if not (same_split and errs["P"] <= 1e-11 and errs["Ac"] <= 1e-10
+            and errs["R_vs_PT"] == 0.0):
+        fail(f"{what}: the card's ELL level 0 differs from the host "
+             "pipeline's")
+    return dict(rows=A.shape[0], nc=res["nc"], same_split=same_split,
+                same_bits_runs=runs[0], stages=res["seconds"],
+                setup_card_s=dev_s, setup_host_pipeline_s=host_s,
+                profile=prof, **errs)
+
+
+def gate3_ell_phase(side: int, card: str, counters) -> dict:
+    """(g) The gate-3 fixture at side^3 through the CLI: level 0 set up on
+    the card by the generic-ELL setup (fails otherwise, or if a level of
+    2^19 rows or more went to the host), K2 on every ELL level, golden
+    check, the count held to tpusolve's at 96^3; then
+    :func:`ell_against_host` on its operator (gate 3's phase runs it on
+    its own operator with the floors at 1 row)."""
+    from tpusolve_torch.amg.builder import DEVICE_MIN_N, ELL_NOTE
+    what = f"gate-3 {side}^3"
+    rc, system, wall, launches = run_gate3(side, counters, f"gate-3 ell "
+                                           f"{side}")
+    print(f"{what} ELL path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, what)
+    pre = system._precond
+    for line in pre.describe().splitlines()[1:]:
+        print(f"{what} hierarchy {line}", flush=True)
+    for line in pre.layouts():
+        print(f"{what} {line}", flush=True)
+    if ELL_NOTE not in pre.notes:
+        fail(f"{what}: level 0 was not set up by the generic-ELL setup "
+             f"(notes {pre.notes})")
+    check_ell_levels(pre, what)
+    check_launched(pre, launches, what)
+    timers = print_timers(system, what)
+    ref = TPUSOLVE_GATE3_ITERS_96 if side == 96 else None
+    print(f"{what}: {res.iters} GMRES iterations, relres "
+          f"{float(res.relres):.3e}, golden check PASSED; tpusolve (CPU, "
+          f"same fixture) {ref}; Preconditioner setup "
+          f"{timers['Preconditioner setup']:.3f} s ({card})", flush=True)
+    if ref is not None and res.iters != ref:
+        fail(f"{what} took {res.iters} GMRES iterations, tpusolve {ref}")
+    out = dict(iters=int(res.iters), relres=float(res.relres),
+               levels=[lev.n for lev in pre.levels], layouts=pre.layouts(),
+               stages=level_stages(pre), timers=timers, launches=launches,
+               card=card)
+    out["against_host"] = ell_against_host(system, what, card,
+                                           DEVICE_MIN_N)
+    system.destroy_system()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2678,7 +3038,7 @@ def fused_entry(name: str, kind: str, rows: list, launches: dict,
 
 def main(argv) -> int:
     t_start = time.perf_counter()
-    sides = {"--side": 96, "--side3": 64, "--side-ilu": 128}
+    sides = {"--side": 96, "--side3": 64, "--side-ilu": 64}
     it = iter(argv)
     for a in it:
         if a not in sides:
@@ -2710,6 +3070,10 @@ def main(argv) -> int:
     import yaml
     print(f"PyYAML {yaml.__version__}", flush=True)
 
+    # gate 4's fixture, the first a phase reads, is written during the
+    # kernel build and checks; the others from the gate-4 phase on
+    shutil.rmtree(FIXTURES, ignore_errors=True)
+    start_fixture_writers([(4, sides["--side"])])
     print(f"kernel build: {build.build_all():.3f} s", flush=True)
     from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
     from tpusolve_torch.kernels.bell import bell_spmv
@@ -2722,7 +3086,11 @@ def main(argv) -> int:
         print(f"chip_smoke: {what} done at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    shutil.rmtree(FIXTURES, ignore_errors=True)
+    # the ILU paths run at smaller depths than before phases (f) and (g)
+    # came (the gate-4 fixture as written at 64^3, gate 3 with ILU
+    # smoothing at 32^3, the stencil with ILU at 64^3 alone), so that the
+    # run keeps inside its time on a slow host
+    ell_side, st5_side = 64, 32
     worst4, worst5 = banded_check(device)
     worst4 = max(worst4, k4_launch_check(device))
     worst6 = bell_check(device)
@@ -2733,6 +3101,9 @@ def main(argv) -> int:
     phase_done("the kernel checks")
     model_constants()
     phase_done("the models' constants")
+    start_fixture_writers(sorted({(4, ell_side), (4, 32), (3, 96),
+                                  (3, sides["--side3"]), (3, st5_side),
+                                  (3, 32)} - set(WRITERS)))
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
                 box_restrict, box_restrict_residual, box_prolong_update,
@@ -2752,16 +3123,26 @@ def main(argv) -> int:
     phase_done("gates 1 and 2")
     ws = weakscale_phase(device_name, counters)
     phase_done("the weak-scaling cell")
+    ws256 = weakscale_large_phase(256, card, counters)
+    print(f"weakscale 256^3: port {ws256['iters']} PCG iterations, "
+          f"tpusolve (CPU, same YAML) {TPUSOLVE_WEAKSCALE_ITERS_256}",
+          flush=True)
+    if abs(ws256["iters"] - TPUSOLVE_WEAKSCALE_ITERS_256) > 1:
+        fail(f"weakscale 256^3 took {ws256['iters']} PCG iterations, not "
+             f"within one of tpusolve's {TPUSOLVE_WEAKSCALE_ITERS_256}")
+    phase_done("the weak-scaling cell at 256^3")
+    g3_ell = gate3_ell_phase(96, card, counters)
+    phase_done("gate 3 at 96^3 (generic-ELL setup)")
     # the ILU paths and the lifecycle's steps time no kernel by a trace
     # (calibrate.device_ms_each), which a long process can lose; their
     # factorization profiles count every device event of a trace
     st_ilu = stencil_ilu_phase(sides["--side-ilu"], card, counters)
     phase_done("the stencil ILU path")
-    g4_ell = gate4_ell_phase(sides["--side"], card, counters)
+    g4_ell = gate4_ell_phase(ell_side, card, counters)
     phase_done("the gate-4 ELL ILU path")
     ilu_opts = ilu_options_phase(32, counters)
     phase_done("the host ILU options")
-    st5 = gate3_ilu_smoother_phase(sides["--side3"], counters)
+    st5 = gate3_ilu_smoother_phase(st5_side, counters)
     phase_done("gate 3 with ILU smoothing")
     life = lifecycle_phase(32, device, counters)
     phase_done("the lifecycle's steps")
@@ -2772,7 +3153,9 @@ def main(argv) -> int:
              "ilu_options": ilu_opts["launches"], "gate3": l3,
              "gate3_ilu_smoother": st5["launches"],
              "gate3_rs": rs["launches"], "lifecycle": life["launches"],
-             "gate1": l1, "gate2": l2, "weakscale": ws["launches"]}
+             "gate1": l1, "gate2": l2, "weakscale": ws["launches"],
+             "weakscale_256": ws256["launches"],
+             "gate3_96_ell": g3_ell["launches"]}
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
     rows6_all = rows3 + ws["k6_rows"]
@@ -2897,7 +3280,9 @@ def main(argv) -> int:
         k: ws[k] for k in ("iters", "relres", "stages", "timers", "layouts",
                            "launches")}, "gate3": {
         k: g3[k] for k in ("iters", "timers", "launches")}, "gate3_rs": rs,
-        "device_setup_32": dev_rows, "ilu": {
+        "device_setup_32": dev_rows, "weakscale_256": ws256,
+        "gate3_96_ell": g3_ell,
+        "gate3_ell_against_host": g3["ell_against_host"], "ilu": {
             "stencil": st_ilu, "gate4_ell": g4_ell,
             "gate4_rcm_ell_trial": trial4, "options": ilu_opts,
             "gate3_ilu_smoother": st5, "lifecycle": life}})), flush=True)

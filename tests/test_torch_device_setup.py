@@ -4,15 +4,17 @@ tpusolve's ``device_level0`` and against the port's own host pipeline.
 On the 27-point stencil at 8^3, 12^3 and 16^3 in f64, for direct (3) and
 classical-modified (0) interpolation, the port's stages on the CPU give
 tpusolve's C/F split exactly and its P, R and coarse operator to 1e-12
-relative (tpusolve on the ``mesh1`` fixture with
+relative, each recording tpusolve's layout for them, ELL (tpusolve on the ``mesh1`` fixture with
 ``TPUSOLVE_PMIS_HOST_RANK=1`` and ``TPUSOLVE_DEVICE_SETUP_MIN_N=1``, set by
 ``monkeypatch``).  The hierarchy the port builds with its device level 0 is
 the one its host pipeline builds, on the box form and on an assembled 1-D
-DIA operator; ineligible configs and operators take the host pipeline, as
-in ``tests/test_device_setup.py``.  The CUDA cases hold the card's device
-setup against the host pipeline at 16^3 and 32^3, and the weak-scaling
-YAML's PCG count at 128^3 to the same 23 with either setup, in f32 and
-f64.
+DIA operator (with ``device_min_n=1`` the levels below recurse on the
+device by the generic-ELL setup, as ``tpusolve``'s do under
+``TPUSOLVE_DEVICE_SETUP_MIN_N=1``); ineligible configs and operators take
+the host pipeline, as in ``tests/test_device_setup.py``.  The CUDA cases
+hold the card's device setup against the host pipeline at 16^3 and 32^3,
+and the weak-scaling YAML's PCG count at 128^3 to the same 23 with either
+setup of level 0, in f32 and f64.
 """
 
 import numpy as np
@@ -20,7 +22,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from tpusolve_torch.amg import builder, device_setup
+from tpusolve_torch.amg import builder, device_setup, device_setup_ell
 from tpusolve_torch.config import BoomerAMGConfig
 from tpusolve_torch.krylov.cg import pcg_setup
 from tpusolve_torch.matrix.sharded import ShardedMatrix
@@ -30,6 +32,7 @@ CPU = torch.device("cpu")
 TOL = 1e-12
 DEVICE_NOTE = ("level 0 setup on device (DIA offset algebra: "
                "strength/PMIS/interp/RAP as shifted streaming ops)")
+RECURSION_NOTE = "coarse levels recursed on device (generic ELL setup)"
 
 
 def rel_diff(X, Y) -> float:
@@ -72,6 +75,10 @@ def test_level0_equals_tpusolve(tp, side, interp_type):
     np.testing.assert_array_equal(res["Cmask"].numpy(),
                                   np.asarray(res_t["Cmask"]))
     for key in ("P", "R", "Ac"):
+        # tpusolve's _ell_sharded makes them ELL; the port records that
+        assert not (res_t[key].uses_dia or res_t[key].uses_bdia
+                    or res_t[key].uses_bell)
+        assert res[key].uses_ell and res[key].tpusolve_layout == "ell", key
         M, M_t = res[key].to_scipy(), res_t[key].to_scipy()
         assert M.shape == M_t.shape
         assert pattern(M) == pattern(M_t), key
@@ -89,7 +96,9 @@ def test_level0_equals_tpusolve(tp, side, interp_type):
 
 
 def _hierarchies(A, cfg):
-    """(device level 0, all host) hierarchies of the port on ``A``."""
+    """(device, all host) hierarchies of the port on ``A``: with
+    ``device_min_n=1`` level 0 is set up by the DIA setup and the levels
+    below it by the generic-ELL one."""
     return (builder.boomeramg_setup(A, cfg, device_min_n=1),
             builder.boomeramg_setup(A, cfg, device_min_n=None))
 
@@ -102,9 +111,10 @@ def check_same_hierarchy(pre_d, pre_h, tol=TOL):
         if h.P is not None:
             assert rel_diff(d.P.to_scipy(), h.P.to_scipy()) <= tol
             assert rel_diff(d.R.to_scipy(), h.R.to_scipy()) <= tol
-    assert pre_d.notes == pre_h.notes + [DEVICE_NOTE]
+    assert pre_d.notes == pre_h.notes + [DEVICE_NOTE, RECURSION_NOTE]
     assert pre_h.setup_seconds == {}
     assert "host levels" in pre_d.setup_seconds
+    assert "level 1 strength+PMIS" in pre_d.setup_seconds
 
 
 @pytest.mark.parametrize("interp_type", [0, 3])
@@ -193,8 +203,13 @@ def test_ineligible_configs_take_host_pipeline():
     for kw in (dict(trunc_factor=0.2), dict(interp_type=6)):
         pre = builder.boomeramg_setup(
             A, BoomerAMGConfig(max_coarse_size=32, **kw), device_min_n=1)
-        assert DEVICE_NOTE not in pre.notes and pre.setup_seconds == {}
+        assert DEVICE_NOTE not in pre.notes
+        assert "strength+PMIS" not in pre.setup_seconds
         assert pre.num_levels >= 2
+        # extended+i is the generic-ELL setup's: level 1, an ELL operator
+        # with its host CSR, is set up on the device (tpusolve's recursion)
+        assert (RECURSION_NOTE in pre.notes) == ("interp_type" in kw)
+        assert (pre.setup_seconds == {}) == ("trunc_factor" in kw)
     B = ShardedMatrix.from_csr_host(A.to_scipy(), device=CPU,
                                     dtype=np.float64, allow_dia=False)
     assert not B.uses_dia
@@ -202,24 +217,25 @@ def test_ineligible_configs_take_host_pipeline():
 
 
 def test_ell_setup_note():
-    """Where tpusolve would run its generic-ELL device setup (a level of
-    2^19 rows or more with an ELL source), the port's host pipeline stands
-    in and says so."""
+    """The generic-ELL device setup's eligibility (``tpusolve``'s
+    ``device_setup_ell.eligible``) on the operators where the host pipeline
+    used to stand in: a DIA operator of 2^19 rows is eligible with its host
+    CSR (tpusolve stores it DIA, so its ELL source is the CSR), not without
+    one, nor for multipass interpolation; below the row floor only with a
+    floor lowered, and never with the floor off."""
     cfg = BoomerAMGConfig()
-    n = device_setup.ELL_MIN_N
+    n = device_setup_ell.MIN_DEVICE_N
     H = sp.diags([-1.0, 2.5, -1.0], [-7, 0, 7], shape=(n, n)).tocsr()
     A = ShardedMatrix.from_csr_host(H, device=CPU, dtype=np.float64)
-    assert A.uses_dia
-    assert device_setup.ell_setup_would_run(A, cfg, H)
-    assert not device_setup.ell_setup_would_run(A, cfg, None)
-    assert not device_setup.ell_setup_would_run(
+    assert A.uses_dia and A.tpusolve_layout == "dia"
+    assert device_setup_ell.eligible(A, cfg, H)
+    assert not device_setup_ell.eligible(A, cfg, None)
+    assert not device_setup_ell.eligible(
         A, BoomerAMGConfig(interp_type=4), H)
+    assert not device_setup_ell.eligible(A, cfg, H, min_n=None)
     small = ShardedMatrix.from_csr_host(H[:1000, :1000], device=CPU)
-    assert not device_setup.ell_setup_would_run(small, cfg, H[:1000, :1000])
-    notes = []
-    builder._note_ell_level(notes, 1)
-    builder._note_ell_level(notes, 1)
-    assert len(notes) == 1 and "item 16" in notes[0]
+    assert not device_setup_ell.eligible(small, cfg, H[:1000, :1000])
+    assert device_setup_ell.eligible(small, cfg, H[:1000, :1000], min_n=1)
 
 
 def test_pmis_rank_and_keys():
@@ -286,7 +302,7 @@ def test_weakscale_count_on_cuda_independent_of_setup(cuda, dtype):
         repo, "examples", "weakscale_pcg_boomeramg_devsetup.yaml"))
     ls, s = cfg.linear_system, cfg.solver
     A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, device=cuda, dtype=dtype)
-    for where, min_n in (("card", 1), ("host pipeline", None)):
+    for where, min_n in (("card", (1, None)), ("host pipeline", None)):
         torch.cuda.synchronize(cuda)
         t0 = time.perf_counter()
         pre = builder.boomeramg_setup(A, cfg.boomeramg, device_min_n=min_n)

@@ -292,13 +292,14 @@ def test_from_arrays_takes_the_cheaper_form(tp):
 
 @pytest.mark.parametrize("width", [9, 128, 129])
 def test_width_notes_read_row_width(width):
-    """ILU's device path and the AMG generic-ELL note read ``row_width``,
-    the largest count of entries a row has: on an operator in either form
-    they decide what they decided on the padded width."""
-    from tpusolve_torch.amg import device_setup
+    """ILU's device path and the AMG generic-ELL device setup's eligibility
+    read ``row_width``, the largest count of entries a row has: on an
+    operator in either form they decide what they decided on the padded
+    width."""
+    from tpusolve_torch.amg import device_setup_ell
     from tpusolve_torch.config import BoomerAMGConfig, ILUConfig
     from tpusolve_torch.ilu.device_setup import MAX_ELL_K, device_path
-    n = device_setup.ELL_MIN_N
+    n = device_setup_ell.MIN_DEVICE_N
     rng = np.random.default_rng(width)
     counts = np.full(n, 3)
     counts[rng.integers(0, n)] = width
@@ -315,23 +316,24 @@ def test_width_notes_read_row_width(width):
         seen.add(A.uses_ell_rowptr)
         assert (device_path(A, ILUConfig()) == "ell") == (
             width <= MAX_ELL_K)
-        assert device_setup.ell_setup_would_run(A, BoomerAMGConfig()) == (
-            width <= device_setup.ELL_MAX_K)
+        assert device_setup_ell.eligible(A, BoomerAMGConfig()) == (
+            width <= device_setup_ell.MAX_ELL_K)
     assert seen == {True}     # the model stores this operator row-pointer
     if width == 9:
         # the same on the padded form of the same entries
         Ap = dataclass_padded(A)
         assert not Ap.uses_ell_rowptr and Ap.diag_vals.shape[-1] == width
         assert device_path(Ap, ILUConfig()) == device_path(A, ILUConfig())
-        assert device_setup.ell_setup_would_run(Ap, BoomerAMGConfig())
+        assert device_setup_ell.eligible(Ap, BoomerAMGConfig())
 
 
 def test_width_notes_follow_tpusolves_layout():
     """The gate-4 fixture at 41^3 (68,921 rows, past ILU's device row floor)
     takes K2, but tpusolve lays it out BDIA: ILU's device path and the
-    AMG generic-ELL note decide what they decide on the BDIA layout
-    tpusolve gives it (no ELL device path), as before K2 was priced."""
-    from tpusolve_torch.amg import device_setup
+    AMG generic-ELL device setup's eligibility decide what they decide on
+    the BDIA layout tpusolve gives it (no ELL device path; the AMG setup's
+    ELL source then is the host CSR), as before K2 was priced."""
+    from tpusolve_torch.amg import device_setup_ell
     from tpusolve_torch.config import BoomerAMGConfig, ILUConfig
     from tpusolve_torch.ilu.device_setup import MAX_ELL_K, MIN_DEVICE_N, \
         device_path
@@ -344,11 +346,11 @@ def test_width_notes_follow_tpusolves_layout():
     assert device_path(A, ILUConfig()) is device_path(old, ILUConfig()) \
         is None
     cfg = BoomerAMGConfig()
-    assert device_setup.ell_setup_would_run(A, cfg) == \
-        device_setup.ell_setup_would_run(old, cfg) is False
+    assert device_setup_ell.eligible(A, cfg) == \
+        device_setup_ell.eligible(old, cfg) is False
     H = A.to_scipy()
-    assert device_setup.ell_setup_would_run(A, cfg, H) == \
-        device_setup.ell_setup_would_run(old, cfg, H)
+    assert device_setup_ell.eligible(A, cfg, H) == \
+        device_setup_ell.eligible(old, cfg, H)
 
 
 def dataclass_padded(A):

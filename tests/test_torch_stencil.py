@@ -6,7 +6,8 @@ the DIA planes, their (dz, dy, dx) triples (the decomposition of
 tpusolve's flat offsets, unambiguous at these widths), the RHS, the
 structured host payload and the host CSR are equal exactly, and the
 operator equals the scipy oracle.  Also: the process grid for 1 to 16
-parts, and the on-device generation, which is not ported.
+parts, and the one-part lattice dict (the on-device generator itself:
+``tests/test_torch_stencil_device.py``).
 """
 
 import numpy as np
@@ -111,8 +112,25 @@ def test_process_grid_equals_tpusolve(tp, nparts):
     assert compute_3d_process_distribution(nparts) == tp["c3d"](nparts)
 
 
-def test_device_generation_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        stencil.laplace27(8, 8, 8, device=CPU, with_lattice=True)
+def test_device_generation_not_ported(tp):
+    """The one-part lattice dict (``with_lattice``, on the host branch and
+    the device branch) equals tpusolve's; more than one part still raises
+    (item 18), and so does a process grid of no parts."""
+    A, _, _, lat = stencil.laplace27(10, 8, 6, device=CPU, with_lattice=True)
+    _, _, _, lat_t = tp["stencil"].laplace27(tp["mesh"], 10, 8, 6,
+                                             with_lattice=True)
+    assert set(lat) == set(lat_t) == {"stack", "offsets", "pgrid", "dims"}
+    np.testing.assert_array_equal(lat["stack"].numpy(),
+                                  np.asarray(lat_t["stack"]))
+    np.testing.assert_array_equal(lat["offsets"], lat_t["offsets"])
+    assert lat["pgrid"] == tuple(lat_t["pgrid"]) == (1, 1, 1)
+    assert lat["dims"] == lat_t["dims"] == (6, 8, 10)
+    _, _, _, lat_d = stencil.laplace27(10, 8, 6, device=CPU, on_device=True,
+                                       with_lattice=True)
+    assert torch.equal(lat_d["stack"], lat["stack"])
+    np.testing.assert_array_equal(lat_d["offsets"], lat["offsets"])
+    with pytest.raises(NotImplementedError, match="item 18"):
+        stencil.laplace27(8, 8, 8, device=CPU, pgrid=(2, 1, 1),
+                          with_lattice=True)
     with pytest.raises(ValueError):
         compute_3d_process_distribution(0)

@@ -5,14 +5,18 @@ Replacement for ``HYPRE_BoomerAMG{Create,Setup,Solve}`` and the setter
 surface the reference drives (src/HypreSystem.cpp:91-326):
 
 * **Setup** (strength -> PMIS coarsening -> interpolation -> Galerkin RAP).
-  A box-DIA level 0 of at least ``device_setup.MIN_DEVICE_N`` rows is set
-  up on its device in offset algebra (``amg/device_setup.py``), as
-  ``tpusolve`` sets it up on the TPU (``builder.py:236-281``); every other
-  level runs vectorized on the host, as ``tpusolve``'s host pipeline
-  (``builder.py:283-405``) does, on the native setup kernels
+  Level 0 is set up on its device where ``tpusolve`` sets it up on the TPU
+  (``builder.py:236-281``): a box-DIA operator of at least
+  ``device_setup.MIN_DEVICE_N`` rows in offset algebra
+  (``amg/device_setup.py``), else a generic-ELL one of at least
+  ``device_setup_ell.MIN_DEVICE_N`` (``amg/device_setup_ell.py``); every
+  level below that is eligible for the generic-ELL setup is set up on the
+  device too (``tpusolve``'s device recursion, ``builder.py:289-320``).
+  The other levels run vectorized on the host, as ``tpusolve``'s host
+  pipeline (``builder.py:283-405``) does, on the native setup kernels
   (``amg/spk.py``).  Square level operators take the layout the assembly
-  chooses (DIA, BDIA, BELL or ELL); P and R stay padded ELL (K2), and so
-  does the device setup's coarse operator.
+  chooses (DIA, BDIA, BELL or ELL); P and R are ELL (K2), and so are the
+  device setups' coarse operators.
 * **Cycling** (smooth -> restrict -> recurse -> prolong -> smooth) is a
   Python recursion over the levels; every SpMV runs its layout's kernel and
   the coarsest level applies a dense pseudo-inverse with ``torch.matmul``.
@@ -28,9 +32,7 @@ ILU smoothers on the finest ``smooth_num_levels`` levels (``smooth_type``
 
 Not ported, and raising ``NotImplementedError``: ``tpusolve``'s multi-part
 device setup (``lattice_parts``, item 18) and the bfloat16 smoother twin
-(``smoother_dtype: bfloat16``).  Where ``tpusolve`` would set a level up by
-its generic-ELL device setup (``amg/device_setup_ell.py``, item 16), the
-host pipeline stands in and ``describe()`` says so.
+(``smoother_dtype: bfloat16``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import torch
 
 from tpusolve_torch.amg import coarsen as coarsen_mod
 from tpusolve_torch.amg import device_setup
+from tpusolve_torch.amg import device_setup_ell
 from tpusolve_torch.amg import galerkin
 from tpusolve_torch.amg import interp as interp_mod
 from tpusolve_torch.amg import smoothers
@@ -59,6 +62,14 @@ from tpusolve_torch.matrix.vectors import (
 from tpusolve_torch.parts import row_decomposition
 
 _NOT_PORTED = "not ported yet; see ROADMAP.md Queue 1"
+# the row floors of the DIA and the generic-ELL device setups
+# (``boomeramg_setup``'s ``device_min_n``)
+DEVICE_MIN_N = (device_setup.MIN_DEVICE_N, device_setup_ell.MIN_DEVICE_N)
+DIA_NOTE = ("level 0 setup on device (DIA offset algebra: "
+            "strength/PMIS/interp/RAP as shifted streaming ops)")
+ELL_NOTE = ("level 0 setup on device (generic ELL: PMIS via "
+            "gather/scatter rounds, RAP as sort-based SpGEMM)")
+RECURSION_NOTE = "coarse levels recursed on device (generic ELL setup)"
 
 
 @dataclass
@@ -102,9 +113,13 @@ class AMGPreconditioner:
     notes: list[str]
     cycle: Callable | None = None    # z = cycle(r), one V- or W-cycle
     num_levels: int = 0
-    # wall seconds of the setup's stages (the device setup's, then the host
-    # levels'); empty when the host pipeline built every level
+    # wall seconds of the setup's stages (level 0's device stages, each
+    # later device level's as "level i <stage>", then the host levels');
+    # empty when the host pipeline built every level
     setup_seconds: dict = field(default_factory=dict)
+    # (level, rows) of each coarse operator a device setup built that was
+    # fetched to the host, for a host level or the coarsest solve
+    host_fetches: list = field(default_factory=list)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """z = (one AMG cycle)(r) from zero initial guess — the
@@ -196,15 +211,20 @@ def _check_ported(cfg: BoomerAMGConfig, lattice_parts) -> None:
 def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
                     *, A_host: sp.csr_matrix | None = None,
                     seed: int = 1234, lattice_parts=None,
-                    device_min_n: int | None = device_setup.MIN_DEVICE_N
+                    device_min_n: int | tuple | None = DEVICE_MIN_N
                     ) -> AMGPreconditioner:
     """Build the AMG hierarchy for ``A``.
 
     Level 0 is set up on A's device when ``device_setup.eligible`` holds
-    for ``A`` at ``device_min_n`` rows (None: never), every other level on
-    the host.  ``A_host`` may supply the host CSR (straight after file
-    load).  Set ``TPUSOLVE_SETUP_LOG=1`` for per-level phase timings (the
-    analog of BoomerAMG's setup print_level output)."""
+    for ``A`` (the DIA setup), or else ``device_setup_ell.eligible`` (the
+    generic-ELL setup), and each later level while
+    ``device_setup_ell.eligible`` holds for it; every other level on the
+    host.  ``device_min_n``: the row floors of the two device setups, a
+    (DIA, ELL) pair (by default each setup's own), one int for both, or
+    None (never on the device).  ``A_host`` may supply the host CSR
+    (straight after file load).  Set ``TPUSOLVE_SETUP_LOG=1`` for
+    per-level phase timings (the analog of BoomerAMG's setup print_level
+    output)."""
     log_on = os.environ.get("TPUSOLVE_SETUP_LOG", "0") == "1"
     log = (lambda s: print(s, flush=True)) if log_on else None
     _t = [time.perf_counter()]
@@ -215,6 +235,10 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
             print(f"    setup: {label:28s} {t - _t[0]:8.2f}s", flush=True)
             _t[0] = t
 
+    if device_min_n is None or isinstance(device_min_n, int):
+        dia_min = ell_min = device_min_n
+    else:
+        dia_min, ell_min = device_min_n
     cfg = config or BoomerAMGConfig()
     _check_ported(cfg, lattice_parts)
     device = A.device
@@ -239,21 +263,39 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
     levels: list[Level] = []
     A_sh = A
     Ah = None
-    Ah_fn = None       # the device setup's deferred coarse-CSR fetch
+    Ah_fn = None       # a device setup's deferred coarse-CSR fetch
     lvl_start = 0
     seconds = {}
+    fetches = []
+    t_device = 0.0     # wall seconds of the device levels below level 0
 
-    # --- level 0 on the device (amg/device_setup.py): a box-DIA operator
-    # runs strength/PMIS/interp/RAP in offset algebra, as tpusolve's TPU
-    # setup does, and hands the 8x smaller level 1 to the host pipeline
+    def host_csr(lvl):
+        """The level's host CSR, fetched from the device only when the host
+        pipeline needs it."""
+        nonlocal Ah
+        if Ah is None:
+            Ah = Ah_fn().tocsr()
+            fetches.append((lvl, Ah.shape[0]))
+        return Ah
+
+    # --- level 0 on the device: a box-DIA operator in offset algebra
+    # (amg/device_setup.py), else a generic-ELL one (amg/device_setup_ell.py)
     if A.shape[0] > max_coarse and cfg.max_levels > 1:
         res = None
-        if device_min_n is not None and device_setup.eligible(
-                A, cfg, min_n=device_min_n):
+        if dia_min is not None and device_setup.eligible(A, cfg,
+                                                         min_n=dia_min):
             if log_on:
                 print(f"  setup level 0 [device]: n={A.shape[0]} "
                       f"nnz={A.nnz}", flush=True)
             res = device_setup.device_level0(A, cfg, seed=seed, log=log)
+            dev_note = DIA_NOTE
+        elif device_setup_ell.eligible(A, cfg, A_host, min_n=ell_min):
+            if log_on:
+                print(f"  setup level 0 [device, generic ELL]: "
+                      f"n={A.shape[0]} nnz={A.nnz}", flush=True)
+            res = device_setup_ell.device_level0_ell(
+                A, cfg, A_host=A_host, seed=seed, log=log)
+            dev_note = ELL_NOTE
         if res is not None and res["nc"] >= min_coarse:
             levels.append(_make_level_device(A, res, kind_down, kind_up,
                                              cfg))
@@ -261,8 +303,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
             A_sh = res["Ac"]
             lvl_start = 1
             seconds.update(res["seconds"])
-            notes.append("level 0 setup on device (DIA offset algebra: "
-                         "strength/PMIS/interp/RAP as shifted streaming ops)")
+            notes.append(dev_note)
             if cfg.coarsen_type != 8:
                 notes.append(f"device setup: coarsen_type "
                              f"{cfg.coarsen_type} runs PMIS (as in hypre's "
@@ -276,10 +317,33 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
         n = A_sh.shape[0]
         if n <= max_coarse or lvl == cfg.max_levels - 1:
             break
-        if Ah is None:
-            Ah = Ah_fn().tocsr()
-        if device_setup.ell_setup_would_run(A_sh, cfg, Ah):
-            _note_ell_level(notes, lvl)
+        # device recursion: a level the generic-ELL setup takes runs on the
+        # device, its host CSR (if any) dropped for the deferred fetch
+        if device_setup_ell.eligible(A_sh, cfg, Ah, min_n=ell_min):
+            if log_on:
+                print(f"  setup level {lvl} [device, generic ELL]: n={n} "
+                      f"nnz={A_sh.nnz}", flush=True)
+            t_lvl = time.perf_counter()
+            res = device_setup_ell.device_level0_ell(
+                A_sh, cfg, A_host=Ah, seed=seed + lvl, log=log)
+            if res is not None:
+                if res["nc"] < min_coarse:
+                    break     # next grid would be below min_coarse_size
+                levels.append(_make_level_device(A_sh, res, kind_down,
+                                                 kind_up, cfg))
+                seconds.update({f"level {lvl} {k}": v
+                                for k, v in res["seconds"].items()})
+                Ah = None
+                Ah_fn = res["Ah_c_fn"]
+                A_sh = res["Ac"]
+                if RECURSION_NOTE not in notes:
+                    notes.append(RECURSION_NOTE)
+                t_device += time.perf_counter() - t_lvl
+                continue
+            # res None: coarsening stalled on the device; the host stages
+            # below reach the same conclusion and stop
+            t_device += time.perf_counter() - t_lvl
+        Ah = host_csr(lvl)
         if log_on:
             print(f"  setup level {lvl}: n={n} nnz={Ah.nnz}", flush=True)
         _t[0] = time.perf_counter()
@@ -347,8 +411,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
         _phase("coarse A device assembly")
 
     # coarsest level: dense (pseudo)inverse or relaxation sweeps
-    if Ah is None:
-        Ah = Ah_fn().tocsr()
+    Ah = host_csr(len(levels))
     kind_coarse, coarse_sweeps = _guard_coarse(kind_coarse, Ah.shape[0],
                                                cfg, notes)
     lev = _make_level(A_sh, Ah, dtype, kind_down, kind_up, cfg,
@@ -356,11 +419,11 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
     levels.append(lev)
     coarse_inv = _coarse_solver_data(Ah, A_sh, dtype, kind_coarse)
     if seconds:
-        seconds["host levels"] = time.perf_counter() - t_host
+        seconds["host levels"] = time.perf_counter() - t_host - t_device
 
     pre = AMGPreconditioner(levels=levels, coarse_inv=coarse_inv, config=cfg,
                             notes=notes, num_levels=len(levels),
-                            setup_seconds=seconds)
+                            setup_seconds=seconds, host_fetches=fetches)
     pre.cycle = _build_cycle(pre, kind_down, kind_up, cfg,
                              kind_coarse=kind_coarse,
                              coarse_sweeps=coarse_sweeps)
@@ -399,16 +462,6 @@ def _attach_ilu_smoother(lev: Level, A_sh, Ah, dtype, cfg, notes) -> None:
         col_offsets=ro)
     lev.ilu_dinv = to_device_vector(1.0 / ujj, ro, A_sh.row_pad,
                                     A_sh.device, dtype=dtype)
-
-
-def _note_ell_level(notes: list, lvl: int) -> None:
-    """Record that ``tpusolve`` would set level ``lvl`` up on its device by
-    its generic-ELL setup, which the port has not (item 16)."""
-    note = (f"level {lvl} setup on the host: tpusolve runs its generic-ELL "
-            "device setup here (amg/device_setup_ell.py), not ported yet; "
-            "see ROADMAP.md Queue 1, item 16")
-    if note not in notes:
-        notes.append(note)
 
 
 def hierarchy_from_arrays(levels: list[dict], coarse_inv: np.ndarray,
@@ -475,7 +528,7 @@ def _coarse_solver_data(Ah, A_sh, dtype, kind_coarse) -> torch.Tensor:
 
 
 def _make_level_device(A_sh, res, kind_down, kind_up, cfg) -> Level:
-    """Level 0 from the device setup's results, without a host CSR: the
+    """A level from a device setup's results, without a host CSR: the
     Chebyshev bounds by power iteration on the device."""
     kinds = (kind_down, kind_up)
     dinv_l1 = (res["dinv_l1"] if smoothers.RELAX_L1_JACOBI in kinds

@@ -18,10 +18,12 @@ until the compaction at the end:
   (D^3 terms; ``tpusolve`` runs them as one ``lax.scan`` over a term
   table, the port as one ``addcmul_`` a term into the coarse planes).
 
-P, R and the coarse operator are then packed into padded-ELL
-``ShardedMatrix`` operators on the device, and a host CSR of the coarse
-operator is fetched on demand, so that the levels below go through the
-host pipeline (``amg/builder.py``).
+P, R and the coarse operator are then packed into ELL ``ShardedMatrix``
+operators on the device (``tpusolve``'s layout for them, ELL, recorded),
+and a host CSR of the coarse operator is fetched on demand, when a level
+below goes through the host pipeline (``amg/builder.py``); one that is
+large enough is set up on the device by the generic-ELL setup
+(``amg/device_setup_ell.py``).
 
 The stages mirror ``amg/{strength,coarsen,interp,galerkin}.py`` (the same
 formulas, and the PMIS tie-break ranks drawn from the same seeded host
@@ -61,11 +63,6 @@ from tpusolve_torch.matrix.spmv import spmv
 MIN_DEVICE_N = 1 << 16
 # offset-count guard: the RAP term count grows as D^3
 MAX_DEVICE_OFFSETS = 40
-# ``tpusolve``'s generic-ELL device setup (amg/device_setup_ell.py:55, :64),
-# which the port does not have: where it would run, the host pipeline
-# stands in and says so (:func:`ell_setup_would_run`)
-ELL_MIN_N = 1 << 19
-ELL_MAX_K = 128
 # rows a pack step handles at once (bounds the (D, rows) temporaries)
 PACK_ROWS = 1 << 16
 
@@ -108,26 +105,6 @@ def eligible(A: ShardedMatrix, cfg, min_n: int = MIN_DEVICE_N) -> bool:
             or (0, 0, 0) not in A.dia_offsets:
         return False
     return config_eligible(cfg)
-
-
-def ell_setup_would_run(A: ShardedMatrix, cfg, A_host=None) -> bool:
-    """Whether ``tpusolve`` would set this level up by its generic-ELL device
-    setup (``amg/device_setup_ell.py:eligible``, one part): a square
-    operator of ``ELL_MIN_N`` to 2**31 rows, an ELL source of at most
-    ``ELL_MAX_K`` entries a row (its ELL layout, or else the host CSR),
-    and interpolation 0, 3 or 6.  It reads the layout ``tpusolve`` gives
-    ``A``: an ELL operator that K2's pricing took from BDIA or BELL
-    (``A.priced_over``) is not ELL there."""
-    n = A.shape[0]
-    if A.shape[0] != A.shape[1] or not ELL_MIN_N <= n < 2 ** 31:
-        return False
-    if A.uses_ell and A.priced_over is None:
-        if A.row_width > ELL_MAX_K:
-            return False
-    elif A_host is None or int(np.diff(
-            A_host.tocsr().indptr).max(initial=0)) > ELL_MAX_K:
-        return False
-    return config_eligible(cfg, interp_types=(0, 3, 6))
 
 
 # ----------------------------------------------------------------------
@@ -424,12 +401,14 @@ def _ell_matrix(shape, planes, cols_of, K: int, width: int, diag,
     (columns by ``cols_of``, as :func:`_pack_ell` takes them) with ``nnz``
     nonzeros, at most ``width`` a row, in the form K2's model prices
     cheaper (``matrix/sharded.py:ell_form``): padded to ``K`` slots
-    (:func:`_pack_ell`) or row-pointer (:func:`_pack_rowptr`)."""
+    (:func:`_pack_ell`) or row-pointer (:func:`_pack_rowptr`).  It records
+    ``tpusolve``'s layout, ELL (``_ell_sharded`` there), in either form."""
     nr, nc = int(shape[0]), int(shape[1])
     fields = dict(bdia_vals=None, bdia_starts=None, bell_vals=None,
                   bell_ids=None, diag=diag[None], shape=(nr, nc),
                   row_offsets=(0, nr), col_offsets=(0, nc), row_pad=nr,
-                  col_pad=nc, nnz=int(nnz), row_width=int(width))
+                  col_pad=nc, nnz=int(nnz), row_width=int(width),
+                  tpusolve_layout="ell")
     if ell_form(nr, nc, K, int(nnz), planes.element_size(),
                 width)[0] == "padded":
         vals, cols = _pack_ell(planes, cols_of, K)
@@ -552,28 +531,35 @@ def device_level0(A: ShardedMatrix, cfg, seed: int = 1234, log=None):
     del Dv
     stage("coarse A compaction")
 
-    def fetch_coarse_csr() -> sp.csr_matrix:
-        """The coarse operator as host CSR in f64, indices sorted (the ELL
-        entries are in plane order)."""
-        if Ac_sh.uses_ell_rowptr:
-            indptr = Ac_sh.ell_rowptr[0].cpu().numpy().astype(np.int64)
-            v = Ac_sh.ell_vals[0, :indptr[-1]].cpu().numpy()
-            c = Ac_sh.ell_cols[0, :indptr[-1]].cpu().numpy()
-        else:
-            v = Ac_sh.diag_vals[0].cpu().numpy()
-            c = Ac_sh.diag_cols[0].cpu().numpy()
-            mask = v != 0
-            indptr = np.zeros(nc + 1, np.int64)
-            np.cumsum(mask.sum(axis=1), out=indptr[1:])
-            v, c = v[mask], c[mask]
-        Ah = sp.csr_matrix((v.astype(np.float64), c.astype(np.int64),
-                            indptr), shape=(nc, nc))
-        Ah.sort_indices()
-        return Ah
-
     return dict(Cmask=cflat, nc=nc, P=P_sh, R=R_sh, Ac=Ac_sh,
-                Ah_c_fn=fetch_coarse_csr, dinv=dinv, dinv_l1=dinv_l1,
+                Ah_c_fn=lambda: host_csr(Ac_sh), dinv=dinv, dinv_l1=dinv_l1,
                 seconds=seconds)
+
+
+def host_csr(M: ShardedMatrix) -> sp.csr_matrix:
+    """A one-part ELL operator (either form) as a host CSR in f64, its
+    nonzeros only, indices sorted (``tpusolve``'s ``_fetch_coarse_csr``:
+    compacted on the device, then fetched)."""
+    nr, ncols = M.shape
+    if M.uses_ell_rowptr:
+        ptr = M.ell_rowptr[0]
+        v, c = M.ell_vals[0, :int(ptr[-1])], M.ell_cols[0, :int(ptr[-1])]
+        row = torch.repeat_interleave(torch.arange(nr, device=v.device),
+                                      (ptr[1:nr + 1] - ptr[:nr]).long())
+    else:
+        v = M.diag_vals[0, :nr].reshape(-1)
+        c = M.diag_cols[0, :nr].reshape(-1)
+        row = torch.arange(nr, device=v.device).repeat_interleave(
+            M.diag_vals.shape[-1])
+    live = v != 0
+    counts = torch.bincount(row[live], minlength=nr).cpu().numpy()
+    v, c = v[live].cpu().numpy(), c[live].cpu().numpy()
+    indptr = np.zeros(nr + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    Ah = sp.csr_matrix((v.astype(np.float64), c.astype(np.int64), indptr),
+                       shape=(nr, ncols))
+    Ah.sort_indices()
+    return Ah
 
 
 def power_lambda(A: ShardedMatrix, dinv: torch.Tensor, iters: int = 20,

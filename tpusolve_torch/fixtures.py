@@ -21,7 +21,8 @@ writers write the same files as ``tools/gatefix.py`` for the same arguments.
 
 writes the fixture of gate GATE (3 or 4, default 4) at SIDE^3 (default 48)
 and its YAML, and prints the YAML's path.  ``STENCIL_ILU_YAML`` and
-``ILU_OPTIONS`` are the templates of the ILU paths beside them.
+``ILU_OPTIONS`` are the templates of the ILU paths beside them, and
+``WEAKSCALE_YAML`` the weak-scaling example's text at any box.
 """
 
 from __future__ import annotations
@@ -199,6 +200,34 @@ ilu_preconditioner_settings:
   ilu_upper_jacobi_iters: 5
 """
 
+WEAKSCALE_YAML = """\
+# Weak scaling with the SHARDED DEVICE AMG SETUP
+# (amg/device_setup_sharded.py): one 27-pt box per chip, PCG + BoomerAMG;
+# the fine level's strength/PMIS/interp/RAP run on the device mesh itself
+# with ppermute halo exchanges (the analog of the reference's on-device
+# distributed BoomerAMGSetup, src/HypreSystem.cpp:692).
+linear_system:
+  type: build_27pt_stencil
+  nx: {side}
+  ny: {side}
+  nz: {side}
+  rtol: 1.0e-4
+  atol: 1.0e-5
+solver_settings:
+  method: cg
+  preconditioner: boomeramg
+  tolerance: 1.0e-6
+  max_iterations: 200
+  precision: single
+boomeramg_settings:
+  coarsen_type: 8           # PMIS
+  interp_type: 0            # classical-modified
+  strong_threshold: 0.57
+  relax_type: 18            # l1-Jacobi
+  max_coarse_size: 512
+  max_levels: 8
+"""
+
 # the host ILU options, each on its own (ilu_preconditioner_settings keys):
 # ILU(1), ILUT (ILU(0) with a drop and a row cap that both bite) and RCM
 # local reordering
@@ -248,6 +277,15 @@ def write_gate3(dirpath: str, side: int, **sections) -> str:
     m, r, s, _ = write_pressure_mm(dirpath, side, side, side)
     return _write_yaml(dirpath, "gate3.yaml", with_settings(
         GATE3_YAML.format(mat=m, rhs=r, sln=s), **sections))
+
+
+def write_weakscale(dirpath: str, side: int) -> str:
+    """Write ``examples/weakscale_pcg_boomeramg_devsetup.yaml`` with its box
+    at side^3 (no data files: the YAML generates the system); returns its
+    path."""
+    os.makedirs(dirpath, exist_ok=True)
+    return _write_yaml(dirpath, "weakscale.yaml",
+                       WEAKSCALE_YAML.format(side=side))
 
 
 def write_stencil_ilu(dirpath: str, side: int, **sections) -> str:

@@ -267,8 +267,12 @@ class LinearSystem:
         PFMG takes the generator's structured payload; BoomerAMG whose level
         0 is set up on the device (:meth:`_device_amg`) needs no host CSR;
         other host setups (BoomerAMG, ILU) take the host CSR; else the
-        operator alone.  ``tpusolve``'s multi-part lattice branch (item 18)
-        and on-device generation (item 15) are not ported."""
+        operator alone.  The device-setup and operator-only branches
+        generate the planes on the device by ``tpusolve``'s rule
+        (``stencil.generates_on_device``: a plane stack of 128 MB or more on
+        a device that is not the CPU); the PFMG and host-CSR branches build
+        them on the host, as there.
+        ``tpusolve``'s multi-part lattice branch waits for item 18."""
         ls = self.config.linear_system
         with self.timers.span("Build 27Pt Stencil HYPRE matrix"):
             if self._precond_name == "pfmg" and min(ls.nx, ls.ny) >= 3:

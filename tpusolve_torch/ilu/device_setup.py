@@ -347,22 +347,27 @@ def ilu_widths(vals: torch.Tensor, cols: torch.Tensor) -> tuple:
     return kl, ku
 
 
-def from_device_ell_parts(shape, vals: torch.Tensor,
-                          cols: torch.Tensor) -> ShardedMatrix:
-    """A one-part square ELL ShardedMatrix from padded (row_pad, K) values
+def from_device_ell_parts(shape, vals: torch.Tensor, cols: torch.Tensor,
+                          diag: torch.Tensor | None = None,
+                          nnz: int | None = None) -> ShardedMatrix:
+    """A one-part ELL ShardedMatrix of ``shape`` from padded (rows, K) values
     and local columns on the device (``tpusolve``'s
-    ``ShardedMatrix.from_device_ell_parts``; zero-valued slots are padding),
-    in the form K2's model prices cheaper (``with_ell_form``); its main
-    diagonal 1, as there."""
-    n = int(shape[0])
+    ``ShardedMatrix.from_device_ell_parts`` and ``_ell_sharded``;
+    zero-valued slots are padding), in the form K2's model prices cheaper
+    (``with_ell_form``), recording ``tpusolve``'s layout, ELL.  Its main
+    diagonal ``diag`` (1, as there, by default) and ``nnz`` (the count of
+    nonzero values by default)."""
+    nr, ncols = int(shape[0]), int(shape[1])
     vals = torch.where(vals != 0, vals, 0)
-    cols = torch.where(vals != 0, cols, 0)
+    cols = torch.where(vals != 0, cols, 0).to(torch.int32)
+    if diag is None:
+        diag = torch.ones(vals.shape[0], dtype=vals.dtype, device=vals.device)
     A = ShardedMatrix(
         diag_vals=vals[None].contiguous(), diag_cols=cols[None].contiguous(),
         bdia_vals=None, bdia_starts=None, bell_vals=None, bell_ids=None,
-        diag=torch.ones((1, n), dtype=vals.dtype, device=vals.device),
-        shape=(n, n), row_offsets=(0, n), col_offsets=(0, n), row_pad=n,
-        col_pad=n, nnz=int(torch.count_nonzero(vals)),
+        diag=diag[None], shape=(nr, ncols), row_offsets=(0, nr),
+        col_offsets=(0, ncols), row_pad=vals.shape[0], col_pad=ncols,
+        nnz=int(torch.count_nonzero(vals)) if nnz is None else int(nnz),
         tpusolve_layout="ell")
     return A.with_ell_form()
 

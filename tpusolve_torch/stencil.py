@@ -1,5 +1,5 @@
 """27-point 3-D Laplacian weak-scaling generator (the port of
-``tpusolve/stencil.py``, its host branches).
+``tpusolve/stencil.py``, one part).
 
 Rebuild of the reference's HIP-only generator (``build_27pt_stencil``, ref:
 src/HypreSystem.cpp:1323-1608, device kernels in
@@ -13,23 +13,31 @@ everywhere.
 Global row ordering is block-by-part with x-fastest lexicographic order
 inside each box.  The port carries one part (``parts.require_single_part``),
 so the process grid is (1, 1, 1) and the diag block is the whole operator.
-Generation is vectorized NumPy on the host; the box DIA planes go to the
-device once.  The DIA fast path hands ``ShardedMatrix.from_dia_parts`` the
+The box DIA planes are generated either on the host (vectorized NumPy, then
+copied to the device once) or on the device itself (:func:`_dia_box_device`:
+masks from ``arange`` comparisons, no host table of the box's size), by
+``tpusolve``'s rule (:func:`laplace27`'s ``on_device``); both give the same
+bits.  The DIA fast path hands ``ShardedMatrix.from_dia_parts`` the
 (dz, dy, dx) triples of its planes, so nothing turns a flat offset back into
-a triple.  On-device generation (``tpusolve``'s ``_dia_box_device*`` and
-``with_lattice``) is not ported and raises.
+a triple.  ``tpusolve``'s multi-part device generator
+(``_dia_box_device_sharded``) waits for ROADMAP.md Queue 1, item 18.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpusolve_torch.matrix.sharded import ShardedMatrix
-from tpusolve_torch.matrix.vectors import to_device_vector
+from tpusolve_torch.matrix.vectors import (
+    numpy_dtype, to_device_vector, torch_dtype)
 from tpusolve_torch.parts import compute_3d_process_distribution
 
-_DEVICE_ITEM = ("on-device stencil generation: not ported yet; see "
-                "ROADMAP.md Queue 1 item 15")
+_LATTICE_PARTS_ITEM = ("multi-part lattice stacks (with_lattice): not ported "
+                       "yet; see ROADMAP.md Queue 1, item 18")
+# tpusolve generates the planes on the device from a plane stack of this
+# many bytes (tpusolve/stencil.py:333-338)
+DEVICE_MIN_BYTES = 128 << 20
 
 _OFFSETS = np.array([(dx, dy, dz)
                      for dz in (-1, 0, 1)
@@ -121,6 +129,87 @@ def _dia_box(nx, ny, nz, dtype):
     return offs[order], dia[order].reshape(27, nx * ny * nz)
 
 
+def _dia_box_device(nx, ny, nz, dtype, device):
+    """On-device twin of :func:`_dia_box` and the one-part RHS
+    (``tpusolve``'s ``_dia_box_device``): ``(offsets, gen)``, where
+    ``gen()`` returns the (27, box) planes and the (box,) RHS as tensors on
+    ``device``.  Each plane's mask comes from ``arange`` comparisons, in the
+    planes' sorted order, with the values -1, 26 and 0 (exact in any float),
+    so the planes are :func:`_dia_box`'s bit for bit; the RHS is ``26 -
+    count`` (one part: a neighbour in the box is one in the domain).  No
+    host table of the box's size is built."""
+    offs = np.array([dz * ny * nx + dy * nx + dx
+                     for dx, dy, dz in _OFFSETS], np.int64)
+    order = np.argsort(offs)
+    tdt = torch_dtype(numpy_dtype(dtype))
+
+    def gen():
+        ix = torch.arange(nx, device=device)
+        iy = torch.arange(ny, device=device)
+        iz = torch.arange(nz, device=device)
+        dia = torch.empty((27, nz, ny, nx), dtype=tdt, device=device)
+        count = torch.zeros((nz, ny, nx), dtype=tdt, device=device)
+        for k, kk in enumerate(order):
+            dx, dy, dz = (int(c) for c in _OFFSETS[kk])
+            if dx == dy == dz == 0:
+                dia[k] = 26.0
+                continue
+            m = (((iz + dz >= 0) & (iz + dz < nz))[:, None, None]
+                 & ((iy + dy >= 0) & (iy + dy < ny))[None, :, None]
+                 & ((ix + dx >= 0) & (ix + dx < nx))[None, None, :])
+            dia[k].zero_()
+            dia[k].masked_fill_(m, -1.0)
+            count += m
+        rhs = (26.0 - count).reshape(-1)
+        return dia.reshape(27, nx * ny * nz), rhs
+
+    return offs[order], gen
+
+
+def _dia_box_lattice(part, nx, ny, nz, pgrid, dtype):
+    """Full-lattice DIA planes for one part: like ``_dia_box`` but masked by
+    the GLOBAL domain, so couplings crossing part seams are included (the
+    entries the box-consistent diag block zeroes and stores as offd).  This
+    is the operator view the sharded device setup consumes
+    (amg/device_setup_sharded.py): every part sees its true lattice rows
+    and neighbor data arrives via halo exchange."""
+    px, py, pz = pgrid
+    ipx, ipy, ipz = part_to_grid(part, pgrid)
+    gx0, gy0, gz0 = ipx * nx, ipy * ny, ipz * nz
+    gx_max, gy_max, gz_max = px * nx, py * ny, pz * nz
+    ix = np.arange(nx)
+    iy = np.arange(ny)
+    iz = np.arange(nz)
+    offs = np.array([dz * ny * nx + dy * nx + dx
+                     for dx, dy, dz in _OFFSETS], np.int64)
+    order = np.argsort(offs)
+    planes = np.zeros((27, nz, ny, nx), dtype)
+    for k, kk in enumerate(order):
+        dx, dy, dz = _OFFSETS[kk]
+        if dx == dy == dz == 0:
+            planes[k] = 26.0
+            continue
+        m = (((gz0 + iz + dz >= 0) & (gz0 + iz + dz < gz_max))[:, None, None]
+             & ((gy0 + iy + dy >= 0)
+                & (gy0 + iy + dy < gy_max))[None, :, None]
+             & ((gx0 + ix + dx >= 0)
+                & (gx0 + ix + dx < gx_max))[None, None, :])
+        planes[k][m] = -1.0
+    return offs[order], planes
+
+
+def generates_on_device(nx, ny, nz, dtype, device, with_host=False,
+                        with_parts=False) -> bool:
+    """``tpusolve``'s auto rule for on-device generation
+    (``tpusolve/stencil.py:333-338``): nx, ny >= 3, no host payload, a
+    27-plane stack of at least ``DEVICE_MIN_BYTES`` and a device that is not
+    the CPU."""
+    box = nx * ny * nz
+    return (nx >= 3 and ny >= 3 and not with_host and not with_parts
+            and box * 27 * np.dtype(dtype).itemsize >= DEVICE_MIN_BYTES
+            and torch.device(device).type != "cpu")
+
+
 def _dia_box_triples(nx, ny, nz) -> tuple:
     """The (dz, dy, dx) triple of each plane :func:`_dia_box` returns, in its
     order (ascending flat offset, unique for nx, ny >= 3)."""
@@ -184,7 +273,7 @@ def _local_offd_and_rhs(part, nx, ny, nz, pgrid, dtype):
 def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
               dtype=np.float64, pgrid: tuple[int, int, int] | None = None,
               with_host: bool = False, with_parts: bool = False,
-              with_lattice: bool = False):
+              on_device: bool | None = None, with_lattice: bool = False):
     """Build the 27-pt system of one part on ``device``.
 
     Returns ``(A, b, x_ref)``: the matrix, the padded RHS and the padded
@@ -193,18 +282,51 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
     setup); ``with_parts=True`` appends the structured (dia dict, offd
     parts) payload instead, for ``structured_mg_setup_fast``.  The DIA fast
     path needs nx, ny >= 3; smaller boxes take the COO path (``tpusolve``:
-    tiny boxes can alias DIA offsets).  ``with_lattice`` (the device setup's
-    plane stacks) is not ported."""
-    if with_lattice:
-        raise NotImplementedError(_DEVICE_ITEM)
+    tiny boxes can alias DIA offsets).
+
+    ``on_device`` (``tpusolve``'s ``device``) generates the planes and the
+    RHS on ``device`` (:func:`_dia_box_device`); None decides by
+    :func:`generates_on_device`, and True with a host payload or a box under
+    3 x 3 raises ``ValueError``.  ``with_lattice=True`` appends
+    ``tpusolve``'s lattice dict (``stack`` (1, 27, nz, ny, nx) on
+    ``device``, ``offsets``, ``pgrid``, ``dims``) on either branch; more
+    than one part raises (item 18)."""
     nparts = 1
     if pgrid is None:
         pgrid = compute_3d_process_distribution(nparts)
     px, py, pz = pgrid
+    if with_lattice and px * py * pz > 1:
+        raise NotImplementedError(_LATTICE_PARTS_ITEM)
     if px * py * pz != nparts:
         raise ValueError(f"process grid {pgrid} != part count {nparts}")
     box = nx * ny * nz
     n = box * nparts
+
+    if on_device is None:
+        on_device = generates_on_device(nx, ny, nz, dtype, device,
+                                        with_host, with_parts)
+    if on_device:
+        if nx < 3 or ny < 3 or with_host or with_parts:
+            raise ValueError("device stencil generation requires nx/ny >= 3 "
+                             "and no host payloads")
+        offs, gen = _dia_box_device(nx, ny, nz, dtype, device)
+        dia_dev, rhs = gen()
+        # the analytic diag-block nnz: each axis shift c in {-1, 0, 1}
+        # keeps n_d - |c| planes, so prod_d (3 n_d - 2); the planes go in as
+        # a view, with no second copy of the stack
+        A = ShardedMatrix.from_dia_parts(
+            (n, n), _dia_box_triples(nx, ny, nz), dia_dev[None],
+            [(np.zeros(0, np.int64), np.zeros(0, np.int64),
+              np.zeros(0, dtype))], device=device, dtype=dtype,
+            dia_shape=(nz, ny, nx),
+            dia_nnz=nparts * (3 * nz - 2) * (3 * ny - 2) * (3 * nx - 2))
+        x_ref = torch.ones(n, dtype=rhs.dtype, device=rhs.device)
+        if with_lattice:
+            # no seams on one part: the lattice is the box planes
+            return A, rhs, x_ref, dict(
+                stack=A.dia_vals, offsets=offs, pgrid=pgrid,
+                dims=(nz, ny, nx))
+        return A, rhs, x_ref
 
     parts = None
     if nx >= 3 and ny >= 3:
@@ -222,6 +344,14 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
         if with_parts:
             host_parts = (_dia_arrays_to_dict(offs, dia_one, (nz, ny, nx)),
                           offd_parts)
+        if with_lattice:
+            # full-lattice plane stacks (seam couplings included), one a part
+            stacks = np.stack([
+                _dia_box_lattice(p, nx, ny, nz, pgrid, dtype)[1]
+                for p in range(nparts)])
+            lattice = dict(
+                stack=torch.from_numpy(stacks).to(device), offsets=offs,
+                pgrid=pgrid, dims=(nz, ny, nx))
     else:
         # tiny boxes can alias DIA offsets; use the generic COO path
         parts, rhs_parts = [], []
@@ -236,6 +366,11 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
                          dtype=dtype)
     x_ref = to_device_vector(np.ones(n, dtype), A.row_offsets, A.row_pad,
                              device, dtype=dtype)
+    if with_lattice:
+        if parts is not None:
+            raise ValueError("with_lattice requires the DIA fast path "
+                             "(nx, ny >= 3)")
+        return A, b, x_ref, lattice
     if with_parts:
         if parts is not None:
             raise ValueError("with_parts requires the DIA fast path "
