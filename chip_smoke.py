@@ -78,12 +78,13 @@ toolkit (nvcc) and PyTorch built for CUDA:
    then one warm solve under
    ``torch.profiler``: device operations and device time by kernel class
    (K1, K3, ...), K1's launches by form, and the device's idle share;
-7. gate 2: ``examples/gate2_weakscale_gmres_cheby.yaml`` as it is (128^3 =
-   2,097,152 rows, ``single``, GMRES(20) + Chebyshev-smoothed PFMG) through
-   the CLI, then the same K1, K3 and fused checks and timings at its five
-   levels
-   and four transitions, its warm-solve profile, and K1 on a 4-wide coarse
-   box against the exact CSR product;
+7. gate 2: ``examples/gate2_weakscale_gmres_cheby.yaml`` with its box at
+   64^3 (262,144 rows; 128^3 before the coupled and bf16 phases came, so
+   that the run keeps inside its time on a slow host; ``single``,
+   GMRES(20) + Chebyshev-smoothed PFMG) through the CLI, then the same K1,
+   K3 and fused checks and timings at its four levels and three
+   transitions, its warm-solve profile, and K1 on a 4-wide coarse box
+   against the exact CSR product;
 8. (run right after step 3's checks, before gate 4) the device AMG setup
    against the host pipeline: level 0 of the 32^3
    stencil in f64 set up on the card (``amg/device_setup.py``, its row
@@ -163,6 +164,35 @@ Between steps 9 and 11, the generic-ELL device setup
    device operations, busy time and idle share (on the 64^3 operator in
    step 5's run).
 
+Right after step 4, early in the process, where the traces they time by
+keep their device events, the coupled multi-component solve and the
+bfloat16 smoother twin:
+
+(h) gate 4's three momentum components (``fixtures.GATE4_YAML_3COMP`` at
+   96^3 with ``segregated_solve: no`` and RCM) through the CLI: one
+   solver call on the stacked right-hand sides, the golden check on each
+   component, A and A_lo on K2 and L, U on K5 (it fails otherwise), each
+   application one k-column launch for all the batch's columns (the
+   launches by columns equal to ``coupled_launches`` of the run's
+   refinement passes); the same solver on each component alone, each
+   coupled count within ``COUPLED_SPREAD`` of its segregated one, beside
+   tpusolve's coupled counts; the warm coupled solve's profile against the
+   three segregated ones'; then K2's and K5's k-column forms on A, A_lo, L
+   and U for k in ``COLS``, each column the single kernel's bits (update
+   forms too) and the plain version's to ``RTOL``, timed at k = 3 against
+   three single launches, K2's interleaved layout and cuSPARSE's SpMM;
+(i) the same in natural order in double at 64^3 (the ELL device ILU(0),
+   K2's 3-column form on A, L and U): tpusolve's coupled counts exactly,
+   and the segregated ones;
+(j) the weak-scaling YAML at 128^3 with ``smoother_dtype: bfloat16``:
+   each level's twin and kernel, K1 and K2 launched on bf16 values, the
+   count within one of tpusolve's with the twin;
+(k) gate 1 at 64^3 with the twin: K1 and the fused prolongation on bf16
+   planes, the count within one a pass of tpusolve's; then K1 and K2 on
+   (j)'s twins and the fused prolongation on (k)'s level 0, each equal to
+   its f32 and f64 form on the rounded values bit for bit, timed against
+   the f32 form.
+
 Every fixture is written once, in a process of its own (gate 4's before
 the kernel build, the others after step 10), so that the writes overlap
 the phases before their use.
@@ -214,13 +244,15 @@ TPUSOLVE_GATE3_ITERS_64 = 12
 # tpusolve on CPU, examples/gate1_64cube_pcg_amg.yaml as it is (64^3,
 # mixed): PCG iterations summed over the refinement passes
 TPUSOLVE_GATE1_ITERS = 14
-# tpusolve on CPU, examples/gate2_weakscale_gmres_cheby.yaml as it is
-# (128^3, single): GMRES iterations, printed for reference only.  Its f32
-# projection h = V @ w under XLA on the CPU is 450x less accurate than
-# torch's, and its GMRES stalls; with that projection in f64, or with
+# tpusolve on CPU, examples/gate2_weakscale_gmres_cheby.yaml at 64^3
+# (single): GMRES iterations, printed for reference only (22 at 128^3).
+# Its f32 projection h = V @ w under XLA on the CPU is 450x less accurate
+# than torch's, and its GMRES stalls; with that projection in f64, or with
 # cgs: 2, tpusolve takes 6 at 64^3 (tests/test_torch_gmres_projection.py,
 # ROADMAP.md Queue 3).  The gate holds the port to 6, its count on the card
-TPUSOLVE_GATE2_ITERS = 22
+# at 128^3 and at 64^3 (and on the CPU)
+GATE2_SIDE = 64
+TPUSOLVE_GATE2_ITERS = 21
 PORT_GATE2_ITERS = 6
 # tpusolve on CPU, examples/weakscale_pcg_boomeramg_devsetup.yaml as it is
 # (128^3, single, its level 0 set up by its device setup on the CPU, host
@@ -541,18 +573,25 @@ def bell_check(device) -> float:
     return worst
 
 
+def library_csr(M):
+    """Operator ``M`` as a CSR ``torch.sparse`` tensor (cuSPARSE's) in M's
+    dtype on its device, unpadded; the port never calls it."""
+    import torch
+    H = M.to_scipy().tocsr()
+    dev = M.device
+    return torch.sparse_csr_tensor(
+        torch.tensor(H.indptr, dtype=torch.int64, device=dev),
+        torch.tensor(H.indices, dtype=torch.int64, device=dev),
+        torch.tensor(H.data, dtype=M.dtype, device=dev), size=H.shape)
+
+
 def library_spmv(M):
     """(call, x) of the PyTorch library's SpMV on operator ``M``: a CSR
     ``torch.sparse`` matvec (cuSPARSE) in M's dtype; the port never calls
     it.  ``x`` has M's unpadded width."""
     import torch
-    H = M.to_scipy().tocsr()
-    dev = M.device
-    csr = torch.sparse_csr_tensor(
-        torch.tensor(H.indptr, dtype=torch.int64, device=dev),
-        torch.tensor(H.indices, dtype=torch.int64, device=dev),
-        torch.tensor(H.data, dtype=M.dtype, device=dev), size=H.shape)
-    x = torch.zeros(H.shape[1], dtype=M.dtype, device=dev)
+    csr = library_csr(M)
+    x = torch.zeros(csr.shape[1], dtype=M.dtype, device=M.device)
     return (lambda: csr @ x), x
 
 
@@ -756,19 +795,30 @@ def bdia_timings(ops, device_name: str, seed: int):
     return rows
 
 
+def reset_counters(counters) -> None:
+    """Every launch counter of ``counters`` set to 0: the launches, and the
+    launches by form (K1, K2, K5), by storage form (K2), by columns (the
+    k-column forms of K2 and K5) and on bf16 values (K1, K2 and the fused
+    prolongation)."""
+    for fn in counters:
+        fn.launches = 0
+        for key in ("launches_by_form", "launches_by_layout",
+                    "launches_by_cols"):
+            if hasattr(fn, key):
+                setattr(fn, key, {})
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
+
+
 def run_cli(yaml_path: str, counters, keep: list | None = None) -> tuple:
     """Run the port's CLI on ``yaml_path`` with every launch counter set to
     0 just before; returns (exit code, LinearSystem, wall seconds,
     {counter name: launches}); ``keep``, where given, receives every test's
     LinearSystem, as ``cli.main``'s does; a counter's ``launches_by_form``
     (K1's and K2's launches by update form) and ``launches_by_layout``
-    (K2's by storage form) are set to {} with it."""
+    (K2's by storage form) are set to {} with it (:func:`reset_counters`)."""
     from tpusolve_torch.harness import cli
-    for fn in counters:
-        fn.launches = 0
-        for key in ("launches_by_form", "launches_by_layout"):
-            if hasattr(fn, key):
-                setattr(fn, key, {})
+    reset_counters(counters)
     systems = [] if keep is None else keep
     t0 = time.perf_counter()
     rc = cli.main([yaml_path, "--device", "cuda"], keep=systems)
@@ -813,14 +863,15 @@ def stop_fixture_writers() -> None:
 
 def fixture_yaml(gate: int, side: int, name: str, edit=None,
                  **sections) -> str:
-    """The path of a YAML ``name`` for the gate-``gate`` (3 or 4) fixture at
-    side^3, its text passed through ``edit`` and its settings changed as
+    """The path of a YAML ``name`` for the gate-``gate`` (3, 4, or "4c":
+    gate 4's three components) fixture at side^3, its text passed through ``edit`` and its settings changed as
     ``fixtures.with_settings`` takes them.  The fixture's files are written
     once, under ``FIXTURES``, for every phase that runs them (the 96^3
     gate-4 fixture takes some 40 s to write)."""
     from tpusolve_torch import fixtures
     d = os.path.join(FIXTURES, f"gate{gate}_{side}")
-    base = os.path.join(d, f"gate{gate}.yaml")
+    base = os.path.join(d, "gate4_3comp.yaml" if gate == "4c"
+                        else f"gate{gate}.yaml")
     writer = WRITERS.pop((gate, side), None)
     if writer is not None:
         t0 = time.perf_counter()
@@ -830,7 +881,8 @@ def fixture_yaml(gate: int, side: int, name: str, edit=None,
               f"waited {time.perf_counter() - t0:.1f} s", flush=True)
     if not os.path.exists(base):
         t0 = time.perf_counter()
-        (fixtures.write_gate3 if gate == 3 else fixtures.write_gate4)(d, side)
+        {3: fixtures.write_gate3, "4c": fixtures.write_gate4_3comp}.get(
+            gate, fixtures.write_gate4)(d, side)
         print(f"gate-{gate} fixture {side}^3 written in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     with open(base) as fh:
@@ -2008,17 +2060,27 @@ def solve_profile(system, what: str) -> dict:
 
 
 def structured_phase(what: str, yaml_name: str, tol: float, device_name,
-                     counters, seed: int):
-    """Gate 1 or 2 (``examples/<yaml_name>`` as it is) through the CLI,
-    counting the preconditioner's applications; returns (launches, K1's
-    launches by form, system, result, K1 check errors, K1 timing rows, K3
-    rows, fused rows, cycle check).  The system is left for the caller to
-    destroy."""
+                     counters, seed: int, side: int | None = None):
+    """Gate 1 or 2 (``examples/<yaml_name>``, its box at side^3 where
+    ``side`` is given) through the CLI, counting the preconditioner's
+    applications; returns (launches, K1's launches by form, system, result,
+    K1 check errors, K1 timing rows, K3 rows, fused rows, cycle check).
+    The system is left for the caller to destroy."""
     from tpusolve_torch.amg import builder
     from tpusolve_torch.kernels.dia import dia_spmv, launches_by_mode
     from tpusolve_torch.kernels.transfer import (
         box_prolong, box_prolong_update, box_restrict, box_restrict_residual)
     yaml_path = os.path.join(REPO, "examples", yaml_name)
+    if side is not None:
+        with open(yaml_path) as fh:
+            text = "".join(
+                f"{ln.split(':')[0]}: {side}\n"
+                if ln.strip().split(":")[0] in ("nx", "ny", "nz") else ln
+                for ln in fh)
+        os.makedirs(FIXTURES, exist_ok=True)
+        yaml_path = os.path.join(FIXTURES, f"{side}_{yaml_name}")
+        with open(yaml_path, "w") as fh:
+            fh.write(text)
     apply, applied = builder.AMGPreconditioner.apply, [0]
 
     def counted(self, r):
@@ -2093,8 +2155,8 @@ def gate1_phase(device_name, counters):
 def gate2_phase(device_name, counters):
     (launches, by_form, system, res, errs, rows, k3_rows, fused_rows,
      cycle) = structured_phase("gate-2", "gate2_weakscale_gmres_cheby.yaml",
-                               1e-6, device_name, counters, 16)
-    print(f"gate-2 128^3: {res.iters} GMRES iterations, relres "
+                               1e-6, device_name, counters, 16, GATE2_SIDE)
+    print(f"gate-2 {GATE2_SIDE}^3: {res.iters} GMRES iterations, relres "
           f"{float(res.relres):.3e}, golden check PASSED; the port's count "
           f"{PORT_GATE2_ITERS}; tpusolve (CPU, same YAML, its f32 "
           f"projection stalls) {TPUSOLVE_GATE2_ITERS}", flush=True)
@@ -3036,6 +3098,541 @@ def fused_entry(name: str, kind: str, rows: list, launches: dict,
                 cycle_equal_to_pair=cycles, shapes=rs)
 
 
+# ----------------------------------------------------------------------
+# The coupled multi-component solve and the bfloat16 smoother twin
+
+# tpusolve's counts on the paths below, each measured on a CPU with one
+# device (JAX_PLATFORMS=cpu python -m tpusolve.harness.cli YAML, the
+# fixture written by tools/gatefix.py):
+#   GATE4_YAML_3COMP with segregated_solve: no and matrix_ordering: rcm at
+#   96^3 (mixed), tpusolve's vmap path: 52, 49, 55
+TPUSOLVE_COUPLED_96 = (52, 49, 55)
+#   the same in natural order, precision double, at 64^3: 32, 34, 32
+TPUSOLVE_COUPLED_64 = (32, 34, 32)
+#   examples/weakscale_pcg_boomeramg_devsetup.yaml with smoother_dtype:
+#   bfloat16 (TPUSOLVE_PMIS_HOST_RANK=1): 23 (relres 5.478e-07)
+TPUSOLVE_WEAKSCALE_BF16_ITERS = 23
+#   examples/gate1_64cube_pcg_amg.yaml with smoother_dtype: bfloat16: 14
+TPUSOLVE_GATE1_BF16_ITERS = 14
+# a coupled count in mixed may lie 4 iterations or 10 % (the larger) from
+# its segregated one: tpusolve's own gap between the two at 16^3 (18, 20,
+# 20 against 22, 20, 19), where the order of the f32 sums moves the count
+COUPLED_SPREAD = (4, 0.10)
+COLS = (1, 3, 8)      # the k-column forms the checks hold
+ILU_SWEEPS = 10       # K5 launches of one ILU apply (5 lower, 5 upper)
+
+
+def check_components(system, rc: int, what: str, tol: float = 1e-8):
+    """Fail unless every component of the run passed its golden check,
+    converged to ``tol`` and is finite of the padded shape."""
+    import torch
+    if rc != 0:
+        fail(f"the {what} run failed (cli exit {rc})")
+    for i, (res, x) in enumerate(zip(system.solve_results, system.sln)):
+        if not (float(res.relres) <= tol and bool(res.converged)):
+            fail(f"{what}: component {i} relres {float(res.relres):.3e} "
+                 f"above {tol:g} or not converged")
+        if not bool(torch.isfinite(x).all()) or \
+                x.shape != (system.A.row_pad,):
+            fail(f"{what}: component {i} is not finite or of the wrong "
+                 "shape")
+
+
+def coupled_launches(passes: list) -> tuple:
+    """({k: launches} of K5 and of K2) that the coupled BiCGSTAB(ILU(0))
+    inside refinement makes when each application of A, A_lo, L or U is one
+    launch for all the batch's columns: pass p of the refinement solves the
+    k_p columns still running as one batch, whose inner loop runs m_p
+    iterations (their most), each two ILU applies (``ILU_SWEEPS`` K5
+    launches each) and two A_lo products, after one residual; the outer
+    residual with A, on all columns, once and after every pass."""
+    k5, k2 = {}, {}
+    npass = max(len(p) for p in passes)
+    add = lambda d, k, n: d.__setitem__(k, d.get(k, 0) + n)
+    add(k2, len(passes), 1 + npass)
+    for p in range(npass):
+        run = [c for c in range(len(passes)) if len(passes[c]) > p]
+        m = max(passes[c][p] for c in run)
+        add(k5, len(run), 2 * ILU_SWEEPS * m)
+        add(k2, len(run), 1 + 2 * m)
+    return k5, k2
+
+
+def profile_call(fn, what: str) -> dict:
+    """One warm call of ``fn`` (a solve): wall time (host clock,
+    synchronised, the least of three), then the same call under
+    ``torch.profiler``: its device operations, their busy time, the idle
+    share, and K2's and K5's device time in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, busy, k2, k5 = 0, 0.0, 0.0, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        ops += 1
+        busy += us
+        k2 += us if "ell_spmv" in e.name or "ell_rowptr" in e.name else 0
+        k5 += us if "bdia_spmv_xl" in e.name else 0
+    wall = 1e3 * min(walls)
+    out = dict(wall_ms=wall, walls_ms=[1e3 * w for w in walls],
+               device_ops=ops, busy_ms=busy / 1e3,
+               idle_share=1.0 - busy / 1e3 / wall, k2_ms=k2 / 1e3,
+               k5_ms=k5 / 1e3)
+    print(f"{what}: wall {wall:.3f} ms (runs {ts_str(out['walls_ms'])}), "
+          f"{ops} device operations, busy {out['busy_ms']:.3f} ms, idle "
+          f"share {out['idle_share']:.3f}, K2 {out['k2_ms']:.3f} ms, K5 "
+          f"{out['k5_ms']:.3f} ms", flush=True)
+    return out
+
+
+def coupled_phase(side: int, card: str, counters) -> dict:
+    """(h) Gate 4's three momentum components, coupled, at side^3: the
+    CLI's run of ``GATE4_YAML_3COMP`` with ``segregated_solve: no`` and
+    ``matrix_ordering: rcm`` (gate 4's settings), the layouts it chose (A
+    and A_lo K2, L and U K5), every application of A, A_lo, L and U one
+    k-column launch for all the batch's columns (the launches by columns
+    equal :func:`coupled_launches` of the run's passes), the golden check
+    on every component; then the same solver on each component alone, each
+    coupled count within ``COUPLED_SPREAD`` of its segregated one, beside
+    ``tpusolve``'s coupled counts; and the warm coupled solve's profile
+    against the three segregated solves'."""
+    import torch
+    from tpusolve_torch.kernels.bdia import bdia_spmv_xl
+    from tpusolve_torch.kernels.ell import ell_spmv
+    what = f"coupled gate-4 {side}^3"
+    path = fixture_yaml("4c", side, "coupled.yaml",
+                        linear_system={"segregated_solve": False},
+                        solver_settings={"matrix_ordering": "rcm"})
+    rc, system, wall, launches = run_cli(path, counters)
+    check_components(system, rc, what)
+    ops = {"A": system.A, "A_lo": system.A_lo, "L": system._precond.L,
+           "U": system._precond.U}
+    kernels = {k: kernel_of(M).split()[0] for k, M in ops.items()}
+    print(f"{what} layouts: " + "; ".join(
+        f"{k} {M.layout} ({kernels[k]})" for k, M in ops.items()), flush=True)
+    if kernels != {"A": "K2", "A_lo": "K2", "L": "K5", "U": "K5"}:
+        fail(f"{what}: the model chose {kernels}, not K2 for A and A_lo "
+             "and K5 for L and U")
+    passes = [r.passes for r in system.solve_results]
+    want5, want2 = coupled_launches(passes)
+    got5 = dict(bdia_spmv_xl.launches_by_cols)
+    got2 = dict(ell_spmv.launches_by_cols)
+    print(f"{what}: refinement passes {passes}; K5 launches by columns "
+          f"{got5} (one a batch: {want5}); K2 {got2} (one a batch: {want2})",
+          flush=True)
+    if got5 != want5 or got2 != want2 or not any(k > 1 for k in got5):
+        fail(f"{what}: an application of A, A_lo, L or U was not one "
+             "k-column launch for all the batch's columns")
+    counts = [int(r.iters) for r in system.solve_results]
+    seg = [system._solver(b) for b in system.rhs]
+    torch.cuda.synchronize()
+    seg_counts = [int(r.iters) for r in seg]
+    print(f"{what} counts: coupled {counts}, segregated (the same solver, "
+          f"one component a call) {seg_counts}, tpusolve coupled (CPU) "
+          f"{list(TPUSOLVE_COUPLED_96)}", flush=True)
+    for c, s_ in zip(counts, seg_counts):
+        if abs(c - s_) > max(COUPLED_SPREAD[0], COUPLED_SPREAD[1] * s_):
+            fail(f"{what}: coupled count {c} too far from the segregated "
+                 f"{s_}")
+    rhs = torch.stack(system.rhs)
+    prof = {"coupled": profile_call(lambda: system._solver(rhs),
+                                    f"{what} warm coupled solve"),
+            "segregated": profile_call(
+                lambda: [system._solver(b) for b in system.rhs],
+                f"{what} warm segregated solves (three)")}
+    return dict(iters=counts, segregated=seg_counts,
+                tpusolve=list(TPUSOLVE_COUPLED_96), passes=passes,
+                layouts={k: M.layout for k, M in ops.items()},
+                launches=launches, k5_by_cols=got5, k2_by_cols=got2,
+                wall_s=wall, profile=prof, ops=ops)
+
+
+def coupled_double_phase(side: int, counters) -> dict:
+    """(i) The same three components in natural order, ``double``, at
+    side^3: the ELL device ILU(0) path (K2 on A, L and U, k-column), each
+    coupled count ``tpusolve``'s exactly and the port's segregated one in
+    the same run."""
+    import torch
+    from tpusolve_torch.kernels.ell import ell_spmv
+    what = f"coupled gate-4 {side}^3 double"
+    path = fixture_yaml("4c", side, "coupled_double.yaml",
+                        linear_system={"segregated_solve": False},
+                        solver_settings={"precision": "double"})
+    rc, system, wall, launches = run_cli(path, counters)
+    check_components(system, rc, what)
+    ops = {"A": system.A, "L": system._precond.L, "U": system._precond.U}
+    kernels = {k: kernel_of(M).split()[0] for k, M in ops.items()}
+    by_cols = dict(ell_spmv.launches_by_cols)
+    counts = [int(r.iters) for r in system.solve_results]
+    seg = [int(system._solver(b).iters) for b in system.rhs]
+    torch.cuda.synchronize()
+    print(f"{what}: layouts " + "; ".join(
+        f"{k} {M.layout} ({kernels[k]})" for k, M in ops.items())
+        + f"; notes {system._precond.notes}; K2 launches by columns "
+        f"{by_cols}; counts coupled {counts}, segregated {seg}, tpusolve "
+        f"coupled (CPU) {list(TPUSOLVE_COUPLED_64)}", flush=True)
+    if set(kernels.values()) != {"K2"} or not by_cols.get(3):
+        fail(f"{what}: A, L and U not on K2's 3-column form ({kernels}, "
+             f"{by_cols})")
+    if counts != list(TPUSOLVE_COUPLED_64) or seg != counts:
+        fail(f"{what}: counts {counts} (segregated {seg}), not tpusolve's "
+             f"{list(TPUSOLVE_COUPLED_64)}")
+    return dict(iters=counts, segregated=seg,
+                tpusolve=list(TPUSOLVE_COUPLED_64), k2_by_cols=by_cols,
+                launches=launches, wall_s=wall)
+
+
+def twin_lines(pre, what: str) -> list:
+    """Each level's twin (layout and kernel) or none, printed."""
+    rows = []
+    for i, lev in enumerate(pre.levels):
+        T = lev.A_relax
+        rows.append(dict(level=i, A=lev.A.layout,
+                         tpusolve=lev.A.tpusolve_layout,
+                         twin=None if T is None else T.layout,
+                         kernel=None if T is None else kernel_of(T)))
+    print(f"{what} twins: " + "; ".join(
+        f"level {r['level']} A {r['A']} (tpusolve {r['tpusolve']}): "
+        + ("no twin" if r["twin"] is None
+           else f"bf16 {r['twin']} ({r['kernel']})") for r in rows),
+        flush=True)
+    return rows
+
+
+def weakscale_bf16_phase(side: int, counters) -> dict:
+    """(j) The weak-scaling YAML at side^3 with ``smoother_dtype:
+    bfloat16``: each level's twin and its kernel (K1 on the DIA level 0,
+    K2 on every level ``tpusolve`` stores ELL), K1 and K2 launched on bf16
+    values, the count within one of ``tpusolve``'s with the twin."""
+    from tpusolve_torch import fixtures
+    from tpusolve_torch.kernels.dia import dia_spmv
+    from tpusolve_torch.kernels.ell import ell_spmv
+    what = f"weakscale bf16 {side}^3"
+    path = fixtures.write_weakscale(os.path.join(FIXTURES, "weak_bf16"),
+                                    side, bf16=True)
+    rc, system, wall, launches = run_cli(path, counters)
+    check_solve(system, rc, what, tol=1e-6)
+    twins = twin_lines(system._precond, what)
+    k1, k2 = dia_spmv.launches_bf16, ell_spmv.launches_bf16
+    it = int(system.solve_results[0].iters)
+    print(f"{what}: {it} PCG iterations, relres "
+          f"{float(system.solve_results[0].relres):.3e} (tpusolve with the "
+          f"twin, CPU: {TPUSOLVE_WEAKSCALE_BF16_ITERS}; the YAML without it: "
+          f"{TPUSOLVE_WEAKSCALE_ITERS}); bf16 launches K1 {k1}, K2 {k2}",
+          flush=True)
+    if not twins[0]["twin"] or twins[0]["kernel"] != "K1" or k1 == 0 or \
+            (any(str(t["kernel"]).startswith("K2") for t in twins)
+             and k2 == 0):
+        fail(f"{what}: the twins did not run K1 and K2 on bf16 values")
+    if abs(it - TPUSOLVE_WEAKSCALE_BF16_ITERS) > 1:
+        fail(f"{what}: {it} iterations, not within one of tpusolve's "
+             f"{TPUSOLVE_WEAKSCALE_BF16_ITERS}")
+    return dict(iters=it, twins=twins, k1_bf16=k1, k2_bf16=k2,
+                launches=launches, wall_s=wall, system=system)
+
+
+def gate1_bf16_phase(counters) -> dict:
+    """(k) Gate 1 at 64^3 with ``smoother_dtype: bfloat16``: the structured
+    V-cycle with K1 and the fused prolongation on bf16 planes, the count
+    within one a refinement pass of ``tpusolve``'s with the twin."""
+    from tpusolve_torch.kernels.dia import dia_spmv
+    from tpusolve_torch.kernels.transfer import box_prolong_update
+    what = "gate-1 bf16 64^3"
+    with open(os.path.join(REPO, "examples",
+                           "gate1_64cube_pcg_amg.yaml")) as fh:
+        text = fh.read().replace("  relax_type: 6",
+                                 "  relax_type: 6\n  smoother_dtype: bfloat16")
+    path = os.path.join(FIXTURES, "gate1_bf16.yaml")
+    os.makedirs(FIXTURES, exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(text)
+    rc, system, wall, launches = run_cli(path, counters)
+    res = check_solve(system, rc, what)
+    twins = twin_lines(system._precond, what)
+    k1, kp = dia_spmv.launches_bf16, box_prolong_update.launches_bf16
+    it = int(res.iters)
+    print(f"{what}: {it} PCG iterations (passes {res.passes}), tpusolve with "
+          f"the twin (CPU) {TPUSOLVE_GATE1_BF16_ITERS}; bf16 launches K1 "
+          f"{k1}, fused prolongation {kp}", flush=True)
+    if k1 == 0 or kp == 0 or not all(t["twin"] for t in twins):
+        fail(f"{what}: K1 or the fused prolongation ran no bf16 launch")
+    if abs(it - TPUSOLVE_GATE1_BF16_ITERS) > len(res.passes or [1]):
+        fail(f"{what}: {it} iterations, not within one a pass of "
+             f"tpusolve's {TPUSOLVE_GATE1_BF16_ITERS}")
+    return dict(iters=it, passes=res.passes, twins=twins, k1_bf16=k1,
+                prolong_bf16=kp, launches=launches, wall_s=wall,
+                system=system)
+
+
+def columns_nbytes(M, k: int, value_bytes: int | None = None) -> int:
+    """The bytes a k-column SpMV of ``M`` must move: each nonzero's value
+    once (``value_bytes`` each, by default M's item size), and x and y
+    once a column."""
+    rows, cols = M.shape
+    item = M.diag.element_size()
+    return M.nnz * (value_bytes or item) + k * (rows + cols) * item
+
+
+def library_spmm(M, k: int):
+    """(call, X) of cuSPARSE's SpMM on ``M`` (``torch.sparse`` CSR @ an (n,
+    k) dense matrix, X of M's unpadded width), the port never calls it."""
+    import torch
+    csr = library_csr(M)
+    X = torch.zeros((csr.shape[1], k), dtype=M.dtype, device=M.device)
+    return (lambda: csr @ X), X
+
+
+def columns_check(ops: dict, card: str, seed: int) -> list:
+    """K2's and K5's k-column forms on gate 4's A, A_lo, L and U at the
+    main path's shapes: for k in ``COLS`` each column of a launch equals
+    the single-vector kernel on it bit for bit and the plain version to
+    ``RTOL``, the update form c + w s (b - A x) too; at k = 3 (the main
+    path's) the launch's device and per-call time against three single
+    launches and cuSPARSE's SpMM, with its bound; on A, K2 on the
+    interleaved (n, k) layout once."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels import bdia, ell
+    from tpusolve_torch.kernels.calibrate import time_ms
+    from tpusolve_torch.matrix.spmv import spmv, spmv_update
+    rng = np.random.default_rng(seed)
+    rows_out = []
+    for name, M in ops.items():
+        dt = M.dtype
+        rtol = RTOL["float32" if dt == torch.float32 else "float64"]
+        rand = lambda *shape: torch.from_numpy(rng.standard_normal(
+            shape)).to(M.device, dt)
+
+        def plain(X):
+            if M.uses_bdia_xl:
+                return torch.stack([bdia.bdia_spmv_xl_plain(
+                    M.bdia_vals, M.bdia_starts, x, M.bdia_xpad, M.row_pad,
+                    M.bdia_gb, M.bdia_step_lo, M.bdia_panel, M.bdia_ovf,
+                    mask=M.bdia_mask, step_b0=M.bdia_step_b0) for x in X])
+            vals, cols, rowptr = M.ell_arrays
+            return ell._plain(vals, cols, X, None, None, None, 1.0, None,
+                              rowptr)
+
+        worst, worst_abs, bits = 0.0, 0.0, True
+        for k in COLS:
+            X = rand(k, M.col_pad)
+            Y = spmv(M, X)
+            B, C, S = rand(k, M.row_pad), rand(k, M.row_pad), rand(M.row_pad)
+            Yu = spmv_update(M, X, b=B, s=S, c=C, w=0.8)
+            torch.cuda.synchronize()
+            for j in range(k):
+                bits &= torch.equal(Y[j], spmv(M, X[j]))
+                bits &= torch.equal(Yu[j], spmv_update(
+                    M, X[j], b=B[j], s=S, c=C[j], w=0.8))
+            P = plain(X)
+            worst_abs = max(worst_abs, float((Y - P).abs().max()))
+            worst = max(worst, float((Y - P).abs().max() / P.abs().max()))
+        if not bits or worst > rtol:
+            fail(f"{name}: the k-column form is not the single kernel's "
+                 f"bits or is off its plain version ({worst:.2e})")
+        k = 3
+        X = rand(k, M.col_pad)
+        lib, Xl = library_spmm(M, k)
+        Xl.copy_(X[:, :Xl.shape[0]].T)
+        calls = {"cols": lambda: spmv(M, X),
+                 "singles": lambda: [spmv(M, X[j]) for j in range(k)],
+                 "library": lib}
+        vals, cols, rowptr = M.ell_arrays if M.uses_ell else (None,) * 3
+        if M.uses_ell:
+            Xi = X.T.contiguous()
+            calls["interleaved"] = lambda: ell.ell_spmv(
+                vals, cols, Xi, rowptr=rowptr, interleaved=True)
+        dev = device_times(calls)
+        per = {key: time_ms(fn) for key, fn in calls.items()}
+        plain_ms = time_ms(lambda: plain(X))
+        row = dict(op=name, kernel=kernel_of(M), layout=M.layout, k=k,
+                   dev_ms=dev["cols"], ms=per["cols"],
+                   singles_dev_ms=dev["singles"], singles_ms=per["singles"],
+                   interleaved_dev_ms=dev.get("interleaved"),
+                   interleaved_ms=per.get("interleaved"),
+                   lib_dev_ms=dev["library"], lib_ms=per["library"],
+                   plain_ms=plain_ms, bound_ms=bound_ms(
+                       columns_nbytes(M, k), card),
+                   single_bound_ms=bound_ms(columns_nbytes(M, 1), card),
+                   max_rel_err=worst, max_abs_err=worst_abs,
+                   bits_equal=bits)
+        rows_out.append(row)
+        print(f"{name} {M.layout} {str(dt)[6:]} {row['kernel']} {k}-column: "
+              f"device {row['dev_ms']:.5f} ms, per call {row['ms']:.5f} "
+              f"ms; {k} single launches device {row['singles_dev_ms']:.5f} "
+              f"ms, per call {row['singles_ms']:.5f}; interleaved (n, k) "
+              f"device {row['interleaved_dev_ms']}; cuSPARSE SpMM device "
+              f"{row['lib_dev_ms']:.5f} ms; plain {plain_ms:.5f} ms; bound "
+              f"{row['bound_ms']:.5f} ms ({k} single bounds "
+              f"{k * row['single_bound_ms']:.5f}); k in {COLS} each column "
+              f"the single kernel's bits: {bits}, max rel err {worst:.2e} "
+              f"({card})", flush=True)
+    return rows_out
+
+
+def bf16_check(pre_ws, pre_g1, card: str, seed: int) -> list:
+    """K1, K2 and the fused prolongation on bf16 values at the main paths'
+    shapes: the weak-scaling levels' twins (K1 on level 0, K2 on the first
+    ELL twin) and gate 1's level 0 (the fused prolongation); each equals
+    its f32 or f64 launch on the values rounded to bf16 bit for bit (in
+    f32 and in f64) and the plain version to ``RTOL``, and is timed against
+    the f32 form on the same operator (no library call takes bf16 values
+    with an f32 x)."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels import dia, ell, transfer
+    from tpusolve_torch.kernels.calibrate import time_ms
+    rng = np.random.default_rng(seed)
+    rows_out = []
+    ops = [("weakscale level 0", pre_ws.levels[0])]
+    ell_lev = next((i, lev) for i, lev in enumerate(pre_ws.levels)
+                   if lev.A_relax is not None and lev.A_relax.uses_ell)
+    ops.append((f"weakscale level {ell_lev[0]}", ell_lev[1]))
+    for name, lev in ops:
+        T, A = lev.A_relax, lev.A
+        worst, worst_abs, bits = 0.0, 0.0, True
+        for dt in (torch.float32, torch.float64):
+            vec = lambda n: torch.from_numpy(rng.standard_normal(n)).to(
+                A.device, dt)
+            x, b, c = vec(T.col_pad), vec(T.row_pad), vec(T.row_pad)
+            s = b.abs() + 1
+            if T.uses_dia:
+                run = lambda v, **kw: dia.dia_spmv(v, T.dia_offsets, x, **kw)
+                vb = T.dia_vals
+            else:
+                vals, cols, rowptr = T.ell_arrays
+                run = lambda v, **kw: ell.ell_spmv(v, cols, x, rowptr=rowptr,
+                                                   **kw)
+                vb = vals
+            vr = vb.to(dt)
+            for kw in ({}, dict(b=b, s=s, c=c, w=0.8)):
+                got, want = run(vb, **kw), run(vr, **kw)
+                torch.cuda.synchronize()
+                bits &= torch.equal(got, want)
+            p = (dia.dia_spmv_plain(vr, T.dia_offsets, x) if T.uses_dia
+                 else ell._plain(vr, cols, x, None, None, None, 1.0, None,
+                                 rowptr))
+            d = float((run(vb) - p).abs().max())
+            worst_abs = max(worst_abs, d)
+            worst = max(worst, d / float(p.abs().max()))
+        if not bits or worst > RTOL["float64"] * 1e7:
+            fail(f"{name}: the bf16 form is not the full-precision one on "
+                 f"the rounded values ({bits}, {worst:.2e})")
+        x = torch.from_numpy(rng.standard_normal(T.col_pad)).to(
+            A.device, A.dtype)
+        if T.uses_dia:
+            f16 = lambda: dia.dia_spmv(T.dia_vals, T.dia_offsets, x)
+            f32 = lambda: dia.dia_spmv(A.dia_vals, A.dia_offsets, x)
+            plain = lambda: dia.dia_spmv_plain(T.dia_vals, T.dia_offsets, x)
+            kern = "K1"
+        else:
+            vals, cols, rowptr = T.ell_arrays
+            a_vals, a_cols, a_rowptr = A.ell_arrays
+            f16 = lambda: ell.ell_spmv(vals, cols, x, rowptr=rowptr)
+            f32 = lambda: ell.ell_spmv(a_vals, a_cols, x, rowptr=a_rowptr)
+            plain = lambda: ell._plain(vals, cols, x, None, None, None, 1.0,
+                                       None, rowptr)
+            kern = "K2"
+        dev = device_times({"bf16": f16, "full": f32})
+        row = dict(op=name, kernel=kern, layout=T.layout, dev_ms=dev["bf16"],
+                   ms=time_ms(f16), full_dev_ms=dev["full"],
+                   full_ms=time_ms(f32), plain_ms=time_ms(plain),
+                   bound_ms=bound_ms(columns_nbytes(T, 1, 2), card),
+                   full_bound_ms=bound_ms(columns_nbytes(A, 1), card),
+                   max_rel_err=worst, max_abs_err=worst_abs,
+                   bits_equal=bits)
+        rows_out.append(row)
+        print(f"{name} bf16 twin {T.layout} {kern}: device "
+              f"{row['dev_ms']:.5f} ms, per call {row['ms']:.5f} ms; the "
+              f"f32 form on A device {row['full_dev_ms']:.5f} ms; plain "
+              f"{row['plain_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms "
+              f"(f32 {row['full_bound_ms']:.5f}); library none; equal to the "
+              f"rounded f32 and f64 forms bit for bit: {bits}, max rel err "
+              f"{worst:.2e} ({card})", flush=True)
+    # the fused prolongation on gate 1's level 0 -> 1 (64^3 -> 32^3)
+    lev = pre_g1.levels[0]
+    T, A = lev.A_relax, lev.A
+    fine, coarse = tuple(A.dia_shape), tuple(pre_g1.levels[1].A.dia_shape)
+    bits, worst, worst_abs = True, 0.0, 0.0
+    for dt in (torch.float32, torch.float64):
+        vec = lambda n: torch.from_numpy(rng.standard_normal(n)).to(
+            A.device, dt)
+        n = A.row_pad
+        ec, x, b, s = vec(n // 8), vec(n), vec(n), vec(n).abs() + 1
+        xb, xr = torch.empty_like(x), torch.empty_like(x)
+        got = transfer.box_prolong_update(fine, coarse, T.dia_vals,
+                                          T.dia_offsets, ec, x, b, s, 1.0,
+                                          True, xb)
+        want = transfer.box_prolong_update(fine, coarse, T.dia_vals.to(dt),
+                                           T.dia_offsets, ec, x, b, s, 1.0,
+                                           True, xr)
+        torch.cuda.synchronize()
+        bits &= torch.equal(got, want) and torch.equal(xb, xr)
+        p = transfer.prolong_update_plain(fine, coarse, T.dia_vals.to(dt),
+                                          T.dia_offsets, ec, x, b, s, 1.0,
+                                          True)
+        worst_abs = max(worst_abs, float((got - p).abs().max()))
+        worst = max(worst, float((got - p).abs().max() / p.abs().max()))
+    if not bits:
+        fail("gate-1 level 0 fused prolongation: bf16 is not the "
+             "full-precision form on the rounded values")
+    n = A.row_pad
+    vec = lambda m: torch.from_numpy(rng.standard_normal(m)).to(A.device,
+                                                                A.dtype)
+    ec, x, b, s = vec(n // 8), vec(n), vec(n), vec(n)
+    f16 = lambda: transfer.box_prolong_update(
+        fine, coarse, T.dia_vals, T.dia_offsets, ec, x, b, s, 1.0, True)
+    f32 = lambda: transfer.box_prolong_update(
+        fine, coarse, A.dia_vals, A.dia_offsets, ec, x, b, s, 1.0, True)
+    dev = device_times({"bf16": f16, "full": f32})
+    # the planes once (bf16), ec, x, b and s read, y and x' written
+    nbytes = A.nnz * 2 + (5 * n + n // 8) * A.diag.element_size()
+    row = dict(op="gate-1 level 0 -> 1", kernel="fused prolongation",
+               layout=T.layout, dev_ms=dev["bf16"], ms=time_ms(f16),
+               full_dev_ms=dev["full"], full_ms=time_ms(f32),
+               plain_ms=time_ms(lambda: transfer.prolong_update_plain(
+                   fine, coarse, T.dia_vals, T.dia_offsets, ec, x, b, s, 1.0,
+                   True)),
+               bound_ms=bound_ms(nbytes, card),
+               full_bound_ms=bound_ms(nbytes + A.nnz * 2, card),
+               max_rel_err=worst, max_abs_err=worst_abs, bits_equal=bits)
+    rows_out.append(row)
+    print(f"gate-1 level 0 -> 1 fused prolongation bf16: device "
+          f"{row['dev_ms']:.5f} ms, per call {row['ms']:.5f} ms; f32 "
+          f"planes device {row['full_dev_ms']:.5f} ms; plain "
+          f"{row['plain_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms; "
+          f"library none; bits equal {bits}, max rel err {worst:.2e} "
+          f"({card})", flush=True)
+    return rows_out
+
+
+def form_entry(name: str, base: str, source: str, replaces: str, row: dict,
+               launches: dict, rows: list, library) -> dict:
+    """A kernels-line entry of a new form of kernel ``base``."""
+    return dict(name=name, form_of=base, route="cuda", source=source,
+                replaces=replaces, **launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_rel_err=max(r["max_rel_err"] for r in rows),
+                ms=row["ms"], device_ms=row["dev_ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by="bytes", library_ms=library, shape=row["op"],
+                shapes=rows)
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     sides = {"--side": 96, "--side3": 64, "--side-ilu": 64}
@@ -3101,6 +3698,7 @@ def main(argv) -> int:
     phase_done("the kernel checks")
     model_constants()
     phase_done("the models' constants")
+    start_fixture_writers([("4c", sides["--side"]), ("4c", 64)])
     start_fixture_writers(sorted({(4, ell_side), (4, 32), (3, 96),
                                   (3, sides["--side3"]), (3, st5_side),
                                   (3, 32)} - set(WRITERS)))
@@ -3111,6 +3709,23 @@ def main(argv) -> int:
     l4, rows4, k2_rows4, moved4, xl_forms4, prof4, trial4 = gate4_phase(
         sides["--side"], device_name, counters)
     phase_done("gate 4")
+    # (h) the coupled solve of gate 4's three components, and K2's and
+    # K5's k-column forms on its operators
+    coupled = coupled_phase(sides["--side"], card, counters)
+    col_rows = columns_check(coupled.pop("ops"), card, 15)
+    phase_done("the coupled gate 4")
+    # (i)-(k): the coupled solve in double on the ELL device ILU, and the
+    # bfloat16 smoother twin on the weak-scaling cell and gate 1, early in
+    # the process, where its traces keep their device events
+    coupled64 = coupled_double_phase(64, counters)
+    phase_done("the coupled gate 4 in double")
+    wsb = weakscale_bf16_phase(128, counters)
+    phase_done("the weak-scaling cell with the bf16 twin")
+    g1b = gate1_bf16_phase(counters)
+    phase_done("gate 1 with the bf16 twin")
+    bf16_rows = bf16_check(wsb.pop("system")._precond,
+                           g1b.pop("system")._precond, card, 16)
+    phase_done("the bf16 kernel checks")
     g3 = gate3_phase(sides["--side3"], device_name, counters)
     l3, rows3, bdia_rows3 = g3["launches"], g3["k6_rows"], g3["k4_rows"]
     phase_done("gate 3")
@@ -3155,7 +3770,10 @@ def main(argv) -> int:
              "gate3_rs": rs["launches"], "lifecycle": life["launches"],
              "gate1": l1, "gate2": l2, "weakscale": ws["launches"],
              "weakscale_256": ws256["launches"],
-             "gate3_96_ell": g3_ell["launches"]}
+             "gate3_96_ell": g3_ell["launches"],
+             "coupled": coupled["launches"],
+             "coupled_double": coupled64["launches"],
+             "weakscale_bf16": wsb["launches"], "gate1_bf16": g1b["launches"]}
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
     rows6_all = rows3 + ws["k6_rows"]
@@ -3276,6 +3894,53 @@ def main(argv) -> int:
              shapes=rows2_all, moved_operators=moved_all,
              gate3_profile=g3["profile"],
              weakscale_profile=ws["profile"])]
+    cols = lambda by: sum(n for k, n in by.items() if k > 1)
+    kcol = dict(coupled=cols(coupled["k2_by_cols"]),
+                coupled_double=cols(coupled64["k2_by_cols"]))
+    kernels += [
+        form_entry("ell_spmv k-column", "ell_spmv",
+                   "tpusolve_torch/csrc/ell_spmv.cu",
+                   "tpusolve/matrix/spmv.py:74",
+                   next(r for r in col_rows if r["op"] == "A"),
+                   dict(launches=sum(kcol.values()), launches_by_path=kcol,
+                        launches_by_cols={
+                            "coupled": coupled["k2_by_cols"],
+                            "coupled_double": coupled64["k2_by_cols"]}),
+                   [r for r in col_rows if r["kernel"].startswith("K2")],
+                   next(r for r in col_rows if r["op"] == "A")["lib_ms"]),
+        form_entry("bdia_spmv_xl k-column", "bdia_spmv_xl",
+                   "tpusolve_torch/csrc/bdia_spmv_xl.cu",
+                   "tpusolve/kernels/bdia.py:336",
+                   next(r for r in col_rows if r["op"] == "L"),
+                   dict(launches=cols(coupled["k5_by_cols"]),
+                        launches_by_path={
+                            "coupled": cols(coupled["k5_by_cols"])},
+                        launches_by_cols={"coupled": coupled["k5_by_cols"]}),
+                   [r for r in col_rows if r["kernel"] == "K5"],
+                   next(r for r in col_rows if r["op"] == "L")["lib_ms"]),
+        form_entry("dia_spmv bf16", "dia_spmv",
+                   "tpusolve_torch/csrc/dia_spmv.cu",
+                   "tpusolve/matrix/spmv.py:79", bf16_rows[0],
+                   dict(launches=wsb["k1_bf16"] + g1b["k1_bf16"],
+                        launches_by_path={"weakscale_bf16": wsb["k1_bf16"],
+                                          "gate1_bf16": g1b["k1_bf16"]}),
+                   [bf16_rows[0]], None),
+        form_entry("ell_spmv bf16", "ell_spmv",
+                   "tpusolve_torch/csrc/ell_spmv.cu",
+                   "tpusolve/matrix/spmv.py:74", bf16_rows[1],
+                   dict(launches=wsb["k2_bf16"],
+                        launches_by_path={"weakscale_bf16": wsb["k2_bf16"]}),
+                   [bf16_rows[1]], None),
+        form_entry("box_prolong_update bf16", "box_prolong_update",
+                   "tpusolve_torch/csrc/box_cycle.cu",
+                   "tpusolve/amg/structured.py:122 with "
+                   "tpusolve/matrix/spmv.py:79", bf16_rows[2],
+                   dict(launches=g1b["prolong_bf16"],
+                        launches_by_path={"gate1_bf16": g1b["prolong_bf16"]}),
+                   [bf16_rows[2]], None)]
+    print(json.dumps(no_nan({"coupled": coupled, "coupled_double": coupled64,
+                             "weakscale_bf16": wsb, "gate1_bf16": g1b}),
+                     default=str), flush=True)
     print(json.dumps(no_nan({"weakscale": {
         k: ws[k] for k in ("iters", "relres", "stages", "timers", "layouts",
                            "launches")}, "gate3": {

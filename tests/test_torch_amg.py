@@ -303,10 +303,22 @@ def test_ilu_smoothers_equal_tpusolve(tp, A16, smooth):
 
 @pytest.mark.parametrize("cfg, match", [
     (dict(smoother_dtype="bfloat16"), "bfloat16")])
-def test_unported_options_raise(A16, cfg, match):
+def test_unported_options_raise(tp, A16, cfg, match):
+    """The bfloat16 smoother twin, refused before it was ported, now runs:
+    its twins sit on the levels where ``tpusolve`` has one, in bf16, and
+    one cycle equals ``tpusolve``'s to 1e-12 (the same bf16 values, summed
+    in f64 in another order).  The multi-part device setup still raises."""
     A = ShardedMatrix.from_csr_host(A16, device=CPU, dtype=np.float64)
-    with pytest.raises(NotImplementedError, match=match):
-        builder.boomeramg_setup(A, BoomerAMGConfig(**cfg), A_host=A16)
+    pre = builder.boomeramg_setup(A, BoomerAMGConfig(**cfg), A_host=A16)
+    At = tp["Matrix"].from_csr_host(tp["mesh"], A16, dtype=np.float64)
+    pre_t = tp["builder"].boomeramg_setup(At, tp["Config"](**cfg),
+                                          A_host=A16)
+    twins = [lev.A_relax is not None for lev in pre.levels]
+    assert twins == [lev.A_relax is not None for lev in pre_t.levels]
+    assert any(twins), match
+    assert all(lev.A_relax.dtype == torch.bfloat16
+               for lev in pre.levels if lev.A_relax is not None)
+    check_cycle(tp, pre_t, pre, seed=6)
     with pytest.raises(NotImplementedError, match="device setup"):
         builder.boomeramg_setup(A, BoomerAMGConfig(), A_host=A16,
                                 lattice_parts=object())

@@ -166,22 +166,26 @@ def test_stencil_device_ilu_equals_tpusolve(tmp_path, monkeypatch, capsys):
     np.testing.assert_allclose(x, x_t, rtol=0, atol=1e-10 * np.abs(x_t).max())
 
 
-def test_unported_stencil_paths_raise(tmp_path):
+def test_unported_stencil_paths_raise(tmp_path, monkeypatch, capsys):
     """BoomerAMG and ILU on the stencil run, ILU(k > 0) and ILU smoothers
-    too (:func:`test_ilu_stencil_paths_equal_tpusolve`); what they still
-    refuse raises, naming ROADMAP.md: the bfloat16 smoother twin."""
-    from tpusolve_torch.config import load_config
-    from tpusolve_torch.harness.system import LinearSystem
+    too (:func:`test_ilu_stencil_paths_equal_tpusolve`); the bfloat16
+    smoother twin, refused before it was ported, runs too: BoomerAMG on the
+    stencil with ``smoother_dtype: bfloat16`` gives ``tpusolve``'s count
+    (``mixed``: within one a refinement pass) and passes its check.  What
+    is still refused raises: pfmg on a box too small to coarsen."""
     amg = "max_levels: 6\n  smoother_dtype: bfloat16"
     for swap in ({"preconditioner: pfmg": "preconditioner: boomeramg",
                   "max_levels: 6": amg},):
         path = _yaml(tmp_path, "gate1_64cube_pcg_amg.yaml", 8, **swap)
-        sys_ = LinearSystem(load_config(path), "cpu", verbose=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sys_.setup_precon_and_solver()
-            sys_.load()
-            sys_.solve()
+        rc_t, out_t, _ = _run_tpusolve(path, monkeypatch, capsys)
+        rc, out, _, res = _run_port(path, capsys)
+        assert rc == rc_t == 0 and "PASSED" in out
+        assert "bf16 twin" in out
+        it_t = int(out_t.split("Solve 0: iters=")[1].split()[0])
+        assert abs(int(res.iters) - it_t) <= len(res.passes or [1])
     # pfmg on a box too small to coarsen
+    from tpusolve_torch.config import load_config
+    from tpusolve_torch.harness.system import LinearSystem
     path = _yaml(tmp_path, "gate1_64cube_pcg_amg.yaml", 6)
     with open(path) as fh:
         text = fh.read().replace("nz: 6", "nz: 5")

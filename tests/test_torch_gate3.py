@@ -163,13 +163,12 @@ def test_ilu_smoothers_equal_tpusolve_cli(gate3, tmp_path, monkeypatch,
     np.testing.assert_allclose(x, x_t, rtol=0, atol=1e-10 * np.abs(x_t).max())
 
 
-def test_unported_paths_raise(gate3, tmp_path):
+def test_unported_paths_raise(gate3, tmp_path, monkeypatch, capsys):
     """The bfloat16 smoother twin (here with AMG as the solver, which itself
-    runs) is not ported yet: it raises, naming ROADMAP.md.  RS coarsening
-    runs (``test_torch_native_setup.py::test_gate3_rs_equals_tpusolve_cli``)
+    runs), refused before it was ported, runs: ``tpusolve``'s count and
+    its check in ``double``.  RS coarsening runs
+    (``test_torch_native_setup.py::test_gate3_rs_equals_tpusolve_cli``)
     and ILU smoothers too (:func:`test_ilu_smoothers_equal_tpusolve_cli`)."""
-    from tpusolve_torch.config import load_config
-    from tpusolve_torch.harness.system import LinearSystem
     text = open(gate3).read()
     for swap in ({"method: gmres": "method: boomeramg",
                   "max_levels: 20": "max_levels: 20\n"
@@ -179,11 +178,11 @@ def test_unported_paths_raise(gate3, tmp_path):
         for old, new in swap.items():
             edited = edited.replace(old, new)
         path.write_text(edited)
-        sys_ = LinearSystem(load_config(str(path)), "cpu", verbose=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sys_.setup_precon_and_solver()
-            sys_.load()
-            sys_.solve()
+        rc_t, out_t, _, _ = _run_tpusolve(str(path), monkeypatch, capsys)
+        rc, out, _, _, res = _run_port(str(path), capsys)
+        assert rc == rc_t == 0 and "PASSED" in out
+        assert "bf16 twin" in out
+        assert _iters(out) == _iters(out_t)
 
 
 @pytest.fixture

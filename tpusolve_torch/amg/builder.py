@@ -30,9 +30,19 @@ ILU smoothers on the finest ``smooth_num_levels`` levels (``smooth_type``
 5, 6, 7, 9; ``_attach_ilu_smoother``): host Chow-Patel ILU(0) factors whose
 ``smooth_num_sweeps`` corrections take the relaxation's place there.
 
+The bfloat16 smoother twin (``smoother_dtype: bfloat16``,
+``_relax_twin``): a bf16 copy of a level's values, where ``tpusolve`` makes
+one, which the relaxation sweeps read (K1 or K2 on bf16 values, x and the
+sums in the solve's dtype); the residual before restriction, the coarse
+solve, the ILU smoother and the Chebyshev bounds read A.
+
+A batch of k vectors (k, n) (the coupled solve) runs the algebraic cycle on
+the whole batch, each SpMV one k-column launch where the layout's kernel
+has one (``matrix/spmv.py``); the structured cycle, whose transfers are
+fused into K1's single-vector launches, runs each column in turn.
+
 Not ported, and raising ``NotImplementedError``: ``tpusolve``'s multi-part
-device setup (``lattice_parts``, item 18) and the bfloat16 smoother twin
-(``smoother_dtype: bfloat16``).
+device setup (``lattice_parts``, item 18).
 """
 
 from __future__ import annotations
@@ -103,6 +113,9 @@ class Level:
     ilu_L: ShardedMatrix | None = None
     ilu_U: ShardedMatrix | None = None
     ilu_dinv: torch.Tensor | None = None
+    # the bfloat16 smoother twin of A (smoother_dtype: bfloat16,
+    # _relax_twin), which the relaxation sweeps read; None: they read A
+    A_relax: ShardedMatrix | None = None
 
 
 @dataclass
@@ -150,6 +163,8 @@ class AMGPreconditioner:
         out = []
         for i, lev in enumerate(self.levels):
             line = f"AMG level {i}: A {lev.A.layout}"
+            if lev.A_relax is not None:
+                line += f" (bf16 twin {lev.A_relax.layout})"
             if lev.P is not None:
                 line += f"; P {lev.P.layout}; R {lev.R.layout}"
             elif lev.prolong is not None:
@@ -204,8 +219,31 @@ def _check_ported(cfg: BoomerAMGConfig, lattice_parts) -> None:
     if lattice_parts is not None:
         raise NotImplementedError(f"multi-part AMG device setup "
                                   f"(lattice_parts) {_NOT_PORTED}, item 18")
-    if getattr(cfg, "smoother_dtype", "match") == "bfloat16":
-        raise NotImplementedError(f"smoother_dtype: bfloat16 {_NOT_PORTED}")
+
+
+def _relax_twin(A: ShardedMatrix, cfg) -> ShardedMatrix | None:
+    """The bfloat16 smoother twin of level operator ``A``
+    (``smoother_dtype: bfloat16``, ``tpusolve``'s ``_relax_twin``): None
+    unless the config asks for it, or where ``tpusolve`` stores the
+    operator BDIA or BELL (``ShardedMatrix.tpusolve_layout``; its Pallas
+    kernels take f32 only); else A's values rounded to bf16 in A's own
+    layout where that is DIA (K1) or ELL (K2), and laid out ELL (each
+    row's entries in column order, as ``ilu/device_setup.py:_ell_padded``
+    lays a factor out) where the port stores BDIA, BDIA-XL or BELL: K4, K5
+    and K6 take no bf16 values."""
+    if getattr(cfg, "smoother_dtype", "match") != "bfloat16":
+        return None
+    if A.tpusolve_layout in ("bdia", "bell"):
+        return None
+    if not (A.uses_dia or A.uses_ell):
+        M = A.to_scipy().tocsr()
+        M.sort_indices()
+        A = ShardedMatrix.from_csr_host(
+            M, device=A.device, dtype=numpy_dtype(A.dtype),
+            row_offsets=np.asarray(A.row_offsets),
+            col_offsets=np.asarray(A.col_offsets), allow_dia=False,
+            allow_bdia=False, allow_bell=False)
+    return A.astype(torch.bfloat16)
 
 
 def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
@@ -496,7 +534,7 @@ def hierarchy_from_arrays(levels: list[dict], coarse_inv: np.ndarray,
                           dinv_l1=vec(d.get("dinv_l1")),
                           dinv=vec(d.get("dinv")), cmask=vec(d.get("cmask")),
                           cheby_bounds=d.get("cheby_bounds"), n=A.shape[0],
-                          nnz=A.nnz))
+                          nnz=A.nnz, A_relax=_relax_twin(A, cfg)))
     kind_coarse, coarse_sweeps = _guard_coarse(kind_coarse, levs[-1].n, cfg,
                                                notes)
     pre = AMGPreconditioner(levels=levs, coarse_inv=vec(coarse_inv),
@@ -540,7 +578,8 @@ def _make_level_device(A_sh, res, kind_down, kind_up, cfg) -> Level:
     cmask = res["Cmask"].to(A_sh.dtype) if cfg.relax_order == 1 else None
     return Level(A=A_sh, P=res["P"], R=res["R"], dinv_l1=dinv_l1,
                  dinv=res["dinv"], cmask=cmask, cheby_bounds=cheby_bounds,
-                 n=A_sh.shape[0], nnz=A_sh.nnz)
+                 n=A_sh.shape[0], nnz=A_sh.nnz,
+                 A_relax=_relax_twin(A_sh, cfg))
 
 
 def _make_level(A_sh, Ah, dtype, kind_down, kind_up, cfg,
@@ -562,7 +601,8 @@ def _make_level(A_sh, Ah, dtype, kind_down, kind_up, cfg,
         lam = smoothers.chebyshev_bounds(Ah, dinv_host)
         cheby_bounds = (cfg.cheby_fraction * lam, 1.1 * lam)
     return Level(A=A_sh, P=None, R=None, dinv_l1=dinv_l1, dinv=dinv,
-                 cheby_bounds=cheby_bounds, n=Ah.shape[0], nnz=Ah.nnz)
+                 cheby_bounds=cheby_bounds, n=Ah.shape[0], nnz=Ah.nnz,
+                 A_relax=_relax_twin(A_sh, cfg))
 
 
 def _padded_pinv(Ah, A_sh, dtype) -> torch.Tensor:
@@ -605,12 +645,17 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
     weight = 1.0
     cf_order = cfg.relax_order == 1
 
+    def relax_op(lev: Level):
+        """The operator the relaxation sweeps read: the bf16 twin where the
+        level has one (``tpusolve``'s ``A_s``), else A."""
+        return lev.A_relax if lev.A_relax is not None else lev.A
+
     def cheby(lev: Level, b, x, r=None):
         if cfg.cheby_variant == 4:
-            return smoothers.chebyshev4_sweeps(lev.A, lev.dinv, b, x,
+            return smoothers.chebyshev4_sweeps(relax_op(lev), lev.dinv, b, x,
                                                lev.cheby_bounds[1],
                                                cfg.cheby_order, r=r)
-        return smoothers.chebyshev_sweeps(lev.A, lev.dinv, b, x,
+        return smoothers.chebyshev_sweeps(relax_op(lev), lev.dinv, b, x,
                                           lev.cheby_bounds, cfg.cheby_order,
                                           r=r)
 
@@ -624,16 +669,17 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
                                   spmv_update(lev.A, x, b=b), 5, 5)
             return x
         use_cf = cf_order and lev.cmask is not None
+        A_s = relax_op(lev)
         if kind == smoothers.RELAX_L1_JACOBI:
             if use_cf:
-                return smoothers.cf_jacobi_sweeps(lev.A, lev.dinv_l1,
+                return smoothers.cf_jacobi_sweeps(A_s, lev.dinv_l1,
                                                   lev.cmask, b, x, ns, 1.0)
-            return smoothers.jacobi_sweeps(lev.A, lev.dinv_l1, b, x, ns, 1.0)
+            return smoothers.jacobi_sweeps(A_s, lev.dinv_l1, b, x, ns, 1.0)
         if kind == smoothers.RELAX_JACOBI:
             if use_cf:
-                return smoothers.cf_jacobi_sweeps(lev.A, lev.dinv, lev.cmask,
+                return smoothers.cf_jacobi_sweeps(A_s, lev.dinv, lev.cmask,
                                                   b, x, ns, weight)
-            return smoothers.jacobi_sweeps(lev.A, lev.dinv, b, x, ns, weight)
+            return smoothers.jacobi_sweeps(A_s, lev.dinv, b, x, ns, weight)
         if kind == smoothers.RELAX_CHEBYSHEV:
             for _ in range(ns):
                 x = cheby(lev, b, x)
@@ -675,20 +721,32 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
                 # ref: src/HypreSystem.cpp:129-151)
                 return smooth(lev, b, x, kind_coarse, coarse_sweeps)
             rr = spmv_update(lev.A, x, b=b)
+            if rr.dim() == 2:       # a batch (k, n): each row's solve
+                return x + torch.matmul(rr, pre.coarse_inv.T)
             return x + torch.matmul(pre.coarse_inv, rr)
         x = smooth(lev, b, x, kind_down, nu_down)
         if plan[l][0]:
             rc = lev.restrict_residual(x, b)
         else:
             rc = lev.restrict(spmv_update(lev.A, x, b=b))
-        ec = torch.zeros(levels[l + 1].A.row_pad, dtype=b.dtype,
-                         device=b.device)
+        ec = torch.zeros(b.shape[:-1] + (levels[l + 1].A.row_pad,),
+                         dtype=b.dtype, device=b.device)
         for _ in range(gamma):
             ec = cycle(l + 1, rc, ec)
         # the correction is added into x, which the cycle owns
         return post_smooth(l, lev, b, x, ec)
 
-    run = lambda r: cycle(0, r, torch.zeros_like(r))
+    boxed = any(lev.P is None and lev.prolong is not None
+                for lev in levels[:-1])
+
+    def run(r):
+        if r.dim() == 2 and boxed:
+            # the structured cycle's transfers are single-vector launches
+            # fused into K1's: a batch runs column by column
+            return torch.stack([cycle(0, rj, torch.zeros_like(rj))
+                                for rj in r])
+        return cycle(0, r, torch.zeros_like(r))
+
     run.fused = plan
     return run
 

@@ -33,7 +33,7 @@ import scipy.sparse as sp
 from tpusolve_torch.amg import smoothers
 from tpusolve_torch.amg.builder import (
     AMGPreconditioner, Level, _build_cycle, _guard_coarse, _padded_pinv,
-    _NOT_PORTED, _resolve_kinds)
+    _relax_twin, _resolve_kinds)
 from tpusolve_torch.amg.dia_rap import dia_rap
 from tpusolve_torch.config import BoomerAMGConfig
 from tpusolve_torch.kernels.transfer import (
@@ -89,14 +89,18 @@ def _make_transfers(lev: Level, fine_box, coarse_box) -> None:
     K1 on the level's A (one launch each, ``kernels/transfer.py``):
     ``restrict_residual(x, b)`` is ``P^T (b - A x)`` and
     ``prolong_update(ec, x, b, s, w, c_is_xnew, xnew_out)`` is
-    ``[x'] + w * s * (b - A x')`` for ``x' = x + P ec``."""
+    ``[x'] + w * s * (b - A x')`` for ``x' = x + P ec``.  The update after
+    the prolongation is the first post-smoothing sweep, so it reads the
+    level's bf16 smoother twin where it has one (``Level.A_relax``); the
+    residual before the restriction reads A."""
     A = lev.A
+    A_s = lev.A_relax if lev.A_relax is not None else A
     lev.prolong = partial(box_prolong, fine_box, coarse_box)
     lev.restrict = partial(box_restrict, fine_box, coarse_box)
     lev.restrict_residual = partial(box_restrict_residual, fine_box,
                                     coarse_box, A.dia_vals, A.dia_offsets)
     lev.prolong_update = partial(box_prolong_update, fine_box, coarse_box,
-                                 A.dia_vals, A.dia_offsets)
+                                 A_s.dia_vals, A_s.dia_offsets)
 
 
 # ----------------------------------------------------------------------
@@ -227,7 +231,8 @@ def _make_level_structured(A_sh, dia, offd_parts, box, dtype,
     nnz = (sum(int(np.count_nonzero(v)) for v in dia.values()) * nparts
            + sum(len(o[0]) for o in offd_parts))
     return Level(A=A_sh, P=None, R=None, dinv_l1=dinv_l1, dinv=dinv,
-                 cheby_bounds=cheby_bounds, n=R * nparts, nnz=nnz)
+                 cheby_bounds=cheby_bounds, n=R * nparts, nnz=nnz,
+                 A_relax=_relax_twin(A_sh, cfg))
 
 
 def _dia_matrix(dia: dict, offd_parts, box, nparts, device, dtype):
@@ -246,8 +251,6 @@ def structured_mg_setup_fast(A: ShardedMatrix, config=None, *,
     (``amg/dia_rap.py``), boundary-shell couplings via a tiny sparse
     product."""
     cfg = config or BoomerAMGConfig()
-    if getattr(cfg, "smoother_dtype", "match") == "bfloat16":
-        raise NotImplementedError(f"smoother_dtype: bfloat16 {_NOT_PORTED}")
     if not structured_possible(A):
         raise ValueError("structured multigrid requires a rank-3 dia_shape "
                          "with even dims >= 4")
@@ -328,7 +331,7 @@ def hierarchy_from_dia_dicts(levels: list[dict], coarse_inv: np.ndarray,
         lev = Level(A=A, P=None, R=None, dinv_l1=vec(d.get("dinv_l1")),
                     dinv=vec(d.get("dinv")),
                     cheby_bounds=d.get("cheby_bounds"), n=A.shape[0],
-                    nnz=A.nnz)
+                    nnz=A.nnz, A_relax=_relax_twin(A, cfg))
         if i + 1 < len(levels):
             _make_transfers(lev, box, tuple(levels[i + 1]["box"]))
         levs.append(lev)

@@ -76,6 +76,25 @@
 // per instantiation with cudaFuncSetAttribute before the first launch that
 // needs it.
 //
+// The k-column form (the coupled multi-component solve, KC = 1 .. 8
+// columns a launch, a template parameter; KC = 1 is the single-vector
+// kernel): the values, the window offsets, the mask and the overflow are
+// read once for all columns, and each thread keeps KC sums a row.  To keep
+// those in registers a k-column block has at most kColThreads threads and
+// two blocks an SM, one pass of kRows rows each for KC >= 3 (f64: two
+// passes at KC = 2), so its steps hold fewer rows (kernels/bdia.py:
+// xl_step_rows; the host plans them anew for k).  It stages no x panel:
+// on gate 4's factors a panel spans the band (about 27,000 entries) around
+// a step's 2,048 rows, so k panels neither fit a block's shared memory nor
+// pay for their copies (the first design, k panels as far as they fit,
+// took 0.40 ms for three columns of L where three single launches take
+// 0.10; PERF.md); the columns read x through the read-only path, where
+// neighbouring slots' windows share L1 lines.  Every column sums its slots
+// in slot order and its overflow entries in list order, one multiply-add
+// each, exactly as the single form: column j of a launch is the
+// single-vector kernel on column j bit for bit.  The columns of x are xs_c
+// apart, those of y, b and c ys_c apart (s is one vector for all columns).
+//
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (tpusolve_torch/kernels/build.py).  Each entry point launches
 // on the caller's stream, does not synchronise, and returns the value of
@@ -96,6 +115,23 @@ constexpr int kSegRows = 32;         // kernels/bdia.py: SEG_ROWS
 constexpr int kAccRows = 8;          // kernels/bdia.py: XL_ACC_ROWS
 constexpr int kPreSlots = 4;         // slots loaded before the panel's wait
 constexpr int kMaxDevices = 64;
+constexpr int kMaxCols = 8;          // kernels/bdia.py: XL_MAX_COLS
+constexpr int kColThreads = 512;     // kernels/bdia.py: XL_COL_THREADS
+
+// threads a block at most, blocks an SM must hold (so registers a thread),
+// and passes of kRows rows a thread, of the KC-column kernel on values of
+// `bytes` bytes
+__host__ __device__ constexpr int max_threads(int KC) {
+  return KC == 1 ? kMaxThreads : kColThreads;
+}
+__host__ __device__ constexpr int min_blocks(int KC) {
+  return KC == 1 ? 1 : 2;
+}
+__host__ __device__ constexpr int passes(int KC, int bytes) {
+  return KC == 1 ? kAccRows / (kRowBytes / bytes)
+                 : (kAccRows / (kRowBytes / bytes) / KC > 0
+                        ? kAccRows / (kRowBytes / bytes) / KC : 1);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -140,15 +176,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// x at column g of the part: from the step's panel [lo, lo + panel) when g
-// lies inside it, else from global memory
-template <typename T>
-__device__ __forceinline__ T x_at(int g, const T* s_x, int lo, int panel,
-                                  const T* xp) {
-  const int i = g - lo;
-  return (i >= 0 && i < panel) ? s_x[i] : __ldg(xp + g);
-}
-
 // The pointers and factor of the update form c + w * s (.) (b - A x)
 template <typename T>
 struct Update {
@@ -156,13 +183,16 @@ struct Update {
   const T* s;
   const T* c;
   T w;
-  __device__ __forceinline__ T operator()(T acc, int64_t i) const {
+  // row i of the column whose b and c start `col` entries in (s is one
+  // vector for all columns)
+  __device__ __forceinline__ T operator()(T acc, int64_t i,
+                                          int64_t col = 0) const {
     if (b == nullptr && s == nullptr && c == nullptr) {
       return acc;
     }
-    return box_cycle::epilogue(acc, b != nullptr, b ? b[i] : T(0),
+    return box_cycle::epilogue(acc, b != nullptr, b ? b[col + i] : T(0),
                                s != nullptr, s ? s[i] : T(0), c != nullptr,
-                               c ? c[i] : T(0), w);
+                               c ? c[col + i] : T(0), w);
   }
 };
 
@@ -194,8 +224,8 @@ __device__ __forceinline__ void stage_overflow(const int32_t* oc, const T* ov,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, int KC>
+__global__ void __launch_bounds__(max_threads(KC), min_blocks(KC))
 bdia_spmv_xl_kernel(const T* __restrict__ vals,
                     const int32_t* __restrict__ starts,
                     const int32_t* __restrict__ step_lo,
@@ -208,16 +238,19 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
                     Update<T> upd, T* y,
                     int nblocks, int nslots, int block_rows, int row_pad,
                     int col_pad, int xpad_lo, int ovf_len, int gb, int nsteps,
-                    int panel, int mask_bytes, int stage) {
+                    int panel, int mask_bytes, int stage, int64_t xs_c,
+                    int64_t ys_c) {
   constexpr int kRows = kRowBytes / sizeof(T);   // rows per thread and pass
-  constexpr int kPasses = kAccRows / kRows;
+  constexpr int kPasses = passes(KC, (int)sizeof(T));
+  constexpr bool kPanel = KC == 1;   // one column stages its x panel
+  constexpr int np = kPanel ? 1 : 0;
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);   // panel, overflow
   T* s_x = reinterpret_cast<T*>(smem + kBarrierBytes);
   int32_t* s_off = reinterpret_cast<int32_t*>(
-      smem + kBarrierBytes + (size_t)panel * sizeof(T));
+      smem + kBarrierBytes + (size_t)np * panel * sizeof(T));
   uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_off + gb * nslots);
-  const size_t fixed = kBarrierBytes + (size_t)panel * sizeof(T)
+  const size_t fixed = kBarrierBytes + (size_t)np * panel * sizeof(T)
                        + (size_t)gb * nslots * (4 + mask_bytes);
   int32_t* s_oc = reinterpret_cast<int32_t*>(smem + (fixed + 15) / 16 * 16);
   T* s_ov = reinterpret_cast<T*>(s_oc + stage);
@@ -227,16 +260,23 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
   const int64_t si = (int64_t)p * (nsteps + 1) + step;
   const int b0 = step_b0[si];
   const int nb = step_b0[si + 1] - b0;
-  const T* xp = x + (int64_t)p * col_pad;
+  const T* xp = x + (int64_t)p * col_pad;   // column 0's part; column c at
+                                            // xp + c * xs_c
   const int lo = step_lo[(int64_t)p * nsteps + step];
   const int nrows = nb * block_rows;
   const int row_first = b0 * block_rows;
   const int row_end = min(row_first + nrows, row_pad);
 
-  // the part of the panel the bulk copy moves: whole 16-byte units of x
+  // the part of each staged panel the bulk copies move: whole 16-byte
+  // units of x, where every staged column's base is 16-byte aligned
   const int c_lo = max(lo, 0);
   const int c_hi = min(lo + panel, col_pad - col_pad % kAlign);
-  const bool bulk = c_hi > c_lo && (reinterpret_cast<uintptr_t>(xp) % 16) == 0;
+  bool aligned = true;
+  for (int c = 0; c < np; ++c) {
+    aligned = aligned
+        && (reinterpret_cast<uintptr_t>(xp + c * xs_c) % 16) == 0;
+  }
+  const bool bulk = np > 0 && c_hi > c_lo && aligned;
   // the step's overflow span, its start rounded down to a 16-byte unit
   const int32_t* pp = ovf_ptr + (int64_t)p * (row_pad + 1);
   const int32_t* oc = ovf_cols + (int64_t)p * ovf_len;
@@ -254,14 +294,17 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
   __syncthreads();
   if (bulk && threadIdx.x == 0) {
     const uint32_t bytes = (uint32_t)(c_hi - c_lo) * sizeof(T);
-    mbar_expect_tx(bar_x, bytes);
-    bulk_copy_g2s(smem_u32(s_x + (c_lo - lo)), xp + c_lo, bytes, bar_x);
+    mbar_expect_tx(bar_x, bytes * (uint32_t)np);
+    for (int c = 0; c < np; ++c) {
+      bulk_copy_g2s(smem_u32(s_x + (size_t)c * panel + (c_lo - lo)),
+                    xp + c * xs_c + c_lo, bytes, bar_x);
+    }
   }
   if (e_lo < e_hi) {   // the first chunk of the overflow, during the slots
     stage_overflow(oc, ov, e_lo, min(e_lo + stage, e_hi), s_oc, s_ov, bar_o,
                    ovf_bulk);
   }
-  // the threads: window offsets, mask rows, and the panel outside the copy
+  // the threads: window offsets, mask rows, and the panels outside the copy
   const int64_t blk0 = (int64_t)p * nblocks + b0;
   const int32_t* st = starts + blk0 * nslots;
   for (int i = threadIdx.x; i < nb * nslots; i += blockDim.x) {
@@ -271,18 +314,35 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
   for (int i = threadIdx.x; i < nb * nslots * mask_bytes; i += blockDim.x) {
     s_mask[i] = mk[i];
   }
-  // panel entries [copy_lo, copy_hi) are the bulk copy's, the rest ours
+  // panel entries [copy_lo, copy_hi) are the bulk copies', the rest ours
   const int copy_lo = bulk ? c_lo - lo : panel;
   const int copy_hi = bulk ? c_hi - lo : panel;
-  for (int i = threadIdx.x; i < copy_lo; i += blockDim.x) {
-    const int g = lo + i;
-    s_x[i] = (g >= 0 && g < col_pad) ? xp[g] : T(0);
-  }
-  for (int i = copy_hi + threadIdx.x; i < panel; i += blockDim.x) {
-    const int g = lo + i;
-    s_x[i] = (g >= 0 && g < col_pad) ? xp[g] : T(0);
+  for (int c = 0; c < np; ++c) {
+    const T* xc = xp + c * xs_c;
+    T* sc = s_x + (size_t)c * panel;
+    for (int i = threadIdx.x; i < copy_lo; i += blockDim.x) {
+      const int g = lo + i;
+      sc[i] = (g >= 0 && g < col_pad) ? xc[g] : T(0);
+    }
+    for (int i = copy_hi + threadIdx.x; i < panel; i += blockDim.x) {
+      const int g = lo + i;
+      sc[i] = (g >= 0 && g < col_pad) ? xc[g] : T(0);
+    }
   }
   __syncthreads();
+
+  // x of column c at panel index q (column g = lo + q of the part): from
+  // the staged panel (one column), else through the read-only path (0
+  // outside [0, col_pad))
+  auto xq = [&](int c, int q) -> T {
+    if constexpr (kPanel) {
+      return s_x[q];
+    } else {
+      const int g = lo + q;
+      return (unsigned)g < (unsigned)col_pad ? __ldg(xp + c * xs_c + g)
+                                             : T(0);
+    }
+  };
 
   // Slots.  Pass ps: warp w owns the 32 * kRows rows from (w + ps * warps)
   // * 32 * kRows of the step, one R-row block's (R is a multiple of 128),
@@ -290,12 +350,15 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
   const int lane = threadIdx.x % 32;
   const int warps = blockDim.x / 32;
   bool waited = !bulk;
-  T acc[kPasses][kRows];
+  T acc[KC][kPasses][kRows];
 #pragma unroll
   for (int ps = 0; ps < kPasses; ++ps) {
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      acc[ps][j] = T(0);
+    for (int c = 0; c < KC; ++c) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        acc[c][ps][j] = T(0);
+      }
     }
     const int base = (threadIdx.x / 32 + ps * warps) * 32 * kRows;
     if (base >= nrows || row_first + base >= row_pad) {
@@ -314,7 +377,7 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
       return (unsigned)mrow[d * mask_bytes] >> mshift;
     };
     int d = 0;
-    if (ps == 0) {
+    if (kPanel && ps == 0) {
       // the first slots' values, loaded while the panel is on its way
       T pre[kPreSlots][kRows];
 #pragma unroll
@@ -333,10 +396,12 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
 #pragma unroll
       for (int dd = 0; dd < kPreSlots; ++dd) {
         if (dd < nslots) {
-          const T* xw = s_x + off[dd] + r0;
 #pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-            acc[ps][j] += pre[dd][j] * xw[32 * j];
+          for (int c = 0; c < KC; ++c) {
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) {
+              acc[c][ps][j] += pre[dd][j] * xq(c, off[dd] + r0 + 32 * j);
+            }
           }
         }
       }
@@ -346,11 +411,17 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
     for (; d < nslots; ++d) {
       const unsigned m = live(d);
       const T* vd = v + (int64_t)d * block_rows;
-      const T* xw = s_x + off[d] + r0;
+      T vv[kRows];
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
-        const T vv = (m >> j) & 1u ? __ldcs(vd + 32 * j) : T(0);
-        acc[ps][j] += vv * xw[32 * j];
+        vv[j] = (m >> j) & 1u ? __ldcs(vd + 32 * j) : T(0);
+      }
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          acc[c][ps][j] += vv[j] * xq(c, off[d] + r0 + 32 * j);
+        }
       }
     }
   }
@@ -389,8 +460,15 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
         for (int j = 0; j < kRows; ++j) {
           const int q1 = min(ee[ps][j], c1);
           for (int e = max(eb[ps][j], c0); e < q1; ++e) {
-            acc[ps][j] += s_ov[e - c0] * x_at(s_oc[e - c0], s_x, lo, panel,
-                                              xp);
+            const T ve = s_ov[e - c0];
+            const int g = s_oc[e - c0];
+            const int q = g - lo;
+            const bool in = q >= 0 && q < panel;
+#pragma unroll
+            for (int c = 0; c < KC; ++c) {
+              const T xe = in ? xq(c, q) : __ldg(xp + c * xs_c + g);
+              acc[c][ps][j] += ve * xe;
+            }
           }
         }
       }
@@ -404,30 +482,37 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
       const int row = row_first + base + lane + 32 * j;
       if (base < nrows && row < row_pad) {
         const int64_t i = (int64_t)p * row_pad + row;
-        y[i] = upd(acc[ps][j], i);
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          y[c * ys_c + i] = upd(acc[c][ps][j], i, c * ys_c);
+        }
       }
     }
   }
 }
 
-template <typename T>
-int launch(const void* vals, const void* starts, const void* step_lo,
-           const void* step_b0, const void* x, const void* ovf_ptr,
-           const void* ovf_cols, const void* ovf_vals, const void* mask,
-           const void* b, const void* s, const void* c, void* y, double w,
-           int nparts, int nblocks, int nslots, int block_rows, int row_pad,
-           int col_pad, int xpad_lo, int ovf_len, int gb, int nsteps,
-           int panel, int stage, void* stream) {
+template <typename T, int KC>
+int launch_k(const void* vals, const void* starts, const void* step_lo,
+             const void* step_b0, const void* x, const void* ovf_ptr,
+             const void* ovf_cols, const void* ovf_vals, const void* mask,
+             const Update<T>& upd, void* y, int nparts, int nblocks,
+             int nslots, int block_rows, int row_pad, int col_pad,
+             int xpad_lo, int ovf_len, int gb, int nsteps, int panel,
+             int stage, int64_t xs_c, int64_t ys_c,
+             void* stream) {
   constexpr int kRows = kRowBytes / (int)sizeof(T);
-  const int threads = min(kMaxThreads,
+  constexpr int kPasses = passes(KC, (int)sizeof(T));
+  const int threads = min(max_threads(KC),
                           (gb * block_rows / kRows + 31) / 32 * 32);
-  if (block_rows % (kSegRows * kRows) || gb * block_rows > threads * kAccRows
+  if (block_rows % (kSegRows * kRows)
+      || gb * block_rows > threads * kRows * kPasses
       || stage % 4 || (ovf_ptr != nullptr && stage < 4) || step_b0 == nullptr
       || mask == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const int mask_bytes = (block_rows / kSegRows + 7) / 8;
-  const size_t fixed = kBarrierBytes + (size_t)panel * sizeof(T)
+  constexpr int kPanels = KC == 1 ? 1 : 0;   // one column stages x
+  const size_t fixed = kBarrierBytes + (size_t)kPanels * panel * sizeof(T)
                        + (size_t)gb * nslots * (sizeof(int32_t) + mask_bytes);
   const size_t smem = (fixed + 15) / 16 * 16
                       + (size_t)stage * (sizeof(int32_t) + sizeof(T));
@@ -439,7 +524,7 @@ int launch(const void* vals, const void* starts, const void* step_lo,
     return (int)err;
   }
   if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > opted[dev])) {
-    err = cudaFuncSetAttribute(bdia_spmv_xl_kernel<T>,
+    err = cudaFuncSetAttribute(bdia_spmv_xl_kernel<T, KC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) {
@@ -449,48 +534,71 @@ int launch(const void* vals, const void* starts, const void* step_lo,
       opted[dev] = smem;
     }
   }
-  const Update<T> upd{(const T*)b, (const T*)s, (const T*)c, (T)w};
   const dim3 grid(nsteps, nparts);
-  bdia_spmv_xl_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
+  bdia_spmv_xl_kernel<T, KC><<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const T*)vals, (const int32_t*)starts, (const int32_t*)step_lo,
       (const int32_t*)step_b0, (const T*)x, (const int32_t*)ovf_ptr,
       (const int32_t*)ovf_cols, (const T*)ovf_vals, (const uint8_t*)mask,
       upd, (T*)y, nblocks, nslots, block_rows, row_pad, col_pad, xpad_lo,
-      ovf_len, gb, nsteps, panel, mask_bytes, stage);
+      ovf_len, gb, nsteps, panel, mask_bytes, stage, xs_c, ys_c);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* vals, const void* starts, const void* step_lo,
+           const void* step_b0, const void* x, const void* ovf_ptr,
+           const void* ovf_cols, const void* ovf_vals, const void* mask,
+           const void* b, const void* s, const void* c, void* y, double w,
+           int nparts, int nblocks, int nslots, int block_rows, int row_pad,
+           int col_pad, int xpad_lo, int ovf_len, int gb, int nsteps,
+           int panel, int stage, int ncols, int64_t xs_c,
+           int64_t ys_c, void* stream) {
+  const Update<T> upd{(const T*)b, (const T*)s, (const T*)c, (T)w};
+#define XL_COLS(KC_)                                                        \
+  case KC_:                                                                 \
+    return launch_k<T, KC_>(vals, starts, step_lo, step_b0, x, ovf_ptr,     \
+                            ovf_cols, ovf_vals, mask, upd, y, nparts,       \
+                            nblocks, nslots, block_rows, row_pad, col_pad,  \
+                            xpad_lo, ovf_len, gb, nsteps, panel, stage,     \
+                            xs_c, ys_c, stream);
+  switch (ncols) {
+    XL_COLS(1)
+    XL_COLS(2)
+    XL_COLS(3)
+    XL_COLS(4)
+    XL_COLS(5)
+    XL_COLS(6)
+    XL_COLS(7)
+    XL_COLS(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef XL_COLS
 }
 
 }  // namespace
 
 extern "C" {
 
-int bdia_spmv_xl_f32(const void* vals, const void* starts, const void* step_lo,
-                     const void* step_b0, const void* x, const void* ovf_ptr,
-                     const void* ovf_cols, const void* ovf_vals,
-                     const void* mask, const void* b, const void* s,
-                     const void* c, void* y, double w, int nparts,
-                     int nblocks, int nslots, int block_rows, int row_pad,
-                     int col_pad, int xpad_lo, int ovf_len, int gb,
-                     int nsteps, int panel, int stage, void* stream) {
-  return launch<float>(vals, starts, step_lo, step_b0, x, ovf_ptr, ovf_cols,
-                       ovf_vals, mask, b, s, c, y, w, nparts, nblocks, nslots,
-                       block_rows, row_pad, col_pad, xpad_lo, ovf_len, gb,
-                       nsteps, panel, stage, stream);
-}
+// ncols: the columns k (1 to 8); column j of x at x + j * xs_c, of y, b, c at j * ys_c (s one
+// vector for all columns); the rest as K4's arguments and the step plan
+#define XL_ENTRY(NAME, T)                                                    \
+  int NAME(const void* vals, const void* starts, const void* step_lo,       \
+           const void* step_b0, const void* x, const void* ovf_ptr,         \
+           const void* ovf_cols, const void* ovf_vals, const void* mask,    \
+           const void* b, const void* s, const void* c, void* y, double w,  \
+           int nparts, int nblocks, int nslots, int block_rows,             \
+           int row_pad, int col_pad, int xpad_lo, int ovf_len, int gb,      \
+           int nsteps, int panel, int stage, int ncols, int64_t xs_c,       \
+           int64_t ys_c, void* stream) {                                    \
+    return launch<T>(vals, starts, step_lo, step_b0, x, ovf_ptr, ovf_cols,  \
+                     ovf_vals, mask, b, s, c, y, w, nparts, nblocks, nslots, \
+                     block_rows, row_pad, col_pad, xpad_lo, ovf_len, gb,    \
+                     nsteps, panel, stage, ncols, xs_c, ys_c, stream);      \
+  }
 
-int bdia_spmv_xl_f64(const void* vals, const void* starts, const void* step_lo,
-                     const void* step_b0, const void* x, const void* ovf_ptr,
-                     const void* ovf_cols, const void* ovf_vals,
-                     const void* mask, const void* b, const void* s,
-                     const void* c, void* y, double w, int nparts,
-                     int nblocks, int nslots, int block_rows, int row_pad,
-                     int col_pad, int xpad_lo, int ovf_len, int gb,
-                     int nsteps, int panel, int stage, void* stream) {
-  return launch<double>(vals, starts, step_lo, step_b0, x, ovf_ptr, ovf_cols,
-                        ovf_vals, mask, b, s, c, y, w, nparts, nblocks,
-                        nslots, block_rows, row_pad, col_pad, xpad_lo,
-                        ovf_len, gb, nsteps, panel, stage, stream);
-}
+XL_ENTRY(bdia_spmv_xl_f32, float)
+XL_ENTRY(bdia_spmv_xl_f64, double)
 
 const char* tpusolve_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

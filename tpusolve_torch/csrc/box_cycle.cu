@@ -86,8 +86,8 @@ struct Shape {
 // thread's rows i[k] of it, and their sums (on group 0 only, meaningful
 // where valid[k]); xat(o) loads x at flat index o; `stream` as in
 // row_partials
-template <typename T, int G, int R, typename XAt>
-__device__ __forceinline__ void k1_block_rows(const T* __restrict__ vals,
+template <typename T, int G, int R, typename V, typename XAt>
+__device__ __forceinline__ void k1_block_rows(const V* __restrict__ vals,
                                               const Slots& slots, int nslots,
                                               int nz, int ny, int nx, int nb,
                                               int vb, bool stream, int* p,
@@ -99,7 +99,7 @@ __device__ __forceinline__ void k1_block_rows(const T* __restrict__ vals,
   *p = vb / nb;
   int iz[R], iy[R], ix[R];
   int64_t o[R];
-  const T* vp[R];
+  const V* vp[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     i[k] = ((vb - *p * nb) * R + k) * RB + r;
@@ -241,9 +241,9 @@ restrict_residual_kernel(const T* __restrict__ vals, const T* __restrict__ x,
 
 // x' = x + P ec into xn, then y = [x'] + w s (.) (b - A x'); (nz, ny, nx)
 // is the fine box.  Launched cooperatively
-template <typename T, int G>
+template <typename T, typename V, int G>
 __global__ void __launch_bounds__(Plan<G>::kThreads, Shape<T, G>::kBlocks)
-prolong_update_kernel(const T* __restrict__ vals, const T* __restrict__ ec,
+prolong_update_kernel(const V* __restrict__ vals, const T* __restrict__ ec,
                       const T* __restrict__ x, const T* __restrict__ b,
                       const T* __restrict__ s, T* y, T* xn,
                       const __grid_constant__ Slots slots, int nslots,
@@ -349,9 +349,9 @@ int64_t virtual_blocks(int nparts, int nz, int ny, int nx) {
 // vector between the phases stays there for the second
 constexpr int64_t kStreamBytes = 32ll << 20;
 
-template <typename T>
+template <typename V>
 int streams(int nslots, int nparts, int nz, int ny, int nx) {
-  return (int64_t)nslots * nparts * nz * ny * nx * (int64_t)sizeof(T) >
+  return (int64_t)nslots * nparts * nz * ny * nx * (int64_t)sizeof(V) >
          kStreamBytes;
 }
 
@@ -370,12 +370,12 @@ cudaError_t launch_restrict(const T* vals, const Slots& slots, int nslots,
                      resident, stream);
 }
 
-template <typename T, int G>
-cudaError_t launch_prolong(const T* vals, const Slots& slots, int nslots,
+template <typename T, typename V, int G>
+cudaError_t launch_prolong(const V* vals, const Slots& slots, int nslots,
                            const T* ec, const T* x, const T* b, const T* s,
                            T* y, T* xnew, int nparts, int nz, int ny, int nx,
                            T w, int c_is_xnew, cudaStream_t stream) {
-  int streamed = streams<T>(nslots, nparts, nz, ny, nx);
+  int streamed = streams<V>(nslots, nparts, nz, ny, nx);
   void* args[] = {(void*)&vals,   (void*)&ec,    (void*)&x,
                   (void*)&b,      (void*)&s,     (void*)&y,
                   (void*)&xnew,   (void*)&slots, (void*)&nslots,
@@ -383,7 +383,7 @@ cudaError_t launch_prolong(const T* vals, const Slots& slots, int nslots,
                   (void*)&nx,     (void*)&w,     (void*)&c_is_xnew,
                   (void*)&streamed};
   static int resident[kDevices] = {0};
-  return launch_grid(prolong_update_kernel<T, G>, Plan<G>::kThreads,
+  return launch_grid(prolong_update_kernel<T, V, G>, Plan<G>::kThreads,
                      virtual_blocks<T, G>(nparts, nz, ny, nx), args,
                      resident, stream);
 }
@@ -413,7 +413,7 @@ int restrict_residual(const void* vals, const int* offs, int nslots,
       (T*)rc, nparts, nz, ny, nx, (cudaStream_t)stream)))
 }
 
-template <typename T>
+template <typename T, typename V>
 int prolong_update(const void* vals, const int* offs, int nslots,
                    const void* ec, const void* x, const void* b,
                    const void* s, void* y, void* xnew, int nparts, int nz,
@@ -424,8 +424,8 @@ int prolong_update(const void* vals, const int* offs, int nslots,
       !make_slots(offs, nslots, ny, nx, &slots)) {
     return (int)cudaErrorInvalidValue;
   }
-  BOX_CYCLE_SWITCH(groups, (launch_prolong<T, kG>(
-      (const T*)vals, slots, nslots, (const T*)ec, (const T*)x, (const T*)b,
+  BOX_CYCLE_SWITCH(groups, (launch_prolong<T, V, kG>(
+      (const V*)vals, slots, nslots, (const T*)ec, (const T*)x, (const T*)b,
       (const T*)s, (T*)y, (T*)xnew, nparts, nz, ny, nx, (T)w, c_is_xnew,
       (cudaStream_t)stream)))
 }
@@ -460,9 +460,9 @@ int box_prolong_update_f32(const void* vals, const int* offs, int nslots,
                            const void* s, void* y, void* xnew, int nparts,
                            int nz, int ny, int nx, int groups, double w,
                            int c_is_xnew, void* stream) {
-  return prolong_update<float>(vals, offs, nslots, ec, x, b, s, y, xnew,
-                               nparts, nz, ny, nx, groups, w, c_is_xnew,
-                               stream);
+  return prolong_update<float, float>(vals, offs, nslots, ec, x, b, s, y,
+                                      xnew, nparts, nz, ny, nx, groups, w,
+                                      c_is_xnew, stream);
 }
 
 int box_prolong_update_f64(const void* vals, const int* offs, int nslots,
@@ -470,9 +470,34 @@ int box_prolong_update_f64(const void* vals, const int* offs, int nslots,
                            const void* s, void* y, void* xnew, int nparts,
                            int nz, int ny, int nx, int groups, double w,
                            int c_is_xnew, void* stream) {
-  return prolong_update<double>(vals, offs, nslots, ec, x, b, s, y, xnew,
-                                nparts, nz, ny, nx, groups, w, c_is_xnew,
-                                stream);
+  return prolong_update<double, double>(vals, offs, nslots, ec, x, b, s, y,
+                                        xnew, nparts, nz, ny, nx, groups, w,
+                                        c_is_xnew, stream);
+}
+
+// the same on bf16 planes (their bits; the smoother twin): x' = x + P ec,
+// then y = [x'] + w s (.) (b - A_relax x'), A_relax's values widened
+// exactly to x's type
+int box_prolong_update_bf16_f32(const void* vals, const int* offs,
+                                int nslots, const void* ec, const void* x,
+                                const void* b, const void* s, void* y,
+                                void* xnew, int nparts, int nz, int ny,
+                                int nx, int groups, double w, int c_is_xnew,
+                                void* stream) {
+  return prolong_update<float, uint16_t>(vals, offs, nslots, ec, x, b, s, y,
+                                         xnew, nparts, nz, ny, nx, groups, w,
+                                         c_is_xnew, stream);
+}
+
+int box_prolong_update_bf16_f64(const void* vals, const int* offs,
+                                int nslots, const void* ec, const void* x,
+                                const void* b, const void* s, void* y,
+                                void* xnew, int nparts, int nz, int ny,
+                                int nx, int groups, double w, int c_is_xnew,
+                                void* stream) {
+  return prolong_update<double, uint16_t>(vals, offs, nslots, ec, x, b, s,
+                                          y, xnew, nparts, nz, ny, nx, groups,
+                                          w, c_is_xnew, stream);
 }
 
 const char* tpusolve_cuda_error_string(int code) {

@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace box_cycle {
 
 constexpr int kMaxSlots = 128;  // slots a table holds (kernels/dia.py)
@@ -52,6 +54,20 @@ __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
 
+// a plane value of type V as T, through the read-only path or, with
+// `stream`, as streamed data: V is T, or uint16_t holding a bfloat16's bits
+// (the smoother twin), widened exactly, so that the sums that follow are
+// those of the values rounded to bf16 in T, as JAX promotes bf16 * f32
+template <typename T, typename V>
+__device__ __forceinline__ T load_plane(const V* p, bool stream) {
+  if constexpr (std::is_same<V, uint16_t>::value) {
+    const uint16_t u = stream ? __ldcs(p) : __ldg(p);
+    return (T)__uint_as_float((uint32_t)u << 16);
+  } else {
+    return stream ? __ldcs(p) : __ldg(p);
+  }
+}
+
 // K1's partial row sums of R rows over slots [d_lo, d_hi), in stored slot
 // order, one fused multiply-add a slot, the R rows' loads of each stage of
 // kStage slots issued together (R times the loads in flight of one row):
@@ -60,10 +76,11 @@ __device__ __forceinline__ double sub_rn(double a, double b) {
 // neighbour of slot d, called only for a neighbour inside the box.  An
 // invalid row loads nothing.  With `stream` the planes are loaded as
 // streamed data (evicted from L2 first: a plane stack larger than L2 then
-// leaves the caller's other vectors there).
-template <typename T, int R, typename XAt>
+// leaves the caller's other vectors there).  The planes hold values of
+// type V (load_plane).
+template <typename T, int R, typename V, typename XAt>
 __device__ __forceinline__ void row_partials(
-    T (&acc)[R], const T* const (&vp)[R], int64_t box, const Slots& slots,
+    T (&acc)[R], const V* const (&vp)[R], int64_t box, const Slots& slots,
     int d_lo, int d_hi, const bool (&valid)[R], const int (&iz)[R],
     const int (&iy)[R], const int (&ix)[R], int nz, int ny, int nx,
     XAt xat, bool stream = false) {
@@ -87,8 +104,7 @@ __device__ __forceinline__ void row_partials(
           const int xx = ix[k] + slots.d[d][2];
           if ((unsigned)z < (unsigned)nz && (unsigned)yy < (unsigned)ny &&
               (unsigned)xx < (unsigned)nx) {
-            v[k][s] = stream ? __ldcs(vp[k] + (int64_t)d * box)
-                             : __ldg(vp[k] + (int64_t)d * box);
+            v[k][s] = load_plane<T, V>(vp[k] + (int64_t)d * box, stream);
             xv[k][s] = xat(k, d);
           }
         }
@@ -108,14 +124,14 @@ __device__ __forceinline__ void row_partials(
 // (nz, ny, nx) box: vp points at the row's value in slot 0's plane (planes
 // `box` apart), xat(d) loads the neighbour of slot d, called only for a
 // neighbour inside the box.  An invalid row loads nothing.
-template <typename T, typename XAt>
-__device__ __forceinline__ T row_partial(const T* vp, int64_t box,
+template <typename T, typename V, typename XAt>
+__device__ __forceinline__ T row_partial(const V* vp, int64_t box,
                                          const Slots& slots, int d_lo,
                                          int d_hi, bool valid, int iz,
                                          int iy, int ix, int nz, int ny,
                                          int nx, XAt xat) {
   T acc[1];
-  const T* const vps[1] = {vp};
+  const V* const vps[1] = {vp};
   const bool valids[1] = {valid};
   const int izs[1] = {iz}, iys[1] = {iy}, ixs[1] = {ix};
   row_partials<T, 1>(acc, vps, box, slots, d_lo, d_hi, valids, izs, iys,

@@ -60,6 +60,20 @@
 //     thread of each row adds them in group order and applies the epilogue
 //     once.  The order is fixed: the same bits in every run, and for G = 1
 //     the one-thread-a-row sum of earlier builds.
+// The bfloat16 value form (the smoother twin, smoother_dtype: bfloat16):
+// V = uint16_t holds each plane value's bf16 bits, widened exactly to x's
+// type (f32 or f64) before its fused multiply-add, so that the launch
+// equals the full-precision kernel on the values rounded to bf16 bit for
+// bit while it reads half (f32) or a quarter (f64) of the plane bytes.
+// Loaded one 16-bit value a thread, the planes took 0.148 ms on the 128^3
+// level where the f32 form takes 0.086 (PERF.md): the loads, not the
+// bytes, set the time.  So at one thread a row on a box of an even row
+// count (warp_tile) a warp takes 64 rows, lane l rows l and l + 32: lane l
+// loads the 32-bit word l of each plane's tile (rows 2l and 2l + 1), and
+// two shuffles hand every lane its two values; each row still sums its
+// slots in stored order, one fused multiply-add each (a slot whose
+// neighbour is outside the box adds its finite value times 0, which leaves
+// the sum's bits as the one-value form's 0 * 0 does).
 // Staging the x window a block's rows reach in shared memory was measured
 // slower at every G and box (PERF.md), and is not kept.
 //
@@ -89,13 +103,121 @@ struct Epilogue {
   T w;
 };
 
-template <typename T, int G>
+// the warp-tile form of the bf16 planes at one thread a row: 64 rows a
+// warp, lane l rows l and l + 32 of it, each plane's 64 values of the tile
+// read as 32 words, one a lane, and shuffled to the lanes whose rows they
+// hold.  The box's row count is even, so every word is 4-byte aligned and
+// lies inside its plane.
+template <typename T>
+__device__ __forceinline__ void warp_tile(const uint16_t* __restrict__ vals,
+                                          const T* __restrict__ x, T* y,
+                                          const Slots& slots, int nslots,
+                                          int nz, int ny, int nx,
+                                          const Epilogue<T>& ep) {
+  constexpr int kTileWarps = Plan<1>::kThreads / 32;
+  const int64_t box = (int64_t)nz * ny * nx;
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.y;
+  const int64_t t0 = ((int64_t)blockIdx.x * kTileWarps + threadIdx.x / 32)
+                     * 64;
+  int64_t i[2];
+  bool valid[2];
+  int iz[2], iy[2], ix[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    i[k] = t0 + lane + 32 * k;
+    valid[k] = i[k] < box;
+    ix[k] = iy[k] = iz[k] = 0;
+    if (valid[k]) {
+      ix[k] = (int)(i[k] % nx);
+      const int64_t zy = i[k] / nx;
+      iy[k] = (int)(zy % ny);
+      iz[k] = (int)(zy / ny);
+    }
+  }
+  // lane's word: rows t0 + 2 lane and t0 + 2 lane + 1 of slot 0's plane
+  const int64_t e = t0 + 2 * lane;
+  const uint32_t* vw = reinterpret_cast<const uint32_t*>(
+      vals + (int64_t)p * nslots * box + e);
+  const bool has_word = e < box;
+  const T* xp = x + (int64_t)p * box;
+  T acc[2] = {T(0), T(0)};
+  for (int d0 = 0; d0 < nslots; d0 += box_cycle::kStage) {
+    uint32_t w[box_cycle::kStage];
+    T xv[2][box_cycle::kStage];
+#pragma unroll
+    for (int s = 0; s < box_cycle::kStage; ++s) {
+      const int d = d0 + s;
+      w[s] = 0u;
+      if (has_word && d < nslots) {
+        w[s] = __ldg(vw + (int64_t)d * (box / 2));
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        xv[k][s] = T(0);
+        if (valid[k] && d < nslots) {
+          const int z = iz[k] + slots.d[d][0];
+          const int yy = iy[k] + slots.d[d][1];
+          const int xx = ix[k] + slots.d[d][2];
+          if ((unsigned)z < (unsigned)nz && (unsigned)yy < (unsigned)ny &&
+              (unsigned)xx < (unsigned)nx) {
+            xv[k][s] = __ldg(xp + i[k] + slots.d[d][3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < box_cycle::kStage; ++s) {
+      // row l's value is in lane l / 2's word, row l + 32's in lane
+      // 16 + l / 2's; the low half holds the even row
+      const uint32_t w0 = __shfl_sync(0xffffffffu, w[s], lane >> 1);
+      const uint32_t w1 = __shfl_sync(0xffffffffu, w[s], 16 + (lane >> 1));
+      const uint32_t h0 = (lane & 1) ? (w0 & 0xffff0000u) : (w0 << 16);
+      const uint32_t h1 = (lane & 1) ? (w1 & 0xffff0000u) : (w1 << 16);
+      // a neighbour outside the box has x = 0: v * 0 + acc is acc, since
+      // acc starts at +0 and a round-to-nearest sum is never -0 unless
+      // both terms are, so these are the one-value form's bits
+      acc[0] = fma((T)__uint_as_float(h0), xv[0][s], acc[0]);
+      acc[1] = fma((T)__uint_as_float(h1), xv[1][s], acc[1]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (!valid[k]) {
+      continue;
+    }
+    const int64_t o = (int64_t)p * box + i[k];
+    T a = acc[k];
+    if (ep.b != nullptr || ep.s != nullptr || ep.c != nullptr) {
+      a = box_cycle::epilogue(
+          a, ep.b != nullptr, ep.b != nullptr ? ep.b[o] : T(0),
+          ep.s != nullptr, ep.s != nullptr ? ep.s[o] : T(0), ep.c != nullptr,
+          ep.c != nullptr ? ep.c[o] : T(0), ep.w);
+    }
+    y[o] = a;
+  }
+}
+
+// whether K1 runs the warp-tile form: bf16 planes, one thread a row, a box
+// of an even row count
+template <typename V, int G>
+bool tiled(int64_t box) {
+  return G == 1 && sizeof(V) == 2 && box % 2 == 0;
+}
+
+template <typename T, typename V, int G>
 __global__ void __launch_bounds__(Plan<G>::kThreads)
-dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
+dia_spmv_kernel(const V* __restrict__ vals, const T* __restrict__ x,
                 T* __restrict__ y, const __grid_constant__ Slots slots,
                 int nslots, int nz, int ny, int nx, const Epilogue<T> ep) {
   constexpr int RB = Plan<G>::RB;
   const int64_t box = (int64_t)nz * ny * nx;
+  if constexpr (G == 1 && sizeof(V) == 2) {
+    if (box % 2 == 0) {   // uniform over the launch (tiled)
+      warp_tile<T>(vals, x, y, slots, nslots, nz, ny, nx, ep);
+      return;
+    }
+  }
   const int r = threadIdx.x % RB;
   const int g = threadIdx.x / RB;
   const int64_t row0 = (int64_t)blockIdx.x * RB;
@@ -110,12 +232,12 @@ dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
     iz = (int)(zy / ny);
   }
   const T* xw = x + (int64_t)p * box + i;  // where slot offsets are added
-  const T* vp = vals + (int64_t)p * nslots * box + i;
+  const V* vp = vals + (int64_t)p * nslots * box + i;
   const int chunk = (nslots + G - 1) / G;
   const int d_lo = g * chunk;
   const int d_hi = min(nslots, d_lo + chunk);
 
-  T acc = box_cycle::row_partial<T>(
+  T acc = box_cycle::row_partial<T, V>(
       vp, box, slots, d_lo, d_hi, valid, iz, iy, ix, nz, ny, nx,
       [&](int d) { return __ldg(xw + slots.d[d][3]); });
 
@@ -144,16 +266,16 @@ dia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
   y[o] = acc;
 }
 
-template <typename T, int G>
-cudaError_t launch_g(dim3 grid, cudaStream_t stream, const T* vals,
+template <typename T, typename V, int G>
+cudaError_t launch_g(dim3 grid, cudaStream_t stream, const V* vals,
                      const T* x, T* y, const Slots& slots, int nslots,
                      int nz, int ny, int nx, const Epilogue<T>& ep) {
-  dia_spmv_kernel<T, G><<<grid, Plan<G>::kThreads, 0, stream>>>(
+  dia_spmv_kernel<T, V, G><<<grid, Plan<G>::kThreads, 0, stream>>>(
       vals, x, y, slots, nslots, nz, ny, nx, ep);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename V>
 int launch(const void* vals, const void* x, void* y, const int* offs,
            int nslots, int nparts, int nz, int ny, int nx, int groups,
            const void* b, const void* s, const void* c, double w,
@@ -173,7 +295,7 @@ int launch(const void* vals, const void* x, void* y, const int* offs,
   const int64_t box = (int64_t)nz * ny * nx;
   const Epilogue<T> ep{(const T*)b, (const T*)s, (const T*)c, (T)w};
   const cudaStream_t st = (cudaStream_t)stream;
-  const T* v = (const T*)vals;
+  const V* v = (const V*)vals;
   const T* xx = (const T*)x;
   T* yy = (T*)y;
   // one block per RB rows of a part
@@ -181,21 +303,22 @@ int launch(const void* vals, const void* x, void* y, const int* offs,
     return dim3((unsigned)((box + rb - 1) / rb), nparts);
   };
   switch (groups) {
-    case 1:
-      return (int)launch_g<T, 1>(grid(Plan<1>::RB), st, v, xx, yy, slots,
-                                 nslots, nz, ny, nx, ep);
+    case 1:   // the warp-tile form takes two rows a thread
+      return (int)launch_g<T, V, 1>(
+          grid(Plan<1>::RB * (tiled<V, 1>(box) ? 2 : 1)), st, v, xx, yy,
+          slots, nslots, nz, ny, nx, ep);
     case 2:
-      return (int)launch_g<T, 2>(grid(Plan<2>::RB), st, v, xx, yy, slots,
-                                 nslots, nz, ny, nx, ep);
+      return (int)launch_g<T, V, 2>(grid(Plan<2>::RB), st, v, xx, yy, slots,
+                                    nslots, nz, ny, nx, ep);
     case 4:
-      return (int)launch_g<T, 4>(grid(Plan<4>::RB), st, v, xx, yy, slots,
-                                 nslots, nz, ny, nx, ep);
+      return (int)launch_g<T, V, 4>(grid(Plan<4>::RB), st, v, xx, yy, slots,
+                                    nslots, nz, ny, nx, ep);
     case 8:
-      return (int)launch_g<T, 8>(grid(Plan<8>::RB), st, v, xx, yy, slots,
-                                 nslots, nz, ny, nx, ep);
+      return (int)launch_g<T, V, 8>(grid(Plan<8>::RB), st, v, xx, yy, slots,
+                                    nslots, nz, ny, nx, ep);
     case 16:
-      return (int)launch_g<T, 16>(grid(Plan<16>::RB), st, v, xx, yy, slots,
-                                  nslots, nz, ny, nx, ep);
+      return (int)launch_g<T, V, 16>(grid(Plan<16>::RB), st, v, xx, yy,
+                                     slots, nslots, nz, ny, nx, ep);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -206,22 +329,22 @@ int launch(const void* vals, const void* x, void* y, const int* offs,
 extern "C" {
 
 // groups: G threads a row, one of 1, 2, 4, 8, 16; b, s, c: null or
-// vectors of y's shape; all null: y = A x, else y = c + w s (.) (b - A x)
-int dia_spmv_f32(const void* vals, const void* x, void* y, const int* offs,
-                 int nslots, int nparts, int nz, int ny, int nx, int groups,
-                 const void* b, const void* s, const void* c, double w,
-                 void* stream) {
-  return launch<float>(vals, x, y, offs, nslots, nparts, nz, ny, nx, groups,
-                       b, s, c, w, stream);
-}
+// vectors of y's shape; all null: y = A x, else y = c + w s (.) (b - A x).
+// _f32 and _f64 take planes of x's type, _bf16_f32 and _bf16_f64 bf16
+// planes (their bits)
+#define DIA_ENTRY(NAME, T, V)                                                \
+  int NAME(const void* vals, const void* x, void* y, const int* offs,       \
+           int nslots, int nparts, int nz, int ny, int nx, int groups,      \
+           const void* b, const void* s, const void* c, double w,           \
+           void* stream) {                                                  \
+    return launch<T, V>(vals, x, y, offs, nslots, nparts, nz, ny, nx,       \
+                        groups, b, s, c, w, stream);                        \
+  }
 
-int dia_spmv_f64(const void* vals, const void* x, void* y, const int* offs,
-                 int nslots, int nparts, int nz, int ny, int nx, int groups,
-                 const void* b, const void* s, const void* c, double w,
-                 void* stream) {
-  return launch<double>(vals, x, y, offs, nslots, nparts, nz, ny, nx,
-                        groups, b, s, c, w, stream);
-}
+DIA_ENTRY(dia_spmv_f32, float, float)
+DIA_ENTRY(dia_spmv_f64, double, double)
+DIA_ENTRY(dia_spmv_bf16_f32, float, uint16_t)
+DIA_ENTRY(dia_spmv_bf16_f64, double, uint16_t)
 
 const char* tpusolve_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

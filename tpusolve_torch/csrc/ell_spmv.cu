@@ -52,6 +52,29 @@
 //     pays both latencies in turn; PERF.md), and was dropped;
 //   * lane 0 of the row applies the epilogue and writes y.
 //
+// The k-column form (the coupled multi-component solve, 1 <= k <= 8
+// columns, KC a template parameter): one launch reads the operator once
+// for k vectors.  Each lane keeps k accumulators, loads a stage's values
+// and columns once, then gathers each column's x entries and adds them in
+// the single form's order, and the shuffle tree combines each column in
+// the single form's fixed order: column j of a launch is the
+// single-vector kernel on column j bit for bit.  The vectors are given by
+// their strides: x[j][i] at x + j * xs_c + i * xs_e, y, b and c the same
+// with ys_c and ys_e (s is one vector for all columns).  The solver's
+// layout is (k, n), one padded vector after the other (xs_c = n, xs_e =
+// 1), as tpusolve stacks them; the interleaved (n, k) layout (xs_c = 1,
+// xs_e = k), whose k values of a column one gather could read together,
+// is timed against it by chip_smoke.py.  The bound: values and columns
+// once, plus k times x and y.
+//
+// The bfloat16 value form (the smoother twin, smoother_dtype: bfloat16;
+// V = uint16_t holds a bf16's bits, one column): each value is converted
+// exactly to x's type (f32 or f64) and multiplied and added in it, as JAX
+// promotes bf16 * f32, so the launch equals the full-precision kernel on
+// the values rounded to bf16 bit for bit.  A padded row of K = 27 bf16
+// values is 54 bytes: the loads are two-byte scalar loads, which need no
+// alignment.
+//
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (tpusolve_torch/kernels/build.py).  Each entry point launches
 // on the caller's stream, does not synchronise, and returns the value of
@@ -60,10 +83,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;  // threads a block
 constexpr int kStage = 4;      // entries a lane loads before its adds
+constexpr int kMaxCols = 8;    // columns of the k-column form, at most
 
 template <typename T>
 struct Epilogue {
@@ -73,14 +99,32 @@ struct Epilogue {
   T w;
 };
 
-// lane's partial sum of the entries [beg + lane, end) step G of a row whose
-// values and columns are v[k], c[k], read through the read-only path
-template <typename T, int G>
-__device__ __forceinline__ T row_sum(const T* __restrict__ v,
-                                     const int* __restrict__ c, int64_t beg,
-                                     int64_t end, int lane,
-                                     const T* __restrict__ x) {
-  T acc = T(0);
+// a value of type V as T: T itself, or a bf16's bits (uint16_t) widened
+// exactly
+template <typename T, typename V>
+__device__ __forceinline__ T load_val(const V* p) {
+  if constexpr (std::is_same<V, uint16_t>::value) {
+    return (T)__uint_as_float((uint32_t)__ldg(p) << 16);
+  } else {
+    return __ldg(p);
+  }
+}
+
+// lane's partial sums, one a column, of the entries [beg + lane, end) step
+// G of a row whose values and columns are v[k], c[k], read through the
+// read-only path; column j's x entry of column index q at x + j * xs_c +
+// q * xs_e
+template <typename T, typename V, int G, int KC>
+__device__ __forceinline__ void row_sums(const V* __restrict__ v,
+                                         const int* __restrict__ c,
+                                         int64_t beg, int64_t end, int lane,
+                                         const T* __restrict__ x,
+                                         int64_t xs_c, int64_t xs_e,
+                                         T (&acc)[KC]) {
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    acc[j] = T(0);
+  }
   for (int64_t k0 = beg + lane; k0 < end; k0 += G * kStage) {
     T vv[kStage];
     int cc[kStage];
@@ -90,225 +134,221 @@ __device__ __forceinline__ T row_sum(const T* __restrict__ v,
       vv[s] = T(0);
       cc[s] = 0;
       if (k < end) {
-        vv[s] = __ldg(v + k);
+        vv[s] = load_val<T, V>(v + k);
         cc[s] = __ldg(c + k);
       }
     }
-    T xv[kStage];
 #pragma unroll
-    for (int s = 0; s < kStage; ++s) {
-      xv[s] = k0 + s * G < end ? __ldg(x + cc[s]) : T(0);
-    }
+    for (int j = 0; j < KC; ++j) {
+      // one column's element stride is 1 in either layout
+      const T* xj = x + j * xs_c;
+      const int64_t e = KC == 1 ? 1 : xs_e;
+      T xv[kStage];
 #pragma unroll
-    for (int s = 0; s < kStage; ++s) {
-      acc = fma(vv[s], xv[s], acc);
+      for (int s = 0; s < kStage; ++s) {
+        xv[s] = k0 + s * G < end ? __ldg(xj + cc[s] * e) : T(0);
+      }
+#pragma unroll
+      for (int s = 0; s < kStage; ++s) {
+        acc[j] = fma(vv[s], xv[s], acc[j]);
+      }
     }
   }
-  return acc;
 }
 
-// the G partial sums of a row meet in lane 0, which applies the epilogue
-// and writes y[i]; every lane of the warp takes part in the shuffles, rows
-// past the end too (their sums are zero and never written)
-template <typename T, int G>
-__device__ __forceinline__ void finish_row(T acc, bool valid, int lane,
-                                           int64_t i, T* y,
+// each column's G partial sums of a row meet in lane 0, which applies the
+// epilogue and writes y[j][i]; every lane of the warp takes part in the
+// shuffles, rows past the end too (their sums are zero and never written)
+template <typename T, int G, int KC>
+__device__ __forceinline__ void finish_row(T (&acc)[KC], bool valid,
+                                           int lane, int64_t i, T* y,
+                                           int64_t ys_c, int64_t ys_e,
                                            const Epilogue<T>& ep) {
   if constexpr (G > 1) {
 #pragma unroll
-    for (int off = G / 2; off > 0; off /= 2) {
-      acc += __shfl_down_sync(0xffffffffu, acc, off, G);
+    for (int j = 0; j < KC; ++j) {
+#pragma unroll
+      for (int off = G / 2; off > 0; off /= 2) {
+        acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off, G);
+      }
     }
   }
   if (!valid || lane != 0) {
     return;
   }
-  if (ep.b != nullptr || ep.s != nullptr || ep.c != nullptr) {
-    T t = ep.b != nullptr ? ep.b[i] - acc : acc;
-    t = ep.s != nullptr ? (ep.w * ep.s[i]) * t : ep.w * t;
-    if (ep.c != nullptr) {
-      t = ep.b != nullptr ? ep.c[i] + t : ep.c[i] - t;
-    } else if (ep.b == nullptr) {
-      t = -t;
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    const int64_t o = j * ys_c + i * (KC == 1 ? 1 : ys_e);
+    T a = acc[j];
+    if (ep.b != nullptr || ep.s != nullptr || ep.c != nullptr) {
+      T t = ep.b != nullptr ? ep.b[o] - a : a;
+      t = ep.s != nullptr ? (ep.w * ep.s[i]) * t : ep.w * t;
+      if (ep.c != nullptr) {
+        t = ep.b != nullptr ? ep.c[o] + t : ep.c[o] - t;
+      } else if (ep.b == nullptr) {
+        t = -t;
+      }
+      a = t;
     }
-    acc = t;
+    y[o] = a;
   }
-  y[i] = acc;
 }
 
-template <typename T, int G>
+// the vectors' strides: column j's entry i at j * col + i * elem
+struct Strides {
+  int64_t xs_c, xs_e, ys_c, ys_e;
+};
+
+template <typename T, typename V, int G, int KC>
 __global__ void __launch_bounds__(kThreads)
-ell_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
+ell_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
                 const T* __restrict__ x, T* y, int64_t rows, int K,
-                const Epilogue<T> ep) {
+                const Strides st, const Epilogue<T> ep) {
   constexpr int RB = kThreads / G;  // rows a block
   const int lane = threadIdx.x % G;
   const int64_t i = (int64_t)blockIdx.x * RB + threadIdx.x / G;
   const bool valid = i < rows;
-  T acc = T(0);
-  if (valid) {
-    acc = row_sum<T, G>(vals + i * K, cols + i * K, 0, K, lane, x);
+  T acc[KC];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    acc[j] = T(0);
   }
-  finish_row<T, G>(acc, valid, lane, i, y, ep);
+  if (valid) {
+    row_sums<T, V, G, KC>(vals + i * K, cols + i * K, 0, K, lane, x,
+                          st.xs_c, st.xs_e, acc);
+  }
+  finish_row<T, G, KC>(acc, valid, lane, i, y, st.ys_c, st.ys_e, ep);
 }
 
-template <typename T, typename I, int G>
+template <typename T, typename V, typename I, int G, int KC>
 __global__ void __launch_bounds__(kThreads)
-ell_rowptr_kernel(const I* __restrict__ rowptr, const T* __restrict__ vals,
+ell_rowptr_kernel(const I* __restrict__ rowptr, const V* __restrict__ vals,
                   const int* __restrict__ cols, const T* __restrict__ x,
-                  T* y, int64_t rows, const Epilogue<T> ep) {
+                  T* y, int64_t rows, const Strides st,
+                  const Epilogue<T> ep) {
   constexpr int RB = kThreads / G;  // rows a block
   const int lane = threadIdx.x % G;
   const int64_t i = (int64_t)blockIdx.x * RB + threadIdx.x / G;
   const bool valid = i < rows;
-  T acc = T(0);
+  T acc[KC];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    acc[j] = T(0);
+  }
   if (valid) {
-    acc = row_sum<T, G>(vals, cols, (int64_t)__ldg(rowptr + i),
-                        (int64_t)__ldg(rowptr + i + 1), lane, x);
+    row_sums<T, V, G, KC>(vals, cols, (int64_t)__ldg(rowptr + i),
+                          (int64_t)__ldg(rowptr + i + 1), lane, x, st.xs_c,
+                          st.xs_e, acc);
   }
-  finish_row<T, G>(acc, valid, lane, i, y, ep);
+  finish_row<T, G, KC>(acc, valid, lane, i, y, st.ys_c, st.ys_e, ep);
 }
 
-template <typename T, int G>
-cudaError_t launch_g(cudaStream_t stream, const T* vals, const int* cols,
-                     const T* x, T* y, int64_t rows, int K,
+// the operator of one launch: the padded form (rowptr null) or the
+// row-pointer form with int32 (index64 = 0) or int64 pointers
+struct Op {
+  const void* rowptr;
+  int index64;
+  const void* vals;
+  const int* cols;
+  int64_t rows;
+  int K;
+};
+
+template <typename T, typename V, int G, int KC>
+cudaError_t launch_gk(cudaStream_t stream, const Op& op, const T* x, T* y,
+                      const Strides& st, const Epilogue<T>& ep) {
+  constexpr int RB = kThreads / G;
+  const unsigned blocks = (unsigned)((op.rows + RB - 1) / RB);
+  const V* v = (const V*)op.vals;
+  if (op.rowptr == nullptr) {
+    ell_spmv_kernel<T, V, G, KC><<<blocks, kThreads, 0, stream>>>(
+        v, op.cols, x, y, op.rows, op.K, st, ep);
+  } else if (op.index64) {
+    ell_rowptr_kernel<T, V, int64_t, G, KC><<<blocks, kThreads, 0, stream>>>(
+        (const int64_t*)op.rowptr, v, op.cols, x, y, op.rows, st, ep);
+  } else {
+    ell_rowptr_kernel<T, V, int32_t, G, KC><<<blocks, kThreads, 0, stream>>>(
+        (const int32_t*)op.rowptr, v, op.cols, x, y, op.rows, st, ep);
+  }
+  return cudaGetLastError();
+}
+
+// the k-column forms are built for full-precision values only
+template <typename T, typename V, int G>
+cudaError_t launch_g(cudaStream_t stream, int ncols, const Op& op,
+                     const T* x, T* y, const Strides& st,
                      const Epilogue<T>& ep) {
-  constexpr int RB = kThreads / G;
-  const int64_t blocks = (rows + RB - 1) / RB;
-  ell_spmv_kernel<T, G><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      vals, cols, x, y, rows, K, ep);
-  return cudaGetLastError();
+  if constexpr (std::is_same<V, T>::value) {
+    switch (ncols) {
+      case 1: return launch_gk<T, V, G, 1>(stream, op, x, y, st, ep);
+      case 2: return launch_gk<T, V, G, 2>(stream, op, x, y, st, ep);
+      case 3: return launch_gk<T, V, G, 3>(stream, op, x, y, st, ep);
+      case 4: return launch_gk<T, V, G, 4>(stream, op, x, y, st, ep);
+      case 5: return launch_gk<T, V, G, 5>(stream, op, x, y, st, ep);
+      case 6: return launch_gk<T, V, G, 6>(stream, op, x, y, st, ep);
+      case 7: return launch_gk<T, V, G, 7>(stream, op, x, y, st, ep);
+      case 8: return launch_gk<T, V, G, 8>(stream, op, x, y, st, ep);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    if (ncols != 1) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_gk<T, V, G, 1>(stream, op, x, y, st, ep);
+  }
 }
 
-template <typename T, typename I, int G>
-cudaError_t launch_rowptr_g(cudaStream_t stream, const I* rowptr,
-                            const T* vals, const int* cols, const T* x, T* y,
-                            int64_t rows, const Epilogue<T>& ep) {
-  constexpr int RB = kThreads / G;
-  const int64_t blocks = (rows + RB - 1) / RB;
-  ell_rowptr_kernel<T, I, G><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      rowptr, vals, cols, x, y, rows, ep);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* vals, const void* cols, const void* x, void* y,
-           int64_t rows, int K, int groups, const void* b, const void* s,
-           const void* c, double w, void* stream) {
-  if (rows <= 0 || K <= 0 || rows > ((int64_t)1 << 40)) {
+template <typename T, typename V>
+int launch(const Op& op, const void* x, void* y, int groups, int ncols,
+           const Strides& st, const void* b, const void* s, const void* c,
+           double w, void* stream) {
+  if (op.rows <= 0 || op.rows > ((int64_t)1 << 40) ||
+      (op.rowptr == nullptr && op.K <= 0) || ncols < 1 ||
+      ncols > kMaxCols) {
     return (int)cudaErrorInvalidValue;
   }
   const Epilogue<T> ep{(const T*)b, (const T*)s, (const T*)c, (T)w};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const T* v = (const T*)vals;
-  const int* cc = (const int*)cols;
+  const cudaStream_t sm = (cudaStream_t)stream;
   const T* xx = (const T*)x;
   T* yy = (T*)y;
   switch (groups) {
-    case 1:
-      return (int)launch_g<T, 1>(st, v, cc, xx, yy, rows, K, ep);
-    case 2:
-      return (int)launch_g<T, 2>(st, v, cc, xx, yy, rows, K, ep);
-    case 4:
-      return (int)launch_g<T, 4>(st, v, cc, xx, yy, rows, K, ep);
-    case 8:
-      return (int)launch_g<T, 8>(st, v, cc, xx, yy, rows, K, ep);
-    case 16:
-      return (int)launch_g<T, 16>(st, v, cc, xx, yy, rows, K, ep);
-    case 32:
-      return (int)launch_g<T, 32>(st, v, cc, xx, yy, rows, K, ep);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: return (int)launch_g<T, V, 1>(sm, ncols, op, xx, yy, st, ep);
+    case 2: return (int)launch_g<T, V, 2>(sm, ncols, op, xx, yy, st, ep);
+    case 4: return (int)launch_g<T, V, 4>(sm, ncols, op, xx, yy, st, ep);
+    case 8: return (int)launch_g<T, V, 8>(sm, ncols, op, xx, yy, st, ep);
+    case 16: return (int)launch_g<T, V, 16>(sm, ncols, op, xx, yy, st, ep);
+    case 32: return (int)launch_g<T, V, 32>(sm, ncols, op, xx, yy, st, ep);
+    default: return (int)cudaErrorInvalidValue;
   }
-}
-
-template <typename T, typename I>
-int launch_rowptr_s(const I* rp, const T* v, const int* cc, const T* xx,
-                    T* yy, int64_t rows, int groups, const Epilogue<T>& ep,
-                    cudaStream_t st) {
-  switch (groups) {
-    case 1:
-      return (int)launch_rowptr_g<T, I, 1>(st, rp, v, cc, xx, yy, rows, ep);
-    case 2:
-      return (int)launch_rowptr_g<T, I, 2>(st, rp, v, cc, xx, yy, rows, ep);
-    case 4:
-      return (int)launch_rowptr_g<T, I, 4>(st, rp, v, cc, xx, yy, rows, ep);
-    case 8:
-      return (int)launch_rowptr_g<T, I, 8>(st, rp, v, cc, xx, yy, rows, ep);
-    case 16:
-      return (int)launch_rowptr_g<T, I, 16>(st, rp, v, cc, xx, yy, rows, ep);
-    case 32:
-      return (int)launch_rowptr_g<T, I, 32>(st, rp, v, cc, xx, yy, rows, ep);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int launch_rowptr(const void* rowptr, int index64, const void* vals,
-                  const void* cols, const void* x, void* y, int64_t rows,
-                  int groups, const void* b, const void* s,
-                  const void* c, double w, void* stream) {
-  if (rows <= 0 || rows > ((int64_t)1 << 40)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Epilogue<T> ep{(const T*)b, (const T*)s, (const T*)c, (T)w};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const T* v = (const T*)vals;
-  const int* cc = (const int*)cols;
-  const T* xx = (const T*)x;
-  T* yy = (T*)y;
-  if (index64) {
-    return launch_rowptr_s<T, int64_t>((const int64_t*)rowptr, v, cc, xx, yy,
-                                       rows, groups, ep, st);
-  }
-  return launch_rowptr_s<T, int32_t>((const int32_t*)rowptr, v, cc, xx, yy,
-                                     rows, groups, ep, st);
 }
 
 }  // namespace
 
-extern "C" {
+// Every entry point: rowptr null for the padded form (vals and cols (rows,
+// K) row-major), else rows + 1 pointers of int32 (index64 = 0) or int64
+// and vals and cols (nnz,), K unused; groups: G threads a row, one of 1, 2,
+// 4, 8, 16, 32; ncols: the columns k (1 to 8; 1 for bf16 values), each
+// vector's column j at j * (col stride) + i * (element stride); b, s, c:
+// null or vectors of y's rows (s one for all columns); all null: y = A x,
+// else y = c + w s (.) (b - A x); y may be c.  _f32 and _f64 take values of
+// x's type, _bf16_f32 and _bf16_f64 bf16 values (their bits)
+#define ELL_ENTRY(NAME, T, V)                                               \
+  extern "C" int NAME(const void* rowptr, int index64, const void* vals,    \
+                      const void* cols, const void* x, void* y,             \
+                      int64_t rows, int K, int groups, int ncols,           \
+                      int64_t xs_c, int64_t xs_e, int64_t ys_c,             \
+                      int64_t ys_e, const void* b, const void* s,           \
+                      const void* c, double w, void* stream) {              \
+    const Op op{rowptr, index64, vals, (const int*)cols, rows, K};          \
+    const Strides st{xs_c, xs_e, ys_c, ys_e};                               \
+    return launch<T, V>(op, x, y, groups, ncols, st, b, s, c, w, stream);   \
+  }
 
-// vals (rows, K) and cols (rows, K) row-major; groups: G threads a row,
-// one of 1, 2, 4, 8, 16, 32; b, s, c: null or vectors of y's length; all
-// null: y = A x, else y = c + w s (.) (b - A x); y may be c
-int ell_spmv_f32(const void* vals, const void* cols, const void* x, void* y,
-                 int64_t rows, int K, int groups, const void* b,
-                 const void* s, const void* c, double w, void* stream) {
-  return launch<float>(vals, cols, x, y, rows, K, groups, b, s, c, w,
-                       stream);
-}
+ELL_ENTRY(ell_spmv_f32, float, float)
+ELL_ENTRY(ell_spmv_f64, double, double)
+ELL_ENTRY(ell_spmv_bf16_f32, float, uint16_t)
+ELL_ENTRY(ell_spmv_bf16_f64, double, uint16_t)
 
-int ell_spmv_f64(const void* vals, const void* cols, const void* x, void* y,
-                 int64_t rows, int K, int groups, const void* b,
-                 const void* s, const void* c, double w, void* stream) {
-  return launch<double>(vals, cols, x, y, rows, K, groups, b, s, c, w,
-                        stream);
-}
-
-// the row-pointer form: rowptr (rows + 1) of int32 (index64 = 0) or int64,
-// vals and cols (nnz,); the rest as above
-int ell_rowptr_spmv_f32(const void* rowptr, int index64, const void* vals,
-                        const void* cols, const void* x, void* y,
-                        int64_t rows, int groups, const void* b,
-                        const void* s, const void* c, double w,
-                        void* stream) {
-  return launch_rowptr<float>(rowptr, index64, vals, cols, x, y, rows,
-                              groups, b, s, c, w, stream);
-}
-
-int ell_rowptr_spmv_f64(const void* rowptr, int index64, const void* vals,
-                        const void* cols, const void* x, void* y,
-                        int64_t rows, int groups, const void* b,
-                        const void* s, const void* c, double w,
-                        void* stream) {
-  return launch_rowptr<double>(rowptr, index64, vals, cols, x, y, rows,
-                               groups, b, s, c, w, stream);
-}
-
-const char* tpusolve_cuda_error_string(int code) {
+extern "C" const char* tpusolve_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
-
-}  // extern "C"

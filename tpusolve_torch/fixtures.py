@@ -1,7 +1,7 @@
 """Nalu-wind-shaped fixtures for gates 3 and 4 (the port of
 ``tools/gatefix.py``: ``make_system``, ``write_pressure_mm``,
-``write_momentum_ij``, ``GATE3_YAML`` and ``GATE4_YAML``), so a machine
-without JAX can write them.
+``write_momentum_ij``, ``GATE3_YAML``, ``GATE4_YAML`` and
+``GATE4_YAML_3COMP``), so a machine without JAX can write them.
 
 The reference loads its pressure and momentum systems from MatrixMarket and
 HYPRE-IJ dumps of nalu-wind runs (readers: src/HypreSystem.cpp:1613-1969,
@@ -19,10 +19,15 @@ writers write the same files as ``tools/gatefix.py`` for the same arguments.
 
     python -m tpusolve_torch.fixtures OUTDIR [SIDE] [GATE]
 
-writes the fixture of gate GATE (3 or 4, default 4) at SIDE^3 (default 48)
-and its YAML, and prints the YAML's path.  ``STENCIL_ILU_YAML`` and
-``ILU_OPTIONS`` are the templates of the ILU paths beside them, and
-``WEAKSCALE_YAML`` the weak-scaling example's text at any box.
+writes the fixture of gate GATE (3 or 4, default 4; 4c for gate 4's three
+components) at SIDE^3 (default 48) and its YAML, and prints the YAML's
+path.  ``STENCIL_ILU_YAML`` and
+``ILU_OPTIONS`` are the templates of the ILU paths beside them,
+``WEAKSCALE_YAML`` the weak-scaling example's text at any box and
+``WEAKSCALE_BF16_YAML`` the same with the bfloat16 smoother twin
+(``smoother_dtype: bfloat16``).  :func:`write_gate4_3comp` writes gate 4's
+three momentum components (x, y and z) against one matrix, for the
+segregated or the coupled (``segregated_solve: false``) solve.
 """
 
 from __future__ import annotations
@@ -110,9 +115,16 @@ def write_pressure_mm(dirpath: str, nx: int = 64, ny: int = 64,
 
 
 def write_momentum_ij(dirpath: str, nx: int = 48, ny: int = 48,
-                      nz: int = 48, seed: int = 11, nfiles: int = 2):
+                      nz: int = 48, seed: int = 11, nfiles: int = 2,
+                      ncomp: int = 1):
     """Gate-4 momentum fixture as HYPRE-IJ multi-file dumps; returns
-    (matrix prefix, rhs prefix, solution prefix, n)."""
+    (matrix prefix, rhs prefix, solution prefix, n).
+
+    ``ncomp=3`` writes per-component rhs/sln files (x/y/z momentum — the
+    reference's segregated multi-RHS path, src/HypreSystem.cpp:1636-1645):
+    component k solves against a distinct smooth reference field; the rhs
+    and solution prefixes are then lists, one a component."""
+    import scipy.sparse as sp
     os.makedirs(dirpath, exist_ok=True)
     rows, cols, vals, b, n = make_system(nx, ny, nz, seed=seed,
                                          nonsym=0.35)
@@ -121,11 +133,25 @@ def write_momentum_ij(dirpath: str, nx: int = 48, ny: int = 48,
     order = np.argsort(rows, kind="stable")
     ij.write_matrix(mprefix, rows[order], cols[order], vals[order],
                     offsets, ncols=n)
-    rprefix = os.path.join(dirpath, "momentum_rhs.IJ.vec")
-    sprefix = os.path.join(dirpath, "momentum_sln.IJ.vec")
-    ij.write_vector(rprefix, b, offsets)
-    ij.write_vector(sprefix, np.ones(n), offsets)
-    return mprefix, rprefix, sprefix, n
+    if ncomp == 1:
+        rprefix = os.path.join(dirpath, "momentum_rhs.IJ.vec")
+        sprefix = os.path.join(dirpath, "momentum_sln.IJ.vec")
+        ij.write_vector(rprefix, b, offsets)
+        ij.write_vector(sprefix, np.ones(n), offsets)
+        return mprefix, rprefix, sprefix, n
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    rpres, spres = [], []
+    idx = np.arange(n)
+    for k in range(ncomp):
+        # distinct smooth reference per component (constant + low-freq)
+        xk = 1.0 + 0.25 * np.sin(2 * np.pi * (k + 1) * idx / n)
+        rp = os.path.join(dirpath, f"momentum_rhs{k}.IJ.vec")
+        sps = os.path.join(dirpath, f"momentum_sln{k}.IJ.vec")
+        ij.write_vector(rp, A @ xk, offsets)
+        ij.write_vector(sps, xk, offsets)
+        rpres.append(rp)
+        spres.append(sps)
+    return mprefix, rpres, spres, n
 
 
 GATE3_YAML = """\
@@ -200,6 +226,34 @@ ilu_preconditioner_settings:
   ilu_upper_jacobi_iters: 5
 """
 
+GATE4_YAML_3COMP = """\
+# gate 4 (3-component): momentum x/y/z as segregated multi-RHS solves
+# against one IJ matrix (ref: src/HypreSystem.cpp:1636-1645)
+linear_system:
+  type: hypre_ij
+  matrix_file: {mat}
+  num_components: 3
+  segregated_solve: yes
+  rhs_file0: {rhs0}
+  rhs_file1: {rhs1}
+  rhs_file2: {rhs2}
+  sln_file0: {sln0}
+  sln_file1: {sln1}
+  sln_file2: {sln2}
+  num_partitions: {nfiles}
+solver_settings:
+  method: bicg
+  preconditioner: ilu
+  tolerance: 1.0e-8
+  max_iterations: 500
+  precision: mixed
+ilu_preconditioner_settings:
+  ilu_type: 0
+  ilu_fill_level: 0
+  ilu_lower_jacobi_iters: 5
+  ilu_upper_jacobi_iters: 5
+"""
+
 WEAKSCALE_YAML = """\
 # Weak scaling with the SHARDED DEVICE AMG SETUP
 # (amg/device_setup_sharded.py): one 27-pt box per chip, PCG + BoomerAMG;
@@ -227,6 +281,10 @@ boomeramg_settings:
   max_coarse_size: 512
   max_levels: 8
 """
+
+# the weak-scaling example with the bfloat16 smoother twin, its one key
+# added
+WEAKSCALE_BF16_YAML = WEAKSCALE_YAML + "  smoother_dtype: bfloat16\n"
 
 # the host ILU options, each on its own (ilu_preconditioner_settings keys):
 # ILU(1), ILUT (ILU(0) with a drop and a row cap that both bite) and RCM
@@ -271,6 +329,23 @@ def write_gate4(dirpath: str, side: int, nfiles: int = 2,
     return _write_yaml(dirpath, "gate4.yaml", with_settings(text, **sections))
 
 
+def write_gate4_3comp(dirpath: str, side: int, nfiles: int = 2,
+                      **sections) -> str:
+    """Write gate 4's three-component fixture at side^3 (one matrix, a
+    right-hand side and a solution a component) and its YAML,
+    ``GATE4_YAML_3COMP`` with its settings changed as
+    :func:`with_settings` takes them (``linear_system:
+    {"segregated_solve": False}`` for the coupled solve); returns the YAML
+    path."""
+    m, r, s, _ = write_momentum_ij(dirpath, side, side, side, nfiles=nfiles,
+                                   ncomp=3)
+    text = GATE4_YAML_3COMP.format(mat=m, rhs0=r[0], rhs1=r[1], rhs2=r[2],
+                                   sln0=s[0], sln1=s[1], sln2=s[2],
+                                   nfiles=nfiles)
+    return _write_yaml(dirpath, "gate4_3comp.yaml",
+                       with_settings(text, **sections))
+
+
 def write_gate3(dirpath: str, side: int, **sections) -> str:
     """Write the gate-3 fixture at side^3 and its YAML (its settings changed
     as :func:`with_settings` takes them); returns the YAML path."""
@@ -279,13 +354,15 @@ def write_gate3(dirpath: str, side: int, **sections) -> str:
         GATE3_YAML.format(mat=m, rhs=r, sln=s), **sections))
 
 
-def write_weakscale(dirpath: str, side: int) -> str:
+def write_weakscale(dirpath: str, side: int, bf16: bool = False) -> str:
     """Write ``examples/weakscale_pcg_boomeramg_devsetup.yaml`` with its box
-    at side^3 (no data files: the YAML generates the system); returns its
-    path."""
+    at side^3 (no data files: the YAML generates the system), with the
+    bfloat16 smoother twin when ``bf16`` (``WEAKSCALE_BF16_YAML``); returns
+    its path."""
     os.makedirs(dirpath, exist_ok=True)
-    return _write_yaml(dirpath, "weakscale.yaml",
-                       WEAKSCALE_YAML.format(side=side))
+    text = WEAKSCALE_BF16_YAML if bf16 else WEAKSCALE_YAML
+    return _write_yaml(dirpath, "weakscale_bf16.yaml" if bf16
+                       else "weakscale.yaml", text.format(side=side))
 
 
 def write_stencil_ilu(dirpath: str, side: int, **sections) -> str:
@@ -298,10 +375,13 @@ def write_stencil_ilu(dirpath: str, side: int, **sections) -> str:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    if len(args) not in (1, 2, 3) or args[2:] not in ([], ["3"], ["4"]):
+    if len(args) not in (1, 2, 3) or args[2:] not in ([], ["3"], ["4"],
+                                                      ["4c"]):
         print("usage: python -m tpusolve_torch.fixtures OUTDIR [SIDE] "
-              "[GATE]", file=sys.stderr)
+              "[GATE]  (GATE 3, 4, or 4c: gate 4's three components)",
+              file=sys.stderr)
         sys.exit(1)
     side = int(args[1]) if len(args) > 1 else 48
-    write = write_gate3 if args[2:] == ["3"] else write_gate4
+    write = {"3": write_gate3, "4c": write_gate4_3comp}.get(
+        (args[2:] or ["4"])[0], write_gate4)
     print(write(args[0], side))

@@ -21,10 +21,12 @@ solvers BoomerAMG and ILU, the preconditioners PFMG-style structured
 multigrid (on the stencil), BoomerAMG (level 0 set up on the device for a
 large stencil, ``amg/device_setup.py``), ILU (ILU(0) of a large DIA or ELL
 operator factored on the device, ``ilu/device_setup.py``) and none, file
-output (``write_outputs``, ``write_solution``, ``write_amg_matrices``) and
-``reuse_preconditioner`` across the CLI's tests; the coupled
-multi-component solve raises ``NotImplementedError`` naming where it stands
-in ROADMAP.md.
+output (``write_outputs``, ``write_solution``, ``write_amg_matrices``),
+``reuse_preconditioner`` across the CLI's tests, and the multi-component
+solve, segregated (one solve a component) or coupled
+(``segregated_solve: false``: one solver call on the stacked right-hand
+sides, ``tpusolve``'s ``vmap`` path, each column frozen once it stops;
+``krylov/common.py``).
 """
 
 from __future__ import annotations
@@ -56,9 +58,6 @@ from tpusolve_torch.parts import local_range, row_decomposition
 from tpusolve_torch.stencil import laplace27
 from tpusolve_torch.timers import Timers
 
-_NOT_PORTED = "not ported yet; see ROADMAP.md Queue 1"
-
-
 class LinearSystem:
     def __init__(self, config: AppConfig, device, verbose: bool = True,
                  reuse_cache: dict | None = None):
@@ -75,9 +74,7 @@ class LinearSystem:
         self.rtol = ls.rtol
         self.atol = ls.atol
         self.check_enabled = False
-        if ls.num_components > 1 and not ls.segregated_solve:
-            raise NotImplementedError(f"coupled multi-component solve "
-                                      f"{_NOT_PORTED}")
+        self.segregated = ls.segregated_solve
 
         prec = config.solver.precision
         if prec not in ("double", "single", "mixed"):
@@ -405,7 +402,15 @@ class LinearSystem:
                 self._write_amg_matrices()
 
         with self.timers.span("Solve"):
-            self.solve_results = [solver(b) for b in self.rhs]
+            if self.segregated or len(self.rhs) <= 1:
+                self.solve_results = [solver(b) for b in self.rhs]
+            else:
+                # coupled multi-component solve: one call on the stacked
+                # right-hand sides (the reference's multivector path,
+                # src/HypreSystem.h:261-263)
+                res = solver(torch.stack(self.rhs))
+                self.solve_results = [res.column(i)
+                                      for i in range(len(self.rhs))]
             self.sln = [res.x for res in self.solve_results]
 
         for i, res in enumerate(self.solve_results):

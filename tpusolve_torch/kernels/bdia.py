@@ -87,6 +87,11 @@ SEG_ROWS = 32
 # in shared memory at once, at most, and at least where its step has that
 # many
 XL_ACC_ROWS = 8
+# the k-column form (csrc/bdia_spmv_xl.cu: kMaxCols, kColThreads): at most
+# XL_MAX_COLS columns a launch, and XL_COL_THREADS threads a block for k > 1
+# (xl_passes, xl_step_rows), which stage no x panel
+XL_MAX_COLS = 8
+XL_COL_THREADS = 512
 XL_STAGE_MAX = 16384
 XL_STAGE_MIN = 256
 # the weight of an overflow byte against a value byte when plan_steps
@@ -255,18 +260,35 @@ def mask_bytes(R: int) -> int:
 
 
 def xl_smem_bytes(panel: int, gb: int, D: int, itemsize: int,
-                  R: int = 128, stage: int = 0) -> int:
+                  R: int = 128, stage: int = 0, cols: int = 1) -> int:
     """Shared memory of one K5 block of at most ``gb`` R-row blocks:
-    barriers, x panel, window offsets and the step's rows of the segment
-    mask (to 16 bytes), and ``stage`` staged overflow entries (column and
-    value)."""
-    fixed = (XL_BARRIER_BYTES + panel * itemsize
+    barriers, the x panel (one column's; a k-column launch stages none),
+    window offsets and the step's rows of the segment mask (to 16 bytes),
+    and ``stage`` staged overflow entries (column and value)."""
+    fixed = (XL_BARRIER_BYTES + (cols == 1) * panel * itemsize
              + gb * D * (4 + mask_bytes(R)))
     return -(-fixed // 16) * 16 + stage * (4 + itemsize)
 
 
+def xl_passes(itemsize: int, k: int = 1) -> int:
+    """Passes of ``XL_ROW_BYTES`` rows a K5 thread makes on a k-column
+    launch: ``XL_ACC_ROWS`` rows in all for one column, one pass (two in
+    f64 at k = 2) for more, so that its k sums a row stay in registers
+    (``csrc/bdia_spmv_xl.cu``: passes)."""
+    base = XL_ACC_ROWS // (XL_ROW_BYTES // itemsize)
+    return base if k == 1 else max(1, base // k)
+
+
+def xl_step_rows(itemsize: int, k: int = 1) -> int:
+    """Rows a K5 step of a k-column launch holds at most: its block's
+    threads at most (``XL_THREADS``, ``XL_COL_THREADS`` for k > 1) times
+    the rows a thread sums."""
+    threads = XL_THREADS if k == 1 else XL_COL_THREADS
+    return threads * (XL_ROW_BYTES // itemsize) * xl_passes(itemsize, k)
+
+
 def xl_stage(panel: int, gb: int, D: int, itemsize: int, R: int,
-             need: int) -> int | None:
+             need: int, cols: int = 1) -> int | None:
     """Overflow entries a K5 block stages at once, where its steps hold at
     most ``need``: ``need`` and the aligned head (a multiple of 8), at most
     ``XL_STAGE_MAX`` and what fits beside the rest of the block's shared
@@ -274,8 +296,8 @@ def xl_stage(panel: int, gb: int, D: int, itemsize: int, R: int,
     ``min(need, XL_STAGE_MIN)`` fit (the chunks would be too many)."""
     if need <= 0:
         return 0
-    room = (runtime.SMEM_PER_BLOCK - xl_smem_bytes(panel, gb, D, itemsize,
-                                                   R)) // (4 + itemsize)
+    room = (runtime.SMEM_PER_BLOCK - xl_smem_bytes(
+        panel, gb, D, itemsize, R, cols=cols)) // (4 + itemsize)
     want = min(-(-(need + 3) // 8) * 8, XL_STAGE_MAX)
     stage = min(want, room // 8 * 8)
     return stage if stage >= min(want, XL_STAGE_MIN) else None
@@ -319,12 +341,14 @@ def _segments_live(mask: torch.Tensor, R: int) -> torch.Tensor:
     return live.reshape(*mask.shape[:3], -1)[..., :R // SEG_ROWS]
 
 
-def xl_threads(gb: int, R: int, itemsize: int) -> int:
+def xl_threads(gb: int, R: int, itemsize: int, k: int = 1) -> int:
     """Threads of one K5 block: one per ``XL_ROW_BYTES`` of the step's rows
     (4 rows in f32, 2 in f64), rounded up to whole warps, at most
-    ``XL_THREADS`` (``csrc/bdia_spmv_xl.cu``)."""
+    ``XL_THREADS`` (``XL_COL_THREADS`` for k > 1 columns;
+    ``csrc/bdia_spmv_xl.cu``)."""
     groups = gb * R * itemsize // XL_ROW_BYTES
-    return min(XL_THREADS, -(-groups // 32) * 32)
+    return min(XL_THREADS if k == 1 else XL_COL_THREADS,
+               -(-groups // 32) * 32)
 
 
 @functools.lru_cache(maxsize=256)
@@ -383,7 +407,7 @@ def balanced_starts(work: np.ndarray, nsteps: int, cap: int):
 
 
 def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
-               price, work=None):
+               price, work=None, cols: int = 1):
     """The BDIA-XL step plan ``(gb, step_lo, panel, step_b0, stage)`` of
     least ``price(gb, nsteps, panel, smem)`` (seconds, the caller's time
     model; ``smem`` a block's shared memory), or None when no candidate's
@@ -405,12 +429,16 @@ def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
     panel)`` of the unpadded x covers every window of its blocks;
     ``step_lo`` is int32 (P, nsteps).  ``stage`` is :func:`xl_stage` for
     the most overflow entries a step holds (as many as fit, up to
-    ``XL_STAGE_MAX``, without ``work``)."""
+    ``XL_STAGE_MAX``, without ``work``).  ``cols``: a plan for K5's
+    k-column form of ``cols`` columns (steps of at most
+    :func:`xl_step_rows` rows, no x panel staged for more than one)."""
     s = np.asarray(starts, np.int64) - xpad_lo
     P, B, D = s.shape
     first = s.min(axis=2)                     # (P, B) window starts
     last = s.max(axis=2) + R                  # (P, B) window ends
-    cap = min(XL_GB[-1], XL_THREADS * XL_ACC_ROWS // R)
+    cap = min(XL_GB[-1], xl_step_rows(itemsize, cols) // R)
+    if cap < 1:
+        return None
     if work is not None:
         ovf = np.concatenate([np.zeros((P, 1), np.int64), np.cumsum(
             np.asarray(work[1], np.int64), axis=1)], axis=1)
@@ -431,10 +459,10 @@ def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
         need = XL_STAGE_MAX if work is None else int(
             (np.take_along_axis(ovf, b0[:, 1:], 1)
              - np.take_along_axis(ovf, b0[:, :-1], 1)).max())
-        stage = xl_stage(panel, gb, D, itemsize, R, need)
+        stage = xl_stage(panel, gb, D, itemsize, R, need, cols)
         if stage is None:
             return None
-        smem = xl_smem_bytes(panel, gb, D, itemsize, R, stage)
+        smem = xl_smem_bytes(panel, gb, D, itemsize, R, stage, cols)
         if smem > runtime.SMEM_PER_BLOCK:
             return None
         return price(gb, nsteps, panel, smem), (
@@ -676,7 +704,9 @@ def bdia_spmv_xl(vals: torch.Tensor, starts: torch.Tensor, x: torch.Tensor,
     route: ``matrix/spmv.py`` keeps an operator's :class:`XLOperator`).
     ``bdia_spmv_xl.launches`` counts kernel launches,
     ``bdia_spmv_xl.launches_by_form`` the same by which of (b, s, c) were
-    given (``kernels.dia.epilogue_mode`` names them)."""
+    given (``kernels.dia.epilogue_mode`` names them) and
+    ``bdia_spmv_xl.launches_by_cols`` by the columns k of a launch (the
+    k-column form, ``matrix/spmv.py``)."""
     if out is not None and _overlaps(out, x):
         raise ValueError("bdia_spmv_xl: out may not overlap x")
     if x.device.type == "cpu":
@@ -701,7 +731,7 @@ class XLOperator:
     device, its parts, rows and x entries a part, and K5's launch arguments
     before x (``head``: values, starts, ``step_lo``, ``step_b0``), after x
     (``tail``: the overflow list and the mask) and after the update form
-    (``ints``)."""
+    (``ints``), and the columns of a launch."""
     tensors: tuple
     dtype: torch.dtype
     device: torch.device
@@ -711,16 +741,19 @@ class XLOperator:
     head: tuple
     tail: tuple
     ints: tuple
+    cols: int = 1      # columns a launch (the k-column form for k > 1)
 
 
 def xl_operator(vals: torch.Tensor, starts: torch.Tensor, xpad_lo: int,
                 row_pad: int, col_pad: int, gb: int, step_lo: torch.Tensor,
                 panel: int, ovf=None, *, mask: torch.Tensor,
-                step_b0: torch.Tensor, stage=None) -> XLOperator:
+                step_b0: torch.Tensor, stage=None,
+                cols: int = 1) -> XLOperator:
     """Check the arguments of a K5 operator on a CUDA device (as
     :func:`bdia_spmv_xl` takes them, for an x of ``col_pad`` entries a
     part) and return them as K5's launch takes them; raises on an argument
-    K5 does not take."""
+    K5 does not take.  ``cols``: the k-column form's columns, on a plan
+    made for them (:func:`plan_steps`)."""
     P, B, D, R = vals.shape
     nsteps = step_b0.shape[-1] - 1
     ovf_ptrs, ovf_len = _check_launch(
@@ -736,16 +769,19 @@ def xl_operator(vals: torch.Tensor, starts: torch.Tensor, xpad_lo: int,
     if mask.dtype != torch.uint8 or mask.shape != (P, B, D, mask_bytes(R)):
         raise TypeError("bdia_spmv_xl: mask must be uint8 of shape "
                         f"(P, B, D, {mask_bytes(R)})")
-    if panel % XL_ALIGN or R % 128 or gb * R > XL_THREADS * XL_ACC_ROWS:
+    itemsize = vals.element_size()
+    if not 1 <= cols <= XL_MAX_COLS:
+        raise ValueError(f"bdia_spmv_xl: 1 to {XL_MAX_COLS} columns")
+    rows = xl_step_rows(itemsize, cols)
+    if panel % XL_ALIGN or R % 128 or gb * R > rows:
         raise ValueError(f"bdia_spmv_xl: the panel must be a multiple of "
                          f"{XL_ALIGN}, R of 128, and a step at most "
-                         f"{XL_THREADS * XL_ACC_ROWS} rows")
-    itemsize = vals.element_size()
+                         f"{rows} rows")
     if stage is None:
         stage = xl_stage(panel, gb, D, itemsize, R,
-                         XL_STAGE_MAX if ovf is not None else 0)
-    if stage is None or xl_smem_bytes(panel, gb, D, itemsize, R,
-                                      stage) > runtime.SMEM_PER_BLOCK:
+                         XL_STAGE_MAX if ovf is not None else 0, cols)
+    if stage is None or xl_smem_bytes(panel, gb, D, itemsize, R, stage,
+                                      cols) > runtime.SMEM_PER_BLOCK:
         raise ValueError(f"bdia_spmv_xl: a panel of {panel} does not fit "
                          "one block's shared memory")
     runtime.require_smem(vals.device.index)
@@ -757,44 +793,67 @@ def xl_operator(vals: torch.Tensor, starts: torch.Tensor, xpad_lo: int,
               step_b0.data_ptr()),
         tail=ovf_ptrs + (mask.data_ptr(),),
         ints=(P, B, D, R, row_pad, col_pad, xpad_lo, ovf_len, gb, nsteps,
-              panel, stage))
+              panel, stage), cols=cols)
+
+
+@functools.cache
+def _xl_fns():
+    """(library, {dtype: entry point}) of ``csrc/bdia_spmv_xl.cu``, with
+    ctypes signatures declared."""
+    lib = build.load("bdia_spmv_xl")
+    fns = {torch.float32: lib.bdia_spmv_xl_f32,
+           torch.float64: lib.bdia_spmv_xl_f64}
+    for fn in fns.values():
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_double]
+                       + [ctypes.c_int] * 13 + [ctypes.c_int64] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib, fns
 
 
 def bdia_spmv_xl_run(op: XLOperator, x: torch.Tensor, *, b=None, s=None,
                      c=None, w: float = 1.0, out=None) -> torch.Tensor:
     """K5 on the operator ``op`` of :func:`xl_operator` (checked then),
     ``A @ x`` or its update form (as :func:`bdia_spmv_xl`): checks the
-    vectors, launches K5 once, counts the launch."""
+    vectors, launches K5 once, counts the launch.  On an operator of
+    ``op.cols = k > 1`` columns, ``x`` is (k, P * col_pad), ``b``, ``c``
+    and ``out`` (k, P * row_pad) and ``s`` one (P * row_pad,) vector for
+    all columns: the k-column form, each column the single form's bits."""
     dtype, device, P = op.dtype, op.device, op.nparts
-    row_pad, col_pad = op.row_pad, op.col_pad
-    if x.dtype != dtype or x.device != device or x.shape != (P * col_pad,) \
-            or not x.is_contiguous():
+    row_pad, col_pad, k = op.row_pad, op.col_pad, op.cols
+    lead = () if k == 1 and x.dim() == 1 else (k,)
+    if x.dtype != dtype or x.device != device \
+            or x.shape != lead + (P * col_pad,) or not x.is_contiguous():
         raise ValueError(f"bdia_spmv_xl: x must be contiguous "
-                         f"({P * col_pad},) {dtype} on {device}")
-    for k, t in (("b", b), ("s", s), ("c", c), ("out", out)):
+                         f"{lead + (P * col_pad,)} {dtype} on {device}")
+    for name, t in (("b", b), ("s", s), ("c", c), ("out", out)):
+        shape = (P * row_pad,) if name == "s" else lead + (P * row_pad,)
         if t is not None and (t.dtype != dtype or t.device != device
-                              or t.shape != (P * row_pad,)
-                              or not t.is_contiguous()):
-            raise ValueError(f"bdia_spmv_xl: {k} must be contiguous "
-                             f"({P * row_pad},) {dtype} on {device}")
+                              or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f"bdia_spmv_xl: {name} must be contiguous "
+                             f"{shape} {dtype} on {device}")
     if out is not None and _overlaps(out, x):
         raise ValueError("bdia_spmv_xl: out may not overlap x")
-    lib, fns = _kernel_fns("bdia_spmv_xl", 13, 12, 1)
-    y = torch.empty(P * row_pad, dtype=dtype, device=device) \
+    lib, fns = _xl_fns()
+    y = torch.empty(lead + (P * row_pad,), dtype=dtype, device=device) \
         if out is None else out
     ptr = lambda t: None if t is None else t.data_ptr()
     build.launch(lib, fns[dtype], x, "bdia_spmv_xl launch", *op.head,
                  x.data_ptr(), *op.tail, ptr(b), ptr(s), ptr(c),
-                 y.data_ptr(), float(w), *op.ints)
+                 y.data_ptr(), float(w), *op.ints, k,
+                 P * col_pad, P * row_pad)
     bdia_spmv_xl.launches += 1
     form = (b is not None, s is not None, c is not None)
     forms = bdia_spmv_xl.launches_by_form
     forms[form] = forms.get(form, 0) + 1
+    cols = bdia_spmv_xl.launches_by_cols
+    cols[k] = cols.get(k, 0) + 1
     return y
 
 
 bdia_spmv_xl.launches = 0
 bdia_spmv_xl.launches_by_form = {}
+bdia_spmv_xl.launches_by_cols = {}
 
 
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -136,9 +136,13 @@ def k1_plan(rows: int, nslots: int) -> int:
 
 @functools.cache
 def _kernel_fns():
-    """(library, {dtype: entry point}) with ctypes signatures declared."""
+    """(library, {(plane dtype, x dtype): entry point}) with ctypes
+    signatures declared."""
     lib = build.load("dia_spmv")
-    fns = {torch.float32: lib.dia_spmv_f32, torch.float64: lib.dia_spmv_f64}
+    fns = {(torch.float32, torch.float32): lib.dia_spmv_f32,
+           (torch.float64, torch.float64): lib.dia_spmv_f64,
+           (torch.bfloat16, torch.float32): lib.dia_spmv_bf16_f32,
+           (torch.bfloat16, torch.float64): lib.dia_spmv_bf16_f64}
     for fn in fns.values():
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 3 + [ctypes.c_double,
@@ -161,21 +165,33 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor, b=None,
     given its update form ``y = c + w * s * (b - A x)`` (arguments as
     :func:`dia_spmv_plain`; ``offsets`` a tuple of int triples); written
     into ``out`` when given, which may be ``b``, ``s`` or ``c``, never x.
+    ``vals`` may be bfloat16 (the smoother twin): each value widened
+    exactly to x's dtype, as the plain version's product promotes it.
+    ``x`` (k, n), a batch of k vectors (the coupled solve), runs column by
+    column, one launch each (``b``, ``c``, ``out`` then (k, n), ``s`` one
+    vector): K1 has no k-column form.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel of
     ``csrc/dia_spmv.cu`` (building it on first use) once, on the launch plan
     of :func:`k1_plan` unless ``groups`` names another G, or
     raise; there is no fallback.  ``dia_spmv.launches`` counts kernel
     launches, ``dia_spmv.launches_by_form`` the same by which of (b, s, c)
-    were given (named by :func:`launches_by_mode`)."""
+    were given (named by :func:`launches_by_mode`), and
+    ``dia_spmv.launches_bf16`` those on bfloat16 planes."""
+    if x.dim() == 2:
+        col = lambda t, j: t if t is None or t.dim() == 1 else t[j]
+        ys = [dia_spmv(vals, offsets, x[j], col(b, j), col(s, j), col(c, j),
+                       w, groups=groups, out=col(out, j))
+              for j in range(x.shape[0])]
+        return out if out is not None else torch.stack(ys)
     if x.device.type == "cpu":
         y = dia_spmv_plain(vals, offsets, x, b, s, c, w)
         return y if out is None else out.copy_(y)
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_spmv: unsupported dtype {x.dtype}")
-    if vals.dim() != 5 or vals.dtype != x.dtype:
+    if vals.dim() != 5 or vals.dtype not in (x.dtype, torch.bfloat16):
         raise TypeError("dia_spmv: vals must be (P, D, nz, ny, nx) of x's "
-                        "dtype")
+                        "dtype or bfloat16")
     P, D, nz, ny, nx = vals.shape
     if len(offsets) != D or any(len(o) != 3 for o in offsets):
         raise ValueError(f"dia_spmv: need {D} offset triples")
@@ -207,11 +223,13 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor, b=None,
     lib, fns = _kernel_fns()
     y = torch.empty_like(x) if out is None else out
     ptr = lambda t: None if t is None else t.data_ptr()
-    build.launch(lib, fns[x.dtype], x, "dia_spmv launch", vals.data_ptr(),
+    build.launch(lib, fns[vals.dtype, x.dtype], x, "dia_spmv launch",
+                 vals.data_ptr(),
                  x.data_ptr(), y.data_ptr(), ctypes.addressof(_table(
                      offsets)), D, P, nz, ny, nx, g, ptr(b),
                  ptr(s), ptr(c), float(w))
     dia_spmv.launches += 1
+    dia_spmv.launches_bf16 += vals.dtype == torch.bfloat16
     form = (b is not None, s is not None, c is not None)
     forms = dia_spmv.launches_by_form
     forms[form] = forms.get(form, 0) + 1
@@ -220,6 +238,7 @@ def dia_spmv(vals: torch.Tensor, offsets: tuple, x: torch.Tensor, b=None,
 
 dia_spmv.launches = 0
 dia_spmv.launches_by_form = {}
+dia_spmv.launches_bf16 = 0
 
 
 def launches_by_mode() -> dict:

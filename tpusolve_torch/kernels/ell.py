@@ -229,59 +229,74 @@ def k2_rowptr_plan(rows: int, nnz: int) -> int:
     return g
 
 
+MAX_COLS = 8    # columns of K2's k-column form (csrc kMaxCols)
+
+
 @functools.cache
 def _kernel_fns():
-    """(library, {(form, dtype): entry point}) with ctypes signatures
-    declared."""
+    """(library, {(value dtype, x dtype): entry point}) with ctypes
+    signatures declared."""
     lib = build.load("ell_spmv")
-    fns = {("padded", torch.float32): lib.ell_spmv_f32,
-           ("padded", torch.float64): lib.ell_spmv_f64,
-           ("rowptr", torch.float32): lib.ell_rowptr_spmv_f32,
-           ("rowptr", torch.float64): lib.ell_rowptr_spmv_f64}
-    tail = [ctypes.c_void_p] * 3 + [ctypes.c_double, ctypes.c_void_p]
-    for (form, _), fn in fns.items():
-        if form == "padded":
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
-                           + [ctypes.c_int] * 2 + tail)
-        else:
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                           + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
-                           + [ctypes.c_int] + tail)
+    fns = {(torch.float32, torch.float32): lib.ell_spmv_f32,
+           (torch.float64, torch.float64): lib.ell_spmv_f64,
+           (torch.bfloat16, torch.float32): lib.ell_spmv_bf16_f32,
+           (torch.bfloat16, torch.float64): lib.ell_spmv_bf16_f64}
+    for fn in fns.values():
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                       + [ctypes.c_int] * 3 + [ctypes.c_int64] * 4
+                       + [ctypes.c_void_p] * 3
+                       + [ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fns
 
 
 def _check_operands(vals, cols, x, rowptr) -> tuple:
-    """(form, rows, K or nnz) of K2's operands, or raise."""
+    """(form, rows, K or nnz) of K2's operands, or raise.  ``vals`` are of
+    x's dtype, or bfloat16 (the smoother twin) for one column."""
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"ell_spmv: unsupported dtype {x.dtype}")
+    if vals.dtype not in (x.dtype, torch.bfloat16):
+        raise TypeError("ell_spmv: vals must be of x's dtype or bfloat16")
     if rowptr is None:
-        if vals.dim() != 2 or vals.dtype != x.dtype:
-            raise TypeError("ell_spmv: vals must be (rows, K) of x's dtype")
+        if vals.dim() != 2:
+            raise TypeError("ell_spmv: vals must be (rows, K)")
         if cols.dtype != torch.int32 or cols.shape != vals.shape:
             raise TypeError("ell_spmv: cols must be int32 of vals' shape")
         rows, K = vals.shape
-        if x.dim() != 1 or rows >= 2 ** 31 or K >= 2 ** 31 or rows * K == 0:
-            raise ValueError("ell_spmv: x must be flat and vals (rows, K) "
-                             "non-empty, below 2**31 rows")
+        if rows >= 2 ** 31 or K >= 2 ** 31 or rows * K == 0:
+            raise ValueError("ell_spmv: vals must be (rows, K) non-empty, "
+                             "below 2**31 rows")
         return "padded", rows, K
-    if vals.dim() != 1 or vals.dtype != x.dtype:
-        raise TypeError("ell_spmv: row-pointer vals must be (nnz,) of x's "
-                        "dtype")
+    if vals.dim() != 1:
+        raise TypeError("ell_spmv: row-pointer vals must be (nnz,)")
     if cols.dtype != torch.int32 or cols.shape != vals.shape:
         raise TypeError("ell_spmv: cols must be int32 of vals' shape")
     if rowptr.dim() != 1 or rowptr.dtype not in (torch.int32, torch.int64):
         raise TypeError("ell_spmv: rowptr must be (rows + 1,) int32 or int64")
     rows = rowptr.numel() - 1
-    if x.dim() != 1 or not 1 <= rows < 2 ** 31:
-        raise ValueError("ell_spmv: x must be flat and rowptr hold 1 to "
-                         "2**31 - 1 rows")
+    if not 1 <= rows < 2 ** 31:
+        raise ValueError("ell_spmv: rowptr must hold 1 to 2**31 - 1 rows")
     return "rowptr", rows, vals.numel()
+
+
+def _plain(vals, cols, x, b, s, c, w, out, rowptr):
+    """The plain version of one column, or column by column of a batch
+    (each column the single form's bits)."""
+    if x.dim() == 2:
+        col = lambda t, j: t if t is None or t.dim() == 1 else t[j]
+        ys = [_plain(vals, cols, x[j], col(b, j), s, col(c, j), w,
+                     col(out, j), rowptr) for j in range(x.shape[0])]
+        return out if out is not None else torch.stack(ys)
+    if rowptr is None:
+        return ell_spmv_plain(vals, cols, x, b, s, c, w, out)
+    return ell_rowptr_plain(rowptr, vals, cols, x, b, s, c, w, out)
 
 
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
              b=None, s=None, c=None, w: float = 1.0, *, out=None,
-             groups: int | None = None, rowptr=None) -> torch.Tensor:
+             groups: int | None = None, rowptr=None,
+             interleaved: bool = False) -> torch.Tensor:
     """ELL SpMV, ``y = A @ x``, or with any of ``b``, ``s``, ``c`` given its
     update form ``y = c + w * s * (b - A x)`` (arguments as
     :func:`ell_spmv_plain`); written into ``out`` when given, which may be
@@ -289,19 +304,41 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     (``vals``, ``cols`` (rows, K)); with it, row-pointer (``vals``, ``cols``
     (nnz,)).
 
-    CPU tensors take the plain version of their form.  CUDA tensors launch
-    the kernel of ``csrc/ell_spmv.cu`` (building it on first use) once, on
-    the launch plan of :func:`k2_plan` or :func:`k2_rowptr_plan` unless
-    ``groups`` names another G, or raise; there is no fallback.
-    ``ell_spmv.launches`` counts kernel launches,
+    ``x`` (n,) is one vector; ``x`` (k, n), 1 <= k <= ``MAX_COLS``, is k
+    vectors (the k-column form: one launch reads the operator once for
+    all), and ``b``, ``c``, ``out`` are then (k, rows) and ``s`` one
+    (rows,) vector for all columns.  ``interleaved`` takes the batches as
+    (n, k) and (rows, k) instead (the layout chip_smoke.py times against
+    the solver's).  ``vals`` may be bfloat16 (the smoother twin) for one
+    column: each value widened exactly to x's dtype.
+
+    CPU tensors take the plain version of their form (a batch column by
+    column).  CUDA tensors launch the kernel of ``csrc/ell_spmv.cu``
+    (building it on first use) once, on the launch plan of :func:`k2_plan`
+    or :func:`k2_rowptr_plan` unless ``groups`` names another G, or raise;
+    there is no fallback.  ``ell_spmv.launches`` counts kernel launches,
     ``ell_spmv.launches_by_form`` the same by the update form's name
-    (:func:`~tpusolve_torch.kernels.dia.epilogue_mode`) and
-    ``ell_spmv.launches_by_layout`` by storage form (``FORMS``)."""
+    (:func:`~tpusolve_torch.kernels.dia.epilogue_mode`),
+    ``ell_spmv.launches_by_layout`` by storage form (``FORMS``),
+    ``ell_spmv.launches_by_cols`` by the columns k of a launch and
+    ``ell_spmv.launches_bf16`` those on bfloat16 values."""
     if x.device.type == "cpu":
-        if rowptr is None:
-            return ell_spmv_plain(vals, cols, x, b, s, c, w, out)
-        return ell_rowptr_plain(rowptr, vals, cols, x, b, s, c, w, out)
+        if interleaved:
+            t = lambda v: None if v is None or v.dim() == 1 else v.T
+            y = _plain(vals, cols, x.T, t(b), s, t(c), w,
+                       t(out), rowptr)
+            return out if out is not None else y.T
+        return _plain(vals, cols, x, b, s, c, w, out, rowptr)
     form, rows, size = _check_operands(vals, cols, x, rowptr)
+    if x.dim() not in (1, 2):
+        raise ValueError("ell_spmv: x must be (n,) or a batch of vectors")
+    k = 1 if x.dim() == 1 else x.shape[1 if interleaved else 0]
+    if not 1 <= k <= MAX_COLS or (k > 1 or x.dim() == 2) and \
+            vals.dtype != x.dtype:
+        raise ValueError(f"ell_spmv: 1 to {MAX_COLS} columns, one for "
+                         "bfloat16 values")
+    vec = (rows,) if x.dim() == 1 else ((rows, k) if interleaved
+                                        else (k, rows))
     for name, t in (("vals", vals), ("cols", cols), ("rowptr", rowptr),
                     ("x", x), ("b", b), ("s", s), ("c", c), ("out", out)):
         if t is None:
@@ -310,9 +347,10 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
             raise ValueError(f"ell_spmv: {name} must be contiguous on "
                              f"{x.device}")
         if name in ("b", "s", "c", "out") and (
-                t.dtype != x.dtype or t.shape != (rows,)):
-            raise TypeError(f"ell_spmv: {name} must be ({rows},) of x's "
-                            "dtype")
+                t.dtype != x.dtype
+                or tuple(t.shape) != ((rows,) if name == "s" else vec)):
+            raise TypeError(f"ell_spmv: {name} must be of x's dtype and "
+                            f"shape {(rows,) if name == 's' else vec}")
     if out is not None and any(
             t is not None and t.data_ptr() == out.data_ptr()
             for t in (x, b, s)):
@@ -327,26 +365,28 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmv: unsupported device {x.device}")
     lib, fns = _kernel_fns()
-    y = torch.empty(rows, dtype=x.dtype, device=x.device) if out is None \
+    y = torch.empty(vec, dtype=x.dtype, device=x.device) if out is None \
         else out
+    n = x.shape[0 if interleaved else -1]
+    xs, ys = ((1, k), (1, k)) if interleaved else ((n, 1), (rows, 1))
     ptr = lambda t: None if t is None else t.data_ptr()
-    tail = (ptr(b), ptr(s), ptr(c), float(w))
-    if form == "padded":
-        build.launch(lib, fns[form, x.dtype], x, "ell_spmv launch",
-                     vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
-                     y.data_ptr(), rows, size, g, *tail)
-    else:
-        build.launch(lib, fns[form, x.dtype], x, "ell_spmv launch",
-                     rowptr.data_ptr(), int(rowptr.dtype == torch.int64),
-                     vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
-                     y.data_ptr(), rows, g, *tail)
+    build.launch(lib, fns[vals.dtype, x.dtype], x, "ell_spmv launch",
+                 ptr(rowptr), int(rowptr is not None
+                                  and rowptr.dtype == torch.int64),
+                 vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
+                 y.data_ptr(), rows, size if form == "padded" else 0, g, k,
+                 *xs, *ys, ptr(b), ptr(s), ptr(c), float(w))
     ell_spmv.launches += 1
     for counts, key in ((ell_spmv.launches_by_form, epilogue_mode(b, s, c)),
-                        (ell_spmv.launches_by_layout, form)):
+                        (ell_spmv.launches_by_layout, form),
+                        (ell_spmv.launches_by_cols, k)):
         counts[key] = counts.get(key, 0) + 1
+    ell_spmv.launches_bf16 += vals.dtype == torch.bfloat16
     return y
 
 
 ell_spmv.launches = 0
 ell_spmv.launches_by_form = {}
 ell_spmv.launches_by_layout = {}
+ell_spmv.launches_by_cols = {}
+ell_spmv.launches_bf16 = 0

@@ -184,9 +184,12 @@ def _fused_fns():
         fp.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
-        for fn in (fr, fp):
+        fb = getattr(lib, f"box_prolong_update_bf16_{suffix}")
+        fb.argtypes = fp.argtypes
+        for fn in (fr, fp, fb):
             fn.restype = ctypes.c_int
         fns["restrict", dt], fns["prolong", dt] = fr, fp
+        fns["prolong", torch.bfloat16, dt] = fb
     return lib, fns
 
 
@@ -279,15 +282,16 @@ def _aliases(a, b) -> bool:
 
 
 def _check_fused(what: str, fine_box, coarse_box, vals, offsets, x,
-                 others) -> tuple:
+                 others, bf16: bool = False) -> tuple:
     """Raise unless ``vals`` is the (P, D, *fine_box) plane stack of x's
-    dtype under D triples K1 takes, and ``x`` and ``others`` pass
-    :func:`_check`; returns (parts, G)."""
+    dtype (or, with ``bf16``, bfloat16) under D triples K1 takes, and ``x``
+    and ``others`` pass :func:`_check`; returns (parts, G)."""
     if vals.dim() != 5 or tuple(vals.shape[2:]) != tuple(fine_box):
         raise ValueError(f"{what}: vals must be (P, D) + the fine box "
                          f"{tuple(fine_box)}")
-    if vals.dtype != x.dtype:
-        raise TypeError(f"{what}: vals must be of x's dtype")
+    if vals.dtype != x.dtype and not (bf16 and vals.dtype == torch.bfloat16):
+        raise TypeError(f"{what}: vals must be of x's dtype"
+                        + (" or bfloat16" if bf16 else ""))
     D = vals.shape[1]
     if len(offsets) != D or any(len(o) != 3 for o in offsets) \
             or D > MAX_SLOTS:
@@ -343,7 +347,11 @@ def box_prolong_update(fine_box, coarse_box, vals, offsets,
     scratch vector, a grid barrier, then K1's update at K1's G threads a
     row), or raise; there is no fallback.  ``y`` (``out``) and ``xnew_out``
     must not share memory with ``x``, ``b``, ``s``, ``ec`` or each other.
-    ``box_prolong_update.launches`` counts kernel launches."""
+    ``vals`` may be bfloat16 (the smoother twin's planes): each value
+    widened exactly to x's dtype, so that the launch equals the
+    full-precision one on the rounded values bit for bit.
+    ``box_prolong_update.launches`` counts kernel launches,
+    ``box_prolong_update.launches_bf16`` those on bfloat16 planes."""
     if x.device.type == "cpu":
         return prolong_update_plain(fine_box, coarse_box, vals, offsets, ec,
                                     x, b, s, w, c_is_xnew, xnew_out, out)
@@ -359,22 +367,25 @@ def box_prolong_update(fine_box, coarse_box, vals, offsets,
     parts, g = _check_fused(
         "box_prolong_update", fine_box, coarse_box, vals, offsets, x,
         (("ec", ec, (nf // 8,)), ("b", b, (nf,)), ("s", s, (nf,)),
-         ("xnew_out", xnew_out, (nf,)), ("out", out, (nf,))))
+         ("xnew_out", xnew_out, (nf,)), ("out", out, (nf,))), bf16=True)
     if out is None:
         out = torch.empty_like(x)
     if xnew_out is None:
         xnew_out = torch.empty_like(x)     # x' between the two phases
     lib, fns = _fused_fns()
-    build.launch(lib, fns["prolong", x.dtype], x,
-                 "box_prolong_update launch", vals.data_ptr(),
-                 ctypes.addressof(_table(tuple(offsets))), len(offsets),
-                 ec.data_ptr(), x.data_ptr(), b.data_ptr(),
+    key = ("prolong", x.dtype) if vals.dtype == x.dtype else (
+        "prolong", vals.dtype, x.dtype)
+    build.launch(lib, fns[key], x, "box_prolong_update launch",
+                 vals.data_ptr(), ctypes.addressof(_table(tuple(offsets))),
+                 len(offsets), ec.data_ptr(), x.data_ptr(), b.data_ptr(),
                  None if s is None else s.data_ptr(), out.data_ptr(),
                  xnew_out.data_ptr(), parts, *fine_box, g, float(w),
                  int(bool(c_is_xnew)))
     box_prolong_update.launches += 1
+    box_prolong_update.launches_bf16 += vals.dtype == torch.bfloat16
     return out
 
 
 box_restrict_residual.launches = 0
 box_prolong_update.launches = 0
+box_prolong_update.launches_bf16 = 0

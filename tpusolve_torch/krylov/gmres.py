@@ -30,7 +30,8 @@ import scipy.linalg
 import torch
 
 from tpusolve_torch.krylov.common import (
-    SolveResult, as_matvec, as_precond, norm, safe_div, stop_target)
+    Mask, SolveResult, as_matvec, as_precond, norm, norm_cols, safe_div,
+    stop_target)
 from tpusolve_torch.matrix.vectors import numpy_dtype
 
 
@@ -120,6 +121,129 @@ def _gmres_cycle(matvec, precond, m, cgs, flexible, b, x, target, hist,
     return x + dx, res, k
 
 
+def _rotate(hcol, j, cs, sn, g, H):
+    """The Givens step of inner iteration ``j`` on the new Hessenberg
+    column ``hcol`` (its entry j + 1 set), as :func:`_gmres_cycle` takes it:
+    the previous rotations, a new one zeroing entry j + 1, the rotated
+    right-hand side; returns the residual estimate ``|g[j + 1]|``."""
+    for i in range(j):
+        t1 = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+        t2 = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+        hcol[i], hcol[i + 1] = t1, t2
+    c, s, rho = _givens(hcol[j], hcol[j + 1])
+    hcol[j], hcol[j + 1] = rho, 0
+    cs[j], sn[j] = c, s
+    gj = g[j]
+    g[j], g[j + 1] = c * gj, -s * gj
+    H[:, j] = hcol
+    return abs(g[j + 1])
+
+
+def _least_squares(H, g, k, m, dtype):
+    """y of the k x k least-squares system of a cycle, padded to m with the
+    identity, as :func:`_gmres_cycle` solves it."""
+    cols = np.arange(m)
+    R = np.where(cols[None, :] < k, H[:m, :], np.eye(m, dtype=dtype))
+    R = np.triu(R)
+    R = np.where(np.diag(R)[:, None] == 0, np.eye(m, dtype=dtype),
+                 R).astype(dtype)                     # happy-breakdown guard
+    gk = np.where(cols < k, g[:m], 0).astype(dtype)
+    return scipy.linalg.solve_triangular(R, gk, lower=False).astype(dtype)
+
+
+def _gmres_cycle_batch(matvec, precond, m, cgs, flexible, b, x, target,
+                       hist, it0, outer):
+    """One restart cycle on the k columns of ``b`` (k, n) whose ``outer``
+    (numpy bool (k,)) loop still runs; each column keeps its own Hessenberg
+    matrix, rotations and count and stops its inner loop on its own
+    estimate.  Returns (x_new, estimates, inner iterations), numpy (k,)
+    the latter two."""
+    dtype = numpy_dtype(b.dtype)
+    k, n = b.shape
+    r = b - matvec(x)
+    beta = norm_cols(r)
+    beta_h = beta.cpu().numpy().astype(dtype)
+    V = torch.zeros((k, m + 1, n), dtype=b.dtype, device=b.device)
+    V[:, 0] = torch.where((beta != 0)[:, None], r / beta[:, None],
+                          torch.zeros((), dtype=b.dtype, device=b.device))
+    Z = (torch.zeros((k, m, n), dtype=b.dtype, device=b.device)
+         if flexible else None)
+    H = np.zeros((k, m + 1, m), dtype)
+    cs = np.zeros((k, m), dtype)
+    sn = np.zeros((k, m), dtype)
+    g = np.zeros((k, m + 1), dtype)
+    g[:, 0] = beta_h
+    res = beta_h.copy()
+    steps = np.zeros(k, np.int64)
+    j = 0                      # a running column's inner iteration
+    run = outer & (res > target)
+    while j < m and run.any():
+        mask = Mask(run, b.device)
+        z = precond(V[:, j])
+        w = matvec(z)
+        if flexible:
+            Z[:, j] = mask.keep(z, Z[:, j])
+        # batched classical Gram-Schmidt, a column's own basis each
+        h = torch.bmm(V, w[:, :, None])[:, :, 0]
+        w = w - torch.bmm(V.transpose(1, 2), h[:, :, None])[:, :, 0]
+        if cgs >= 2:
+            h2 = torch.bmm(V, w[:, :, None])[:, :, 0]
+            w = w - torch.bmm(V.transpose(1, 2), h2[:, :, None])[:, :, 0]
+            h = h + h2
+        hj1_t = norm_cols(w)
+        # the one host read of the iteration: every column's h and ||w||
+        hcols = torch.cat([h, hj1_t[:, None]], dim=1).cpu().numpy()
+        grow = run & (hcols[:, m + 1] != 0)
+        V[:, j + 1] = Mask(grow, b.device).keep(w / hj1_t[:, None],
+                                                V[:, j + 1])
+        for c in np.flatnonzero(run):
+            hcol = hcols[c, :m + 1].copy()
+            hcol[j + 1] = hcols[c, m + 1]
+            res[c] = _rotate(hcol, j, cs[c], sn[c], g[c], H[c])
+            hist[c, it0[c] + j + 1] = res[c]
+        steps[run] += 1
+        j += 1
+        run = run & (res > target)
+    Y = np.zeros((k, m), dtype)
+    for c in np.flatnonzero(outer):
+        Y[c] = _least_squares(H[c], g[c], int(steps[c]), m, dtype)
+    yt = torch.from_numpy(Y).to(b.device)
+    if flexible:
+        dx = torch.bmm(Z.transpose(1, 2), yt[:, :, None])[:, :, 0]
+    else:
+        dx = precond(torch.bmm(V[:, :m].transpose(1, 2),
+                               yt[:, :, None])[:, :, 0])
+    return x + dx, res, steps
+
+
+def _gmres_batch(matvec, precond, m, cgs, flexible, b, x0, tol, atol,
+                 maxiter) -> SolveResult:
+    """Restarted GMRES on the k columns of ``b`` (k, n) at once: a column's
+    restart loop, like its inner loop, stops on its own estimate."""
+    dtype = numpy_dtype(b.dtype)
+    k = b.shape[0]
+    x = torch.zeros_like(b) if x0 is None else x0
+    bnorm = norm_cols(b)
+    target = stop_target(bnorm, tol, atol).cpu().numpy().astype(dtype)
+    rnorm = norm_cols(b - matvec(x)).cpu().numpy().astype(dtype)
+    hist = np.full((k, maxiter + m + 1), -1, dtype)
+    hist[:, 0] = rnorm
+    it = np.zeros(k, np.int64)
+    outer = (it < maxiter) & (rnorm > target)
+    while outer.any():
+        x_n, res, steps = _gmres_cycle_batch(matvec, precond, m, cgs,
+                                             flexible, b, x, target, hist,
+                                             it, outer)
+        x = Mask(outer, b.device).keep(x_n, x)
+        rnorm = np.where(outer, res, rnorm).astype(dtype)
+        it = it + np.where(outer, steps, 0)
+        outer = (it < maxiter) & (rnorm > target)
+    rn = torch.from_numpy(rnorm).to(b.device)
+    return SolveResult(x=x, iters=it.tolist(), relres=safe_div(rn, bnorm),
+                       converged=rn <= torch.from_numpy(target).to(b.device),
+                       history=torch.from_numpy(hist).to(b.device))
+
+
 def gmres_setup(A, M=None, *, tol: float = 1e-5, atol: float = 0.0,
                 maxiter: int = 1000, restart: int = 10, cgs: int = 1,
                 flexible: bool = False):
@@ -133,6 +257,9 @@ def gmres_setup(A, M=None, *, tol: float = 1e-5, atol: float = 0.0,
     m = int(restart)
 
     def solve(b: torch.Tensor, x0: torch.Tensor | None = None) -> SolveResult:
+        if b.dim() == 2:
+            return _gmres_batch(matvec, precond, m, cgs, flexible, b, x0,
+                                tol, atol, maxiter)
         dtype = numpy_dtype(b.dtype)
         x = torch.zeros_like(b) if x0 is None else x0
         bnorm = norm(b)

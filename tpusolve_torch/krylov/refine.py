@@ -16,8 +16,10 @@ from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from tpusolve_torch.krylov.common import (
-    SolveResult, as_matvec, norm, safe_div, stop_target)
+    Mask, SolveResult, as_matvec, norm, norm_cols, safe_div, stop_target)
 
 
 def refined_solve_setup(A_hi, inner_solve, *, tol: float = 1e-8,
@@ -30,6 +32,9 @@ def refined_solve_setup(A_hi, inner_solve, *, tol: float = 1e-8,
     matvec_hi = as_matvec(A_hi)
 
     def solve(b: torch.Tensor, x0: torch.Tensor | None = None) -> SolveResult:
+        if b.dim() == 2:
+            return _refine_batch(matvec_hi, inner_solve, b, x0, tol, atol,
+                                 max_refine, lo_dtype)
         x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
         bnorm = norm(b)
         target = float(stop_target(bnorm, tol, atol))
@@ -47,3 +52,38 @@ def refined_solve_setup(A_hi, inner_solve, *, tol: float = 1e-8,
                            converged=rnorm <= target, passes=passes)
 
     return solve
+
+
+def _refine_batch(matvec_hi, inner_solve, b, x0, tol, atol, max_refine,
+                  lo_dtype) -> SolveResult:
+    """Refinement of the k columns of ``b`` (k, n), the outer loop a
+    column's own: each pass solves the running columns' residuals as one
+    batch, and a column stops once its own test holds."""
+    k = b.shape[0]
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
+    bnorm = norm_cols(b)
+    target = stop_target(bnorm, tol, atol).cpu().numpy()
+    r = b - matvec_hi(x)
+    rnorm = norm_cols(r)
+    rn = rnorm.cpu().numpy()
+    passes: list[list[int]] = [[] for _ in range(k)]
+    npass = np.zeros(k, np.int64)
+    run = (npass < max_refine) & (rn > target)
+    while run.any():
+        cols = np.flatnonzero(run)
+        idx = torch.from_numpy(cols).to(b.device)
+        res = inner_solve(r.index_select(0, idx).to(lo_dtype), None)
+        x = x.index_add(0, idx, res.x.to(b.dtype))
+        m = Mask(run, b.device)
+        r = m.keep(b - matvec_hi(x), r)
+        rnorm = m.keep(norm_cols(r), rnorm)
+        rn = rnorm.cpu().numpy()
+        for c, it in zip(cols, res.iters):
+            passes[c].append(int(it))
+        npass[run] += 1
+        run = (npass < max_refine) & (rn > target)
+    return SolveResult(x=x, iters=[sum(p) for p in passes],
+                       relres=safe_div(rnorm, bnorm),
+                       converged=rnorm <= torch.from_numpy(target).to(
+                           rnorm.device),
+                       passes=passes)

@@ -12,8 +12,11 @@ from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from tpusolve_torch.krylov.common import (
-    SolveResult, as_matvec, as_precond, norm, safe_div, stop_target)
+    Mask, SolveResult, as_matvec, as_precond, norm, norm_cols, safe_div,
+    stop_target)
 
 
 def stationary_solve_setup(A, M, *, tol: float = 0.0, atol: float = 0.0,
@@ -26,6 +29,9 @@ def stationary_solve_setup(A, M, *, tol: float = 0.0, atol: float = 0.0,
     precond = as_precond(M)
 
     def solve(b: torch.Tensor, x0: torch.Tensor | None = None) -> SolveResult:
+        if b.dim() == 2:
+            return _stationary_batch(matvec, precond, b, x0, tol, atol,
+                                     maxiter)
         x = torch.zeros_like(b) if x0 is None else x0
         bnorm = norm(b)
         target = float(stop_target(bnorm, tol, atol))
@@ -41,3 +47,31 @@ def stationary_solve_setup(A, M, *, tol: float = 0.0, atol: float = 0.0,
                            converged=rnorm <= target)
 
     return solve
+
+
+def _stationary_batch(matvec, precond, b, x0, tol, atol,
+                      maxiter) -> SolveResult:
+    """The iteration on the k columns of ``b`` (k, n) at once, a column
+    frozen once its stop test holds."""
+    k = b.shape[0]
+    x = torch.zeros_like(b) if x0 is None else x0
+    bnorm = norm_cols(b)
+    target = stop_target(bnorm, tol, atol).cpu().numpy()
+    r = b - matvec(x)
+    rnorm = norm_cols(r)
+    rn = rnorm.cpu().numpy()
+    its = np.zeros(k, np.int64)
+    run = (its < maxiter) & (rn > target)
+    while run.any():
+        m = Mask(run, b.device)
+        x_n = x + precond(r)
+        r_n = b - matvec(x_n)
+        x, r = m.keep(x_n, x), m.keep(r_n, r)
+        rnorm = m.keep(norm_cols(r_n), rnorm)
+        rn = rnorm.cpu().numpy()
+        its[run] += 1
+        run = (its < maxiter) & (rn > target)
+    return SolveResult(x=x, iters=its.tolist(),
+                       relres=safe_div(rnorm, bnorm),
+                       converged=rnorm <= torch.from_numpy(target).to(
+                           rnorm.device))

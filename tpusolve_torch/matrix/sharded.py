@@ -209,7 +209,7 @@ def skipped_bytes(nparts: int, B: int, D: int, R: int, itemsize: int,
 
 
 def plan_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
-            nbytes: int, live: int | None = None, work=None):
+            nbytes: int, live: int | None = None, work=None, cols: int = 1):
     """``(gb, step_lo, panel, step_b0, stage, seconds)`` of K5's cheapest
     step plan (``kernels/bdia.py:plan_steps``, steps of balanced ``work``
     where it is given: :meth:`ShardedMatrix.xl_work`) on a BDIA layout with
@@ -218,22 +218,26 @@ def plan_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
     (None: all), priced by :func:`band_model_s` on the bytes K5 reads:
     ``nbytes`` less the segments the mask skips (:func:`skipped_bytes`),
     plus every step's x panel; None when no plan fits one block's shared
-    memory."""
+    memory.  ``cols``: the plan of K5's k-column form
+    (``kernels/bdia.py:plan_steps``), priced on the x panels it stages (one
+    column's, none for more)."""
     nparts, B, D = starts.shape
     reads = nbytes - skipped_bytes(nparts, B, D, R, itemsize, live)
 
     def price(gb, nsteps, panel, smem):
         return band_model_s(
-            "bdia_xl", itemsize, reads + nparts * nsteps * panel * itemsize,
+            "bdia_xl", itemsize,
+            reads + (cols == 1) * nparts * nsteps * panel * itemsize,
             nparts * nsteps, xl_resident(
-                smem, bdia_mod.xl_threads(gb, R, itemsize)))
+                smem, bdia_mod.xl_threads(gb, R, itemsize, cols)))
 
-    plan = bdia_mod.plan_steps(starts, R, xpad, itemsize, price, work)
+    plan = bdia_mod.plan_steps(starts, R, xpad, itemsize, price, work,
+                               cols)
     if plan is None:
         return None
     gb, step_lo, panel = plan[:3]
     return (*plan, price(gb, step_lo.shape[1], panel, bdia_mod.xl_smem_bytes(
-        panel, gb, D, itemsize, R, plan[4])))
+        panel, gb, D, itemsize, R, plan[4], cols)))
 
 
 def xl_work(mask: torch.Tensor, ovf_ptr, R: int, row_pad: int,
@@ -1081,6 +1085,33 @@ class ShardedMatrix:
             self.bdia_starts.cpu().numpy(), self.bdia_block, self.bdia_xpad,
             self.bdia_vals.element_size(), self.bdia_nbytes, self.bdia_live,
             self.xl_work()))
+
+    def xl_cols_op(self, k: int) -> bdia_mod.XLOperator:
+        """K5's k-column launch arguments on this BDIA-XL operator (on a
+        CUDA device), made once a k: a step plan of its own
+        (:func:`plan_xl` with ``cols=k``, steps of balanced work); for k > 1
+        no x panel is staged (``csrc/bdia_spmv_xl.cu``)."""
+        cache = self.__dict__.get("_xl_cols")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_xl_cols", cache)
+        if k not in cache:
+            starts = self.bdia_starts.cpu().numpy()
+            itemsize = self.bdia_vals.element_size()
+            xl = plan_xl(starts, self.bdia_block, self.bdia_xpad, itemsize,
+                         self.bdia_nbytes, self.bdia_live, self.xl_work(),
+                         cols=k)
+            if xl is None:
+                raise ValueError(f"bdia_spmv_xl: no {k}-column step plan "
+                                 "fits a block's shared memory")
+            gb, step_lo, panel, step_b0, stage = xl[:5]
+            cache[k] = bdia_mod.xl_operator(
+                self.bdia_vals, self.bdia_starts, self.bdia_xpad,
+                self.row_pad, self.col_pad, int(gb),
+                to_tensor(step_lo, self.device), int(panel), self.bdia_ovf,
+                mask=self.bdia_mask, step_b0=to_tensor(step_b0, self.device),
+                stage=int(stage), cols=k)
+        return cache[k]
 
     def _with_xl(self, xl) -> "ShardedMatrix":
         """The same operator run by K5 on step plan ``xl`` = (gb, step_lo,

@@ -14,7 +14,15 @@ through ``kernels.ell``.  ``spmv_update`` computes the update form ``c + w
 * s * (b - A x)`` of the V-cycle's residuals and smoothers, the
 prolongation's add and the ILU apply's Jacobi sweeps: one K1 launch on a
 box-DIA operator, one K2 launch on ELL, one K5 launch on BDIA-XL.
-Multi-part operators
+A batch of k vectors, ``x`` (k, col_pad) (the coupled multi-component
+solve, ``tpusolve``'s ``vmap`` over the stacked right-hand sides, in its
+(k, n) layout), reads the operator once a launch where its kernel has a
+k-column form: K2 (ELL) and K5 (BDIA-XL), up to 8 columns a launch
+(``MAX_COLS``).  K1 (DIA), K4 (BDIA) and K6 (BELL), and K2 on the bfloat16
+smoother twin, launch once a column, each launch counted by its kernel's
+counter (ROADMAP.md Queue 2 holds their k-column forms).  Column j of a
+batch is the single-vector call on column j bit for bit.  Multi-part
+operators
 (offd ELL block and halo exchange, ``tpusolve``'s ``halo_exchange`` and
 ``_offd_add``) are not ported yet: ``ShardedMatrix`` refuses to build them.
 """
@@ -30,10 +38,15 @@ from tpusolve_torch.kernels.dia import dia_spmv, epilogue_plain
 from tpusolve_torch.kernels.ell import ell_spmv
 
 
+MAX_COLS = 8   # columns of one k-column launch (K2's and K5's forms)
+
+
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a one-part ``ShardedMatrix``: ``x`` is a padded vector
-    over A's columns ``(col_pad,)``; returns one over its rows
-    ``(row_pad,)``."""
+    over A's columns ``(col_pad,)``, or a batch ``(k, col_pad)`` of them;
+    returns one over its rows ``(row_pad,)``, or ``(k, row_pad)``."""
+    if x.dim() == 2:
+        return _batch(A, x, {})
     if A.uses_dia:
         return dia_spmv(A.dia_vals, A.dia_offsets, x)
     if A.uses_bdia_xl:
@@ -51,7 +64,9 @@ def spmv_update(A, x: torch.Tensor, *, b=None, s=None, c=None,
                 w: float = 1.0, out=None) -> torch.Tensor:
     """``y = c + w * s * (b - A x)`` over A's padded rows, each of ``b``,
     ``s``, ``c`` (padded vectors) possibly None (b = 0, s = 1, c = 0), at
-    least one given: the residual ``b - A x``, the Jacobi sweep
+    least one given (on a batch ``x`` (k, col_pad), ``b``, ``c`` and ``out``
+    are (k, row_pad) and ``s`` one vector for all columns): the residual
+    ``b - A x``, the Jacobi sweep
     ``x + w * dinv * (b - A x)``, Chebyshev's ``dinv * (b - A x)`` and
     ``r - dinv * A d``; with ``out`` (which may be ``c``) the result is
     written there: the prolongation ``x + P e`` is ``c = x``, ``w = -1``.
@@ -66,6 +81,8 @@ def spmv_update(A, x: torch.Tensor, *, b=None, s=None, c=None,
     before, bit for bit."""
     if b is None and s is None and c is None:
         raise ValueError("spmv_update: give b, s or c (spmv computes A x)")
+    if x.dim() == 2:
+        return _batch(A, x, dict(b=b, s=s, c=c, w=w, out=out))
     if A.uses_ell:
         vals, cols, rowptr = A.ell_arrays
         return ell_spmv(vals, cols, x, b, s, c, w, out=out, rowptr=rowptr)
@@ -86,3 +103,35 @@ def _xl(A, x: torch.Tensor, **update) -> torch.Tensor:
                         A.row_pad, A.bdia_gb, A.bdia_step_lo, A.bdia_panel,
                         A.bdia_ovf, mask=A.bdia_mask, step_b0=A.bdia_step_b0,
                         stage=A.bdia_stage, **update)
+
+
+def _batch(A, x: torch.Tensor, update: dict) -> torch.Tensor:
+    """``spmv`` (``update`` empty) or ``spmv_update`` (its arguments) on a
+    batch ``x`` (k, col_pad): one k-column launch of K2 or K5 for up to
+    ``MAX_COLS`` columns, else one launch a column."""
+    k = x.shape[0]
+    out = update.get("out")
+    if k > MAX_COLS:
+        part = lambda t, i: t if t is None or t.dim() == 1 else \
+            t[i:i + MAX_COLS]
+        ys = [_batch(A, x[i:i + MAX_COLS],
+                     {n: part(t, i) if n != "w" else t
+                      for n, t in update.items()})
+              for i in range(0, k, MAX_COLS)]
+        return out if out is not None else torch.cat(ys)
+    if A.uses_ell and A.dtype == x.dtype:
+        vals, cols, rowptr = A.ell_arrays
+        return ell_spmv(vals, cols, x, rowptr=rowptr, **update)
+    if A.uses_bdia_xl and A.bdia_xl_op is not None \
+            and x.device.type == "cuda":
+        return bdia_spmv_xl_run(A.xl_cols_op(k), x, **update)
+    if A.uses_dia:
+        # K1 runs each column itself (kernels/dia.py)
+        return dia_spmv(A.dia_vals, A.dia_offsets, x, **update)
+    col = lambda t, j: t if t is None or t.dim() == 1 else t[j]
+    if not update:
+        return torch.stack([spmv(A, x[j]) for j in range(k)])
+    ys = [spmv_update(A, x[j], **{n: col(t, j) if n != "w" else t
+                                   for n, t in update.items()})
+          for j in range(k)]
+    return out if out is not None else torch.stack(ys)
