@@ -27,7 +27,7 @@ toolkit (nvcc) and PyTorch built for CUDA:
    whose operators run K2, K4 or K5 as the time model prices them (the
    factors K5, its Jacobi sweeps fused into its launches), BiCGSTAB in
    f32 inside f64 iterative refinement, golden check (at 96^3 exactly the
-   port's 56 iterations); then at the four operator shapes of that run (A,
+   port's 55 iterations); then at the four operator shapes of that run (A,
    A_lo, L, U) on their BDIA layouts times K4, K5 where a step plan fits
    (the bytes it reads against the bytes stored, the share of segments it
    skips), the plain version, the library's CSR SpMV (``torch.sparse``)
@@ -49,9 +49,9 @@ toolkit (nvcc) and PyTorch built for CUDA:
    K2, plain, library and bound with K2 in both forms and the library on
    it, every moved operator's old
    kernel against its new one, and the warm-solve profile; then the same
-   fixture with ``coarsen_type: 6`` (Falgout, run as serial RS): its
-   hierarchy, timer rows, moved operators and, at 64^3, tpusolve's 11
-   iterations;
+   pressure fixture at 32^3 (64^3 before the multi-part phases) with
+   ``coarsen_type: 6`` (Falgout, run as serial RS): its hierarchy, timer
+   rows, moved operators and tpusolve's 11 iterations;
 6. gate 1: ``examples/gate1_64cube_pcg_amg.yaml`` as it is (64^3 =
    262,144 rows, ``mixed``) through the CLI: the 27-point stencil as box
    DIA, the PFMG-style structured hierarchy (DIA-algebra RAP, the box
@@ -79,12 +79,13 @@ toolkit (nvcc) and PyTorch built for CUDA:
    ``torch.profiler``: device operations and device time by kernel class
    (K1, K3, ...), K1's launches by form, and the device's idle share;
 7. gate 2: ``examples/gate2_weakscale_gmres_cheby.yaml`` with its box at
-   64^3 (262,144 rows; 128^3 before the coupled and bf16 phases came, so
-   that the run keeps inside its time on a slow host; ``single``,
-   GMRES(20) + Chebyshev-smoothed PFMG) through the CLI, then the same K1,
-   K3 and fused checks and timings at its four levels and three
-   transitions, its warm-solve profile, and K1 on a 4-wide coarse box
-   against the exact CSR product;
+   32^3 (32,768 rows; 64^3 from the coupled and bf16 phases to the
+   multi-part ones, 128^3 before, so that the run keeps inside its time on
+   a slow host; ``single``, GMRES(20) + Chebyshev-smoothed PFMG) through
+   the CLI, ``tpusolve``'s 5 iterations, then the same K1, K3 and fused
+   checks and timings at its three levels and two transitions, its
+   warm-solve profile, and K1 on a 4-wide coarse box against the exact CSR
+   product;
 8. (run right after step 3's checks, before gate 4) the device AMG setup
    against the host pipeline: level 0 of the 32^3
    stencil in f64 set up on the card (``amg/device_setup.py``, its row
@@ -169,9 +170,11 @@ keep their device events, the coupled multi-component solve and the
 bfloat16 smoother twin:
 
 (h) gate 4's three momentum components (``fixtures.GATE4_YAML_3COMP`` at
-   96^3 with ``segregated_solve: no`` and RCM) through the CLI: one
-   solver call on the stacked right-hand sides, the golden check on each
-   component, A and A_lo on K2 and L, U on K5 (it fails otherwise), each
+   64^3 (96^3 before the multi-part phases) with ``segregated_solve: no``
+   and RCM) through the CLI: one solver call on the stacked right-hand
+   sides, the golden check on each component, A and A_lo on K2, L and U on
+   the model's kernels, K5 for one of them at least (it fails otherwise),
+   each
    application one k-column launch for all the batch's columns (the
    launches by columns equal to ``coupled_launches`` of the run's
    refinement passes); the same solver on each component alone, each
@@ -192,6 +195,32 @@ bfloat16 smoother twin:
    (j)'s twins and the fused prolongation on (k)'s level 0, each equal to
    its f32 and f64 form on the rounded values bit for bit, timed against
    the f32 form.
+
+Last, the multi-part operators, 8 parts stacked on the card (``--parts 8``,
+``tpusolve``'s mesh of 8 devices), each path's count held to
+``tpusolve``'s 8-part count (``TPUSOLVE_PARTS_ITERS``), its golden check,
+its layouts (the offd block's K2 form beside each diag block's) and timer
+rows printed, and K2's offd launches counted (it fails if there were none):
+
+(m) gate 4 at 96^3 from 8 HYPRE-IJ files (``GATE4_YAML``, RCM, ``mixed``):
+   K2 on A and A_lo and on their offd blocks, the ILU(0) factored where
+   ``tpusolve`` factors it (its layout for A_lo's banded parts is BDIA,
+   which it factors on the host: the whole operator, L and U with offd
+   blocks; block-Jacobi on the card where it would factor on its devices)
+   and its sweeps on the model's kernel; within one a refinement pass of
+   ``tpusolve``'s count;
+(l) gate 1 on 8 parts (``examples/gate1_64cube_pcg_amg.yaml`` as it is:
+   64^3 a part, process grid (2, 2, 2), 2,097,152 rows): K1 on the 8 boxes,
+   the fused transfers on b' = b - A_offd g, K2 on the boundary shells;
+   within one a refinement pass;
+(n) gate 3 at 64^3 on 8 parts (``double``, host BoomerAMG, K2 on every
+   level and transfer): exactly ``tpusolve``'s count;
+then ``multipart_check``: K2 on a stacked offd block in both storage forms
+and for 1 and 3 columns against its plain version, one 8-part SpMV on each
+layout (DIA, ELL padded and row-pointer, BDIA on K4 and K5, BELL) against
+``to_scipy() @ x``, and K2 on (l)'s and (m)'s offd blocks timed (device,
+per call, the plain version, cuSPARSE on the same block, the bound) beside
+the halo's one index gather.
 
 Every fixture is written once, in a process of its own (gate 4's before
 the kernel build, the others after step 10), so that the writes overlap
@@ -233,12 +262,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 # tpusolve on CPU, gate-4 fixture 96^3, precision mixed: BiCGSTAB
 # iterations summed over the refinement passes; the port's count on the
-# card (31 + 25) with A and its f32 twin on K2 (padded, K = 27), as the
-# layout model prices them: each row's f32 sum in K2's order.  On K4's BDIA
-# layout (the same whether K4 or K5 runs it, equal bit for bit) the port
-# took 54 (31 + 23)
+# card (31 + 24) with A and its f32 twin on K2 (padded, K = 27), as the
+# layout model prices them: each f32 row summed in double and rounded once
+# (56, 31 + 25, while K2 summed f32 rows in f32).  On K4's BDIA layout (the
+# same whether K4 or K5 runs it, equal bit for bit) the port took 54
+# (31 + 23)
 TPUSOLVE_ITERS_96 = 56
-PORT_ITERS_96 = 56
+PORT_ITERS_96 = 55
 # tpusolve on CPU, gate-3 fixture 64^3, precision double: GMRES iterations
 TPUSOLVE_GATE3_ITERS_64 = 12
 # tpusolve on CPU, examples/gate1_64cube_pcg_amg.yaml as it is (64^3,
@@ -249,11 +279,14 @@ TPUSOLVE_GATE1_ITERS = 14
 # Its f32 projection h = V @ w under XLA on the CPU is 450x less accurate
 # than torch's, and its GMRES stalls; with that projection in f64, or with
 # cgs: 2, tpusolve takes 6 at 64^3 (tests/test_torch_gmres_projection.py,
-# ROADMAP.md Queue 3).  The gate holds the port to 6, its count on the card
-# at 128^3 and at 64^3 (and on the CPU)
-GATE2_SIDE = 64
-TPUSOLVE_GATE2_ITERS = 21
-PORT_GATE2_ITERS = 6
+# ROADMAP.md Queue 3).  The port took 6 on the card at 128^3 and at 64^3.
+# Since the multi-part phases the smoke runs it at 32^3, where both
+# packages take 5 on the CPU (`python -m tpusolve_torch Y --device cpu`
+# and `JAX_PLATFORMS=cpu python -m tpusolve.harness.cli Y`, Y the example
+# with its box at 32^3); the gate holds the port within one of 5
+GATE2_SIDE = 32
+TPUSOLVE_GATE2_ITERS = 5
+PORT_GATE2_ITERS = 5
 # tpusolve on CPU, examples/weakscale_pcg_boomeramg_devsetup.yaml as it is
 # (128^3, single, its level 0 set up by its device setup on the CPU, host
 # PMIS ranks: TPUSOLVE_PMIS_HOST_RANK=1): PCG iterations, relres 5.474e-07;
@@ -261,8 +294,11 @@ PORT_GATE2_ITERS = 6
 TPUSOLVE_WEAKSCALE_ITERS = 23
 # tpusolve on CPU, gate-3 fixture 64^3 with coarsen_type 6 (Falgout, run as
 # serial RS by its native kernel), precision double: GMRES iterations,
-# relres 1.417e-09, eight levels (262144 ... 53 rows)
-TPUSOLVE_GATE3_RS_ITERS_64 = 11
+# relres 1.517e-09, five levels (32768, 4097, 532, 135, 51 rows), at 32^3,
+# where the smoke runs it since the multi-part phases (the port's on the
+# CPU the same; at 64^3 11 too, PERF.md section 4)
+TPUSOLVE_GATE3_RS_ITERS = 11
+GATE3_RS_SIDE = 32
 # tpusolve on CPU (one device), fixtures.STENCIL_ILU_YAML (BiCGSTAB +
 # ILU(0), double; its ILU(0) factored by its device DIA path) by side:
 # BiCGSTAB iterations, relres 4.315e-09 at 128^3 and 7.808e-09 at 64^3.  The
@@ -309,6 +345,17 @@ TPUSOLVE_WEAKSCALE_ITERS_256 = 38
 TPUSOLVE_GATE3_ITERS_96 = 12
 # the start of the note the builder records for a device level 0
 DEVICE_NOTE = "level 0 setup on device"
+# tpusolve's counts on 8 parts: its CLI on its mesh of 8 virtual CPU
+# devices, each measured once on the CPU by `XLA_FLAGS=
+# --xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu python -m
+# tpusolve.harness.cli Y.yaml`, Y: gate 1, examples/gate1_64cube_pcg_amg.yaml
+# as it is (PCG iterations over its refinement passes, relres 7.070e-11);
+# gate 4, the fixture `python -m tpusolve_torch.fixtures d 96 4 8` (96^3 in
+# 8 files, mixed: BiCGSTAB iterations over the passes, relres 1.198e-10);
+# gate 3, `python -m tpusolve_torch.fixtures d 64 3` (double: GMRES, relres
+# 5.830e-09).  32, 104 and 36 s on the CPU
+TPUSOLVE_PARTS_ITERS = {"gate1": 21, "gate4": 54, "gate3": 12}
+PARTS = 8
 # the weak-scaling YAML's "Build 27Pt Stencil HYPRE matrix" row at 128^3
 # when the planes were generated on the host (chip_smoke.py, H100 80GB
 # HBM3, 700.00 W, before on-device generation), printed beside the row
@@ -610,6 +657,13 @@ def nbytes_of(*tensors) -> int:
                if t is not None)
 
 
+# calls a trace of device_times holds: the mean of each kernel's durations
+# over them is the device time.  Tracing the plain version of a 125-plane
+# operator (hundreds of launches a call) took 10-13 s a trace at 50 calls,
+# about 130 s of gates 1 and 2, so the smoke traces 20
+TRACE_REPS = 20
+
+
 def device_times(calls: dict, only: str | None = None) -> dict:
     """``calibrate.device_ms_each`` of each of ``calls`` (of the kernels
     named like ``only``, if given), each call in a trace of its own, or NaN
@@ -618,12 +672,14 @@ def device_times(calls: dict, only: str | None = None) -> dict:
     several calls counts each device event for the call whose host span
     holds its start, and on the card's machine such a trace once counted
     a call's events for the span before it (a K2 call read the next call's
-    time, and the call before it gained K2's)."""
+    time, and the call before it gained K2's).  Each trace holds
+    ``TRACE_REPS`` calls."""
     from tpusolve_torch.kernels.calibrate import device_ms_each
     out = {}
     for key, call in calls.items():
         try:
-            out.update(device_ms_each({key: call}, only=only))
+            out.update(device_ms_each({key: call}, reps=TRACE_REPS,
+                                      only=only))
         except RuntimeError as err:
             print(f"device time not measured: {err}", flush=True)
             out[key] = float("nan")
@@ -806,28 +862,38 @@ def reset_counters(counters) -> None:
                     "launches_by_cols"):
             if hasattr(fn, key):
                 setattr(fn, key, {})
-        if hasattr(fn, "launches_bf16"):
-            fn.launches_bf16 = 0
+        for key in ("launches_bf16", "launches_offd",
+                    "launches_ghost_prolong"):
+            if hasattr(fn, key):
+                setattr(fn, key, 0)
 
 
-def run_cli(yaml_path: str, counters, keep: list | None = None) -> tuple:
-    """Run the port's CLI on ``yaml_path`` with every launch counter set to
-    0 just before; returns (exit code, LinearSystem, wall seconds,
-    {counter name: launches}); ``keep``, where given, receives every test's
-    LinearSystem, as ``cli.main``'s does; a counter's ``launches_by_form``
-    (K1's and K2's launches by update form) and ``launches_by_layout``
-    (K2's by storage form) are set to {} with it (:func:`reset_counters`)."""
+def run_cli(yaml_path: str, counters, keep: list | None = None,
+            parts: int = 1) -> tuple:
+    """Run the port's CLI on ``yaml_path`` (on ``parts`` parts, its
+    ``--parts``) with every launch counter set to 0 just before; returns
+    (exit code, LinearSystem, wall seconds, {counter name: launches});
+    ``keep``, where given, receives every test's LinearSystem, as
+    ``cli.main``'s does; a counter's ``launches_by_form`` (K1's and K2's
+    launches by update form), ``launches_by_layout`` (K2's by storage form)
+    ``launches_offd`` (K2's on offd blocks, ``ell_spmv offd``) and
+    ``launches_ghost_prolong`` (K2's on the box prolongation's rows at the
+    ghosts' sources, ``ell_spmv ghost prolong``) are set to 0 with it
+    (:func:`reset_counters`)."""
     from tpusolve_torch.harness import cli
     reset_counters(counters)
     systems = [] if keep is None else keep
     t0 = time.perf_counter()
-    rc = cli.main([yaml_path, "--device", "cuda"], keep=systems)
+    rc = cli.main([yaml_path, "--device", "cuda", "--parts", str(parts)],
+                  keep=systems)
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     k2 = next((fn for fn in counters if fn.__name__ == "ell_spmv"), None)
     if k2 is not None:
         for form in ("padded", "rowptr"):
             launches[f"ell_spmv {form}"] = k2.launches_by_layout.get(form, 0)
+        launches["ell_spmv offd"] = k2.launches_offd
+        launches["ell_spmv ghost prolong"] = k2.launches_ghost_prolong
     return rc, (systems[0] if systems else None), wall, launches
 
 
@@ -849,8 +915,9 @@ def start_fixture_writers(specs) -> None:
     for gate, side in specs:
         d = os.path.join(FIXTURES, f"gate{gate}_{side}")
         WRITERS[(gate, side)] = subprocess.Popen(
-            [sys.executable, "-m", "tpusolve_torch.fixtures", d, str(side),
-             str(gate)], cwd=REPO, env=env, stdout=subprocess.DEVNULL)
+            [sys.executable, "-m", "tpusolve_torch.fixtures", d, str(side)]
+            + str(gate).split("p"), cwd=REPO, env=env,
+            stdout=subprocess.DEVNULL)
 
 
 def stop_fixture_writers() -> None:
@@ -863,15 +930,16 @@ def stop_fixture_writers() -> None:
 
 def fixture_yaml(gate: int, side: int, name: str, edit=None,
                  **sections) -> str:
-    """The path of a YAML ``name`` for the gate-``gate`` (3, 4, or "4c":
-    gate 4's three components) fixture at side^3, its text passed through ``edit`` and its settings changed as
+    """The path of a YAML ``name`` for the gate-``gate`` (3, 4, "4c":
+    gate 4's three components, or "4p8": gate 4 in 8 files) fixture at
+    side^3, its text passed through ``edit`` and its settings changed as
     ``fixtures.with_settings`` takes them.  The fixture's files are written
     once, under ``FIXTURES``, for every phase that runs them (the 96^3
     gate-4 fixture takes some 40 s to write)."""
     from tpusolve_torch import fixtures
     d = os.path.join(FIXTURES, f"gate{gate}_{side}")
     base = os.path.join(d, "gate4_3comp.yaml" if gate == "4c"
-                        else f"gate{gate}.yaml")
+                        else f"gate{str(gate).split('p')[0]}.yaml")
     writer = WRITERS.pop((gate, side), None)
     if writer is not None:
         t0 = time.perf_counter()
@@ -881,8 +949,11 @@ def fixture_yaml(gate: int, side: int, name: str, edit=None,
               f"waited {time.perf_counter() - t0:.1f} s", flush=True)
     if not os.path.exists(base):
         t0 = time.perf_counter()
-        {3: fixtures.write_gate3, "4c": fixtures.write_gate4_3comp}.get(
-            gate, fixtures.write_gate4)(d, side)
+        if gate == "4p8":
+            fixtures.write_gate4(d, side, nfiles=8)
+        else:
+            {3: fixtures.write_gate3, "4c": fixtures.write_gate4_3comp}.get(
+                gate, fixtures.write_gate4)(d, side)
         print(f"gate-{gate} fixture {side}^3 written in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     with open(base) as fh:
@@ -906,7 +977,8 @@ def check_solve(system, rc: int, what: str, tol: float = 1e-8):
     if not (relres <= tol and bool(res.converged)):
         fail(f"{what}: relres {relres:.3e} above {tol:g} or not converged")
     x = system.sln[0]
-    if not bool(torch.isfinite(x).all()) or x.shape != (system.A.row_pad,):
+    if not bool(torch.isfinite(x).all()) \
+            or x.shape != (system.A.nparts * system.A.row_pad,):
         fail(f"{what}: solution is not finite or has the wrong shape")
     return res
 
@@ -1261,8 +1333,8 @@ def tile_timings(pre, moved, what: str, device_name: str, seed: int):
 def gate3_rs_phase(side: int, device_name: str, counters) -> dict:
     """Gate 3 with ``coarsen_type: 6`` (Falgout, run as serial RS by the
     native kernel): the same fixture through the CLI, every layout of the
-    hierarchy launched, the moved operators' old-against-new rows, and at
-    64^3 tpusolve's iteration count."""
+    hierarchy launched, the moved operators' old-against-new rows, and
+    tpusolve's iteration count (``TPUSOLVE_GATE3_RS_ITERS``)."""
     rc, system, wall, launches = run_gate3(
         side, counters, "gate-3 RS",
         lambda t: t.replace("coarsen_type: 8", "coarsen_type: 6"))
@@ -1281,11 +1353,11 @@ def gate3_rs_phase(side: int, device_name: str, counters) -> dict:
     print(f"gate-3 RS {side}^3: {res.iters} GMRES iterations, relres "
           f"{float(res.relres):.3e}, golden check PASSED; Preconditioner "
           f"setup {timers['Preconditioner setup']:.3f} s; tpusolve (CPU, "
-          f"same fixture and settings) {TPUSOLVE_GATE3_RS_ITERS_64} at 64^3",
+          f"same fixture and settings) {TPUSOLVE_GATE3_RS_ITERS}",
           flush=True)
-    if side == 64 and res.iters != TPUSOLVE_GATE3_RS_ITERS_64:
+    if res.iters != TPUSOLVE_GATE3_RS_ITERS:
         fail(f"gate-3 RS took {res.iters} GMRES iterations, tpusolve "
-             f"{TPUSOLVE_GATE3_RS_ITERS_64}")
+             f"{TPUSOLVE_GATE3_RS_ITERS}")
     out = dict(launches=launches, timers=timers, iters=int(res.iters),
                relres=float(res.relres), levels=[lev.n for lev in pre.levels],
                layouts=pre.layouts(), moved_rows=moved_rows)
@@ -3105,8 +3177,10 @@ def fused_entry(name: str, kind: str, rows: list, launches: dict,
 # device (JAX_PLATFORMS=cpu python -m tpusolve.harness.cli YAML, the
 # fixture written by tools/gatefix.py):
 #   GATE4_YAML_3COMP with segregated_solve: no and matrix_ordering: rcm at
-#   96^3 (mixed), tpusolve's vmap path: 52, 49, 55
-TPUSOLVE_COUPLED_96 = (52, 49, 55)
+#   64^3 (mixed), tpusolve's vmap path, where the smoke runs it since the
+#   multi-part phases: 41, 39, 42 (at 96^3 52, 49, 55, PERF.md section 4)
+TPUSOLVE_COUPLED_RCM = (41, 39, 42)
+COUPLED_SIDE = 64
 #   the same in natural order, precision double, at 64^3: 32, 34, 32
 TPUSOLVE_COUPLED_64 = (32, 34, 32)
 #   examples/weakscale_pcg_boomeramg_devsetup.yaml with smoother_dtype:
@@ -3119,7 +3193,7 @@ TPUSOLVE_GATE1_BF16_ITERS = 14
 # 20 against 22, 20, 19), where the order of the f32 sums moves the count
 COUPLED_SPREAD = (4, 0.10)
 COLS = (1, 3, 8)      # the k-column forms the checks hold
-ILU_SWEEPS = 10       # K5 launches of one ILU apply (5 lower, 5 upper)
+ILU_SWEEPS = 5        # launches of one ILU apply on each factor
 
 
 def check_components(system, rc: int, what: str, tol: float = 1e-8):
@@ -3138,14 +3212,15 @@ def check_components(system, rc: int, what: str, tol: float = 1e-8):
                  "shape")
 
 
-def coupled_launches(passes: list) -> tuple:
+def coupled_launches(passes: list, factors: tuple = ("K5", "K5")) -> tuple:
     """({k: launches} of K5 and of K2) that the coupled BiCGSTAB(ILU(0))
     inside refinement makes when each application of A, A_lo, L or U is one
     launch for all the batch's columns: pass p of the refinement solves the
     k_p columns still running as one batch, whose inner loop runs m_p
-    iterations (their most), each two ILU applies (``ILU_SWEEPS`` K5
-    launches each) and two A_lo products, after one residual; the outer
-    residual with A, on all columns, once and after every pass."""
+    iterations (their most), each two ILU applies (``ILU_SWEEPS`` launches
+    on each factor, L's and U's on the kernels ``factors`` names, K5 or
+    K2) and two A_lo products, after one residual; the outer residual with
+    A, on all columns, once and after every pass."""
     k5, k2 = {}, {}
     npass = max(len(p) for p in passes)
     add = lambda d, k, n: d.__setitem__(k, d.get(k, 0) + n)
@@ -3153,7 +3228,8 @@ def coupled_launches(passes: list) -> tuple:
     for p in range(npass):
         run = [c for c in range(len(passes)) if len(passes[c]) > p]
         m = max(passes[c][p] for c in run)
-        add(k5, len(run), 2 * ILU_SWEEPS * m)
+        for kernel in factors:
+            add(k5 if kernel == "K5" else k2, len(run), 2 * ILU_SWEEPS * m)
         add(k2, len(run), 1 + 2 * m)
     return k5, k2
 
@@ -3214,6 +3290,7 @@ def coupled_phase(side: int, card: str, counters) -> dict:
     from tpusolve_torch.kernels.bdia import bdia_spmv_xl
     from tpusolve_torch.kernels.ell import ell_spmv
     what = f"coupled gate-4 {side}^3"
+    tp_counts = TPUSOLVE_COUPLED_RCM
     path = fixture_yaml("4c", side, "coupled.yaml",
                         linear_system={"segregated_solve": False},
                         solver_settings={"matrix_ordering": "rcm"})
@@ -3224,11 +3301,14 @@ def coupled_phase(side: int, card: str, counters) -> dict:
     kernels = {k: kernel_of(M).split()[0] for k, M in ops.items()}
     print(f"{what} layouts: " + "; ".join(
         f"{k} {M.layout} ({kernels[k]})" for k, M in ops.items()), flush=True)
-    if kernels != {"A": "K2", "A_lo": "K2", "L": "K5", "U": "K5"}:
+    if kernels["A"] != "K2" or kernels["A_lo"] != "K2" \
+            or "K5" not in (kernels["L"], kernels["U"]) \
+            or any(M.uses_bdia and M.uses_bdia_xl != model_takes_xl(M)
+                   for M in ops.values()):
         fail(f"{what}: the model chose {kernels}, not K2 for A and A_lo "
-             "and K5 for L and U")
+             "and K5 for a factor, or a factor left the model's kernel")
     passes = [r.passes for r in system.solve_results]
-    want5, want2 = coupled_launches(passes)
+    want5, want2 = coupled_launches(passes, (kernels["L"], kernels["U"]))
     got5 = dict(bdia_spmv_xl.launches_by_cols)
     got2 = dict(ell_spmv.launches_by_cols)
     print(f"{what}: refinement passes {passes}; K5 launches by columns "
@@ -3243,7 +3323,7 @@ def coupled_phase(side: int, card: str, counters) -> dict:
     seg_counts = [int(r.iters) for r in seg]
     print(f"{what} counts: coupled {counts}, segregated (the same solver, "
           f"one component a call) {seg_counts}, tpusolve coupled (CPU) "
-          f"{list(TPUSOLVE_COUPLED_96)}", flush=True)
+          f"{list(tp_counts)}", flush=True)
     for c, s_ in zip(counts, seg_counts):
         if abs(c - s_) > max(COUPLED_SPREAD[0], COUPLED_SPREAD[1] * s_):
             fail(f"{what}: coupled count {c} too far from the segregated "
@@ -3255,7 +3335,7 @@ def coupled_phase(side: int, card: str, counters) -> dict:
                 lambda: [system._solver(b) for b in system.rhs],
                 f"{what} warm segregated solves (three)")}
     return dict(iters=counts, segregated=seg_counts,
-                tpusolve=list(TPUSOLVE_COUPLED_96), passes=passes,
+                tpusolve=list(tp_counts), passes=passes,
                 layouts={k: M.layout for k, M in ops.items()},
                 launches=launches, k5_by_cols=got5, k2_by_cols=got2,
                 wall_s=wall, profile=prof, ops=ops)
@@ -3620,6 +3700,404 @@ def bf16_check(pre_ws, pre_g1, card: str, seed: int) -> list:
     return rows_out
 
 
+# ----------------------------------------------------------------------
+# (l)-(n): multi-part operators, PARTS parts stacked on the card
+
+def parts_run(what: str, yaml_path: str, counters, tol: float = 1e-8):
+    """Run ``yaml_path`` on ``PARTS`` parts through the CLI; returns
+    (system, result, launches, timer rows).  Prints the launches (K2's on
+    offd blocks as ``ell_spmv offd``) and every operator's layout, and
+    fails unless the golden check passed on an operator of ``PARTS`` parts
+    with an offd block, and K2 ran on offd blocks."""
+    rc, system, wall, launches = run_cli(yaml_path, counters, parts=PARTS)
+    print(f"{what} path: cli exit {rc}, {wall:.1f} s wall, launches "
+          f"{launches}", flush=True)
+    res = check_solve(system, rc, what)
+    if system.A.nparts != PARTS or not system.A.has_offd:
+        fail(f"{what}: the operator has {system.A.nparts} parts, offd "
+             f"block {system.A.has_offd}")
+    print(f"{what} layouts: A {system.A.layout}"
+          + (f"; A_lo {system.A_lo.layout}" if system.A_lo is not None
+             else ""), flush=True)
+    pre = system._precond
+    lines = (pre.layouts() if hasattr(pre, "layouts")
+             else [f"ILU L: {pre.L.layout}", f"ILU U: {pre.U.layout}"])
+    for line in lines:
+        print(f"{what} {line}", flush=True)
+    timers = print_timers(system, what)
+    if launches["ell_spmv offd"] <= 0:
+        fail(f"{what}: K2 ran on no offd block")
+    return system, res, launches, timers
+
+
+def parts_count(what: str, key: str, res, spread: int) -> dict:
+    """Hold the count of result ``res`` within ``spread`` of
+    ``tpusolve``'s 8-part count ``TPUSOLVE_PARTS_ITERS[key]``."""
+    want = TPUSOLVE_PARTS_ITERS[key]
+    passes = res.passes or []
+    gap = int(res.iters) - want
+    print(f"{what}: {res.iters} iterations (refinement passes {passes}), "
+          f"relres {float(res.relres):.3e}, golden check PASSED; tpusolve on "
+          f"{PARTS} devices (CPU, same input) {want}: gap {gap:+d}, held "
+          f"within {spread}", flush=True)
+    if abs(gap) > spread:
+        fail(f"{what} took {res.iters} iterations, {gap:+d} from "
+             f"tpusolve's {want} (held within {spread})")
+    return dict(iters=int(res.iters), passes=passes,
+                relres=float(res.relres), tpusolve=want, gap=gap)
+
+
+def offd_timing(name: str, M, launches: int, card: str, seed: int) -> dict:
+    """K2 on the stacked offd block of multi-part operator ``M`` (one
+    launch, ``M.offd_k2``, over the ghosts of a random x) against its plain
+    version: device and per-call time, the plain version's, cuSPARSE's CSR
+    SpMV on the same block (``torch.sparse``, never called by the port)
+    and the bound (each entry's value once, the ghosts and y once, over
+    the card's HBM rate); beside it the halo's one index gather
+    (``halo_gather``) and its bound (the ghosts read and written, their
+    int64 indices read).  ``launches``: K2's offd launches on the path."""
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.calibrate import time_ms
+    from tpusolve_torch.kernels.ell import (ell_rowptr_plain, ell_spmv,
+                                            ell_spmv_plain)
+    from tpusolve_torch.matrix.spmv import halo_gather
+
+    vals, cols, rowptr = M.offd_k2
+    dt = str(M.dtype).replace("torch.", "")
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal(M.nparts * M.col_pad),
+                     dtype=M.dtype, device=M.device)
+    g = halo_gather(M, x)
+    kern = lambda: ell_spmv(vals, cols, g, rowptr=rowptr)
+    plain = ((lambda: ell_spmv_plain(vals, cols, g)) if rowptr is None
+             else (lambda: ell_rowptr_plain(rowptr, vals, cols, g)))
+    y, y_p = kern(), plain()
+    err = rel_err(y, y_p)
+    if not err <= RTOL[dt]:
+        fail(f"{name}: K2 on the offd block vs plain rel err {err:.3e}")
+    if rowptr is None:
+        keep = vals != 0
+        ptr = torch.zeros(vals.shape[0] + 1, dtype=torch.int64,
+                          device=M.device)
+        torch.cumsum(keep.sum(1), 0, out=ptr[1:])
+        lv, lc = vals[keep], cols[keep].long()
+    else:
+        ptr, lv, lc = rowptr.long(), vals, cols.long()
+    csr = torch.sparse_csr_tensor(ptr, lc, lv, size=(y.numel(), g.numel()))
+    err_lib = rel_err(csr @ g, y_p)
+    calls = [("plain", plain), ("k2", kern), ("lib", lambda: csr @ g),
+             ("gather", lambda: halo_gather(M, x))]
+    runs = {k: [] for k, _ in calls}
+    for k, call in calls + calls[::-1]:
+        runs[k].append(time_ms(call))
+    dev = device_times(dict(calls))
+    item = vals.element_size()
+    nnz = int(torch.count_nonzero(M.offd_vals))
+    row = dict(op=name, dtype=dt, layout=M.layout,
+               form="padded" if rowptr is None else "rowptr",
+               rows=int(y.numel()), ghosts=int(g.numel()), nnz=nnz,
+               launches=int(launches), rel_err=err, max_rel_err=err,
+               max_abs_err=float((y - y_p).abs().max()), lib_rel_err=err_lib,
+               bound_ms=bound_ms((nnz + y.numel() + g.numel()) * item, card),
+               gather_bound_ms=bound_ms(g.numel() * (2 * item + 8), card))
+    for k, ts in runs.items():
+        row[k + "_ms"] = min(ts)
+        row[k + "_runs"] = ts
+        row[k + "_dev_ms"] = dev[k]
+    row["ms"], row["dev_ms"] = row["k2_ms"], row["k2_dev_ms"]
+    row["_arrays"] = (vals, cols, rowptr, x, M.halo_src)
+    print(f"{name} {dt} offd {row['form']} ({row['rows']} rows over "
+          f"{row['ghosts']} ghosts, {nnz} nnz; {launches} launches on the "
+          f"path): K2 device {row['k2_dev_ms']:.5f} ms, per call "
+          f"{row['k2_ms']:.5f} ms (runs {ts_str(row['k2_runs'])}), rel err "
+          f"{err:.3e}; plain device {row['plain_dev_ms']:.5f} ms, per call "
+          f"{row['plain_ms']:.5f} ms; library (torch.sparse CSR) device "
+          f"{row['lib_dev_ms']:.5f} ms, per call {row['lib_ms']:.5f} ms "
+          f"(rel err {err_lib:.1e}); bound {row['bound_ms']:.5f} ms; halo "
+          f"gather device {row['gather_dev_ms']:.5f} ms, per call "
+          f"{row['gather_ms']:.5f} ms, bound {row['gather_bound_ms']:.5f} "
+          f"ms ({card})", flush=True)
+    return row
+
+
+def fresh_offd_ms(rows) -> None:
+    """The device times the traces of :func:`offd_timing`'s ``rows`` lost
+    (K2 on the offd block, the halo gather), taken in one fresh process
+    (``python -m tpusolve_torch.kernels.calibrate --retrace FILE``, the
+    block's arrays and x saved to FILE), written into the rows (NaN where
+    that fails too, printed); every row's arrays are dropped after."""
+    import torch
+    lost = lambda r: r["k2_dev_ms"] != r["k2_dev_ms"] \
+        or r["gather_dev_ms"] != r["gather_dev_ms"]
+    pending = [r for r in rows if lost(r)]
+    arrays = {r["op"]: r["_arrays"] for r in pending}
+    for r in rows:
+        del r["_arrays"]
+    if not pending:
+        return
+    path = os.path.join(REPO, "build", "retrace_offd.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"offd": arrays}, path)
+    del arrays
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "tpusolve_torch.kernels.calibrate",
+             "--retrace", path], cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+    finally:
+        os.remove(path)
+    try:
+        got = json.loads(out.stdout.strip().splitlines()[-1])["device_ms"]
+    except (ValueError, IndexError, KeyError):
+        print(f"offd rows: device times not measured in a fresh process "
+              f"either (exit {out.returncode}): "
+              f"{out.stderr.strip()[-400:]}", flush=True)
+        return
+    for r in pending:
+        r["k2_dev_ms"] = r["dev_ms"] = got[r["op"]]["k2"]
+        r["gather_dev_ms"] = got[r["op"]]["gather"]
+        r["dev_ms_from"] = "a fresh process"
+        print(f"{r['op']} offd: K2 device {r['k2_dev_ms']:.5f} ms, halo "
+              f"gather device {r['gather_dev_ms']:.5f} ms, taken in a fresh "
+              "process", flush=True)
+
+
+def gate4_parts_phase(card: str, counters) -> dict:
+    """(m) Gate 4 at 96^3 from 8 files on ``PARTS`` parts: every operator
+    (A, A_lo, L, U) launched the kernel of its diag block's layout, K2 ran
+    on the offd blocks, the ILU was factored where ``tpusolve`` factors it
+    (``device_path`` on the layout it gives A_lo's parts: block-Jacobi on
+    the card, L and U without offd blocks, or the host factors of the
+    whole operator with theirs), the count within one a refinement pass of
+    ``tpusolve``'s 8-part count; K2 on A_lo's offd block timed."""
+    what = f"gate-4 96^3 {PARTS} parts"
+    system, res, launches, timers = parts_run(
+        what, fixture_yaml("4p8", 96, "gate4_parts.yaml"), counters)
+    pre = system._precond
+    ops = (("A", system.A), ("A_lo", system.A_lo), ("L", pre.L),
+           ("U", pre.U))
+    for name, M in ops:
+        fn = launch_counter(M).__name__
+        if M.uses_ell:
+            fn += " rowptr" if M.uses_ell_rowptr else " padded"
+        if launches[fn] <= 0:
+            fail(f"{what}: {name} ({M.layout}) launched no {fn}")
+    # the ILU is factored where tpusolve factors it: on the device, part by
+    # part (block-Jacobi, no offd block), where device_path holds on the
+    # layout tpusolve gives A_lo's parts, else on the host, the whole
+    # operator (offd blocks kept)
+    from tpusolve_torch.ilu.device_setup import device_path
+    on_card = device_path(system.A_lo, system.config.ilu) is not None
+    blockj = any("block-Jacobi" in n for n in pre.notes)
+    print(f"{what}: A_lo's layout in tpusolve {system.A_lo.tpusolve_layout}"
+          f", the ILU factored "
+          f"{'on the card, block-Jacobi' if on_card else 'on the host'} as "
+          f"tpusolve factors it; notes {pre.notes}", flush=True)
+    for name, M in ops:
+        if M.has_offd != (name in ("A", "A_lo") or not on_card):
+            fail(f"{what}: {name} has offd block {M.has_offd}")
+    if blockj != on_card:
+        fail(f"{what}: the ILU's notes {pre.notes} do not match tpusolve's "
+             f"path ({'device' if on_card else 'host'})")
+    print(f"{what} kernels, as the model prices them: " + ", ".join(
+        f"{name} {kernel_of(M)}" for name, M in ops), flush=True)
+    out = parts_count(what, "gate4", res, len(res.passes or []))
+    row = offd_timing(f"{what} A_lo", system.A_lo, launches["ell_spmv offd"],
+                      card, 41)
+    prof = solve_profile(system, what)
+    system.destroy_system()
+    return dict(out, launches=launches, timers=timers, offd_rows=[row],
+                layouts={k: M.layout for k, M in ops}, profile=prof)
+
+
+def gate1_parts_phase(card: str, counters) -> dict:
+    """(l) Gate 1 on ``PARTS`` parts (64^3 a part): K1 and both fused
+    transfers ran, the standalone K3 kernels did not, K2 ran on the offd
+    shells, the count within one a pass of ``tpusolve``'s 8-part count;
+    K2 on level 0's offd block timed."""
+    what = f"gate-1 {PARTS} parts"
+    system, res, launches, timers = parts_run(
+        what, os.path.join(REPO, "examples", "gate1_64cube_pcg_amg.yaml"),
+        counters)
+    for fn in ("dia_spmv", "box_restrict_residual", "box_prolong_update"):
+        if launches[fn] <= 0:
+            fail(f"{what}: the path launched no {fn}")
+    for fn in ("box_prolong", "box_restrict"):
+        if launches[fn]:
+            fail(f"{what}: the path launched the standalone {fn}")
+    # one K2 launch on the box prolongation's rows at the ghosts' sources
+    # before each fused prolongation of a level with an offd block
+    ghosts = launches["ell_spmv ghost prolong"]
+    print(f"{what}: K2 on offd blocks {launches['ell_spmv offd']}, on the "
+          f"prolongation's ghost rows {ghosts} (the fused prolongations "
+          f"{launches['box_prolong_update']})", flush=True)
+    if not 0 < ghosts <= launches["box_prolong_update"]:
+        fail(f"{what}: {ghosts} ghost prolongations for "
+             f"{launches['box_prolong_update']} fused prolongations")
+    out = parts_count(what, "gate1", res, len(res.passes or []))
+    lev0 = system._precond.levels[0].A
+    row = offd_timing(f"{what} level 0", lev0, launches["ell_spmv offd"],
+                      card, 42)
+    prof = solve_profile(system, what)
+    system.destroy_system()
+    return dict(out, launches=launches, timers=timers, offd_rows=[row],
+                profile=prof)
+
+
+def gate3_parts_phase(card: str, counters) -> dict:
+    """(n) Gate 3 at 64^3 on ``PARTS`` parts, host BoomerAMG: every
+    level's A, P and R launched its kernel, K2 ran on the offd blocks,
+    exactly ``tpusolve``'s 8-part count."""
+    what = f"gate-3 64^3 {PARTS} parts"
+    system, res, launches, timers = parts_run(
+        what, fixture_yaml(3, 64, "gate3_parts.yaml"), counters)
+    check_launched(system._precond, launches, what)
+    out = parts_count(what, "gate3", res, 0)
+    row = offd_timing(f"{what} level 0", system.A, launches["ell_spmv offd"],
+                      card, 43)
+    system.destroy_system()
+    return dict(out, launches=launches, timers=timers, offd_rows=[row])
+
+
+def multipart_check(device) -> list:
+    """K2 on a stacked offd block (an 8-part operator's, ``PARTS * row_pad``
+    rows over ``PARTS * G`` ghosts) in both storage forms, for 1 and 3
+    columns, in y = A g, b - A g and c + A g in place, against its plain
+    version; then one ``PARTS``-part SpMV and residual on each layout (DIA,
+    ELL padded and row-pointer, BDIA on K4 and on K5, BELL) against
+    ``to_scipy() @ x``.  Returns each check's (name, rel err) rows."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from tpusolve_torch.kernels.ell import (ell_rowptr_plain, ell_spmv,
+                                            ell_spmv_plain)
+    from tpusolve_torch.matrix import sharded
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    from tpusolve_torch.matrix.spmv import spmv, spmv_update
+    from tpusolve_torch.matrix.vectors import to_device_vector
+    from tpusolve_torch.stencil import laplace27
+
+    rng = np.random.default_rng(44)
+    rows = []
+
+    def record(name, got, want, dt):
+        err = rel_err(got, want)
+        print(f"multipart {name} {dt}: rel err {err:.3e}", flush=True)
+        if not err <= RTOL[dt]:
+            fail(f"multipart {name} {dt}: rel err {err:.3e} > {RTOL[dt]}")
+        rows.append(dict(op=name, dtype=dt, rel_err=err,
+                         max_abs_err=float((got - want).abs().max())))
+
+    n = 40_003
+    r = np.repeat(np.arange(n), 9)
+    c = np.clip(r + rng.integers(-3000, 3000, r.size), 0, n - 1)
+    key = np.unique(np.concatenate([r * n + c, np.arange(n) * (n + 1)]))
+    r, c = key // n, key % n
+    v = rng.standard_normal(r.size)
+    for dtype in (np.float32, np.float64):
+        dt = np.dtype(dtype).name
+        A = ShardedMatrix.from_coo((n, n), r, c, v, device=device,
+                                   dtype=dtype, nparts=PARTS,
+                                   allow_dia=False, allow_bdia=False,
+                                   allow_bell=False)
+        G = A.ghost_slot.shape[1]
+        pv, pc, _ = sharded._flat_padded(A.offd_vals, A.offd_cols, G)
+        rp, rv, rc = sharded.offd_rowptr(A.offd_vals, A.offd_cols, G)
+        if rv.numel() >= pv.numel():
+            fail("multipart: the offd block's row-pointer form keeps its "
+                 "padding")
+        for k in (1, 3):
+            shape = (PARTS * G,) if k == 1 else (k, PARTS * G)
+            g = torch.tensor(rng.standard_normal(shape), dtype=pv.dtype,
+                             device=device)
+            yshape = (pv.shape[0],) if k == 1 else (k, pv.shape[0])
+            b = torch.tensor(rng.standard_normal(yshape), dtype=pv.dtype,
+                             device=device)
+            for form, args, plain in (
+                    ("padded", (pv, pc), ell_spmv_plain),
+                    ("rowptr", (rv, rc),
+                     lambda vv, cc, *a, **kw: ell_rowptr_plain(
+                         rp, vv, cc, *a, **kw))):
+                kw = {} if form == "padded" else {"rowptr": rp}
+                cols = [g] if k == 1 else list(g)
+                bs = [b] if k == 1 else list(b)
+                want = torch.stack([plain(*args, gj) for gj in cols])
+                got = ell_spmv(*args, g, **kw).reshape(want.shape)
+                record(f"offd K2 {form} k={k} A g", got, want, dt)
+                want = torch.stack([plain(*args, gj, b=bj)
+                                    for gj, bj in zip(cols, bs)])
+                got = ell_spmv(*args, g, b=b, **kw).reshape(want.shape)
+                record(f"offd K2 {form} k={k} b - A g", got, want, dt)
+                y = b.clone()
+                ell_spmv(*args, g, c=y, w=-1.0, out=y, **kw)
+                want = torch.stack([plain(*args, gj, c=bj, w=-1.0)
+                                    for gj, bj in zip(cols, bs)])
+                record(f"offd K2 {form} k={k} c + A g in place",
+                       y.reshape(want.shape), want, dt)
+
+    def layout_check(name, M):
+        S = M.to_scipy()
+        dt = str(M.dtype).replace("torch.", "")
+        x = rng.standard_normal(S.shape[1])
+        b = rng.standard_normal(S.shape[0])
+        vec = lambda a, off, pad: to_device_vector(a, off, pad, device,
+                                                   dtype=np.dtype(dt))
+        xd = vec(x, M.col_offsets, M.col_pad)
+        bd = vec(b, M.row_offsets, M.row_pad)
+        t = lambda a: torch.tensor(a, dtype=M.dtype, device=device)
+        un = lambda y: torch.cat([
+            y[p * M.row_pad:p * M.row_pad + M.row_offsets[p + 1]
+              - M.row_offsets[p]] for p in range(M.nparts)])
+        record(f"{name} {M.layout} SpMV", un(spmv(M, xd)), t(S @ x), dt)
+        record(f"{name} residual", un(spmv_update(M, xd, b=bd)),
+               t(b - S @ x), dt)
+
+    dia = laplace27(32, 32, 32, device=device, nparts=PARTS)[0]
+    layout_check("DIA", dia)
+    for form in ("padded", "rowptr"):
+        with mock.patch.object(sharded, "ell_form",
+                               lambda *a, **kw: (form, 1.0)):
+            E = ShardedMatrix.from_coo((n, n), r, c, v, device=device,
+                                       nparts=PARTS, allow_dia=False,
+                                       allow_bdia=False, allow_bell=False)
+        layout_check(f"ELL {form}", E)
+    nb = 80_000
+    rr = np.arange(nb)
+    br = np.concatenate([rr[max(0, -o):nb - max(0, o)]
+                         for o in (-600, -599, -1, 0, 1, 599, 600)])
+    bc = np.concatenate([rr[max(0, o):nb - max(0, -o)]
+                         for o in (-600, -599, -1, 0, 1, 599, 600)])
+    bv = rng.standard_normal(br.size)
+    B = ShardedMatrix.from_coo((nb, nb), br, bc, bv, device=device,
+                               nparts=PARTS, allow_dia=False,
+                               allow_bell=False, allow_ell=False)
+    if not B.uses_bdia:
+        fail(f"multipart: the band took {B.layout}, not BDIA")
+    layout_check("BDIA K4", B._with_xl(None))
+    xl = sharded.plan_xl(B.bdia_starts.cpu().numpy(), B.bdia_block,
+                         B.bdia_xpad, 8, B.bdia_nbytes, B.bdia_live,
+                         B.xl_work())
+    if xl is None:
+        fail("multipart: no K5 step plan fits the 8-part band")
+    layout_check("BDIA-XL K5", B._with_xl(xl[:5]))
+    # BELL's tiles take a band dense within its 128-column windows
+    nt = 16_000
+    rr = np.arange(nt)
+    offs = range(-32, 33)
+    tr = np.concatenate([rr[max(0, -o):nt - max(0, o)] for o in offs])
+    tc = np.concatenate([rr[max(0, o):nt - max(0, -o)] for o in offs])
+    E = ShardedMatrix.from_coo((nt, nt), tr, tc,
+                               rng.standard_normal(tr.size), device=device,
+                               nparts=PARTS, allow_dia=False,
+                               allow_bdia=False, allow_ell=False)
+    if not E.uses_bell:
+        fail(f"multipart: the band took {E.layout}, not BELL")
+    layout_check("BELL", E)
+    return rows
+
+
 def form_entry(name: str, base: str, source: str, replaces: str, row: dict,
                launches: dict, rows: list, library) -> dict:
     """A kernels-line entry of a new form of kernel ``base``."""
@@ -3698,10 +4176,11 @@ def main(argv) -> int:
     phase_done("the kernel checks")
     model_constants()
     phase_done("the models' constants")
-    start_fixture_writers([("4c", sides["--side"]), ("4c", 64)])
+    start_fixture_writers([("4c", COUPLED_SIDE)])
     start_fixture_writers(sorted({(4, ell_side), (4, 32), (3, 96),
                                   (3, sides["--side3"]), (3, st5_side),
-                                  (3, 32)} - set(WRITERS)))
+                                  (3, 32), (3, 64)} - set(WRITERS)))
+    start_fixture_writers([("4p8", 96)])
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
                 box_restrict, box_restrict_residual, box_prolong_update,
@@ -3711,7 +4190,7 @@ def main(argv) -> int:
     phase_done("gate 4")
     # (h) the coupled solve of gate 4's three components, and K2's and
     # K5's k-column forms on its operators
-    coupled = coupled_phase(sides["--side"], card, counters)
+    coupled = coupled_phase(COUPLED_SIDE, card, counters)
     col_rows = columns_check(coupled.pop("ops"), card, 15)
     phase_done("the coupled gate 4")
     # (i)-(k): the coupled solve in double on the ELL device ILU, and the
@@ -3729,7 +4208,7 @@ def main(argv) -> int:
     g3 = gate3_phase(sides["--side3"], device_name, counters)
     l3, rows3, bdia_rows3 = g3["launches"], g3["k6_rows"], g3["k4_rows"]
     phase_done("gate 3")
-    rs = gate3_rs_phase(sides["--side3"], device_name, counters)
+    rs = gate3_rs_phase(GATE3_RS_SIDE, device_name, counters)
     phase_done("gate 3 RS")
     (l1, forms1, errs1, rows1, k3_rows1, fused_rows1, cycle1, prof1,
      cold1) = gate1_phase(device_name, counters)
@@ -3761,6 +4240,19 @@ def main(argv) -> int:
     phase_done("gate 3 with ILU smoothing")
     life = lifecycle_phase(32, device, counters)
     phase_done("the lifecycle's steps")
+    # (m), (l), (n): the multi-part operators, PARTS parts on the card, last
+    # (run earlier, they moved the lost traces into gates 1 and 2, where a
+    # lost trace costs some 11 s: 1,066 s against 947); the device times
+    # their traces lose come from one fresh process (fresh_offd_ms)
+    g4p = gate4_parts_phase(card, counters)
+    phase_done(f"gate 4 on {PARTS} parts")
+    g1p = gate1_parts_phase(card, counters)
+    phase_done(f"gate 1 on {PARTS} parts")
+    g3p = gate3_parts_phase(card, counters)
+    phase_done(f"gate 3 on {PARTS} parts")
+    fresh_offd_ms(g4p["offd_rows"] + g1p["offd_rows"] + g3p["offd_rows"])
+    mp_rows = multipart_check(device)
+    phase_done("the multi-part checks")
     shutil.rmtree(FIXTURES, ignore_errors=True)
 
     paths = {"gate4": l4, "stencil_ilu": st_ilu["launches"],
@@ -3773,7 +4265,9 @@ def main(argv) -> int:
              "gate3_96_ell": g3_ell["launches"],
              "coupled": coupled["launches"],
              "coupled_double": coupled64["launches"],
-             "weakscale_bf16": wsb["launches"], "gate1_bf16": g1b["launches"]}
+             "weakscale_bf16": wsb["launches"], "gate1_bf16": g1b["launches"],
+             "gate4_parts": g4p["launches"], "gate1_parts": g1p["launches"],
+             "gate3_parts": g3p["launches"]}
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
     rows6_all = rows3 + ws["k6_rows"]
@@ -3938,6 +4432,23 @@ def main(argv) -> int:
                    dict(launches=g1b["prolong_bf16"],
                         launches_by_path={"gate1_bf16": g1b["prolong_bf16"]}),
                    [bf16_rows[2]], None)]
+    offd_rows = g4p["offd_rows"] + g1p["offd_rows"] + g3p["offd_rows"]
+    offd = {k: p["ell_spmv offd"] for k, p in paths.items()
+            if p.get("ell_spmv offd")}
+    kernels.append(form_entry(
+        "ell_spmv offd", "ell_spmv", "tpusolve_torch/csrc/ell_spmv.cu",
+        "tpusolve/matrix/spmv.py:133", offd_rows[0],
+        dict(launches=sum(offd.values()), launches_by_path=offd),
+        offd_rows + [dict(r, max_rel_err=r["rel_err"]) for r in mp_rows
+                     if r["op"].startswith("offd")], offd_rows[0]["lib_ms"]))
+    ghost = {k: p["ell_spmv ghost prolong"] for k, p in paths.items()
+             if p.get("ell_spmv ghost prolong")}
+    kernels[-1].update(ghost_prolong_launches=sum(ghost.values()),
+                       ghost_prolong_launches_by_path=ghost,
+                       library_device_ms=offd_rows[0]["lib_dev_ms"],
+                       halo_gather_ms=offd_rows[0]["gather_ms"],
+                       halo_gather_device_ms=offd_rows[0]["gather_dev_ms"],
+                       halo_gather_bound_ms=offd_rows[0]["gather_bound_ms"])
     print(json.dumps(no_nan({"coupled": coupled, "coupled_double": coupled64,
                              "weakscale_bf16": wsb, "gate1_bf16": g1b}),
                      default=str), flush=True)
@@ -3947,7 +4458,9 @@ def main(argv) -> int:
         k: g3[k] for k in ("iters", "timers", "launches")}, "gate3_rs": rs,
         "device_setup_32": dev_rows, "weakscale_256": ws256,
         "gate3_96_ell": g3_ell,
-        "gate3_ell_against_host": g3["ell_against_host"], "ilu": {
+        "gate3_ell_against_host": g3["ell_against_host"],
+        "multipart": {"gate4": g4p, "gate1": g1p, "gate3": g3p,
+                      "checks": mp_rows}, "ilu": {
             "stencil": st_ilu, "gate4_ell": g4_ell,
             "gate4_rcm_ell_trial": trial4, "options": ilu_opts,
             "gate3_ilu_smoother": st5, "lifecycle": life}})), flush=True)

@@ -201,9 +201,8 @@ boomeramg_settings: {smoother_dtype: bfloat16}
 def test_gate3_counts_equal_tpusolve(tmp_path, precision):
     """Gate 3's fixture at 16^3, GMRES + BoomerAMG with the twin, through
     both harnesses: the count equal in ``double``, within one in
-    ``single``; the golden check passes in ``double`` on both sides (in
-    ``single`` the port's fails with or without the twin where
-    ``tpusolve``'s passes: ROADMAP.md Queue 3)."""
+    ``single``; the golden check passes in both precisions on both sides
+    (in ``single`` the port's passes since K2 sums an f32 row in double)."""
     from test_torch_coupled import run_port, run_tpusolve
     from tpusolve_torch import fixtures
     path = fixtures.write_gate3(str(tmp_path), 16, solver_settings={
@@ -211,6 +210,6 @@ def test_gate3_counts_equal_tpusolve(tmp_path, precision):
         "smoother_dtype": "bfloat16"})
     it, _, _, ok = run_port(path)
     it_t, _, _, ok_t = run_tpusolve(path)
-    assert ok_t and (ok or precision == "single")
+    assert ok_t and ok
     slack = 0 if precision == "double" else 1
     assert abs(it[0] - it_t[0]) <= slack, (it, it_t)

@@ -321,12 +321,14 @@ def test_eligible_equals_tpusolve(monkeypatch, case, with_host):
 
 
 def test_more_than_one_part_raises():
-    """A multi-part operator is not eligible, and its setup names item
-    18."""
+    """A multi-part operator that tpusolve sets up on its devices raises
+    where its eligibility is asked, naming item 18 (it is never sent to the
+    host pipeline in its place), and so does its setup."""
     H = scrambled_laplace(8)
     A = port_matrix(H)
     two = dataclasses.replace(A, row_offsets=(0, 32, 64))
-    assert not device_setup_ell.eligible(two, BoomerAMGConfig(), H, min_n=1)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        device_setup_ell.eligible(two, BoomerAMGConfig(), H, min_n=1)
     with pytest.raises(NotImplementedError, match="item 18"):
         device_setup_ell.device_level0_ell(two, BoomerAMGConfig(), A_host=H)
 

@@ -171,7 +171,7 @@ def test_from_dia_parts_keeps_input_and_casts(port16):
     B32 = B.astype(np.float32)
     assert B32.dia_offsets is B.dia_offsets
     assert B32.dia_vals.dtype == torch.float32 == B32.diag.dtype
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="one part"):
         ShardedMatrix.from_dia_parts(
             A.shape, A.dia_offsets, vals,
             [(np.array([0]), np.array([1]), np.array([1.0]))], device=CPU,

@@ -6,7 +6,8 @@ The same numpy inputs go through both packages on the CPU: the DIA factors
 (the band pattern) and the ELL factors (the stored pattern) and ``udiag_inv``
 equal tpusolve's device factors, and the host Chow-Patel factors on the
 same pattern, to 1e-12 relative in f64; a nonsymmetric solve converges in
-tpusolve's count; ILUT stays on the host; more than one part raises.  The
+tpusolve's count; ILUT stays on the host; on more than one part each
+part's diag block is factored alone (block-Jacobi).  The
 record of tpusolve's layout (``ShardedMatrix.tpusolve_layout``) equals the
 layout class tpusolve's ``from_coo`` picks, and the device-or-host choice
 equals tpusolve's ``_device_path``, on the gate-4 fixture scrambled, after
@@ -183,17 +184,33 @@ def test_ell_budget_chunks_equal_one_chunk():
 
 
 def test_multi_part_raises():
-    A, _, _ = laplace27(5, 4, 4, device=CPU, dtype=np.float64)
+    """More than one part no longer raises: each part's diag block is
+    factored alone (block-Jacobi, the offd block left out), so the 2-part
+    factors equal the one-part factors of each part's block."""
+    A, _, _ = laplace27(5, 4, 4, device=CPU, dtype=np.float64, nparts=2)
     H = momentum(5)
     E = ShardedMatrix.from_csr_host(H, device=CPU, dtype=np.float64,
-                                    allow_bell=False, allow_bdia=False)
+                                    nparts=2, allow_bell=False,
+                                    allow_bdia=False)
     for M, setup in ((A, device_setup.ilu_setup_device),
                      (E, device_setup.ilu_setup_device_ell)):
-        n = M.shape[0]
-        two = dataclasses.replace(M, row_offsets=(0, n // 2, n),
-                                  col_offsets=(0, n // 2, n))
-        with pytest.raises(NotImplementedError, match="Multi-part"):
-            setup(two, ILUConfig())
+        assert M.nparts == 2 and M.has_offd
+        pre = setup(M, ILUConfig())
+        assert pre.L.nparts == 2 and not pre.L.has_offd
+        ro = M.row_offsets
+        S = M.to_scipy().tocsr()
+        for p in range(2):
+            lo, hi = ro[p], ro[p + 1]
+            B = ShardedMatrix.from_csr_host(
+                S[lo:hi, lo:hi], device=CPU, dtype=np.float64,
+                allow_dia=False, allow_bell=False, allow_bdia=False)
+            one = device_setup.ilu_setup_device_ell(B, ILUConfig())
+            for F, F1 in ((pre.L, one.L), (pre.U, one.U)):
+                blk = F.to_scipy().tocsr()[lo:hi, lo:hi]
+                assert rel(blk, F1.to_scipy()) <= 1e-12
+            np.testing.assert_allclose(
+                pre.udiag_inv[p * M.row_pad:p * M.row_pad + hi - lo]
+                .numpy(), one.udiag_inv[:hi - lo].numpy(), rtol=1e-12)
 
 
 def _fixture(kind: str, side: int):

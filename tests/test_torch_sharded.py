@@ -220,10 +220,18 @@ class TestLayoutSelection:
                           8) == best == nbytes
 
     def test_multipart_not_ported(self, rng):
+        """Two parts, which raised before multi-part operators were ported,
+        build: the offd block carries the couplings between them, and the
+        operator and its SpMV are the global ones."""
         r, c, v = clustered(rng, 100, centers=(0,))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ShardedMatrix.from_coo((100, 100), r, c, v, device=CPU,
+        A = ShardedMatrix.from_coo((100, 100), r, c, v, device=CPU,
                                    row_offsets=[0, 50, 100])
+        S = sp.csr_matrix((v, (r, c)), shape=(100, 100))
+        assert A.nparts == 2 and A.has_offd
+        assert abs(A.to_scipy() - S).max() == 0.0
+        x = rng.standard_normal(100)
+        np.testing.assert_allclose(_spmv_np(A, x), S @ x, rtol=1e-12,
+                                   atol=1e-12)
 
 
 class TestAgainstTpusolve:
@@ -264,16 +272,16 @@ class TestAgainstTpusolve:
                                    atol=tol * np.abs(y_tp).max())
 
     def test_from_arrays_refuses_other_layouts(self, tp, rng):
-        """An offd layout is refused; tpusolve's 1-D DIA layout (no
-        dia_shape) now comes across as the port's DIA, (0, 0, offset)
-        triples, with the same SpMV."""
+        """An offd layout on one part is refused (one part owns every
+        column); tpusolve's 1-D DIA layout (no dia_shape) now comes across
+        as the port's DIA, (0, 0, offset) triples, with the same SpMV."""
         n = 600
         r, c, v = clustered(rng, n, centers=(0,), drift_amp=0)
         At = tp["ShardedMatrix"].from_coo(tp["mesh"], (n, n), r, c, v,
                                           dtype=np.float64)
         assert At.uses_dia and At.dia_shape is None
         arrays, meta = tpusolve_fields(At)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="one part"):
             ShardedMatrix.from_arrays(arrays, dict(meta, has_offd=True),
                                       device=CPU)
         A = ShardedMatrix.from_arrays(arrays, meta, device=CPU)

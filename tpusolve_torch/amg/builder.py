@@ -180,8 +180,8 @@ class AMGPreconditioner:
 
 
 def _sharded_from_scipy(M: sp.spmatrix, device, dtype, row_offsets=None,
-                        col_offsets=None,
-                        allow_tiles: bool = True) -> ShardedMatrix:
+                        col_offsets=None, allow_tiles: bool = True,
+                        nparts: int = 1) -> ShardedMatrix:
     """``allow_tiles=False`` forces ELL, padded or row-pointer as K2's
     model prices them (``matrix/sharded.py:ell_form``).  Used for P/R:
     transfer operators average ~2-4 entries/row, so the dense-tile layouts
@@ -190,7 +190,7 @@ def _sharded_from_scipy(M: sp.spmatrix, device, dtype, row_offsets=None,
     return ShardedMatrix.from_csr_host(
         M.tocsr(), device=device, dtype=dtype, row_offsets=row_offsets,
         col_offsets=col_offsets, allow_bell=allow_tiles,
-        allow_bdia=allow_tiles)
+        allow_bdia=allow_tiles, nparts=nparts)
 
 
 # dense coarse solve guard: above this size the (Npad_c^2) pinv is
@@ -445,7 +445,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
         levels.append(lev)
 
         Ah = Ac
-        A_sh = _sharded_from_scipy(Ah, device, dtype)
+        A_sh = _sharded_from_scipy(Ah, device, dtype, nparts=A.nparts)
         _phase("coarse A device assembly")
 
     # coarsest level: dense (pseudo)inverse or relaxation sweeps
@@ -729,7 +729,8 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
             rc = lev.restrict_residual(x, b)
         else:
             rc = lev.restrict(spmv_update(lev.A, x, b=b))
-        ec = torch.zeros(b.shape[:-1] + (levels[l + 1].A.row_pad,),
+        Ac = levels[l + 1].A
+        ec = torch.zeros(b.shape[:-1] + (Ac.nparts * Ac.row_pad,),
                          dtype=b.dtype, device=b.device)
         for _ in range(gamma):
             ec = cycle(l + 1, rc, ec)

@@ -81,18 +81,27 @@ def eligible(A: ShardedMatrix, cfg, A_host=None,
     ``min_n`` (None: never) to 2**31 rows; an ELL source of at most
     ``MAX_ELL_K`` entries a row, which is ``A``'s entries where
     ``tpusolve`` stores it ELL and else the host CSR ``A_host``; and a
-    config of ``config_eligible`` with interpolation 0, 3 or 6."""
-    if min_n is None or A.nparts != 1 or A.shape[0] != A.shape[1]:
+    config of ``config_eligible`` with interpolation 0, 3 or 6.  An
+    operator of more than one part that ``tpusolve`` would set up by its
+    multi-part pipeline (the row width counts the offd block's too) raises
+    ``NotImplementedError`` (item 18) rather than go to the host."""
+    if min_n is None or A.shape[0] != A.shape[1]:
         return False
     if not min_n <= A.shape[0] < 2 ** 31:
         return False
     if A.tpusolve_layout == "ell":
-        if A.row_width > MAX_ELL_K:
+        width = A.row_width + (0 if A.offd_vals is None
+                               else A.offd_vals.shape[-1])
+        if width > MAX_ELL_K:
             return False
     elif A_host is None or int(np.diff(
             A_host.tocsr().indptr).max(initial=0)) > MAX_ELL_K:
         return False
-    return config_eligible(cfg, interp_types=(0, 3, 6))
+    if not config_eligible(cfg, interp_types=(0, 3, 6)):
+        return False
+    if A.nparts != 1:
+        raise NotImplementedError(_PARTS_ITEM)
+    return True
 
 
 # ----------------------------------------------------------------------

@@ -18,6 +18,14 @@ generator (a rank-3 ``A.dia_shape``):
   their (dz, dy, dx) triples, so every level's SpMV runs K1;
 * smoothers and the coarse solve shared with the algebraic builder.
 
+On more than one part each level also has its boundary-shell couplings
+(the offd block, ``_coarse_offd`` on the coarse levels).  The fused
+transfers then take ``b' = b - A_offd g`` (``matrix/spmv.py``): the
+restriction's from the ghosts of x, the prolongation's from the ghosts of
+``x' = x + P ec``, which it gathers as ``x[ghosts] + P_g ec`` (one K2
+launch on the rows of the box prolongation at the ghosts' sources,
+:func:`_ghost_prolongation`) before its one fused launch.
+
 Only the matrix-free setup (``structured_mg_setup_fast``, from the
 stencil's ``with_parts`` payload) is ported; the scipy-RAP setup
 ``structured_mg_setup`` raises.
@@ -36,9 +44,11 @@ from tpusolve_torch.amg.builder import (
     _relax_twin, _resolve_kinds)
 from tpusolve_torch.amg.dia_rap import dia_rap
 from tpusolve_torch.config import BoomerAMGConfig
+from tpusolve_torch.kernels.ell import ell_spmv
 from tpusolve_torch.kernels.transfer import (
     box_prolong, box_prolong_update, box_restrict, box_restrict_residual)
 from tpusolve_torch.matrix.sharded import ShardedMatrix
+from tpusolve_torch.matrix.spmv import halo_gather, offd_spmv
 from tpusolve_torch.matrix.vectors import (
     numpy_dtype, to_device_vector, to_tensor)
 
@@ -97,10 +107,53 @@ def _make_transfers(lev: Level, fine_box, coarse_box) -> None:
     A_s = lev.A_relax if lev.A_relax is not None else A
     lev.prolong = partial(box_prolong, fine_box, coarse_box)
     lev.restrict = partial(box_restrict, fine_box, coarse_box)
-    lev.restrict_residual = partial(box_restrict_residual, fine_box,
-                                    coarse_box, A.dia_vals, A.dia_offsets)
-    lev.prolong_update = partial(box_prolong_update, fine_box, coarse_box,
-                                 A_s.dia_vals, A_s.dia_offsets)
+    restrict_residual = partial(box_restrict_residual, fine_box, coarse_box,
+                                A.dia_vals, A.dia_offsets)
+    prolong_update = partial(box_prolong_update, fine_box, coarse_box,
+                             A_s.dia_vals, A_s.dia_offsets)
+    if not A.has_offd:
+        lev.restrict_residual = restrict_residual
+        lev.prolong_update = prolong_update
+        return
+    ghosts_new = _ghost_prolongation(A, fine_box, coarse_box)
+
+    def restrict_residual_offd(x, b):
+        return restrict_residual(x, offd_spmv(A, halo_gather(A, x), b=b))
+
+    def prolong_update_offd(ec, x, b, s=None, w=1.0, c_is_xnew=True,
+                            xnew_out=None, out=None):
+        b = offd_spmv(A_s, ghosts_new(ec, x), b=b)
+        return prolong_update(ec, x, b, s, w, c_is_xnew, xnew_out, out)
+
+    lev.restrict_residual = restrict_residual_offd
+    lev.prolong_update = prolong_update_offd
+
+
+def _ghost_prolongation(A: ShardedMatrix, fine_box, coarse_box):
+    """``(ec, x) -> g``: the ghosts of ``x' = x + P ec`` on the box level
+    of multi-part operator ``A`` before x' exists, ``x[ghosts] + P_g ec``,
+    where P_g (P * G, P * Rc) holds the rows of the block-diagonal box
+    prolongation at the ghosts' sources (``A.halo_src``): one K2 launch in
+    the update form ``c - w P_g ec`` at ``c = x[ghosts]``, ``w = -1``."""
+    Rf, Rc = int(np.prod(fine_box)), int(np.prod(coarse_box))
+    src = A.halo_src.cpu().numpy()
+    owner, local = np.divmod(src, Rf)
+    rows = _p_box(fine_box)[local].tocsr()
+    counts = np.diff(rows.indptr)
+    K = max(1, int(counts.max()))
+    slot = np.arange(rows.nnz) - np.repeat(rows.indptr[:-1], counts)
+    r = np.repeat(np.arange(src.size), counts)
+    vals = np.zeros((src.size, K), numpy_dtype(A.dtype))
+    cols = np.zeros((src.size, K), np.int32)
+    vals[r, slot] = rows.data
+    cols[r, slot] = rows.indices + np.repeat(owner * Rc, counts)
+    vals_t, cols_t = to_tensor(vals, A.device), to_tensor(cols, A.device)
+
+    def ghosts(ec, x):
+        return ell_spmv(vals_t, cols_t, ec, c=halo_gather(A, x), w=-1.0,
+                        ghost_prolong=True)
+
+    return ghosts
 
 
 # ----------------------------------------------------------------------

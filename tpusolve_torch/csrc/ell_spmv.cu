@@ -6,6 +6,12 @@
 //
 //     (A x)[i] = sum_k vals[i, k] * x[cols[i, k]]
 //
+// with each f32 row's products kept exact and the row rounded once (Sum
+// below): a row of a Laplacian-like operator cancels to near zero, and f32
+// partial sums give each row an error of the diagonal's size, which a
+// single-precision Krylov solve then carries into the smooth error mode
+// (gate 3 in `single`).
+//
 // with the operator stored in one of two forms:
 //   * padded: (rows, K) values and int32 columns, row-major; a padded slot
 //     holds value 0 and column 0, a padded row only padded slots (y is 0
@@ -91,6 +97,90 @@ constexpr int kThreads = 256;  // threads a block
 constexpr int kStage = 4;      // entries a lane loads before its adds
 constexpr int kMaxCols = 8;    // columns of the k-column form, at most
 
+// How a row of f32 products is summed (TPUSOLVE_K2_F32_SUM, a build flag
+// that kernels/calibrate.py --k2-sum sets to compare them): 0 in f32, each
+// product and partial sum rounded (K2's sums before the golden-check
+// repair); 1 in double, each product exact, the row rounded once; 2 in
+// compensated f32, each product's rounding error kept by an FMA and each
+// add's by TwoSum (Knuth), the pair rounded once; 3, the port's, 2 at one
+// thread a row and 1 at more, where each measured the faster (PERF.md):
+// both give the f64 product's error.  The choice rests on G alone, so the
+// k-column, bf16 and both storage forms keep the single form's bits.  f64
+// operands are summed in f64 in every build.
+#ifndef TPUSOLVE_K2_F32_SUM
+#define TPUSOLVE_K2_F32_SUM 3
+#endif
+
+// a partial sum of products in T
+template <typename T>
+struct PlainSum {
+  T s;
+  __device__ __forceinline__ void zero() { s = T(0); }
+  __device__ __forceinline__ void add(T v, T x) { s = fma(v, x, s); }
+  __device__ __forceinline__ void add(const PlainSum& o) { s += o.s; }
+  __device__ __forceinline__ PlainSum down(int off, int width) const {
+    return PlainSum{__shfl_down_sync(0xffffffffu, s, off, width)};
+  }
+  __device__ __forceinline__ T value() const { return s; }
+};
+
+// a partial sum of f32 products in double
+struct WideSum {
+  double s;
+  __device__ __forceinline__ void zero() { s = 0.0; }
+  __device__ __forceinline__ void add(float v, float x) {
+    s = fma((double)v, (double)x, s);
+  }
+  __device__ __forceinline__ void add(const WideSum& o) { s += o.s; }
+  __device__ __forceinline__ WideSum down(int off, int width) const {
+    return WideSum{__shfl_down_sync(0xffffffffu, s, off, width)};
+  }
+  __device__ __forceinline__ float value() const { return (float)s; }
+};
+
+// a partial sum of f32 products as s + c, c the errors of the products and
+// adds so far; the _rn intrinsics keep nvcc from contracting them into
+// FMAs, which would break the error terms
+struct CompSum {
+  float s, c;
+  __device__ __forceinline__ void zero() { s = c = 0.0f; }
+  __device__ __forceinline__ void two_sum(float a) {
+    const float t = __fadd_rn(s, a);
+    const float ap = __fsub_rn(t, s);
+    const float e = __fadd_rn(__fsub_rn(s, __fsub_rn(t, ap)),
+                              __fsub_rn(a, ap));
+    s = t;
+    c = __fadd_rn(c, e);
+  }
+  __device__ __forceinline__ void add(float v, float x) {
+    const float p = __fmul_rn(v, x);
+    c = __fadd_rn(c, fmaf(v, x, -p));
+    two_sum(p);
+  }
+  __device__ __forceinline__ void add(const CompSum& o) {
+    c = __fadd_rn(c, o.c);
+    two_sum(o.s);
+  }
+  __device__ __forceinline__ CompSum down(int off, int width) const {
+    return CompSum{__shfl_down_sync(0xffffffffu, s, off, width),
+                   __shfl_down_sync(0xffffffffu, c, off, width)};
+  }
+  __device__ __forceinline__ float value() const { return __fadd_rn(s, c); }
+};
+
+// the partial sum of a row of f32 operands at G threads a row
+template <int G>
+using F32Sum = typename std::conditional<
+    TPUSOLVE_K2_F32_SUM == 0, PlainSum<float>,
+    typename std::conditional<TPUSOLVE_K2_F32_SUM == 1 ||
+                                  (TPUSOLVE_K2_F32_SUM == 3 && G > 1),
+                              WideSum, CompSum>::type>::type;
+
+// the partial sum of a row of T operands at G threads a row
+template <typename T, int G>
+using Sum = typename std::conditional<std::is_same<T, float>::value,
+                                      F32Sum<G>, PlainSum<T>>::type;
+
 template <typename T>
 struct Epilogue {
   const T* b;
@@ -113,17 +203,17 @@ __device__ __forceinline__ T load_val(const V* p) {
 // lane's partial sums, one a column, of the entries [beg + lane, end) step
 // G of a row whose values and columns are v[k], c[k], read through the
 // read-only path; column j's x entry of column index q at x + j * xs_c +
-// q * xs_e
+// q * xs_e, each kept as Sum<T, G>
 template <typename T, typename V, int G, int KC>
 __device__ __forceinline__ void row_sums(const V* __restrict__ v,
                                          const int* __restrict__ c,
                                          int64_t beg, int64_t end, int lane,
                                          const T* __restrict__ x,
                                          int64_t xs_c, int64_t xs_e,
-                                         T (&acc)[KC]) {
+                                         Sum<T, G> (&acc)[KC]) {
 #pragma unroll
   for (int j = 0; j < KC; ++j) {
-    acc[j] = T(0);
+    acc[j].zero();
   }
   for (int64_t k0 = beg + lane; k0 < end; k0 += G * kStage) {
     T vv[kStage];
@@ -150,7 +240,7 @@ __device__ __forceinline__ void row_sums(const V* __restrict__ v,
       }
 #pragma unroll
       for (int s = 0; s < kStage; ++s) {
-        acc[j] = fma(vv[s], xv[s], acc[j]);
+        acc[j].add(vv[s], xv[s]);
       }
     }
   }
@@ -160,7 +250,7 @@ __device__ __forceinline__ void row_sums(const V* __restrict__ v,
 // epilogue and writes y[j][i]; every lane of the warp takes part in the
 // shuffles, rows past the end too (their sums are zero and never written)
 template <typename T, int G, int KC>
-__device__ __forceinline__ void finish_row(T (&acc)[KC], bool valid,
+__device__ __forceinline__ void finish_row(Sum<T, G> (&acc)[KC], bool valid,
                                            int lane, int64_t i, T* y,
                                            int64_t ys_c, int64_t ys_e,
                                            const Epilogue<T>& ep) {
@@ -169,7 +259,7 @@ __device__ __forceinline__ void finish_row(T (&acc)[KC], bool valid,
     for (int j = 0; j < KC; ++j) {
 #pragma unroll
       for (int off = G / 2; off > 0; off /= 2) {
-        acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off, G);
+        acc[j].add(acc[j].down(off, G));
       }
     }
   }
@@ -179,7 +269,7 @@ __device__ __forceinline__ void finish_row(T (&acc)[KC], bool valid,
 #pragma unroll
   for (int j = 0; j < KC; ++j) {
     const int64_t o = j * ys_c + i * (KC == 1 ? 1 : ys_e);
-    T a = acc[j];
+    T a = acc[j].value();
     if (ep.b != nullptr || ep.s != nullptr || ep.c != nullptr) {
       T t = ep.b != nullptr ? ep.b[o] - a : a;
       t = ep.s != nullptr ? (ep.w * ep.s[i]) * t : ep.w * t;
@@ -208,10 +298,10 @@ ell_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
   const int lane = threadIdx.x % G;
   const int64_t i = (int64_t)blockIdx.x * RB + threadIdx.x / G;
   const bool valid = i < rows;
-  T acc[KC];
+  Sum<T, G> acc[KC];
 #pragma unroll
   for (int j = 0; j < KC; ++j) {
-    acc[j] = T(0);
+    acc[j].zero();
   }
   if (valid) {
     row_sums<T, V, G, KC>(vals + i * K, cols + i * K, 0, K, lane, x,
@@ -230,10 +320,10 @@ ell_rowptr_kernel(const I* __restrict__ rowptr, const V* __restrict__ vals,
   const int lane = threadIdx.x % G;
   const int64_t i = (int64_t)blockIdx.x * RB + threadIdx.x / G;
   const bool valid = i < rows;
-  T acc[KC];
+  Sum<T, G> acc[KC];
 #pragma unroll
   for (int j = 0; j < KC; ++j) {
-    acc[j] = T(0);
+    acc[j].zero();
   }
   if (valid) {
     row_sums<T, V, G, KC>(vals, cols, (int64_t)__ldg(rowptr + i),

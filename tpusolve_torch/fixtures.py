@@ -375,13 +375,16 @@ def write_stencil_ilu(dirpath: str, side: int, **sections) -> str:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    if len(args) not in (1, 2, 3) or args[2:] not in ([], ["3"], ["4"],
-                                                      ["4c"]):
+    if len(args) not in (1, 2, 3, 4) or args[2:3] not in ([], ["3"], ["4"],
+                                                         ["4c"]) \
+            or not all(a.isdigit() for a in args[1:2] + args[3:]):
         print("usage: python -m tpusolve_torch.fixtures OUTDIR [SIDE] "
-              "[GATE]  (GATE 3, 4, or 4c: gate 4's three components)",
+              "[GATE [NFILES]]  (GATE 3, 4, or 4c: gate 4's three "
+              "components; NFILES: gate 4's HYPRE-IJ files, 2 by default)",
               file=sys.stderr)
         sys.exit(1)
     side = int(args[1]) if len(args) > 1 else 48
     write = {"3": write_gate3, "4c": write_gate4_3comp}.get(
         (args[2:] or ["4"])[0], write_gate4)
-    print(write(args[0], side))
+    kw = {"nfiles": int(args[3])} if len(args) > 3 else {}
+    print(write(args[0], side, **kw))

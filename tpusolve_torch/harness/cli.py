@@ -1,6 +1,6 @@
 """Command-line entry point (the port of ``tpusolve/harness/cli.py``)::
 
-    python -m tpusolve_torch INPUT.yaml [--device cuda|cpu]
+    python -m tpusolve_torch INPUT.yaml [--device cuda|cpu] [--parts N]
 
 Mirrors the reference's main() (src/main.cpp:31-229): per test, construct ->
 setup solver -> load -> solve -> check -> output -> timers, repeated
@@ -10,7 +10,9 @@ optional cross-test CSV profile (src/main.cpp:195-216),
 ``solver_settings: check_memory: true``, the device-memory probe after
 loading and after solving.  The device defaults
 to ``cuda`` and the run fails when CUDA is absent; ``--device cpu`` runs the
-plain PyTorch versions of the kernels.
+plain PyTorch versions of the kernels.  ``--parts N`` (default 1) splits the
+rows over N parts stacked on the one device, ``tpusolve``'s mesh of N
+devices (``LinearSystem``'s ``nparts``).
 """
 
 from __future__ import annotations
@@ -21,23 +23,25 @@ import time
 import numpy as np
 import torch
 
-USAGE = "ERROR!! Usage: python -m tpusolve_torch INPUT_FILE [--device cuda|cpu]"
+USAGE = ("ERROR!! Usage: python -m tpusolve_torch INPUT_FILE "
+         "[--device cuda|cpu] [--parts N]")
 
 
 def _parse(argv):
-    """(yaml path, device name) or None on a usage error."""
-    args, device = [], "cuda"
+    """(yaml path, device name, parts) or None on a usage error."""
+    args, opts = [], {"--device": "cuda", "--parts": "1"}
     it = iter(argv)
     for a in it:
-        if a == "--device":
-            device = next(it, None)
-        elif a.startswith("--device="):
-            device = a.split("=", 1)[1]
+        name, eq, val = a.partition("=")
+        if name in opts:
+            opts[name] = val if eq else next(it, None)
         else:
             args.append(a)
-    if len(args) != 1 or device not in ("cuda", "cpu"):
+    device, parts = opts["--device"], opts["--parts"]
+    if len(args) != 1 or device not in ("cuda", "cpu") \
+            or not (parts or "").isdigit() or int(parts) < 1:
         return None
-    return args[0], device
+    return args[0], device, int(parts)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -62,7 +66,7 @@ def main(argv=None, *, keep: list | None = None) -> int:
     if parsed is None:
         print(USAGE, file=sys.stderr)
         return 1
-    path, device_name = parsed
+    path, device_name, nparts = parsed
 
     from tpusolve_torch.config import load_config
     from tpusolve_torch.harness.memory import check_memory
@@ -73,7 +77,8 @@ def main(argv=None, *, keep: list | None = None) -> int:
     device = resolve_device(device_name)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "host CPU")
-    print(f"tpusolve_torch: 1 device(s): ['{device} ({name})']", flush=True)
+    print(f"tpusolve_torch: 1 device(s): ['{device} ({name})']"
+          + (f", {nparts} parts" if nparts > 1 else ""), flush=True)
 
     # device-memory probe at lifecycle boundaries (ref checkMemory,
     # src/HypreSystem.cpp:638-671)
@@ -92,7 +97,8 @@ def main(argv=None, *, keep: list | None = None) -> int:
         # deterministic per-test seeding (ref: src/main.cpp:169)
         np.random.seed(1234)
         torch.manual_seed(1234)
-        sys_ = LinearSystem(cfg, device, reuse_cache=reuse_cache)
+        sys_ = LinearSystem(cfg, device, nparts=nparts,
+                            reuse_cache=reuse_cache)
         sys_.setup_precon_and_solver()
         sys_.load()
         if probe_memory:

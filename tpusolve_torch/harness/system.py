@@ -4,7 +4,7 @@
 Analog of ``nalu::HypreSystem`` (ref: src/HypreSystem.h:66-298) with the same
 8-method lifecycle, called in the reference's order (src/main.cpp:172-192)::
 
-    sys = LinearSystem(config, device)
+    sys = LinearSystem(config, device, nparts=1)
     sys.setup_precon_and_solver()
     sys.load()
     sys.solve()
@@ -13,9 +13,11 @@ Analog of ``nalu::HypreSystem`` (ref: src/HypreSystem.h:66-298) with the same
     sys.summarize_timers()
     sys.destroy_system()
 
-Timer names match the reference's.  The port carries MatrixMarket and
-HYPRE-IJ loading and the generated 27-point stencil (``build_27pt_stencil``,
-one part), ``matrix_ordering: rcm``, precision double/single/mixed, the
+Timer names match the reference's.  ``nparts`` is ``tpusolve``'s mesh
+size: the rows split over that many parts, stacked on the one device.  The
+port carries MatrixMarket and HYPRE-IJ loading and the generated 27-point
+stencil (``build_27pt_stencil``, an nx x ny x nz box a part),
+``matrix_ordering: rcm``, precision double/single/mixed, the
 methods PCG, BiCGSTAB, GMRES, COGMRES and FlexGMRES and the stationary
 solvers BoomerAMG and ILU, the preconditioners PFMG-style structured
 multigrid (on the stencil), BoomerAMG (level 0 set up on the device for a
@@ -55,14 +57,18 @@ from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.vectors import (
     from_device_vector, to_device_vector)
 from tpusolve_torch.parts import local_range, row_decomposition
+from tpusolve_torch import stencil
 from tpusolve_torch.stencil import laplace27
 from tpusolve_torch.timers import Timers
 
 class LinearSystem:
-    def __init__(self, config: AppConfig, device, verbose: bool = True,
-                 reuse_cache: dict | None = None):
+    def __init__(self, config: AppConfig, device, nparts: int = 1,
+                 verbose: bool = True, reuse_cache: dict | None = None):
         self.config = config
         self.device = torch.device(device)
+        if nparts < 1:
+            raise ValueError(f"nparts must be positive, got {nparts}")
+        self.nparts = int(nparts)
         self.verbose = verbose
         self.timers = Timers(self.device)
         # reuse_preconditioner: the CLI passes one dict across its tests;
@@ -164,10 +170,11 @@ class LinearSystem:
         preconditioner's host setup (:meth:`_needs_host_csr`)."""
         rows, cols, vals = self._apply_ordering(rows, cols, vals, n)
         with self.timers.span("Initialize system"):
-            offsets = row_decomposition(n, 1)
-            lo, hi = local_range(offsets, 0)
-            self._log(f"  Shard {0:4d}:: iLower = {lo:9d}; "
-                      f"iUpper = {hi:9d}; numRows = {hi - lo + 1}")
+            offsets = row_decomposition(n, self.nparts)
+            for p in range(min(self.nparts, 8)):
+                lo, hi = local_range(offsets, p)
+                self._log(f"  Shard {p:4d}:: iLower = {lo:9d}; "
+                          f"iUpper = {hi:9d}; numRows = {hi - lo + 1}")
         with self.timers.span("Assemble system"):
             self.A = ShardedMatrix.from_coo(
                 (n, n), rows, cols, vals, device=self.device,
@@ -269,25 +276,26 @@ class LinearSystem:
         (``stencil.generates_on_device``: a plane stack of 128 MB or more on
         a device that is not the CPU); the PFMG and host-CSR branches build
         them on the host, as there.
-        ``tpusolve``'s multi-part lattice branch waits for item 18."""
+        ``tpusolve``'s multi-part lattice branch (BoomerAMG set up on the
+        device over N parts) waits for item 18 and raises."""
         ls = self.config.linear_system
         with self.timers.span("Build 27Pt Stencil HYPRE matrix"):
+            kw = dict(device=self.device, dtype=self.dtype,
+                      nparts=self.nparts)
             if self._precond_name == "pfmg" and min(ls.nx, ls.ny) >= 3:
                 # structured payload reuses the generator's arrays and the
                 # matrix-free setup never needs a host CSR
                 A, b, _, self._host_parts = laplace27(
-                    ls.nx, ls.ny, ls.nz, device=self.device,
-                    dtype=self.dtype, with_parts=True)
+                    ls.nx, ls.ny, ls.nz, with_parts=True, **kw)
             elif self._device_amg():
-                A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, device=self.device,
-                                    dtype=self.dtype)
+                if self.nparts > 1:
+                    raise NotImplementedError(stencil.LATTICE_PARTS_ITEM)
+                A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, **kw)
             elif self._needs_host_csr():
                 A, b, _, self.A_host = laplace27(
-                    ls.nx, ls.ny, ls.nz, device=self.device,
-                    dtype=self.dtype, with_host=True)
+                    ls.nx, ls.ny, ls.nz, with_host=True, **kw)
             else:
-                A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, device=self.device,
-                                    dtype=self.dtype)
+                A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, **kw)
             self.A = A
             if self.precision == "mixed":
                 self.A_lo = A.astype(np.float32)
@@ -307,7 +315,8 @@ class LinearSystem:
         return ((self._precond_name == "boomeramg"
                  or self._method == "boomeramg")
                 and min(ls.nx, ls.ny) >= 3
-                and ls.nx * ls.ny * ls.nz >= device_setup.MIN_DEVICE_N
+                and ls.nx * ls.ny * ls.nz * self.nparts
+                >= device_setup.MIN_DEVICE_N
                 and not ls.write_outputs
                 and self.config.solver.matrix_ordering == "none"
                 and device_setup.config_eligible(self.config.boomeramg))

@@ -204,9 +204,10 @@ def ilu_setup(A: ShardedMatrix, config: ILUConfig | None = None, *,
               ) -> ILUPreconditioner:
     """ILU of ``A`` in ``tpusolve``'s order: on A's device where
     ``device_setup.device_path`` holds at ``device_min_n`` rows (None:
-    never), else by the host Chow-Patel factorization of ``A_host`` (or of
-    ``A``'s entries) with the fill level, ILUT's drop and cap and RCM local
-    reordering the config asks for; the host factors are stored as
+    never), block-Jacobi across the parts there, else by the host
+    Chow-Patel factorization of ``A_host`` (or of ``A``'s entries) with
+    the fill level, ILUT's drop and cap and RCM local reordering the
+    config asks for; the host factors are stored as
     ShardedMatrix on A's device in A's dtype."""
     cfg = config or ILUConfig()
     path = device_setup.device_path(A, cfg, device_min_n)

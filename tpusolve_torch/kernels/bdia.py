@@ -499,16 +499,20 @@ def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
 
 def _add_overflow(y: torch.Tensor, xs: torch.Tensor, ovf,
                   row_pad: int) -> None:
-    """``y[p]`` (P, row_pad) += each part's overflow list (module
-    docstring), by one gather and one ``index_add_`` per part."""
+    """``y[p, :row_pad]`` += each part's overflow list (module docstring),
+    on every part at once: one gather and one ``index_add_`` into the
+    contiguous (P, W) ``y`` (W >= row_pad), each row's entries added in
+    their order, as part by part."""
     ptr, ocols, ovals = ovf
-    for p in range(y.shape[0]):
-        n = int(ptr[p, -1])
-        rows = torch.repeat_interleave(
-            torch.arange(row_pad, device=y.device),
-            (ptr[p, 1:] - ptr[p, :-1]).to(torch.int64))
-        y[p].index_add_(0, rows, ovals[p, :n]
-                        * xs[p].index_select(0, ocols[p, :n]))
+    P, W = y.shape
+    counts = (ptr[:, 1:] - ptr[:, :-1]).to(torch.int64).reshape(-1)
+    rows = torch.repeat_interleave(
+        torch.arange(P * row_pad, device=y.device), counts)
+    rows = rows // row_pad * W + rows % row_pad
+    keep = (torch.arange(ocols.shape[1], device=y.device)[None]
+            < ptr[:, -1:].to(torch.int64))
+    vals = (ovals * torch.gather(xs, 1, ocols.to(torch.int64)))[keep]
+    y.view(-1).index_add_(0, rows, vals)
 
 
 def bdia_spmv_plain(vals: torch.Tensor, starts: torch.Tensor,
@@ -531,10 +535,10 @@ def bdia_spmv_plain(vals: torch.Tensor, starts: torch.Tensor,
     idx = (starts.to(torch.int64).reshape(P, B * D, 1)
            + torch.arange(R, device=x.device))
     win = torch.gather(xp, 1, idx.reshape(P, -1)).reshape(P, B, D, R)
-    y = (vals * win).sum(dim=2).reshape(P, B * R)[:, :row_pad]
+    y = (vals * win).sum(dim=2).reshape(P, B * R)
     if ovf is not None:
         _add_overflow(y, xs, ovf, row_pad)
-    return y.reshape(-1)
+    return y[:, :row_pad].reshape(-1)
 
 
 def bdia_spmv_xl_plain(vals: torch.Tensor, starts: torch.Tensor,
@@ -583,10 +587,10 @@ def bdia_spmv_xl_plain(vals: torch.Tensor, starts: torch.Tensor,
     live = _segments_live(mask, R).repeat_interleave(SEG_ROWS, dim=-1)
     prod = torch.where(live, vals * win, torch.zeros((), dtype=x.dtype,
                                                      device=dev))
-    y = prod.sum(dim=2).reshape(P, B * R)[:, :row_pad]
+    y = prod.sum(dim=2).reshape(P, B * R)
     if ovf is not None:
         _add_overflow(y, xs, ovf, row_pad)
-    y = y.reshape(-1)
+    y = y[:, :row_pad].reshape(-1)
     if b is None and s is None and c is None:
         return y if out is None else out.copy_(y)
     return epilogue_plain(y, b, s, c, w, out=out)

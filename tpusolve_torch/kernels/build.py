@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -54,17 +54,19 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _source(name: str) -> tuple[str, bool, tuple]:
+def _source(name: str, defines: tuple = ()) -> tuple[str, bool, tuple]:
     """(source path, whether it is CUDA, compiler flags) of
-    ``csrc/<name>``: a ``.cu`` source goes to nvcc, a ``.cpp`` one to g++."""
+    ``csrc/<name>``: a ``.cu`` source goes to nvcc, a ``.cpp`` one to g++;
+    each of ``defines`` (``"NAME=VALUE"``) is passed as ``-D``."""
+    extra = tuple(f"-D{d}" for d in defines)
     cu = os.path.join(CSRC, name + ".cu")
     if os.path.exists(cu):
-        return cu, True, NVCC_FLAGS
-    return os.path.join(CSRC, name + ".cpp"), False, GXX_FLAGS
+        return cu, True, NVCC_FLAGS + extra
+    return os.path.join(CSRC, name + ".cpp"), False, GXX_FLAGS + extra
 
 
-def library_path(name: str) -> str:
-    src, cuda, flags = _source(name)
+def library_path(name: str, defines: tuple = ()) -> str:
+    src, cuda, flags = _source(name, defines)
     digest = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")) \
         if cuda else []
@@ -74,11 +76,11 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def compile_library(name: str) -> str:
-    """Path of the library of ``csrc/<name>.cu`` or ``csrc/<name>.cpp``,
-    compiled first if it is not in ``build/kernels/``.  Raises if the
-    compiler fails."""
-    path = library_path(name)
+def compile_library(name: str, defines: tuple = ()) -> str:
+    """Path of the library of ``csrc/<name>.cu`` or ``csrc/<name>.cpp``
+    built with ``defines``, compiled first if it is not in
+    ``build/kernels/``.  Raises if the compiler fails."""
+    path = library_path(name, defines)
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         # compile to a private name, then rename: concurrent builders
@@ -86,7 +88,7 @@ def compile_library(name: str) -> str:
         # library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        src, cuda, flags = _source(name)
+        src, cuda, flags = _source(name, defines)
         cmd = [nvcc_path() if cuda else "g++", *flags, "-o", tmp, src]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -99,18 +101,19 @@ def compile_library(name: str) -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` or ``csrc/<name>.cpp``,
-    compiled first if needed.  Raises if the compiler fails."""
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` or ``csrc/<name>.cpp``
+    (built with ``defines``, ``"NAME=VALUE"`` each; the port's kernels use
+    none), compiled first if needed.  Raises if the compiler fails."""
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get((name, defines))
         if lib is not None:
             return lib
-        lib = ctypes.CDLL(compile_library(name))
+        lib = ctypes.CDLL(compile_library(name, defines))
         if hasattr(lib, "tpusolve_cuda_error_string"):
             lib.tpusolve_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tpusolve_cuda_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[name, defines] = lib
         return lib
 
 

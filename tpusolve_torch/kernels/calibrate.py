@@ -73,6 +73,18 @@ K2's time model: the measurement behind ``kernels/ell.py:k2_plan``,
 picks an ELL operator's form (``ell_form``) and prices K2 beside K4 and K6
 (``choose_layout``).
 
+    python -m tpusolve_torch.kernels.calibrate --k2-sum
+
+times K2's f32 forms built with each way of summing a row
+(``K2_SUMS``, ``csrc/ell_spmv.cu:TPUSOLVE_K2_F32_SUM``: in f32 as before
+the gate-3 ``single`` repair, in double, in compensated f32, and the
+port's build, compensated at one thread a row and double at more) on the
+operators of PERF.md's K2 rows: the weak-scaling YAML's level-0 P and R
+and level-1 A at 128^3 and its bf16 twin, and gate 4's ``A_lo`` at 96^3
+for 1 and 3 columns; beside each, the error of each build against the f64
+product on a random x and on a smooth x, where a Laplacian row cancels
+(``sweep_k2_sum``).
+
     python -m tpusolve_torch.kernels.calibrate --fused
 
 times the fused cycle kernels of ``csrc/box_cycle.cu`` at the structured
@@ -215,15 +227,32 @@ def device_ms_each(calls: dict, reps: int = 50,
                        f"{sorted(set(calls) - set(out))} in its traces")
 
 
-def retrace(path: str) -> float:
+def retrace(path: str):
     """:func:`device_ms` of ``spmv(M, x)`` on the operator and vector that
     ``torch.save`` left at ``path`` (``{"M": ..., "x": ...}``), taken in
     this process: late in a long process a trace can lack a kernel's device
-    events in every try (``chip_smoke.py:fresh_device_ms``)."""
-    from tpusolve_torch.matrix.spmv import spmv
+    events in every try (``chip_smoke.py:fresh_device_ms``).  A file of
+    multi-part offd blocks (``{"offd": {name: (vals, cols, rowptr, x,
+    halo_src)}}``, ``chip_smoke.py:fresh_offd_ms``) gives ``{name: {"k2":
+    K2 on the block over x's ghosts, "gather": the halo's index gather}}``
+    instead."""
     saved = torch.load(path, weights_only=False)
+    if "offd" in saved:
+        return {name: _offd_ms(*arrays)
+                for name, arrays in saved["offd"].items()}
+    from tpusolve_torch.matrix.spmv import spmv
     M, x = saved["M"], saved["x"]
     return device_ms(lambda: spmv(M, x))
+
+
+def _offd_ms(vals, cols, rowptr, x, src) -> dict:
+    """Device ms of K2 on an offd block over the ghosts of ``x`` and of the
+    halo's gather of those ghosts (``matrix/spmv.py:halo_gather``)."""
+    from tpusolve_torch.kernels.ell import ell_spmv
+    g = x.index_select(0, src)
+    return device_ms_each({
+        "k2": lambda: ell_spmv(vals, cols, g, rowptr=rowptr),
+        "gather": lambda: x.index_select(0, src)})
 
 
 def _bdia_case(shape, dtype, device, gen):
@@ -435,23 +464,9 @@ def gate4_factors(side: int, device):
     Chow-Patel ILU(0) of the f32 twin (the fixture's ILU settings are the
     defaults), each factor laid out as the model chooses."""
     import numpy as np
-    import scipy.sparse as sp
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
-    from tpusolve_torch.fixtures import make_system
     from tpusolve_torch.ilu.ilu import ilu_setup
-    from tpusolve_torch.matrix.sharded import ShardedMatrix
-    rows, cols, vals, _, n = make_system(side, side, side, seed=11,
-                                         nonsym=0.35)
-    pat = sp.csr_matrix((np.ones(rows.size, np.int8), (rows, cols)),
-                        shape=(n, n))
-    perm = np.asarray(reverse_cuthill_mckee(pat + pat.T,
-                                            symmetric_mode=True))
-    inv = np.empty(n, np.int64)
-    inv[perm] = np.arange(n)
-    r, c = inv[rows], inv[cols]
-    A = ShardedMatrix.from_coo((n, n), r, c, vals, device=device)
-    pre = ilu_setup(A.astype(np.float32),
-                    A_host=sp.csr_matrix((vals, (r, c)), shape=(n, n)))
+    A, H = _gate4_operator(side, device)
+    pre = ilu_setup(A.astype(np.float32), A_host=H)
     return pre.L, pre.U
 
 
@@ -829,6 +844,124 @@ def sweep_k2(device=None, log=print) -> dict:
     return out
 
 
+# the builds of K2 that --k2-sum compares, by how an f32 row is summed
+# (csrc/ell_spmv.cu:TPUSOLVE_K2_F32_SUM); "port" is the port's build
+K2_SUMS = {"f32": ("TPUSOLVE_K2_F32_SUM=0",),
+           "double": ("TPUSOLVE_K2_F32_SUM=1",),
+           "compensated": ("TPUSOLVE_K2_F32_SUM=2",),
+           "port": ()}
+
+
+def _gate4_operator(side: int, device):
+    """Gate 4's matrix at side^3 as the CLI's RCM run assembles it (the
+    momentum fixture, seed 11, skew 0.35, RCM) on ``device`` in f64, and
+    its host CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    from tpusolve_torch.fixtures import make_system
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    rows, cols, vals, _, n = make_system(side, side, side, seed=11,
+                                         nonsym=0.35)
+    pat = sp.csr_matrix((np.ones(rows.size, np.int8), (rows, cols)),
+                        shape=(n, n))
+    perm = np.asarray(reverse_cuthill_mckee(pat + pat.T,
+                                            symmetric_mode=True))
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    r, c = inv[rows], inv[cols]
+    return (ShardedMatrix.from_coo((n, n), r, c, vals, device=device),
+            sp.csr_matrix((vals, (r, c)), shape=(n, n)))
+
+
+def _k2_sum_ops(device) -> list:
+    """(name, (vals, cols, rowptr), k) of the f32 K2 launches --k2-sum
+    times: the weak-scaling YAML's hierarchy at 128^3 (set up and solved by
+    the CLI on ``device``) and its bf16 twin's, and gate 4's ``A_lo`` at
+    96^3 for 1 and 3 columns."""
+    import tempfile
+    import numpy as np
+    from tpusolve_torch import fixtures
+    from tpusolve_torch.harness import cli
+    ops = []
+    with tempfile.TemporaryDirectory() as d:
+        for bf16 in (False, True):
+            keep = []
+            if cli.main([fixtures.write_weakscale(d, 128, bf16=bf16),
+                         "--device", device.type], keep=keep) != 0:
+                raise RuntimeError("calibrate: the weak-scaling run failed")
+            levels = keep[0]._precond.levels
+            if bf16:
+                ops.append(("weakscale 128^3 level 1 A bf16 twin",
+                            levels[1].A_relax.ell_arrays, 1))
+            else:
+                ops += [(f"weakscale 128^3 level {i} {key}",
+                         getattr(levels[i], key).ell_arrays, 1)
+                        for i, key in ((0, "P"), (0, "R"), (1, "A"))]
+            keep[0].destroy_system()
+    A = _gate4_operator(96, device)[0].astype(np.float32)
+    ops += [("gate-4 96^3 A_lo", A.ell_arrays, 1),
+            ("gate-4 96^3 A_lo 3 columns", A.ell_arrays, 3)]
+    return ops
+
+
+def sweep_k2_sum(device=None, log=print) -> list:
+    """Each operator of :func:`_k2_sum_ops` through each build of
+    ``K2_SUMS`` (the port's K2 wrapper on that build's library): device
+    time (each call in a trace of its own) and time per call, and the
+    error against the f64 product, relative to its largest entry, on a
+    random x and on a smooth x (1 + 1e-3 noise, on which a Laplacian row
+    cancels to its small part).  Returns [{"op", "sum", "device_ms",
+    "call_ms", "err_random", "err_smooth"}]."""
+    import functools
+    from concurrent.futures import ThreadPoolExecutor
+    from tpusolve_torch.kernels import build, ell
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    with ThreadPoolExecutor(len(K2_SUMS)) as pool:
+        list(pool.map(functools.partial(build.compile_library, "ell_spmv"),
+                      K2_SUMS.values()))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    port_fns = ell._kernel_fns
+    out = []
+    try:
+        for name, (vals, cols, rowptr), k in _k2_sum_ops(device):
+            n = int(cols.max()) + 1
+            shape = (k, n) if k > 1 else (n,)
+            xr = torch.randn(shape, generator=gen, device=device)
+            xs = 1 + 1e-3 * torch.randn(shape, generator=gen, device=device)
+            exact = {}
+            for key, x in (("random", xr), ("smooth", xs)):
+                cols_of = [x] if k == 1 else list(x)
+                exact[key] = torch.stack([ell.ell_spmv(
+                    vals.double().cpu(), cols.cpu(), xc.double().cpu(),
+                    rowptr=None if rowptr is None else rowptr.cpu())
+                    for xc in cols_of])
+            for sum_name, defines in K2_SUMS.items():
+                ell._kernel_fns = functools.partial(port_fns, defines)
+                call = functools.partial(ell.ell_spmv, vals, cols, xr,
+                                         rowptr=rowptr)
+                errs = {}
+                for key, x in (("random", xr), ("smooth", xs)):
+                    y = ell.ell_spmv(vals, cols, x, rowptr=rowptr)
+                    y = y.double().cpu().reshape(exact[key].shape)
+                    errs[key] = float((y - exact[key]).abs().max()
+                                      / exact[key].abs().max())
+                dev = device_ms_each({"k2": call})["k2"]
+                row = dict(op=name, sum=sum_name, device_ms=dev,
+                           call_ms=time_ms(call), err_random=errs["random"],
+                           err_smooth=errs["smooth"])
+                log(f"K2 {name} ({'padded' if rowptr is None else 'rowptr'}"
+                    f", {vals.dtype}), rows summed in {sum_name}: device "
+                    f"{dev:.5f} ms, per call {row['call_ms']:.5f} ms; error "
+                    f"against f64, random x {errs['random']:.3e}, smooth x "
+                    f"{errs['smooth']:.3e}")
+                out.append(row)
+    finally:
+        ell._kernel_fns = port_fns
+    return out
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` prints them."""
@@ -863,6 +996,10 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--retrace"] and len(sys.argv) == 3:
         print(json.dumps({"device_ms": retrace(sys.argv[2])}), flush=True)
+        sys.exit(0)
+    if sys.argv[1:] == ["--k2-sum"]:
+        print(card_line(), flush=True)
+        print(json.dumps(sweep_k2_sum()), flush=True)
         sys.exit(0)
     if sys.argv[1:] == ["--k2"]:
         print(json.dumps(sweep_k2()), flush=True)

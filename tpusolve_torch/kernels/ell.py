@@ -85,14 +85,18 @@ def ell_spmv_plain(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                    b=None, s=None, c=None, w: float = 1.0,
                    out=None) -> torch.Tensor:
     """Plain PyTorch padded-ELL SpMV, ``tpusolve``'s ``ell_spmv_local``:
-    gather x at every slot, multiply, sum each row.  With any of ``b``,
+    gather x at every slot, multiply, sum each row (in float64 for
+    float32 operands too, rounded once a row, as K2 sums them: a row that
+    cancels to near zero keeps its f32 result exact to rounding, where f32
+    partial sums leave an error of the diagonal's size).  With any of ``b``,
     ``s``, ``c`` given, the update form (:func:`epilogue_plain`) of that
     product; with ``out``, the result is copied into it and returned.
 
     ``vals`` and ``cols`` (rows, K), ``x`` (n,), ``b``, ``s``, ``c``
     (rows,) -> y (rows,)."""
-    y = (vals * x.index_select(0, cols.reshape(-1)).reshape(cols.shape)
-         ).sum(dim=-1)
+    acc = torch.float64 if x.dtype == torch.float32 else x.dtype
+    y = (vals.to(acc) * x.index_select(0, cols.reshape(-1)).reshape(
+        cols.shape).to(acc)).sum(dim=-1).to(x.dtype)
     if b is not None or s is not None or c is not None:
         y = epilogue_plain(y, b, s, c, w)
     if out is None:
@@ -233,10 +237,11 @@ MAX_COLS = 8    # columns of K2's k-column form (csrc kMaxCols)
 
 
 @functools.cache
-def _kernel_fns():
+def _kernel_fns(defines: tuple = ()):
     """(library, {(value dtype, x dtype): entry point}) with ctypes
-    signatures declared."""
-    lib = build.load("ell_spmv")
+    signatures declared, of the build with ``defines`` (none: the port's;
+    ``kernels/calibrate.py --k2-sum`` compares others)."""
+    lib = build.load("ell_spmv", defines)
     fns = {(torch.float32, torch.float32): lib.ell_spmv_f32,
            (torch.float64, torch.float64): lib.ell_spmv_f64,
            (torch.bfloat16, torch.float32): lib.ell_spmv_bf16_f32,
@@ -296,7 +301,8 @@ def _plain(vals, cols, x, b, s, c, w, out, rowptr):
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
              b=None, s=None, c=None, w: float = 1.0, *, out=None,
              groups: int | None = None, rowptr=None,
-             interleaved: bool = False) -> torch.Tensor:
+             interleaved: bool = False, offd: bool = False,
+             ghost_prolong: bool = False) -> torch.Tensor:
     """ELL SpMV, ``y = A @ x``, or with any of ``b``, ``s``, ``c`` given its
     update form ``y = c + w * s * (b - A x)`` (arguments as
     :func:`ell_spmv_plain`); written into ``out`` when given, which may be
@@ -320,8 +326,13 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     ``ell_spmv.launches_by_form`` the same by the update form's name
     (:func:`~tpusolve_torch.kernels.dia.epilogue_mode`),
     ``ell_spmv.launches_by_layout`` by storage form (``FORMS``),
-    ``ell_spmv.launches_by_cols`` by the columns k of a launch and
-    ``ell_spmv.launches_bf16`` those on bfloat16 values."""
+    ``ell_spmv.launches_by_cols`` by the columns k of a launch,
+    ``ell_spmv.launches_bf16`` those on bfloat16 values and
+    ``ell_spmv.launches_offd`` those the caller marks ``offd`` (a
+    multi-part operator's offd block, ``matrix/spmv.py``) and
+    ``ell_spmv.launches_ghost_prolong`` those it marks ``ghost_prolong``
+    (the box prolongation's rows at the ghosts' sources,
+    ``amg/structured.py:_ghost_prolongation``)."""
     if x.device.type == "cpu":
         if interleaved:
             t = lambda v: None if v is None or v.dim() == 1 else v.T
@@ -382,6 +393,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                         (ell_spmv.launches_by_cols, k)):
         counts[key] = counts.get(key, 0) + 1
     ell_spmv.launches_bf16 += vals.dtype == torch.bfloat16
+    ell_spmv.launches_offd += bool(offd)
+    ell_spmv.launches_ghost_prolong += bool(ghost_prolong)
     return y
 
 
@@ -390,3 +403,5 @@ ell_spmv.launches_by_form = {}
 ell_spmv.launches_by_layout = {}
 ell_spmv.launches_by_cols = {}
 ell_spmv.launches_bf16 = 0
+ell_spmv.launches_offd = 0
+ell_spmv.launches_ghost_prolong = 0

@@ -11,17 +11,15 @@ stencil generator's process grid comes from
 Every device tensor of the port keeps ``tpusolve``'s stacked layout
 ``(nparts, ...)``: rows padded per part to ``row_pad``, padded diagonal
 entries 1, padded vector entries exactly 0.  All parts live on one torch
-device; this slice runs ``nparts = 1`` (see :func:`require_single_part`).
+device: ``nparts`` is ``tpusolve``'s mesh size.  The device setups that
+``tpusolve`` runs over many parts (its lattice AMG setup, the multi-part
+generic-ELL setup and the sharded device generator) raise
+``NotImplementedError`` on more than one part (ROADMAP.md Queue 1, item 18).
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-# ROADMAP.md Queue 1 item that brings multi-part operators (offd ELL block
-# plus the halo exchange) to the port
-MULTIPART_ITEM = "ROADMAP.md Queue 1, 'Multi-part operators'"
-
 
 def row_decomposition(total_rows: int, nparts: int) -> np.ndarray:
     """Contiguous 1-D block partition offsets, shape ``(nparts + 1,)``:
@@ -74,11 +72,3 @@ def compute_3d_process_distribution(nparts: int) -> tuple[int, int, int]:
         grid[int(np.argmin(grid))] *= f
     px, py, pz = sorted(grid, reverse=True)
     return px, py, pz
-
-
-def require_single_part(nparts: int) -> None:
-    """Raise for layouts this slice of the port does not carry yet."""
-    if nparts != 1:
-        raise NotImplementedError(
-            f"nparts={nparts}: multi-part operators (offd ELL block and halo "
-            f"exchange) are not ported yet; see {MULTIPART_ITEM}")

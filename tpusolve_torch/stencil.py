@@ -1,5 +1,5 @@
 """27-point 3-D Laplacian weak-scaling generator (the port of
-``tpusolve/stencil.py``, one part).
+``tpusolve/stencil.py``).
 
 Rebuild of the reference's HIP-only generator (``build_27pt_stencil``, ref:
 src/HypreSystem.cpp:1323-1608, device kernels in
@@ -11,16 +11,20 @@ the 27-point Laplacian with diagonal 26 and off-diagonal -1, and the RHS is
 everywhere.
 
 Global row ordering is block-by-part with x-fastest lexicographic order
-inside each box.  The port carries one part (``parts.require_single_part``),
-so the process grid is (1, 1, 1) and the diag block is the whole operator.
+inside each box.  With ``nparts`` parts (stacked on one device) each part's
+diag block is the box's planes and its offd block the couplings across its
+boundary shell (:func:`_local_offd_and_rhs`), as ``tpusolve`` builds them
+on its mesh (``tpusolve/stencil.py:385-420``).
 The box DIA planes are generated either on the host (vectorized NumPy, then
-copied to the device once) or on the device itself (:func:`_dia_box_device`:
-masks from ``arange`` comparisons, no host table of the box's size), by
-``tpusolve``'s rule (:func:`laplace27`'s ``on_device``); both give the same
-bits.  The DIA fast path hands ``ShardedMatrix.from_dia_parts`` the
-(dz, dy, dx) triples of its planes, so nothing turns a flat offset back into
-a triple.  ``tpusolve``'s multi-part device generator
-(``_dia_box_device_sharded``) waits for ROADMAP.md Queue 1, item 18.
+copied to the device once) or, on one part, on the device itself
+(:func:`_dia_box_device`: masks from ``arange`` comparisons, no host table
+of the box's size), by ``tpusolve``'s rule (:func:`laplace27`'s
+``on_device``); both give the same bits.  The DIA fast path hands
+``ShardedMatrix.from_dia_parts`` the (dz, dy, dx) triples of its planes, so
+nothing turns a flat offset back into a triple.  ``tpusolve``'s multi-part
+device generator (``_dia_box_device_sharded``) waits for ROADMAP.md Queue
+1, item 18: where its rule would generate more than one part on the device
+the port raises.
 """
 
 from __future__ import annotations
@@ -33,8 +37,10 @@ from tpusolve_torch.matrix.vectors import (
     numpy_dtype, to_device_vector, torch_dtype)
 from tpusolve_torch.parts import compute_3d_process_distribution
 
-_LATTICE_PARTS_ITEM = ("multi-part lattice stacks (with_lattice): not ported "
+LATTICE_PARTS_ITEM = ("multi-part lattice stacks (with_lattice): not ported "
                        "yet; see ROADMAP.md Queue 1, item 18")
+_DEVICE_PARTS_ITEM = ("multi-part device stencil generation: not ported yet; "
+                      "see ROADMAP.md Queue 1, item 18")
 # tpusolve generates the planes on the device from a plane stack of this
 # many bytes (tpusolve/stencil.py:333-338)
 DEVICE_MIN_BYTES = 128 << 20
@@ -273,8 +279,10 @@ def _local_offd_and_rhs(part, nx, ny, nz, pgrid, dtype):
 def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
               dtype=np.float64, pgrid: tuple[int, int, int] | None = None,
               with_host: bool = False, with_parts: bool = False,
-              on_device: bool | None = None, with_lattice: bool = False):
-    """Build the 27-pt system of one part on ``device``.
+              on_device: bool | None = None, with_lattice: bool = False,
+              nparts: int = 1):
+    """Build the 27-pt system of ``nparts`` parts (``tpusolve``'s mesh
+    size), each an nx x ny x nz box, on ``device``.
 
     Returns ``(A, b, x_ref)``: the matrix, the padded RHS and the padded
     reference solution (all ones), as tensors on ``device``.
@@ -289,14 +297,14 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
     :func:`generates_on_device`, and True with a host payload or a box under
     3 x 3 raises ``ValueError``.  ``with_lattice=True`` appends
     ``tpusolve``'s lattice dict (``stack`` (1, 27, nz, ny, nx) on
-    ``device``, ``offsets``, ``pgrid``, ``dims``) on either branch; more
-    than one part raises (item 18)."""
-    nparts = 1
+    ``device``, ``offsets``, ``pgrid``, ``dims``) on either branch.  On
+    more than one part ``with_lattice`` and generation on the device raise
+    ``NotImplementedError`` (item 18)."""
     if pgrid is None:
         pgrid = compute_3d_process_distribution(nparts)
     px, py, pz = pgrid
     if with_lattice and px * py * pz > 1:
-        raise NotImplementedError(_LATTICE_PARTS_ITEM)
+        raise NotImplementedError(LATTICE_PARTS_ITEM)
     if px * py * pz != nparts:
         raise ValueError(f"process grid {pgrid} != part count {nparts}")
     box = nx * ny * nz
@@ -309,6 +317,8 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
         if nx < 3 or ny < 3 or with_host or with_parts:
             raise ValueError("device stencil generation requires nx/ny >= 3 "
                              "and no host payloads")
+        if nparts > 1:
+            raise NotImplementedError(_DEVICE_PARTS_ITEM)
         offs, gen = _dia_box_device(nx, ny, nz, dtype, device)
         dia_dev, rhs = gen()
         # the analytic diag-block nnz: each axis shift c in {-1, 0, 1}
@@ -380,9 +390,21 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
         import scipy.sparse as sp
         if parts is None:
             # the DIA fast path's CSR in row-major order, in one native
-            # pass (no 2x-nnz index temporaries), as tpusolve builds it
+            # pass (no 2x-nnz index temporaries), as tpusolve builds it:
+            # one box's, tiled over the parts, plus the boundary shells
             from tpusolve_torch.amg import spk
             A_host = spk.dia_to_csr(np.ascontiguousarray(dia_one.T), offs)
+            if nparts > 1:
+                A_host = sp.block_diag([A_host] * nparts, format="csr")
+                rows_l = [p * box + np.asarray(o[0])
+                          for p, o in enumerate(offd_parts)]
+                A_host = (A_host + sp.csr_matrix(
+                    (np.concatenate([np.asarray(o[2], np.float64)
+                                     for o in offd_parts]),
+                     (np.concatenate(rows_l),
+                      np.concatenate([o[1] for o in offd_parts]))),
+                    shape=(n, n))).tocsr()
+                A_host.sort_indices()
         else:
             rows_l, cols_l, vals_l = [], [], []
             for q, p in enumerate(parts):
