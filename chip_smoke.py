@@ -38,7 +38,8 @@ toolkit (nvcc) and PyTorch built for CUDA:
    fails where a new kernel is slower but for K6's frozen prices), and one
    warm solve's profile;
 5. gate 3: writes the pressure fixture at N^3 rows (``--side3``, default
-   64^3 = 262,144 rows, 6.86M nonzeros) and runs it through the CLI:
+   48^3 = 110,592 rows, 2.86M nonzeros; 64^3 before phases (o) and (p))
+   and runs it through the CLI:
    MatrixMarket files, RCM, BoomerAMG host setup (PMIS, extended+i,
    l1-Jacobi; the native setup kernels of ``csrc/spkernels.cpp``) with
    each level's A, P and R in the layout the model prices fastest (K2 in
@@ -125,12 +126,11 @@ against the run's host ILU setup (not adopted).  After step 9:
    share) and, at 64^3, the device factorization against the port's host
    ``chow_patel_ilu`` on the same band (time and the factors' largest
    difference), each beside the card's name and power limit;
-12. the gate-4 fixture as written (``matrix_ordering: none``) at 64^3 (96^3
-   before phases (f) and (g))
+12. the gate-4 fixture as written (``matrix_ordering: none``) at 48^3 (96^3
+   before phases (f) and (g), 64^3 before phases (o) and (p))
    in double: ILU(0) factored on the card by the ELL path, K2 running A,
    L and U, the count held to tpusolve's; K2 on the three against its
-   plain version, the factorization's profile and, at 64^3, device
-   against host;
+   plain version, the factorization's profile and device against host;
 13. the RCM'd gate-4 fixture at 32^3 in double with ILU(1), ILUT and RCM
    local reordering (``fixtures.ILU_OPTIONS``), each count held to
    tpusolve's;
@@ -156,7 +156,8 @@ Between steps 9 and 11, the generic-ELL device setup
    the hierarchy, each level's setup stages, the timer rows and the
    setup's peak of allocated device memory (step 9's 128^3 run also
    generates on the card, its build row printed beside the host's);
-(g) gate 3 at 96^3 (884,736 rows) through the CLI: level 0 set up on the
+(g) gate 3 at 84^3 (592,704 rows; 96^3 before phases (o) and (p), which
+   runs gate 3 at 96^3 on 8 parts) through the CLI: level 0 set up on the
    card by the generic-ELL setup (extended+i), K2 on every ELL level, the
    count tpusolve's; then on its operator, and on gate 3's 64^3 one, the
    ELL setup of level 0 against the port's host pipeline (the same C/F
@@ -215,12 +216,30 @@ rows printed, and K2's offd launches counted (it fails if there were none):
    within one a refinement pass;
 (n) gate 3 at 64^3 on 8 parts (``double``, host BoomerAMG, K2 on every
    level and transfer): exactly ``tpusolve``'s count;
-then ``multipart_check``: K2 on a stacked offd block in both storage forms
+then BoomerAMG set up on the card over 8 parts, each count held to
+``tpusolve``'s 8-part count, measured on the CPU:
+
+(o) the weak-scaling YAML at 96^3 a part (``WEAKSCALE_PARTS_SIDE``; 128^3
+   a part, as written, was not measurable in ``tpusolve`` on the CPU),
+   7,077,888 rows, ``single``: level 0 by the sharded lattice setup, level
+   1 by the N-part ELL setup (it fails otherwise), within one of 31; the
+   generator run on the card at this size against the CLI's planes (which
+   ``tpusolve``'s rule builds on the host below 128 MB a part) bit for
+   bit; the hierarchy, setup stages, timer rows, the setup's peak of
+   allocated memory, and a second setup's device operations, busy time and
+   idle share;
+(p) gate 3 at 96^3 on 8 parts (``double``, extended+i): level 0 by the
+   N-part ELL setup, exactly 12, each level's layout and the launches;
+then the bit check: the weak-scaling settings at 16^3 a part on 8 parts
+set up on the CPU and twice on the card, P, R and the coarse operators of
+the lattice level and an ELL level equal bit for bit; then
+``multipart_check``: K2 on a stacked offd block in both storage forms
 and for 1 and 3 columns against its plain version, one 8-part SpMV on each
 layout (DIA, ELL padded and row-pointer, BDIA on K4 and K5, BELL) against
-``to_scipy() @ x``, and K2 on (l)'s and (m)'s offd blocks timed (device,
-per call, the plain version, cuSPARSE on the same block, the bound) beside
-the halo's one index gather.
+``to_scipy() @ x``, and K2 on (l)'s, (m)'s and (n)'s offd blocks timed
+(device, per call, the plain version, cuSPARSE on the same block, the
+bound) beside the halo's one index gather, each again in one fresh
+process, cuSPARSE's device events by name.
 
 Every fixture is written once, in a process of its own (gate 4's before
 the kernel build, the others after step 10), so that the writes overlap
@@ -269,7 +288,10 @@ RTOL = {"float32": 1e-5, "float64": 1e-12}
 # (31 + 23)
 TPUSOLVE_ITERS_96 = 56
 PORT_ITERS_96 = 55
-# tpusolve on CPU, gate-3 fixture 64^3, precision double: GMRES iterations
+# tpusolve on CPU, gate-3 fixture 64^3, precision double: GMRES iterations;
+# at 48^3 (the gate-3 phase's side since phases (o) and (p) came; relres
+# 6.280e-09, four levels 110592, 9122, 664, 63 rows; 14.1 s, 1.92 GB) the
+# same.  TPUSOLVE_GATE3_ITERS below holds every side
 TPUSOLVE_GATE3_ITERS_64 = 12
 # tpusolve on CPU, examples/gate1_64cube_pcg_amg.yaml as it is (64^3,
 # mixed): PCG iterations summed over the refinement passes
@@ -316,8 +338,9 @@ STENCIL_ILU_SPREAD = 3
 # matrix_ordering none (fixtures.write_gate4(d, side, precision="double",
 # solver_settings={"matrix_ordering": "none"})): tpusolve stores it ELL and
 # factors ILU(0) by its device ELL path; relres 3.200e-09 at 96^3 (312 s
-# and 9 GB on the CPU), 2.286e-09 at 64^3
-TPUSOLVE_GATE4_ELL_ITERS = {64: 34, 96: 46}
+# and 9 GB on the CPU), 2.286e-09 at 64^3, 1.804e-09 at 48^3 (44.6 s and
+# 1.51 GB)
+TPUSOLVE_GATE4_ELL_ITERS = {48: 32, 64: 34, 96: 46}
 # ... the RCM'd gate-4 fixture in double with each of fixtures.ILU_OPTIONS
 # (fixtures.write_gate4(d, 32, precision="double",
 # ilu_preconditioner_settings=fixtures.ILU_OPTIONS[name])): relres
@@ -338,11 +361,17 @@ TPUSOLVE_GATE3_ST5_ITERS = {64: 7, 32: 7}
 # JAX_PLATFORMS=cpu python -m tpusolve.harness.cli d/weakscale.yaml`.  The
 # port is held within one of it, as at 128^3 (f32)
 TPUSOLVE_WEAKSCALE_ITERS_256 = 38
-# tpusolve on CPU, the gate-3 fixture at 96^3 (fixtures.write_gate3(d, 96)),
-# double: its level 0 (884,736 rows) set up by its generic-ELL device setup
-# on the CPU (host PMIS ranks, as above): GMRES iterations, relres
-# 5.726e-09, five levels (884736, 72320, 4863, 362, 25 rows)
-TPUSOLVE_GATE3_ITERS_96 = 12
+# tpusolve on CPU, the gate-3 fixture at side^3 (fixtures.write_gate3(d,
+# side)), double: its level 0 set up by its generic-ELL device setup on the
+# CPU (host PMIS ranks, as above): GMRES iterations by side; at 96^3 relres
+# 5.726e-09, five levels (884736, 72320, 4863, 362, 25 rows); at 84^3
+# relres 5.382e-09, five levels (592704, 48652, 3290, 256, 38 rows), 432.7
+# s and 12.60 GB on the CPU.  (g) runs at GATE3_ELL_SIDE^3 since the
+# multi-part phases (o) and (p) came: the smallest side of 2^19 rows or
+# more that tpusolve was measured at, (p) running gate 3 at 96^3 on 8
+# parts
+TPUSOLVE_GATE3_ITERS = {96: 12, 84: 12, 64: TPUSOLVE_GATE3_ITERS_64, 48: 12}
+GATE3_ELL_SIDE = 84
 # the start of the note the builder records for a device level 0
 DEVICE_NOTE = "level 0 setup on device"
 # tpusolve's counts on 8 parts: its CLI on its mesh of 8 virtual CPU
@@ -355,6 +384,19 @@ DEVICE_NOTE = "level 0 setup on device"
 # gate 3, `python -m tpusolve_torch.fixtures d 64 3` (double: GMRES, relres
 # 5.830e-09).  32, 104 and 36 s on the CPU
 TPUSOLVE_PARTS_ITERS = {"gate1": 21, "gate4": 54, "gate3": 12}
+# ... and with its multi-part device setups, host PMIS ranks
+# (TPUSOLVE_PMIS_HOST_RANK=1 added to the command above): the weak-scaling
+# YAML at 96^3 a part (fixtures.write_weakscale(d, 96), single: level 0
+# by its sharded lattice setup, level 1 by its N-part ELL setup; PCG
+# iterations, relres 7.541e-07, seven levels 7077888, 574674, 140597,
+# 33397, 6767, 1345, 314 rows; 242.9 s, a peak resident size of 63.36 GB
+# as getrusage reports it); at 128^3 a part it was killed at 65 GB after
+# 209 s, so the phase runs at 96^3.  Gate 3 at 96^3 (fixtures.write_gate3(d,
+# 96), double, level 0 by its N-part ELL setup: GMRES iterations, relres
+# 5.726e-09, five levels 884736, 72320, 4863, 362, 25 rows; 356.4 s,
+# 57.18 GB)
+TPUSOLVE_PARTS_ITERS.update(weakscale_96=31, gate3_96=12)
+WEAKSCALE_PARTS_SIDE = 96
 PARTS = 8
 # the weak-scaling YAML's "Build 27Pt Stencil HYPRE matrix" row at 128^3
 # when the planes were generated on the host (chip_smoke.py, H100 80GB
@@ -1296,12 +1338,12 @@ def gate3_phase(side: int, device_name: str, counters):
     print(f"gate-3 {side}^3: {res.iters} GMRES iterations, relres "
           f"{float(res.relres):.3e}, golden check PASSED; Preconditioner "
           f"setup {timers['Preconditioner setup']:.3f} s", flush=True)
-    if side == 64:
+    ref = TPUSOLVE_GATE3_ITERS.get(side)
+    if ref is not None:
         print(f"iterations: port {res.iters}, tpusolve (CPU, same fixture) "
-              f"{TPUSOLVE_GATE3_ITERS_64}", flush=True)
-        if res.iters != TPUSOLVE_GATE3_ITERS_64:
-            fail(f"gate-3 took {res.iters} GMRES iterations, tpusolve "
-                 f"{TPUSOLVE_GATE3_ITERS_64}")
+              f"{ref}", flush=True)
+        if res.iters != ref:
+            fail(f"gate-3 took {res.iters} GMRES iterations, tpusolve {ref}")
     moved = moved_pairs(pre, "gate-3")
     rows6, bdia_rows = tile_timings(pre, moved, "gate-3", device_name, 11)
     k2_rows = ell_timings(ell_ops(pre, "gate-3"), device_name, 25)
@@ -2602,7 +2644,7 @@ def gate3_ell_phase(side: int, card: str, counters) -> dict:
     """(g) The gate-3 fixture at side^3 through the CLI: level 0 set up on
     the card by the generic-ELL setup (fails otherwise, or if a level of
     2^19 rows or more went to the host), K2 on every ELL level, golden
-    check, the count held to tpusolve's at 96^3; then
+    check, the count held to tpusolve's (``TPUSOLVE_GATE3_ITERS``); then
     :func:`ell_against_host` on its operator (gate 3's phase runs it on
     its own operator with the floors at 1 row)."""
     from tpusolve_torch.amg.builder import DEVICE_MIN_N, ELL_NOTE
@@ -2623,7 +2665,7 @@ def gate3_ell_phase(side: int, card: str, counters) -> dict:
     check_ell_levels(pre, what)
     check_launched(pre, launches, what)
     timers = print_timers(system, what)
-    ref = TPUSOLVE_GATE3_ITERS_96 if side == 96 else None
+    ref = TPUSOLVE_GATE3_ITERS.get(side)
     print(f"{what}: {res.iters} GMRES iterations, relres "
           f"{float(res.relres):.3e}, golden check PASSED; tpusolve (CPU, "
           f"same fixture) {ref}; Preconditioner setup "
@@ -3712,7 +3754,7 @@ def parts_run(what: str, yaml_path: str, counters, tol: float = 1e-8):
     rc, system, wall, launches = run_cli(yaml_path, counters, parts=PARTS)
     print(f"{what} path: cli exit {rc}, {wall:.1f} s wall, launches "
           f"{launches}", flush=True)
-    res = check_solve(system, rc, what)
+    res = check_solve(system, rc, what, tol)
     if system.A.nparts != PARTS or not system.A.has_offd:
         fail(f"{what}: the operator has {system.A.nparts} parts, offd "
              f"block {system.A.has_offd}")
@@ -3822,19 +3864,19 @@ def offd_timing(name: str, M, launches: int, card: str, seed: int) -> dict:
 
 
 def fresh_offd_ms(rows) -> None:
-    """The device times the traces of :func:`offd_timing`'s ``rows`` lost
-    (K2 on the offd block, the halo gather), taken in one fresh process
-    (``python -m tpusolve_torch.kernels.calibrate --retrace FILE``, the
-    block's arrays and x saved to FILE), written into the rows (NaN where
-    that fails too, printed); every row's arrays are dropped after."""
+    """Every row of :func:`offd_timing`'s ``rows`` timed again in one fresh
+    process (``python -m tpusolve_torch.kernels.calibrate --retrace FILE``,
+    the blocks' arrays and x saved to FILE): cuSPARSE's device time on the
+    block (``lib_dev_ms_fresh``, and the library's ``lib_dev_ms`` where this
+    process's trace lost it) with the device events of one library call
+    (``lib_kernels``), and K2's and the halo gather's where this process's
+    traces lost them (NaN where that fails too, printed); every row's
+    arrays are dropped after."""
     import torch
-    lost = lambda r: r["k2_dev_ms"] != r["k2_dev_ms"] \
-        or r["gather_dev_ms"] != r["gather_dev_ms"]
-    pending = [r for r in rows if lost(r)]
-    arrays = {r["op"]: r["_arrays"] for r in pending}
+    arrays = {r["op"]: r["_arrays"] for r in rows}
     for r in rows:
         del r["_arrays"]
-    if not pending:
+    if not rows:
         return
     path = os.path.join(REPO, "build", "retrace_offd.pt")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -3854,13 +3896,28 @@ def fresh_offd_ms(rows) -> None:
               f"either (exit {out.returncode}): "
               f"{out.stderr.strip()[-400:]}", flush=True)
         return
-    for r in pending:
-        r["k2_dev_ms"] = r["dev_ms"] = got[r["op"]]["k2"]
-        r["gather_dev_ms"] = got[r["op"]]["gather"]
-        r["dev_ms_from"] = "a fresh process"
-        print(f"{r['op']} offd: K2 device {r['k2_dev_ms']:.5f} ms, halo "
-              f"gather device {r['gather_dev_ms']:.5f} ms, taken in a fresh "
-              "process", flush=True)
+    lost = lambda v: v != v
+    for r in rows:
+        g = got[r["op"]]
+        r["lib_dev_ms_fresh"] = g["lib"]
+        r["lib_kernels"] = g["lib_kernels"]
+        taken = []
+        if lost(r["k2_dev_ms"]):
+            r["k2_dev_ms"] = r["dev_ms"] = g["k2"]
+            taken.append("K2")
+        if lost(r["gather_dev_ms"]):
+            r["gather_dev_ms"] = g["gather"]
+            taken.append("the halo gather")
+        if lost(r["lib_dev_ms"]):
+            r["lib_dev_ms"] = g["lib"]
+            taken.append("the library")
+        r["dev_ms_from"] = ("a fresh process: " + ", ".join(taken)
+                            if taken else "this process")
+        print(f"{r['op']} offd, in a fresh process: K2 device {g['k2']:.5f} "
+              f"ms, halo gather device {g['gather']:.5f} ms, library "
+              f"(torch.sparse CSR, int64 indices) device {g['lib']:.5f} ms; "
+              f"one library call's device events {g['lib_kernels']}; taken "
+              f"from there: {', '.join(taken) or 'nothing'}", flush=True)
 
 
 def gate4_parts_phase(card: str, counters) -> dict:
@@ -3958,6 +4015,194 @@ def gate3_parts_phase(card: str, counters) -> dict:
                       card, 43)
     system.destroy_system()
     return dict(out, launches=launches, timers=timers, offd_rows=[row])
+
+
+# ----------------------------------------------------------------------
+# (o), (p): the multi-part device AMG setups on PARTS parts, and their bits
+
+
+def parts_bits(M) -> tuple:
+    """A multi-part ELL operator's stored arrays on the host, its offd
+    block and halo plan too, to compare bit for bit."""
+    return sparse_bits(M) + tuple(a.cpu() for a in (
+        M.offd_vals, M.offd_cols, M.send_idx, M.ghost_slot))
+
+
+def setup_levels(pre, what: str) -> None:
+    """Print the hierarchy, each level's layout and setup stages."""
+    for line in pre.describe().splitlines()[1:]:
+        print(f"{what} hierarchy {line}", flush=True)
+    for lvl, st in level_stages(pre).items():
+        print(f"{what} setup stages, level {lvl} (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.items()), flush=True)
+    print(f"{what} device setups (level, setup, parts): "
+          f"{pre.device_setups}; host fetches {pre.host_fetches}",
+          flush=True)
+
+
+def setup_profile(fn, what: str) -> dict:
+    """One more run of the setup ``fn``: its wall time (host clock,
+    synchronised), then one under ``torch.profiler``: its device
+    operations, their busy time and the idle share of the first wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, busy = 0, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ops += 1
+            busy += e.time_range.elapsed_us() / 1e3
+    out = dict(wall_ms=wall, device_ops=ops, busy_ms=busy,
+               idle_share=1.0 - busy / wall)
+    print(f"{what} setup, run again: wall {wall:.1f} ms; profiled: {ops} "
+          f"device operations, busy {busy:.1f} ms, idle share "
+          f"{out['idle_share']:.3f}", flush=True)
+    return out
+
+
+def weakscale_parts_phase(side: int, card: str, counters) -> dict:
+    """(o) The weak-scaling YAML as written, at side^3 a part on ``PARTS``
+    parts: level 0 set up by the sharded lattice setup and level 1 by the
+    N-part ELL setup (it fails otherwise, or without the notes), K1 and K2
+    launched, golden check, the count within one of ``tpusolve``'s 8-part
+    count; the generator on the card at this size against the CLI's
+    planes, lattice and RHS bit for bit; the hierarchy, setup stages, timer
+    rows, the setup's peak of allocated memory, and a second setup's
+    device operations, busy time and idle share."""
+    import numpy as np
+    import torch
+    from tpusolve_torch import fixtures, stencil
+    from tpusolve_torch.amg.builder import (DIA_NOTE, RECURSION_NOTE,
+                                            boomeramg_setup)
+    what = f"weakscale {side}^3 {PARTS} parts"
+    yaml_path = fixtures.write_weakscale(
+        os.path.join(FIXTURES, f"weakscale_{side}_p{PARTS}"), side)
+    with setup_peak() as peak:
+        system, res, launches, timers = parts_run(what, yaml_path, counters,
+                                                  tol=1e-6)
+    pre = system._precond
+    setup_levels(pre, what)
+    if DIA_NOTE not in pre.notes or RECURSION_NOTE not in pre.notes:
+        fail(f"{what}: notes {pre.notes} lack the device setup of level 0 "
+             "or the device recursion")
+    if pre.device_setups[:2] != [(0, "lattice", PARTS), (1, "ell", PARTS)]:
+        fail(f"{what}: device setups {pre.device_setups}")
+    check_ell_levels(pre, what)
+    check_launched(pre, launches, what)
+    if not launches["dia_spmv"] or not launches["ell_spmv"]:
+        fail(f"{what}: K1 or K2 was not launched")
+    # the generator on the card at this size: the CLI's rule generated on
+    # the host below a 128 MB plane stack a part, as tpusolve's does
+    rule = stencil.generates_on_device(side, side, side, np.float32, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A_d, b_d, _, lat_d = stencil.laplace27(
+        side, side, side, device="cuda", dtype=np.float32, nparts=PARTS,
+        on_device=True, with_lattice=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    same = (torch.equal(A_d.dia_vals, system.A.dia_vals)
+            and torch.equal(lat_d["stack"], system._lattice["stack"])
+            and torch.equal(b_d, system.rhs[0]))
+    print(f"{what}: the CLI generated on the "
+          f"{'card' if rule else 'host'} (tpusolve's rule); generated on "
+          f"the card in {gen_s:.3f} s: box planes, lattice and RHS equal "
+          f"to the CLI's bit for bit: {same}", flush=True)
+    if not same:
+        fail(f"{what}: the card's generator differs from the host's")
+    del A_d, b_d, lat_d
+    prof = setup_profile(lambda: boomeramg_setup(
+        system._A_solve, system.config.boomeramg,
+        lattice_parts=system._lattice), what)
+    out = parts_count(what, f"weakscale_{side}", res, 1)
+    print(f"{what}: Build 27Pt Stencil "
+          f"{timers['Build 27Pt Stencil HYPRE matrix']:.3f} s, "
+          f"Preconditioner setup {timers['Preconditioner setup']:.3f} s, "
+          f"peak allocated during setup {peak.peak_gb:.2f} GB ({card})",
+          flush=True)
+    out.update(levels=[lev.n for lev in pre.levels], layouts=pre.layouts(),
+               stages=level_stages(pre), timers=timers,
+               setup_peak_gb=peak.peak_gb, setup_profile=prof,
+               generated_on_card_s=gen_s, launches=launches, card=card)
+    system.destroy_system()
+    return out
+
+
+def gate3_parts96_phase(card: str, counters) -> dict:
+    """(p) Gate 3 at 96^3 on ``PARTS`` parts (double, extended+i): level 0
+    set up by the N-part ELL setup, every level's A, P and R launched its
+    kernel, exactly ``tpusolve``'s 8-part count; the layouts, launches,
+    setup stages and the setup's peak of allocated memory printed."""
+    what = f"gate-3 96^3 {PARTS} parts"
+    with setup_peak() as peak:
+        system, res, launches, timers = parts_run(
+            what, fixture_yaml(3, 96, "gate3_parts96.yaml"), counters)
+    pre = system._precond
+    setup_levels(pre, what)
+    if not pre.device_setups or pre.device_setups[0] != (0, "ell", PARTS):
+        fail(f"{what}: device setups {pre.device_setups}")
+    check_ell_levels(pre, what)
+    check_launched(pre, launches, what)
+    out = parts_count(what, "gate3_96", res, 0)
+    print(f"{what}: Preconditioner setup "
+          f"{timers['Preconditioner setup']:.3f} s, peak allocated during "
+          f"setup {peak.peak_gb:.2f} GB ({card})", flush=True)
+    out.update(levels=[lev.n for lev in pre.levels], layouts=pre.layouts(),
+               stages=level_stages(pre), timers=timers,
+               setup_peak_gb=peak.peak_gb, launches=launches, card=card)
+    system.destroy_system()
+    return out
+
+
+def parts_bits_check() -> dict:
+    """The bit check: the weak-scaling YAML's settings at 16^3 a part on
+    ``PARTS`` parts, every device floor at one row, set up on the CPU and
+    twice on the card in this process: level 0's P and R (the sharded
+    lattice setup) and level 1's A, and level 1's P and R (the N-part ELL
+    setup) and level 2's A, every stored array (offd blocks and halo plans
+    too) equal bit for bit."""
+    import numpy as np
+    import torch
+    from tpusolve_torch import fixtures
+    from tpusolve_torch.amg.builder import boomeramg_setup
+    from tpusolve_torch.config import load_config
+    from tpusolve_torch.stencil import laplace27
+    cfg = load_config(fixtures.write_weakscale(
+        os.path.join(FIXTURES, "weakscale_bits"), 16)).boomeramg
+
+    def setup(device):
+        A, _, _, lat = laplace27(16, 16, 16, device=device, dtype=np.float32,
+                                 nparts=PARTS, with_lattice=True)
+        pre = boomeramg_setup(A, cfg, lattice_parts=lat, device_min_n=1)
+        if [k for _, k, _ in pre.device_setups[:2]] != ["lattice", "ell"]:
+            fail(f"bit check: device setups {pre.device_setups}")
+        lv = pre.levels
+        ops = {"level 0 P": lv[0].P, "level 0 R": lv[0].R,
+               "level 1 A": lv[1].A, "level 1 P": lv[1].P,
+               "level 1 R": lv[1].R, "level 2 A": lv[2].A}
+        return {k: parts_bits(M) for k, M in ops.items()}
+
+    cpu = setup(torch.device("cpu"))
+    runs = [setup(torch.device("cuda")) for _ in range(2)]
+    out = {k: [same_bits(r[k], cpu[k]) for r in runs] for k in cpu}
+    out["second_run_equal"] = all(same_bits(runs[0][k], runs[1][k])
+                                  for k in cpu)
+    print(f"bit check, weak-scaling settings 16^3 x {PARTS} parts (float32): "
+          "the card's setups against the CPU's, each run: "
+          + ", ".join(f"{k} {v}" for k, v in out.items()), flush=True)
+    if not all(all(v) for k, v in out.items() if k != "second_run_equal") \
+            or not out["second_run_equal"]:
+        fail("bit check: the card's setups differ from the CPU's")
+    return out
 
 
 def multipart_check(device) -> list:
@@ -4113,7 +4358,7 @@ def form_entry(name: str, base: str, source: str, replaces: str, row: dict,
 
 def main(argv) -> int:
     t_start = time.perf_counter()
-    sides = {"--side": 96, "--side3": 64, "--side-ilu": 64}
+    sides = {"--side": 96, "--side3": 48, "--side-ilu": 64}
     it = iter(argv)
     for a in it:
         if a not in sides:
@@ -4162,10 +4407,10 @@ def main(argv) -> int:
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # the ILU paths run at smaller depths than before phases (f) and (g)
-    # came (the gate-4 fixture as written at 64^3, gate 3 with ILU
-    # smoothing at 32^3, the stencil with ILU at 64^3 alone), so that the
-    # run keeps inside its time on a slow host
-    ell_side, st5_side = 64, 32
+    # came (the gate-4 fixture as written at 64^3, 48^3 since phases (o)
+    # and (p) came; gate 3 with ILU smoothing at 32^3, the stencil with ILU
+    # at 64^3 alone), so that the run keeps inside its time on a slow host
+    ell_side, st5_side = 48, 32
     worst4, worst5 = banded_check(device)
     worst4 = max(worst4, k4_launch_check(device))
     worst6 = bell_check(device)
@@ -4178,6 +4423,7 @@ def main(argv) -> int:
     phase_done("the models' constants")
     start_fixture_writers([("4c", COUPLED_SIDE)])
     start_fixture_writers(sorted({(4, ell_side), (4, 32), (3, 96),
+                                  (3, GATE3_ELL_SIDE),
                                   (3, sides["--side3"]), (3, st5_side),
                                   (3, 32), (3, 64)} - set(WRITERS)))
     start_fixture_writers([("4p8", 96)])
@@ -4225,8 +4471,8 @@ def main(argv) -> int:
         fail(f"weakscale 256^3 took {ws256['iters']} PCG iterations, not "
              f"within one of tpusolve's {TPUSOLVE_WEAKSCALE_ITERS_256}")
     phase_done("the weak-scaling cell at 256^3")
-    g3_ell = gate3_ell_phase(96, card, counters)
-    phase_done("gate 3 at 96^3 (generic-ELL setup)")
+    g3_ell = gate3_ell_phase(GATE3_ELL_SIDE, card, counters)
+    phase_done(f"gate 3 at {GATE3_ELL_SIDE}^3 (generic-ELL setup)")
     # the ILU paths and the lifecycle's steps time no kernel by a trace
     # (calibrate.device_ms_each), which a long process can lose; their
     # factorization profiles count every device event of a trace
@@ -4250,6 +4496,13 @@ def main(argv) -> int:
     phase_done(f"gate 1 on {PARTS} parts")
     g3p = gate3_parts_phase(card, counters)
     phase_done(f"gate 3 on {PARTS} parts")
+    # (o), (p): the multi-part device AMG setups, and their bits
+    wsp = weakscale_parts_phase(WEAKSCALE_PARTS_SIDE, card, counters)
+    phase_done(f"the weak-scaling YAML on {PARTS} parts")
+    g3p96 = gate3_parts96_phase(card, counters)
+    phase_done(f"gate 3 at 96^3 on {PARTS} parts")
+    bits = parts_bits_check()
+    phase_done("the multi-part setups' bit check")
     fresh_offd_ms(g4p["offd_rows"] + g1p["offd_rows"] + g3p["offd_rows"])
     mp_rows = multipart_check(device)
     phase_done("the multi-part checks")
@@ -4262,12 +4515,14 @@ def main(argv) -> int:
              "gate3_rs": rs["launches"], "lifecycle": life["launches"],
              "gate1": l1, "gate2": l2, "weakscale": ws["launches"],
              "weakscale_256": ws256["launches"],
-             "gate3_96_ell": g3_ell["launches"],
+             "gate3_ell": g3_ell["launches"],
              "coupled": coupled["launches"],
              "coupled_double": coupled64["launches"],
              "weakscale_bf16": wsb["launches"], "gate1_bf16": g1b["launches"],
              "gate4_parts": g4p["launches"], "gate1_parts": g1p["launches"],
-             "gate3_parts": g3p["launches"]}
+             "gate3_parts": g3p["launches"],
+             "weakscale_parts": wsp["launches"],
+             "gate3_96_parts": g3p96["launches"]}
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
     rows6_all = rows3 + ws["k6_rows"]
@@ -4457,10 +4712,11 @@ def main(argv) -> int:
                            "launches")}, "gate3": {
         k: g3[k] for k in ("iters", "timers", "launches")}, "gate3_rs": rs,
         "device_setup_32": dev_rows, "weakscale_256": ws256,
-        "gate3_96_ell": g3_ell,
+        "gate3_ell": g3_ell,
         "gate3_ell_against_host": g3["ell_against_host"],
         "multipart": {"gate4": g4p, "gate1": g1p, "gate3": g3p,
-                      "checks": mp_rows}, "ilu": {
+                      "weakscale": wsp, "gate3_96": g3p96,
+                      "setup_bits": bits, "checks": mp_rows}, "ilu": {
             "stencil": st_ilu, "gate4_ell": g4_ell,
             "gate4_rcm_ell_trial": trial4, "options": ilu_opts,
             "gate3_ilu_smoother": st5, "lifecycle": life}})), flush=True)

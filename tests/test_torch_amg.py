@@ -307,7 +307,9 @@ def test_unported_options_raise(tp, A16, cfg, match):
     """The bfloat16 smoother twin, refused before it was ported, now runs:
     its twins sit on the levels where ``tpusolve`` has one, in bf16, and
     one cycle equals ``tpusolve``'s to 1e-12 (the same bf16 values, summed
-    in f64 in another order).  The multi-part device setup still raises."""
+    in f64 in another order).  A lattice dict given with a one-part
+    operator, which raised before the multi-part setup was ported, is left
+    unused, as ``tpusolve`` leaves it (its sharded setup takes N parts)."""
     A = ShardedMatrix.from_csr_host(A16, device=CPU, dtype=np.float64)
     pre = builder.boomeramg_setup(A, BoomerAMGConfig(**cfg), A_host=A16)
     At = tp["Matrix"].from_csr_host(tp["mesh"], A16, dtype=np.float64)
@@ -319,6 +321,8 @@ def test_unported_options_raise(tp, A16, cfg, match):
     assert all(lev.A_relax.dtype == torch.bfloat16
                for lev in pre.levels if lev.A_relax is not None)
     check_cycle(tp, pre_t, pre, seed=6)
-    with pytest.raises(NotImplementedError, match="device setup"):
-        builder.boomeramg_setup(A, BoomerAMGConfig(), A_host=A16,
-                                lattice_parts=object())
+    lat = builder.boomeramg_setup(A, BoomerAMGConfig(), A_host=A16,
+                                  lattice_parts=object())
+    lat_t = tp["builder"].boomeramg_setup(At, tp["Config"](), A_host=A16,
+                                          lattice_parts=object())
+    assert lat.describe() == lat_t.describe() and not lat.device_setups

@@ -19,8 +19,6 @@ CUDA cases run the setup on the card against the same code on the CPU, bit
 for bit in f64, and again on the card; they skip without one.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -320,17 +318,36 @@ def test_eligible_equals_tpusolve(monkeypatch, case, with_host):
             A, BoomerAMGConfig(interp_type=itype), H)
 
 
-def test_more_than_one_part_raises():
-    """A multi-part operator that tpusolve sets up on its devices raises
-    where its eligibility is asked, naming item 18 (it is never sent to the
-    host pipeline in its place), and so does its setup."""
+def test_more_than_one_part_raises(monkeypatch):
+    """A multi-part operator that tpusolve sets up on its devices, which
+    raised here before the N-part pipeline was ported, is eligible where
+    tpusolve's is, and its setup runs there (never the host pipeline in its
+    place) and equals tpusolve's on two parts: the split exactly, P, R and
+    the coarse operator to the module's tolerances."""
+    pytest.importorskip("jax")
+    from tpusolve.amg import device_setup_ell as tp_ell
+    from tpusolve.config import BoomerAMGConfig as TpConfig
+    from tpusolve.matrix.sharded import ShardedMatrix as TpMatrix
+    from tpusolve.mesh import make_mesh
+    monkeypatch.setenv("TPUSOLVE_PMIS_HOST_RANK", "1")
+    monkeypatch.setenv("TPUSOLVE_DEVICE_SETUP_MIN_N", "1")
     H = scrambled_laplace(8)
-    A = port_matrix(H)
-    two = dataclasses.replace(A, row_offsets=(0, 32, 64))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        device_setup_ell.eligible(two, BoomerAMGConfig(), H, min_n=1)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        device_setup_ell.device_level0_ell(two, BoomerAMGConfig(), A_host=H)
+    two = ShardedMatrix.from_csr_host(H, device=CPU, dtype=np.float64,
+                                      nparts=2, allow_bell=False,
+                                      allow_bdia=False)
+    two_t = TpMatrix.from_csr_host(make_mesh(2), H, dtype=np.float64,
+                                   allow_bell=False, allow_bdia=False)
+    assert device_setup_ell.eligible(two, BoomerAMGConfig(), H, min_n=1) \
+        == tp_ell.eligible(two_t, TpConfig(), H) is True
+    res = device_setup_ell.device_level0_ell(two, BoomerAMGConfig(),
+                                             A_host=H)
+    res_t = tp_ell.device_level0_ell(two_t, TpConfig(), A_host=H)
+    np.testing.assert_array_equal(res["Cmask"].numpy(),
+                                  np.asarray(res_t["Cmask"]))
+    assert res["P"].nparts == 2
+    assert maxdiff(tosp(res["P"]), tosp(res_t["P"])) < TOL_P
+    assert maxdiff(tosp(res["R"]), tosp(res["P"]).T) == 0.0
+    assert maxdiff(tosp(res["Ac"]), tosp(res_t["Ac"])) < TOL_A
 
 
 # ----------------------------------------------------------------------

@@ -9,8 +9,8 @@ checks pass, and the solutions agree to the stated tolerance.  Gate 1 at
 16^3 (host BoomerAMG), gate 4 at 16^3 from two files (host Chow-Patel ILU
 with offd blocks in both factors, and with the device floor at one row the
 block-Jacobi device ILU, whose 8-part factors equal ``tpusolve``'s).  The
-multi-part device AMG setups and generator (item 18) raise
-``NotImplementedError`` rather than run one part or the host setup.
+multi-part device AMG setups and generator run on 8 parts and equal
+``tpusolve``'s.
 """
 
 import os
@@ -125,7 +125,7 @@ def test_cli_parts_flag(tmp_path, capsys):
 
 
 # ----------------------------------------------------------------------
-# the device ILU on 8 parts, and the device setups of item 18, which raise
+# the device ILU on 8 parts, and the multi-part device AMG setups
 
 def _stencil8(side=4):
     from tpusolve_torch.stencil import laplace27
@@ -192,36 +192,87 @@ def test_gate4_8_parts_device_ilu_equals_tpusolve(tmp_path, monkeypatch):
     assert calls == [P8]
 
 
-def test_device_amg_setups_raise_on_8_parts():
+def test_device_amg_setups_raise_on_8_parts(mesh8, monkeypatch):
+    """The multi-part device AMG setups, which raised here before they were
+    ported, now run on 8 parts and equal ``tpusolve``'s: the stencil with
+    its lattice (parts of 4^3) by the sharded lattice setup, and a random
+    8-part ELL operator with extended+i by the N-part ELL setup, whose
+    eligibility is ``tpusolve``'s too."""
     from tpusolve_torch.amg import device_setup_ell
     from tpusolve_torch.amg.builder import boomeramg_setup
     from tpusolve_torch.config import BoomerAMGConfig
     from tpusolve_torch.matrix.sharded import ShardedMatrix
+    from tpusolve_torch.stencil import laplace27
+    from tpusolve.amg.builder import boomeramg_setup as tp_setup
+    from tpusolve.amg import device_setup_ell as tp_ell
+    from tpusolve.amg.device_setup_ell_mp import device_level0_ell_mp
+    from tpusolve.config import BoomerAMGConfig as TpConfig
+    from tpusolve.matrix.sharded import ShardedMatrix as TpMatrix
+    from tpusolve.stencil import laplace27 as tp_laplace27
     import scipy.sparse as sp
-    A, _, _ = _stencil8()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        boomeramg_setup(A, BoomerAMGConfig(), lattice_parts={})
-    M = sp.random(512, 512, density=0.01, random_state=3, format="csr") \
-        + sp.identity(512, format="csr") * 4.0
-    E = ShardedMatrix.from_csr_host(M, device=CPU, nparts=P8,
-                                    allow_dia=False, allow_bdia=False,
-                                    allow_bell=False)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        device_setup_ell.eligible(E, BoomerAMGConfig(coarsen_type=8,
-                                                     interp_type=6),
-                                  min_n=1)
+    monkeypatch.setenv("TPUSOLVE_PMIS_HOST_RANK", "1")
+    monkeypatch.setenv("TPUSOLVE_DEVICE_SETUP_MIN_N", "1")
+    monkeypatch.setenv("TPUSOLVE_ELL_SETUP", "0")
+    A, _, _, lat = laplace27(4, 4, 4, device=CPU, nparts=P8,
+                             with_lattice=True)
+    cfg = dict(max_coarse_size=16, max_levels=2)
+    pre = boomeramg_setup(A, BoomerAMGConfig(**cfg), lattice_parts=lat,
+                          device_min_n=(1, None))
+    At, _, _, lat_t = tp_laplace27(mesh8, 4, 4, 4, dtype=np.float64,
+                                   with_lattice=True)
+    pre_t = tp_setup(At, TpConfig(**cfg), lattice_parts=lat_t)
+    assert pre.device_setups == [(0, "lattice", P8)]
+    assert pre.describe() == pre_t.describe()
+    for M, M_t in ((pre.levels[0].P, pre_t.levels[0].P),
+                   (pre.levels[1].A, pre_t.levels[1].A)):
+        D = abs(M.to_scipy() - M_t.to_scipy())
+        assert (D.max() if D.nnz else 0.0) <= 1e-10
+    monkeypatch.delenv("TPUSOLVE_ELL_SETUP")
+    Rm = sp.random(512, 512, density=0.01, random_state=3, format="csr")
+    M = (sp.identity(512, format="csr") * 4.0 - Rm - Rm.T).tocsr()
+    kw = dict(allow_dia=False, allow_bdia=False, allow_bell=False)
+    E = ShardedMatrix.from_csr_host(M, device=CPU, nparts=P8, **kw)
+    Et = TpMatrix.from_csr_host(mesh8, M, dtype=np.float64, **kw)
+    c6 = BoomerAMGConfig(coarsen_type=8, interp_type=6)
+    assert device_setup_ell.eligible(E, c6, min_n=1) \
+        == tp_ell.eligible(Et, TpConfig(coarsen_type=8, interp_type=6)) \
+        is True
+    res = device_setup_ell.device_level0_ell(E, c6)
+    res_t = device_level0_ell_mp(Et, TpConfig(coarsen_type=8,
+                                              interp_type=6))
+    assert res["nc"] == res_t["nc"]
+    np.testing.assert_array_equal(res["Cmask"].numpy(),
+                                  np.asarray(res_t["Cmask"]))
+    for key, tol in (("P", 1e-12), ("Ac", 1e-10)):
+        D = abs(res[key].to_scipy() - res_t[key].to_scipy())
+        assert (D.max() if D.nnz else 0.0) <= tol, key
 
 
-def test_device_generation_raises_on_8_parts(tmp_path):
+def test_device_generation_raises_on_8_parts(tmp_path, mesh8):
+    """Generation on the device over 8 parts and the lattice stacks, which
+    raised here before they were ported, now run and equal ``tpusolve``'s
+    bit for bit; the weak-scaling YAML loads its 8 parts with their lattice
+    (BoomerAMG set up on the device over N parts)."""
     from tpusolve_torch import stencil
     from tpusolve_torch.config import load_config
     from tpusolve_torch.harness.system import LinearSystem
-    with pytest.raises(NotImplementedError, match="item 18"):
-        stencil.laplace27(4, 4, 4, device=CPU, nparts=P8, on_device=True)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        stencil.laplace27(4, 4, 4, device=CPU, nparts=P8, with_lattice=True)
+    from tpusolve import stencil as tp_stencil
+    from tpusolve.mesh import ROWS_AXIS
+    A, b, _ = stencil.laplace27(4, 4, 4, device=CPU, nparts=P8,
+                                on_device=True)
+    _, lat_t, dia_t, rhs_t = tp_stencil._dia_box_device_sharded(
+        mesh8, ROWS_AXIS, 4, 4, 4, (2, 2, 2), np.float64)
+    np.testing.assert_array_equal(A.dia_vals.numpy(), np.asarray(dia_t))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(rhs_t).reshape(-1))
+    _, _, _, lat = stencil.laplace27(4, 4, 4, device=CPU, nparts=P8,
+                                     with_lattice=True)
+    np.testing.assert_array_equal(lat["stack"].numpy(), np.asarray(lat_t))
     path = fixtures.write_weakscale(str(tmp_path), 32)
     s = LinearSystem(load_config(path), CPU, nparts=P8, verbose=False)
     s.setup_precon_and_solver()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        s.load()
+    s.load()
+    assert s.A.nparts == P8 and s.A.uses_dia and s.A.has_offd
+    stacks = np.stack([tp_stencil._dia_box_lattice(p, 32, 32, 32, (2, 2, 2),
+                                                   np.float32)[1]
+                       for p in range(P8)])
+    np.testing.assert_array_equal(s._lattice["stack"].numpy(), stacks)

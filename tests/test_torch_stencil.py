@@ -113,9 +113,9 @@ def test_process_grid_equals_tpusolve(tp, nparts):
 
 
 def test_device_generation_not_ported(tp):
-    """The one-part lattice dict (``with_lattice``, on the host branch and
-    the device branch) equals tpusolve's; more than one part still raises
-    (item 18), and so does a process grid of no parts."""
+    """The lattice dict (``with_lattice``, on the host branch and the
+    device branch) equals tpusolve's on one part and, since the multi-part
+    generator was ported, on two; a process grid of no parts raises."""
     A, _, _, lat = stencil.laplace27(10, 8, 6, device=CPU, with_lattice=True)
     _, _, _, lat_t = tp["stencil"].laplace27(tp["mesh"], 10, 8, 6,
                                              with_lattice=True)
@@ -129,8 +129,11 @@ def test_device_generation_not_ported(tp):
                                        with_lattice=True)
     assert torch.equal(lat_d["stack"], lat["stack"])
     np.testing.assert_array_equal(lat_d["offsets"], lat["offsets"])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        stencil.laplace27(8, 8, 8, device=CPU, pgrid=(2, 1, 1),
-                          with_lattice=True)
+    _, _, _, lat2 = stencil.laplace27(8, 8, 8, device=CPU, pgrid=(2, 1, 1),
+                                      nparts=2, with_lattice=True)
+    stacks = np.stack([tp["stencil"]._dia_box_lattice(
+        p, 8, 8, 8, (2, 1, 1), np.float64)[1] for p in range(2)])
+    np.testing.assert_array_equal(lat2["stack"].numpy(), stacks)
+    assert lat2["pgrid"] == (2, 1, 1)
     with pytest.raises(ValueError):
         compute_3d_process_distribution(0)

@@ -6,10 +6,13 @@ surface the reference drives (src/HypreSystem.cpp:91-326):
 
 * **Setup** (strength -> PMIS coarsening -> interpolation -> Galerkin RAP).
   Level 0 is set up on its device where ``tpusolve`` sets it up on the TPU
-  (``builder.py:236-281``): a box-DIA operator of at least
-  ``device_setup.MIN_DEVICE_N`` rows in offset algebra
+  (``builder.py:236-281``), in its order: a stencil of N parts with its
+  lattice planes by the sharded lattice setup
+  (``amg/device_setup_sharded.py``), else a one-part box-DIA operator of at
+  least ``device_setup.MIN_DEVICE_N`` rows in offset algebra
   (``amg/device_setup.py``), else a generic-ELL one of at least
-  ``device_setup_ell.MIN_DEVICE_N`` (``amg/device_setup_ell.py``); every
+  ``device_setup_ell.MIN_DEVICE_N`` on one part or many
+  (``amg/device_setup_ell.py``, ``amg/device_setup_ell_mp.py``); every
   level below that is eligible for the generic-ELL setup is set up on the
   device too (``tpusolve``'s device recursion, ``builder.py:289-320``).
   The other levels run vectorized on the host, as ``tpusolve``'s host
@@ -40,9 +43,6 @@ A batch of k vectors (k, n) (the coupled solve) runs the algebraic cycle on
 the whole batch, each SpMV one k-column launch where the layout's kernel
 has one (``matrix/spmv.py``); the structured cycle, whose transfers are
 fused into K1's single-vector launches, runs each column in turn.
-
-Not ported, and raising ``NotImplementedError``: ``tpusolve``'s multi-part
-device setup (``lattice_parts``, item 18).
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ import torch
 from tpusolve_torch.amg import coarsen as coarsen_mod
 from tpusolve_torch.amg import device_setup
 from tpusolve_torch.amg import device_setup_ell
+from tpusolve_torch.amg import device_setup_sharded
 from tpusolve_torch.amg import galerkin
 from tpusolve_torch.amg import interp as interp_mod
 from tpusolve_torch.amg import smoothers
@@ -71,7 +72,6 @@ from tpusolve_torch.matrix.vectors import (
     numpy_dtype, pad_vector, to_device_vector, to_tensor)
 from tpusolve_torch.parts import row_decomposition
 
-_NOT_PORTED = "not ported yet; see ROADMAP.md Queue 1"
 # the row floors of the DIA and the generic-ELL device setups
 # (``boomeramg_setup``'s ``device_min_n``)
 DEVICE_MIN_N = (device_setup.MIN_DEVICE_N, device_setup_ell.MIN_DEVICE_N)
@@ -133,6 +133,10 @@ class AMGPreconditioner:
     # (level, rows) of each coarse operator a device setup built that was
     # fetched to the host, for a host level or the coarsest solve
     host_fetches: list = field(default_factory=list)
+    # (level, setup, parts) of each level set up on the device: setup
+    # "lattice" (amg/device_setup_sharded.py), "dia" (amg/device_setup.py)
+    # or "ell" (amg/device_setup_ell.py, its N-part pipeline on N parts)
+    device_setups: list = field(default_factory=list)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """z = (one AMG cycle)(r) from zero initial guess — the
@@ -215,12 +219,6 @@ def _resolve_kinds(cfg: BoomerAMGConfig):
     return kind_down, kind_up, kind_coarse, notes
 
 
-def _check_ported(cfg: BoomerAMGConfig, lattice_parts) -> None:
-    if lattice_parts is not None:
-        raise NotImplementedError(f"multi-part AMG device setup "
-                                  f"(lattice_parts) {_NOT_PORTED}, item 18")
-
-
 def _relax_twin(A: ShardedMatrix, cfg) -> ShardedMatrix | None:
     """The bfloat16 smoother twin of level operator ``A``
     (``smoother_dtype: bfloat16``, ``tpusolve``'s ``_relax_twin``): None
@@ -253,13 +251,16 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
                     ) -> AMGPreconditioner:
     """Build the AMG hierarchy for ``A``.
 
-    Level 0 is set up on A's device when ``device_setup.eligible`` holds
-    for ``A`` (the DIA setup), or else ``device_setup_ell.eligible`` (the
-    generic-ELL setup), and each later level while
-    ``device_setup_ell.eligible`` holds for it; every other level on the
-    host.  ``device_min_n``: the row floors of the two device setups, a
-    (DIA, ELL) pair (by default each setup's own), one int for both, or
-    None (never on the device).  ``A_host`` may supply the host CSR
+    Level 0 is set up on A's device when ``device_setup_sharded.eligible``
+    holds for ``A`` and ``lattice_parts`` (the N-part stencil's lattice
+    dict, ``stencil.laplace27(..., with_lattice=True)``), or else
+    ``device_setup.eligible`` (the one-part DIA setup), or else
+    ``device_setup_ell.eligible`` (the generic-ELL setup, on one part or
+    many), and each later level while ``device_setup_ell.eligible`` holds
+    for it; every other level on the host.  ``device_min_n``: the row
+    floors of the device setups, a (DIA, ELL) pair (by default each
+    setup's own; the lattice setup takes the DIA floor), one int for both,
+    or None (never on the device).  ``A_host`` may supply the host CSR
     (straight after file load).  Set ``TPUSOLVE_SETUP_LOG=1`` for
     per-level phase timings (the analog of BoomerAMG's setup print_level
     output)."""
@@ -278,7 +279,6 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
     else:
         dia_min, ell_min = device_min_n
     cfg = config or BoomerAMGConfig()
-    _check_ported(cfg, lattice_parts)
     device = A.device
     dtype = numpy_dtype(A.dtype)
     kind_down, kind_up, kind_coarse, notes = _resolve_kinds(cfg)
@@ -305,6 +305,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
     lvl_start = 0
     seconds = {}
     fetches = []
+    setups = []
     t_device = 0.0     # wall seconds of the device levels below level 0
 
     def host_csr(lvl):
@@ -316,24 +317,33 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
             fetches.append((lvl, Ah.shape[0]))
         return Ah
 
-    # --- level 0 on the device: a box-DIA operator in offset algebra
+    # --- level 0 on the device: an N-part stencil by its lattice
+    # (amg/device_setup_sharded.py), a box-DIA operator in offset algebra
     # (amg/device_setup.py), else a generic-ELL one (amg/device_setup_ell.py)
     if A.shape[0] > max_coarse and cfg.max_levels > 1:
         res = None
-        if dia_min is not None and device_setup.eligible(A, cfg,
-                                                         min_n=dia_min):
+        if device_setup_sharded.eligible(A, cfg, lattice_parts,
+                                         min_n=dia_min):
+            if log_on:
+                print(f"  setup level 0 [device, {A.nparts} parts]: "
+                      f"n={A.shape[0]} nnz={A.nnz}", flush=True)
+            res = device_setup_sharded.device_level0_sharded(
+                A, cfg, lattice_parts, seed=seed, log=log)
+            dev_note, kind = DIA_NOTE, "lattice"
+        elif dia_min is not None and device_setup.eligible(A, cfg,
+                                                           min_n=dia_min):
             if log_on:
                 print(f"  setup level 0 [device]: n={A.shape[0]} "
                       f"nnz={A.nnz}", flush=True)
             res = device_setup.device_level0(A, cfg, seed=seed, log=log)
-            dev_note = DIA_NOTE
+            dev_note, kind = DIA_NOTE, "dia"
         elif device_setup_ell.eligible(A, cfg, A_host, min_n=ell_min):
             if log_on:
                 print(f"  setup level 0 [device, generic ELL]: "
                       f"n={A.shape[0]} nnz={A.nnz}", flush=True)
             res = device_setup_ell.device_level0_ell(
                 A, cfg, A_host=A_host, seed=seed, log=log)
-            dev_note = ELL_NOTE
+            dev_note, kind = ELL_NOTE, "ell"
         if res is not None and res["nc"] >= min_coarse:
             levels.append(_make_level_device(A, res, kind_down, kind_up,
                                              cfg))
@@ -341,6 +351,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
             A_sh = res["Ac"]
             lvl_start = 1
             seconds.update(res["seconds"])
+            setups.append((0, kind, A.nparts))
             notes.append(dev_note)
             if cfg.coarsen_type != 8:
                 notes.append(f"device setup: coarsen_type "
@@ -371,6 +382,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
                                                  kind_up, cfg))
                 seconds.update({f"level {lvl} {k}": v
                                 for k, v in res["seconds"].items()})
+                setups.append((lvl, "ell", A_sh.nparts))
                 Ah = None
                 Ah_fn = res["Ah_c_fn"]
                 A_sh = res["Ac"]
@@ -461,7 +473,8 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
 
     pre = AMGPreconditioner(levels=levels, coarse_inv=coarse_inv, config=cfg,
                             notes=notes, num_levels=len(levels),
-                            setup_seconds=seconds, host_fetches=fetches)
+                            setup_seconds=seconds, host_fetches=fetches,
+                            device_setups=setups)
     pre.cycle = _build_cycle(pre, kind_down, kind_up, cfg,
                              kind_coarse=kind_coarse,
                              coarse_sweeps=coarse_sweeps)

@@ -16,7 +16,8 @@ until the compaction at the end:
                   P[dp1][j - dp1] * A[da][j - dp1] * P[dp2][j - dp1 + da]
 
   (D^3 terms; ``tpusolve`` runs them as one ``lax.scan`` over a term
-  table, the port as one ``addcmul_`` a term into the coarse planes).
+  table, the port as one product and one add a term into the coarse
+  planes).
 
 P, R and the coarse operator are then packed into ELL ``ShardedMatrix``
 operators on the device (``tpusolve``'s layout for them, ELL, recorded),
@@ -41,7 +42,10 @@ Differences from ``tpusolve``, each on purpose:
 * one interpolation form, the fused one: ``tpusolve``'s staged form bounds
   TPU memory, and the Galerkin symmetry halving is off, as it is there in
   host-rank mode;
-* the stages are eager PyTorch, not jitted XLA programs.
+* the stages are eager PyTorch, not jitted XLA programs; every sum over
+  planes runs in plane order, one elementwise add at a time, and no
+  product is fused into an add (``_plane_sum``, ``_add_product``), so the
+  card gives the CPU's bits.
 """
 
 from __future__ import annotations
@@ -149,6 +153,22 @@ def _round_up(x, m) -> int:
     return (int(x) + m - 1) // m * m
 
 
+def _plane_sum(X: torch.Tensor) -> torch.Tensor:
+    """``X.sum(0)`` with the planes added one after another from plane 0:
+    the same order, and bits, on every device."""
+    acc = X[0].clone()
+    for d in range(1, X.shape[0]):
+        acc = acc + X[d]
+    return acc
+
+
+def _add_product(out: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> None:
+    """``out += a * b`` with the product rounded before the add, as on the
+    CPU (a fused ``addcmul_`` may round once on a GPU)."""
+    out.add_(a * b)
+
+
 # ----------------------------------------------------------------------
 # stages
 
@@ -191,15 +211,18 @@ def _pmis_keys(infl: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     return infl_i * n2 + rank.to(torch.int64) + 1
 
 
-def _pmis_split(Sm, comps, rank, max_rounds: int):
+def _pmis_split(Sm, comps, rank, max_rounds: int, pad=_pad):
     """PMIS C/F split, mirroring ``coarsen.pmis``: ``rank`` holds the host
     tie-break ranks, so both paths select the same sets.  Returns (state,
-    rounds); rows still undecided after ``max_rounds`` become C."""
+    rounds); rows still undecided after ``max_rounds`` become C.  ``pad``
+    fills the margins of a (..., nz, ny, nx) stack: zeros on one box, the
+    neighbours' planes on stacked parts (``amg/device_setup_sharded.py``),
+    whose leading part axis the stacks then carry."""
     D = len(comps)
-    dims = tuple(Sm.shape[1:])
+    dims = tuple(Sm.shape[-3:])
     m = _margins(comps)
-    Smp = _pad(Sm, m)
-    infl = torch.zeros(dims, dtype=Sm.dtype, device=Sm.device)
+    Smp = pad(Sm, m)
+    infl = torch.zeros(Sm.shape[1:], dtype=Sm.dtype, device=Sm.device)
     for d in range(D):
         infl = infl + _at(Smp[d], _neg(comps[d]), m, dims)
     state = torch.where(infl == 0, F_PT, UNDECIDED).to(torch.int32)
@@ -220,13 +243,13 @@ def _pmis_split(Sm, comps, rank, max_rounds: int):
     while rounds < max_rounds and bool((state == UNDECIDED).any()):
         active = state == UNDECIDED
         wa = torch.where(active, w, zero)
-        wap = _pad(wa, m)
+        wap = pad(wa, m)
         nbrmax = torch.zeros_like(w)
         for d in range(D):
             nbrmax = torch.maximum(nbrmax, torch.where(
                 G[d], _at(wap, comps[d], m, dims), zero))
         newC = active & (wa > nbrmax)
-        newCp = _pad(newC.to(Sm.dtype), m)
+        newCp = pad(newC.to(Sm.dtype), m)
         hitC = torch.zeros_like(infl)
         for d in range(D):
             hitC = hitC + Sm[d] * _at(newCp, comps[d], m, dims)
@@ -238,29 +261,31 @@ def _pmis_split(Sm, comps, rank, max_rounds: int):
 
 
 def _interp_planes(Av, Sm, comps, diag_slot: int, Cmask,
-                   interp_type: int) -> torch.Tensor:
+                   interp_type: int, pad=_pad) -> torch.Tensor:
     """P planes on A's offset lattice (the diagonal slot holds the C-point
     identity), mirroring ``interp.direct_interpolation`` (3) and
-    ``interp.classical_interpolation`` (0)."""
+    ``interp.classical_interpolation`` (0); ``pad`` as
+    :func:`_pmis_split` takes it."""
     D = len(comps)
-    dims = tuple(Av.shape[1:])
+    dims = tuple(Av.shape[-3:])
     dt = Av.dtype
     m = _margins(comps)
     diag = Av[diag_slot]
     Fmask = 1.0 - Cmask
-    Cp = _pad(Cmask, m)
+    Cp = pad(Cmask, m)
     strongC = Sm * torch.stack([_at(Cp, comps[d], m, dims)
                                 for d in range(D)])
-    off = torch.ones((D, 1, 1, 1), dtype=dt, device=Av.device)
+    off = torch.ones((D,) + (1,) * (Av.dim() - 1), dtype=dt,
+                     device=Av.device)
     off[diag_slot] = 0.0
 
     if interp_type == 3:
         neg = (Av < 0).to(dt)
         pos = (Av > 0).to(dt)
-        sum_neg = (Av * neg * off).sum(0)
-        sum_pos = (Av * pos * off).sum(0)
-        sC_neg = (Av * neg * strongC).sum(0)
-        sC_pos = (Av * pos * strongC).sum(0)
+        sum_neg = _plane_sum(Av * neg * off)
+        sum_pos = _plane_sum(Av * pos * off)
+        sC_neg = _plane_sum(Av * neg * strongC)
+        sC_pos = _plane_sum(Av * pos * strongC)
         alpha = torch.where(sC_neg != 0, sum_neg / torch.where(
             sC_neg != 0, sC_neg, 1.0), 0.0)
         beta = torch.where(sC_pos != 0, sum_pos / torch.where(
@@ -274,12 +299,12 @@ def _interp_planes(Av, Sm, comps, diag_slot: int, Cmask,
         return P
 
     # classical modified (interp_type 0)
-    Fp = _pad(Fmask, m)
+    Fp = pad(Fmask, m)
     strongF = Sm * torch.stack([_at(Fp, comps[d], m, dims)
                                 for d in range(D)])
     weak = (Av != 0).to(dt) * (1.0 - Sm)
     # hat A: entries of sign opposite to the row diagonal
-    Ahatp = _pad(torch.where(Av * diag < 0, Av, 0.0), m)
+    Ahatp = pad(torch.where(Av * diag < 0, Av, 0.0), m)
     for_d = {c: i for i, c in enumerate(comps)}
 
     def distance2(weights, dc_major: bool):
@@ -293,17 +318,17 @@ def _interp_planes(Av, Sm, comps, diag_slot: int, Cmask,
                 e = for_d.get(_add(comps[dc], _neg(comps[df])))
                 if e is None:
                     continue
-                out[i].addcmul_(weights[j], _at(Ahatp[e], comps[df], m,
-                                                dims))
+                _add_product(out[i], weights[j],
+                             _at(Ahatp[e], comps[df], m, dims))
         return out
 
     # d_ik = sum_{m in C_i} hat_a_km  (k = i + df, m = i + dc)
     Dden = distance2(strongC, dc_major=False)
     dead = strongF * (Dden == 0).to(dt)
-    dlump = (Av * dead).sum(0)
+    dlump = _plane_sum(Av * dead)
     W = torch.where(dead > 0, 0.0, strongF * Av / torch.where(
         Dden != 0, Dden, 1.0))
-    sum_weak = (Av * weak * off).sum(0)
+    sum_weak = _plane_sum(Av * weak * off)
     dii = diag + sum_weak + dlump
     dii = torch.where(dii != 0, dii, 1.0)
     # T[dc] = sum_df W[df] * hat_a_{i+df, i+dc}, masked to strong C
@@ -313,21 +338,22 @@ def _interp_planes(Av, Sm, comps, diag_slot: int, Cmask,
     return P
 
 
-def _rap_planes(Av, Pv, comps):
+def _rap_planes(Av, Pv, comps, pad=_pad):
     """``(dcs, planes)``: the coarse plane offsets dc = da + dp2 - dp1 in
     order of first appearance over (dp1, da, dp2) (``tpusolve``'s order),
     and the (len(dcs), *dims) planes at fine positions, every term's
     product of three shifted planes added into its dc plane in that
-    order."""
-    dims = tuple(Av.shape[1:])
+    order; ``pad`` as :func:`_pmis_split` takes it."""
+    dims = tuple(Av.shape[-3:])
     m = _margins(comps, 2)
-    Avp, Pvp = _pad(Av, m), _pad(Pv, m)
+    Avp, Pvp = pad(Av, m), pad(Pv, m)
     index = {}
     for c1 in comps:
         for ca in comps:
             for c2 in comps:
                 index.setdefault(_add(_add(ca, c2), _neg(c1)), len(index))
-    out = torch.zeros((len(index),) + dims, dtype=Av.dtype, device=Av.device)
+    out = torch.zeros((len(index),) + tuple(Av.shape[1:]), dtype=Av.dtype,
+                      device=Av.device)
     for dp1, c1 in enumerate(comps):
         back = _neg(c1)
         P1 = _at(Pvp[dp1], back, m, dims)
@@ -335,8 +361,8 @@ def _rap_planes(Av, Pv, comps):
             PA = P1 * _at(A_plane, back, m, dims)
             s2 = _add(ca, back)
             for c2, P_plane in zip(comps, Pvp):
-                out[index[_add(s2, c2)]].addcmul_(PA, _at(P_plane, s2, m,
-                                                         dims))
+                _add_product(out[index[_add(s2, c2)]], PA,
+                             _at(P_plane, s2, m, dims))
     return list(index), out
 
 
@@ -477,12 +503,12 @@ def device_level0(A: ShardedMatrix, cfg, seed: int = 1234, log=None):
     del Sm
     diagp = Av[diag_slot].reshape(-1)
     dinv = 1.0 / torch.where(diagp != 0, diagp, 1.0)
-    l1 = Av.abs().sum(0).reshape(-1)
+    l1 = _plane_sum(Av.abs()).reshape(-1)
     dinv_l1 = 1.0 / torch.where(l1 != 0, l1, 1.0)
     stage("interpolation")
 
     cflat = Cmask.reshape(-1)
-    cnum = torch.cumsum(cflat, 0).to(torch.int64) - 1
+    cnum = torch.cumsum(cflat.to(torch.int64), 0) - 1
     cidx = torch.nonzero(cflat).reshape(-1)
 
     # --- P and R = P^T as device ELL ---
@@ -558,6 +584,15 @@ def host_csr(M: ShardedMatrix) -> sp.csr_matrix:
     np.cumsum(counts, out=indptr[1:])
     Ah = sp.csr_matrix((v.astype(np.float64), c.astype(np.int64), indptr),
                        shape=(nr, ncols))
+    Ah.sort_indices()
+    return Ah
+
+
+def host_csr_parts(M: ShardedMatrix) -> sp.csr_matrix:
+    """:func:`host_csr` of an N-part operator, offd blocks included
+    (``tpusolve``'s ``_fetch_coarse_csr`` of its multi-part setups)."""
+    Ah = M.to_scipy().tocsr().astype(np.float64)
+    Ah.eliminate_zeros()
     Ah.sort_indices()
     return Ah
 

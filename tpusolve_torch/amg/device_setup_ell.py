@@ -41,8 +41,8 @@ roundoff.  Differences from ``tpusolve``, each on purpose:
   compare-counts, static pack widths chosen for compile caches) become the
   fixed-order sums, sorted searches and per-chunk widths above; the values
   agree to roundoff;
-* more than one part raises (``tpusolve``'s multi-part pipeline,
-  ``device_setup_ell_mp.py``, is ROADMAP.md Queue 1, item 18).
+* an operator of more than one part goes to the N-part pipeline
+  (``amg/device_setup_ell_mp.py``), as ``tpusolve``'s does.
 """
 
 from __future__ import annotations
@@ -69,23 +69,22 @@ MAX_ELL_K = 128
 BUDGET = 1 << 29
 _I32_MAX = 2 ** 31 - 1
 UND, C_PT, F_PT = -1, 1, 0
-_PARTS_ITEM = ("multi-part generic-ELL device setup "
-               "(amg/device_setup_ell_mp.py): not ported yet; see "
-               "ROADMAP.md Queue 1, item 18")
 
 
 def eligible(A: ShardedMatrix, cfg, A_host=None,
              min_n: int | None = MIN_DEVICE_N) -> bool:
     """``tpusolve``'s rule for this setup, on the layout ``tpusolve`` gives
-    ``A`` (``ShardedMatrix.tpusolve_layout``): a square one-part operator of
-    ``min_n`` (None: never) to 2**31 rows; an ELL source of at most
-    ``MAX_ELL_K`` entries a row, which is ``A``'s entries where
-    ``tpusolve`` stores it ELL and else the host CSR ``A_host``; and a
-    config of ``config_eligible`` with interpolation 0, 3 or 6.  An
-    operator of more than one part that ``tpusolve`` would set up by its
-    multi-part pipeline (the row width counts the offd block's too) raises
-    ``NotImplementedError`` (item 18) rather than go to the host."""
+    ``A`` (``ShardedMatrix.tpusolve_layout``): a square operator of
+    ``min_n`` (None: never) to 2**31 rows, with no offd block on one part;
+    an ELL source of at most ``MAX_ELL_K`` entries a row, which is ``A``'s
+    entries (the offd block's width counted too) where ``tpusolve`` stores
+    it ELL and else the host CSR ``A_host``; and a config of
+    ``config_eligible`` with interpolation 0, 3 or 6, on one part or many
+    (the N-part pipeline, ``amg/device_setup_ell_mp.py``, runs all
+    three)."""
     if min_n is None or A.shape[0] != A.shape[1]:
+        return False
+    if A.nparts == 1 and A.has_offd:
         return False
     if not min_n <= A.shape[0] < 2 ** 31:
         return False
@@ -97,11 +96,7 @@ def eligible(A: ShardedMatrix, cfg, A_host=None,
     elif A_host is None or int(np.diff(
             A_host.tocsr().indptr).max(initial=0)) > MAX_ELL_K:
         return False
-    if not config_eligible(cfg, interp_types=(0, 3, 6)):
-        return False
-    if A.nparts != 1:
-        raise NotImplementedError(_PARTS_ITEM)
-    return True
+    return config_eligible(cfg, interp_types=(0, 3, 6))
 
 
 # ----------------------------------------------------------------------
@@ -424,11 +419,11 @@ def _exti_set(vals_c, cols_c, offd_c, strongC_c, fv_c, fc_c, scc, ccnt):
 
 
 def _exti_chunk(keys, aon, fv_c, fc_c, diag_c, weak_c, vals, cols, diag,
-                row0: int):
+                rows_i):
     """One row chunk of extended+i weights (``_exti_chunk_jit``) over the
-    chunk's extended sets: (w, keys)."""
+    chunk's extended sets: (w, keys).  ``rows_i``: the chunk's rows'
+    own column ids, in the space of ``cols``."""
     C_, width = keys.shape
-    rows_i = row0 + torch.arange(C_, device=vals.device)
     T = torch.zeros((C_, width + 1), dtype=vals.dtype, device=vals.device)
     dlump = torch.zeros(C_, dtype=vals.dtype, device=vals.device)
     backflow = torch.zeros_like(dlump)
@@ -463,7 +458,8 @@ def _interp_exti(vals, cols, S, offd, is_C, cmap, diag, budget, log):
         kc, aon = _exti_set(vals[sl], cols[sl], offd[sl], strongC[sl],
                             fv[sl], fc[sl], scc, ccnt)
         w, k = _exti_chunk(kc, aon, fv[sl], fc[sl], diag[sl], weaksum[sl],
-                           vals, cols, diag, sl.start)
+                           vals, cols, diag,
+                           torch.arange(sl.start, sl.stop, device=vals.device))
         ws.append(w)
         keys.append(k)
     Kce = _round_up(max(k.shape[1] for k in keys), 4)
@@ -493,6 +489,28 @@ def _pack_p(w, pcol, keep, is_C, cmap, pw: int):
 # ----------------------------------------------------------------------
 # sort-based sparse products and R = P^T
 
+def _run_pack(termM, colsM, sentinel: int):
+    """Rows of terms at columns (``sentinel`` on dead slots) -> each row's
+    distinct columns in order with their terms summed: a stable sort by
+    column, each run summed by :func:`_run_scan`, the run ends
+    left-packed (``tpusolve``'s ``_pack_runs``).  Returns (vals, cols,
+    counts), (rows, widest row), dead slots value 0 and column 0."""
+    cols_s, idx = torch.sort(colsM, dim=1, stable=True)
+    runsum = _run_scan(torch.gather(termM, 1, idx), cols_s, torch.add)
+    del idx
+    end = torch.ones_like(cols_s, dtype=torch.bool)
+    end[:, :-1] = cols_s[:, :-1] != cols_s[:, 1:]
+    end &= cols_s < sentinel
+    cnt = end.sum(dim=1)
+    width = max(1, int(cnt.max())) if cnt.numel() else 1
+    key_s, idx = torch.sort(torch.where(end, cols_s, sentinel), dim=1,
+                            stable=True)
+    oc = key_s[:, :width]
+    ok = oc < sentinel
+    return (torch.where(ok, torch.gather(runsum, 1, idx[:, :width]), 0.0),
+            torch.where(ok, oc, 0), cnt)
+
+
 def _product(Av, Ac, Bv, Bc, sentinel: int, budget: int):
     """ELL x ELL -> ELL (``tpusolve``'s ``_chunked_product``), chunked over
     the left factor's rows: each chunk's terms expanded to (rows, K * Kb),
@@ -511,23 +529,12 @@ def _product(Av, Ac, Bv, Bc, sentinel: int, budget: int):
         colsM = torch.where(ok, bc, sentinel).reshape(C_, -1)
         termM = torch.where(ok, av[:, :, None] * bv, 0.0).reshape(C_, -1)
         del bv, bc, ok
-        cols_s, idx = torch.sort(colsM, dim=1, stable=True)
-        runsum = _run_scan(torch.gather(termM, 1, idx), cols_s, torch.add)
-        del colsM, termM, idx
-        end = torch.ones_like(cols_s, dtype=torch.bool)
-        end[:, :-1] = cols_s[:, :-1] != cols_s[:, 1:]
-        end &= cols_s < sentinel
-        cnt = end.sum(dim=1)
-        width = max(1, int(cnt.max()))
+        ov, oc, cnt = _run_pack(termM, colsM, sentinel)
+        del colsM, termM
         nnz += int(cnt.sum())
-        kmax = max(kmax, width)
-        key_s, idx = torch.sort(torch.where(end, cols_s, sentinel), dim=1,
-                                stable=True)
-        oc = key_s[:, :width]
-        ok = oc < sentinel
-        ovs.append(torch.where(ok, torch.gather(runsum, 1, idx[:, :width]),
-                               0.0))
-        ocs.append(torch.where(ok, oc, 0))
+        kmax = max(kmax, oc.shape[1])
+        ovs.append(ov)
+        ocs.append(oc)
     Kout = max(8, _round_up(kmax, 8))
     pad = lambda a: torch.nn.functional.pad(a, (0, Kout - a.shape[1]))
     return (torch.cat([pad(a) for a in ovs]),
@@ -576,9 +583,14 @@ def device_level0_ell(A: ShardedMatrix, cfg, *, A_host=None,
     fetched only when called), ``dinv``, ``dinv_l1``, ``coarse_row_offsets``
     and ``seconds`` (wall seconds of each stage, the device synchronised at
     each stage's end).  ``log`` (a print-like callable) receives a line per
-    stage; ``budget`` bounds each chunked temporary, in bytes."""
+    stage; ``budget`` bounds each chunked temporary, in bytes.  An operator
+    of more than one part is set up by the N-part pipeline
+    (``device_setup_ell_mp.device_level0_ell_mp``)."""
     if A.nparts != 1:
-        raise NotImplementedError(_PARTS_ITEM)
+        from tpusolve_torch.amg.device_setup_ell_mp import (
+            device_level0_ell_mp)
+        return device_level0_ell_mp(A, cfg, A_host=A_host, seed=seed,
+                                    log=log, budget=budget)
     dev = A.device
     sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
             else (lambda: None))

@@ -57,7 +57,6 @@ from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.vectors import (
     from_device_vector, to_device_vector)
 from tpusolve_torch.parts import local_range, row_decomposition
-from tpusolve_torch import stencil
 from tpusolve_torch.stencil import laplace27
 from tpusolve_torch.timers import Timers
 
@@ -100,6 +99,7 @@ class LinearSystem:
         self._precond = None
         self._solver = None        # solve(b, x0=None) of the last solve()
         self._host_parts = None    # stencil's structured payload (pfmg)
+        self._lattice = None       # its lattice planes (BoomerAMG, N parts)
         self._method = None
         self._precond_name = None
         self._perm = None          # matrix_ordering: new index -> old
@@ -276,8 +276,10 @@ class LinearSystem:
         (``stencil.generates_on_device``: a plane stack of 128 MB or more on
         a device that is not the CPU); the PFMG and host-CSR branches build
         them on the host, as there.
-        ``tpusolve``'s multi-part lattice branch (BoomerAMG set up on the
-        device over N parts) waits for item 18 and raises."""
+        On N parts the device-setup branch is ``tpusolve``'s lattice branch
+        (``tpusolve/harness/system.py:295-322``): the generator also returns
+        each part's full-lattice planes, which BoomerAMG's sharded lattice
+        setup takes (``lattice_parts``)."""
         ls = self.config.linear_system
         with self.timers.span("Build 27Pt Stencil HYPRE matrix"):
             kw = dict(device=self.device, dtype=self.dtype,
@@ -287,9 +289,10 @@ class LinearSystem:
                 # matrix-free setup never needs a host CSR
                 A, b, _, self._host_parts = laplace27(
                     ls.nx, ls.ny, ls.nz, with_parts=True, **kw)
+            elif self._device_amg() and self.nparts > 1:
+                A, b, _, self._lattice = laplace27(
+                    ls.nx, ls.ny, ls.nz, with_lattice=True, **kw)
             elif self._device_amg():
-                if self.nparts > 1:
-                    raise NotImplementedError(stencil.LATTICE_PARTS_ITEM)
                 A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, **kw)
             elif self._needs_host_csr():
                 A, b, _, self.A_host = laplace27(
@@ -345,7 +348,8 @@ class LinearSystem:
                                            host_parts=self._host_parts)
         else:
             pre = boomeramg_setup(A, self.config.boomeramg,
-                                  A_host=self.A_host)
+                                  A_host=self.A_host,
+                                  lattice_parts=self._lattice)
         if self.verbose:
             self._log(pre.describe())
             for line in pre.layouts():

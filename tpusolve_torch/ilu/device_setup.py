@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpusolve_torch.matrix.sharded import ShardedMatrix
+from tpusolve_torch.matrix.sharded import ShardedMatrix, _offd_fields
 from tpusolve_torch.matrix.vectors import numpy_dtype
 
 # tpusolve factors ILU(0) on the device from this many rows
@@ -360,25 +360,60 @@ def ilu_widths(vals: torch.Tensor, cols: torch.Tensor) -> tuple:
 def from_device_ell_parts(shape, vals: torch.Tensor, cols: torch.Tensor,
                           diag: torch.Tensor | None = None,
                           nnz: int | None = None, row_offsets=None,
-                          col_offsets=None) -> ShardedMatrix:
-    """An ELL ShardedMatrix of ``shape`` from padded values and local
-    columns on the device, (rows, K) for one part or (P, row_pad, K) for
-    the parts of ``row_offsets`` and ``col_offsets`` with no offd block
-    (``tpusolve``'s ``ShardedMatrix.from_device_ell_parts`` and
-    ``_ell_sharded``; zero-valued slots are padding), in the form K2's
-    model prices cheaper (``with_ell_form``), recording ``tpusolve``'s
-    layout, ELL.  Its main diagonal ``diag`` (1, as there, by default) and
-    ``nnz`` (the count of nonzero values by default)."""
+                          col_offsets=None,
+                          global_cols: bool = False) -> ShardedMatrix:
+    """An ELL ShardedMatrix of ``shape`` from padded values and columns on
+    the device, (rows, K) for one part or (P, row_pad, K) for the parts of
+    ``row_offsets`` and ``col_offsets`` (``tpusolve``'s
+    ``ShardedMatrix.from_device_ell_parts`` and ``_ell_sharded``;
+    zero-valued slots are padding), in the form K2's model prices cheaper
+    (``with_ell_form``), recording ``tpusolve``'s layout, ELL.  Its main
+    diagonal ``diag`` (1, as there, by default) and ``nnz`` (the count of
+    nonzero values by default).
+
+    ``cols`` are each part's local columns, and the operator has no offd
+    block; or, with ``global_cols``, global columns (the multi-part device
+    setups' P, R and coarse operators, whose ``col_offsets`` may differ
+    from ``row_offsets``): the split runs on the device, each part's
+    entries in the columns it owns staying in their slots as its diag
+    block (the others' slots zeroed), and only the entries in other parts'
+    columns, the seams, reach the host, where they make the offd block and
+    halo plan (``matrix/sharded.py:_offd_fields``, ``tpusolve``'s
+    ``_build_offd_and_halo``)."""
     nr, ncols = int(shape[0]), int(shape[1])
     if vals.dim() == 2:
         vals, cols = vals[None], cols[None]
         diag = None if diag is None else diag[None]
-    P, R = vals.shape[:2]
+    P, R, K = vals.shape
     row_offsets = (0, nr) if row_offsets is None else row_offsets
     col_offsets = (0, ncols) if col_offsets is None else col_offsets
     if len(row_offsets) != P + 1:
         raise ValueError(f"{P} parts of values for {len(row_offsets) - 1} "
                          "row parts")
+    offd = {}
+    if nnz is None:
+        nnz = int(torch.count_nonzero(vals))
+    if global_cols:
+        co = torch.tensor(np.asarray(col_offsets, np.int64),
+                          device=vals.device)
+        cols = cols.long()
+        lo, hi = co[:-1].reshape(P, 1, 1), co[1:].reshape(P, 1, 1)
+        own = (cols >= lo) & (cols < hi)
+        seam = (vals != 0) & ~own
+        cols = cols - lo
+        part, row, slot = torch.nonzero(seam, as_tuple=True)
+        sv = vals[part, row, slot].cpu().numpy()
+        sg = (cols[part, row, slot] + lo.reshape(-1)[part]).cpu().numpy()
+        part, row = part.cpu().numpy(), row.cpu().numpy()
+        offd_parts = [(row[part == p], sg[part == p], sv[part == p])
+                      for p in range(P)]
+        if P > 1:
+            offd = _offd_fields(offd_parts, R, col_offsets,
+                                numpy_dtype(vals.dtype), vals.device)
+            offd.pop("nnz")
+        elif len(row):
+            raise ValueError("one part owns every column")
+        vals = torch.where(seam, 0, vals)
     vals = torch.where(vals != 0, vals, 0)
     cols = torch.where(vals != 0, cols, 0).to(torch.int32)
     if diag is None:
@@ -390,9 +425,7 @@ def from_device_ell_parts(shape, vals: torch.Tensor, cols: torch.Tensor,
         diag=diag, shape=(nr, ncols),
         row_offsets=tuple(int(o) for o in row_offsets),
         col_offsets=tuple(int(o) for o in col_offsets), row_pad=R,
-        col_pad=col_pad,
-        nnz=int(torch.count_nonzero(vals)) if nnz is None else int(nnz),
-        tpusolve_layout="ell")
+        col_pad=col_pad, nnz=int(nnz), tpusolve_layout="ell", **offd)
     return A.with_ell_form()
 
 

@@ -234,7 +234,9 @@ def retrace(path: str):
     events in every try (``chip_smoke.py:fresh_device_ms``).  A file of
     multi-part offd blocks (``{"offd": {name: (vals, cols, rowptr, x,
     halo_src)}}``, ``chip_smoke.py:fresh_offd_ms``) gives ``{name: {"k2":
-    K2 on the block over x's ghosts, "gather": the halo's index gather}}``
+    K2 on the block over x's ghosts, "gather": the halo's index gather,
+    "lib": cuSPARSE's CSR SpMV on the same block, "lib_kernels": the device
+    events of one library call, by name: their count and device ms}}``
     instead."""
     saved = torch.load(path, weights_only=False)
     if "offd" in saved:
@@ -246,13 +248,43 @@ def retrace(path: str):
 
 
 def _offd_ms(vals, cols, rowptr, x, src) -> dict:
-    """Device ms of K2 on an offd block over the ghosts of ``x`` and of the
-    halo's gather of those ghosts (``matrix/spmv.py:halo_gather``)."""
+    """Device ms of K2 on an offd block over the ghosts of ``x``, of the
+    halo's gather of those ghosts (``matrix/spmv.py:halo_gather``) and of
+    cuSPARSE's CSR SpMV on the same block (``torch.sparse`` with int64
+    indices, the matrix built once, outside the timed call); and the names
+    and counts of the device events of one library call, which show
+    whether it converts the format as it runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from tpusolve_torch.kernels.ell import ell_spmv
     g = x.index_select(0, src)
-    return device_ms_each({
+    if rowptr is None:
+        keep = vals != 0
+        ptr = torch.zeros(vals.shape[0] + 1, dtype=torch.int64,
+                          device=vals.device)
+        torch.cumsum(keep.sum(1), 0, out=ptr[1:])
+        lv, lc = vals[keep], cols[keep].long()
+    else:
+        ptr, lv, lc = rowptr.long(), vals, cols.long()
+    csr = torch.sparse_csr_tensor(ptr, lc, lv, size=(ptr.numel() - 1,
+                                                     g.numel()))
+    out = device_ms_each({
         "k2": lambda: ell_spmv(vals, cols, g, rowptr=rowptr),
-        "gather": lambda: x.index_select(0, src)})
+        "gather": lambda: x.index_select(0, src),
+        "lib": lambda: csr @ g})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        csr @ g
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = names.get(e.name[:80], (0, 0.0))
+            names[e.name[:80]] = (n + 1, us + e.time_range.elapsed_us())
+    out["lib_kernels"] = {k: dict(count=n, device_ms=us / 1e3)
+                          for k, (n, us) in names.items()}
+    return out
 
 
 def _bdia_case(shape, dtype, device, gen):

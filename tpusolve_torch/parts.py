@@ -11,10 +11,8 @@ stencil generator's process grid comes from
 Every device tensor of the port keeps ``tpusolve``'s stacked layout
 ``(nparts, ...)``: rows padded per part to ``row_pad``, padded diagonal
 entries 1, padded vector entries exactly 0.  All parts live on one torch
-device: ``nparts`` is ``tpusolve``'s mesh size.  The device setups that
-``tpusolve`` runs over many parts (its lattice AMG setup, the multi-part
-generic-ELL setup and the sharded device generator) raise
-``NotImplementedError`` on more than one part (ROADMAP.md Queue 1, item 18).
+device: ``nparts`` is ``tpusolve``'s mesh size, and where ``tpusolve``
+exchanges data between its devices the port gathers over the stacked parts.
 """
 
 from __future__ import annotations

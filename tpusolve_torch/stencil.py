@@ -16,15 +16,16 @@ diag block is the box's planes and its offd block the couplings across its
 boundary shell (:func:`_local_offd_and_rhs`), as ``tpusolve`` builds them
 on its mesh (``tpusolve/stencil.py:385-420``).
 The box DIA planes are generated either on the host (vectorized NumPy, then
-copied to the device once) or, on one part, on the device itself
-(:func:`_dia_box_device`: masks from ``arange`` comparisons, no host table
-of the box's size), by ``tpusolve``'s rule (:func:`laplace27`'s
-``on_device``); both give the same bits.  The DIA fast path hands
-``ShardedMatrix.from_dia_parts`` the (dz, dy, dx) triples of its planes, so
-nothing turns a flat offset back into a triple.  ``tpusolve``'s multi-part
-device generator (``_dia_box_device_sharded``) waits for ROADMAP.md Queue
-1, item 18: where its rule would generate more than one part on the device
-the port raises.
+copied to the device once) or on the device itself, by ``tpusolve``'s rule
+(:func:`laplace27`'s ``on_device``): on one part :func:`_dia_box_device`,
+on N parts :func:`_dia_box_device_parts` (masks from ``arange``
+comparisons, no host table of a box's size; the host builds only the
+boundary shells); both branches give the same bits.  The DIA fast path
+hands ``ShardedMatrix.from_dia_parts`` the (dz, dy, dx) triples of its
+planes, so nothing turns a flat offset back into a triple.  With
+``with_lattice`` the generator also returns each part's full-lattice planes
+(masked by the global domain, seam couplings included), the operand of the
+multi-part lattice AMG setup (``amg/device_setup_sharded.py``).
 """
 
 from __future__ import annotations
@@ -37,10 +38,6 @@ from tpusolve_torch.matrix.vectors import (
     numpy_dtype, to_device_vector, torch_dtype)
 from tpusolve_torch.parts import compute_3d_process_distribution
 
-LATTICE_PARTS_ITEM = ("multi-part lattice stacks (with_lattice): not ported "
-                       "yet; see ROADMAP.md Queue 1, item 18")
-_DEVICE_PARTS_ITEM = ("multi-part device stencil generation: not ported yet; "
-                      "see ROADMAP.md Queue 1, item 18")
 # tpusolve generates the planes on the device from a plane stack of this
 # many bytes (tpusolve/stencil.py:333-338)
 DEVICE_MIN_BYTES = 128 << 20
@@ -204,6 +201,49 @@ def _dia_box_lattice(part, nx, ny, nz, pgrid, dtype):
     return offs[order], planes
 
 
+def _dia_box_device_parts(nx, ny, nz, pgrid, dtype, device):
+    """On-device generation for N parts (``tpusolve``'s
+    ``_dia_box_device_sharded``): ``(offsets, lat, dia, rhs)``, the flat
+    offsets in the planes' order and three tensors on ``device``: the
+    full-lattice stack (P, 27, nz, ny, nx) (global-domain masks, as
+    :func:`_dia_box_lattice`), the box DIA stack of the same shape (box
+    masks, as :func:`_dia_box`) and the RHS (P, box), b = A 1 as the row
+    sums of the lattice stack.  The host does O(P) work: each part's grid
+    origin.  Values -1, 26 and 0 and integer row sums are exact in any
+    float, so the stacks are the host's bit for bit."""
+    px, py, pz = pgrid
+    nparts = px * py * pz
+    gmax = (pz * nz, py * ny, px * nx)
+    offs = np.array([dz * ny * nx + dy * nx + dx
+                     for dx, dy, dz in _OFFSETS], np.int64)
+    order = np.argsort(offs)
+    tdt = torch_dtype(numpy_dtype(dtype))
+    origin = torch.tensor([[g * d for g, d in zip(part_to_grid(p, pgrid)[::-1],
+                                                  (nz, ny, nx))]
+                           for p in range(nparts)], device=device)
+    ar = [torch.arange(d, device=device) for d in (nz, ny, nx)]
+    shapes = ((-1, 1, 1), (1, -1, 1), (1, 1, -1))
+    lat = torch.empty((nparts, 27, nz, ny, nx), dtype=tdt, device=device)
+    dia = torch.empty_like(lat)
+    for k, kk in enumerate(order):
+        dx, dy, dz = (int(c) for c in _OFFSETS[kk])
+        if dx == dy == dz == 0:
+            lat[:, k] = 26.0
+            dia[:, k] = 26.0
+            continue
+        gm = torch.ones((nparts, 1, 1, 1), dtype=torch.bool, device=device)
+        bm = torch.ones((1, 1, 1), dtype=torch.bool, device=device)
+        for a, (c, d) in enumerate(zip((dz, dy, dx), (nz, ny, nx))):
+            loc = ar[a] + c
+            g = origin[:, a].reshape(-1, 1, 1, 1) + loc.reshape(shapes[a])
+            gm = gm & (g >= 0) & (g < gmax[a])
+            bm = bm & ((loc >= 0) & (loc < d)).reshape(shapes[a])
+        lat[:, k] = torch.where(gm, -1.0, 0.0).to(tdt)
+        dia[:, k] = torch.where(bm, -1.0, 0.0).to(tdt)
+    rhs = lat.sum(dim=1).reshape(nparts, -1)
+    return offs[order], lat, dia, rhs
+
+
 def generates_on_device(nx, ny, nz, dtype, device, with_host=False,
                         with_parts=False) -> bool:
     """``tpusolve``'s auto rule for on-device generation
@@ -296,15 +336,14 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
     RHS on ``device`` (:func:`_dia_box_device`); None decides by
     :func:`generates_on_device`, and True with a host payload or a box under
     3 x 3 raises ``ValueError``.  ``with_lattice=True`` appends
-    ``tpusolve``'s lattice dict (``stack`` (1, 27, nz, ny, nx) on
-    ``device``, ``offsets``, ``pgrid``, ``dims``) on either branch.  On
-    more than one part ``with_lattice`` and generation on the device raise
-    ``NotImplementedError`` (item 18)."""
+    ``tpusolve``'s lattice dict (``stack`` (P, 27, nz, ny, nx) on
+    ``device``, each part's full-lattice planes; ``offsets``, the flat
+    offsets of the planes; ``pgrid``; ``dims``) on either branch; the
+    planes are in the order of ``A.dia_offsets``, whose triples the setup
+    reads."""
     if pgrid is None:
         pgrid = compute_3d_process_distribution(nparts)
     px, py, pz = pgrid
-    if with_lattice and px * py * pz > 1:
-        raise NotImplementedError(LATTICE_PARTS_ITEM)
     if px * py * pz != nparts:
         raise ValueError(f"process grid {pgrid} != part count {nparts}")
     box = nx * ny * nz
@@ -317,25 +356,33 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
         if nx < 3 or ny < 3 or with_host or with_parts:
             raise ValueError("device stencil generation requires nx/ny >= 3 "
                              "and no host payloads")
-        if nparts > 1:
-            raise NotImplementedError(_DEVICE_PARTS_ITEM)
-        offs, gen = _dia_box_device(nx, ny, nz, dtype, device)
-        dia_dev, rhs = gen()
+        empty = (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                 np.zeros(0, dtype))
+        if nparts == 1:
+            offs, gen = _dia_box_device(nx, ny, nz, dtype, device)
+            dia_dev, rhs = gen()
+            dia_dev = dia_dev[None]
+            lat = dia_dev      # no seams on one part: the lattice is the box
+            offd_parts = [empty]
+        else:
+            offs, lat, dia_dev, rhs = _dia_box_device_parts(
+                nx, ny, nz, pgrid, dtype, device)
+            rhs = rhs.reshape(-1)
+            # the boundary shells stay a host build: O(surface) data
+            offd_parts = [_local_offd_and_rhs(p, nx, ny, nz, pgrid, dtype)[0]
+                          for p in range(nparts)]
         # the analytic diag-block nnz: each axis shift c in {-1, 0, 1}
         # keeps n_d - |c| planes, so prod_d (3 n_d - 2); the planes go in as
         # a view, with no second copy of the stack
         A = ShardedMatrix.from_dia_parts(
-            (n, n), _dia_box_triples(nx, ny, nz), dia_dev[None],
-            [(np.zeros(0, np.int64), np.zeros(0, np.int64),
-              np.zeros(0, dtype))], device=device, dtype=dtype,
-            dia_shape=(nz, ny, nx),
+            (n, n), _dia_box_triples(nx, ny, nz), dia_dev, offd_parts,
+            device=device, dtype=dtype, dia_shape=(nz, ny, nx),
             dia_nnz=nparts * (3 * nz - 2) * (3 * ny - 2) * (3 * nx - 2))
         x_ref = torch.ones(n, dtype=rhs.dtype, device=rhs.device)
         if with_lattice:
-            # no seams on one part: the lattice is the box planes
             return A, rhs, x_ref, dict(
-                stack=A.dia_vals, offsets=offs, pgrid=pgrid,
-                dims=(nz, ny, nx))
+                stack=A.dia_vals if nparts == 1 else lat, offsets=offs,
+                pgrid=pgrid, dims=(nz, ny, nx))
         return A, rhs, x_ref
 
     parts = None
