@@ -35,8 +35,13 @@ toolkit (nvcc) and PyTorch built for CUDA:
    both forms), each operator's kernel now against the one it ran before
    K2 was priced among the layouts and, for the factors, before K5 was
    priced on the bytes it reads (K4; the moved operators' table, which
-   fails where a new kernel is slower but for K6's frozen prices), and one
-   warm solve's profile;
+   fails where a new kernel is slower but for K6's frozen prices), one
+   warm solve's profile, and K2's and K5's k-column forms on the four
+   operators (``columns_check``): for k in ``COLS`` each column of a
+   launch the single kernel's bits (update forms too) and the plain
+   version's to ``RTOL``, timed at k = 3 against three single launches,
+   K2 on an x packed beforehand and cuSPARSE's SpMM, with the bound (K2's
+   with its column indices too);
 5. gate 3: writes the pressure fixture at N^3 rows (``--side3``, default
    48^3 = 110,592 rows, 2.86M nonzeros; 64^3 before phases (o) and (p))
    and runs it through the CLI:
@@ -181,10 +186,10 @@ bfloat16 smoother twin:
    refinement passes); the same solver on each component alone, each
    coupled count within ``COUPLED_SPREAD`` of its segregated one, beside
    tpusolve's coupled counts; the warm coupled solve's profile against the
-   three segregated ones'; then K2's and K5's k-column forms on A, A_lo, L
-   and U for k in ``COLS``, each column the single kernel's bits (update
-   forms too) and the plain version's to ``RTOL``, timed at k = 3 against
-   three single launches, K2's interleaved layout and cuSPARSE's SpMM;
+   three segregated ones' (K2's and K5's device time in each, K2's with
+   its packs); then K2's and K5's k-column forms on its A, A_lo, L and U
+   for k in ``COLS``, each column the single kernel's bits (update forms
+   too) and the plain version's to ``RTOL``;
 (i) the same in natural order in double at 64^3 (the ELL device ILU(0),
    K2's 3-column form on A, L and U): tpusolve's coupled counts exactly,
    and the segregated ones;
@@ -1037,9 +1042,10 @@ def gate4_phase(side: int, device_name: str, counters):
     operators on their BDIA layouts, K2 rows of those that run K2, the
     old-against-new rows of :func:`moved_timings` for all four, K5's
     launches by update form, the warm-solve profile, the ELL device
-    factorization's trial on its A, :func:`gate4_rcm_ell_trial`).  The
-    factors' old kernel is K4 on the same BDIA layout: the one they ran
-    before K5's segment mask priced K5 below it."""
+    factorization's trial on its A, :func:`gate4_rcm_ell_trial`, and the
+    k-column forms' rows on its four operators, :func:`columns_check`,
+    timed).  The factors' old kernel is K4 on the same BDIA layout: the one
+    they ran before K5's segment mask priced K5 below it."""
     rc, system, wall, launches = run_cli(
         fixture_yaml(4, side, "gate4.yaml"), counters)
     print(f"gate-4 path: cli exit {rc}, {wall:.1f} s wall, launches "
@@ -1088,6 +1094,9 @@ def gate4_phase(side: int, device_name: str, counters):
         if res.iters != PORT_ITERS_96:
             fail(f"gate-4 took {res.iters} iterations, not the port's "
                  f"{PORT_ITERS_96}")
+    # K2's and K5's k-column forms on the four operators at this size,
+    # first: a long process's later traces lose device events
+    col_rows = columns_check(dict(ops), card_line(), 15, timed=True)
     # the layouts before K2 was priced: BDIA for all four (A_lo is A's f32
     # twin; an operator still on BDIA is its own); K4 and K5 rows on them,
     # and old against new
@@ -1111,7 +1120,7 @@ def gate4_phase(side: int, device_name: str, counters):
     trial = (gate4_rcm_ell_trial(system, card_line())
              if system.A.uses_ell else None)
     system.destroy_system()
-    return launches, rows, k2_rows, moved, xl_forms, prof, trial
+    return launches, rows, k2_rows, moved, xl_forms, prof, trial, col_rows
 
 
 # the kernel each layout runs, by the first word of its name
@@ -2080,7 +2089,7 @@ PROFILE_CLASSES = (("K4 and K5", ("bdia_spmv",)),
                    ("K1", ("dia_spmv",)),
                    ("K3", ("box_prolong", "box_restrict")),
                    ("K6", ("bell_spmv",)),
-                   ("K2", ("ell_spmv", "ell_rowptr")),
+                   ("K2", ("ell_spmv", "ell_rowptr", "ell_pack")),
                    ("ELL gathers", ("scatter_gather", "indexselect")),
                    ("coarse matmul", ("gemv", "gemm", "cublas", "sm90_")),
                    ("reductions", ("reduce",)),
@@ -3280,7 +3289,8 @@ def profile_call(fn, what: str) -> dict:
     """One warm call of ``fn`` (a solve): wall time (host clock,
     synchronised, the least of three), then the same call under
     ``torch.profiler``: its device operations, their busy time, the idle
-    share, and K2's and K5's device time in it."""
+    share, and K2's and K5's device time in it (K2's with the packs of
+    its k-column form's x, ``pack_ms`` apart)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3296,24 +3306,27 @@ def profile_call(fn, what: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops, busy, k2, k5 = 0, 0.0, 0.0, 0.0
+    ops, busy, k2, k5, pack = 0, 0.0, 0.0, 0.0, 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
         ops += 1
         busy += us
-        k2 += us if "ell_spmv" in e.name or "ell_rowptr" in e.name else 0
+        k2 += us if any(n in e.name for n in ("ell_spmv", "ell_rowptr",
+                                               "ell_pack")) else 0
+        pack += us if "ell_pack" in e.name else 0
         k5 += us if "bdia_spmv_xl" in e.name else 0
     wall = 1e3 * min(walls)
     out = dict(wall_ms=wall, walls_ms=[1e3 * w for w in walls],
                device_ops=ops, busy_ms=busy / 1e3,
                idle_share=1.0 - busy / 1e3 / wall, k2_ms=k2 / 1e3,
-               k5_ms=k5 / 1e3)
+               k5_ms=k5 / 1e3, pack_ms=pack / 1e3)
     print(f"{what}: wall {wall:.3f} ms (runs {ts_str(out['walls_ms'])}), "
           f"{ops} device operations, busy {out['busy_ms']:.3f} ms, idle "
-          f"share {out['idle_share']:.3f}, K2 {out['k2_ms']:.3f} ms, K5 "
-          f"{out['k5_ms']:.3f} ms", flush=True)
+          f"share {out['idle_share']:.3f}, K2 {out['k2_ms']:.3f} ms (its "
+          f"packs {out['pack_ms']:.3f}), K5 {out['k5_ms']:.3f} ms, K2 + K5 "
+          f"{out['k2_ms'] + out['k5_ms']:.3f} ms", flush=True)
     return out
 
 
@@ -3518,19 +3531,38 @@ def library_spmm(M, k: int):
     return (lambda: csr @ X), X
 
 
-def columns_check(ops: dict, card: str, seed: int) -> list:
-    """K2's and K5's k-column forms on gate 4's A, A_lo, L and U at the
-    main path's shapes: for k in ``COLS`` each column of a launch equals
-    the single-vector kernel on it bit for bit and the plain version to
-    ``RTOL``, the update form c + w s (b - A x) too; at k = 3 (the main
-    path's) the launch's device and per-call time against three single
-    launches and cuSPARSE's SpMM, with its bound; on A, K2 on the
-    interleaved (n, k) layout once."""
+def columns_index_nbytes(M, k: int) -> int:
+    """:func:`columns_nbytes` of K2 on ELL operator ``M`` with the int32
+    column of every stored entry (its padded slots, or its entries and row
+    pointer): the floor of a K2 launch, which reads the columns too."""
+    vals, cols, rowptr = M.ell_arrays
+    extra = cols.numel() * 4
+    if rowptr is not None:
+        extra += rowptr.numel() * rowptr.element_size()
+    return columns_nbytes(M, k) + extra + (vals.numel() - M.nnz) * \
+        vals.element_size()
+
+
+def columns_check(ops: dict, card: str, seed: int,
+                  timed: bool = False) -> list:
+    """K2's and K5's k-column forms on the operators ``ops`` (gate 4's A,
+    A_lo, L and U) at the main path's shapes: for k in ``COLS`` each column
+    of a launch equals the single-vector kernel on it bit for bit and the
+    plain version to ``RTOL``, the update form c + w s (b - A x) too.
+    ``timed``: at k = 3 (the main path's) the launch's device and per-call
+    time against three single launches and cuSPARSE's SpMM, with its bound
+    (and K2's floor with its column indices), and for K2 its launch on an
+    x packed beforehand (the interleaved layout, without the pack; the
+    (n, k) layout where the package predates the pack).  Runs on the
+    operators of an earlier checkout too (``profile_solves.py --only
+    kcols``)."""
+    import inspect
     import numpy as np
     import torch
     from tpusolve_torch.kernels import bdia, ell
     from tpusolve_torch.kernels.calibrate import time_ms
     from tpusolve_torch.matrix.spmv import spmv, spmv_update
+    packs = "packed" in inspect.signature(ell.ell_spmv).parameters
     rng = np.random.default_rng(seed)
     rows_out = []
     for name, M in ops.items():
@@ -3566,6 +3598,15 @@ def columns_check(ops: dict, card: str, seed: int) -> list:
         if not bits or worst > rtol:
             fail(f"{name}: the k-column form is not the single kernel's "
                  f"bits or is off its plain version ({worst:.2e})")
+        row = dict(op=name, kernel=kernel_of(M), layout=M.layout,
+                   max_rel_err=worst, max_abs_err=worst_abs,
+                   bits_equal=bits)
+        rows_out.append(row)
+        if not timed:
+            print(f"{name} {M.layout} {str(dt)[6:]} {row['kernel']}: k in "
+                  f"{COLS} each column the single kernel's bits: {bits}, "
+                  f"max rel err {worst:.2e}", flush=True)
+            continue
         k = 3
         X = rand(k, M.col_pad)
         lib, Xl = library_spmm(M, k)
@@ -3574,15 +3615,18 @@ def columns_check(ops: dict, card: str, seed: int) -> list:
                  "singles": lambda: [spmv(M, X[j]) for j in range(k)],
                  "library": lib}
         vals, cols, rowptr = M.ell_arrays if M.uses_ell else (None,) * 3
-        if M.uses_ell:
+        if M.uses_ell and packs:
+            Xp = ell.pack_columns(X)
+            calls["interleaved"] = lambda: ell.ell_spmv(
+                vals, cols, Xp, rowptr=rowptr, packed=True)
+        elif M.uses_ell:
             Xi = X.T.contiguous()
             calls["interleaved"] = lambda: ell.ell_spmv(
                 vals, cols, Xi, rowptr=rowptr, interleaved=True)
         dev = device_times(calls)
         per = {key: time_ms(fn) for key, fn in calls.items()}
         plain_ms = time_ms(lambda: plain(X))
-        row = dict(op=name, kernel=kernel_of(M), layout=M.layout, k=k,
-                   dev_ms=dev["cols"], ms=per["cols"],
+        row.update(k=k, dev_ms=dev["cols"], ms=per["cols"],
                    singles_dev_ms=dev["singles"], singles_ms=per["singles"],
                    interleaved_dev_ms=dev.get("interleaved"),
                    interleaved_ms=per.get("interleaved"),
@@ -3590,19 +3634,42 @@ def columns_check(ops: dict, card: str, seed: int) -> list:
                    plain_ms=plain_ms, bound_ms=bound_ms(
                        columns_nbytes(M, k), card),
                    single_bound_ms=bound_ms(columns_nbytes(M, 1), card),
-                   max_rel_err=worst, max_abs_err=worst_abs,
-                   bits_equal=bits)
-        rows_out.append(row)
+                   index_floor_ms=(bound_ms(columns_index_nbytes(M, k), card)
+                                   if M.uses_ell else None))
+        if M.uses_bdia_xl:
+            op = M.xl_cols_op(k)
+            row.update(steps=op.ints[9], panel=op.ints[10])
+        if M.uses_ell and packs:
+            # the pack against its plain version: the transpose; its bound
+            # reads and writes k entries a row of x
+            pack = lambda: ell.pack_columns(X)
+            plain_pack = lambda: X.T.contiguous()
+            pack_equal = torch.equal(pack(), plain_pack())
+            if not pack_equal:
+                fail(f"{name}: the pack is not the transpose of x")
+            row.update(pack_dev_ms=device_times({"pack": pack})["pack"],
+                       pack_ms=time_ms(pack), pack_plain_ms=time_ms(
+                           plain_pack), pack_bound_ms=bound_ms(
+                               2 * X.numel() * X.element_size(), card),
+                       pack_equal=pack_equal)
         print(f"{name} {M.layout} {str(dt)[6:]} {row['kernel']} {k}-column: "
               f"device {row['dev_ms']:.5f} ms, per call {row['ms']:.5f} "
               f"ms; {k} single launches device {row['singles_dev_ms']:.5f} "
-              f"ms, per call {row['singles_ms']:.5f}; interleaved (n, k) "
-              f"device {row['interleaved_dev_ms']}; cuSPARSE SpMM device "
-              f"{row['lib_dev_ms']:.5f} ms; plain {plain_ms:.5f} ms; bound "
-              f"{row['bound_ms']:.5f} ms ({k} single bounds "
-              f"{k * row['single_bound_ms']:.5f}); k in {COLS} each column "
-              f"the single kernel's bits: {bits}, max rel err {worst:.2e} "
-              f"({card})", flush=True)
+              f"ms, per call {row['singles_ms']:.5f}; "
+              + (f"interleaved ({'packed beforehand' if packs else '(n, k)'}"
+                 f") device {row['interleaved_dev_ms']}; " if M.uses_ell
+                 else f"{row['steps']} steps, panel {row['panel']}; ")
+              + f"cuSPARSE SpMM device {row['lib_dev_ms']:.5f} ms; plain "
+              f"{plain_ms:.5f} ms; bound {row['bound_ms']:.5f} ms ({k} "
+              f"single bounds {k * row['single_bound_ms']:.5f}"
+              + (f"; with the column indices {row['index_floor_ms']:.5f}"
+                 if M.uses_ell else "")
+              + (f"; the pack device {row['pack_dev_ms']:.5f} ms, per call "
+                 f"{row['pack_ms']:.5f}, plain {row['pack_plain_ms']:.5f}, "
+                 f"bound {row['pack_bound_ms']:.5f}, equal to the transpose"
+                 if "pack_ms" in row else "")
+              + f"); k in {COLS} each column the single kernel's bits: "
+              f"{bits}, max rel err {worst:.2e} ({card})", flush=True)
     return rows_out
 
 
@@ -3613,7 +3680,9 @@ def bf16_check(pre_ws, pre_g1, card: str, seed: int) -> list:
     its f32 or f64 launch on the values rounded to bf16 bit for bit (in
     f32 and in f64) and the plain version to ``RTOL``, and is timed against
     the f32 form on the same operator (no library call takes bf16 values
-    with an f32 x)."""
+    with an f32 x); K2's twin also over 3 columns (the coupled solve's
+    k-column form, each column the single bf16 launch's bits) against its
+    f32 form over 3 columns and three single bf16 launches."""
     import numpy as np
     import torch
     from tpusolve_torch.kernels import dia, ell, transfer
@@ -3669,12 +3738,32 @@ def bf16_check(pre_ws, pre_g1, card: str, seed: int) -> list:
             plain = lambda: ell._plain(vals, cols, x, None, None, None, 1.0,
                                        None, rowptr)
             kern = "K2"
-        dev = device_times({"bf16": f16, "full": f32})
+        calls = {"bf16": f16, "full": f32}
+        if kern == "K2":
+            X = torch.from_numpy(rng.standard_normal((3, T.col_pad))).to(
+                A.device, A.dtype)
+            Y = ell.ell_spmv(vals, cols, X, rowptr=rowptr)
+            torch.cuda.synchronize()
+            if not all(torch.equal(Y[j], ell.ell_spmv(
+                    vals, cols, X[j], rowptr=rowptr)) for j in range(3)):
+                fail(f"{name}: K2's 3-column form on bf16 values is not "
+                     "the single bf16 launch's bits")
+            calls.update(
+                bf16_cols=lambda: ell.ell_spmv(vals, cols, X, rowptr=rowptr),
+                full_cols=lambda: ell.ell_spmv(a_vals, a_cols, X,
+                                               rowptr=a_rowptr),
+                bf16_singles=lambda: [ell.ell_spmv(vals, cols, X[j],
+                                                   rowptr=rowptr)
+                                      for j in range(3)])
+        dev = device_times(calls)
         row = dict(op=name, kernel=kern, layout=T.layout, dev_ms=dev["bf16"],
                    ms=time_ms(f16), full_dev_ms=dev["full"],
                    full_ms=time_ms(f32), plain_ms=time_ms(plain),
                    bound_ms=bound_ms(columns_nbytes(T, 1, 2), card),
                    full_bound_ms=bound_ms(columns_nbytes(A, 1), card),
+                   cols3_dev_ms=dev.get("bf16_cols"),
+                   cols3_full_dev_ms=dev.get("full_cols"),
+                   singles3_dev_ms=dev.get("bf16_singles"),
                    max_rel_err=worst, max_abs_err=worst_abs,
                    bits_equal=bits)
         rows_out.append(row)
@@ -3684,7 +3773,12 @@ def bf16_check(pre_ws, pre_g1, card: str, seed: int) -> list:
               f"{row['plain_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms "
               f"(f32 {row['full_bound_ms']:.5f}); library none; equal to the "
               f"rounded f32 and f64 forms bit for bit: {bits}, max rel err "
-              f"{worst:.2e} ({card})", flush=True)
+              f"{worst:.2e}"
+              + (f"; 3 columns device {row['cols3_dev_ms']:.5f} ms (f32 "
+                 f"values {row['cols3_full_dev_ms']:.5f}, three single bf16 "
+                 f"launches {row['singles3_dev_ms']:.5f}), each column the "
+                 "single launch's bits" if kern == "K2" else "")
+              + f" ({card})", flush=True)
     # the fused prolongation on gate 1's level 0 -> 1 (64^3 -> 32^3)
     lev = pre_g1.levels[0]
     T, A = lev.A_relax, lev.A
@@ -4398,7 +4492,7 @@ def main(argv) -> int:
     from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
     from tpusolve_torch.kernels.bell import bell_spmv
     from tpusolve_torch.kernels.dia import dia_spmv
-    from tpusolve_torch.kernels.ell import ell_spmv
+    from tpusolve_torch.kernels.ell import ell_spmv, pack_columns
     from tpusolve_torch.kernels.transfer import (
         box_prolong, box_prolong_update, box_restrict, box_restrict_residual)
 
@@ -4430,14 +4524,14 @@ def main(argv) -> int:
 
     counters = (bdia_spmv, bdia_spmv_xl, bell_spmv, dia_spmv, box_prolong,
                 box_restrict, box_restrict_residual, box_prolong_update,
-                ell_spmv)
-    l4, rows4, k2_rows4, moved4, xl_forms4, prof4, trial4 = gate4_phase(
-        sides["--side"], device_name, counters)
+                ell_spmv, pack_columns)
+    (l4, rows4, k2_rows4, moved4, xl_forms4, prof4, trial4,
+     col_rows) = gate4_phase(sides["--side"], device_name, counters)
     phase_done("gate 4")
     # (h) the coupled solve of gate 4's three components, and K2's and
-    # K5's k-column forms on its operators
+    # K5's k-column forms on its operators (timed on gate 4's above)
     coupled = coupled_phase(COUPLED_SIDE, card, counters)
-    col_rows = columns_check(coupled.pop("ops"), card, 15)
+    coupled["columns"] = columns_check(coupled.pop("ops"), card, 15)
     phase_done("the coupled gate 4")
     # (i)-(k): the coupled solve in double on the ELL device ILU, and the
     # bfloat16 smoother twin on the weak-scaling cell and gate 1, early in
@@ -4619,7 +4713,7 @@ def main(argv) -> int:
              max_rel_err=max([worst6] + [r["rel_err"] for r in rows6_all]),
              shapes=rows6_all),
         dict(name="ell_spmv", route="cuda",
-             source="tpusolve_torch/csrc/ell_spmv.cu",
+             source="tpusolve_torch/csrc/ell_spmv.cuh",
              replaces="tpusolve/matrix/spmv.py:74", **launches("ell_spmv"),
              max_abs_err=max([worst2[1], g4_ell["k2_errs"][1]]
                              + [r["max_abs_err"] for r in rows2_all]),
@@ -4648,7 +4742,7 @@ def main(argv) -> int:
                 coupled_double=cols(coupled64["k2_by_cols"]))
     kernels += [
         form_entry("ell_spmv k-column", "ell_spmv",
-                   "tpusolve_torch/csrc/ell_spmv.cu",
+                   "tpusolve_torch/csrc/ell_spmv.cuh",
                    "tpusolve/matrix/spmv.py:74",
                    next(r for r in col_rows if r["op"] == "A"),
                    dict(launches=sum(kcol.values()), launches_by_path=kcol,
@@ -4675,7 +4769,7 @@ def main(argv) -> int:
                                           "gate1_bf16": g1b["k1_bf16"]}),
                    [bf16_rows[0]], None),
         form_entry("ell_spmv bf16", "ell_spmv",
-                   "tpusolve_torch/csrc/ell_spmv.cu",
+                   "tpusolve_torch/csrc/ell_spmv.cuh",
                    "tpusolve/matrix/spmv.py:74", bf16_rows[1],
                    dict(launches=wsb["k2_bf16"],
                         launches_by_path={"weakscale_bf16": wsb["k2_bf16"]}),
@@ -4687,11 +4781,32 @@ def main(argv) -> int:
                    dict(launches=g1b["prolong_bf16"],
                         launches_by_path={"gate1_bf16": g1b["prolong_bf16"]}),
                    [bf16_rows[2]], None)]
+    packs = {k: p.get("pack_columns", 0) for k, p in paths.items()
+             if p.get("pack_columns")}
+    if not packs.get("coupled") or not packs.get("coupled_double"):
+        fail(f"K2's k-column form packed no x on the coupled paths ({packs})")
+    pack_rows = [r for r in col_rows if "pack_ms" in r]
+    prow = next(r for r in pack_rows if r["op"] == "A_lo")
+    kernels.append(dict(
+        name="ell_pack", form_of="ell_spmv", route="cuda",
+        source="tpusolve_torch/csrc/ell_spmv.cuh",
+        replaces="tpusolve/matrix/spmv.py:74 (the x gather of "
+                 "ell_spmv_local, batched by tpusolve/harness/system.py:476)",
+        launches=sum(packs.values()), launches_by_path=packs,
+        max_abs_err=0.0, max_rel_err=0.0, ms=prow["pack_ms"],
+        device_ms=prow["pack_dev_ms"], plain_ms=prow["pack_plain_ms"],
+        bound_ms=prow["pack_bound_ms"], bound_by="bytes",
+        # torch's transpose copy computes the same function (it is the
+        # plain version too)
+        library_ms=prow["pack_plain_ms"],
+        shape=prow["op"], shapes=[{k: r[k] for k in (
+            "op", "pack_dev_ms", "pack_ms", "pack_plain_ms", "pack_bound_ms",
+            "pack_equal")} for r in pack_rows]))
     offd_rows = g4p["offd_rows"] + g1p["offd_rows"] + g3p["offd_rows"]
     offd = {k: p["ell_spmv offd"] for k, p in paths.items()
             if p.get("ell_spmv offd")}
     kernels.append(form_entry(
-        "ell_spmv offd", "ell_spmv", "tpusolve_torch/csrc/ell_spmv.cu",
+        "ell_spmv offd", "ell_spmv", "tpusolve_torch/csrc/ell_spmv.cuh",
         "tpusolve/matrix/spmv.py:133", offd_rows[0],
         dict(launches=sum(offd.values()), launches_by_path=offd),
         offd_rows + [dict(r, max_rel_err=r["rel_err"]) for r in mp_rows

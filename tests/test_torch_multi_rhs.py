@@ -7,13 +7,17 @@ K5 equal the single plain forms per column bit for bit, and so do
 ``spmv``, ``spmv_update`` and ``ilu_apply`` on a batch, on every layout,
 past ``MAX_COLS`` columns too, and one V-cycle of the structured and the
 algebraic hierarchy.  K5's k-column step plans fit a block: at most
-``xl_step_rows`` rows a step, and its shared memory.
+``xl_step_rows`` rows a step, and its shared memory; the cover its steps
+stage (``kernels/bdia.py:step_cover``) is the union of each step's
+windows, packed as its tables say, and the plain version read through it
+gives the span panels' bits.  K2's packed batch (``pack_columns``) is its
+definition, and the plain version on it the batch's bits.
 On a card (marked ``cuda``; no JAX, no conftest fixture) each column of a
 k-column launch of K2 and K5, k in {1, 3, 8}, equals the single-vector
 kernel on that column by ``torch.equal`` and the plain version to 1e-5
 (f32) and 1e-12 (f64) relative (the plain version sums in another order);
-the interleaved (n, k) layout of K2 gives the same bits; a batch through
-``spmv`` is one launch.
+K2 on an x packed beforehand gives the same bits, and so do its bf16
+values over k columns; a batch through ``spmv`` is one launch.
 """
 
 import numpy as np
@@ -166,6 +170,179 @@ def test_k5_column_plans_fit(monkeypatch, itemsize, k):
                               k) <= runtime.SMEM_PER_BLOCK
 
 
+def _far_band(monkeypatch):
+    """A BDIA layout (one part, 32 blocks of 128 rows) whose windows lie in
+    three bands (near the diagonal, 1,000 and 2,000 below it, the last
+    with a ragged start), so that a step's cover is several segments;
+    random values, a third of the 32-row segments zero, and an overflow
+    list of a few entries; K2 priced out, as for the factors."""
+    from test_torch_sharded import k2_priced_out
+    from tpusolve_torch.matrix.sharded import ShardedMatrix
+    k2_priced_out(monkeypatch)
+    rng = np.random.default_rng(7)
+    n, R = 32 * 128, 128
+    rows, cols = [], []
+    for d in (0, -1, 1, -2, 2, -1000, -1001, -2003, -2004):
+        r = np.arange(max(0, -d), min(n, n - d))
+        rows.append(r)
+        cols.append(r + d)
+    rows.append(np.arange(0, n, 97))
+    cols.append((np.arange(0, n, 97) * 7) % n)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = rng.standard_normal(rows.size)
+    vals[(rows // 32) % 3 == 0] = 0.0
+    A = ShardedMatrix.from_coo((n, n), rows, cols, vals, device=CPU,
+                               dtype=np.float64, allow_dia=False,
+                               allow_bell=False)
+    assert A.uses_bdia and A.bdia_block == R, A.layout
+    return A
+
+
+def _cover_case(monkeypatch, k, op="L"):
+    """(operator, its k-column step plan, the plan's cover tables): the
+    momentum factor L, or :func:`_far_band`."""
+    from tpusolve_torch.matrix import sharded
+    L = _port_factors("xl", monkeypatch)[0] if op == "L" else \
+        _far_band(monkeypatch)
+    _, B, D, R = L.bdia_vals.shape
+    starts = L.bdia_starts.numpy()
+    xl = sharded.plan_xl(starts, R, L.bdia_xpad, 8, L.bdia_nbytes,
+                         L.bdia_live, L.xl_work(), cols=k)
+    return L, xl, bdia.step_cover(starts, R, L.bdia_xpad, xl[3])
+
+
+@pytest.mark.parametrize("op", ["L", "far band"])
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_k5_step_cover_is_the_windows_union(monkeypatch, k, op):
+    """Each step's segments are its windows' union, widened to
+    ``XL_ALIGN`` and merged across gaps under ``XL_COVER_GAP``: disjoint,
+    in order, aligned and packed from panel entry 0; every window reads
+    its own x entries at its ``xoff``; the plan's panel is the most a step
+    stages."""
+    L, xl, (seg_ptr, segs, xoff, cover) = _cover_case(monkeypatch, k, op)
+    _, B, D, R = L.bdia_vals.shape
+    assert op == "L" or np.diff(seg_ptr).max() > 1
+    s = L.bdia_starts.numpy()[0].astype(np.int64) - L.bdia_xpad
+    step_b0 = xl[3][0]
+    A = bdia.XL_ALIGN
+    assert xl[2] == cover and cover % A == 0
+    assert seg_ptr[0] == 0 and seg_ptr[-1] == segs.shape[0]
+    for i in range(step_b0.size - 1):
+        mine = segs[seg_ptr[i]:seg_ptr[i + 1]].astype(np.int64)
+        blocks = range(step_b0[i], step_b0[i + 1])
+        if not len(blocks):
+            assert mine.size == 0
+            continue
+        lo, length, off = mine.T
+        assert (lo % A == 0).all() and (length % A == 0).all()
+        assert (off == np.concatenate([[0], np.cumsum(length)[:-1]])).all()
+        assert (lo[1:] > lo[:-1] + length[:-1] + bdia.XL_COVER_GAP).all()
+        assert length.sum() <= cover
+        # the union of the step's aligned windows, as a set of entries
+        want = set()
+        for b in blocks:
+            for d in range(D):
+                want.update(range(s[b, d] // A * A, -(-(s[b, d] + R) // A)
+                                  * A))
+        got = set()
+        for g0, n in zip(lo, length):
+            got.update(range(g0, g0 + n))
+        assert want <= got
+        # entries the gaps add lie between windows, never past the ends
+        assert min(got) == min(want) and max(got) == max(want)
+        # panel entry -> x entry, and each window at its offset
+        entry = np.concatenate([np.arange(g0, g0 + n) for g0, n in
+                                zip(lo, length)])
+        for b in blocks:
+            for d in range(D):
+                q = xoff[0, b, d]
+                assert (entry[q:q + R] == s[b, d] + np.arange(R)).all()
+
+
+@pytest.mark.parametrize("op", ["L", "far band"])
+def test_k5_cover_overflow_is_its_definition(monkeypatch, op):
+    """Each overflow entry's code for the k-column launch: the offset in
+    its step's staged panel of its column, exactly where a segment of that
+    step holds the column, else -(column + 1)."""
+    L, xl, (seg_ptr, segs, xoff, cover) = _cover_case(monkeypatch, 3, op)
+    ptr, cols, _ = (t.numpy() for t in L.bdia_ovf)
+    step_b0, R = xl[3][0], L.bdia_block
+    code = bdia.cover_overflow(ptr, cols, R, xl[3], seg_ptr, segs)
+    assert code.shape == cols.shape and code.dtype == np.int32
+    n = int(ptr[0, -1])
+    held = 0
+    for i in range(ptr.shape[1] - 1):
+        st = np.searchsorted(step_b0, i // R, side="right") - 1
+        mine = segs[seg_ptr[st]:seg_ptr[st + 1]].astype(np.int64)
+        for j in range(ptr[0, i], ptr[0, i + 1]):
+            g = int(cols[0, j])
+            hit = [o + g - g0 for g0, ln, o in mine if g0 <= g < g0 + ln]
+            want = hit[0] if hit else -(g + 1)
+            assert code[0, j] == want, (i, j)
+            held += bool(hit)
+    assert (code[0, n:] == -(cols[0, n:].astype(np.int64) + 1)).all()
+    assert held > 0 and (op == "L" or held < n)
+
+
+@pytest.mark.parametrize("op", ["L", "far band"])
+@pytest.mark.parametrize("form", ["Ax", "jacobi"])
+def test_k5_plain_through_cover_is_span_bits(monkeypatch, gen, form, op):
+    """The plain version reading its windows from the staged cover panels
+    (``cover_panels``) gives the span panels' bits, in both update
+    forms."""
+    L, xl, (seg_ptr, segs, xoff, cover) = _cover_case(monkeypatch, 3, op)
+    gb, step_lo, panel, step_b0, _ = xl[:5]
+    x, kw = vectors(gen, 1, L.col_pad, L.row_pad, np.float64, CPU, form)
+    kw = column(kw, 0)
+    args = (L.bdia_vals, L.bdia_starts, x[0], L.bdia_xpad, L.row_pad, gb)
+    # the span panels of the same steps: from each step's lowest window
+    blocks = np.arange(L.bdia_vals.shape[1])
+    step = np.searchsorted(step_b0[0], blocks, side="right") - 1
+    off = (L.bdia_starts.numpy()[0] - L.bdia_xpad
+           - step_lo[0, step][:, None])
+    span = -(-(int(off.max()) + L.bdia_block) // bdia.XL_ALIGN) \
+        * bdia.XL_ALIGN
+    assert off.min() >= 0 and cover <= span
+    assert op == "L" or cover < span
+    want = bdia.bdia_spmv_xl_plain(
+        *args, torch.from_numpy(step_lo), span, L.bdia_ovf,
+        mask=L.bdia_mask, step_b0=torch.from_numpy(step_b0), **kw)
+    got = bdia.bdia_spmv_xl_plain(
+        *args, torch.from_numpy(step_lo), panel, L.bdia_ovf,
+        mask=L.bdia_mask, step_b0=torch.from_numpy(step_b0), **kw,
+        cover=tuple(torch.from_numpy(t) for t in (seg_ptr, segs, xoff)))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", range(2, MAX_COLS + 1))
+def test_k2_pack_columns_is_its_definition(gen, dtype, k):
+    x = torch.from_numpy(gen.standard_normal((k, 37)).astype(dtype))
+    xp = ell.pack_columns(x)
+    want = np.empty((37, k), dtype)
+    for i in range(37):
+        for j in range(k):
+            want[i, j] = x[j, i]
+    assert xp.is_contiguous() and (xp.numpy() == want).all()
+
+
+@pytest.mark.parametrize("storage", ["padded", "rowptr"])
+@pytest.mark.parametrize("form", ["Ax", "jacobi", "prolongation"])
+def test_k2_plain_packed_is_the_batch(gen, storage, form):
+    vals, cols = ragged_ell(gen, 50, 40, 9, np.float32)
+    v, c = torch.from_numpy(vals), torch.from_numpy(cols)
+    rowptr = None
+    if storage == "rowptr":
+        rowptr, v, c = ell.padded_to_rowptr(v, c)
+    x, kw = vectors(gen, 3, 40, 50, np.float32, CPU, form)
+    want = ell_spmv(v, c, x, rowptr=rowptr,
+                    **{n: (t.clone() if torch.is_tensor(t) else t)
+                       for n, t in kw.items()})
+    got = ell_spmv(v, c, ell.pack_columns(x), rowptr=rowptr, packed=True,
+                   **kw)
+    assert torch.equal(got, want)
+
+
 # ----------------------------------------------------------------------
 # on the card
 
@@ -195,14 +372,16 @@ def test_k2_columns_bit_for_bit_on_cuda(cuda, dtype, storage, k):
         for form in FORMS:
             x, kw = vectors(rng, k, ncols, rows, dtype, cuda, form)
             for g in ell.GROUPS:
-                y = ell_spmv(v, c, x, rowptr=rowptr, groups=g, **kw)
-                inter = ell_spmv(
-                    v, c, x.T.contiguous(), rowptr=rowptr, groups=g,
-                    interleaved=True,
-                    **{n: (t.T.contiguous() if torch.is_tensor(t)
-                           and t.dim() == 2 else t) for n, t in kw.items()})
-                torch.cuda.synchronize()
-                assert torch.equal(inter.T, y), (K, form, g)
+                y = ell_spmv(v, c, x, rowptr=rowptr, groups=g,
+                             **{n: (t.clone() if torch.is_tensor(t) else t)
+                                for n, t in kw.items()})
+                if k > 1:
+                    packed = ell_spmv(v, c, ell.pack_columns(x),
+                                      rowptr=rowptr, groups=g, packed=True,
+                                      **{n: (t.clone() if torch.is_tensor(t)
+                                             else t) for n, t in kw.items()})
+                    torch.cuda.synchronize()
+                    assert torch.equal(packed, y), (K, form, g)
                 for j in range(k):
                     one = ell_spmv(v, c, x[j], rowptr=rowptr, groups=g,
                                    **column(kw, j))
@@ -212,6 +391,29 @@ def test_k2_columns_bit_for_bit_on_cuda(cuda, dtype, storage, k):
                 for n in ("b", "s", "c")), kw.get("w", 1.0), None,
                 None if rowptr is None else rowptr.cpu())
             assert rel(y.cpu(), want) <= RTOL[y.dtype], (K, form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("storage", ["padded", "rowptr"])
+@pytest.mark.parametrize("k", [3, 8])
+def test_k2_bf16_columns_bit_for_bit_on_cuda(cuda, dtype, storage, k):
+    """bf16 values (the smoother twin) over k columns: each column the
+    single bf16 launch's bits."""
+    rng = np.random.default_rng(33)
+    vals, cols = ragged_ell(rng, 3000, 2500, 27, dtype)
+    v = torch.from_numpy(vals).to(cuda).to(torch.bfloat16)
+    c = torch.from_numpy(cols).to(cuda)
+    rowptr = None
+    if storage == "rowptr":
+        rowptr, v, c = ell.padded_to_rowptr(v, c)
+    for form in ("Ax", "jacobi"):
+        x, kw = vectors(rng, k, 2500, 3000, dtype, cuda, form)
+        y = ell_spmv(v, c, x, rowptr=rowptr, **kw)
+        torch.cuda.synchronize()
+        for j in range(k):
+            assert torch.equal(y[j], ell_spmv(v, c, x[j], rowptr=rowptr,
+                                              **column(kw, j))), (form, j)
 
 
 @pytest.mark.cuda

@@ -81,15 +81,28 @@
 // kernel): the values, the window offsets, the mask and the overflow are
 // read once for all columns, and each thread keeps KC sums a row.  To keep
 // those in registers a k-column block has at most kColThreads threads and
-// two blocks an SM, one pass of kRows rows each for KC >= 3 (f64: two
-// passes at KC = 2), so its steps hold fewer rows (kernels/bdia.py:
-// xl_step_rows; the host plans them anew for k).  It stages no x panel:
-// on gate 4's factors a panel spans the band (about 27,000 entries) around
-// a step's 2,048 rows, so k panels neither fit a block's shared memory nor
-// pay for their copies (the first design, k panels as far as they fit,
-// took 0.40 ms for three columns of L where three single launches take
-// 0.10; PERF.md); the columns read x through the read-only path, where
-// neighbouring slots' windows share L1 lines.  Every column sums its slots
+// kMaxThreads / kColThreads blocks an SM, one pass of kRows rows each for
+// KC >= 3 (f64: two passes at KC = 2), so its steps hold fewer rows
+// (kernels/bdia.py: xl_step_rows; the host plans them anew for k).  k
+// panels of a step's span do not fit: on gate 4's factors a span is about
+// 17,000 entries around a step's 2,048 rows, and the first design (k span
+// panels as far as they fit) took 0.40 ms for three columns of L where
+// three single launches take 0.10 (PERF.md).  The span is mostly
+// the gaps between the band's three clusters of windows: a step's windows
+// cover about 4,000 entries.  So each column stages only that cover: the
+// host merges a step's windows into a few segments of x (kernels/bdia.py:
+// step_cover, cov: 2.7 a step on gate 4's factors), packed one after
+// another into the column's panel, and gives each window its offset there
+// (cov.xoff, in place of its start) and each overflow entry its offset or,
+// where no segment holds its column, -(column + 1) (cover_overflow, in
+// place of the list's columns).  Thread 0 copies every segment of every
+// column by TMA bulk copies on the panel's mbarrier, the threads the
+// entries outside [0, col_pad) and x's unaligned tail, and the first
+// slots' values load during the copies, as in the single form.  Without a
+// panel, the columns had read x through the read-only path: 0.072 ms for
+// three columns of gate 4's L at 96^3, 0.046 with the cover (512 threads a
+// block; 256 and 1,024 timed 0.062 and 0.048, and the overflow's x read
+// from x 0.049; calibrate --kcols, PERF.md).  Every column sums its slots
 // in slot order and its overflow entries in list order, one multiply-add
 // each, exactly as the single form: column j of a launch is the
 // single-vector kernel on column j bit for bit.  The columns of x are xs_c
@@ -116,16 +129,21 @@ constexpr int kAccRows = 8;          // kernels/bdia.py: XL_ACC_ROWS
 constexpr int kPreSlots = 4;         // slots loaded before the panel's wait
 constexpr int kMaxDevices = 64;
 constexpr int kMaxCols = 8;          // kernels/bdia.py: XL_MAX_COLS
-constexpr int kColThreads = 512;     // kernels/bdia.py: XL_COL_THREADS
+// the k-column form's threads a block (kernels/bdia.py: XL_COL_THREADS; a
+// build flag that kernels/calibrate.py --kcols sets to compare others)
+#ifndef TPUSOLVE_XL_COL_THREADS
+#define TPUSOLVE_XL_COL_THREADS 512
+#endif
+constexpr int kColThreads = TPUSOLVE_XL_COL_THREADS;
 
-// threads a block at most, blocks an SM must hold (so registers a thread),
-// and passes of kRows rows a thread, of the KC-column kernel on values of
-// `bytes` bytes
+// threads a block at most, blocks an SM must hold (so registers a thread:
+// those of kMaxThreads threads in either form), and passes of kRows rows a
+// thread, of the KC-column kernel on values of `bytes` bytes
 __host__ __device__ constexpr int max_threads(int KC) {
   return KC == 1 ? kMaxThreads : kColThreads;
 }
 __host__ __device__ constexpr int min_blocks(int KC) {
-  return KC == 1 ? 1 : 2;
+  return KC == 1 ? 1 : kMaxThreads / kColThreads;
 }
 __host__ __device__ constexpr int passes(int KC, int bytes) {
   return KC == 1 ? kAccRows / (kRowBytes / bytes)
@@ -224,6 +242,16 @@ __device__ __forceinline__ void stage_overflow(const int32_t* oc, const T* ov,
   }
 }
 
+// The step's cover, as a k-column launch stages it (kernels/bdia.py:
+// step_cover): segments [seg_ptr[i], seg_ptr[i + 1]) of segs, rows of
+// (x_lo, length, panel offset), for step i = part * nsteps + step; and
+// each (block, slot) window's offset in its step's panel
+struct Cover {
+  const int32_t* seg_ptr;
+  const int32_t* segs;
+  const int32_t* xoff;
+};
+
 template <typename T, int KC>
 __global__ void __launch_bounds__(max_threads(KC), min_blocks(KC))
 bdia_spmv_xl_kernel(const T* __restrict__ vals,
@@ -235,22 +263,20 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
                     const int32_t* __restrict__ ovf_cols,
                     const T* __restrict__ ovf_vals,
                     const uint8_t* __restrict__ mask,
-                    Update<T> upd, T* y,
+                    const Cover cov, Update<T> upd, T* y,
                     int nblocks, int nslots, int block_rows, int row_pad,
                     int col_pad, int xpad_lo, int ovf_len, int gb, int nsteps,
                     int panel, int mask_bytes, int stage, int64_t xs_c,
                     int64_t ys_c) {
   constexpr int kRows = kRowBytes / sizeof(T);   // rows per thread and pass
   constexpr int kPasses = passes(KC, (int)sizeof(T));
-  constexpr bool kPanel = KC == 1;   // one column stages its x panel
-  constexpr int np = kPanel ? 1 : 0;
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);   // panel, overflow
   T* s_x = reinterpret_cast<T*>(smem + kBarrierBytes);
   int32_t* s_off = reinterpret_cast<int32_t*>(
-      smem + kBarrierBytes + (size_t)np * panel * sizeof(T));
+      smem + kBarrierBytes + (size_t)KC * panel * sizeof(T));
   uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_off + gb * nslots);
-  const size_t fixed = kBarrierBytes + (size_t)np * panel * sizeof(T)
+  const size_t fixed = kBarrierBytes + (size_t)KC * panel * sizeof(T)
                        + (size_t)gb * nslots * (4 + mask_bytes);
   int32_t* s_oc = reinterpret_cast<int32_t*>(smem + (fixed + 15) / 16 * 16);
   T* s_ov = reinterpret_cast<T*>(s_oc + stage);
@@ -268,15 +294,45 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
   const int row_end = min(row_first + nrows, row_pad);
 
   // the part of each staged panel the bulk copies move: whole 16-byte
-  // units of x, where every staged column's base is 16-byte aligned
-  const int c_lo = max(lo, 0);
-  const int c_hi = min(lo + panel, col_pad - col_pad % kAlign);
+  // units of x, where every staged column's base is 16-byte aligned.  One
+  // column's panel is [lo, lo + panel) of x; a k-column launch's are its
+  // step's cover segments, packed (cov)
+  const int pad4 = col_pad - col_pad % kAlign;
   bool aligned = true;
-  for (int c = 0; c < np; ++c) {
+  for (int c = 0; c < KC; ++c) {
     aligned = aligned
         && (reinterpret_cast<uintptr_t>(xp + c * xs_c) % 16) == 0;
   }
-  const bool bulk = np > 0 && c_hi > c_lo && aligned;
+  const int c_lo = max(lo, 0);
+  const int c_hi = min(lo + panel, pad4);
+  const int64_t sc = (int64_t)p * nsteps + step;
+  const int cov0 = KC > 1 ? __ldg(cov.seg_ptr + sc) : 0;
+  const int cov1 = KC > 1 ? __ldg(cov.seg_ptr + sc + 1) : 0;
+  // segment q's x range [g_lo, g_hi), its panel offset, and the part
+  // [b_lo, b_hi) the bulk copies move (empty at g_hi: the threads' all)
+  auto segment = [&](int q, int& g_lo, int& g_hi, int& off, int& b_lo,
+                     int& b_hi) {
+    const int32_t* sg = cov.segs + 3 * (int64_t)q;
+    g_lo = __ldg(sg);
+    g_hi = g_lo + __ldg(sg + 1);
+    off = __ldg(sg + 2);
+    b_lo = max(g_lo, 0);
+    b_hi = min(g_hi, pad4);
+    if (!aligned || b_hi <= b_lo) {
+      b_lo = b_hi = g_hi;
+    }
+  };
+  uint32_t bulk_bytes = 0;   // one column's
+  if constexpr (KC == 1) {
+    bulk_bytes = aligned && c_hi > c_lo ? (c_hi - c_lo) * sizeof(T) : 0;
+  } else {
+    for (int q = cov0; q < cov1; ++q) {
+      int g_lo, g_hi, off, b_lo, b_hi;
+      segment(q, g_lo, g_hi, off, b_lo, b_hi);
+      bulk_bytes += (uint32_t)(b_hi - b_lo) * sizeof(T);
+    }
+  }
+  const bool bulk = bulk_bytes > 0;
   // the step's overflow span, its start rounded down to a 16-byte unit
   const int32_t* pp = ovf_ptr + (int64_t)p * (row_pad + 1);
   const int32_t* oc = ovf_cols + (int64_t)p * ovf_len;
@@ -293,11 +349,23 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
   }
   __syncthreads();
   if (bulk && threadIdx.x == 0) {
-    const uint32_t bytes = (uint32_t)(c_hi - c_lo) * sizeof(T);
-    mbar_expect_tx(bar_x, bytes * (uint32_t)np);
-    for (int c = 0; c < np; ++c) {
-      bulk_copy_g2s(smem_u32(s_x + (size_t)c * panel + (c_lo - lo)),
-                    xp + c * xs_c + c_lo, bytes, bar_x);
+    mbar_expect_tx(bar_x, bulk_bytes * (uint32_t)KC);
+    if constexpr (KC == 1) {
+      bulk_copy_g2s(smem_u32(s_x + (c_lo - lo)), xp + c_lo, bulk_bytes,
+                    bar_x);
+    } else {
+      for (int q = cov0; q < cov1; ++q) {
+        int g_lo, g_hi, off, b_lo, b_hi;
+        segment(q, g_lo, g_hi, off, b_lo, b_hi);
+        if (b_hi > b_lo) {
+          for (int c = 0; c < KC; ++c) {
+            bulk_copy_g2s(
+                smem_u32(s_x + (size_t)c * panel + off + (b_lo - g_lo)),
+                xp + c * xs_c + b_lo, (uint32_t)(b_hi - b_lo) * sizeof(T),
+                bar_x);
+          }
+        }
+      }
     }
   }
   if (e_lo < e_hi) {   // the first chunk of the overflow, during the slots
@@ -306,43 +374,50 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
   }
   // the threads: window offsets, mask rows, and the panels outside the copy
   const int64_t blk0 = (int64_t)p * nblocks + b0;
-  const int32_t* st = starts + blk0 * nslots;
-  for (int i = threadIdx.x; i < nb * nslots; i += blockDim.x) {
-    s_off[i] = st[i] - xpad_lo - lo;
+  if constexpr (KC == 1) {
+    const int32_t* st = starts + blk0 * nslots;
+    for (int i = threadIdx.x; i < nb * nslots; i += blockDim.x) {
+      s_off[i] = st[i] - xpad_lo - lo;
+    }
+  } else {
+    const int32_t* st = cov.xoff + blk0 * nslots;
+    for (int i = threadIdx.x; i < nb * nslots; i += blockDim.x) {
+      s_off[i] = st[i];
+    }
   }
   const uint8_t* mk = mask + blk0 * nslots * mask_bytes;
   for (int i = threadIdx.x; i < nb * nslots * mask_bytes; i += blockDim.x) {
     s_mask[i] = mk[i];
   }
-  // panel entries [copy_lo, copy_hi) are the bulk copies', the rest ours
-  const int copy_lo = bulk ? c_lo - lo : panel;
-  const int copy_hi = bulk ? c_hi - lo : panel;
-  for (int c = 0; c < np; ++c) {
+  // the x entries [g_lo, g_hi) of column c at panel entry off: ours
+  // where no bulk copy moves them, 0 outside [0, col_pad)
+  auto fill = [&](int c, int g_lo, int g_hi, int off) {
     const T* xc = xp + c * xs_c;
-    T* sc = s_x + (size_t)c * panel;
-    for (int i = threadIdx.x; i < copy_lo; i += blockDim.x) {
-      const int g = lo + i;
-      sc[i] = (g >= 0 && g < col_pad) ? xc[g] : T(0);
+    T* sx = s_x + (size_t)c * panel + off;
+    for (int g = g_lo + (int)threadIdx.x; g < g_hi; g += blockDim.x) {
+      sx[g - g_lo] = (g >= 0 && g < col_pad) ? xc[g] : T(0);
     }
-    for (int i = copy_hi + threadIdx.x; i < panel; i += blockDim.x) {
-      const int g = lo + i;
-      sc[i] = (g >= 0 && g < col_pad) ? xc[g] : T(0);
+  };
+  if constexpr (KC == 1) {
+    // panel entries [copy_lo, copy_hi) are the bulk copy's, the rest ours
+    const int copy_lo = bulk ? c_lo - lo : panel;
+    const int copy_hi = bulk ? c_hi - lo : panel;
+    fill(0, lo, lo + copy_lo, 0);
+    fill(0, lo + copy_hi, lo + panel, copy_hi);
+  } else {
+    for (int q = cov0; q < cov1; ++q) {
+      int g_lo, g_hi, off, b_lo, b_hi;
+      segment(q, g_lo, g_hi, off, b_lo, b_hi);
+      for (int c = 0; c < KC; ++c) {
+        fill(c, g_lo, b_lo, off);
+        fill(c, b_hi, g_hi, off + (b_hi - g_lo));
+      }
     }
   }
   __syncthreads();
 
-  // x of column c at panel index q (column g = lo + q of the part): from
-  // the staged panel (one column), else through the read-only path (0
-  // outside [0, col_pad))
-  auto xq = [&](int c, int q) -> T {
-    if constexpr (kPanel) {
-      return s_x[q];
-    } else {
-      const int g = lo + q;
-      return (unsigned)g < (unsigned)col_pad ? __ldg(xp + c * xs_c + g)
-                                             : T(0);
-    }
-  };
+  // x of column c at panel entry q, from the staged panels
+  auto xq = [&](int c, int q) -> T { return s_x[(size_t)c * panel + q]; };
 
   // Slots.  Pass ps: warp w owns the 32 * kRows rows from (w + ps * warps)
   // * 32 * kRows of the step, one R-row block's (R is a multiple of 128),
@@ -377,7 +452,7 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
       return (unsigned)mrow[d * mask_bytes] >> mshift;
     };
     int d = 0;
-    if (kPanel && ps == 0) {
+    if (ps == 0) {
       // the first slots' values, loaded while the panel is on its way
       T pre[kPreSlots][kRows];
 #pragma unroll
@@ -462,11 +537,17 @@ bdia_spmv_xl_kernel(const T* __restrict__ vals,
           for (int e = max(eb[ps][j], c0); e < q1; ++e) {
             const T ve = s_ov[e - c0];
             const int g = s_oc[e - c0];
-            const int q = g - lo;
-            const bool in = q >= 0 && q < panel;
+            // one column's panel spans x around the step: the entry is
+            // there but for a column far off the band.  A k-column
+            // launch's list holds the entry's panel offset where its
+            // step's cover holds it, else -(column + 1)
+            // (kernels/bdia.py: cover_overflow)
+            const int q = KC == 1 ? g - lo : g;
+            const bool in = q >= 0 && (KC > 1 || q < panel);
+            const int gx = KC == 1 ? g : -g - 1;
 #pragma unroll
             for (int c = 0; c < KC; ++c) {
-              const T xe = in ? xq(c, q) : __ldg(xp + c * xs_c + g);
+              const T xe = in ? xq(c, q) : __ldg(xp + c * xs_c + gx);
               acc[c][ps][j] += ve * xe;
             }
           }
@@ -495,7 +576,8 @@ template <typename T, int KC>
 int launch_k(const void* vals, const void* starts, const void* step_lo,
              const void* step_b0, const void* x, const void* ovf_ptr,
              const void* ovf_cols, const void* ovf_vals, const void* mask,
-             const Update<T>& upd, void* y, int nparts, int nblocks,
+             const Cover& cov, const Update<T>& upd, void* y, int nparts,
+             int nblocks,
              int nslots, int block_rows, int row_pad, int col_pad,
              int xpad_lo, int ovf_len, int gb, int nsteps, int panel,
              int stage, int64_t xs_c, int64_t ys_c,
@@ -507,12 +589,13 @@ int launch_k(const void* vals, const void* starts, const void* step_lo,
   if (block_rows % (kSegRows * kRows)
       || gb * block_rows > threads * kRows * kPasses
       || stage % 4 || (ovf_ptr != nullptr && stage < 4) || step_b0 == nullptr
-      || mask == nullptr) {
+      || mask == nullptr || panel % kAlign
+      || (KC > 1 && (cov.seg_ptr == nullptr || cov.segs == nullptr
+                     || cov.xoff == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const int mask_bytes = (block_rows / kSegRows + 7) / 8;
-  constexpr int kPanels = KC == 1 ? 1 : 0;   // one column stages x
-  const size_t fixed = kBarrierBytes + (size_t)kPanels * panel * sizeof(T)
+  const size_t fixed = kBarrierBytes + (size_t)KC * panel * sizeof(T)
                        + (size_t)gb * nslots * (sizeof(int32_t) + mask_bytes);
   const size_t smem = (fixed + 15) / 16 * 16
                       + (size_t)stage * (sizeof(int32_t) + sizeof(T));
@@ -539,7 +622,7 @@ int launch_k(const void* vals, const void* starts, const void* step_lo,
       (const T*)vals, (const int32_t*)starts, (const int32_t*)step_lo,
       (const int32_t*)step_b0, (const T*)x, (const int32_t*)ovf_ptr,
       (const int32_t*)ovf_cols, (const T*)ovf_vals, (const uint8_t*)mask,
-      upd, (T*)y, nblocks, nslots, block_rows, row_pad, col_pad, xpad_lo,
+      cov, upd, (T*)y, nblocks, nslots, block_rows, row_pad, col_pad, xpad_lo,
       ovf_len, gb, nsteps, panel, mask_bytes, stage, xs_c, ys_c);
   return (int)cudaGetLastError();
 }
@@ -548,16 +631,19 @@ template <typename T>
 int launch(const void* vals, const void* starts, const void* step_lo,
            const void* step_b0, const void* x, const void* ovf_ptr,
            const void* ovf_cols, const void* ovf_vals, const void* mask,
+           const void* seg_ptr, const void* segs, const void* xoff,
            const void* b, const void* s, const void* c, void* y, double w,
            int nparts, int nblocks, int nslots, int block_rows, int row_pad,
            int col_pad, int xpad_lo, int ovf_len, int gb, int nsteps,
            int panel, int stage, int ncols, int64_t xs_c,
            int64_t ys_c, void* stream) {
   const Update<T> upd{(const T*)b, (const T*)s, (const T*)c, (T)w};
+  const Cover cov{(const int32_t*)seg_ptr, (const int32_t*)segs,
+                  (const int32_t*)xoff};
 #define XL_COLS(KC_)                                                        \
   case KC_:                                                                 \
     return launch_k<T, KC_>(vals, starts, step_lo, step_b0, x, ovf_ptr,     \
-                            ovf_cols, ovf_vals, mask, upd, y, nparts,       \
+                            ovf_cols, ovf_vals, mask, cov, upd, y, nparts,  \
                             nblocks, nslots, block_rows, row_pad, col_pad,  \
                             xpad_lo, ovf_len, gb, nsteps, panel, stage,     \
                             xs_c, ys_c, stream);
@@ -580,19 +666,23 @@ int launch(const void* vals, const void* starts, const void* step_lo,
 
 extern "C" {
 
-// ncols: the columns k (1 to 8); column j of x at x + j * xs_c, of y, b, c at j * ys_c (s one
-// vector for all columns); the rest as K4's arguments and the step plan
+// ncols: the columns k (1 to 8); column j of x at x + j * xs_c, of y, b,
+// c at j * ys_c (s one vector for all columns); seg_ptr, segs, xoff: the
+// steps' cover for k > 1 (null for one column); the rest as K4's arguments
+// and the step plan
 #define XL_ENTRY(NAME, T)                                                    \
   int NAME(const void* vals, const void* starts, const void* step_lo,       \
            const void* step_b0, const void* x, const void* ovf_ptr,         \
            const void* ovf_cols, const void* ovf_vals, const void* mask,    \
+           const void* seg_ptr, const void* segs, const void* xoff,         \
            const void* b, const void* s, const void* c, void* y, double w,  \
            int nparts, int nblocks, int nslots, int block_rows,             \
            int row_pad, int col_pad, int xpad_lo, int ovf_len, int gb,      \
            int nsteps, int panel, int stage, int ncols, int64_t xs_c,       \
            int64_t ys_c, void* stream) {                                    \
     return launch<T>(vals, starts, step_lo, step_b0, x, ovf_ptr, ovf_cols,  \
-                     ovf_vals, mask, b, s, c, y, w, nparts, nblocks, nslots, \
+                     ovf_vals, mask, seg_ptr, segs, xoff, b, s, c, y, w,    \
+                     nparts, nblocks, nslots,                               \
                      block_rows, row_pad, col_pad, xpad_lo, ovf_len, gb,    \
                      nsteps, panel, stage, ncols, xs_c, ys_c, stream);      \
   }

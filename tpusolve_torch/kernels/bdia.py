@@ -89,9 +89,12 @@ SEG_ROWS = 32
 XL_ACC_ROWS = 8
 # the k-column form (csrc/bdia_spmv_xl.cu: kMaxCols, kColThreads): at most
 # XL_MAX_COLS columns a launch, and XL_COL_THREADS threads a block for k > 1
-# (xl_passes, xl_step_rows), which stage no x panel
+# (xl_passes, xl_step_rows), which stage the x entries a step's windows
+# cover (step_cover), windows closer than XL_COVER_GAP entries in one
+# segment
 XL_MAX_COLS = 8
 XL_COL_THREADS = 512
+XL_COVER_GAP = 64
 XL_STAGE_MAX = 16384
 XL_STAGE_MIN = 256
 # the weight of an overflow byte against a value byte when plan_steps
@@ -262,10 +265,12 @@ def mask_bytes(R: int) -> int:
 def xl_smem_bytes(panel: int, gb: int, D: int, itemsize: int,
                   R: int = 128, stage: int = 0, cols: int = 1) -> int:
     """Shared memory of one K5 block of at most ``gb`` R-row blocks:
-    barriers, the x panel (one column's; a k-column launch stages none),
-    window offsets and the step's rows of the segment mask (to 16 bytes),
-    and ``stage`` staged overflow entries (column and value)."""
-    fixed = (XL_BARRIER_BYTES + (cols == 1) * panel * itemsize
+    barriers, the x panels (``panel`` entries of each of ``cols``
+    columns: one column's span, or the k columns' covers,
+    :func:`step_cover`), window offsets and the step's rows of the segment
+    mask (to 16 bytes), and ``stage`` staged overflow entries (column and
+    value)."""
+    fixed = (XL_BARRIER_BYTES + cols * panel * itemsize
              + gb * D * (4 + mask_bytes(R)))
     return -(-fixed // 16) * 16 + stage * (4 + itemsize)
 
@@ -431,7 +436,9 @@ def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
     the most overflow entries a step holds (as many as fit, up to
     ``XL_STAGE_MAX``, without ``work``).  ``cols``: a plan for K5's
     k-column form of ``cols`` columns (steps of at most
-    :func:`xl_step_rows` rows, no x panel staged for more than one)."""
+    :func:`xl_step_rows` rows; for more than one column ``panel`` is the
+    most entries a step's windows cover, :func:`step_cover`, the panel
+    each column stages)."""
     s = np.asarray(starts, np.int64) - xpad_lo
     P, B, D = s.shape
     first = s.min(axis=2)                     # (P, B) window starts
@@ -455,6 +462,8 @@ def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
             hi[p, full] = np.maximum.reduceat(last[p], b0[p, :-1][full])
         lo = lo // XL_ALIGN * XL_ALIGN
         panel = int(-(-int((hi - lo).max()) // XL_ALIGN) * XL_ALIGN)
+        if cols > 1:
+            panel = step_cover(starts, R, xpad_lo, b0, tables=False)[3]
         gb = int(np.diff(b0, axis=1).max())
         need = XL_STAGE_MAX if work is None else int(
             (np.take_along_axis(ovf, b0[:, 1:], 1)
@@ -495,6 +504,122 @@ def plan_steps(starts: np.ndarray, R: int, xpad_lo: int, itemsize: int,
         if got is not None:
             balanced.append(got)
     return min(balanced or found, key=lambda f: f[0])[1]
+
+
+def step_cover(starts: np.ndarray, R: int, xpad_lo: int,
+               step_b0: np.ndarray, tables: bool = True):
+    """The x entries each K5 step's windows cover, as the k-column form
+    stages them: the union of the step's windows ``[starts[p, b, d] -
+    xpad_lo, + R)`` of the unpadded x, each widened to ``XL_ALIGN``
+    elements, as merged segments (windows closer than ``XL_COVER_GAP``
+    entries share a segment), packed one after another into the step's
+    staged panel.
+
+    Returns ``(seg_ptr, segs, xoff, cover)``: step i of part p stages
+    segments ``segs[seg_ptr[p * nsteps + i] : seg_ptr[p * nsteps + i +
+    1]]`` (int32 (P * nsteps + 1,)), each a row ``(x_lo, length,
+    panel_offset)`` of int32 (``x_lo``, ``length`` and ``panel_offset``
+    multiples of ``XL_ALIGN``; the segments of a step in increasing
+    ``x_lo``, apart and in panel order); ``xoff`` (P, B, D) int32 is the
+    offset of each window's first entry in its step's panel; ``cover`` the
+    most entries a step stages.  With ``tables=False`` only ``cover``
+    (``(None, None, None, cover)``), for pricing plans."""
+    s = np.asarray(starts, np.int64) - xpad_lo
+    P, B, D = s.shape
+    b0 = np.asarray(step_b0, np.int64)
+    nsteps = b0.shape[1] - 1
+    step = np.stack([np.searchsorted(b0[p], np.arange(B), side="right") - 1
+                     for p in range(P)])
+    key = np.broadcast_to((np.arange(P)[:, None] * nsteps + step)[..., None],
+                          s.shape).ravel()
+    lo = s.ravel() // XL_ALIGN * XL_ALIGN
+    hi = -(-(s.ravel() + R) // XL_ALIGN) * XL_ALIGN
+    order = np.lexsort((lo, key))
+    # segmented merge: shift each step's coordinates apart so that one
+    # running maximum serves every step
+    span = int(hi.max() - lo.min()) + XL_COVER_GAP + 1
+    base = key[order] * span - lo.min()
+    lo_s, hi_s = lo[order] + base, hi[order] + base
+    reach = np.maximum.accumulate(hi_s)
+    new = np.ones(lo_s.size, bool)
+    new[1:] = lo_s[1:] > reach[:-1] + XL_COVER_GAP
+    first = np.flatnonzero(new)
+    seg_key = key[order][first]
+    seg_lo = lo_s[first] - base[first]
+    seg_hi = np.maximum.reduceat(hi_s, first) - base[first]
+    length = seg_hi - seg_lo
+    per_step = np.bincount(seg_key, weights=length, minlength=P * nsteps)
+    cover = int(per_step.max(initial=0))
+    if not tables:
+        return None, None, None, cover
+    seg_ptr = np.zeros(P * nsteps + 1, np.int64)
+    seg_ptr[1:] = np.cumsum(np.bincount(seg_key, minlength=P * nsteps))
+    ends = np.cumsum(length)
+    offset = ends - length - np.repeat(
+        np.concatenate([[0], ends])[seg_ptr[:-1]], np.diff(seg_ptr))
+    seg_of = np.cumsum(new) - 1                 # each sorted window's segment
+    xoff = np.empty(s.size, np.int64)
+    xoff[order] = offset[seg_of] + s.ravel()[order] - seg_lo[seg_of]
+    segs = np.stack([seg_lo, length, offset], axis=1)
+    return (seg_ptr.astype(np.int32), segs.astype(np.int32),
+            xoff.reshape(P, B, D).astype(np.int32), cover)
+
+
+def cover_overflow(ptr, cols, R: int, step_b0, seg_ptr, segs) -> np.ndarray:
+    """The overflow list's columns as a k-column K5 launch reads them
+    (int32, ``cols``' shape (P, n)): entry j of row i, whose block is in
+    step s of its part, as the offset of its column in the panel s stages
+    (:func:`step_cover`) where a segment of s holds it, else as ``-(column
+    + 1)`` (read from x).  ``ptr`` (P, row_pad + 1) and ``cols`` (P, n) are
+    the list's row pointer and columns; entries past a part's last are
+    kept as columns."""
+    ptr, cols = np.asarray(ptr, np.int64), np.asarray(cols, np.int64)
+    b0 = np.asarray(step_b0, np.int64)
+    P, nsteps = b0.shape[0], b0.shape[1] - 1
+    lo, length, off = (np.asarray(segs, np.int64)[:, i] for i in range(3))
+    key_of = np.repeat(np.arange(P * nsteps), np.diff(seg_ptr))
+    base = min(int(lo.min(initial=0)), 0)
+    width = max(int((lo + length).max(initial=0)),
+                int(cols.max(initial=0)) + 1) - base + 1
+    seg_at = key_of * width + lo - base        # increasing
+    code = -(cols + 1)
+    for p in range(P):
+        n = int(ptr[p, -1])
+        rows = np.repeat(np.arange(ptr.shape[1] - 1), np.diff(ptr[p]))
+        key = p * nsteps + np.searchsorted(b0[p], rows // R,
+                                           side="right") - 1
+        g = cols[p, :n]
+        q = np.searchsorted(seg_at, key * width + g - base, side="right") - 1
+        qc = np.maximum(q, 0)
+        held = (q >= 0) & (key_of[qc] == key) & (g < lo[qc] + length[qc])
+        code[p, :n][held] = (off[qc] + g - lo[qc])[held]
+    return code.astype(np.int32)
+
+
+def cover_panels(x: torch.Tensor, seg_ptr: torch.Tensor, segs: torch.Tensor,
+                 nparts: int, col_pad: int, panel: int) -> torch.Tensor:
+    """Every step's staged panel of a k-column K5 launch (plain PyTorch),
+    ``(P * nsteps, panel)`` of one column ``x`` (P * col_pad,): step i of
+    part p holds its segments (:func:`step_cover`) packed from 0, x entries
+    outside ``[0, col_pad)`` as 0, the rest of the panel 0."""
+    dev = x.device
+    n = seg_ptr.numel() - 1
+    seg_ptr, segs = seg_ptr.to(torch.int64), segs.to(torch.int64)
+    step = torch.repeat_interleave(torch.arange(n, device=dev),
+                                   seg_ptr[1:] - seg_ptr[:-1])
+    length = segs[:, 1]
+    entry = torch.repeat_interleave(torch.arange(segs.shape[0], device=dev),
+                                    length)
+    within = torch.arange(entry.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(length, 0) - length, length)
+    g = segs[entry, 0] + within                       # column of the part
+    part = step[entry] // (n // nparts)
+    inside = (g >= 0) & (g < col_pad)
+    vals = torch.where(inside, x[(part * col_pad + g.clamp(0, col_pad - 1))],
+                       torch.zeros((), dtype=x.dtype, device=dev))
+    pan = torch.zeros(n * panel, dtype=x.dtype, device=dev)
+    pan[step[entry] * panel + segs[entry, 2] + within] = vals
+    return pan.reshape(n, panel)
 
 
 def _add_overflow(y: torch.Tensor, xs: torch.Tensor, ovf,
@@ -546,7 +671,7 @@ def bdia_spmv_xl_plain(vals: torch.Tensor, starts: torch.Tensor,
                        step_lo: torch.Tensor, panel: int, ovf=None, *,
                        mask: torch.Tensor, step_b0: torch.Tensor,
                        stage=None, b=None, s=None, c=None, w: float = 1.0,
-                       out=None) -> torch.Tensor:
+                       out=None, cover=None) -> torch.Tensor:
     """Plain PyTorch BDIA SpMV by panel steps (K5's function, which is
     K4's): a gather of each step's panel of x (0 outside ``[0, col_pad)``),
     a gather of every (block, slot) window out of its step's panel, a sum
@@ -559,24 +684,35 @@ def bdia_spmv_xl_plain(vals: torch.Tensor, starts: torch.Tensor,
     ``gb``, ``step_lo`` (P, nsteps) int32, ``panel`` and ``step_b0`` (P,
     nsteps + 1) int32 as :func:`plan_steps` gives them (``gb`` and
     ``stage``, launch details, are not used).  Every window must lie inside
-    its step's panel: this is checked."""
+    its step's panel: this is checked.  With ``cover = (seg_ptr, segs,
+    xoff)`` of :func:`step_cover` the windows are read from the panels the
+    k-column form stages instead (:func:`cover_panels`, ``panel`` entries
+    each; ``step_lo`` unused): the same entries of x, so the same bits."""
     from tpusolve_torch.kernels.dia import epilogue_plain
     P, B, D, R = vals.shape
     xs = x.reshape(P, -1)
     col_pad = xs.shape[1]
     dev = x.device
-    # (P, nsteps, panel) panels of the unpadded x
-    pidx = step_lo.to(torch.int64).unsqueeze(-1) + torch.arange(panel,
-                                                                device=dev)
-    inside = (pidx >= 0) & (pidx < col_pad)
-    pan = torch.where(inside, torch.gather(
-        xs, 1, pidx.clamp(0, col_pad - 1).reshape(P, -1)).reshape(pidx.shape),
-        torch.zeros((), dtype=x.dtype, device=dev))
-    # each block's step (P, B), and each window's offset in its panel
+    # each block's step (P, B)
     blocks = torch.arange(B, device=dev).expand(P, B).contiguous()
     step = torch.searchsorted(step_b0.to(torch.int64), blocks, right=True) - 1
-    off = (starts.to(torch.int64) - xpad_lo - torch.gather(
-        step_lo.to(torch.int64), 1, step).unsqueeze(-1))        # (P, B, D)
+    if cover is not None:
+        # (P, nsteps, panel) staged panels, each window's offset in its own
+        seg_ptr, segs, xoff = cover
+        pan = cover_panels(x.reshape(-1), seg_ptr, segs, P, col_pad,
+                           panel).reshape(P, -1, panel)
+        off = xoff.to(torch.int64)
+    else:
+        # (P, nsteps, panel) panels of the unpadded x
+        pidx = step_lo.to(torch.int64).unsqueeze(-1) + torch.arange(
+            panel, device=dev)
+        inside = (pidx >= 0) & (pidx < col_pad)
+        pan = torch.where(inside, torch.gather(
+            xs, 1, pidx.clamp(0, col_pad - 1).reshape(P, -1)).reshape(
+                pidx.shape), torch.zeros((), dtype=x.dtype, device=dev))
+        # each window's offset in its step's panel (P, B, D)
+        off = (starts.to(torch.int64) - xpad_lo - torch.gather(
+            step_lo.to(torch.int64), 1, step).unsqueeze(-1))
     if int(off.min()) < 0 or int(off.max()) + R > panel:
         raise ValueError("BDIA-XL window outside its step's panel")
     # windows as flat indices into the (P, nsteps * panel) panels
@@ -734,8 +870,8 @@ class XLOperator:
     operator's tensors (kept alive for the pointers' sake), its dtype and
     device, its parts, rows and x entries a part, and K5's launch arguments
     before x (``head``: values, starts, ``step_lo``, ``step_b0``), after x
-    (``tail``: the overflow list and the mask) and after the update form
-    (``ints``), and the columns of a launch."""
+    (``tail``: the overflow list, the mask and a k-column plan's cover)
+    and after the update form (``ints``), and the columns of a launch."""
     tensors: tuple
     dtype: torch.dtype
     device: torch.device
@@ -752,12 +888,14 @@ def xl_operator(vals: torch.Tensor, starts: torch.Tensor, xpad_lo: int,
                 row_pad: int, col_pad: int, gb: int, step_lo: torch.Tensor,
                 panel: int, ovf=None, *, mask: torch.Tensor,
                 step_b0: torch.Tensor, stage=None,
-                cols: int = 1) -> XLOperator:
+                cols: int = 1, cover=None) -> XLOperator:
     """Check the arguments of a K5 operator on a CUDA device (as
     :func:`bdia_spmv_xl` takes them, for an x of ``col_pad`` entries a
     part) and return them as K5's launch takes them; raises on an argument
     K5 does not take.  ``cols``: the k-column form's columns, on a plan
-    made for them (:func:`plan_steps`)."""
+    made for them (:func:`plan_steps`), with its ``cover = (seg_ptr, segs,
+    xoff)`` (:func:`step_cover`, as tensors on the device; ``panel`` its
+    cover)."""
     P, B, D, R = vals.shape
     nsteps = step_b0.shape[-1] - 1
     ovf_ptrs, ovf_len = _check_launch(
@@ -770,6 +908,18 @@ def xl_operator(vals: torch.Tensor, starts: torch.Tensor, xpad_lo: int,
     if step_b0.dtype != torch.int32 or step_b0.shape != (P, nsteps + 1):
         raise TypeError("bdia_spmv_xl: step_b0 must be int32 of shape "
                         f"(P, {nsteps + 1})")
+    if (cover is None) != (cols == 1):
+        raise ValueError("bdia_spmv_xl: a k-column plan, and only one, "
+                         "takes its steps' cover")
+    if cover is not None:
+        seg_ptr, segs, xoff = cover
+        if seg_ptr.shape != (P * nsteps + 1,) or segs.dim() != 2 \
+                or segs.shape[1] != 3 or xoff.shape != (P, B, D) \
+                or any(t.dtype != torch.int32 or t.device != vals.device
+                       or not t.is_contiguous() for t in cover):
+            raise TypeError("bdia_spmv_xl: the cover must be contiguous "
+                            "int32 seg_ptr (P * nsteps + 1,), segs (n, 3) "
+                            "and xoff (P, B, D) on the values' device")
     if mask.dtype != torch.uint8 or mask.shape != (P, B, D, mask_bytes(R)):
         raise TypeError("bdia_spmv_xl: mask must be uint8 of shape "
                         f"(P, B, D, {mask_bytes(R)})")
@@ -789,26 +939,29 @@ def xl_operator(vals: torch.Tensor, starts: torch.Tensor, xpad_lo: int,
         raise ValueError(f"bdia_spmv_xl: a panel of {panel} does not fit "
                          "one block's shared memory")
     runtime.require_smem(vals.device.index)
+    cover_ptrs = (None,) * 3 if cover is None else tuple(
+        t.data_ptr() for t in cover)
     return XLOperator(
-        tensors=(vals, starts, step_lo, step_b0, ovf, mask),
+        tensors=(vals, starts, step_lo, step_b0, ovf, mask, cover),
         dtype=vals.dtype, device=vals.device, nparts=P, row_pad=row_pad,
         col_pad=col_pad,
         head=(vals.data_ptr(), starts.data_ptr(), step_lo.data_ptr(),
               step_b0.data_ptr()),
-        tail=ovf_ptrs + (mask.data_ptr(),),
+        tail=ovf_ptrs + (mask.data_ptr(),) + cover_ptrs,
         ints=(P, B, D, R, row_pad, col_pad, xpad_lo, ovf_len, gb, nsteps,
               panel, stage), cols=cols)
 
 
 @functools.cache
-def _xl_fns():
-    """(library, {dtype: entry point}) of ``csrc/bdia_spmv_xl.cu``, with
-    ctypes signatures declared."""
-    lib = build.load("bdia_spmv_xl")
+def _xl_fns(defines: tuple = ()):
+    """(library, {dtype: entry point}) of ``csrc/bdia_spmv_xl.cu`` built
+    with ``defines`` (none: the port's; ``kernels/calibrate.py --kcols``
+    compares others), with ctypes signatures declared."""
+    lib = build.load("bdia_spmv_xl", defines)
     fns = {torch.float32: lib.bdia_spmv_xl_f32,
            torch.float64: lib.bdia_spmv_xl_f64}
     for fn in fns.values():
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_double]
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_double]
                        + [ctypes.c_int] * 13 + [ctypes.c_int64] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int

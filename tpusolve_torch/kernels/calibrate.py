@@ -52,6 +52,29 @@ it, with it on steps of balanced work at several weights of the overflow
 and the slots alone; each checked equal to K4 bit for bit first
 (``sweep_k5``).
 
+    python -m tpusolve_torch.kernels.calibrate --k5-cover
+
+measures, on gate 4's L and U at 96^3 (as ``--k5`` builds them), the x
+entries K5's k-column steps stage at k = 3: each step's span (the panel
+one column stages, from its lowest window start to its highest window end)
+against the union of its windows (``kernels/bdia.py:step_cover``, the
+panels the k-column form stages), at the k-column plan's steps, at steps
+of its most blocks and at steps of twice them, and at the one-column
+plan's (``k5_cover``).
+
+    python -m tpusolve_torch.kernels.calibrate --kcols
+
+times the k-column forms at k = 3 on gate 4's 96^3 operators: K5 on L and
+U built with each of ``K5_COL_THREADS`` threads a block
+(``csrc/bdia_spmv_xl.cu:TPUSOLVE_XL_COL_THREADS``; its steps planned anew
+for it), each launch checked equal to three single launches bit for bit,
+beside the single launches; the same on L and U with the overflow's x
+read from x, not from the staged cover (every entry's code in
+``kernels/bdia.py:cover_overflow`` a column); and K2 on A and ``A_lo``:
+the pack of x, the launch on the packed x and the two together, checked
+against three single launches bit for bit, beside them
+(``sweep_kcols``).
+
     python -m tpusolve_torch.kernels.calibrate --k4
 
 times K4 at each register-stage depth it is built for (``sweep_k4``).
@@ -76,7 +99,7 @@ picks an ELL operator's form (``ell_form``) and prices K2 beside K4 and K6
     python -m tpusolve_torch.kernels.calibrate --k2-sum
 
 times K2's f32 forms built with each way of summing a row
-(``K2_SUMS``, ``csrc/ell_spmv.cu:TPUSOLVE_K2_F32_SUM``: in f32 as before
+(``K2_SUMS``, ``csrc/ell_spmv.cuh:TPUSOLVE_K2_F32_SUM``: in f32 as before
 the gate-3 ``single`` repair, in double, in compensated f32, and the
 port's build, compensated at one thread a row and double at more) on the
 operators of PERF.md's K2 rows: the weak-scaling YAML's level-0 P and R
@@ -629,6 +652,161 @@ def sweep_k5(device=None, log=print, side: int = 96) -> list:
     return rows
 
 
+def k5_cover(device=None, log=print, side: int = 96, k: int = 3) -> list:
+    """The span and the cover of K5's steps (``--k5-cover``) on gate 4's L
+    and U at side^3 (:func:`gate4_factors`) for the k-column plan of k
+    columns: rows (operator, steps, step rows, steps, mean and most span,
+    mean and most cover, segments a step, staged MB of k panels by span
+    and by cover)."""
+    import numpy as np
+    from tpusolve_torch.matrix import sharded
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    L, U = gate4_factors(side, device)
+    out = []
+    for name, M in (("L", L), ("U", U)):
+        starts = M.bdia_starts.cpu().numpy()
+        P, B, D = starts.shape
+        R, xpad, item = M.bdia_block, M.bdia_xpad, M.bdia_vals.element_size()
+        s = starts.astype(np.int64) - xpad
+        first, last = s.min(axis=2), s.max(axis=2) + R
+        plans = {}
+        for cols in (k, 1):
+            xl = sharded.plan_xl(starts, R, xpad, item, M.bdia_nbytes,
+                                 M.bdia_live, M.xl_work(), cols=cols)
+            plans[f"the {cols}-column plan"] = xl[3]
+        gb = int(np.diff(plans[f"the {k}-column plan"], axis=1).max())
+        for g in (gb, 2 * gb):
+            plans[f"steps of {g} blocks"] = np.append(
+                np.arange(0, B, g), B)[None].repeat(P, 0)
+        for label, b0 in plans.items():
+            b0 = np.asarray(b0, np.int64)
+            full = b0[0, :-1] < b0[0, 1:]
+            starts0 = b0[0, :-1][full]
+            span = (np.maximum.reduceat(last[0], starts0)
+                    - np.minimum.reduceat(first[0], starts0))
+            seg_ptr, segs, _, cover = bdia_mod.step_cover(starts, R, xpad,
+                                                          b0)
+            per = np.bincount(np.repeat(np.arange(seg_ptr.size - 1),
+                                        np.diff(seg_ptr)),
+                              weights=segs[:, 1], minlength=seg_ptr.size - 1)
+            nseg = np.diff(seg_ptr)
+            row = dict(op=name, plan=label, steps=int(full.sum()),
+                       step_rows=int(np.diff(b0[0]).max()) * R,
+                       span_mean=float(span.mean()), span_max=int(span.max()),
+                       cover_mean=float(per[per > 0].mean()),
+                       cover_max=int(cover), segments_mean=float(
+                           nseg[nseg > 0].mean()),
+                       segments_max=int(nseg.max()),
+                       staged_mb_span=k * float(span.sum()) * item / 1e6,
+                       staged_mb_cover=k * float(per.sum()) * item / 1e6)
+            log(f"K5 cover {name} ({B} blocks of {R}, D={D}) {label}: "
+                f"{row['steps']} steps of at most {row['step_rows']} rows; "
+                f"span mean {row['span_mean']:.0f}, most {row['span_max']}; "
+                f"cover mean {row['cover_mean']:.0f}, most "
+                f"{row['cover_max']}; segments a step mean "
+                f"{row['segments_mean']:.2f}, most {row['segments_max']}; "
+                f"{k} panels staged {row['staged_mb_span']:.2f} MB by span, "
+                f"{row['staged_mb_cover']:.2f} MB by cover")
+            out.append(row)
+    return out
+
+
+# the builds of K5's k-column form that --kcols compares, by threads a
+# block (csrc/bdia_spmv_xl.cu: TPUSOLVE_XL_COL_THREADS, kernels/bdia.py:
+# XL_COL_THREADS)
+K5_COL_THREADS = (256, 512, 1024)
+
+
+def sweep_kcols(device=None, log=print, side: int = 96, k: int = 3) -> list:
+    """``--kcols``: rows (operator, design, device ms, steps, panel)."""
+    import functools
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from tpusolve_torch.ilu.ilu import ilu_setup
+    from tpusolve_torch.kernels import build, ell
+    from tpusolve_torch.matrix.spmv import spmv
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    defines = {t: (f"TPUSOLVE_XL_COL_THREADS={t}",) for t in K5_COL_THREADS}
+    with ThreadPoolExecutor(len(defines)) as pool:
+        list(pool.map(functools.partial(build.compile_library,
+                                        "bdia_spmv_xl"), defines.values()))
+    A, H = _gate4_operator(side, device)
+    A_lo = A.astype(np.float32)
+    pre = ilu_setup(A_lo, A_host=H)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    out = []
+    port_fns, keep = bdia_mod._xl_fns, bdia_mod.XL_COL_THREADS
+    try:
+        for name, M in (("L", pre.L), ("U", pre.U)):
+            X = torch.randn((k, M.col_pad), generator=gen, device=device,
+                            dtype=M.dtype)
+            singles = lambda M=M, X=X: [spmv(M, X[j]) for j in range(k)]
+            want = torch.stack(singles())
+            t1 = device_ms_each({"singles": singles})["singles"]
+            log(f"K5 {name} {k} single launches: device {t1:.5f} ms")
+            out.append((name, "singles", t1, None, None))
+            for t, dfn in defines.items():
+                bdia_mod.XL_COL_THREADS = t
+                bdia_mod._xl_fns = functools.partial(port_fns, dfn)
+                M.__dict__.pop("_xl_cols", None)
+                op = M.xl_cols_op(k)
+                call = lambda op=op, X=X: bdia_mod.bdia_spmv_xl_run(op, X)
+                if not torch.equal(call(), want):
+                    raise RuntimeError(f"K5 {name} at {t} threads is not the "
+                                       "single launches' bits")
+                ms = device_ms_each({"k": call})["k"]
+                steps, panel = op.ints[9], op.ints[10]
+                log(f"K5 {name} {k} columns, {t} threads a block: "
+                    f"{steps} steps, panel {panel}: device {ms:.5f} ms")
+                out.append((name, f"{t} threads", ms, steps, panel))
+                if t != keep:
+                    continue
+                # the overflow's x from x: every entry's code a column
+                vals, starts, step_lo, step_b0, ovf, mask, cover = \
+                    op.tensors
+                ptr, _, ovals = M.bdia_ovf
+                ints = op.ints
+                far = bdia_mod.xl_operator(
+                    vals, starts, ints[6], ints[4], ints[5], ints[8],
+                    step_lo, ints[10], (ptr, -(M.bdia_ovf[1] + 1), ovals),
+                    mask=mask, step_b0=step_b0, stage=ints[11], cols=k,
+                    cover=cover)
+                call = lambda op=far, X=X: bdia_mod.bdia_spmv_xl_run(op, X)
+                if not torch.equal(call(), want):
+                    raise RuntimeError(f"K5 {name} with the overflow from x "
+                                       "is not the single launches' bits")
+                ms = device_ms_each({"k": call})["k"]
+                log(f"K5 {name} {k} columns, {t} threads a block, the "
+                    f"overflow's x from x: device {ms:.5f} ms")
+                out.append((name, f"{t} threads, overflow from x", ms,
+                            steps, panel))
+            M.__dict__.pop("_xl_cols", None)
+    finally:
+        bdia_mod._xl_fns, bdia_mod.XL_COL_THREADS = port_fns, keep
+    for name, M in (("A", A), ("A_lo", A_lo)):
+        vals, cols, rowptr = M.ell_arrays
+        X = torch.randn((k, M.col_pad), generator=gen, device=device,
+                        dtype=M.dtype)
+        Xp = ell.pack_columns(X)
+        calls = {"singles": lambda v=vals, c=cols, r=rowptr, X=X:
+                 [ell.ell_spmv(v, c, X[j], rowptr=r) for j in range(k)],
+                 "pack": lambda X=X: ell.pack_columns(X),
+                 "launch on the packed x": lambda v=vals, c=cols, r=rowptr,
+                 Xp=Xp: ell.ell_spmv(v, c, Xp, rowptr=r, packed=True),
+                 "pack and launch": lambda v=vals, c=cols, r=rowptr, X=X:
+                 ell.ell_spmv(v, c, X, rowptr=r)}
+        if not torch.equal(calls["pack and launch"](),
+                           torch.stack(calls["singles"]())):
+            raise RuntimeError(f"K2 {name} is not the single launches' bits")
+        for key, fn in calls.items():
+            ms = device_ms_each({key: fn})[key]
+            log(f"K2 {name} {M.layout} {k} columns, {key}: device "
+                f"{ms:.5f} ms")
+            out.append((name, key, ms, None, None))
+    return out
+
+
 def sweep_k4(device=None, log=print) -> list:
     """K4's device time at every register-stage depth S of ``K4_SLOTS`` on
     three operators with the main path's shapes: random windows like gate
@@ -877,7 +1055,7 @@ def sweep_k2(device=None, log=print) -> dict:
 
 
 # the builds of K2 that --k2-sum compares, by how an f32 row is summed
-# (csrc/ell_spmv.cu:TPUSOLVE_K2_F32_SUM); "port" is the port's build
+# (csrc/ell_spmv.cuh:TPUSOLVE_K2_F32_SUM); "port" is the port's build
 K2_SUMS = {"f32": ("TPUSOLVE_K2_F32_SUM=0",),
            "double": ("TPUSOLVE_K2_F32_SUM=1",),
            "compensated": ("TPUSOLVE_K2_F32_SUM=2",),
@@ -949,9 +1127,10 @@ def sweep_k2_sum(device=None, log=print) -> list:
     from concurrent.futures import ThreadPoolExecutor
     from tpusolve_torch.kernels import build, ell
     device = device or torch.device("cuda", torch.cuda.current_device())
-    with ThreadPoolExecutor(len(K2_SUMS)) as pool:
-        list(pool.map(functools.partial(build.compile_library, "ell_spmv"),
-                      K2_SUMS.values()))
+    builds = [(name, d) for d in K2_SUMS.values()
+              for name in ("ell_spmv", "ell_spmv_bf16")]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: build.compile_library(*b), builds))
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
     port_fns = ell._kernel_fns
@@ -1018,6 +1197,14 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--k5"]:
         print(card_line(), flush=True)
         print(json.dumps(sweep_k5()), flush=True)
+        sys.exit(0)
+    if sys.argv[1:] == ["--k5-cover"]:
+        print(card_line(), flush=True)
+        print(json.dumps(k5_cover()), flush=True)
+        sys.exit(0)
+    if sys.argv[1:] == ["--kcols"]:
+        print(card_line(), flush=True)
+        print(json.dumps(sweep_kcols()), flush=True)
         sys.exit(0)
     if sys.argv[1:] == ["--k1"]:
         sweep_k1()

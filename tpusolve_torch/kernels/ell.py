@@ -24,7 +24,7 @@ with ``out`` allowed to be ``c``: the prolongation ``x + P e`` is written
 into x in place.
 
 ``ell_spmv`` launches the hand-written Hopper kernel K2,
-``csrc/ell_spmv.cu`` (the port of ``tpusolve``'s ``ell_spmv_local``), on
+``csrc/ell_spmv.cuh`` (the port of ``tpusolve``'s ``ell_spmv_local``), on
 CUDA tensors in either form and runs the plain versions
 (``ell_spmv_plain``, ``ell_rowptr_plain``) on CPU tensors.  Which form an
 operator is stored in is the time model's choice
@@ -236,29 +236,64 @@ def k2_rowptr_plan(rows: int, nnz: int) -> int:
 MAX_COLS = 8    # columns of K2's k-column form (csrc kMaxCols)
 
 
+def pack_columns(x: torch.Tensor) -> torch.Tensor:
+    """The batch ``x`` (k, n), 2 <= k <= ``MAX_COLS``, packed as K2's
+    k-column form reads it: (n, k), entry i's k columns side by side.  CUDA
+    tensors launch ``csrc/ell_spmv.cuh``'s ``ell_pack`` (counted by
+    ``pack_columns.launches``); CPU tensors take the plain version."""
+    k, n = x.shape
+    if not 2 <= k <= MAX_COLS:
+        raise ValueError(f"pack_columns: 2 to {MAX_COLS} columns")
+    if x.device.type == "cpu":
+        return x.T.contiguous()
+    if x.device.type != "cuda" or x.dtype not in (torch.float32,
+                                                  torch.float64):
+        raise ValueError(f"pack_columns: unsupported {x.dtype} on "
+                         f"{x.device}")
+    if x.stride(1) != 1:
+        raise ValueError("pack_columns: x's columns must be contiguous")
+    lib, _ = _kernel_fns()
+    xp = torch.empty((n, k), dtype=x.dtype, device=x.device)
+    fn = lib.ell_pack_f32 if x.dtype == torch.float32 else lib.ell_pack_f64
+    build.launch(lib, fn, x, "ell_pack launch", x.data_ptr(), x.stride(0),
+                 n, k, xp.data_ptr())
+    pack_columns.launches += 1
+    return xp
+
+
+pack_columns.launches = 0
+
+
 @functools.cache
 def _kernel_fns(defines: tuple = ()):
     """(library, {(value dtype, x dtype): entry point}) with ctypes
     signatures declared, of the build with ``defines`` (none: the port's;
-    ``kernels/calibrate.py --k2-sum`` compares others)."""
+    ``kernels/calibrate.py --k2-sum`` compares others): the entry points
+    on values of x's dtype and the pack from ``csrc/ell_spmv.cu``, those
+    on bf16 values from ``csrc/ell_spmv_bf16.cu``, which compile apart."""
     lib = build.load("ell_spmv", defines)
+    bf16 = build.load("ell_spmv_bf16", defines)
     fns = {(torch.float32, torch.float32): lib.ell_spmv_f32,
            (torch.float64, torch.float64): lib.ell_spmv_f64,
-           (torch.bfloat16, torch.float32): lib.ell_spmv_bf16_f32,
-           (torch.bfloat16, torch.float64): lib.ell_spmv_bf16_f64}
+           (torch.bfloat16, torch.float32): bf16.ell_spmv_bf16_f32,
+           (torch.bfloat16, torch.float64): bf16.ell_spmv_bf16_f64}
     for fn in fns.values():
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 3 + [ctypes.c_int64] * 4
+                       + [ctypes.c_int] * 3 + [ctypes.c_int64]
                        + [ctypes.c_void_p] * 3
                        + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    for fn in (lib.ell_pack_f32, lib.ell_pack_f64):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, fns
 
 
 def _check_operands(vals, cols, x, rowptr) -> tuple:
     """(form, rows, K or nnz) of K2's operands, or raise.  ``vals`` are of
-    x's dtype, or bfloat16 (the smoother twin) for one column."""
+    x's dtype, or bfloat16 (the smoother twin)."""
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"ell_spmv: unsupported dtype {x.dtype}")
     if vals.dtype not in (x.dtype, torch.bfloat16):
@@ -300,8 +335,8 @@ def _plain(vals, cols, x, b, s, c, w, out, rowptr):
 
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
              b=None, s=None, c=None, w: float = 1.0, *, out=None,
-             groups: int | None = None, rowptr=None,
-             interleaved: bool = False, offd: bool = False,
+             groups: int | None = None, rowptr=None, packed: bool = False,
+             offd: bool = False,
              ghost_prolong: bool = False) -> torch.Tensor:
     """ELL SpMV, ``y = A @ x``, or with any of ``b``, ``s``, ``c`` given its
     update form ``y = c + w * s * (b - A x)`` (arguments as
@@ -313,13 +348,15 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     ``x`` (n,) is one vector; ``x`` (k, n), 1 <= k <= ``MAX_COLS``, is k
     vectors (the k-column form: one launch reads the operator once for
     all), and ``b``, ``c``, ``out`` are then (k, rows) and ``s`` one
-    (rows,) vector for all columns.  ``interleaved`` takes the batches as
-    (n, k) and (rows, k) instead (the layout chip_smoke.py times against
-    the solver's).  ``vals`` may be bfloat16 (the smoother twin) for one
-    column: each value widened exactly to x's dtype.
+    (rows,) vector for all columns.  On the card a batch of k > 1 is
+    packed first (:func:`pack_columns`, one launch) and read packed;
+    ``packed=True`` takes x already packed, (n, k) (chip_smoke.py times the
+    launch without the pack so).
+    ``vals`` may be bfloat16 (the smoother twin): each value widened
+    exactly to x's dtype.
 
     CPU tensors take the plain version of their form (a batch column by
-    column).  CUDA tensors launch the kernel of ``csrc/ell_spmv.cu``
+    column).  CUDA tensors launch the kernel of ``csrc/ell_spmv.cuh``
     (building it on first use) once, on the launch plan of :func:`k2_plan`
     or :func:`k2_rowptr_plan` unless ``groups`` names another G, or raise;
     there is no fallback.  ``ell_spmv.launches`` counts kernel launches,
@@ -333,23 +370,18 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     ``ell_spmv.launches_ghost_prolong`` those it marks ``ghost_prolong``
     (the box prolongation's rows at the ghosts' sources,
     ``amg/structured.py:_ghost_prolongation``)."""
+    if packed and x.dim() != 2:
+        raise ValueError("ell_spmv: a packed x is (n, k)")
     if x.device.type == "cpu":
-        if interleaved:
-            t = lambda v: None if v is None or v.dim() == 1 else v.T
-            y = _plain(vals, cols, x.T, t(b), s, t(c), w,
-                       t(out), rowptr)
-            return out if out is not None else y.T
-        return _plain(vals, cols, x, b, s, c, w, out, rowptr)
+        return _plain(vals, cols, x.T if packed else x, b, s, c, w, out,
+                      rowptr)
     form, rows, size = _check_operands(vals, cols, x, rowptr)
     if x.dim() not in (1, 2):
         raise ValueError("ell_spmv: x must be (n,) or a batch of vectors")
-    k = 1 if x.dim() == 1 else x.shape[1 if interleaved else 0]
-    if not 1 <= k <= MAX_COLS or (k > 1 or x.dim() == 2) and \
-            vals.dtype != x.dtype:
-        raise ValueError(f"ell_spmv: 1 to {MAX_COLS} columns, one for "
-                         "bfloat16 values")
-    vec = (rows,) if x.dim() == 1 else ((rows, k) if interleaved
-                                        else (k, rows))
+    k = x.shape[1] if packed else (1 if x.dim() == 1 else x.shape[0])
+    if not 1 <= k <= MAX_COLS:
+        raise ValueError(f"ell_spmv: 1 to {MAX_COLS} columns")
+    vec = (rows,) if x.dim() == 1 else (k, rows)
     for name, t in (("vals", vals), ("cols", cols), ("rowptr", rowptr),
                     ("x", x), ("b", b), ("s", s), ("c", c), ("out", out)):
         if t is None:
@@ -376,17 +408,17 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmv: unsupported device {x.device}")
     lib, fns = _kernel_fns()
+    if k > 1 and not packed:
+        x = pack_columns(x)
     y = torch.empty(vec, dtype=x.dtype, device=x.device) if out is None \
         else out
-    n = x.shape[0 if interleaved else -1]
-    xs, ys = ((1, k), (1, k)) if interleaved else ((n, 1), (rows, 1))
     ptr = lambda t: None if t is None else t.data_ptr()
     build.launch(lib, fns[vals.dtype, x.dtype], x, "ell_spmv launch",
                  ptr(rowptr), int(rowptr is not None
                                   and rowptr.dtype == torch.int64),
                  vals.data_ptr(), cols.data_ptr(), x.data_ptr(),
                  y.data_ptr(), rows, size if form == "padded" else 0, g, k,
-                 *xs, *ys, ptr(b), ptr(s), ptr(c), float(w))
+                 rows, ptr(b), ptr(s), ptr(c), float(w))
     ell_spmv.launches += 1
     for counts, key in ((ell_spmv.launches_by_form, epilogue_mode(b, s, c)),
                         (ell_spmv.launches_by_layout, form),

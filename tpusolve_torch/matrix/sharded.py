@@ -225,15 +225,16 @@ def plan_xl(starts: np.ndarray, R: int, xpad: int, itemsize: int,
     ``nbytes`` less the segments the mask skips (:func:`skipped_bytes`),
     plus every step's x panel; None when no plan fits one block's shared
     memory.  ``cols``: the plan of K5's k-column form
-    (``kernels/bdia.py:plan_steps``), priced on the x panels it stages (one
-    column's, none for more)."""
+    (``kernels/bdia.py:plan_steps``), priced on the x panels it stages
+    (one column's span, or the cover of each step's windows,
+    ``kernels/bdia.py:step_cover``, once a column)."""
     nparts, B, D = starts.shape
     reads = nbytes - skipped_bytes(nparts, B, D, R, itemsize, live)
 
     def price(gb, nsteps, panel, smem):
         return band_model_s(
             "bdia_xl", itemsize,
-            reads + (cols == 1) * nparts * nsteps * panel * itemsize,
+            reads + cols * nparts * nsteps * panel * itemsize,
             nparts * nsteps, xl_resident(
                 smem, bdia_mod.xl_threads(gb, R, itemsize, cols)))
 
@@ -1232,8 +1233,9 @@ class ShardedMatrix:
     def xl_cols_op(self, k: int) -> bdia_mod.XLOperator:
         """K5's k-column launch arguments on this BDIA-XL operator (on a
         CUDA device), made once a k: a step plan of its own
-        (:func:`plan_xl` with ``cols=k``, steps of balanced work); for k > 1
-        no x panel is staged (``csrc/bdia_spmv_xl.cu``)."""
+        (:func:`plan_xl` with ``cols=k``, steps of balanced work) and, for
+        k > 1, the cover of each step's windows that its k panels stage
+        (``kernels/bdia.py:step_cover``, ``csrc/bdia_spmv_xl.cu``)."""
         cache = self.__dict__.get("_xl_cols")
         if cache is None:
             cache = {}
@@ -1248,12 +1250,23 @@ class ShardedMatrix:
                 raise ValueError(f"bdia_spmv_xl: no {k}-column step plan "
                                  "fits a block's shared memory")
             gb, step_lo, panel, step_b0, stage = xl[:5]
+            cover, ovf = None, self.bdia_ovf
+            if k > 1:
+                tables = bdia_mod.step_cover(starts, self.bdia_block,
+                                             self.bdia_xpad, step_b0)[:3]
+                cover = tuple(to_tensor(t, self.device) for t in tables)
+                if ovf is not None:
+                    # the list's columns as the launch reads them
+                    ovf = (ovf[0], to_tensor(bdia_mod.cover_overflow(
+                        ovf[0].cpu().numpy(), ovf[1].cpu().numpy(),
+                        self.bdia_block, step_b0, *tables[:2]),
+                        self.device), ovf[2])
             cache[k] = bdia_mod.xl_operator(
                 self.bdia_vals, self.bdia_starts, self.bdia_xpad,
                 self.row_pad, self.col_pad, int(gb),
-                to_tensor(step_lo, self.device), int(panel), self.bdia_ovf,
+                to_tensor(step_lo, self.device), int(panel), ovf,
                 mask=self.bdia_mask, step_b0=to_tensor(step_b0, self.device),
-                stage=int(stage), cols=k)
+                stage=int(stage), cols=k, cover=cover)
         return cache[k]
 
     def _with_xl(self, xl) -> "ShardedMatrix":

@@ -18,9 +18,9 @@ box-DIA operator, one K2 launch on ELL, one K5 launch on BDIA-XL.
 A batch of k vectors, ``x`` (k, col_pad) (the coupled multi-component
 solve, ``tpusolve``'s ``vmap`` over the stacked right-hand sides, in its
 (k, n) layout), reads the operator once a launch where its kernel has a
-k-column form: K2 (ELL) and K5 (BDIA-XL), up to 8 columns a launch
-(``MAX_COLS``).  K1 (DIA), K4 (BDIA) and K6 (BELL), and K2 on the bfloat16
-smoother twin, launch once a column, each launch counted by its kernel's
+k-column form: K2 (ELL, on the bfloat16 smoother twin too) and K5
+(BDIA-XL), up to 8 columns a launch (``MAX_COLS``).  K1 (DIA), K4 (BDIA)
+and K6 (BELL) launch once a column, each launch counted by its kernel's
 counter (ROADMAP.md Queue 2 holds their k-column forms).  Column j of a
 batch is the single-vector call on column j bit for bit.
 
@@ -92,29 +92,13 @@ def _offd(A, x: torch.Tensor, **update) -> torch.Tensor:
 
 def _add_offd(A, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``y += A_offd g`` in place: K2's update form ``c - w A g`` at ``c =
-    y``, ``w = -1`` (one launch a column on a bf16 twin's batch, as
-    :func:`_fold_offd`)."""
-    if _by_column(A, x):
-        for j in range(x.shape[0]):
-            _add_offd(A, x[j], y[j])
-        return y
+    y``, ``w = -1``."""
     return _offd(A, x, c=y, w=-1.0, out=y)
-
-
-def _by_column(A, x: torch.Tensor) -> bool:
-    """Whether K2 runs A's offd block on batch ``x`` a column at a time: its
-    values are not of x's dtype (the bf16 twin), which K2's k-column form
-    does not take."""
-    return x.dim() == 2 and A.offd_vals.dtype != x.dtype
 
 
 def _fold_offd(A, x: torch.Tensor, b):
     """``b - A_offd g`` (``-A_offd g`` without b): the right-hand side the
-    diag block's update forms take on a multi-part operator; one launch a
-    column where :func:`_by_column`."""
-    if _by_column(A, x):
-        return torch.stack([_fold_offd(A, x[j], None if b is None else b[j])
-                            for j in range(x.shape[0])])
+    diag block's update forms take on a multi-part operator."""
     if b is not None:
         return _offd(A, x, b=b)
     return torch.neg(_offd(A, x))
@@ -212,7 +196,7 @@ def _batch(A, x: torch.Tensor, update: dict) -> torch.Tensor:
                       for n, t in update.items()})
               for i in range(0, k, MAX_COLS)]
         return out if out is not None else torch.cat(ys)
-    one = ((A.uses_ell and A.dtype == x.dtype) or A.uses_dia
+    one = (A.uses_ell or A.uses_dia
            or (A.uses_bdia_xl and A.bdia_xl_op is not None
                and x.device.type == "cuda"))
     if one and A.has_offd:
