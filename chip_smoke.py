@@ -2,6 +2,7 @@
 """Smoke run of tpusolve_torch on one CUDA card.
 
     python3 chip_smoke.py [--side N] [--side3 N] [--side-ilu N]
+    python3 chip_smoke.py --ranks-profile
 
 From the root of a checkout, on a machine with one NVIDIA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA:
@@ -246,6 +247,31 @@ layout (DIA, ELL padded and row-pointer, BDIA on K4 and K5, BELL) against
 bound) beside the halo's one index gather, each again in one fresh
 process, cuSPARSE's device events by name.
 
+Then the file-loaded gates as 2 processes joined by ``torch.distributed``
+(``python -m torch.distributed.run --nproc-per-node 2 -m tpusolve_torch Y
+--parts 8 --dist-backend gloo``), both ranks on the one card through gloo,
+each holding 4 parts, reading only its rows and printing one
+``tpusolve_torch rank r/2:`` line (device, backend, rows and files read,
+layouts, launches, timer rows, count, check); each rank must exit 0, pass
+its check, run K2 on an offd block, read only its own rows and part files
+and take ``tpusolve``'s 8-device count with the same YAML
+(``TPUSOLVE_RANKS_ITERS``):
+
+(q) gate 3 at 64^3, ``double``, ``matrix_ordering: none``: exactly 12;
+(r) gate 4 at 96^3 from 8 files, ``mixed``, ``matrix_ordering: none``
+   (each rank parses only its 4 files; the ILU(0) block-Jacobi on the
+   card, each rank its own parts): within one a refinement pass of 141;
+then (q) over ``nccl``, one card a rank, where the machine has two cards,
+else a line saying that NCCL was not run.
+
+``python3 chip_smoke.py --ranks-profile`` runs (q) again on 2 ranks alone
+(``--rank-profile``, each rank a process of this script under
+``torch.distributed.run``): each rank's warm solve profiled (device
+operations, busy time, idle share by class) and timed with every
+collective (the halo's ``all_to_all_single``, the reductions'
+``all_reduce``, the coarse solve's ``all_gather``) between two
+synchronisations; the smoke's own run leaves it out for its time.
+
 Every fixture is written once, in a process of its own (gate 4's before
 the kernel build, the others after step 10), so that the writes overlap
 the phases before their use.
@@ -407,6 +433,25 @@ PARTS = 8
 # when the planes were generated on the host (chip_smoke.py, H100 80GB
 # HBM3, 700.00 W, before on-device generation), printed beside the row
 WEAKSCALE_HOST_BUILD_S = 0.526165
+
+
+# (q), (r): the file-loaded gates as RANKS processes joined by
+# torch.distributed (``python -m torch.distributed.run --nproc-per-node
+# RANKS -m tpusolve_torch Y --parts PARTS --dist-backend gloo``), both
+# ranks on the one card through gloo, each holding PARTS / RANKS parts.
+# tpusolve's counts on its mesh of 8 virtual CPU devices with the same
+# YAMLs (the fixture with matrix_ordering: none), measured once on the CPU
+# by `XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
+# python -m tpusolve.harness.cli Y.yaml`: gate 3 at 64^3 (fixtures.
+# write_gate3(d, 64, solver_settings={"matrix_ordering": "none"}), double:
+# GMRES iterations, relres 6.519e-09, 36 s); gate 4 at 96^3 from 8 files
+# (fixtures.write_gate4(d, 96, nfiles=8, solver_settings=
+# {"matrix_ordering": "none"}), mixed, its ILU(0) block-Jacobi on its
+# devices: BiCGSTAB iterations over the refinement passes, relres
+# 3.379e-10, 86 s)
+RANKS = 2
+TPUSOLVE_RANKS_ITERS = {"gate3": 12, "gate4": 141}
+RANKS_SIDES = {"gate3": 64, "gate4": 96}
 
 
 def fail(msg: str):
@@ -4115,6 +4160,294 @@ def gate3_parts_phase(card: str, counters) -> dict:
 # (o), (p): the multi-part device AMG setups on PARTS parts, and their bits
 
 
+def ranks_env() -> dict:
+    """The ranks' environment: the checkout on ``PYTHONPATH``, and each
+    rank's share of the host's cores for torch's threads (the launcher
+    would give each one thread; the ranks' host assembly runs torch
+    operations on the CPU)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (REPO, os.environ.get("PYTHONPATH")))))
+    env.setdefault("OMP_NUM_THREADS",
+                   str(max(1, (os.cpu_count() or 1) // RANKS)))
+    return env
+
+
+def run_group(cmd, timeout: int) -> subprocess.CompletedProcess:
+    """Run ``cmd`` (a launcher of ranks) from the checkout in a process
+    group of its own, its output captured; past ``timeout`` seconds the
+    whole group (the launcher and its ranks) is killed and the phase
+    fails."""
+    proc = subprocess.Popen(cmd, cwd=REPO, env=ranks_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"{' '.join(cmd[-8:])} ran past {timeout} s; its processes "
+             "were killed")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def ranks_launch(yaml_path: str, backend: str, logdir: str,
+                 timeout: int = 600) -> tuple:
+    """Run the port's CLI on ``yaml_path`` as ``RANKS`` processes through
+    ``torch.distributed.run`` (``--parts PARTS --dist-backend backend``),
+    each rank's output in its own file under ``logdir``; returns (exit
+    code, wall seconds, [each rank's output], the launcher's output)."""
+    import glob
+    shutil.rmtree(logdir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RANKS), "--log-dir", logdir,
+           "--redirects", "3", "-m", "tpusolve_torch", yaml_path,
+           "--parts", str(PARTS), "--dist-backend", backend]
+    t0 = time.perf_counter()
+    proc = run_group(cmd, timeout)
+    wall = time.perf_counter() - t0
+    outs = []
+    for r in range(RANKS):
+        found = glob.glob(os.path.join(logdir, "**", "attempt_*", str(r),
+                                       "stdout.log"), recursive=True)
+        outs.append(open(found[0]).read() if found else "")
+    return proc.returncode, wall, outs, proc.stdout + proc.stderr
+
+
+def rank_summary(out: str, r: int) -> dict:
+    """Rank ``r``'s JSON line of the CLI (``tpusolve_torch rank r/R:``)."""
+    line = next((ln for ln in out.splitlines()
+                 if ln.startswith(f"tpusolve_torch rank {r}/")), None)
+    if line is None:
+        fail(f"rank {r} printed no summary line:\n{out[-3000:]}")
+    return json.loads(line.split(": ", 1)[1])
+
+
+def ranks_phase(key: str, yaml_path: str, card: str, spread) -> dict:
+    """(q), (r): the gate ``key`` on ``RANKS`` ranks x ``PARTS`` parts
+    sharing the card through gloo.  Prints each rank's line (device,
+    backend, parts, rows and files read, K2's launches and its offd
+    launches, K5's, the count, the check, the timer rows) and fails unless
+    every rank exited 0, passed the check, launched K2 on an offd block,
+    read only its own rows (its share of the matrix entries, and from IJ
+    files only its own part files)
+    and took ``tpusolve``'s 8-device count within ``spread`` (a number, or
+    "passes": one a refinement pass)."""
+    side = RANKS_SIDES[key]
+    what = f"{key.replace('gate', 'gate-')} {side}^3 {RANKS} ranks x " \
+           f"{PARTS // RANKS} parts"
+    logdir = os.path.join(FIXTURES, f"ranks_{key}")
+    rc, wall, outs, launcher = ranks_launch(yaml_path, "gloo", logdir)
+    if rc != 0:
+        fail(f"{what}: torch.distributed.run exit {rc}:\n"
+             f"{launcher[-3000:]}\n{outs[0][-2000:]}\n{outs[1][-2000:]}")
+    lines = [rank_summary(out, r) for r, out in enumerate(outs)]
+    want = TPUSOLVE_RANKS_ITERS[key]
+    from tpusolve_torch.parts import row_decomposition
+    offsets = row_decomposition(side ** 3, PARTS)
+    for r, (ln, out) in enumerate(zip(lines, outs)):
+        k2, offd = ln["launches"]["ell_spmv"], ln["launches"]["ell_spmv offd"]
+        it, passes = ln["iters"][0], ln["passes"][0] or []
+        print(f"{what} rank {r}: {ln['device']}, backend {ln['backend']}, "
+              f"parts {ln['parts']}, rows {ln['rows']}, files "
+              f"{[os.path.basename(f) for f in ln['files']]}; launches K2 "
+              f"{k2} (offd blocks {offd}), K5 "
+              f"{ln['launches']['bdia_spmv_xl']}, K1 "
+              f"{ln['launches']['dia_spmv']}, K4 "
+              f"{ln['launches']['bdia_spmv']}; {it} iterations (passes "
+              f"{passes}), relres {ln['relres'][0]:.3e}, check "
+              f"{ln['check']}; tpusolve on {PARTS} devices (CPU, same YAML) "
+              f"{want}", flush=True)
+        print(f"{what} rank {r} layouts: {ln['layouts']}", flush=True)
+        print(f"{what} rank {r} timer rows (s): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in ln["timers"].items()), flush=True)
+        if ln["check"] != "PASSED" or "Check solution: PASSED" not in out:
+            fail(f"{what}: rank {r}'s check {ln['check']}")
+        if offd <= 0:
+            fail(f"{what}: rank {r} ran K2 on no offd block")
+        if ln["parts"] != [r * PARTS // RANKS, (r + 1) * PARTS // RANKS]:
+            fail(f"{what}: rank {r} holds parts {ln['parts']}")
+        lo, hi = ln["rows"]
+        if (lo, hi) != (int(offsets[ln["parts"][0]]),
+                        int(offsets[ln["parts"][1]]) - 1):
+            fail(f"{what}: rank {r} read rows {lo}..{hi}")
+        if key == "gate4":
+            per = PARTS // RANKS
+            names = sorted(os.path.basename(f) for f in ln["files"])
+            own = sorted(f"{stem}.{p:05d}" for p in range(r * per,
+                                                          (r + 1) * per)
+                         for stem in ("momentum.IJ.mat",
+                                      "momentum_rhs.IJ.vec",
+                                      "momentum_sln.IJ.vec"))
+            if names != own:
+                fail(f"{what}: rank {r} parsed {names}, its own are {own}")
+        slack = len(passes) if spread == "passes" else spread
+        if abs(it - want) > slack:
+            fail(f"{what}: rank {r} took {it} iterations, {it - want:+d} "
+                 f"from tpusolve's {want} (held within {slack})")
+    if lines[0]["iters"] != lines[1]["iters"]:
+        fail(f"{what}: the ranks' counts differ {lines[0]['iters']} "
+             f"{lines[1]['iters']}")
+    entries = [ln["entries"] for ln in lines]
+    print(f"{what}: matrix entries kept by rank {entries}", flush=True)
+    if not all(0 < e < sum(entries) for e in entries):
+        fail(f"{what}: a rank kept every entry or none ({entries})")
+    launches = {k: sum(ln["launches"][k] for ln in lines)
+                for k in lines[0]["launches"]}
+    print(f"{what}: {wall:.1f} s wall for the launch, both ranks; launches "
+          f"of both {launches}; {card}", flush=True)
+    return dict(ranks=lines, wall_s=wall, launches=launches,
+                tpusolve=want)
+
+
+def timed_collectives(dist_mod) -> dict:
+    """Wrap ``dist_mod``'s collectives (the halo's ``exchange``, the
+    reductions' ``all_reduce``, the coarse solve's ``all_gather_cat``) so
+    that each call is timed on the host between two synchronisations of
+    the card (the kernels queued before it finished first); returns the
+    {name: [calls, seconds]} the wrapped calls add to."""
+    import torch
+    stats = {}
+
+    def wrap(name):
+        fn = getattr(dist_mod, name)
+        stats[name] = [0, 0.0]
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            stats[name][0] += 1
+            stats[name][1] += time.perf_counter() - t0
+            return out
+        setattr(dist_mod, name, timed)
+        return fn
+
+    originals = {n: wrap(n) for n in ("exchange", "all_reduce",
+                                      "all_gather_cat")}
+    stats["_restore"] = lambda: [setattr(dist_mod, n, f)
+                                 for n, f in originals.items()]
+    return stats
+
+
+def rank_profile_main(yaml_path: str) -> int:
+    """``chip_smoke.py --rank-profile Y``: one rank of a run under
+    ``torch.distributed.run`` (``ranks_profile``): the port's CLI on ``Y``
+    (``--parts PARTS --dist-backend gloo``), then one warm solve's profile
+    (:func:`solve_profile`: device operations, busy time, idle share by
+    kernel class) and one more warm solve with the collectives timed
+    (:func:`timed_collectives`), printed as one ``rank-profile`` JSON
+    line."""
+    import torch
+    sys.path.insert(0, REPO)
+    from tpusolve_torch import dist
+    from tpusolve_torch.harness import cli
+    keep = []
+    rc = cli.main([yaml_path, "--parts", str(PARTS), "--dist-backend",
+                   "gloo"], keep=keep)
+    if rc != 0:
+        return rc
+    system, r = keep[0], dist.rank()
+    prof = solve_profile(system, f"rank {r}")
+    stats = timed_collectives(dist)
+    t0 = time.perf_counter()
+    system._solver(system.rhs[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats.pop("_restore")()
+    coll = {k: dict(calls=n, ms=1e3 * t) for k, (n, t) in stats.items()}
+    print("rank-profile " + json.dumps(dict(
+        rank=r, profile=prof, collectives=coll, timed_wall_ms=1e3 * wall)),
+        flush=True)
+    dist.destroy()
+    return 0
+
+
+def ranks_profile(yaml_path: str, what: str, card: str) -> list:
+    """One warm solve of ``yaml_path`` profiled in each of ``RANKS`` ranks
+    (:func:`rank_profile_main`, launched as the CLI is in
+    :func:`ranks_launch`): each rank's device operations, busy time and
+    idle share, and the halo exchange's and the reductions' host time
+    against the warm solve's wall."""
+    import glob
+    logdir = os.path.join(FIXTURES, "ranks_profile")
+    shutil.rmtree(logdir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RANKS), "--log-dir", logdir,
+           "--redirects", "3", os.path.abspath(__file__), "--rank-profile",
+           yaml_path]
+    proc = run_group(cmd, 600)
+    out = []
+    for r in range(RANKS):
+        found = glob.glob(os.path.join(logdir, "**", "attempt_*", str(r),
+                                       "stdout.log"), recursive=True)
+        text = open(found[0]).read() if found else ""
+        line = next((ln for ln in text.splitlines()
+                     if ln.startswith("rank-profile ")), None)
+        if proc.returncode != 0 or line is None:
+            fail(f"{what} profile: exit {proc.returncode}\n"
+                 f"{(proc.stdout + proc.stderr)[-3000:]}\n{text[-2000:]}")
+        d = json.loads(line.split(" ", 1)[1])
+        p, c = d["profile"], d["collectives"]
+        ex, red = c["exchange"], c["all_reduce"]
+        print(f"{what} rank {r} warm solve: {p['iters']} iterations, wall "
+              f"{p['wall_ms']:.3f} ms; {p['device_ops']} device operations, "
+              f"busy {p['busy_ms']:.3f} ms, idle share "
+              f"{p['idle_share']:.3f}; by class, ms (operations): "
+              + ", ".join(f"{k} {v:.3f} ({p['ops_by_class'][k]})"
+                          for k, v in p["by_class_ms"].items())
+              + f"; in a solve with each collective timed between two "
+              f"synchronisations (wall {d['timed_wall_ms']:.3f} ms): the "
+              f"halo exchange {ex['calls']} calls {ex['ms']:.3f} ms "
+              f"({ex['ms'] / d['timed_wall_ms']:.3f} of it), all_reduce "
+              f"{red['calls']} calls {red['ms']:.3f} ms "
+              f"({red['ms'] / d['timed_wall_ms']:.3f}), all_gather "
+              f"{c['all_gather_cat']['calls']} calls "
+              f"{c['all_gather_cat']['ms']:.3f} ms; {card}", flush=True)
+        out.append(d)
+    return out
+
+
+def ranks_profile_main(card: str, build) -> int:
+    """``python3 chip_smoke.py --ranks-profile``: the kernels built, (q)'s
+    fixture written, and (q)'s warm solve profiled in each rank
+    (:func:`ranks_profile`) alone, apart from the smoke's run (which it
+    would take past its time); ends with the contract's last line."""
+    import torch
+    print(f"kernel build: {build.build_all():.3f} s", flush=True)
+    q_yaml = fixture_yaml(3, RANKS_SIDES["gate3"], "gate3_ranks.yaml",
+                          solver_settings={"matrix_ordering": "none"})
+    prof = ranks_profile(q_yaml, f"gate-3 {RANKS_SIDES['gate3']}^3 {RANKS} "
+                         "ranks", card)
+    shutil.rmtree(FIXTURES, ignore_errors=True)
+    print(json.dumps(no_nan({"ranks_profile": prof})), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def nccl_phase(yaml_path: str) -> dict:
+    """(q) with ``nccl``, one card a rank, where the machine has
+    ``RANKS`` cards; otherwise says that NCCL was not run."""
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < RANKS:
+        print(f"NCCL not run: {cards} card(s), the nccl backend needs one a "
+              f"rank ({RANKS}); the ranks above shared the card through gloo",
+              flush=True)
+        return dict(run=False, cards=cards)
+    rc, wall, outs, launcher = ranks_launch(
+        yaml_path, "nccl", os.path.join(FIXTURES, "ranks_nccl"))
+    if rc != 0:
+        fail(f"gate 3 on {RANKS} ranks over nccl: exit {rc}\n"
+             f"{launcher[-3000:]}")
+    lines = [rank_summary(out, r) for r, out in enumerate(outs)]
+    print(f"gate-3 {RANKS} ranks over nccl: {[ln['iters'] for ln in lines]} "
+          f"iterations, {wall:.1f} s", flush=True)
+    return dict(run=True, cards=cards, ranks=lines, wall_s=wall)
+
+
 def parts_bits(M) -> tuple:
     """A multi-part ELL operator's stored arrays on the host, its offd
     block and halo plan too, to compare bit for bit."""
@@ -4451,13 +4784,16 @@ def form_entry(name: str, base: str, source: str, replaces: str, row: dict,
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--rank-profile"]:
+        return rank_profile_main(argv[1])
     t_start = time.perf_counter()
     sides = {"--side": 96, "--side3": 48, "--side-ilu": 64}
-    it = iter(argv)
+    profile_only = "--ranks-profile" in argv
+    it = iter(a for a in argv if a != "--ranks-profile")
     for a in it:
         if a not in sides:
             print("usage: python3 chip_smoke.py [--side N] [--side3 N] "
-                  "[--side-ilu N]", file=sys.stderr)
+                  "[--side-ilu N] | --ranks-profile", file=sys.stderr)
             return 1
         sides[a] = int(next(it, "0"))
     try:
@@ -4487,6 +4823,8 @@ def main(argv) -> int:
     # gate 4's fixture, the first a phase reads, is written during the
     # kernel build and checks; the others from the gate-4 phase on
     shutil.rmtree(FIXTURES, ignore_errors=True)
+    if profile_only:
+        return ranks_profile_main(card, build)
     start_fixture_writers([(4, sides["--side"])])
     print(f"kernel build: {build.build_all():.3f} s", flush=True)
     from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
@@ -4600,6 +4938,17 @@ def main(argv) -> int:
     fresh_offd_ms(g4p["offd_rows"] + g1p["offd_rows"] + g3p["offd_rows"])
     mp_rows = multipart_check(device)
     phase_done("the multi-part checks")
+    # (q), (r): the file-loaded gates as RANKS processes sharing the card
+    # through gloo, each holding PARTS / RANKS parts
+    q_yaml = fixture_yaml(3, RANKS_SIDES["gate3"], "gate3_ranks.yaml",
+                          solver_settings={"matrix_ordering": "none"})
+    g3r = ranks_phase("gate3", q_yaml, card, 0)
+    phase_done(f"gate 3 on {RANKS} ranks")
+    g4r = ranks_phase("gate4", fixture_yaml(
+        "4p8", RANKS_SIDES["gate4"], "gate4_ranks.yaml",
+        solver_settings={"matrix_ordering": "none"}), card, "passes")
+    phase_done(f"gate 4 on {RANKS} ranks")
+    nccl = nccl_phase(q_yaml)
     shutil.rmtree(FIXTURES, ignore_errors=True)
 
     paths = {"gate4": l4, "stencil_ilu": st_ilu["launches"],
@@ -4616,7 +4965,8 @@ def main(argv) -> int:
              "gate4_parts": g4p["launches"], "gate1_parts": g1p["launches"],
              "gate3_parts": g3p["launches"],
              "weakscale_parts": wsp["launches"],
-             "gate3_96_parts": g3p96["launches"]}
+             "gate3_96_parts": g3p96["launches"],
+             "gate3_ranks": g3r["launches"], "gate4_ranks": g4r["launches"]}
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
     rows6_all = rows3 + ws["k6_rows"]
@@ -4831,7 +5181,8 @@ def main(argv) -> int:
         "gate3_ell_against_host": g3["ell_against_host"],
         "multipart": {"gate4": g4p, "gate1": g1p, "gate3": g3p,
                       "weakscale": wsp, "gate3_96": g3p96,
-                      "setup_bits": bits, "checks": mp_rows}, "ilu": {
+                      "setup_bits": bits, "checks": mp_rows},
+        "ranks": {"gate3": g3r, "gate4": g4r, "nccl": nccl}, "ilu": {
             "stencil": st_ilu, "gate4_ell": g4_ell,
             "gate4_rcm_ell_trial": trial4, "options": ilu_opts,
             "gate3_ilu_smoother": st5, "lifecycle": life}})), flush=True)

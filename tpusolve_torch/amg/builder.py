@@ -43,6 +43,14 @@ A batch of k vectors (k, n) (the coupled solve) runs the algebraic cycle on
 the whole batch, each SpMV one k-column launch where the layout's kernel
 has one (``matrix/spmv.py``); the structured cycle, whose transfers are
 fused into K1's single-vector launches, runs each column in turn.
+
+Across ranks (``dist.py``) ``A`` is a rank's slice: the host hierarchy is
+built on every rank from the gathered host CSR (the same bits on each),
+and each level's A, P and R (offd blocks and halo plans with them) are
+assembled over every part on the host and placed as the rank's parts
+(``dist.place``); the coarsest solve gathers the coarse residual over the
+ranks and keeps the rank's rows of the pseudo-inverse's product.  The
+device setups raise there (ROADMAP.md Queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from tpusolve_torch import dist
 from tpusolve_torch.amg import coarsen as coarsen_mod
 from tpusolve_torch.amg import device_setup
 from tpusolve_torch.amg import device_setup_ell
@@ -190,11 +199,13 @@ def _sharded_from_scipy(M: sp.spmatrix, device, dtype, row_offsets=None,
     model prices them (``matrix/sharded.py:ell_form``).  Used for P/R:
     transfer operators average ~2-4 entries/row, so the dense-tile layouts
     (BELL/BDIA) would expand them 40-60x.  Square coarse operators are
-    denser per row and keep the full layout selection, ELL among it."""
-    return ShardedMatrix.from_csr_host(
-        M.tocsr(), device=device, dtype=dtype, row_offsets=row_offsets,
-        col_offsets=col_offsets, allow_bell=allow_tiles,
-        allow_bdia=allow_tiles, nparts=nparts)
+    denser per row and keep the full layout selection, ELL among it.
+    Across ranks the operator over every part is assembled on the host and
+    the rank keeps its parts (``dist.place``)."""
+    return dist.place(ShardedMatrix.from_csr_host(
+        M.tocsr(), device=dist.staging(device), dtype=dtype,
+        row_offsets=row_offsets, col_offsets=col_offsets,
+        allow_bell=allow_tiles, allow_bdia=allow_tiles, nparts=nparts))
 
 
 # dense coarse solve guard: above this size the (Npad_c^2) pinv is
@@ -234,13 +245,13 @@ def _relax_twin(A: ShardedMatrix, cfg) -> ShardedMatrix | None:
     if A.tpusolve_layout in ("bdia", "bell"):
         return None
     if not (A.uses_dia or A.uses_ell):
-        M = A.to_scipy().tocsr()
+        M = dist.gather_scipy(A.to_scipy())
         M.sort_indices()
-        A = ShardedMatrix.from_csr_host(
-            M, device=A.device, dtype=numpy_dtype(A.dtype),
-            row_offsets=np.asarray(A.row_offsets),
-            col_offsets=np.asarray(A.col_offsets), allow_dia=False,
-            allow_bdia=False, allow_bell=False)
+        A = dist.place(ShardedMatrix.from_csr_host(
+            M, device=dist.staging(A.device), dtype=numpy_dtype(A.dtype),
+            row_offsets=np.asarray(A.all_row_offsets),
+            col_offsets=np.asarray(A.all_col_offsets), allow_dia=False,
+            allow_bdia=False, allow_bell=False))
     return A.astype(torch.bfloat16)
 
 
@@ -322,6 +333,13 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
     # (amg/device_setup.py), else a generic-ELL one (amg/device_setup_ell.py)
     if A.shape[0] > max_coarse and cfg.max_levels > 1:
         res = None
+        if A.is_slice and (
+                device_setup_sharded.eligible(A, cfg, lattice_parts,
+                                              min_n=dia_min)
+                or (dia_min is not None
+                    and device_setup.eligible(A, cfg, min_n=dia_min))
+                or device_setup_ell.eligible(A, cfg, A_host, min_n=ell_min)):
+            dist.refuse("the device AMG setup of level 0")
         if device_setup_sharded.eligible(A, cfg, lattice_parts,
                                          min_n=dia_min):
             if log_on:
@@ -359,7 +377,8 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
                              "device setup)")
     t_host = time.perf_counter()
     if lvl_start == 0:
-        Ah = (A_host if A_host is not None else A.to_scipy()).tocsr()
+        Ah = (A_host if A_host is not None
+              else dist.gather_scipy(A.to_scipy())).tocsr()
         Ah.sum_duplicates()
 
     for lvl in range(lvl_start, cfg.max_levels):
@@ -369,6 +388,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
         # device recursion: a level the generic-ELL setup takes runs on the
         # device, its host CSR (if any) dropped for the deferred fetch
         if device_setup_ell.eligible(A_sh, cfg, Ah, min_n=ell_min):
+            dist.refuse(f"the device AMG setup of level {lvl}")
             if log_on:
                 print(f"  setup level {lvl} [device, generic ELL]: n={n} "
                       f"nnz={A_sh.nnz}", flush=True)
@@ -445,8 +465,8 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
             lev.cmask = to_device_vector(
                 (split == coarsen_mod.C_PT).astype(np.float64),
                 A_sh.row_offsets, A_sh.row_pad, device, dtype=dtype)
-        row_off = np.asarray(A_sh.row_offsets)
-        col_off = row_decomposition(nc, A_sh.nparts)
+        row_off = np.asarray(A_sh.all_row_offsets)
+        col_off = row_decomposition(nc, A_sh.all_nparts)
         lev.P = _sharded_from_scipy(P_host, device, dtype,
                                     row_offsets=row_off, col_offsets=col_off,
                                     allow_tiles=False)
@@ -457,7 +477,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
         levels.append(lev)
 
         Ah = Ac
-        A_sh = _sharded_from_scipy(Ah, device, dtype, nparts=A.nparts)
+        A_sh = _sharded_from_scipy(Ah, device, dtype, nparts=A.all_nparts)
         _phase("coarse A device assembly")
 
     # coarsest level: dense (pseudo)inverse or relaxation sweeps
@@ -504,15 +524,12 @@ def _attach_ilu_smoother(lev: Level, A_sh, Ah, dtype, cfg, notes) -> None:
     if note not in notes:
         notes.append(note)
     L_host, ujj, U_host = chow_patel_ilu(Ah.tocsr(), sweeps=5, fill_level=0)
-    ro = np.asarray(A_sh.row_offsets)
-    lev.ilu_L = ShardedMatrix.from_csr_host(
-        L_host, device=A_sh.device, dtype=dtype, row_offsets=ro,
-        col_offsets=ro)
-    lev.ilu_U = ShardedMatrix.from_csr_host(
-        U_host, device=A_sh.device, dtype=dtype, row_offsets=ro,
-        col_offsets=ro)
-    lev.ilu_dinv = to_device_vector(1.0 / ujj, ro, A_sh.row_pad,
-                                    A_sh.device, dtype=dtype)
+    ro = np.asarray(A_sh.all_row_offsets)
+    lev.ilu_L, lev.ilu_U = (dist.place(ShardedMatrix.from_csr_host(
+        M, device=dist.staging(A_sh.device), dtype=dtype, row_offsets=ro,
+        col_offsets=ro)) for M in (L_host, U_host))
+    lev.ilu_dinv = to_device_vector(1.0 / ujj, A_sh.row_offsets,
+                                    A_sh.row_pad, A_sh.device, dtype=dtype)
 
 
 def hierarchy_from_arrays(levels: list[dict], coarse_inv: np.ndarray,
@@ -620,13 +637,15 @@ def _make_level(A_sh, Ah, dtype, kind_down, kind_up, cfg,
 
 def _padded_pinv(Ah, A_sh, dtype) -> torch.Tensor:
     """Dense pseudo-inverse of the coarsest operator, laid out in the padded
-    vector space on both axes."""
-    ro = np.asarray(A_sh.row_offsets)
+    vector space on both axes; on a rank's slice its parts' rows, against
+    the padded columns of every part."""
+    ro = np.asarray(A_sh.all_row_offsets)
     pad = A_sh.row_pad
     inv = np.linalg.pinv(Ah.toarray(), rcond=1e-12)
     tmp = pad_vector(inv, ro, pad)                           # (Npad, n)
     full = pad_vector(np.ascontiguousarray(tmp.T), ro, pad)  # (Npad, Npad)
-    return to_tensor(full.T, A_sh.device, dtype)
+    lo = A_sh.part_lo * pad
+    return to_tensor(full.T[lo:lo + A_sh.nparts * pad], A_sh.device, dtype)
 
 
 def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
@@ -733,7 +752,8 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
                 # coarse-level relaxation (relax_coarse / num_coarse_sweeps,
                 # ref: src/HypreSystem.cpp:129-151)
                 return smooth(lev, b, x, kind_coarse, coarse_sweeps)
-            rr = spmv_update(lev.A, x, b=b)
+            # across ranks the residual of every part (dist.all_gather_cat)
+            rr = dist.all_gather_cat(spmv_update(lev.A, x, b=b))
             if rr.dim() == 2:       # a batch (k, n): each row's solve
                 return x + torch.matmul(rr, pre.coarse_inv.T)
             return x + torch.matmul(pre.coarse_inv, rr)

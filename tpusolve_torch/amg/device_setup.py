@@ -101,7 +101,7 @@ def eligible(A: ShardedMatrix, cfg, min_n: int = MIN_DEVICE_N) -> bool:
     operator of at least ``min_n`` rows, at most ``MAX_DEVICE_OFFSETS``
     planes with a (0, 0, 0) plane, and a config of
     :func:`config_eligible`."""
-    if not A.uses_dia or A.nparts != 1 or A.shape[0] != A.shape[1]:
+    if not A.uses_dia or A.all_nparts != 1 or A.shape[0] != A.shape[1]:
         return False
     if A.shape[0] < min_n:
         return False

@@ -84,7 +84,7 @@ def eligible(A: ShardedMatrix, cfg, A_host=None,
     three)."""
     if min_n is None or A.shape[0] != A.shape[1]:
         return False
-    if A.nparts == 1 and A.has_offd:
+    if A.all_nparts == 1 and A.has_offd:
         return False
     if not min_n <= A.shape[0] < 2 ** 31:
         return False

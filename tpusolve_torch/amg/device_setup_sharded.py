@@ -137,11 +137,12 @@ def eligible(A: ShardedMatrix, cfg, lattice,
     times the largest component, the coarse numbering's reach) inside a
     part's box, at least ``min_n`` rows (None: never) and a config of
     ``config_eligible``."""
-    if min_n is None or lattice is None or A.nparts <= 1 or not A.uses_dia:
+    if min_n is None or lattice is None or A.all_nparts <= 1 \
+            or not A.uses_dia:
         return False
     if A.shape[0] != A.shape[1] or A.shape[0] < min_n:
         return False
-    if int(np.prod(lattice["pgrid"])) != A.nparts:
+    if int(np.prod(lattice["pgrid"])) != A.all_nparts:
         return False
     comps = A.dia_offsets
     if len(comps) > MAX_DEVICE_OFFSETS or (0, 0, 0) not in comps:

@@ -14,9 +14,12 @@ Vector file layout (ref reader: src/HypreSystem.cpp:1252-1318)::
     row value
 
 Bodies are parsed by the native parser ``formats/fastio.py`` (the copy of
-``tpusolve``'s ``native/fastio.cpp``) on every device, with no fallback;
-``tpusolve``'s per-host ``row_range`` filter is not carried (one process
-reads every file).  Writers produce the same text as ``tpusolve``'s,
+``tpusolve``'s ``native/fastio.cpp``) on every device, with no fallback.
+With ``row_range=(lo, hi)`` (a rank's rows, ``dist.host_row_range``) a
+reader keeps only the rows in that inclusive range and parses no part file
+whose header's rows miss it (the reference's overlap read,
+src/HypreSystem.cpp:1147, 1203-1236); ``PARSED`` lists the part files each
+reader parsed, in order.  Writers produce the same text as ``tpusolve``'s,
 formatted a chunk of lines at a time.
 """
 
@@ -29,6 +32,7 @@ import numpy as np
 from tpusolve_torch.formats import fastio
 
 _CHUNK = 1 << 16   # lines formatted per write
+PARSED: list[str] = []   # the part files parsed, in order
 
 
 def part_path(prefix: str, part: int) -> str:
@@ -52,22 +56,41 @@ def num_global_rows(prefix: str, nfiles: int) -> int:
     return imax - imin + 1
 
 
-def _read_part(path: str, what: str) -> bytes:
-    """A part file's bytes (header included)."""
+def _read_part(path: str, what: str, row_range=None) -> bytes | None:
+    """A part file's bytes (header included), or None, unparsed, where its
+    header's rows miss the inclusive ``row_range``."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"Cannot open {what} file: {path}")
     with open(path, "rb") as fh:
+        if row_range is not None:
+            ilower, iupper = (int(x) for x in fh.readline().split()[:2])
+            if min(row_range[1], iupper) < max(row_range[0], ilower):
+                return None
+            fh.seek(0)
+        PARSED.append(path)
         return fh.read()
 
 
-def read_matrix(prefix: str, nfiles: int):
-    """Read all partitions -> COO (rows, cols, vals)."""
+def _keep(row_range, rows, *cols):
+    """``(rows, *cols)`` at the rows inside the inclusive ``row_range``."""
+    if row_range is None:
+        return (rows,) + cols
+    keep = (rows >= row_range[0]) & (rows <= row_range[1])
+    return tuple(a[keep] for a in (rows,) + cols)
+
+
+def read_matrix(prefix: str, nfiles: int, row_range=None):
+    """Read all partitions -> COO (rows, cols, vals); with ``row_range``,
+    the rows in it, from the files whose rows meet it."""
     all_r, all_c, all_v = [], [], []
     for p in range(nfiles):
-        data = _read_part(part_path(prefix, p), "matrix")
+        data = _read_part(part_path(prefix, p), "matrix", row_range)
+        if data is None:
+            continue
         # skip the header: ilower iupper jlower jupper
         r, c, v, _ = fastio.parse_triplets(data, 1, 3,
                                            fastio.max_lines(data))
+        r, c, v = _keep(row_range, r, c, v)
         all_r.append(r)
         all_c.append(c)
         all_v.append(v)
@@ -78,13 +101,17 @@ def read_matrix(prefix: str, nfiles: int):
             np.concatenate(all_v))
 
 
-def read_vector(prefix: str, nfiles: int):
-    """Read all vector partitions -> (indices, values)."""
+def read_vector(prefix: str, nfiles: int, row_range=None):
+    """Read all vector partitions -> (indices, values); with
+    ``row_range``, the rows in it, from the files whose rows meet it."""
     all_i, all_v = [], []
     for p in range(nfiles):
-        data = _read_part(part_path(prefix, p), "vector")
+        data = _read_part(part_path(prefix, p), "vector", row_range)
+        if data is None:
+            continue
         # skip the header: ilower iupper
         i, v = fastio.parse_pairs(data, 1, fastio.max_lines(data))
+        i, v = _keep(row_range, i, v)
         all_i.append(i)
         all_v.append(v)
     if not all_i:
@@ -92,9 +119,11 @@ def read_vector(prefix: str, nfiles: int):
     return np.concatenate(all_i), np.concatenate(all_v)
 
 
-def read_dense_vector(prefix: str, nfiles: int, n: int | None = None):
-    """Read a vector into a dense array indexed by global row."""
-    idx, vals = read_vector(prefix, nfiles)
+def read_dense_vector(prefix: str, nfiles: int, n: int | None = None,
+                      row_range=None):
+    """Read a vector into a dense array indexed by global row (zeros
+    outside ``row_range``, where given)."""
+    idx, vals = read_vector(prefix, nfiles, row_range)
     if n is None:
         n = int(idx.max()) + 1 if idx.size else 0
     out = np.zeros(n, np.float64)

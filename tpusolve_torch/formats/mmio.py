@@ -160,12 +160,16 @@ def _parse_coordinate(body: bytes, field: str, nnz: int):
     return rows - 1, cols - 1, vals
 
 
-def read_matrix(path_or_file, expand_symmetry: bool = True):
+def read_matrix(path_or_file, expand_symmetry: bool = True,
+                row_range=None):
     """Read a coordinate matrix → (rows, cols, vals, (nrows, ncols)).
 
     Indices are converted to 0-based (the reference decrements in-place,
     src/HypreSystem.cpp:1796-1797).  ``vals`` is float64, or complex128 for
-    a complex field, or all-ones for pattern.
+    a complex field, or all-ones for pattern.  With ``row_range=(lo,
+    hi)`` only the entries of rows lo..hi are kept, symmetry expanded
+    first (a rank's rows; the reference's filter,
+    src/HypreSystem.cpp:1751-1835).
     """
     fmt, field, symmetry, m, n, nnz, body = _read_header_and_body(
         path_or_file)
@@ -176,6 +180,9 @@ def read_matrix(path_or_file, expand_symmetry: bool = True):
     rows, cols, vals = _parse_coordinate(body, field, nnz)
     if expand_symmetry:
         rows, cols, vals = _expand_symmetry(rows, cols, vals, symmetry)
+    if row_range is not None:
+        keep = (rows >= row_range[0]) & (rows <= row_range[1])
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
     return rows, cols, vals, (m, n)
 
 

@@ -19,8 +19,11 @@ MAX_OFFENDERS = 20
 
 
 def check_solution(x: np.ndarray, xref: np.ndarray, rtol: float = 1.0e-6,
-                   atol: float = 1.0e-8, verbose: bool = True):
-    """Returns (passed: bool, num_bad: int)."""
+                   atol: float = 1.0e-8, verbose: bool = True,
+                   row0: int = 0, verdict: bool = True):
+    """Returns (passed: bool, num_bad: int).  ``row0``: the global row of
+    ``x[0]`` (a rank's rows), for the offenders' lines; ``verdict=False``
+    prints no verdict line (a rank's, which the caller reduces first)."""
     x = np.asarray(x)
     xref = np.asarray(xref)
     tol = np.maximum(rtol * np.maximum(np.abs(x), np.abs(xref)), atol)
@@ -29,10 +32,10 @@ def check_solution(x: np.ndarray, xref: np.ndarray, rtol: float = 1.0e-6,
     if verbose and nbad:
         idx = np.flatnonzero(bad)[:MAX_OFFENDERS]
         for i in idx:
-            print(f"  check failed at row {i}: x={x[i]:.16e} "
+            print(f"  check failed at row {row0 + i}: x={x[i]:.16e} "
                   f"xref={xref[i]:.16e} |diff|={abs(x[i]-xref[i]):.3e}")
     passed = nbad == 0
-    if verbose:
+    if verbose and verdict:
         print("Check solution: PASSED" if passed
               else f"Check solution: FAILED ({nbad} rows)")
     return passed, nbad

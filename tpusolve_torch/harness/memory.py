@@ -14,13 +14,15 @@ import torch
 GIB = 1 << 30
 
 
-def memory_report(device) -> str:
+def memory_report(device, label: str | None = None) -> str:
     """One line per device: for a CUDA device the bytes allocated now and at
     peak, the bytes the allocator reserves and the card's free and total
-    memory; for the CPU, that no statistics exist."""
+    memory; for the CPU, that no statistics exist.  With a ``label`` (a
+    rank's, ``"rank 1"``) the line starts with it."""
     device = torch.device(device)
+    head = "Device memory:\n" + ("" if label is None else f"[{label}]")
     if device.type != "cuda":
-        return f"Device memory:\n  {device}: memory stats unavailable"
+        return f"{head}  {device}: memory stats unavailable"
     stats = torch.cuda.memory_stats(device)
     free, total = torch.cuda.mem_get_info(device)
     line = (f"  {device} ({torch.cuda.get_device_name(device)}): "
@@ -29,11 +31,11 @@ def memory_report(device) -> str:
             f"GiB reserved="
             f"{stats.get('reserved_bytes.all.current', 0) / GIB:.2f}GiB "
             f"free={free / GIB:.2f}GiB limit={total / GIB:.2f}GiB")
-    return "Device memory:\n" + line
+    return head + line
 
 
-def check_memory(device) -> str:
+def check_memory(device, label: str | None = None) -> str:
     """Print and return :func:`memory_report`."""
-    rep = memory_report(device)
+    rep = memory_report(device, label)
     print(rep, flush=True)
     return rep

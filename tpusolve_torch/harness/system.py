@@ -29,6 +29,17 @@ solve, segregated (one solve a component) or coupled
 (``segregated_solve: false``: one solver call on the stacked right-hand
 sides, ``tpusolve``'s ``vmap`` path, each column frozen once it stops;
 ``krylov/common.py``).
+
+Across R processes (``dist.py``, ``python -m torch.distributed.run``) each
+rank holds N / R of the ``nparts`` parts: it reads only its rows from the
+files (``dist.host_row_range``; the IJ reader parses only the part files
+that meet them), skips RCM with ``tpusolve``'s note (no rank holds the
+global pattern), gathers the global COO (``dist.allgather_host_coo``) for
+the assembly and the host setups, which every rank runs on the same bits
+and keeps its parts of (``dist.place``), stages its parts of each vector,
+and checks its own rows, the verdict reduced over the ranks (the
+reference's per-rank check, src/HypreSystem.cpp:771-845).  The generated
+stencil raises there (ROADMAP.md Queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from tpusolve_torch import dist
 from tpusolve_torch.amg import device_setup
 from tpusolve_torch.amg.builder import boomeramg_setup
 from tpusolve_torch.amg.structured import (
@@ -53,6 +65,7 @@ from tpusolve_torch.krylov.gmres import (
     cogmres_setup, fgmres_setup, gmres_setup)
 from tpusolve_torch.krylov.refine import refined_solve_setup
 from tpusolve_torch.krylov.stationary import stationary_solve_setup
+from tpusolve_torch.matrix import coo as coo_mod
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.vectors import (
     from_device_vector, to_device_vector)
@@ -68,8 +81,13 @@ class LinearSystem:
         if nparts < 1:
             raise ValueError(f"nparts must be positive, got {nparts}")
         self.nparts = int(nparts)
+        if self.nparts % dist.world():
+            raise ValueError(f"{nparts} parts do not split over "
+                             f"{dist.world()} processes")
         self.verbose = verbose
-        self.timers = Timers(self.device)
+        grp = dist.group()
+        self.timers = Timers(self.device, label=None if grp is None
+                             else f"rank {grp.rank}")
         # reuse_preconditioner: the CLI passes one dict across its tests;
         # the first test's solver and preconditioner are kept there and
         # later tests skip their setup (the same system each test)
@@ -103,6 +121,11 @@ class LinearSystem:
         self._method = None
         self._precond_name = None
         self._perm = None          # matrix_ordering: new index -> old
+        # what this rank read: its inclusive rows, the files it parsed and
+        # the matrix entries it kept
+        self.rows_read: tuple[int, int] | None = None
+        self.files_read: list[str] = []
+        self.entries_read = 0
 
     def _log(self, msg):
         if self.verbose:
@@ -153,6 +176,11 @@ class LinearSystem:
             return rows, cols, vals
         if ordering != "rcm":
             raise ValueError(f"unknown matrix_ordering: {ordering}")
+        lo, hi = self._host_range(n)
+        if lo != 0 or hi != n - 1:
+            self._log("  note: matrix_ordering: rcm skipped (global "
+                      "pattern not local to this host)")
+            return rows, cols, vals
         from scipy.sparse.csgraph import reverse_cuthill_mckee
         pat = sp.csr_matrix((np.ones(len(rows), np.int8), (rows, cols)),
                             shape=(n, n))
@@ -167,8 +195,17 @@ class LinearSystem:
 
     def _assemble(self, rows, cols, vals, n):
         """COO -> device matrix (+ its f32 twin) + host CSR for the
-        preconditioner's host setup (:meth:`_needs_host_csr`)."""
+        preconditioner's host setup (:meth:`_needs_host_csr`).  Across
+        ranks the rows each read are gathered first: every rank assembles
+        the whole operator on the host and keeps its parts
+        (``dist.place``)."""
+        self.entries_read = int(np.size(rows))
         rows, cols, vals = self._apply_ordering(rows, cols, vals, n)
+        if dist.world() > 1:
+            # each rank sorts and combines its own rows first: the gathered
+            # COO is then in order, which the assembly's sort keeps
+            rows, cols, vals = coo_mod.dedup_coo(rows, cols, vals)
+            rows, cols, vals = dist.allgather_host_coo(rows, cols, vals)
         with self.timers.span("Initialize system"):
             offsets = row_decomposition(n, self.nparts)
             for p in range(min(self.nparts, 8)):
@@ -176,20 +213,26 @@ class LinearSystem:
                 self._log(f"  Shard {p:4d}:: iLower = {lo:9d}; "
                           f"iUpper = {hi:9d}; numRows = {hi - lo + 1}")
         with self.timers.span("Assemble system"):
-            self.A = ShardedMatrix.from_coo(
-                (n, n), rows, cols, vals, device=self.device,
+            A = ShardedMatrix.from_coo(
+                (n, n), rows, cols, vals, device=dist.staging(self.device),
                 dtype=self.dtype, row_offsets=offsets,
                 allow_dia=self.config.solver.spmv_use_dia,
                 allow_bdia=self.config.solver.spmv_use_bdia,
                 allow_bell=self.config.solver.spmv_use_bell)
             if self.precision == "mixed":
                 # f32 twin by a device-side cast, not a second assembly
-                self.A_lo = self.A.astype(np.float32)
+                self.A_lo = dist.place(A.astype(np.float32))
+            self.A = dist.place(A)
             if self._needs_host_csr():
                 self.A_host = sp.csr_matrix((vals, (rows, cols)),
                                             shape=(n, n))
                 self.A_host.sum_duplicates()
         self._log(f"  A: {self.A.layout}")
+
+    def _host_range(self, n: int) -> tuple[int, int]:
+        """The inclusive rows this rank reads and stages: every row in one
+        process (``tpusolve``'s ``_host_range``)."""
+        return dist.host_row_range(row_decomposition(n, self.nparts))
 
     def _needs_host_csr(self) -> bool:
         """Keep a host CSR only for consumers that set up on the host (AMG,
@@ -223,10 +266,18 @@ class LinearSystem:
         self._log(f"Loading matrix market file: {ls.matrix_file} "
                   f"({n} rows)")
         with self.timers.span("Matrix market : read and build matrix"):
-            rows, cols, vals, shape = mmio.read_matrix(ls.matrix_file)
+            # a rank keeps its rows (src/HypreSystem.cpp:1751-1835), of
+            # the real form where the file is complex
+            rr = self.rows_read = self._host_range(n)
+            self.files_read = [ls.matrix_file] + ls.rhs_files + ls.sln_files
+            rows, cols, vals, shape = mmio.read_matrix(
+                ls.matrix_file,
+                row_range=None if ls.complex_numbers else rr)
             if ls.complex_numbers:
                 rows, cols, vals, shape = mmio.expand_complex_to_real(
                     rows, cols, vals, shape)
+                keep = (rows >= rr[0]) & (rows <= rr[1])
+                rows, cols, vals = rows[keep], cols[keep], vals[keep]
             elif np.iscomplexobj(vals):
                 raise RuntimeError(
                     "complex matrix file requires complex_numbers: true")
@@ -253,15 +304,21 @@ class LinearSystem:
         self._log(f"Loading HYPRE IJ files: {ls.matrix_file} x{nfiles} "
                   f"({n} rows)")
         with self.timers.span("IJ : read and build matrix"):
-            rows, cols, vals = ij.read_matrix(ls.matrix_file, nfiles)
+            # a rank parses only the part files that meet its rows
+            # (src/HypreSystem.cpp:1147, 1203-1236)
+            rr = self.rows_read = self._host_range(n)
+            start = len(ij.PARSED)
+            rows, cols, vals = ij.read_matrix(ls.matrix_file, nfiles,
+                                              row_range=rr)
         self._assemble(rows, cols, vals, n)
         with self.timers.span("IJ : read and build vector"):
             for rf in ls.rhs_files:
                 self.rhs.append(self._stage_vector(
-                    ij.read_dense_vector(rf, nfiles, n)))
+                    ij.read_dense_vector(rf, nfiles, n, row_range=rr)))
             for sf in ls.sln_files:
                 self.sln_ref.append(self._permute_in(
-                    ij.read_dense_vector(sf, nfiles, n)))
+                    ij.read_dense_vector(sf, nfiles, n, row_range=rr)))
+        self.files_read = ij.PARSED[start:]
         self.check_enabled = bool(self.sln_ref) and \
             len(self.sln_ref) == len(self.rhs)
 
@@ -281,6 +338,8 @@ class LinearSystem:
         each part's full-lattice planes, which BoomerAMG's sharded lattice
         setup takes (``lattice_parts``)."""
         ls = self.config.linear_system
+        dist.refuse("the generated stencil (the structured path, the "
+                    "device AMG setups and stencil generation by rank)")
         with self.timers.span("Build 27Pt Stencil HYPRE matrix"):
             kw = dict(device=self.device, dtype=self.dtype,
                       nparts=self.nparts)
@@ -447,11 +506,26 @@ class LinearSystem:
             return True
         with self.timers.span("Check solution"):
             all_pass = True
+            lo, hi = self.A.row_offsets[0], self.A.row_offsets[-1]
             for i, x_dev in enumerate(self.sln):
                 x = from_device_vector(x_dev, self.A.row_offsets,
                                        self.A.row_pad)
-                passed, _ = check_solution(x, self.sln_ref[i], self.rtol,
-                                           self.atol, verbose=self.verbose)
+                if dist.world() == 1:
+                    passed, _ = check_solution(x, self.sln_ref[i], self.rtol,
+                                               self.atol,
+                                               verbose=self.verbose)
+                else:
+                    # this rank's rows, the verdict reduced over the ranks
+                    _, nbad = check_solution(
+                        x[lo:hi], self.sln_ref[i][lo:hi], self.rtol,
+                        self.atol, verbose=self.verbose, row0=lo,
+                        verdict=False)
+                    total = dist.sum_int(nbad)
+                    passed = total == 0
+                    self._log(f"Check solution (rank {dist.rank()}, rows "
+                              f"{lo}..{hi - 1}): {nbad} rows bad")
+                    self._log("Check solution: PASSED" if passed else
+                              f"Check solution: FAILED ({total} rows)")
                 all_pass &= passed
         return all_pass
 
@@ -465,9 +539,14 @@ class LinearSystem:
         if not (ls.write_outputs or ls.write_solution):
             return
         with self.timers.span("Output system"):
-            offsets = np.asarray(self.A.row_offsets)
-            host = lambda v: self._permute_out(from_device_vector(
-                v, self.A.row_offsets, self.A.row_pad))
+            offsets = np.asarray(self.A.all_row_offsets)
+            host = lambda v: self._permute_out(dist.fetch_host(
+                v, offsets))
+            if dist.rank() != 0:
+                # rank 0 writes; the others join its gathers
+                for v in (self.rhs if ls.write_outputs else []) + self.sln:
+                    host(v)
+                return
             if ls.write_outputs:
                 Ah = self.A_host if self.A_host is not None else \
                     self.A.to_scipy()
@@ -487,10 +566,11 @@ class LinearSystem:
         (ref: src/HypreSystem.cpp:700-714), which the hypre_ij reader loads
         again."""
         for lvl, level in enumerate(self._precond.levels):
-            Mh = level.A.to_scipy().tocoo()
-            ij.write_matrix(f"IJM.mat_level_{lvl}", Mh.row, Mh.col, Mh.data,
-                            np.asarray(level.A.row_offsets),
-                            ncols=level.A.shape[1])
+            Mh = dist.gather_scipy(level.A.to_scipy()).tocoo()
+            if dist.rank() == 0:
+                ij.write_matrix(f"IJM.mat_level_{lvl}", Mh.row, Mh.col,
+                                Mh.data, np.asarray(level.A.all_row_offsets),
+                                ncols=level.A.shape[1])
 
     def summarize_timers(self):
         self._log(self.timers.summarize())

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpusolve_torch import dist
 from tpusolve_torch.matrix.sharded import ShardedMatrix, _offd_fields
 from tpusolve_torch.matrix.vectors import numpy_dtype
 
@@ -324,12 +325,13 @@ def ell_padded_parts(A: ShardedMatrix) -> tuple:
     laid out ELL over the same parts, each row's entries in column order,
     as ``tpusolve``'s ``from_coo`` orders them."""
     if not A.uses_ell:
-        M = A.to_scipy().tocsr()
+        # on a rank's slice: laid out over every part, its parts kept
+        M = dist.gather_scipy(A.to_scipy())
         M.sort_indices()
-        A = ShardedMatrix.from_csr_host(
-            M, device=A.device, dtype=numpy_dtype(A.dtype),
-            row_offsets=A.row_offsets, col_offsets=A.col_offsets,
-            allow_dia=False, allow_bdia=False, allow_bell=False)
+        A = dist.place(ShardedMatrix.from_csr_host(
+            M, device=dist.staging(A.device), dtype=numpy_dtype(A.dtype),
+            row_offsets=A.all_row_offsets, col_offsets=A.all_col_offsets,
+            allow_dia=False, allow_bdia=False, allow_bell=False))
     if not A.uses_ell_rowptr:
         return A.diag_vals, A.diag_cols
     from tpusolve_torch.kernels.ell import rowptr_to_padded
@@ -432,7 +434,7 @@ def from_device_ell_parts(shape, vals: torch.Tensor, cols: torch.Tensor,
 def _notes(kind: str, sweeps: int, A: ShardedMatrix) -> list:
     notes = [f"ILU(0) setup on device ({kind} Chow-Patel, {sweeps} sweeps; "
              "ref src/HypreSystem.cpp:352-361)"]
-    if A.nparts > 1:
+    if A.all_nparts > 1:
         notes.append("multi-part: block-Jacobi ILU (per-part diagonal "
                      "blocks, hypre parallel-ILU semantics)")
     if A.has_offd:

@@ -25,6 +25,12 @@ choices the reference exposes for its GPU path:
 with k = ``ilu_fill_level``; 1 is ILUT, approximated by ILU(k) with a drop
 at ``ilu_drop_threshold`` and a cap of ``ilu_max_nnz_per_row`` entries a
 row; other codes run ILU(k) with a note.
+
+Across ranks (``dist.py``) the host factors of the whole operator are
+assembled over every part and placed as the rank's parts, offd blocks kept
+(``dist.place``); on the device path each rank factors its own parts' diag
+blocks (block-Jacobi, as on N parts of one device).  The sweeps exchange
+the halo through ``spmv_update``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from tpusolve_torch import dist
 from tpusolve_torch.amg.interp import _restrict_to_pattern
 from tpusolve_torch.config import ILUConfig
 from tpusolve_torch.ilu import device_setup
@@ -222,7 +229,8 @@ def ilu_setup(A: ShardedMatrix, config: ILUConfig | None = None, *,
                      f"{cfg.ilu_max_nnz_per_row} nnz/row")
     elif cfg.ilu_type not in (0, 1):
         notes.append(f"ilu_type {cfg.ilu_type} mapped to ILU(k) block-Jacobi")
-    Ah = (A_host if A_host is not None else A.to_scipy()).tocsr()
+    Ah = (A_host if A_host is not None
+          else dist.gather_scipy(A.to_scipy())).tocsr()
     perm = None
     if cfg.ilu_local_reordering:
         # factor P A P^T, then carry the factors back by similarity: they
@@ -245,17 +253,15 @@ def ilu_setup(A: ShardedMatrix, config: ILUConfig | None = None, *,
         U_host = U_host[iperm][:, iperm].tocsr()
         ujj = ujj[iperm]
 
-    ro = np.asarray(A.row_offsets)
+    # across ranks: the factors over every part, the rank's parts kept
+    ro = np.asarray(A.all_row_offsets)
     np_dtype = numpy_dtype(A.dtype)
-    Lc, Uc = L_host.tocoo(), U_host.tocoo()
-    L_sh = ShardedMatrix.from_coo(A.shape, Lc.row, Lc.col, Lc.data,
-                                  device=A.device, dtype=np_dtype,
-                                  row_offsets=ro, col_offsets=ro)
-    U_sh = ShardedMatrix.from_coo(A.shape, Uc.row, Uc.col, Uc.data,
-                                  device=A.device, dtype=np_dtype,
-                                  row_offsets=ro, col_offsets=ro)
-    udiag_inv = to_device_vector(1.0 / ujj, ro, A.row_pad, A.device,
-                                 dtype=np_dtype)
+    L_sh, U_sh = (dist.place(ShardedMatrix.from_coo(
+        A.shape, M.row, M.col, M.data, device=dist.staging(A.device),
+        dtype=np_dtype, row_offsets=ro, col_offsets=ro))
+        for M in (L_host.tocoo(), U_host.tocoo()))
+    udiag_inv = to_device_vector(1.0 / ujj, A.row_offsets, A.row_pad,
+                                 A.device, dtype=np_dtype)
     return ILUPreconditioner(
         L=L_sh, U=U_sh, udiag_inv=udiag_inv,
         lower_iters=max(cfg.ilu_lower_jacobi_iters, 1),

@@ -320,24 +320,24 @@ def _check_operands(vals, cols, x, rowptr) -> tuple:
     return "rowptr", rows, vals.numel()
 
 
-def _plain(vals, cols, x, b, s, c, w, out, rowptr):
+def _plain(vals, cols, x, b, s, c, w, out, rowptr, width=None):
     """The plain version of one column, or column by column of a batch
     (each column the single form's bits)."""
     if x.dim() == 2:
         col = lambda t, j: t if t is None or t.dim() == 1 else t[j]
         ys = [_plain(vals, cols, x[j], col(b, j), s, col(c, j), w,
-                     col(out, j), rowptr) for j in range(x.shape[0])]
+                     col(out, j), rowptr, width) for j in range(x.shape[0])]
         return out if out is not None else torch.stack(ys)
     if rowptr is None:
         return ell_spmv_plain(vals, cols, x, b, s, c, w, out)
-    return ell_rowptr_plain(rowptr, vals, cols, x, b, s, c, w, out)
+    return ell_rowptr_plain(rowptr, vals, cols, x, b, s, c, w, out, width)
 
 
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
              b=None, s=None, c=None, w: float = 1.0, *, out=None,
              groups: int | None = None, rowptr=None, packed: bool = False,
-             offd: bool = False,
-             ghost_prolong: bool = False) -> torch.Tensor:
+             offd: bool = False, ghost_prolong: bool = False,
+             width: int | None = None) -> torch.Tensor:
     """ELL SpMV, ``y = A @ x``, or with any of ``b``, ``s``, ``c`` given its
     update form ``y = c + w * s * (b - A x)`` (arguments as
     :func:`ell_spmv_plain`); written into ``out`` when given, which may be
@@ -356,7 +356,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     exactly to x's dtype.
 
     CPU tensors take the plain version of their form (a batch column by
-    column).  CUDA tensors launch the kernel of ``csrc/ell_spmv.cuh``
+    column; the row-pointer form's padded to ``width``, by default its
+    longest row's entries).  CUDA tensors launch the kernel of ``csrc/ell_spmv.cuh``
     (building it on first use) once, on the launch plan of :func:`k2_plan`
     or :func:`k2_rowptr_plan` unless ``groups`` names another G, or raise;
     there is no fallback.  ``ell_spmv.launches`` counts kernel launches,
@@ -374,7 +375,7 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
         raise ValueError("ell_spmv: a packed x is (n, k)")
     if x.device.type == "cpu":
         return _plain(vals, cols, x.T if packed else x, b, s, c, w, out,
-                      rowptr)
+                      rowptr, width)
     form, rows, size = _check_operands(vals, cols, x, rowptr)
     if x.dim() not in (1, 2):
         raise ValueError("ell_spmv: x must be (n,) or a batch of vectors")

@@ -16,6 +16,13 @@ selects the old carry) while it stays in the batch, masked; the loop ends
 when every column has stopped; the host reads the k residual norms in one
 transfer an iteration.  The result carries per-column fields
 (:meth:`SolveResult.column` takes one out).
+
+Across ranks (``dist.py``) a vector holds the rank's parts, and each
+reduction (:func:`dot`, :func:`norm`, :func:`dot_cols`, :func:`norm_cols`)
+is the rank's partial sum and one ``all_reduce`` (``tpusolve``'s
+``psum``), which gives every rank the same bits, so the host reads that
+steer the loops branch alike on every rank.  In one process they are the
+local sums as they were.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Callable
 
 import torch
 
+from tpusolve_torch import dist
 from tpusolve_torch.matrix.sharded import ShardedMatrix
 from tpusolve_torch.matrix.spmv import spmv
 
@@ -75,11 +83,11 @@ def as_precond(M) -> Callable:
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b)
+    return dist.all_reduce(torch.sum(a * b))
 
 
 def norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(a * a))
+    return torch.sqrt(dist.all_reduce(torch.sum(a * a)))
 
 
 def safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -99,12 +107,12 @@ def stop_target(bnorm: torch.Tensor, tol: float, atol: float) -> torch.Tensor:
 
 def dot_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(k,) dot products of the rows of two (k, n) batches."""
-    return torch.sum(a * b, dim=-1)
+    return dist.all_reduce(torch.sum(a * b, dim=-1))
 
 
 def norm_cols(a: torch.Tensor) -> torch.Tensor:
     """(k,) 2-norms of the rows of a (k, n) batch."""
-    return torch.sqrt(torch.sum(a * a, dim=-1))
+    return torch.sqrt(dist.all_reduce(torch.sum(a * a, dim=-1)))
 
 
 def scale(alpha: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,8 @@ src/HypreSystem.cpp:390-404), ``HYPRE_ParCSRCOGMRES*`` (+``SetCGS``, ref:
   residual is recomputed between cycles beyond the cycle's own first one.
   The history keeps ``tpusolve``'s ``(maxiter + m + 1)`` buffer padded
   with -1.
+* Across ranks each projection ``V w`` is the rank's partial product and
+  one ``all_reduce`` (``dist.all_reduce``); ``V^T h`` needs none.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from tpusolve_torch import dist
 from tpusolve_torch.krylov.common import (
     Mask, SolveResult, as_matvec, as_precond, norm, norm_cols, safe_div,
     stop_target)
@@ -75,10 +78,10 @@ def _gmres_cycle(matvec, precond, m, cgs, flexible, b, x, target, hist,
             Z[j] = z
         # batched classical Gram-Schmidt (rows > j of V are zero, so
         # h[k > j] = 0)
-        h = torch.mv(V, w)
+        h = dist.all_reduce(torch.mv(V, w))
         w = w - torch.mv(V.T, h)
         if cgs >= 2:                    # CGS2 re-orthogonalization
-            h2 = torch.mv(V, w)
+            h2 = dist.all_reduce(torch.mv(V, w))
             w = w - torch.mv(V.T, h2)
             h = h + h2
         hj1_t = norm(w)
@@ -184,10 +187,10 @@ def _gmres_cycle_batch(matvec, precond, m, cgs, flexible, b, x, target,
         if flexible:
             Z[:, j] = mask.keep(z, Z[:, j])
         # batched classical Gram-Schmidt, a column's own basis each
-        h = torch.bmm(V, w[:, :, None])[:, :, 0]
+        h = dist.all_reduce(torch.bmm(V, w[:, :, None])[:, :, 0])
         w = w - torch.bmm(V.transpose(1, 2), h[:, :, None])[:, :, 0]
         if cgs >= 2:
-            h2 = torch.bmm(V, w[:, :, None])[:, :, 0]
+            h2 = dist.all_reduce(torch.bmm(V, w[:, :, None])[:, :, 0])
             w = w - torch.bmm(V.transpose(1, 2), h2[:, :, None])[:, :, 0]
             h = h + h2
         hj1_t = norm_cols(w)

@@ -18,7 +18,13 @@ import numpy as np
 
 
 def sort_coo(rows, cols, vals):
-    """Sort entries by (row, col), stable."""
+    """Sort entries by (row, col), stable; entries already in that order
+    (row-sorted files, a rank's sorted rows gathered) are returned as they
+    are, as the sort would leave them."""
+    if rows.size > 1 and not (
+            (np.diff(rows) < 0).any() or ((rows[1:] == rows[:-1])
+                                          & (cols[1:] < cols[:-1])).any()):
+        return rows, cols, vals
     order = np.lexsort((cols, rows))
     return rows[order], cols[order], vals[order]
 

@@ -13,8 +13,11 @@ columns other parts own, ``tpusolve``'s ghosts): the offd block is
 (``offd_vals``, ``offd_cols``), and its halo plan (``send_idx``,
 ``ghost_slot``) is kept as ``tpusolve`` builds it, beside the flat index of
 x each ghost is read from (``halo_src``), by which the SpMV gathers every
-part's ghosts at once (``matrix/spmv.py``).  The diag block takes one of
-these layouts:
+part's ghosts at once (``matrix/spmv.py``).  Across R processes
+(``dist.py``) each rank holds N / R consecutive parts of the N-part
+operator, :meth:`ShardedMatrix.rank_slice` of it: the same arrays for its
+parts, and a halo plan by peer rank (:class:`RankHalo`) in place of
+``halo_src``.  The diag block takes one of these layouts:
 
 * **DIA** (box DIA, ``kernels/dia.py``), built by :meth:`from_dia_parts`
   (the stencil generator and the structured multigrid levels), by
@@ -601,11 +604,43 @@ class ShardedMatrix:
     ghost_slot: torch.Tensor | None = None  # (P, G) int32: owner * S + slot
     halo_src: torch.Tensor | None = None    # (P * G,) int64: the index of
     #   the padded x each ghost is read from, owner * col_pad + send_idx
-    has_offd: bool = False
+    has_offd: bool = False    # on a rank's slice: whether any part has one
+    # --- a rank's slice (rank_slice): parts [part_lo, part_lo + nparts) of
+    # the operator over every part, whose (row, col) offsets ``all_offsets``
+    # holds; None on an operator over every part
+    part_lo: int = 0
+    all_offsets: tuple | None = None
+    rank_halo: "RankHalo | None" = None  # the slice's halo plan by rank
+    # the whole operator's K2 form on the offd block, and the widths its
+    # row-pointer forms (diag, offd) take in their plain versions, so that a
+    # slice computes its rows' bits as the whole operator does
+    offd_form: str | None = None
+    plain_widths: tuple = (None, None)
 
     @property
     def nparts(self) -> int:
+        """The parts this operator holds (a rank's slice: its own)."""
         return len(self.row_offsets) - 1
+
+    @property
+    def all_row_offsets(self) -> tuple:
+        """The row offsets of every part, on a rank's slice too."""
+        return self.row_offsets if self.all_offsets is None \
+            else self.all_offsets[0]
+
+    @property
+    def all_col_offsets(self) -> tuple:
+        return self.col_offsets if self.all_offsets is None \
+            else self.all_offsets[1]
+
+    @property
+    def all_nparts(self) -> int:
+        """The parts of the whole operator (``tpusolve``'s mesh size)."""
+        return len(self.all_row_offsets) - 1
+
+    @property
+    def is_slice(self) -> bool:
+        return self.all_offsets is not None
 
     @property
     def priced_over(self) -> str | None:
@@ -695,9 +730,10 @@ class ShardedMatrix:
             P, R, K = self.offd_vals.shape
             width = max(1, int((rowptr[1:] - rowptr[:-1]).max()))
             # K2_MODEL has f32 and f64 constants: a bf16 twin's block is
-            # priced as f32
-            form = ell_form(P * R, P * G, K, rv.numel(),
-                            max(4, self.offd_vals.element_size()), width)[0]
+            # priced as f32; a slice takes the whole operator's form
+            form = self.offd_form or ell_form(
+                P * R, P * G, K, rv.numel(),
+                max(4, self.offd_vals.element_size()), width)[0]
             if form == "padded":
                 return _flat_padded(self.offd_vals, self.offd_cols, G)
             return rv, rc, rowptr
@@ -1089,12 +1125,13 @@ class ShardedMatrix:
         """The global matrix as scipy CSR (tests and host use): every
         part's diag block, and its offd block with each ghost slot turned
         back into its global column through the halo plan
-        (``tpusolve/matrix/sharded.py:804-893``)."""
+        (``tpusolve/matrix/sharded.py:804-893``).  On a rank's slice, the
+        global matrix with this rank's rows alone."""
         import scipy.sparse as sp
         rows, cols, vals = [], [], []
         ghosts = None
         if self.has_offd:
-            ro = np.asarray(self.col_offsets)
+            ro = np.asarray(self.all_col_offsets)
             S = self.send_idx.shape[-1]
             send = self.send_idx.cpu().numpy().astype(np.int64)
             gs = self.ghost_slot.cpu().numpy().astype(np.int64)
@@ -1109,7 +1146,7 @@ class ShardedMatrix:
             vals.append(v[keep])
             if self.has_offd:
                 owners, pos = gs[p] // S, gs[p] % S
-                ghosts = ro[owners] + send[owners, p, pos]
+                ghosts = ro[owners] + send[owners, self.part_lo + p, pos]
                 r_i, k_i = np.nonzero(ovals[p][:nr])
                 rows.append(self.row_offsets[p] + r_i)
                 cols.append(ghosts[ocols[p][r_i, k_i]])
@@ -1290,6 +1327,119 @@ class ShardedMatrix:
             A.bdia_vals, A.bdia_starts, A.bdia_xpad, A.row_pad, A.col_pad,
             A.bdia_gb, A.bdia_step_lo, A.bdia_panel, A.bdia_ovf,
             mask=A.bdia_mask, step_b0=A.bdia_step_b0, stage=A.bdia_stage))
+
+
+    def rank_slice(self, rank: int, world: int, device) -> "ShardedMatrix":
+        """Rank ``rank``'s parts of this operator over every part, as
+        ``world`` ranks split them (``dist.place``): parts ``[rank N/R,
+        (rank+1) N/R)`` on ``device``, each of their arrays as this
+        operator has it (``row_pad``, ``col_pad``, the layout and its plan,
+        the offd blocks), and the halo plan by peer rank
+        (:func:`rank_halo`) in place of ``halo_src``.  K2's form on the
+        offd block and the widths of the row-pointer forms' plain versions
+        are this operator's, so the slice's rows keep their bits."""
+        P = self.nparts
+        if self.is_slice or P % world:
+            raise ValueError(f"rank_slice: {P} parts over {world} ranks")
+        per = P // world
+        lo, hi = rank * per, (rank + 1) * per
+        device = torch.device(device)
+        take = lambda t: None if t is None else t[lo:hi].to(device,
+                                                            copy=True)
+        fields = {f: take(getattr(self, f)) for f in _PART_FIELDS}
+        widths, halo = [None, None], {}
+        if self.uses_ell_rowptr:
+            widths[0] = _rowptr_width(self.ell_rowptr)
+        if self.has_offd:
+            rowptr = self.offd_k2[2]
+            widths[1] = None if rowptr is None else _rowptr_width(rowptr)
+            G = self.ghost_slot.shape[1]
+            halo = dict(
+                offd_form="padded" if rowptr is None else "rowptr",
+                send_idx=self.send_idx.to(device),
+                rank_halo=rank_halo(self.halo_src.cpu().numpy(), G,
+                                    self.col_pad, np.arange(P) // per, rank,
+                                    device))
+        A = dataclasses.replace(
+            self, **fields, **halo, halo_src=None, bdia_xl_op=None,
+            row_offsets=self.row_offsets[lo:hi + 1],
+            col_offsets=self.col_offsets[lo:hi + 1], part_lo=lo,
+            all_offsets=(self.row_offsets, self.col_offsets),
+            plain_widths=tuple(widths))
+        if A.uses_bdia_xl:
+            A = A._with_xl((A.bdia_gb, A.bdia_step_lo.cpu(), A.bdia_panel,
+                            A.bdia_step_b0.cpu(), A.bdia_stage))
+        return A
+
+
+# the fields of ShardedMatrix with a leading part axis, which a rank's
+# slice takes its parts of (send_idx, (P, P, S), stays whole)
+_PART_FIELDS = ("diag_vals", "diag_cols", "bdia_vals", "bdia_starts",
+                "bell_vals", "bell_ids", "diag", "bdia_ovf_ptr",
+                "bdia_ovf_cols", "bdia_ovf_vals", "bdia_mask",
+                "bdia_step_lo", "bdia_step_b0", "dia_vals", "ell_rowptr",
+                "ell_vals", "ell_cols", "offd_vals", "offd_cols",
+                "ghost_slot")
+
+
+def _rowptr_width(rowptr: torch.Tensor) -> int:
+    """The largest count of entries a row of a row pointer (one, or a stack
+    of them) has, at least 1: the width its plain version pads to."""
+    return max(1, int((rowptr[..., 1:] - rowptr[..., :-1]).max()))
+
+
+@dataclass(frozen=True)
+class RankHalo:
+    """A rank's halo plan (:func:`rank_halo`): ``send_idx`` the entries of
+    its padded x it sends, peer by peer in rank order (``send_splits`` of
+    them to each); ``recv_splits`` the entries each peer sends it; ``src``
+    (L * G,) the index of each of its parts' ghosts into its padded x
+    followed by the received entries."""
+    send_idx: torch.Tensor
+    send_splits: tuple
+    recv_splits: tuple
+    src: torch.Tensor
+
+
+def rank_halo(halo_src: np.ndarray, G: int, col_pad: int,
+              part_rank: np.ndarray, rank: int, device) -> RankHalo:
+    """The halo plan of rank ``rank`` from the whole operator's one-gather
+    plan ``halo_src`` (P * G,) (:func:`halo_sources`; part p on rank
+    ``part_rank[p]``, each rank's parts consecutive): the ghosts its own
+    parts hold come from its padded x, the others from the one
+    ``all_to_all_single`` (``tpusolve/matrix/spmv.py:60-70``), each peer
+    sending every entry any of this rank's ghosts reads once, in global
+    order.  Every rank builds every rank's lists from the global column
+    ownership, so no plan is exchanged at run time; the ghosts, padded
+    slots too, are the whole operator's gather bit for bit."""
+    P = part_rank.size
+    R = int(part_rank.max()) + 1
+    lo = int(np.searchsorted(part_rank, rank))
+    hi = int(np.searchsorted(part_rank, rank, side="right"))
+    dest = part_rank[np.arange(P * G) // G]
+    owner = part_rank[halo_src // col_pad]
+
+    def wanted(s, d):
+        if s == d:
+            return np.zeros(0, np.int64)
+        return np.unique(halo_src[(owner == s) & (dest == d)])
+
+    sends = [wanted(rank, d) for d in range(R)]
+    recvs = [wanted(s, rank) for s in range(R)]
+    base = lo * col_pad
+    mine, own = halo_src[lo * G:hi * G], owner[lo * G:hi * G]
+    src = mine - base
+    roff = np.concatenate([[0], np.cumsum([r.size for r in recvs])])
+    for s in range(R):
+        at = own == s
+        if s != rank and at.any():
+            src[at] = (hi - lo) * col_pad + roff[s] + np.searchsorted(
+                recvs[s], mine[at])
+    return RankHalo(
+        send_idx=to_tensor(np.concatenate(sends) - base, device),
+        send_splits=tuple(int(a.size) for a in sends),
+        recv_splits=tuple(int(a.size) for a in recvs),
+        src=to_tensor(src, device))
 
 
 def _dia_candidate(diag_parts, row_pad: int, total_nnz: int):

@@ -38,12 +38,21 @@ A_offd g``, and then run the diag block's fused update on b', so a fused
 kernel (K1, K2, K5, and the cycle's fused transfers) keeps its one launch.
 The sum is ordered differently from ``tpusolve``'s there, which differs in
 the last bit.
+
+Across ranks (``dist.py``) an operator is a rank's slice of its parts
+(``ShardedMatrix.rank_slice``): :func:`halo_gather` gathers the entries its
+peers need from its x (``RankHalo.send_idx``), hands them over in one
+``all_to_all_single`` (``dist.exchange``) and reads each ghost from x or
+from what it received (``RankHalo.src``), the whole operator's ghosts bit
+for bit; the K2 launches on the diag and offd blocks are unchanged, each
+over the rank's parts.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpusolve_torch import dist
 from tpusolve_torch.kernels.bdia import (bdia_spmv, bdia_spmv_xl,
                                          bdia_spmv_xl_run)
 from tpusolve_torch.kernels.bell import bell_spmv
@@ -73,8 +82,17 @@ def halo_exchange(x: torch.Tensor, send_idx: torch.Tensor,
 def halo_gather(A, x: torch.Tensor) -> torch.Tensor:
     """The ghosts of every part of multi-part operator ``A``, stacked (P *
     G,), or (k, P * G) for a batch ``x`` (k, P * col_pad): one index
-    gather of x at ``A.halo_src``, the exchange of :func:`halo_exchange`."""
-    return x.index_select(x.dim() - 1, A.halo_src)
+    gather of x at ``A.halo_src``, the exchange of :func:`halo_exchange`.
+    On a rank's slice, its parts' ghosts: the entries its peers read
+    gathered, one ``all_to_all_single``, and each ghost read from x or
+    from what came in (:class:`~tpusolve_torch.matrix.sharded.RankHalo`)."""
+    axis = x.dim() - 1
+    h = A.rank_halo
+    if h is None:
+        return x.index_select(axis, A.halo_src)
+    recv = dist.exchange(x.index_select(axis, h.send_idx), h.send_splits,
+                         h.recv_splits)
+    return torch.cat([x, recv], axis).index_select(axis, h.src)
 
 
 def offd_spmv(A, g: torch.Tensor, **update) -> torch.Tensor:
@@ -82,7 +100,8 @@ def offd_spmv(A, g: torch.Tensor, **update) -> torch.Tensor:
     batch (k, P * G)), with K2's ``update`` arguments: ``b=b`` gives ``b -
     A_offd g``."""
     vals, cols, rowptr = A.offd_k2
-    return ell_spmv(vals, cols, g, rowptr=rowptr, offd=True, **update)
+    return ell_spmv(vals, cols, g, rowptr=rowptr, offd=True,
+                    width=A.plain_widths[1], **update)
 
 
 def _offd(A, x: torch.Tensor, **update) -> torch.Tensor:
@@ -128,7 +147,7 @@ def _diag_spmv(A, x: torch.Tensor) -> torch.Tensor:
     if A.uses_bell:
         return bell_spmv(A.bell_vals, A.bell_ids, x, A.bell_nwin, A.row_pad)
     vals, cols, rowptr = A.ell_arrays
-    return ell_spmv(vals, cols, x, rowptr=rowptr)
+    return ell_spmv(vals, cols, x, rowptr=rowptr, width=A.plain_widths[0])
 
 
 def spmv_update(A, x: torch.Tensor, *, b=None, s=None, c=None,
@@ -160,7 +179,8 @@ def spmv_update(A, x: torch.Tensor, *, b=None, s=None, c=None,
         b = _fold_offd(A, x, b)
     if A.uses_ell:
         vals, cols, rowptr = A.ell_arrays
-        return ell_spmv(vals, cols, x, b, s, c, w, out=out, rowptr=rowptr)
+        return ell_spmv(vals, cols, x, b, s, c, w, out=out, rowptr=rowptr,
+                        width=A.plain_widths[0])
     if A.uses_bdia_xl:
         return _xl(A, x, b=b, s=s, c=c, w=w, out=out)
     if A.uses_dia:
@@ -219,7 +239,8 @@ def _diag_batch(A, x: torch.Tensor, update: dict) -> torch.Tensor:
     launch, which runs each column itself."""
     if A.uses_ell:
         vals, cols, rowptr = A.ell_arrays
-        return ell_spmv(vals, cols, x, rowptr=rowptr, **update)
+        return ell_spmv(vals, cols, x, rowptr=rowptr,
+                        width=A.plain_widths[0], **update)
     if A.uses_dia:
         # K1 runs each column itself (kernels/dia.py)
         return dia_spmv(A.dia_vals, A.dia_offsets, x, **update)

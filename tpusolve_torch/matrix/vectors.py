@@ -6,6 +6,10 @@ global entries ``[offsets[p], offsets[p+1])`` in its first ``count_p`` slots,
 with zeros in the padded tail.  Every kernel keeps "padding is exactly
 zero", so dot products and norms need no masks.  (Analog of
 ``HYPRE_IJVector`` staging, ref: src/HypreSystem.cpp:546-598, :957-1015.)
+Across ranks a vector holds the rank's parts: ``offsets`` are then the
+rank's (a slice's ``row_offsets``, global rows), so :func:`to_device_vector`
+places its parts of a global host vector and :func:`from_device_vector`
+returns its rows; ``dist.fetch_host`` gathers the global vector.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ phase (ref: src/HypreSystem.h:230), a summary table
 kept identical to the reference's.  The reference fences each span with
 ``MPI_Barrier``; here a span on a CUDA device ends with
 ``torch.cuda.synchronize``, so it includes the device work queued inside it.
+Across ranks each rank keeps its own timers, and its summary's rows carry
+its rank (``label``).
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import torch
 class Timers:
     """Ordered collection of named wall-clock spans (duplicates allowed)."""
 
-    def __init__(self, device: torch.device | str = "cpu") -> None:
+    def __init__(self, device: torch.device | str = "cpu",
+                 label: str | None = None) -> None:
         self.device = torch.device(device)
+        self.label = label       # e.g. "rank 1": each row is prefixed so
         self.entries: list[tuple[str, float]] = []
 
     def add(self, name: str, seconds: float) -> None:
@@ -48,14 +52,17 @@ class Timers:
         return sum(t for _, t in self.entries)
 
     def summarize(self) -> str:
-        """Rank-0-style summary table (ref: src/HypreSystem.cpp:880-889)."""
-        lines = ["", "Timing summary:", f"    {'Description':40s} Time (s)"]
-        lines.append("    " + "-" * 50)
+        """Rank-0-style summary table (ref: src/HypreSystem.cpp:880-889);
+        with a ``label``, every row after the title starts with it."""
+        pre = "    " if self.label is None else f"[{self.label}] "
+        lines = [f"{pre}{'Description':40s} Time (s)", pre + "-" * 50]
         for name, secs in self.entries:
-            lines.append(f"    {name:40s} {secs:10.6f}")
-        lines.append("    " + "-" * 50)
-        lines.append(f"    {'Total':40s} {self.total():10.6f}")
-        return "\n".join(lines)
+            lines.append(f"{pre}{name:40s} {secs:10.6f}")
+        lines.append(pre + "-" * 50)
+        lines.append(f"{pre}{'Total':40s} {self.total():10.6f}")
+        title = "Timing summary:" if self.label is None \
+            else f"Timing summary ({self.label}):"
+        return "\n".join(["", title] + lines)
 
     def as_dict(self) -> dict[str, float]:
         """Accumulate duplicate names by summing, preserving first-seen order
