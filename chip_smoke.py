@@ -261,11 +261,24 @@ and take ``tpusolve``'s 8-device count with the same YAML
 (r) gate 4 at 96^3 from 8 files, ``mixed``, ``matrix_ordering: none``
    (each rank parses only its 4 files; the ILU(0) block-Jacobi on the
    card, each rank its own parts): within one a refinement pass of 141;
-then (q) over ``nccl``, one card a rank, where the machine has two cards,
-else a line saying that NCCL was not run.
+then the generated stencil's structured path the same way, each rank
+generating only its parts (``stencil.laplace27``'s ``rank_parts``) and
+printing its build row, the bytes of its planes (half the one-process
+run's, or it fails) and of the memory allocated after loading and after
+solving; each rank must launch K1, both fused transfers and K2 on the
+offd blocks and on the prolongation's ghost rows, and the ranks one
+count:
 
-``python3 chip_smoke.py --ranks-profile`` runs (q) again on 2 ranks alone
-(``--rank-profile``, each rank a process of this script under
+(s) gate 1 as written, 64^3 a part (2,097,152 rows, ``mixed``): within
+   one a refinement pass of (l)'s one-process count and of ``tpusolve``'s
+   8-part count;
+(t) gate 2 at 32^3 a part (``single``): within one of the one-process
+   8-part count, which the smoke runs first (one process, ``--parts 8``);
+then (q) and (s) over ``nccl``, one card a rank, where the machine has two
+cards, else a line saying that NCCL was not run.
+
+``python3 chip_smoke.py --ranks-profile`` runs (q) and (s) again on 2
+ranks alone (``--rank-profile``, each rank a process of this script under
 ``torch.distributed.run``): each rank's warm solve profiled (device
 operations, busy time, idle share by class) and timed with every
 collective (the halo's ``all_to_all_single``, the reductions'
@@ -452,6 +465,11 @@ WEAKSCALE_HOST_BUILD_S = 0.526165
 RANKS = 2
 TPUSOLVE_RANKS_ITERS = {"gate3": 12, "gate4": 141}
 RANKS_SIDES = {"gate3": 64, "gate4": 96}
+# (s), (t): the generated stencil's structured path by rank, the same
+# launch: gate 1 as written (64^3 a part, 2,097,152 rows), held to (l)'s
+# one-process count and tpusolve's 8-part count (TPUSOLVE_PARTS_ITERS);
+# gate 2 at GATE2_SIDE^3 a part, held to the one-process 8-part count
+STENCIL_RANKS_SIDES = {"gate1": 64, "gate2": GATE2_SIDE}
 
 
 def fail(msg: str):
@@ -2227,6 +2245,24 @@ def solve_profile(system, what: str) -> dict:
     return out
 
 
+def sized_yaml(yaml_name: str, side: int | None) -> str:
+    """``examples/<yaml_name>``, or a copy of it under ``FIXTURES`` with
+    its box at side^3 where ``side`` is given."""
+    yaml_path = os.path.join(REPO, "examples", yaml_name)
+    if side is None:
+        return yaml_path
+    with open(yaml_path) as fh:
+        text = "".join(
+            f"{ln.split(':')[0]}: {side}\n"
+            if ln.strip().split(":")[0] in ("nx", "ny", "nz") else ln
+            for ln in fh)
+    os.makedirs(FIXTURES, exist_ok=True)
+    yaml_path = os.path.join(FIXTURES, f"{side}_{yaml_name}")
+    with open(yaml_path, "w") as fh:
+        fh.write(text)
+    return yaml_path
+
+
 def structured_phase(what: str, yaml_name: str, tol: float, device_name,
                      counters, seed: int, side: int | None = None):
     """Gate 1 or 2 (``examples/<yaml_name>``, its box at side^3 where
@@ -2238,17 +2274,7 @@ def structured_phase(what: str, yaml_name: str, tol: float, device_name,
     from tpusolve_torch.kernels.dia import dia_spmv, launches_by_mode
     from tpusolve_torch.kernels.transfer import (
         box_prolong, box_prolong_update, box_restrict, box_restrict_residual)
-    yaml_path = os.path.join(REPO, "examples", yaml_name)
-    if side is not None:
-        with open(yaml_path) as fh:
-            text = "".join(
-                f"{ln.split(':')[0]}: {side}\n"
-                if ln.strip().split(":")[0] in ("nx", "ny", "nz") else ln
-                for ln in fh)
-        os.makedirs(FIXTURES, exist_ok=True)
-        yaml_path = os.path.join(FIXTURES, f"{side}_{yaml_name}")
-        with open(yaml_path, "w") as fh:
-            fh.write(text)
+    yaml_path = sized_yaml(yaml_name, side)
     apply, applied = builder.AMGPreconditioner.apply, [0]
 
     def counted(self, r):
@@ -4136,9 +4162,30 @@ def gate1_parts_phase(card: str, counters) -> dict:
     row = offd_timing(f"{what} level 0", lev0, launches["ell_spmv offd"],
                       card, 42)
     prof = solve_profile(system, what)
+    planes = system.planes_bytes
     system.destroy_system()
     return dict(out, launches=launches, timers=timers, offd_rows=[row],
-                profile=prof)
+                profile=prof, planes_bytes=planes)
+
+
+def gate2_parts_phase(counters) -> dict:
+    """Gate 2 at ``GATE2_SIDE``^3 a part on ``PARTS`` parts in one process,
+    the count (t) is held to: K1, both fused transfers and K2 on the offd
+    shells ran, the golden check passed."""
+    what = f"gate-2 {GATE2_SIDE}^3 {PARTS} parts"
+    system, res, launches, timers = parts_run(
+        what, sized_yaml("gate2_weakscale_gmres_cheby.yaml", GATE2_SIDE),
+        counters, tol=1e-6)
+    for fn in ("dia_spmv", "box_restrict_residual", "box_prolong_update"):
+        if launches[fn] <= 0:
+            fail(f"{what}: the path launched no {fn}")
+    print(f"{what}: {res.iters} GMRES iterations, relres "
+          f"{float(res.relres):.3e}, golden check PASSED", flush=True)
+    out = dict(iters=int(res.iters), relres=float(res.relres),
+               launches=launches, timers=timers,
+               planes_bytes=system.planes_bytes)
+    system.destroy_system()
+    return out
 
 
 def gate3_parts_phase(card: str, counters) -> dict:
@@ -4299,6 +4346,94 @@ def ranks_phase(key: str, yaml_path: str, card: str, spread) -> dict:
                 tpusolve=want)
 
 
+def stencil_ranks_phase(key: str, yaml_path: str, card: str,
+                        one: dict) -> dict:
+    """(s), (t): gate ``key`` generated by rank on ``RANKS`` ranks x
+    ``PARTS`` parts sharing the card through gloo, each rank generating
+    only its parts and running the structured path on them.  Prints each
+    rank's line (parts, rows, the stencil's build row, its planes against
+    the one-process run's ``one``, the bytes allocated after loading and
+    after solving, the launches of K1, the fused transfers and K2 on offd
+    blocks and on the prolongation's ghost rows, the count, the check, the
+    timer rows) and fails unless every rank exited 0, passed the check,
+    holds its own parts and rows alone (its planes half the one-process
+    run's), launched K1, both fused transfers and K2 on an offd block, the
+    ranks took one count, and that count is within one a refinement pass
+    of the one-process 8-part count and of ``tpusolve``'s (gate 1), or
+    within one of the one-process count (gate 2, ``single``: the ranks'
+    sums run in another order)."""
+    side = STENCIL_RANKS_SIDES[key]
+    what = f"{key.replace('gate', 'gate-')} {side}^3 a part, {RANKS} " \
+           f"ranks x {PARTS // RANKS} parts (generated by rank)"
+    logdir = os.path.join(FIXTURES, f"ranks_{key}")
+    rc, wall, outs, launcher = ranks_launch(yaml_path, "gloo", logdir)
+    if rc != 0:
+        fail(f"{what}: torch.distributed.run exit {rc}:\n"
+             f"{launcher[-3000:]}\n{outs[0][-2000:]}\n{outs[1][-2000:]}")
+    lines = [rank_summary(out, r) for r, out in enumerate(outs)]
+    box = side ** 3
+    per = PARTS // RANKS
+    for r, (ln, out) in enumerate(zip(lines, outs)):
+        L = ln["launches"]
+        it, passes = ln["iters"][0], ln["passes"][0] or []
+        mem = {k: None if v is None else round(v / 2 ** 20, 1)
+               for k, v in ln["memory"].items()}
+        print(f"{what} rank {r}: {ln['device']}, backend {ln['backend']}, "
+              f"parts {ln['parts']}, rows {ln['rows']}; Build 27Pt Stencil "
+              f"{ln['stencil_build_s']:.6f} s; planes {ln['planes_bytes']} "
+              f"bytes (one process on {PARTS} parts {one['planes_bytes']}); "
+              f"allocated MiB {mem}; launches K1 {L['dia_spmv']}, "
+              f"restriction with the residual {L['box_restrict_residual']}, "
+              f"prolongation with the update {L['box_prolong_update']}, K2 "
+              f"on offd blocks {L['ell_spmv offd']}, on the prolongation's "
+              f"ghost rows {L['ell_spmv ghost prolong']}, standalone K3 "
+              f"{L['box_prolong'] + L['box_restrict']}; {it} iterations "
+              f"(passes {passes}), relres {ln['relres'][0]:.3e}, check "
+              f"{ln['check']}; one process on {PARTS} parts {one['iters']}"
+              + (f", tpusolve on {PARTS} devices (CPU, same YAML) "
+                 f"{TPUSOLVE_PARTS_ITERS[key]}" if key == "gate1" else "")
+              + f"; {card}", flush=True)
+        print(f"{what} rank {r} layouts: {ln['layouts']}", flush=True)
+        print(f"{what} rank {r} timer rows (s): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in ln["timers"].items()), flush=True)
+        if ln["check"] != "PASSED" or "Check solution: PASSED" not in out:
+            fail(f"{what}: rank {r}'s check {ln['check']}")
+        if ln["parts"] != [r * per, (r + 1) * per] \
+                or ln["rows"] != [r * per * box, (r + 1) * per * box - 1]:
+            fail(f"{what}: rank {r} holds parts {ln['parts']}, rows "
+                 f"{ln['rows']}")
+        if 2 * ln["planes_bytes"] != one["planes_bytes"]:
+            fail(f"{what}: rank {r} holds {ln['planes_bytes']} bytes of "
+                 f"planes, not half of one process's {one['planes_bytes']}")
+        if ln["memory"].get("after load") is None:
+            fail(f"{what}: rank {r} reported no allocated memory")
+        for name in ("dia_spmv", "box_restrict_residual",
+                     "box_prolong_update", "ell_spmv offd",
+                     "ell_spmv ghost prolong"):
+            if L[name] <= 0:
+                fail(f"{what}: rank {r} launched no {name}")
+        if L["box_prolong"] or L["box_restrict"]:
+            fail(f"{what}: rank {r} launched the standalone K3 kernels")
+        slack = len(passes) if key == "gate1" else 1
+        refs = [one["iters"]] + ([TPUSOLVE_PARTS_ITERS[key]]
+                                 if key == "gate1" else [])
+        if any(abs(it - ref) > slack for ref in refs):
+            fail(f"{what}: rank {r} took {it} iterations; one process "
+                 f"{refs[0]}, held within {slack}")
+    if lines[0]["iters"] != lines[1]["iters"]:
+        fail(f"{what}: the ranks' counts differ {lines[0]['iters']} "
+             f"{lines[1]['iters']}")
+    launches = {k: sum(ln["launches"][k] for ln in lines)
+                for k in lines[0]["launches"]}
+    same = "equals" if lines[0]["iters"][0] == one["iters"] \
+        else "differs from"
+    print(f"{what}: {wall:.1f} s wall for the launch, both ranks; the "
+          f"count {same} the one-process count; launches of both "
+          f"{launches}; {card}", flush=True)
+    return dict(ranks=lines, wall_s=wall, launches=launches,
+                one_process=one["iters"])
+
+
 def timed_collectives(dist_mod) -> dict:
     """Wrap ``dist_mod``'s collectives (the halo's ``exchange``, the
     reductions' ``all_reduce``, the coarse solve's ``all_gather_cat``) so
@@ -4410,8 +4545,8 @@ def ranks_profile(yaml_path: str, what: str, card: str) -> list:
 
 def ranks_profile_main(card: str, build) -> int:
     """``python3 chip_smoke.py --ranks-profile``: the kernels built, (q)'s
-    fixture written, and (q)'s warm solve profiled in each rank
-    (:func:`ranks_profile`) alone, apart from the smoke's run (which it
+    fixture written, and (q)'s and (s)'s warm solves profiled in each rank
+    (:func:`ranks_profile`) alone, apart from the smoke's run (which they
     would take past its time); ends with the contract's last line."""
     import torch
     print(f"kernel build: {build.build_all():.3f} s", flush=True)
@@ -4419,31 +4554,37 @@ def ranks_profile_main(card: str, build) -> int:
                           solver_settings={"matrix_ordering": "none"})
     prof = ranks_profile(q_yaml, f"gate-3 {RANKS_SIDES['gate3']}^3 {RANKS} "
                          "ranks", card)
+    prof_s = ranks_profile(sized_yaml("gate1_64cube_pcg_amg.yaml", None),
+                           f"gate-1 64^3 a part (generated by rank) "
+                           f"{RANKS} ranks", card)
     shutil.rmtree(FIXTURES, ignore_errors=True)
-    print(json.dumps(no_nan({"ranks_profile": prof})), flush=True)
+    print(json.dumps(no_nan({"ranks_profile": prof,
+                             "ranks_profile_gate1": prof_s})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def nccl_phase(yaml_path: str) -> dict:
-    """(q) with ``nccl``, one card a rank, where the machine has
-    ``RANKS`` cards; otherwise says that NCCL was not run."""
+def nccl_phase(yaml_path: str, what: str) -> dict:
+    """(q) or (s) (``what``) with ``nccl``, one card a rank, where the
+    machine has ``RANKS`` cards; otherwise says that NCCL was not run."""
     import torch
     cards = torch.cuda.device_count()
     if cards < RANKS:
-        print(f"NCCL not run: {cards} card(s), the nccl backend needs one a "
-              f"rank ({RANKS}); the ranks above shared the card through gloo",
-              flush=True)
+        print(f"NCCL not run for {what}: {cards} card(s), the nccl backend "
+              f"needs one a rank ({RANKS}); the ranks above shared the card "
+              "through gloo", flush=True)
         return dict(run=False, cards=cards)
     rc, wall, outs, launcher = ranks_launch(
         yaml_path, "nccl", os.path.join(FIXTURES, "ranks_nccl"))
     if rc != 0:
-        fail(f"gate 3 on {RANKS} ranks over nccl: exit {rc}\n"
+        fail(f"{what} on {RANKS} ranks over nccl: exit {rc}\n"
              f"{launcher[-3000:]}")
     lines = [rank_summary(out, r) for r, out in enumerate(outs)]
-    print(f"gate-3 {RANKS} ranks over nccl: {[ln['iters'] for ln in lines]} "
+    if any(ln["check"] != "PASSED" for ln in lines):
+        fail(f"{what} on {RANKS} ranks over nccl: a check failed")
+    print(f"{what} {RANKS} ranks over nccl: {[ln['iters'] for ln in lines]} "
           f"iterations, {wall:.1f} s", flush=True)
     return dict(run=True, cards=cards, ranks=lines, wall_s=wall)
 
@@ -4926,6 +5067,8 @@ def main(argv) -> int:
     phase_done(f"gate 4 on {PARTS} parts")
     g1p = gate1_parts_phase(card, counters)
     phase_done(f"gate 1 on {PARTS} parts")
+    g2p = gate2_parts_phase(counters)
+    phase_done(f"gate 2 at {GATE2_SIDE}^3 on {PARTS} parts")
     g3p = gate3_parts_phase(card, counters)
     phase_done(f"gate 3 on {PARTS} parts")
     # (o), (p): the multi-part device AMG setups, and their bits
@@ -4948,7 +5091,16 @@ def main(argv) -> int:
         "4p8", RANKS_SIDES["gate4"], "gate4_ranks.yaml",
         solver_settings={"matrix_ordering": "none"}), card, "passes")
     phase_done(f"gate 4 on {RANKS} ranks")
-    nccl = nccl_phase(q_yaml)
+    # (s), (t): the generated stencil's structured path by rank, each
+    # rank generating its parts
+    g1s = stencil_ranks_phase("gate1", sized_yaml(
+        "gate1_64cube_pcg_amg.yaml", None), card, g1p)
+    phase_done(f"gate 1 generated by rank on {RANKS} ranks")
+    g2s = stencil_ranks_phase("gate2", sized_yaml(
+        "gate2_weakscale_gmres_cheby.yaml", GATE2_SIDE), card, g2p)
+    phase_done(f"gate 2 generated by rank on {RANKS} ranks")
+    nccl = {"gate3": nccl_phase(q_yaml, "gate-3"), "gate1": nccl_phase(
+        sized_yaml("gate1_64cube_pcg_amg.yaml", None), "gate-1")}
     shutil.rmtree(FIXTURES, ignore_errors=True)
 
     paths = {"gate4": l4, "stencil_ilu": st_ilu["launches"],
@@ -4966,7 +5118,9 @@ def main(argv) -> int:
              "gate3_parts": g3p["launches"],
              "weakscale_parts": wsp["launches"],
              "gate3_96_parts": g3p96["launches"],
-             "gate3_ranks": g3r["launches"], "gate4_ranks": g4r["launches"]}
+             "gate3_ranks": g3r["launches"], "gate4_ranks": g4r["launches"],
+             "gate2_parts": g2p["launches"],
+             "gate1_ranks": g1s["launches"], "gate2_ranks": g2s["launches"]}
     rows1_all = rows1 + rows2 + ws["k1_rows"]
     rows4_all = rows4 + bdia_rows3 + ws["k4_rows"]
     rows6_all = rows3 + ws["k6_rows"]
@@ -5182,7 +5336,10 @@ def main(argv) -> int:
         "multipart": {"gate4": g4p, "gate1": g1p, "gate3": g3p,
                       "weakscale": wsp, "gate3_96": g3p96,
                       "setup_bits": bits, "checks": mp_rows},
-        "ranks": {"gate3": g3r, "gate4": g4r, "nccl": nccl}, "ilu": {
+        "ranks": {"gate3": g3r, "gate4": g4r, "gate1": g1s, "gate2": g2s,
+                  "gate2_parts": {k: g2p[k] for k in (
+                      "iters", "relres", "timers", "planes_bytes")},
+                  "nccl": nccl}, "ilu": {
             "stencil": st_ilu, "gate4_ell": g4_ell,
             "gate4_rcm_ell_trial": trial4, "options": ilu_opts,
             "gate3_ilu_smoother": st5, "lifecycle": life}})), flush=True)

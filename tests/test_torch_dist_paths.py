@@ -151,14 +151,16 @@ def test_coupled_solve_on_two_ranks(tmp_path):
 @pytest.mark.parametrize("case", ["stencil", "device amg setup"])
 def test_remainder_raises_on_two_ranks(tmp_path, case):
     """A path of item 19's remainder raises ``NotImplementedError`` naming
-    it on every rank, and the run fails: the generated stencil (the
-    structured path, the device setups and generation by rank), and a
-    device AMG setup of a file-loaded operator (both floors at one row)."""
+    it on every rank, and the run fails: BoomerAMG set up on the card over
+    the 8 parts of the generated stencil (the lattice branch, the
+    weak-scaling YAML at 32^3 a part, which each rank generates, then
+    refused by the builder), and a device AMG setup of a file-loaded
+    operator (both floors at one row)."""
     if case == "stencil":
         src = os.path.join(worker.ROOT, "examples",
-                           "gate1_64cube_pcg_amg.yaml")
-        path = tmp_path / "gate1.yaml"
-        path.write_text(open(src).read().replace(": 64\n", ": 8\n"))
+                           "weakscale_pcg_boomeramg_devsetup.yaml")
+        path = tmp_path / "weakscale.yaml"
+        path.write_text(open(src).read().replace(": 128\n", ": 32\n"))
         extra = []
     else:
         path = fixtures.write_gate3(str(tmp_path), 12, solver_settings={
@@ -168,6 +170,7 @@ def test_remainder_raises_on_two_ranks(tmp_path, case):
                           "--parts", P8], cwd=tmp_path)
     for rc, out in runs:
         assert rc != 0 and "NotImplementedError" in out and ITEM in out
+        assert "the device AMG setup of level 0" in out
 
 
 def test_one_process_run_unchanged(tmp_path, capsys):

@@ -14,7 +14,15 @@ one case:
   of its rows and ``fetch_host`` of a vector, saved to ``DIR/rank<r>.npz``;
 * ``cli [--ilu-device] [--amg-device] -- CLI ARGS``: the port's CLI, with the
   device ILU floor (``--ilu-device``) or both device AMG floors
-  (``--amg-device``) at one row.
+  (``--amg-device``) at one row;
+* ``stencil DIR``: the 27-point stencil of ``DIR/stencil.npz``'s box on
+  8 parts generated by rank (the host path and the device generator's
+  plain path, f64 and f32), each operator's fields (:func:`fields`), its
+  right-hand side and reference solution, saved to ``DIR/rank<r>.npz``;
+* ``cycle DIR``: gates 1 and 2's structured hierarchies set up on the
+  rank's parts of that stencil (f32), one V-cycle of each on the
+  residual of ``DIR/stencil.npz`` and the ghost prolongation of gate 1's
+  level 0 on its ``ec`` and ``x``, saved to ``DIR/cycle<r>.npz``.
 """
 
 import functools
@@ -146,6 +154,80 @@ def _ops(out: str) -> None:
     dist.destroy()
 
 
+def fields(A) -> dict:
+    """Every field of ``ShardedMatrix`` ``A`` (those of its ``RankHalo``
+    apart) as a numpy array: a tensor's values, else the field's
+    ``repr``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    out = {}
+    items = [(f.name, getattr(A, f.name)) for f in dataclasses.fields(A)]
+    if A.rank_halo is not None:
+        items += [(f"rank_halo.{f.name}", getattr(A.rank_halo, f.name))
+                  for f in dataclasses.fields(A.rank_halo)]
+    for name, v in items:
+        if name == "rank_halo":
+            continue
+        out[name] = v.numpy() if isinstance(v, torch.Tensor) \
+            else np.array(repr(v))
+    return out
+
+
+GATE_YAMLS = {"gate1": "gate1_64cube_pcg_amg.yaml",
+              "gate2": "gate2_weakscale_gmres_cheby.yaml"}
+
+
+def _stencil(out: str) -> None:
+    import numpy as np
+    from tpusolve_torch import dist
+    from tpusolve_torch.stencil import laplace27
+    side = int(np.load(os.path.join(out, "stencil.npz"))["side"])
+    dist.init_distributed("cpu", "gloo")
+    rank_parts = dist.rank_parts(N_OPS_PARTS) + (dist.world(),)
+    res = {}
+    for dt in (np.float64, np.float32):
+        for gen in ("host", "device"):
+            A, b, x = laplace27(side, side, side, device="cpu", dtype=dt,
+                                nparts=N_OPS_PARTS, rank_parts=rank_parts,
+                                on_device=gen == "device")
+            key = f"{np.dtype(dt).name} {gen}"
+            res.update({f"{key} {k}": v for k, v in fields(A).items()})
+            res.update({f"{key} b": b.numpy(), f"{key} x_ref": x.numpy()})
+    np.savez(os.path.join(out, f"rank{dist.rank()}.npz"), **res)
+    dist.destroy()
+
+
+def _cycle(out: str) -> None:
+    import numpy as np
+    from tpusolve_torch import dist
+    from tpusolve_torch.amg.structured import (
+        _ghost_prolongation, structured_mg_setup_fast)
+    from tpusolve_torch.config import load_config
+    from tpusolve_torch.stencil import laplace27
+    data = dict(np.load(os.path.join(out, "stencil.npz")))
+    side = int(data["side"])
+    dist.init_distributed("cpu", "gloo")
+    rank_parts = dist.rank_parts(N_OPS_PARTS) + (dist.world(),)
+    res = {}
+    for gate, name in GATE_YAMLS.items():
+        cfg = load_config(os.path.join(ROOT, "examples", name)).boomeramg
+        A, _, _, host = laplace27(side, side, side, device="cpu",
+                                  dtype=np.float32, nparts=N_OPS_PARTS,
+                                  rank_parts=rank_parts, with_parts=True)
+        pre = structured_mg_setup_fast(A, cfg, host_parts=host)
+        r = stage(A, data["r"].astype(np.float32))
+        res[f"{gate} cycle"] = pre.apply(r).numpy()
+        if gate == "gate1":
+            fine, coarse = A.dia_shape, pre.levels[1].A.dia_shape
+            g = _ghost_prolongation(A, fine, coarse)(
+                stage(pre.levels[1].A, data["ec"].astype(np.float32)),
+                stage(A, data["x"].astype(np.float32)))
+            res["ghosts"] = g.numpy()
+    np.savez(os.path.join(out, f"cycle{dist.rank()}.npz"), **res)
+    dist.destroy()
+
+
 def _cli(argv) -> int:
     from tpusolve_torch.harness import cli, system
     sep = argv.index("--")
@@ -163,7 +245,7 @@ if __name__ == "__main__":
     import torch
     torch.set_num_threads(1)
     case, rest = sys.argv[1], sys.argv[2:]
-    if case == "ops":
-        _ops(rest[0])
+    if case in ("ops", "stencil", "cycle"):
+        {"ops": _ops, "stencil": _stencil, "cycle": _cycle}[case](rest[0])
         sys.exit(0)
     sys.exit(_cli(rest))

@@ -50,7 +50,8 @@ and each level's A, P and R (offd blocks and halo plans with them) are
 assembled over every part on the host and placed as the rank's parts
 (``dist.place``); the coarsest solve gathers the coarse residual over the
 ranks and keeps the rank's rows of the pseudo-inverse's product.  The
-device setups raise there (ROADMAP.md Queue 1 item 19).
+device setups raise there, the stencil's lattice branch with them
+(ROADMAP.md Queue 1 item 19).
 """
 
 from __future__ import annotations

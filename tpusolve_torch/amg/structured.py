@@ -26,6 +26,15 @@ restriction's from the ghosts of x, the prolongation's from the ghosts of
 launch on the rows of the box prolongation at the ghosts' sources,
 :func:`_ghost_prolongation`) before its one fused launch.
 
+Across ranks (``dist.py``) the setup runs on a rank's slice of the stencil
+generated by rank: every rank holds every part's couplings on the host,
+so the coarse couplings, the Chebyshev bounds and the depth are the same
+on each, and every level is built as the rank's slice.  A peer's ghosts
+of ``x'`` come from the peer, which prolongs the rows it sends before the
+exchange (:func:`_ghost_prolongation`); the restriction's ghosts come from
+``halo_gather``'s exchange.  Every rank joins each level's exchanges in
+the same order, the levels' ``has_offd`` being the whole operator's.
+
 Only the matrix-free setup (``structured_mg_setup_fast``, from the
 stencil's ``with_parts`` payload) is ported; the scipy-RAP setup
 ``structured_mg_setup`` raises.
@@ -37,7 +46,9 @@ from functools import partial
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
+from tpusolve_torch import dist
 from tpusolve_torch.amg import smoothers
 from tpusolve_torch.amg.builder import (
     AMGPreconditioner, Level, _build_cycle, _guard_coarse, _padded_pinv,
@@ -134,26 +145,70 @@ def _ghost_prolongation(A: ShardedMatrix, fine_box, coarse_box):
     of multi-part operator ``A`` before x' exists, ``x[ghosts] + P_g ec``,
     where P_g (P * G, P * Rc) holds the rows of the block-diagonal box
     prolongation at the ghosts' sources (``A.halo_src``): one K2 launch in
-    the update form ``c - w P_g ec`` at ``c = x[ghosts]``, ``w = -1``."""
+    the update form ``c - w P_g ec`` at ``c = x[ghosts]``, ``w = -1``.
+
+    On a rank's slice the sources of some ghosts are a peer's rows, which
+    only the peer can prolong: the one K2 launch runs, in the same form,
+    at the rows this rank sends (``RankHalo.send_idx``) followed by the
+    sources of its ghosts it owns, then one ``all_to_all_single`` hands the
+    sent rows' ``x'`` over, and each ghost is read from the launch or from
+    what came in.  Every row is the one-process launch's row (its entries,
+    and K, the widest over every rank), so the ghosts keep its bits."""
     Rf, Rc = int(np.prod(fine_box)), int(np.prod(coarse_box))
-    src = A.halo_src.cpu().numpy()
-    owner, local = np.divmod(src, Rf)
-    rows = _p_box(fine_box)[local].tocsr()
-    counts = np.diff(rows.indptr)
-    K = max(1, int(counts.max()))
-    slot = np.arange(rows.nnz) - np.repeat(rows.indptr[:-1], counts)
-    r = np.repeat(np.arange(src.size), counts)
-    vals = np.zeros((src.size, K), numpy_dtype(A.dtype))
-    cols = np.zeros((src.size, K), np.int32)
-    vals[r, slot] = rows.data
-    cols[r, slot] = rows.indices + np.repeat(owner * Rc, counts)
-    vals_t, cols_t = to_tensor(vals, A.device), to_tensor(cols, A.device)
+    h = A.rank_halo
+    if h is None:
+        src = A.halo_src.cpu().numpy()
+        vals_t, cols_t = _box_rows(src, fine_box, Rf, Rc, A)
 
-    def ghosts(ec, x):
-        return ell_spmv(vals_t, cols_t, ec, c=halo_gather(A, x), w=-1.0,
-                        ghost_prolong=True)
+        def ghosts(ec, x):
+            return ell_spmv(vals_t, cols_t, ec, c=halo_gather(A, x),
+                            w=-1.0, ghost_prolong=True)
 
-    return ghosts
+        return ghosts
+    send, src = h.send_idx.cpu().numpy(), h.src.cpu().numpy()
+    mine = src < A.nparts * Rf
+    rows = np.concatenate([send, src[mine]])
+    vals_t, cols_t = _box_rows(rows, fine_box, Rf, Rc, A, dist.max_int(
+        _box_row_width(rows, fine_box, Rf)))
+    n_send, n_mine = send.size, int(mine.sum())
+    pick = np.empty(src.size, np.int64)
+    pick[mine] = np.arange(n_mine)
+    pick[~mine] = n_mine + src[~mine] - A.nparts * Rf
+    rows_t, pick_t = to_tensor(rows, A.device), to_tensor(pick, A.device)
+
+    def ghosts_by_rank(ec, x):
+        y = ell_spmv(vals_t, cols_t, ec, c=x.index_select(0, rows_t),
+                     w=-1.0, ghost_prolong=True)
+        recv = dist.exchange(y[:n_send], h.send_splits, h.recv_splits)
+        return torch.cat([y[n_send:], recv]).index_select(0, pick_t)
+
+    return ghosts_by_rank
+
+
+def _box_row_width(rows: np.ndarray, fine_box, Rf: int) -> int:
+    """The most entries a row of the box prolongation at ``rows`` (indices
+    into the stacked padded x of boxes of ``Rf`` rows) has, at least 1."""
+    counts = np.diff(_p_box(fine_box).indptr)[rows % Rf]
+    return max(1, int(counts.max(initial=0)))
+
+
+def _box_rows(rows: np.ndarray, fine_box, Rf: int, Rc: int,
+              A: ShardedMatrix, K: int | None = None) -> tuple:
+    """Padded ELL (vals, cols) of the rows of the block-diagonal box
+    prolongation at ``rows`` (indices into the stacked padded x), each
+    row's columns in the stacked coarse vector, ``K`` slots (by default
+    the widest row's)."""
+    owner, local = np.divmod(rows, Rf)
+    sel = _p_box(fine_box)[local].tocsr()
+    counts = np.diff(sel.indptr)
+    K = K or max(1, int(counts.max(initial=0)))
+    slot = np.arange(sel.nnz) - np.repeat(sel.indptr[:-1], counts)
+    r = np.repeat(np.arange(rows.size), counts)
+    vals = np.zeros((rows.size, K), numpy_dtype(A.dtype))
+    cols = np.zeros((rows.size, K), np.int32)
+    vals[r, slot] = sel.data
+    cols[r, slot] = sel.indices + np.repeat(owner * Rc, counts)
+    return to_tensor(vals, A.device), to_tensor(cols, A.device)
 
 
 # ----------------------------------------------------------------------
@@ -249,8 +304,11 @@ def _make_level_structured(A_sh, dia, offd_parts, box, dtype,
                            kind_down, kind_up, cfg, kind_coarse=None) -> Level:
     """Smoother data straight from the DIA/offd payload (no CSR).  The
     Chebyshev bounds are the Gershgorin bound of the DIA dict, max over rows
-    of l1 / |diag|, not a power iteration."""
-    nparts = A_sh.nparts
+    of l1 / |diag|, not a power iteration.  On a rank's slice the payload
+    holds every part's couplings, so the bound (a maximum over every part)
+    is the same on every rank, and the rank keeps its rows of the
+    vectors."""
+    nparts = A_sh.all_nparts
     R = int(np.prod(box))
     center = tuple(0 for _ in box)
     d0 = dia[center].reshape(-1).astype(np.float64)
@@ -288,27 +346,42 @@ def _make_level_structured(A_sh, dia, offd_parts, box, dtype,
                  A_relax=_relax_twin(A_sh, cfg))
 
 
-def _dia_matrix(dia: dict, offd_parts, box, nparts, device, dtype):
+def _dia_matrix(dia: dict, offd_parts, box, nparts, device, dtype,
+                parts: tuple | None = None):
     """The box-DIA operator of a level's DIA dict, its planes named by their
-    triples."""
-    _, arr, triples = _dia_dict_to_arrays(dia, box, nparts, dtype)
+    triples; with ``parts`` = (lo, hi, world), that rank's slice of it
+    (``ShardedMatrix.from_dia_parts``), ``offd_parts`` every part's."""
+    held = nparts if parts is None else parts[1] - parts[0]
+    _, arr, triples = _dia_dict_to_arrays(dia, box, held, dtype)
+    # every part holds the same box of planes
+    nnz = int(np.count_nonzero(arr[0])) * nparts
     n = int(np.prod(box)) * nparts
     return ShardedMatrix.from_dia_parts((n, n), triples, arr, offd_parts,
                                         device=device, dtype=dtype,
-                                        dia_shape=box)
+                                        dia_shape=box, dia_nnz=nnz,
+                                        parts=parts)
 
 
 def structured_mg_setup_fast(A: ShardedMatrix, config=None, *,
                              host_parts) -> AMGPreconditioner:
     """Matrix-free structured setup: Galerkin RAP in DIA algebra per level
     (``amg/dia_rap.py``), boundary-shell couplings via a tiny sparse
-    product."""
+    product.
+
+    On a rank's slice (``host_parts`` holds every part's couplings, as the
+    stencil generated by rank gives them) every rank computes the same
+    coarse couplings, bounds and depth, and builds each level as its slice
+    (``_dia_matrix``'s ``parts``); the coarsest pseudo-inverse is the
+    global one, its rows of the rank's parts applied to the gathered
+    residual (``builder._padded_pinv``)."""
     cfg = config or BoomerAMGConfig()
     if not structured_possible(A):
         raise ValueError("structured multigrid requires a rank-3 dia_shape "
                          "with even dims >= 4")
     dtype = numpy_dtype(A.dtype)
-    nparts = A.nparts
+    nparts = A.all_nparts
+    rank_parts = None if not A.is_slice else (
+        A.part_lo, A.part_lo + A.nparts, nparts // A.nparts)
     notes = ["structured (PFMG-style) geometric hierarchy",
              "setup: DIA-algebra Galerkin RAP"]
     kind_down, kind_up, kind_coarse, knotes = _resolve_kinds(cfg)
@@ -337,7 +410,7 @@ def structured_mg_setup_fast(A: ShardedMatrix, config=None, *,
             dia_c = _dia_nongalerkin(dia_c, cfg.non_galerkin_tol)
         offd_c = _coarse_offd(offd_parts, box, nparts)
         A_sh = _dia_matrix(dia_c, offd_c, coarse_box, nparts, A.device,
-                           dtype)
+                           dtype, rank_parts)
         dia, offd_parts, box = dia_c, offd_c, coarse_box
 
     n_c = int(np.prod(box)) * nparts

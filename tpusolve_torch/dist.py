@@ -10,7 +10,10 @@ src/main.cpp:9-35).  The port runs R processes joined by
 
 Rank r holds parts ``[r N/R, (r+1) N/R)`` of the N-part operator on its
 own device (``cuda:(LOCAL_RANK % device_count)``, or the CPU), reads only
-its rows from the files (:func:`host_row_range`), and joins the others in
+its rows from the files (:func:`host_row_range`) or generates only its
+parts of the 27-point stencil (``stencil.laplace27``'s ``rank_parts``,
+each part's couplings built on every rank so that each derives the whole
+halo plan), and joins the others in
 the host setup (the global COO, :func:`allgather_host_coo`), the halo
 (:func:`exchange`, one ``all_to_all_single``), every Krylov reduction
 (:func:`all_reduce`, one ``all_reduce``), the coarsest dense solve
@@ -122,7 +125,9 @@ def rank() -> int:
 
 def refuse(what: str) -> None:
     """Raise ``NotImplementedError`` for a path that does not run across
-    ranks yet, when there is more than one; a no-op in one process."""
+    ranks yet, when there is more than one; a no-op in one process.  What
+    is left of item 19: the device AMG setups (on a file-loaded operator,
+    and the stencil's lattice branch) and a stencil box under 3 x 3."""
     if world() > 1:
         raise NotImplementedError(
             f"{what} does not run across {world()} processes yet "
@@ -212,6 +217,16 @@ def sum_int(n: int) -> int:
         return int(n)
     t = torch.tensor([int(n)], dtype=torch.int64, device=_GROUP.wire)
     return int(all_reduce(t)[0])
+
+
+def max_int(n: int) -> int:
+    """The largest of an integer over the ranks (one ``all_reduce``)."""
+    if _GROUP is None:
+        return int(n)
+    import torch.distributed as dist
+    t = torch.tensor([int(n)], dtype=torch.int64, device=_GROUP.wire)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return int(t[0])
 
 
 def _gather_host(a: np.ndarray) -> list:

@@ -106,7 +106,7 @@ def main(argv=None, *, keep: list | None = None) -> int:
 
 
 def _lifecycle(cfg, grp, device_name, nparts, keep) -> int:
-    from tpusolve_torch.harness.memory import check_memory
+    from tpusolve_torch.harness.memory import allocated_bytes, check_memory
     from tpusolve_torch.harness.system import LinearSystem
     from tpusolve_torch.timers import CsvProfile
 
@@ -146,16 +146,18 @@ def _lifecycle(cfg, grp, device_name, nparts, keep) -> int:
         sys_.load()
         if probe_memory:
             check_memory(device, label)
+        memory = {"after load": allocated_bytes(device)}
         sys_.solve()
         if probe_memory:
             check_memory(device, label)
+        memory["after solve"] = allocated_bytes(device)
         passed = sys_.check_solution()
         ok &= passed
         sys_.output_linear_system()
         sys_.summarize_timers()
         sys_.retrieve_timers(profile)
         if grp is not None:
-            print(rank_line(sys_, grp, name, passed), flush=True)
+            print(rank_line(sys_, grp, name, passed, memory), flush=True)
         if keep is not None:
             keep.append(sys_)
         else:
@@ -172,12 +174,16 @@ def _lifecycle(cfg, grp, device_name, nparts, keep) -> int:
     return 0 if ok else 2
 
 
-def rank_line(system, grp, device_name: str, passed: bool) -> str:
+def rank_line(system, grp, device_name: str, passed: bool,
+              memory: dict | None = None) -> str:
     """A rank's one-line JSON summary of a test: its device, the backend,
     the rows, matrix entries and files it read, its operators' layouts,
     the launches of each kernel since the process started (K2's by storage
-    form and on offd blocks apart), its timers, each solve's count and
-    passes, and the check (the verdict over every rank)."""
+    form and on offd blocks apart), its timers (the stencil's build apart,
+    where it was generated), the bytes of the box-DIA planes it holds, the
+    bytes allocated on its device after loading and after solving
+    (``memory``, ``harness/memory.py``; None on the CPU), each solve's count
+    and passes, and the check (the verdict over every rank)."""
     from tpusolve_torch.kernels import transfer
     from tpusolve_torch.kernels.bdia import bdia_spmv, bdia_spmv_xl
     from tpusolve_torch.kernels.bell import bell_spmv
@@ -199,6 +205,9 @@ def rank_line(system, grp, device_name: str, passed: bool) -> str:
         rows=system.rows_read, entries=system.entries_read,
         files=system.files_read, layouts=layouts(system),
         launches=launches, timers=system.timers.as_dict(),
+        stencil_build_s=system.timers.as_dict().get(
+            "Build 27Pt Stencil HYPRE matrix"),
+        planes_bytes=system.planes_bytes, memory=memory or {},
         iters=[int(r.iters) for r in res], passes=[r.passes for r in res],
         relres=[float(r.relres) for r in res],
         check="PASSED" if passed else "FAILED"))

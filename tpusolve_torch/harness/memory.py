@@ -14,6 +14,16 @@ import torch
 GIB = 1 << 30
 
 
+def allocated_bytes(device) -> int | None:
+    """The bytes the caching allocator has allocated on a CUDA ``device``
+    now (the report's ``in_use``); None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.memory_stats(device).get(
+        "allocated_bytes.all.current", 0))
+
+
 def memory_report(device, label: str | None = None) -> str:
     """One line per device: for a CUDA device the bytes allocated now and at
     peak, the bytes the allocator reserves and the card's free and total
@@ -26,7 +36,7 @@ def memory_report(device, label: str | None = None) -> str:
     stats = torch.cuda.memory_stats(device)
     free, total = torch.cuda.mem_get_info(device)
     line = (f"  {device} ({torch.cuda.get_device_name(device)}): "
-            f"in_use={stats.get('allocated_bytes.all.current', 0) / GIB:.2f}"
+            f"in_use={allocated_bytes(device) / GIB:.2f}"
             f"GiB peak={stats.get('allocated_bytes.all.peak', 0) / GIB:.2f}"
             f"GiB reserved="
             f"{stats.get('reserved_bytes.all.current', 0) / GIB:.2f}GiB "

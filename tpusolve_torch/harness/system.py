@@ -39,7 +39,9 @@ the assembly and the host setups, which every rank runs on the same bits
 and keeps its parts of (``dist.place``), stages its parts of each vector,
 and checks its own rows, the verdict reduced over the ranks (the
 reference's per-rank check, src/HypreSystem.cpp:771-845).  The generated
-stencil raises there (ROADMAP.md Queue 1 item 19).
+stencil is generated by rank: each rank builds only its parts (the PFMG,
+host-CSR and operator-only branches; the lattice branch raises, ROADMAP.md
+Queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -336,13 +338,26 @@ class LinearSystem:
         On N parts the device-setup branch is ``tpusolve``'s lattice branch
         (``tpusolve/harness/system.py:295-322``): the generator also returns
         each part's full-lattice planes, which BoomerAMG's sharded lattice
-        setup takes (``lattice_parts``)."""
+        setup takes (``lattice_parts``).
+
+        Across ranks each rank generates only its parts
+        (``laplace27``'s ``rank_parts``): its slice of the operator, its
+        rows of the right-hand side and, for a host setup, its rows of the
+        host CSR, which the ranks gather (``dist.gather_scipy``).  The
+        lattice branch raises in BoomerAMG's setup, and a box under 3 x 3
+        (the COO path) here (ROADMAP.md Queue 1 item 19)."""
         ls = self.config.linear_system
-        dist.refuse("the generated stencil (the structured path, the "
-                    "device AMG setups and stencil generation by rank)")
+        n = ls.nx * ls.ny * ls.nz * self.nparts
+        rank_parts = None
+        if dist.world() > 1:
+            if min(ls.nx, ls.ny) < 3:
+                dist.refuse("the generated stencil on a box under 3 x 3 "
+                            "(its COO path)")
+            rank_parts = dist.rank_parts(self.nparts) + (dist.world(),)
+        self.rows_read = self._host_range(n)
         with self.timers.span("Build 27Pt Stencil HYPRE matrix"):
             kw = dict(device=self.device, dtype=self.dtype,
-                      nparts=self.nparts)
+                      nparts=self.nparts, rank_parts=rank_parts)
             if self._precond_name == "pfmg" and min(ls.nx, ls.ny) >= 3:
                 # structured payload reuses the generator's arrays and the
                 # matrix-free setup never needs a host CSR
@@ -354,8 +369,10 @@ class LinearSystem:
             elif self._device_amg():
                 A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, **kw)
             elif self._needs_host_csr():
-                A, b, _, self.A_host = laplace27(
+                A, b, _, A_host = laplace27(
                     ls.nx, ls.ny, ls.nz, with_host=True, **kw)
+                # every rank's rows (the CSR itself in one process)
+                self.A_host = dist.gather_scipy(A_host)
             else:
                 A, b, _ = laplace27(ls.nx, ls.ny, ls.nz, **kw)
             self.A = A
@@ -364,9 +381,22 @@ class LinearSystem:
             self.rhs = [b]
             self.sln_ref = [np.ones(A.shape[0])]
         self._log(f"Built 27-pt stencil system: {ls.nx}x{ls.ny}x{ls.nz} "
-                  f"per device, {A.shape[0]} global rows")
+                  f"per device, {A.shape[0]} global rows"
+                  + ("" if rank_parts is None else
+                     f", rows {self.rows_read[0]}..{self.rows_read[1]} "
+                     f"(parts {rank_parts[0]}..{rank_parts[1] - 1}) on "
+                     f"this rank"))
         self._log(f"  A: {self.A.layout}")
         self.check_enabled = True
+
+    @property
+    def planes_bytes(self) -> int:
+        """The bytes of the box-DIA planes this process holds for A (and
+        its f32 twin): every part's in one process, a rank's own parts'
+        across ranks."""
+        return sum(M.dia_vals.numel() * M.dia_vals.element_size()
+                   for M in (self.A, self.A_lo)
+                   if M is not None and M.dia_vals is not None)
 
     def _device_amg(self) -> bool:
         """Whether BoomerAMG will set level 0 of the stencil up on the

@@ -17,7 +17,10 @@ part's ghosts at once (``matrix/spmv.py``).  Across R processes
 (``dist.py``) each rank holds N / R consecutive parts of the N-part
 operator, :meth:`ShardedMatrix.rank_slice` of it: the same arrays for its
 parts, and a halo plan by peer rank (:class:`RankHalo`) in place of
-``halo_src``.  The diag block takes one of these layouts:
+``halo_src``; a box-DIA operator is built as that slice from the rank's
+own planes and every part's couplings (:meth:`from_dia_parts`'s
+``parts``), with no other part's planes anywhere.  The diag block takes
+one of these layouts:
 
 * **DIA** (box DIA, ``kernels/dia.py``), built by :meth:`from_dia_parts`
   (the stencil generator and the structured multigrid levels), by
@@ -611,10 +614,14 @@ class ShardedMatrix:
     part_lo: int = 0
     all_offsets: tuple | None = None
     rank_halo: "RankHalo | None" = None  # the slice's halo plan by rank
-    # the whole operator's K2 form on the offd block, and the widths its
-    # row-pointer forms (diag, offd) take in their plain versions, so that a
-    # slice computes its rows' bits as the whole operator does
+    # the whole operator's K2 form on the offd block and what it is priced
+    # on over every part (rows, ghost columns, K, row-pointer entries,
+    # widest row; ``_offd_price``: a cast slice prices its form again), and
+    # the widths the row-pointer forms (diag, offd) take in their plain
+    # versions, so that a slice computes its rows' bits as the whole
+    # operator does
     offd_form: str | None = None
+    offd_price: tuple | None = None
     plain_widths: tuple = (None, None)
 
     @property
@@ -726,18 +733,28 @@ class ShardedMatrix:
         are all it reads)."""
         def make():
             G = self.ghost_slot.shape[1]
-            rowptr, rv, rc = offd_rowptr(self.offd_vals, self.offd_cols, G)
-            P, R, K = self.offd_vals.shape
-            width = max(1, int((rowptr[1:] - rowptr[:-1]).max()))
-            # K2_MODEL has f32 and f64 constants: a bf16 twin's block is
-            # priced as f32; a slice takes the whole operator's form
-            form = self.offd_form or ell_form(
-                P * R, P * G, K, rv.numel(),
-                max(4, self.offd_vals.element_size()), width)[0]
+            rp = offd_rowptr(self.offd_vals, self.offd_cols, G)
+            form = self.offd_form or _offd_form(
+                self._offd_price(rp), self.offd_vals.element_size())
             if form == "padded":
                 return _flat_padded(self.offd_vals, self.offd_cols, G)
+            rowptr, rv, rc = rp
             return rv, rc, rowptr
         return self._cached("offd", make)
+
+    def _offd_price(self, rp=None) -> tuple:
+        """``(rows, ghost columns, K, entries, widest row)`` of the offd
+        block of every part in K2's row-pointer form (``rp``, that form of
+        this operator's block, where the caller has it), which
+        :func:`ell_form` prices: a slice's ``offd_price``, else this
+        operator's own."""
+        if self.offd_price is not None:
+            return self.offd_price
+        G = self.ghost_slot.shape[1]
+        rowptr, rv, _ = rp or offd_rowptr(self.offd_vals, self.offd_cols, G)
+        P, R, K = self.offd_vals.shape
+        return (P * R, P * G, K, rv.numel(),
+                max(1, int((rowptr[1:] - rowptr[:-1]).max())))
 
     @property
     def bdia_ovf(self):
@@ -973,7 +990,8 @@ class ShardedMatrix:
     def from_dia_parts(shape, offsets, dia_vals, offd_parts, *, device,
                        dtype=None, dia_shape=None,
                        dia_nnz: int | None = None, row_offsets=None,
-                       col_offsets=None) -> "ShardedMatrix":
+                       col_offsets=None,
+                       parts: tuple | None = None) -> "ShardedMatrix":
         """Assemble from per-part box-DIA diag blocks (``tpusolve``'s
         ``from_dia_parts``): the stencil generator's and the structured
         multigrid's operators, whose diag block is pure box geometry.
@@ -990,9 +1008,24 @@ class ShardedMatrix:
         (default: the same) give the parts' rows; each part's box holds its
         rows first, zero planes in its padded tail.  The main diagonal comes
         from the (0, 0, 0) plane, 1 on padded rows.  The caller keeps its
-        input: nothing is consumed (``tpusolve`` donates a device input)."""
+        input: nothing is consumed (``tpusolve`` donates a device input).
+
+        ``parts`` = (lo, hi, world) builds rank ``lo // (hi - lo)``'s slice
+        of the operator over every part (:meth:`rank_slice`'s, field for
+        field) directly: ``dia_vals`` holds parts ``[lo, hi)`` alone, and
+        ``offd_parts`` every part's couplings, from which each rank derives
+        the whole halo plan (:func:`_offd_fields`); ``dia_nnz`` (every
+        part's diag-block entries) must be given.  No other part's planes
+        are placed anywhere."""
         nrows, ncols = shape
-        nparts, D = int(dia_vals.shape[0]), int(dia_vals.shape[1])
+        D = int(dia_vals.shape[1])
+        nparts = len(offd_parts) if parts is not None \
+            else int(dia_vals.shape[0])
+        lo, hi = (0, nparts) if parts is None else parts[:2]
+        if parts is not None and (dia_nnz is None
+                                  or int(dia_vals.shape[0]) != hi - lo):
+            raise ValueError("a rank's DIA parts need every part's entry "
+                             "count and its own parts' planes")
         R = int(np.prod(dia_vals.shape[2:]))
         if dia_shape is not None and int(np.prod(dia_shape)) != R:
             raise ValueError("dia_shape does not tile the row space")
@@ -1019,25 +1052,31 @@ class ShardedMatrix:
             vals = dia_vals.to(device=device, dtype=tdt)
         else:
             vals = to_tensor(dia_vals, device, numpy_dtype(dtype))
-        vals = vals.reshape((nparts, D) + box).contiguous()
+        L = hi - lo
+        vals = vals.reshape((L, D) + box).contiguous()
         if (0, 0, 0) in triples:
-            diag = vals[:, triples.index((0, 0, 0))].reshape(nparts, R) \
-                .clone()
+            diag = vals[:, triples.index((0, 0, 0))].reshape(L, R).clone()
         else:
-            diag = torch.zeros((nparts, R), dtype=tdt, device=device)
-        for p in range(nparts):
-            diag[p, int(row_counts[p]):] = 1.0     # padded rows
+            diag = torch.zeros((L, R), dtype=tdt, device=device)
+        for p in range(L):
+            diag[p, int(row_counts[lo + p]):] = 1.0     # padded rows
         offd = _offd_fields(offd_parts, R, col_offsets, numpy_dtype(tdt),
-                            device)
+                            device, parts)
         nnz = (int(dia_nnz) if dia_nnz is not None
                else int(torch.count_nonzero(vals))) + offd.pop("nnz")
-        zeros = torch.zeros((nparts, R, 1), dtype=tdt, device=device)
+        zeros = torch.zeros((L, R, 1), dtype=tdt, device=device)
+        offsets = lambda o: tuple(int(v) for v in o)
+        if parts is not None:
+            price = offd.get("offd_price", (None,) * 5)
+            offd.update(part_lo=lo, plain_widths=(None, price[4]),
+                        all_offsets=(offsets(row_offsets),
+                                     offsets(col_offsets)))
         return ShardedMatrix(
             diag_vals=zeros, diag_cols=zeros.to(torch.int32),
             bdia_vals=None, bdia_starts=None, bell_vals=None, bell_ids=None,
             diag=diag, shape=(int(nrows), int(ncols)),
-            row_offsets=tuple(int(o) for o in row_offsets),
-            col_offsets=tuple(int(o) for o in col_offsets),
+            row_offsets=offsets(row_offsets[lo:hi + 1]),
+            col_offsets=offsets(col_offsets[lo:hi + 1]),
             row_pad=R, col_pad=R, nnz=nnz, dia_vals=vals,
             dia_offsets=triples, tpusolve_layout="dia",
             dia_shape=(None if dia_shape is None
@@ -1217,7 +1256,9 @@ class ShardedMatrix:
             bdia_vals=cast(self.bdia_vals), bell_vals=cast(self.bell_vals),
             bdia_ovf_vals=cast(self.bdia_ovf_vals), diag=cast(self.diag),
             dia_vals=cast(self.dia_vals), ell_vals=cast(self.ell_vals),
-            offd_vals=cast(self.offd_vals))
+            offd_vals=cast(self.offd_vals),
+            offd_form=None if self.offd_price is None else _offd_form(
+                self.offd_price, torch.empty(0, dtype=dtype).element_size()))
         if A.uses_bdia:
             # a cast may round a value to zero: the mask follows the values
             A = dataclasses.replace(
@@ -1347,25 +1388,22 @@ class ShardedMatrix:
         take = lambda t: None if t is None else t[lo:hi].to(device,
                                                             copy=True)
         fields = {f: take(getattr(self, f)) for f in _PART_FIELDS}
-        widths, halo = [None, None], {}
-        if self.uses_ell_rowptr:
-            widths[0] = _rowptr_width(self.ell_rowptr)
+        halo = {}
         if self.has_offd:
-            rowptr = self.offd_k2[2]
-            widths[1] = None if rowptr is None else _rowptr_width(rowptr)
-            G = self.ghost_slot.shape[1]
-            halo = dict(
-                offd_form="padded" if rowptr is None else "rowptr",
-                send_idx=self.send_idx.to(device),
-                rank_halo=rank_halo(self.halo_src.cpu().numpy(), G,
-                                    self.col_pad, np.arange(P) // per, rank,
-                                    device))
+            halo = _slice_halo(self.send_idx.cpu().numpy(),
+                               self.halo_src.cpu().numpy(),
+                               self.ghost_slot.shape[1], self.col_pad, P,
+                               rank, world, self._offd_price(), device)
+            halo["offd_form"] = ("padded" if self.offd_k2[2] is None
+                                 else "rowptr")
         A = dataclasses.replace(
             self, **fields, **halo, halo_src=None, bdia_xl_op=None,
             row_offsets=self.row_offsets[lo:hi + 1],
             col_offsets=self.col_offsets[lo:hi + 1], part_lo=lo,
             all_offsets=(self.row_offsets, self.col_offsets),
-            plain_widths=tuple(widths))
+            plain_widths=(_rowptr_width(self.ell_rowptr)
+                          if self.uses_ell_rowptr else None,
+                          halo.get("offd_price", (None,) * 5)[4]))
         if A.uses_bdia_xl:
             A = A._with_xl((A.bdia_gb, A.bdia_step_lo.cpu(), A.bdia_panel,
                             A.bdia_step_b0.cpu(), A.bdia_stage))
@@ -1440,6 +1478,29 @@ def rank_halo(halo_src: np.ndarray, G: int, col_pad: int,
         send_splits=tuple(int(a.size) for a in sends),
         recv_splits=tuple(int(a.size) for a in recvs),
         src=to_tensor(src, device))
+
+
+def _offd_form(price: tuple, itemsize: int) -> str:
+    """K2's form on an offd block of ``price`` (``ShardedMatrix.
+    _offd_price``) and values of ``itemsize`` bytes: K2_MODEL has f32 and
+    f64 constants, so a bf16 twin's block is priced as f32."""
+    rows, ncols, K, nnz, width = price
+    return ell_form(rows, ncols, K, nnz, max(4, itemsize), width)[0]
+
+
+def _slice_halo(send_idx: np.ndarray, halo_src: np.ndarray, G: int,
+                col_pad: int, P: int, rank: int, world: int, price: tuple,
+                device) -> dict:
+    """The halo fields of rank ``rank``'s slice of an operator of ``P``
+    parts over ``world`` ranks, from the whole operator's plan (``send_idx``
+    (P, P, S), ``halo_src`` (P * G,)) and its offd block's ``price``
+    (``ShardedMatrix._offd_price``): ``send_idx`` whole, ``rank_halo``
+    (:func:`rank_halo`) and ``offd_price``."""
+    return dict(send_idx=to_tensor(np.asarray(send_idx, np.int32), device),
+                rank_halo=rank_halo(np.asarray(halo_src, np.int64), G,
+                                    col_pad, np.arange(P) // (P // world),
+                                    rank, device),
+                offd_price=tuple(int(v) for v in price))
 
 
 def _dia_candidate(diag_parts, row_pad: int, total_nnz: int):
@@ -1720,7 +1781,7 @@ def _flat_rowptr(rowptr: torch.Tensor, vals: torch.Tensor,
 
 
 def _offd_fields(offd_parts, row_pad: int, col_offsets, dtype,
-                 device) -> dict:
+                 device, parts: tuple | None = None) -> dict:
     """The offd block and halo plan of an operator of more than one part
     (``tpusolve``'s ``_build_offd_and_halo``, ``tpusolve/matrix/
     sharded.py:916-973``, the same arrays): ``offd_vals`` and ``offd_cols``
@@ -1728,7 +1789,14 @@ def _offd_fields(offd_parts, row_pad: int, col_offsets, dtype,
     P, S) and ``ghost_slot`` (P, G), with ``halo_src`` (P * G,) for the one
     gather (a padded ghost slot reads what ``tpusolve``'s exchange gives
     it, a real x entry), ``has_offd`` and ``nnz`` (the offd entries, which
-    the caller pops).  On one part: no offd block (``nnz`` 0)."""
+    the caller pops).  On one part: no offd block (``nnz`` 0).
+
+    With ``parts`` = (lo, hi, world), the fields of that rank's slice
+    (``ShardedMatrix.rank_slice``) from every part's couplings, which the
+    plan needs: ``offd_vals``, ``offd_cols`` and ``ghost_slot`` of parts
+    ``[lo, hi)`` alone, the halo by rank (:func:`_slice_halo`) in place of
+    ``halo_src``, priced as the whole block (``offd_price``, from the
+    entries, with no block of the other parts built)."""
     nparts = len(offd_parts)
     if nparts == 1:
         if len(offd_parts[0][0]):
@@ -1766,18 +1834,43 @@ def _offd_fields(offd_parts, row_pad: int, col_offsets, dtype,
             seg = gl[st[p]:st[p + 1]] - col_offsets[p]
             send_idx[p, q, :seg.size] = seg
     compact = [_ell_compact(ko, *lo) for lo in local_offd]
-    idx = [c[0] for c in compact]
     col_pad = max(1, int(np.diff(col_offsets).max()))
+    src = halo_sources(send_idx, ghost_slot, col_pad)
+    if parts is None or not total:
+        lo, hi = (0, nparts) if parts is None else parts[:2]
+        plan = dict(send_idx=to_tensor(send_idx, device))
+        if parts is None:
+            plan["halo_src"] = to_tensor(src, device)
+    else:
+        lo, hi, world = parts
+        price = _price_entries(compact, row_pad, ko, ghost_pad)
+        plan = _slice_halo(send_idx, src, ghost_pad, col_pad, nparts,
+                           lo // (hi - lo), world, price, device)
+        plan["offd_form"] = _offd_form(price, np.dtype(dtype).itemsize)
+    idx = [c[0] for c in compact[lo:hi]]
     return dict(
-        offd_vals=materialize(idx, [c[1] for c in compact], (row_pad, ko),
-                              dtype, device),
-        offd_cols=materialize(idx, [c[2] for c in compact], (row_pad, ko),
-                              np.int32, device),
-        send_idx=to_tensor(send_idx, device),
-        ghost_slot=to_tensor(ghost_slot, device),
-        halo_src=to_tensor(halo_sources(send_idx, ghost_slot, col_pad),
-                           device),
-        has_offd=total > 0, nnz=total)
+        offd_vals=materialize(idx, [c[1] for c in compact[lo:hi]],
+                              (row_pad, ko), dtype, device),
+        offd_cols=materialize(idx, [c[2] for c in compact[lo:hi]],
+                              (row_pad, ko), np.int32, device),
+        ghost_slot=to_tensor(ghost_slot[lo:hi], device),
+        has_offd=total > 0, nnz=total, **plan)
+
+
+def _price_entries(compact, row_pad: int, ko: int, ghost_pad: int) -> tuple:
+    """``ShardedMatrix._offd_price`` of the offd block that
+    :func:`_ell_compact`'s stagings ``compact`` of every part lay out (P,
+    row_pad, ko), from the entries: a row keeps its slots up to its last
+    whose value or column is not 0 (``kernels/ell.py:padded_to_rowptr``)."""
+    nnz, width = 0, 1
+    for idx, vals, cols in compact:
+        live = (vals != 0) | (cols != 0)
+        counts = np.zeros(row_pad, np.int64)
+        np.maximum.at(counts, idx[live] // ko, idx[live] % ko + 1)
+        nnz += int(counts.sum())
+        width = max(width, int(counts.max(initial=0)))
+    P = len(compact)
+    return (P * row_pad, P * ghost_pad, ko, nnz, width)
 
 
 def halo_sources(send_idx: np.ndarray, ghost_slot: np.ndarray,

@@ -40,7 +40,8 @@ The sum is ordered differently from ``tpusolve``'s there, which differs in
 the last bit.
 
 Across ranks (``dist.py``) an operator is a rank's slice of its parts
-(``ShardedMatrix.rank_slice``): :func:`halo_gather` gathers the entries its
+(``ShardedMatrix.rank_slice``, or built from the rank's parts alone by
+``ShardedMatrix.from_dia_parts``): :func:`halo_gather` gathers the entries its
 peers need from its x (``RankHalo.send_idx``), hands them over in one
 ``all_to_all_single`` (``dist.exchange``) and reads each ghost from x or
 from what it received (``RankHalo.src``), the whole operator's ghosts bit

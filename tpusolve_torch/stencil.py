@@ -201,7 +201,7 @@ def _dia_box_lattice(part, nx, ny, nz, pgrid, dtype):
     return offs[order], planes
 
 
-def _dia_box_device_parts(nx, ny, nz, pgrid, dtype, device):
+def _dia_box_device_parts(nx, ny, nz, pgrid, dtype, device, parts=None):
     """On-device generation for N parts (``tpusolve``'s
     ``_dia_box_device_sharded``): ``(offsets, lat, dia, rhs)``, the flat
     offsets in the planes' order and three tensors on ``device``: the
@@ -210,9 +210,12 @@ def _dia_box_device_parts(nx, ny, nz, pgrid, dtype, device):
     masks, as :func:`_dia_box`) and the RHS (P, box), b = A 1 as the row
     sums of the lattice stack.  The host does O(P) work: each part's grid
     origin.  Values -1, 26 and 0 and integer row sums are exact in any
-    float, so the stacks are the host's bit for bit."""
+    float, so the stacks are the host's bit for bit.  ``parts`` = (lo, hi)
+    generates parts ``[lo, hi)`` of the grid alone (a rank's), each as the
+    whole grid's run gives it."""
     px, py, pz = pgrid
-    nparts = px * py * pz
+    lo, hi = (0, px * py * pz) if parts is None else parts
+    nparts = hi - lo
     gmax = (pz * nz, py * ny, px * nx)
     offs = np.array([dz * ny * nx + dy * nx + dx
                      for dx, dy, dz in _OFFSETS], np.int64)
@@ -220,7 +223,7 @@ def _dia_box_device_parts(nx, ny, nz, pgrid, dtype, device):
     tdt = torch_dtype(numpy_dtype(dtype))
     origin = torch.tensor([[g * d for g, d in zip(part_to_grid(p, pgrid)[::-1],
                                                   (nz, ny, nx))]
-                           for p in range(nparts)], device=device)
+                           for p in range(lo, hi)], device=device)
     ar = [torch.arange(d, device=device) for d in (nz, ny, nx)]
     shapes = ((-1, 1, 1), (1, -1, 1), (1, 1, -1))
     lat = torch.empty((nparts, 27, nz, ny, nx), dtype=tdt, device=device)
@@ -320,7 +323,7 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
               dtype=np.float64, pgrid: tuple[int, int, int] | None = None,
               with_host: bool = False, with_parts: bool = False,
               on_device: bool | None = None, with_lattice: bool = False,
-              nparts: int = 1):
+              nparts: int = 1, rank_parts: tuple | None = None):
     """Build the 27-pt system of ``nparts`` parts (``tpusolve``'s mesh
     size), each an nx x ny x nz box, on ``device``.
 
@@ -340,7 +343,18 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
     ``device``, each part's full-lattice planes; ``offsets``, the flat
     offsets of the planes; ``pgrid``; ``dims``) on either branch; the
     planes are in the order of ``A.dia_offsets``, whose triples the setup
-    reads."""
+    reads.
+
+    ``rank_parts`` = (lo, hi, world) generates a rank's share (``dist.py``:
+    parts ``[lo, hi)`` of ``nparts`` over ``world`` ranks), as ``tpusolve``
+    puts only its devices' parts on them (``tpusolve/stencil.py:395-420``,
+    ``put_sharded``): ``A`` is the rank's slice
+    (``ShardedMatrix.from_dia_parts``'s ``parts``, the whole operator's
+    ``rank_slice`` field for field), ``b`` and ``x_ref`` its parts' padded
+    rows, the lattice stack its parts' planes and the host CSR its rows (the
+    global shape); the boundary shells of every part are built on the host
+    (O(surface)), as there, so each rank derives the whole halo plan, and
+    the structured payload holds them all.  It needs the DIA fast path."""
     if pgrid is None:
         pgrid = compute_3d_process_distribution(nparts)
     px, py, pz = pgrid
@@ -348,6 +362,14 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
         raise ValueError(f"process grid {pgrid} != part count {nparts}")
     box = nx * ny * nz
     n = box * nparts
+    lo, hi = (0, nparts) if rank_parts is None else rank_parts[:2]
+    own = range(lo, hi)
+    if rank_parts is not None and (nx < 3 or ny < 3):
+        raise ValueError("a rank's parts need the DIA fast path (nx, ny "
+                         ">= 3)")
+    # the analytic diag-block nnz: each axis shift c in {-1, 0, 1} keeps
+    # n_d - |c| planes, so prod_d (3 n_d - 2)
+    dia_nnz = nparts * (3 * nz - 2) * (3 * ny - 2) * (3 * nx - 2)
 
     if on_device is None:
         on_device = generates_on_device(nx, ny, nz, dtype, device,
@@ -366,19 +388,17 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
             offd_parts = [empty]
         else:
             offs, lat, dia_dev, rhs = _dia_box_device_parts(
-                nx, ny, nz, pgrid, dtype, device)
+                nx, ny, nz, pgrid, dtype, device, parts=(lo, hi))
             rhs = rhs.reshape(-1)
             # the boundary shells stay a host build: O(surface) data
             offd_parts = [_local_offd_and_rhs(p, nx, ny, nz, pgrid, dtype)[0]
                           for p in range(nparts)]
-        # the analytic diag-block nnz: each axis shift c in {-1, 0, 1}
-        # keeps n_d - |c| planes, so prod_d (3 n_d - 2); the planes go in as
-        # a view, with no second copy of the stack
+        # the planes go in as a view, with no second copy of the stack
         A = ShardedMatrix.from_dia_parts(
             (n, n), _dia_box_triples(nx, ny, nz), dia_dev, offd_parts,
             device=device, dtype=dtype, dia_shape=(nz, ny, nx),
-            dia_nnz=nparts * (3 * nz - 2) * (3 * ny - 2) * (3 * nx - 2))
-        x_ref = torch.ones(n, dtype=rhs.dtype, device=rhs.device)
+            dia_nnz=dia_nnz, parts=rank_parts)
+        x_ref = torch.ones(rhs.numel(), dtype=rhs.dtype, device=rhs.device)
         if with_lattice:
             return A, rhs, x_ref, dict(
                 stack=A.dia_vals if nparts == 1 else lat, offsets=offs,
@@ -389,15 +409,17 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
     if nx >= 3 and ny >= 3:
         # fast path: diag block = shared DIA geometry, offd = boundary shell
         offs, dia_one = _dia_box(nx, ny, nz, dtype)
-        dia_vals = np.broadcast_to(dia_one[None], (nparts, 27, box))
+        dia_vals = np.broadcast_to(dia_one[None], (len(own), 27, box))
         offd_parts, rhs_parts = [], []
         for part in range(nparts):
             offd, rhs = _local_offd_and_rhs(part, nx, ny, nz, pgrid, dtype)
             offd_parts.append(offd)
-            rhs_parts.append(rhs)
+            if part in own:
+                rhs_parts.append(rhs)
         A = ShardedMatrix.from_dia_parts(
             (n, n), _dia_box_triples(nx, ny, nz), dia_vals, offd_parts,
-            device=device, dtype=dtype, dia_shape=(nz, ny, nx))
+            device=device, dtype=dtype, dia_shape=(nz, ny, nx),
+            dia_nnz=dia_nnz, parts=rank_parts)
         if with_parts:
             host_parts = (_dia_arrays_to_dict(offs, dia_one, (nz, ny, nx)),
                           offd_parts)
@@ -405,7 +427,7 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
             # full-lattice plane stacks (seam couplings included), one a part
             stacks = np.stack([
                 _dia_box_lattice(p, nx, ny, nz, pgrid, dtype)[1]
-                for p in range(nparts)])
+                for p in own])
             lattice = dict(
                 stack=torch.from_numpy(stacks).to(device), offsets=offs,
                 pgrid=pgrid, dims=(nz, ny, nx))
@@ -418,11 +440,13 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
             rhs_parts.append(rhs)
         A = ShardedMatrix.from_local_parts((n, n), parts, device=device,
                                            dtype=dtype)
-    rhs_global = np.concatenate(rhs_parts)
+    # a rank's vectors are its parts' rows, global indices (lo * box ...)
+    rhs_global = np.zeros(hi * box, dtype)
+    rhs_global[lo * box:] = np.concatenate(rhs_parts)
     b = to_device_vector(rhs_global, A.row_offsets, A.row_pad, device,
                          dtype=dtype)
-    x_ref = to_device_vector(np.ones(n, dtype), A.row_offsets, A.row_pad,
-                             device, dtype=dtype)
+    x_ref = to_device_vector(np.ones(hi * box, dtype), A.row_offsets,
+                             A.row_pad, device, dtype=dtype)
     if with_lattice:
         if parts is not None:
             raise ValueError("with_lattice requires the DIA fast path "
@@ -438,10 +462,11 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
         if parts is None:
             # the DIA fast path's CSR in row-major order, in one native
             # pass (no 2x-nnz index temporaries), as tpusolve builds it:
-            # one box's, tiled over the parts, plus the boundary shells
+            # one box's, tiled over the parts (a rank's: its own, at their
+            # global rows), plus the boundary shells
             from tpusolve_torch.amg import spk
             A_host = spk.dia_to_csr(np.ascontiguousarray(dia_one.T), offs)
-            if nparts > 1:
+            if nparts > 1 and rank_parts is None:
                 A_host = sp.block_diag([A_host] * nparts, format="csr")
                 rows_l = [p * box + np.asarray(o[0])
                           for p, o in enumerate(offd_parts)]
@@ -451,6 +476,21 @@ def laplace27(nx: int = 128, ny: int = 128, nz: int = 128, *, device,
                      (np.concatenate(rows_l),
                       np.concatenate([o[1] for o in offd_parts]))),
                     shape=(n, n))).tocsr()
+                A_host.sort_indices()
+            elif nparts > 1:
+                # a rank's rows: its boxes at their global rows, and its
+                # parts' shells
+                blk = sp.block_diag([A_host] * len(own), format="coo")
+                A_host = sp.csr_matrix((
+                    np.concatenate([blk.data] + [
+                        np.asarray(offd_parts[p][2], np.float64)
+                        for p in own]),
+                    (np.concatenate([blk.row + lo * box] + [
+                        p * box + np.asarray(offd_parts[p][0])
+                        for p in own]),
+                     np.concatenate([blk.col + lo * box] + [
+                         np.asarray(offd_parts[p][1]) for p in own]))),
+                    shape=(n, n))
                 A_host.sort_indices()
         else:
             rows_l, cols_l, vals_l = [], [], []
